@@ -1,0 +1,18 @@
+"""Hand-written CUDA kernels for Hopper (sm_90a) and their build.
+
+``csrc/`` holds the sources; ``build.load()`` compiles them at first use.
+The Python wrappers live beside their plain PyTorch twins in ``ops/``:
+``ops/fps.py:fps_cuda``, ``ops/gather.py:gather_planar_cuda`` and
+``ops/ball_query.py:first_k_select_cuda``. Each wrapper counts its
+launches in ``LAUNCHES`` under its kernel's name.
+"""
+
+from __future__ import annotations
+
+from collections import Counter
+
+LAUNCHES: Counter = Counter()
+
+
+def reset_launch_counts() -> None:
+    LAUNCHES.clear()
