@@ -73,34 +73,6 @@ def cuda_ms(fn, reps: int = 5) -> float:
     return float(np.median(times))
 
 
-def full_inputs(rng, B, img=224, npts=2048, ntem=5000):
-    """The bench's synthetic batch: random crops, uniform clouds 0.6 m away."""
-    return dict(
-        rgb=rng.uniform(-1, 1, size=(B, img, img, 3)).astype(np.float32),
-        rgb_choose=rng.integers(0, img * img, size=(B, npts)).astype(np.int32),
-        pts=rng.uniform(-0.1, 0.1, size=(B, npts, 3)).astype(np.float32) + np.array([0, 0, 0.6], np.float32),
-        tem1_rgb=rng.uniform(-1, 1, size=(B, img, img, 3)).astype(np.float32),
-        tem1_choose=rng.integers(0, img * img, size=(B, ntem)).astype(np.int32),
-        tem1_pts=rng.uniform(-0.1, 0.1, size=(B, ntem, 3)).astype(np.float32) + np.array([0, 0, 0.6], np.float32),
-    )
-
-
-def slice_config(tiny: bool = False):
-    from unopose_tpu.configs.main_cfg import get_cfg, get_tiny_cfg
-
-    if tiny:
-        cfg = get_tiny_cfg(img_size=28, n_pts=256, coarse_npoint=16, n_tem=384)
-        cfg.model.fine_point_matching.merge(dict(nsample1=64, nsample2=256))
-    else:
-        cfg = get_cfg()
-    cfg.model.feature_extraction.fused_attn = False
-    cfg.model.geo_embedding.fused_table = 0
-    cfg.model.fine_point_matching.pe_fused = False
-    cfg.model.fused_assignment = False
-    cfg.model.use_ref_rad = False
-    return cfg
-
-
 def check_kernels(log, dev, seed: int) -> dict:
     """Phase 3. Returns {kernel name: {max_abs_err, ms, plain_ms}}."""
     import torch
@@ -139,7 +111,7 @@ def check_kernels(log, dev, seed: int) -> dict:
     pts = cloud(2 * BATCH, 2048)
     perm, inv_perm = permutation(2048, dev)
     pts_p = pts.index_select(1, perm.long())
-    args = (pts, pts_p, perm, inv_perm, 0.1, 64, 0.2, 256, 4)
+    args = (pts, pts_p, perm, inv_perm, 0.1, 64, 0.2, 256)
     got, ref = first_k_select_cuda(*args), first_k_select_plain(*args)
     torch.cuda.synchronize()
     errs = {k: int((got[k].long() - ref[k].long()).abs().max()) for k in SELECT_KEYS}
@@ -199,14 +171,15 @@ def check_tiny_slice(log, dev, seed: int) -> None:
     """Phase 5: float32 tiny slice, card (kernels) vs CPU (plain versions)."""
     import torch
 
+    from unopose_tpu_torch.configs import slice_config, synthetic_inputs
     from unopose_tpu_torch.models import UNOPose
 
     cfg = slice_config(tiny=True)
     torch.manual_seed(seed)
-    model = UNOPose.from_config(cfg.model, torch.float32, torch.float32).eval()
+    model = UNOPose.from_config(cfg, torch.float32, torch.float32).eval()
     rng = np.random.default_rng(seed + 2)
-    inputs = full_inputs(rng, 2, img=28, npts=256, ntem=384)
-    uniforms = torch.from_numpy(rng.uniform(size=(2, 3 * cfg.model.coarse_point_matching.nproposal1)).astype(np.float32))
+    inputs = synthetic_inputs(rng, 2, tiny=True)
+    uniforms = torch.from_numpy(rng.uniform(size=(2, 3 * cfg.coarse_point_matching.nproposal1)).astype(np.float32))
     out_cpu = model({k: torch.from_numpy(v) for k, v in inputs.items()}, uniforms=uniforms, return_intermediates=True)
     model.to(dev)
     out_gpu = model({k: torch.from_numpy(v).to(dev) for k, v in inputs.items()}, uniforms=uniforms.to(dev),
@@ -224,17 +197,18 @@ def run_slice(log, dev, seed: int, batches: int) -> dict:
     """Phase 6: the full-width slice. Returns timing and counts."""
     import torch
 
+    from unopose_tpu_torch.configs import slice_config, synthetic_inputs
     from unopose_tpu_torch.kernels import LAUNCHES, reset_launch_counts
     from unopose_tpu_torch.models import UNOPose
 
     cfg = slice_config()
     torch.manual_seed(seed)
-    model = UNOPose.from_config(cfg.model, torch.bfloat16, torch.bfloat16).to(dev).eval()
+    model = UNOPose.from_config(cfg, torch.bfloat16, torch.bfloat16).to(dev).eval()
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     rng = np.random.default_rng(seed)
     batch_inputs = [
-        {k: torch.from_numpy(v).to(dev) for k, v in full_inputs(rng, BATCH).items()} for _ in range(batches)
+        {k: torch.from_numpy(v).to(dev) for k, v in synthetic_inputs(rng, BATCH).items()} for _ in range(batches)
     ]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)

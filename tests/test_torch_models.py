@@ -9,6 +9,8 @@ packages. Tolerances are float32 reassociation levels unless stated.
 The helpers at the top are shared with ``test_torch_slice.py``.
 """
 
+import functools
+
 import numpy as np
 import pytest
 
@@ -16,25 +18,15 @@ import jax
 import jax.numpy as jnp
 import torch
 
-from unopose_tpu.configs.main_cfg import get_tiny_cfg
 from unopose_tpu.models import UNOPose as JaxUNOPose
 from unopose_tpu.models.matching import FinePositionalEncoding as JaxPE
+from unopose_tpu_torch.configs import TINY_SIZES, slice_config
 from unopose_tpu_torch.models import UNOPose
 from unopose_tpu_torch.models.matching import FinePositionalEncoding
 from unopose_tpu_torch.utils.convert import flax_to_torch, load_flax_variables
 
-B, IMG, NPTS, NTEM = 2, 28, 256, 384
-
-
-def slice_cfg():
-    """The slice's switches on the tiny config, with the production PE
-    budgets (64/256) so that the packed first_k path engages."""
-    cfg = get_tiny_cfg(img_size=IMG, n_pts=NPTS, coarse_npoint=16, n_tem=NTEM)
-    cfg.model.fine_point_matching.merge(dict(nsample1=64, nsample2=256, pe_fused=False))
-    cfg.model.feature_extraction.fused_attn = False
-    cfg.model.geo_embedding.fused_table = 0
-    cfg.model.fused_assignment = False
-    return cfg
+B = 2
+IMG, NPTS, NTEM = TINY_SIZES["img"], TINY_SIZES["npts"], TINY_SIZES["ntem"]
 
 
 def surface(rng, n, center, radius):
@@ -79,15 +71,20 @@ def perturb(variables, seed=1):
     return jax.tree_util.tree_map_with_path(f, variables)
 
 
-def init_models(cfg, inputs):
-    """(jax model, perturbed numpy variables, torch model with them loaded)."""
-    jm = JaxUNOPose.from_config(cfg.model, dtype=jnp.float32, backbone_dtype=jnp.float32)
+@functools.lru_cache(maxsize=None)
+def tiny_models():
+    """(config, inputs, jax model, perturbed numpy variables, torch model with
+    them loaded), both models built from the port's tiny slice config. Built
+    once per process: this file and ``test_torch_slice.py`` share it."""
+    cfg = slice_config(tiny=True)
+    inputs = slice_inputs()
+    jm = JaxUNOPose.from_config(cfg, dtype=jnp.float32, backbone_dtype=jnp.float32)
     ji = {k: jnp.asarray(v) for k, v in inputs.items()}
     keys = {"params": jax.random.PRNGKey(0), "sample": jax.random.PRNGKey(1)}
     variables = perturb(jax.jit(lambda i: jm.init(keys, i, train=False))(ji))
-    tm = UNOPose.from_config(cfg.model, dtype=torch.float32, backbone_dtype=torch.float32)
+    tm = UNOPose.from_config(cfg, dtype=torch.float32, backbone_dtype=torch.float32)
     load_flax_variables(tm, variables)
-    return jm, variables, tm.eval()
+    return cfg, inputs, jm, variables, tm.eval()
 
 
 def t(x):
@@ -100,10 +97,7 @@ def max_abs(a, b):
 
 @pytest.fixture(scope="module")
 def models():
-    cfg = slice_cfg()
-    inputs = slice_inputs()
-    jm, variables, tm = init_models(cfg, inputs)
-    return cfg, inputs, jm, variables, tm
+    return tiny_models()
 
 
 def test_converter_consumes_every_leaf(models):
@@ -176,20 +170,23 @@ def test_coarse_point_matching(models):
     assert max_abs(s_j[-1], s_t) < 1e-4
 
 
-def _pe_pair(models):
-    cfg, _, _, variables, tm = models
-    fm = cfg.model.fine_point_matching
+@functools.lru_cache(maxsize=None)
+def pe_pair():
+    """(jitted JAX PE apply, its variables, the port's PE) of the tiny models."""
+    cfg, _, _, variables, tm = tiny_models()
+    fm = cfg.fine_point_matching
     jpe = JaxPE(out_dim=32, r1=fm.pe_radius1, r2=fm.pe_radius2, nsample1=64, nsample2=256,
                 neighbor_mode="first_k", fused=False)
     pv = {"params": variables["params"]["fine_matching"]["pe"],
           "batch_stats": variables["batch_stats"]["fine_matching"]["pe"]}
-    return jpe, pv, tm.fine_matching.pe
+    return jax.jit(jpe.apply), pv, tm.fine_matching.pe
 
 
-def pe_envelope(jpe, pv, tpe, cloud):
+def pe_envelope(cloud):
     """(port-vs-JAX per-row max error, JAX-vs-JAX error for a 1-ulp input change)."""
-    j0 = np.asarray(jpe.apply(pv, jnp.asarray(cloud)))
-    j1 = np.asarray(jpe.apply(pv, jnp.asarray(np.nextafter(cloud, np.float32(np.inf)))))
+    apply, pv, tpe = pe_pair()
+    j0 = np.asarray(apply(pv, jnp.asarray(cloud)))
+    j1 = np.asarray(apply(pv, jnp.asarray(np.nextafter(cloud, np.float32(np.inf)))))
     with torch.no_grad():
         p = tpe(t(cloud)).numpy()
     return np.abs(p - j0).max(-1), np.abs(j1 - j0).max(-1)
@@ -202,9 +199,9 @@ def test_fine_positional_encoding(models):
     The gate: the port's rows stay within float32 noise except where JAX's
     own 1-ulp spread is as large, and no more rows move than under that."""
     _, inputs, _, _, _ = models
-    jpe, pv, tpe = _pe_pair(models)
+    tpe = pe_pair()[2]
     cloud = (inputs["pts"] - inputs["pts"].mean(1, keepdims=True)) / 0.1
-    err, ulp = pe_envelope(jpe, pv, tpe, cloud.astype(np.float32))
+    err, ulp = pe_envelope(cloud.astype(np.float32))
     assert tpe.last_branch == "packed"
     assert np.median(err) < 1e-4
     assert (err > 1e-3).sum() <= max(3, 2 * (ulp > 1e-3).sum())
@@ -214,11 +211,11 @@ def test_fine_positional_encoding(models):
 def test_fine_positional_encoding_overflow_branch(models):
     """A cloud whose balls hold more than 64 r1 hits takes the exact
     fallback in both packages."""
-    jpe, pv, tpe = _pe_pair(models)
+    tpe = pe_pair()[2]
     rng = np.random.default_rng(5)
     cloud = rng.uniform(-0.05, 0.05, size=(B, 256, 3)).astype(np.float32)
     cloud[:, :, 2] *= 0.05  # a thin slab: planar neighbourhoods
-    err, _ = pe_envelope(jpe, pv, tpe, cloud)
+    err, _ = pe_envelope(cloud)
     assert tpe.last_branch == "exact"
     assert np.median(err) < 1e-4
     assert np.mean(err > 1e-3) < 0.05

@@ -116,8 +116,8 @@ R1, K1, R2, K2 = 0.1, 64, 0.2, 256
 
 
 def _select_pair(pts, **jax_kw):
-    js = jbq._first_k_budget_select(R1, K1, R2, K2, jnp.asarray(pts), 4, global_compact=True, **jax_kw)
-    ts = tbq.first_k_budget_select(R1, K1, R2, K2, t(pts), 4)
+    js = jbq._first_k_budget_select(R1, K1, R2, K2, jnp.asarray(pts), tbq.CHUNKS, global_compact=True, **jax_kw)
+    ts = tbq.first_k_budget_select(R1, K1, R2, K2, t(pts))
     return js, ts
 
 
@@ -278,7 +278,7 @@ def test_coarse_solver_matches_jax_same_uniforms(rng, monkeypatch):
     monkeypatch.setattr(jax.random, "uniform", lambda *a, **k: jnp.asarray(uniforms))
     Rj, tj, sj = jsol.compute_coarse_Rt_overlap(jax.random.PRNGKey(0), *map(jnp.asarray, (atten, score, pts1, pts2)),
                                                 None, 200, 30)
-    Rt, tt, st = tsol.compute_coarse_Rt_overlap(*map(t, (atten, score, pts1, pts2)), None, 200, 30, uniforms=t(uniforms))
+    Rt, tt, st = tsol.compute_coarse_Rt_overlap(*map(t, (atten, score, pts1, pts2)), 200, 30, uniforms=t(uniforms))
     assert rot_err(Rj, Rt) < 1e-4
     np.testing.assert_allclose(tt.numpy(), np.asarray(tj), atol=1e-5)
     # the score is 1 / mean nearest distance, each from the expansion-form d2,
@@ -292,17 +292,17 @@ def test_coarse_solver_generator_draws(rng):
     seed gives the same pose."""
     atten, score, pts1, pts2, _, _ = _matching(rng, 2, 16, sharp=8.0)
     args = tuple(map(t, (atten, score, pts1, pts2)))
-    outs = [tsol.compute_coarse_Rt_overlap(*args, None, 100, 20, generator=torch.Generator().manual_seed(3))
+    outs = [tsol.compute_coarse_Rt_overlap(*args, 100, 20, generator=torch.Generator().manual_seed(3))
             for _ in range(2)]
     for a, b in zip(*outs):
         assert torch.equal(a, b)
     with pytest.raises(ValueError):
-        tsol.compute_coarse_Rt_overlap(*args, None, 100, 20, uniforms=torch.rand(2, 7))
+        tsol.compute_coarse_Rt_overlap(*args, 100, 20, uniforms=torch.rand(2, 7))
 
 
 def test_fine_solver_matches_jax(rng):
     atten, score, pts1, pts2, R, tr = _matching(rng, 2, 64, sharp=30.0)
-    out_t = tsol.compute_fine_Rt_overlap(*map(t, (atten, score, pts1, pts2)), None, return_aux=True)
+    out_t = tsol.compute_fine_Rt_overlap(*map(t, (atten, score, pts1, pts2)))
     out_j = jsol.compute_fine_Rt_overlap(*map(jnp.asarray, (atten, score, pts1, pts2)), None, return_aux=True)
     assert rot_err(out_j[0], out_t[0]) < 1e-4
     for a, b in zip(out_t[1:], out_j[1:]):

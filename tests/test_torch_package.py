@@ -1,7 +1,9 @@
 """Packaging and dispatch of the PyTorch port, and its kernels on a card.
 
-On the CPU: the port imports and runs with JAX unavailable, no source of it
-imports JAX, the kernel loader raises where there is no ``nvcc`` (never a
+On the CPU: the port imports and runs with JAX and the JAX package
+unavailable, no source of it (nor ``chip_smoke.py``) imports either, its
+slice config is the JAX package's ``get_cfg()`` with the slice's switches,
+the kernel loader raises where there is no ``nvcc`` (never a
 plain fallback), the CUDA wrappers refuse CPU tensors, CPU tensors take the
 plain versions without touching the loader, and ``chip_smoke.py`` fails
 without a card. The tests marked ``cuda`` compare each kernel with its plain
@@ -19,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 
+from unopose_tpu_torch.configs import TINY_SIZES, slice_config
 from unopose_tpu_torch.kernels import LAUNCHES, build
 from unopose_tpu_torch.ops import ball_query, fps as fps_mod, gather
 
@@ -34,22 +37,23 @@ def _run(code: str, cwd=ROOT, timeout=120):
 
 def test_port_runs_with_jax_unavailable():
     """Importing and running the port (tiny float32 slice on the CPU) with
-    ``jax`` and ``flax`` blocked in ``sys.modules``."""
+    ``jax``, ``flax`` and the JAX package blocked in ``sys.modules``."""
     code = """
 import sys
-sys.modules["jax"] = None
-sys.modules["flax"] = None
+for name in ("jax", "flax", "unopose_tpu"):
+    sys.modules[name] = None
 import numpy as np, torch
 import chip_smoke
+from unopose_tpu_torch.configs import slice_config, synthetic_inputs
 from unopose_tpu_torch.models import UNOPose
 from unopose_tpu_torch.utils.convert import flax_to_torch
 torch.manual_seed(0)
-cfg = chip_smoke.slice_config(tiny=True)
-model = UNOPose.from_config(cfg.model, torch.float32, torch.float32)
-inputs = chip_smoke.full_inputs(np.random.default_rng(0), 2, img=28, npts=256, ntem=384)
+model = UNOPose.from_config(slice_config(tiny=True), torch.float32, torch.float32)
+inputs = synthetic_inputs(np.random.default_rng(0), 2, tiny=True)
 out = model({k: torch.from_numpy(v) for k, v in inputs.items()}, generator=torch.Generator().manual_seed(0))
 assert torch.isfinite(out["pred_R"]).all(), out
-assert not any(m.split(".")[0] in ("jax", "flax", "jaxlib") for m in sys.modules if sys.modules[m] is not None)
+loaded = {m.split(".")[0] for m in sys.modules if sys.modules[m] is not None}
+assert not loaded & {"jax", "flax", "jaxlib", "unopose_tpu"}, loaded
 print("ok")
 """
     r = _run(code)
@@ -57,9 +61,45 @@ print("ok")
 
 
 def test_port_sources_import_no_jax():
-    pattern = re.compile(r"^\s*(import|from)\s+(jax|flax|jaxlib)\b", re.M)
+    """Neither the port nor ``chip_smoke.py`` imports JAX or the JAX package."""
+    pattern = re.compile(r"^\s*(import|from)\s+(jax|flax|jaxlib|unopose_tpu)\b", re.M)
     for path in [*PORT.rglob("*.py"), ROOT / "chip_smoke.py"]:
         assert not pattern.search(path.read_text()), path
+
+
+def _assert_subset(ours, ref, path=""):
+    for k, v in ours.items():
+        assert k in ref, f"{path}{k} is not a key of the reference config"
+        if isinstance(v, dict):
+            _assert_subset(v, ref[k], f"{path}{k}.")
+        else:
+            assert ref[k] == v, f"{path}{k}: port {v!r}, reference {ref[k]!r}"
+
+
+@pytest.mark.parametrize("tiny", [False, True])
+def test_slice_config_is_the_reference_config_with_the_switches(tiny):
+    """Every value of the port's slice config equals the JAX package's
+    ``get_cfg()`` (or the tests' ``get_tiny_cfg``) with the four switches,
+    and every key the port's model reads is set."""
+    from unopose_tpu.configs.main_cfg import get_cfg, get_tiny_cfg
+
+    if tiny:
+        ref = get_tiny_cfg(img_size=TINY_SIZES["img"], n_pts=TINY_SIZES["npts"], coarse_npoint=16,
+                           n_tem=TINY_SIZES["ntem"]).model
+        ref.fine_point_matching.merge(dict(nsample1=64, nsample2=256))
+    else:
+        ref = get_cfg().model
+    ref.feature_extraction.fused_attn = False
+    ref.geo_embedding.fused_table = 0
+    ref.fine_point_matching.pe_fused = False
+    ref.fused_assignment = False
+    ref.use_ref_rad = False
+    ours = slice_config(tiny)
+    _assert_subset(ours, ref)
+    read = re.findall(r"\b(fe|ge|cm|fm)\.get\(\"(\w+)\"", (PORT / "models" / "unopose.py").read_text())
+    sections = dict(fe="feature_extraction", ge="geo_embedding", cm="coarse_point_matching", fm="fine_point_matching")
+    missing = {(sections[s], k) for s, k in read if k in ref[sections[s]] and k not in ours[sections[s]]}
+    assert not missing, missing
 
 
 def test_kernel_loader_raises_without_nvcc(monkeypatch, tmp_path):
@@ -85,7 +125,7 @@ def test_cuda_wrappers_refuse_cpu_tensors():
         gather.gather_planar_cuda(*planes, torch.zeros(1, 4, 4, dtype=torch.int16))
     perm, inv = ball_query.permutation(256, "cpu")
     with pytest.raises(ValueError):
-        ball_query.first_k_select_cuda(pts, pts, perm, inv, 0.1, 64, 0.2, 256, 4)
+        ball_query.first_k_select_cuda(pts, pts, perm, inv, 0.1, 64, 0.2, 256)
 
 
 def test_cpu_tensors_take_the_plain_versions(monkeypatch):
@@ -106,19 +146,30 @@ def test_cpu_tensors_take_the_plain_versions(monkeypatch):
 
 def test_unported_modes_are_refused():
     from unopose_tpu_torch.models import UNOPose
-    import chip_smoke
 
     for key, value in (
         ("feature_extraction.fused_attn", True),
         ("fine_point_matching.pe_fused", True),
         ("fine_point_matching.pe_neighbor_mode", "subset"),
+        ("coarse_point_matching.sim_type", "L2"),
         ("fused_assignment", True),
         ("test_coarse_only", True),
     ):
-        cfg = chip_smoke.slice_config(tiny=True)
-        cfg.model.apply_overrides([f"{key}={value!r}"])
+        cfg = slice_config(tiny=True)
+        *parents, leaf = key.split(".")
+        node = cfg
+        for p in parents:
+            node = node[p]
+        node[leaf] = value
         with pytest.raises(NotImplementedError):
-            UNOPose.from_config(cfg.model)
+            UNOPose.from_config(cfg)
+
+
+def test_profile_tool_fails_without_a_card():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    r = subprocess.run([sys.executable, "-m", "unopose_tpu_torch.tools.profile_slice"], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode != 0 and "no CUDA device" in r.stderr
 
 
 @pytest.mark.parametrize("alone", [False, True])
@@ -163,7 +214,7 @@ def test_first_k_select_and_gather_kernels_match_plain(cuda):
         pts = _lrf_cloud(np.random.default_rng(1), B, N, cuda) * (0.1 if dense else 1.0)
         perm, inv = ball_query.permutation(N, cuda)
         pts_p = pts.index_select(1, perm.long())
-        args = (pts, pts_p, perm, inv, 0.1, 64, 0.2, 256, 4)
+        args = (pts, pts_p, perm, inv, 0.1, 64, 0.2, 256)
         got, want = ball_query.first_k_select_cuda(*args), ball_query.first_k_select_plain(*args)
         assert bool(want["overflow"]) == dense
         for k in ball_query.SELECT_KEYS:

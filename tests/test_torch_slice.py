@@ -23,7 +23,7 @@ import jax
 import jax.numpy as jnp
 import torch
 
-from test_torch_models import B, _pe_pair, init_models, max_abs, pe_envelope, slice_cfg, slice_inputs, t
+from test_torch_models import B, max_abs, pe_envelope, pe_pair, t, tiny_models
 from unopose_tpu_torch.ops.solver import compute_coarse_Rt_overlap, compute_fine_Rt_overlap
 
 jax_solver = importlib.import_module("unopose_tpu.ops.solver")
@@ -38,9 +38,7 @@ def rot_err(Ra, Rb):
 
 @pytest.fixture(scope="module")
 def slice_run():
-    cfg = slice_cfg()
-    inputs = slice_inputs()
-    jm, variables, tm = init_models(cfg, inputs)
+    cfg, inputs, jm, variables, tm = tiny_models()
 
     drawn = []
     real_uniform = jax.random.uniform
@@ -59,7 +57,7 @@ def slice_run():
         out_j = jax.tree_util.tree_map(np.asarray, out_j)
     finally:
         mp.undo()
-    assert len(drawn) == 1 and drawn[0].shape == (B, 3 * cfg.model.coarse_point_matching.nproposal1)
+    assert len(drawn) == 1 and drawn[0].shape == (B, 3 * cfg.coarse_point_matching.nproposal1)
     uniforms = drawn[0]
     out_t = tm({k: t(v) for k, v in inputs.items()}, uniforms=t(uniforms), return_intermediates=True)
     return cfg, inputs, tm, out_j, out_t, uniforms, variables
@@ -82,7 +80,7 @@ def test_slice_coarse_solver_same_uniforms(slice_run):
     (With random weights the search is ill conditioned: the JAX model's own
     in-jit result differs from its eager solver by ~3e-4 rad here.)"""
     cfg, _, _, oj, _, uniforms, _ = slice_run
-    cm = cfg.model.coarse_point_matching
+    cm = cfg.coarse_point_matching
     assert (oj["init_pose_score"] > 0).all()  # the seeds give every pair foreground labels
     args = (oj["coarse_attens"][-1], oj["coarse_scores"][-1], oj["sparse_pm"], oj["sparse_po"])
     mp = pytest.MonkeyPatch()
@@ -94,7 +92,7 @@ def test_slice_coarse_solver_same_uniforms(slice_run):
     finally:
         mp.undo()
     R, tr, score = compute_coarse_Rt_overlap(
-        *map(t, args), None, cm.nproposal1, cm.nproposal2, uniforms=t(uniforms)
+        *map(t, args), cm.nproposal1, cm.nproposal2, uniforms=t(uniforms)
     )
     assert rot_err(Rj, R) < 1e-4
     assert max_abs(tj, tr) < 1e-5
@@ -119,9 +117,8 @@ def test_slice_fine_pe_within_jax_envelope(slice_run):
     """The PE on the slice's own fine input (JAX coarse pose): median row
     error 1e-4, and no more ill-conditioned rows (error > 1e-3) than twice
     JAX's own count under a 1-ulp input change."""
-    cfg, inputs, tm, oj, ot, _, variables = slice_run
-    jpe, pv, tpe = _pe_pair((cfg, inputs, None, variables, tm))
-    err, ulp = pe_envelope(jpe, pv, tpe, _pe_cloud(ot, oj))
+    _, _, _, oj, ot, _, _ = slice_run
+    err, ulp = pe_envelope(_pe_cloud(ot, oj))
     assert np.median(err) < 1e-4
     assert (err > 1e-3).sum() <= max(3, 2 * (ulp > 1e-3).sum())
 
@@ -130,9 +127,9 @@ def test_slice_fine_stage_given_jax_pe(slice_run, monkeypatch):
     """The fine stage fed the JAX coarse pose and the JAX PE features: fine
     scores agree to 1e-4 at the median; the tail is the JAX PE itself, whose
     ill-conditioned rows differ between its standalone and in-model runs."""
-    cfg, inputs, tm, oj, ot, _, variables = slice_run
-    jpe, pv, tpe = _pe_pair((cfg, inputs, None, variables, tm))
-    pe_j = np.asarray(jpe.apply(pv, jnp.asarray(_pe_cloud(ot, oj))))
+    _, _, tm, oj, ot, _, _ = slice_run
+    apply, pv, tpe = pe_pair()
+    pe_j = np.asarray(apply(pv, jnp.asarray(_pe_cloud(ot, oj))))
     monkeypatch.setattr(tpe, "forward", lambda pts: t(pe_j))
     _, score = _fine_stage(tm, ot, oj)
     err = np.abs(score.numpy() - oj["fine_scores"][-1])
@@ -163,7 +160,7 @@ def test_slice_fine_solver_same_inputs(slice_run):
     Rj, tj, sj, wj = jax_solver.compute_fine_Rt_overlap(*map(jnp.asarray, args), None, return_aux=True)
     nudged = (np.nextafter(args[0], np.float32(np.inf)),) + args[1:]
     Rn, tn, _, _ = jax_solver.compute_fine_Rt_overlap(*map(jnp.asarray, nudged), None, return_aux=True)
-    R, tr, score, max_w = compute_fine_Rt_overlap(*map(t, args), None, return_aux=True)
+    R, tr, score, max_w = compute_fine_Rt_overlap(*map(t, args))
     assert rot_err(Rj, R) < max(1e-4, 10 * rot_err(Rj, Rn))
     assert max_abs(tj, tr) < max(1e-5, 10 * max_abs(tj, np.asarray(tn)))
     assert max_abs(sj, score) < 1e-5

@@ -3,8 +3,8 @@
 Mirrors the layout of the JAX package ``unopose_tpu`` (``ops/``,
 ``models/``, ``utils/``), which stays the reference; ``kernels/`` holds the
 hand-written sm_90a CUDA kernels that replace the TPU's Pallas kernels on
-this path. Imports torch and numpy only, plus the jax-free config modules
-``unopose_tpu.configs.main_cfg`` and ``unopose_tpu.utils.config``.
+this path; ``configs.py`` holds the configuration it runs. Imports torch
+and numpy only, and nothing of the JAX package.
 
 Float32 products stay full float32: pairwise distances, LRFs and solvers
 lose their accuracy under TF32 (a truncated cross term cancels

@@ -1,0 +1,101 @@
+"""What the port runs: the slice's model configuration and its synthetic inputs.
+
+``slice_config()`` is the model section of the JAX package's
+``configs/main_cfg.py:get_cfg()`` with the four switches that keep the
+inference path off the TPU-only kernels, and ``use_ref_rad=False``:
+
+- ``feature_extraction.fused_attn=False``: XLA attention (no int8 GEMMs,
+  exact-erf GELU);
+- ``geo_embedding.fused_table=0``: the exact sinusoid embedding;
+- ``fine_point_matching.pe_fused=False``: the packed first_k PE with the
+  plain MLP;
+- ``fused_assignment=False``: the materialised fine solver.
+
+The values are written out here so that the port never imports the JAX
+package; ``tests/test_torch_package.py`` holds them equal to ``get_cfg()``
+(and ``get_tiny_cfg``) with the switches applied. Only the keys the model
+reads are kept: the data, training and checkpoint settings stay in the JAX
+package.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+# image side, query points, template points of one pair
+FULL_SIZES = dict(img=224, npts=2048, ntem=5000)
+# the tiny config of the CPU tests: the packed first_k PE still engages
+# (256 points hold the 256-slot scale-2 budget)
+TINY_SIZES = dict(img=28, npts=256, ntem=384)
+
+
+class Config(dict):
+    """A dict with attribute access; nested dicts become Configs."""
+
+    def __init__(self, d=None, **kwargs):
+        super().__init__()
+        for k, v in {**(d or {}), **kwargs}.items():
+            self[k] = Config(v) if isinstance(v, dict) and not isinstance(v, Config) else v
+
+    def __getattr__(self, k):
+        try:
+            return self[k]
+        except KeyError as e:
+            raise AttributeError(k) from e
+
+    def __setattr__(self, k, v):
+        self[k] = v
+
+
+def slice_config(tiny: bool = False) -> Config:
+    """The model config of the slice: full width (ViT-B/14-reg4 at 224 px,
+    2048-point clouds, 196 coarse nodes, 6000/300 hypotheses), or with
+    ``tiny`` the CPU tests' ``get_tiny_cfg(img_size=28, n_pts=256,
+    coarse_npoint=16, n_tem=384)`` with the production PE budgets 64/256."""
+    cfg = Config(
+        coarse_npoint=196,
+        fine_npoint=FULL_SIZES["npts"],
+        use_ref_rad=False,
+        fused_assignment=False,
+        feature_extraction=dict(
+            vit_type="vit_base_patch14_reg4_dinov2", up_type="linear", embed_dim=768, out_dim=256,
+            use_pyramid_feat=True, img_size=FULL_SIZES["img"], fused_attn=False,
+        ),
+        geo_embedding=dict(sigma_d=0.2, sigma_a=15, angle_k=3, reduction_a="max", hidden_dim=256, fused_table=0),
+        coarse_point_matching=dict(
+            nblock=3, input_dim=256, hidden_dim=256, out_dim=256, temp=0.1, sim_type="cosine",
+            normalize_feat=True, nproposal1=6000, nproposal2=300,
+        ),
+        fine_point_matching=dict(
+            nblock=3, input_dim=256, hidden_dim=256, out_dim=256, pe_radius1=0.1, pe_radius2=0.2,
+            focusing_factor=3, temp=0.1, sim_type="cosine", normalize_feat=True, use_lrf=True, use_xyz=True,
+            nsample1=64, nsample2=256, pe_neighbor_mode="first_k", pe_fused=False,
+        ),
+    )
+    if tiny:
+        cfg.coarse_npoint = 16
+        cfg.fine_npoint = TINY_SIZES["npts"]
+        cfg.feature_extraction.update(vit_type="vit_tiny_test", embed_dim=32, out_dim=32, img_size=TINY_SIZES["img"])
+        cfg.geo_embedding.hidden_dim = 32
+        for k in ("coarse_point_matching", "fine_point_matching"):
+            cfg[k].update(input_dim=32, hidden_dim=32, out_dim=32)
+        cfg.coarse_point_matching.update(nproposal1=100, nproposal2=20)
+    return cfg
+
+
+def synthetic_inputs(rng: np.random.Generator, batch: int, tiny: bool = False) -> dict:
+    """A batch built like the bench's: random crops in [-1, 1], random pixel
+    choices, uniform clouds in a 0.2 m cube 0.6 m from the camera. numpy
+    arrays: rgb / tem1_rgb (B, H, W, 3) float32, rgb_choose (B, P1) and
+    tem1_choose (B, P2) int32, pts (B, P1, 3) and tem1_pts (B, P2, 3) float32."""
+    sizes = TINY_SIZES if tiny else FULL_SIZES
+    img, npts, ntem = sizes["img"], sizes["npts"], sizes["ntem"]
+    offset = np.array([0, 0, 0.6], np.float32)
+    return dict(
+        rgb=rng.uniform(-1, 1, size=(batch, img, img, 3)).astype(np.float32),
+        rgb_choose=rng.integers(0, img * img, size=(batch, npts)).astype(np.int32),
+        pts=rng.uniform(-0.1, 0.1, size=(batch, npts, 3)).astype(np.float32) + offset,
+        tem1_rgb=rng.uniform(-1, 1, size=(batch, img, img, 3)).astype(np.float32),
+        tem1_choose=rng.integers(0, img * img, size=(batch, ntem)).astype(np.int32),
+        tem1_pts=rng.uniform(-0.1, 0.1, size=(batch, ntem, 3)).astype(np.float32) + offset,
+    )

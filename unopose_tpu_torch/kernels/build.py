@@ -33,8 +33,8 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "unopose_fps": [_P, _P, _I, _I, _I, _P],
     "unopose_gather_planar": [_P, _P, _P, _P, _I, _P, _P, _P, _I, _I, ctypes.c_longlong, _P],
-    # pts, pts_p, perm, inv_perm, B, N, chunks, k1, k2, r1sq, r2sq, 8 outputs, stream
-    "unopose_first_k_select": [_P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_float, ctypes.c_float]
+    # pts, pts_p, perm, inv_perm, B, N, k1, k2, r1sq, r2sq, 8 outputs, stream
+    "unopose_first_k_select": [_P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_float, ctypes.c_float]
     + [_P] * 8
     + [_P],
 }

@@ -36,7 +36,7 @@ namespace {
 constexpr int kWarpsPerBlock = 8;
 constexpr int kMaxN = 4096;
 constexpr int kMaxWords = kMaxN / 32;
-constexpr int kMaxChunks = 16;
+constexpr int kChunks = 4;  // ops/ball_query.py:CHUNKS
 
 __device__ __forceinline__ float dot3(float ax, float ay, float az, float bx, float by, float bz) {
   return __fadd_rn(__fadd_rn(__fmul_rn(ax, bx), __fmul_rn(ay, by)), __fmul_rn(az, bz));
@@ -45,7 +45,7 @@ __device__ __forceinline__ float dot3(float ax, float ay, float az, float bx, fl
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 first_k_select_kernel(const float* __restrict__ pts, const float* __restrict__ pts_p,
                       const int* __restrict__ perm, const int* __restrict__ inv_perm, int batch,
-                      int n, int chunks, int budget, int k1, int k2, float r1sq, float r2sq,
+                      int n, int budget, int k1, int k2, float r1sq, float r2sq,
                       int16_t* __restrict__ idx_p, uint8_t* __restrict__ validslot,
                       uint8_t* __restrict__ m1slot, int* __restrict__ cnt1_out,
                       int* __restrict__ enc1_out, int* __restrict__ total2_out,
@@ -64,10 +64,10 @@ first_k_select_kernel(const float* __restrict__ pts, const float* __restrict__ p
   const float* cand = pts_p + (size_t)b * n * 3;
 
   const int words = n >> 5;
-  const int words_per_chunk = words / chunks;
-  int ccnt[kMaxChunks];
-  int c1cnt[kMaxChunks];
-  for (int c = 0; c < chunks; ++c) {
+  const int words_per_chunk = words / kChunks;
+  int ccnt[kChunks];
+  int c1cnt[kChunks];
+  for (int c = 0; c < kChunks; ++c) {
     ccnt[c] = 0;
     c1cnt[c] = 0;
   }
@@ -103,7 +103,7 @@ first_k_select_kernel(const float* __restrict__ pts, const float* __restrict__ p
   }
   int total2 = 0, cnt1 = 0;
   bool over = false;
-  for (int c = 0; c < chunks; ++c) {
+  for (int c = 0; c < kChunks; ++c) {
     total2 += ccnt[c];
     cnt1 += c1cnt[c];
     over |= ccnt[c] > budget;
@@ -124,7 +124,7 @@ first_k_select_kernel(const float* __restrict__ pts, const float* __restrict__ p
   uint8_t* out_m1 = m1slot + row * k2;
   const uint32_t below = (1u << lane) - 1u;
   int base = 0;
-  for (int c = 0; c < chunks; ++c) {
+  for (int c = 0; c < kChunks; ++c) {
     int r1rank = 0, r2rank = 0;
     const int c1 = c1cnt[c];
     for (int g = c * words_per_chunk; g < (c + 1) * words_per_chunk; ++g) {
@@ -162,19 +162,19 @@ first_k_select_kernel(const float* __restrict__ pts, const float* __restrict__ p
 }  // namespace
 
 extern "C" int unopose_first_k_select(const float* pts, const float* pts_p, const int* perm,
-                                      const int* inv_perm, int batch, int n, int chunks, int k1,
-                                      int k2, float r1sq, float r2sq, int16_t* idx_p,
+                                      const int* inv_perm, int batch, int n, int k1, int k2,
+                                      float r1sq, float r2sq, int16_t* idx_p,
                                       uint8_t* validslot, uint8_t* m1slot, int* cnt1, int* enc1,
                                       int* total2, int* q_first, int* overflow,
                                       cudaStream_t stream) {
-  if (n > kMaxN || n % (32 * chunks) != 0 || chunks > kMaxChunks || k2 % chunks != 0) {
+  if (n > kMaxN || n % (32 * kChunks) != 0 || k2 % kChunks != 0) {
     return (int)cudaErrorInvalidValue;
   }
   const long long rows = (long long)batch * n;
   if (rows == 0) return 0;
   const unsigned blocks = (unsigned)((rows + kWarpsPerBlock - 1) / kWarpsPerBlock);
   first_k_select_kernel<<<blocks, kWarpsPerBlock * 32, 0, stream>>>(
-      pts, pts_p, perm, inv_perm, batch, n, chunks, k2 / chunks, k1, k2, r1sq, r2sq, idx_p,
+      pts, pts_p, perm, inv_perm, batch, n, k2 / kChunks, k1, k2, r1sq, r2sq, idx_p,
       validslot, m1slot, cnt1, enc1, total2, q_first, overflow);
   return (int)cudaGetLastError();
 }

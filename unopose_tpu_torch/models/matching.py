@@ -19,19 +19,12 @@ from unopose_tpu_torch.ops.geometry import compute_feature_similarity
 from unopose_tpu_torch.ops.lrf import batch_lrf_planar
 
 
-def block_outputs(atten, scores, n1: int, need_saliency: bool = False):
+def block_outputs(scores, n1: int):
     """Per-point overlap scores (B, n1+n2) from the raw head outputs on
-    [bg, f1..., bg, f2...], and optionally the saliency from the similarity."""
+    [bg, f1..., bg, f2...]."""
     s1 = scores[:, 1 : n1 + 1]
     s2 = scores[:, n1 + 2 :]
-    score = torch.sigmoid(torch.cat([s1, s2], dim=1)[..., 0].float()).clamp(0.0, 1.0)
-    if not need_saliency:
-        return score, None
-    a = atten[:, 1:, 1:].float()
-    m1 = torch.matmul(torch.softmax(a, dim=2), s2.float())
-    m2 = torch.einsum("bij,bik->bjk", torch.softmax(a, dim=1), s1.float())
-    saliency = torch.sigmoid(torch.cat([m1, m2], dim=1)[..., 0])
-    return score, saliency.clamp(0.0, 1.0)
+    return torch.sigmoid(torch.cat([s1, s2], dim=1)[..., 0].float()).clamp(0.0, 1.0)
 
 
 class _CoarseBlock(nn.Module):
@@ -47,10 +40,10 @@ class _CoarseBlock(nn.Module):
 
 class CoarsePointMatching(nn.Module):
     def __init__(self, nblock: int = 3, input_dim: int = 256, hidden_dim: int = 256, out_dim: int = 256,
-                 num_heads: int = 4, temp: float = 0.1, sim_type: str = "cosine", normalize_feat: bool = True,
+                 num_heads: int = 4, temp: float = 0.1, normalize_feat: bool = True,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.temp, self.sim_type, self.normalize_feat, self.dtype = temp, sim_type, normalize_feat, dtype
+        self.temp, self.normalize_feat, self.dtype = temp, normalize_feat, dtype
         self.in_proj = Dense(input_dim, hidden_dim, dtype)
         self.out_proj = Dense(hidden_dim, out_dim, dtype)
         self.bg_token = nn.Parameter(torch.randn(1, 1, hidden_dim) * 0.02)
@@ -66,10 +59,9 @@ class CoarsePointMatching(nn.Module):
         for blk in self.blocks:
             f1, f2, scores = blk(f1, geo1, f2, geo2)
         atten = compute_feature_similarity(
-            self.out_proj(f1).float(), self.out_proj(f2).float(), self.sim_type, self.temp, self.normalize_feat
+            self.out_proj(f1).float(), self.out_proj(f2).float(), self.temp, self.normalize_feat
         )
-        score, _ = block_outputs(atten, scores, n1)
-        return atten, score
+        return atten, block_outputs(scores, n1)
 
 
 class BNVars(nn.Module):
@@ -176,11 +168,11 @@ class _FineBlock(nn.Module):
 
 class FinePointMatching(nn.Module):
     def __init__(self, nblock: int = 3, input_dim: int = 256, hidden_dim: int = 256, out_dim: int = 256,
-                 num_heads: int = 4, temp: float = 0.1, sim_type: str = "cosine", normalize_feat: bool = True,
+                 num_heads: int = 4, temp: float = 0.1, normalize_feat: bool = True,
                  focusing_factor: float = 3.0, pe_radius1: float = 0.1, pe_radius2: float = 0.2,
                  nsample1: int = 64, nsample2: int = 256, dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.temp, self.sim_type, self.normalize_feat, self.dtype = temp, sim_type, normalize_feat, dtype
+        self.temp, self.normalize_feat, self.dtype = temp, normalize_feat, dtype
         self.pe = FinePositionalEncoding(hidden_dim, pe_radius1, pe_radius2, nsample1, nsample2)
         self.in_proj = Dense(input_dim, hidden_dim, dtype)
         self.out_proj = Dense(hidden_dim, out_dim, dtype)
@@ -202,7 +194,6 @@ class FinePointMatching(nn.Module):
         for blk in self.blocks:
             f1, f2, scores = blk(f1, geo1, fps_idx1, f2, geo2, fps_idx2)
         atten = compute_feature_similarity(
-            self.out_proj(f1).float(), self.out_proj(f2).float(), self.sim_type, self.temp, self.normalize_feat
+            self.out_proj(f1).float(), self.out_proj(f2).float(), self.temp, self.normalize_feat
         )
-        score, _ = block_outputs(atten, scores, n1)
-        return atten, score
+        return atten, block_outputs(scores, n1)

@@ -14,7 +14,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from unopose_tpu.utils.config import CN
+from unopose_tpu_torch.configs import Config
 from unopose_tpu_torch.models.embedding import GeometricStructureEmbedding
 from unopose_tpu_torch.models.feature_extraction import ViTEncoderOneRef
 from unopose_tpu_torch.models.matching import CoarsePointMatching, FinePointMatching
@@ -30,7 +30,7 @@ def _require(cond: bool, what: str) -> None:
         raise NotImplementedError(f"not ported: {what}")
 
 
-def _check_ported(cfg: CN) -> None:
+def _check_ported(cfg: Config) -> None:
     """The port runs the path the JAX package takes off the TPU. A config that
     forces a TPU-only mode, or another entry point, is refused."""
     fe, ge, fm = cfg.feature_extraction, cfg.geo_embedding, cfg.fine_point_matching
@@ -42,13 +42,15 @@ def _check_ported(cfg: CN) -> None:
     _require(fm.get("pe_neighbor_mode", "first_k") == "first_k", "pe_neighbor_mode other than first_k")
     _require(not fm.get("parity_gather", False), "fine_point_matching.parity_gather")
     _require(fm.get("use_lrf", True) and fm.get("use_xyz", True), "PE without LRF or xyz channels")
+    for m in (cfg.coarse_point_matching, fm):
+        _require(m.get("sim_type", "cosine") == "cosine", "sim_type other than cosine")
     _require(cfg.get("fused_assignment") is not True, "fused_assignment (fine_assignment_fused)")
     _require(not cfg.get("test_coarse_only", False), "test_coarse_only")
     _require(not cfg.get("fine_only", False), "fine_only")
 
 
 class UNOPose(nn.Module):
-    def __init__(self, cfg: CN, dtype: torch.dtype = torch.float32, backbone_dtype: torch.dtype = torch.bfloat16):
+    def __init__(self, cfg: Config, dtype: torch.dtype = torch.float32, backbone_dtype: torch.dtype = torch.bfloat16):
         super().__init__()
         _check_ported(cfg)
         self.coarse_npoint = cfg.coarse_npoint
@@ -87,7 +89,6 @@ class UNOPose(nn.Module):
             hidden_dim=cm.get("hidden_dim", 256),
             out_dim=cm.get("out_dim", 256),
             temp=cm.get("temp", 0.1),
-            sim_type=cm.get("sim_type", "cosine"),
             normalize_feat=cm.get("normalize_feat", True),
             dtype=dtype,
         )
@@ -97,7 +98,6 @@ class UNOPose(nn.Module):
             hidden_dim=fm.get("hidden_dim", 256),
             out_dim=fm.get("out_dim", 256),
             temp=fm.get("temp", 0.1),
-            sim_type=fm.get("sim_type", "cosine"),
             normalize_feat=fm.get("normalize_feat", True),
             focusing_factor=fm.get("focusing_factor", 3),
             pe_radius1=fm.get("pe_radius1", 0.1),
@@ -108,7 +108,7 @@ class UNOPose(nn.Module):
         )
 
     @classmethod
-    def from_config(cls, cfg: CN, dtype: torch.dtype = torch.float32,
+    def from_config(cls, cfg: Config, dtype: torch.dtype = torch.float32,
                     backbone_dtype: torch.dtype = torch.bfloat16) -> "UNOPose":
         return cls(cfg, dtype, backbone_dtype)
 
@@ -158,15 +158,13 @@ class UNOPose(nn.Module):
 
         c_atten, c_score = self.coarse_matching(sparse_fm, geo_m, sparse_fo, geo_o)
         init_R, init_t, init_score = compute_coarse_Rt_overlap(
-            c_atten, c_score, sparse_pm, sparse_po, None, self.nproposal1, self.nproposal2,
+            c_atten, c_score, sparse_pm, sparse_po, self.nproposal1, self.nproposal2,
             uniforms=uniforms, generator=generator,
         )
         f_atten, f_score = self.fine_matching(
             dense_pm, dense_fm, geo_m, fps_idx_m, dense_po, dense_fo, geo_o, fps_idx_o, init_R, init_t
         )
-        pred_R, pred_t, pred_score, max_w = compute_fine_Rt_overlap(
-            f_atten, f_score, dense_pm, dense_po, None, return_aux=True
-        )
+        pred_R, pred_t, pred_score, max_w = compute_fine_Rt_overlap(f_atten, f_score, dense_pm, dense_po)
         out = dict(
             radius=radius,
             init_R=init_R,

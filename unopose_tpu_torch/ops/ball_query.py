@@ -5,8 +5,8 @@ Reference semantics (the CUDA ball query of the original model): around
 every point, each scale keeps the first <= k in-radius points by original
 index and pads the remaining slots with the first hit. The packed
 inference path reproduces that as multisets: the candidates are scanned in
-a fixed permuted order in ``chunks`` chunks, each keeping at most
-k2 / chunks hits, the kept hits are packed left, and scale 1 becomes
+a fixed permuted order in ``CHUNKS`` chunks, each keeping at most
+k2 / CHUNKS hits, the kept hits are packed left, and scale 1 becomes
 per-slot weights on scale 2's slots. Any budget overflow is detected
 exactly and the caller falls back to ``two_scale_group_exact_planar``.
 
@@ -31,6 +31,7 @@ from unopose_tpu_torch.kernels import build
 from unopose_tpu_torch.ops.gather import gather_planar
 
 PERM_SEED = 20240613  # the fixed decorrelating permutation of the JAX package
+CHUNKS = 4  # the JAX package's chunk count; fixed in the kernel too
 SELECT_KEYS = ("idx_p", "validslot", "m1slot", "cnt1", "enc1", "total2", "q_first", "overflow")
 
 
@@ -64,23 +65,23 @@ def first_k_in_radius(mask: torch.Tensor, nsample: int) -> torch.Tensor:
     return torch.where(slot < cnt, idx, first).to(torch.int32)
 
 
-def _check_select(pts, pts_p, r1, k1, r2, k2, chunks):
+def _check_select(pts, pts_p, r1, k1, r2, k2):
     B, N, _ = pts.shape
     if pts_p.shape != pts.shape:
         raise ValueError(f"pts_p {tuple(pts_p.shape)} != pts {tuple(pts.shape)}")
-    if not (N % chunks == 0 and k2 % chunks == 0 and r1 < r2 and k1 <= k2 and N <= 4096):
-        raise ValueError(f"unsupported first_k select: N={N} chunks={chunks} k1={k1} k2={k2} r1={r1} r2={r2}")
-    if k2 // chunks > N // chunks:
+    if not (N % CHUNKS == 0 and k2 % CHUNKS == 0 and r1 < r2 and k1 <= k2 and N <= 4096):
+        raise ValueError(f"unsupported first_k select: N={N} k1={k1} k2={k2} r1={r1} r2={r2}")
+    if k2 > N:
         raise ValueError(f"the chunked budget select needs N >= k2 (N={N}, k2={k2})")
 
 
-def first_k_select_plain(pts, pts_p, perm, inv_perm, r1: float, k1: int, r2: float, k2: int, chunks: int):
+def first_k_select_plain(pts, pts_p, perm, inv_perm, r1: float, k1: int, r2: float, k2: int):
     """Plain PyTorch select (the XLA branch of the JAX ``_first_k_budget_select``
     with ``global_compact=True``). pts (B, N, 3) centres, pts_p the same
     cloud in permuted order. Returns the dict of ``SELECT_KEYS``."""
-    _check_select(pts, pts_p, r1, k1, r2, k2, chunks)
+    _check_select(pts, pts_p, r1, k1, r2, k2)
     B, N, _ = pts.shape
-    C, W, budget = chunks, N // chunks, k2 // chunks
+    C, W, budget = CHUNKS, N // CHUNKS, k2 // CHUNKS
     dev = pts.device
     d2 = sqdist_expansion(pts, pts_p)  # columns in permuted order
     mask2 = d2 < r2 * r2
@@ -120,15 +121,15 @@ def first_k_select_plain(pts, pts_p, perm, inv_perm, r1: float, k1: int, r2: flo
     )
 
 
-def first_k_select_cuda(pts, pts_p, perm, inv_perm, r1: float, k1: int, r2: float, k2: int, chunks: int):
+def first_k_select_cuda(pts, pts_p, perm, inv_perm, r1: float, k1: int, r2: float, k2: int):
     """The select on the card (``csrc/first_k_select.cu``), one warp per centre row."""
-    _check_select(pts, pts_p, r1, k1, r2, k2, chunks)
+    _check_select(pts, pts_p, r1, k1, r2, k2)
     tensors = (pts, pts_p, perm, inv_perm)
     if any(t.device.type != "cuda" or t.device != pts.device for t in tensors):
         raise ValueError("first_k_select_cuda needs all tensors on one CUDA device")
     B, N, _ = pts.shape
-    if N % (32 * chunks):
-        raise ValueError(f"first_k_select_cuda needs N divisible by 32 * chunks (N={N}, chunks={chunks})")
+    if N % (32 * CHUNKS):
+        raise ValueError(f"first_k_select_cuda needs N divisible by {32 * CHUNKS} (N={N})")
     pts, pts_p = pts.float().contiguous(), pts_p.float().contiguous()
     perm, inv_perm = perm.to(torch.int32).contiguous(), inv_perm.to(torch.int32).contiguous()
     dev = pts.device
@@ -147,7 +148,7 @@ def first_k_select_cuda(pts, pts_p, perm, inv_perm, r1: float, k1: int, r2: floa
     with torch.cuda.device(dev):
         err = lib.unopose_first_k_select(
             *(ptr(t.data_ptr()) for t in (pts, pts_p, perm, inv_perm)),
-            B, N, chunks, k1, k2, float(r1 * r1), float(r2 * r2),
+            B, N, k1, k2, float(r1 * r1), float(r2 * r2),
             *(ptr(out[k].data_ptr()) for k in SELECT_KEYS[:-1]),
             ptr(flag.data_ptr()), ptr(build.stream_of(pts)),
         )
@@ -157,11 +158,11 @@ def first_k_select_cuda(pts, pts_p, perm, inv_perm, r1: float, k1: int, r2: floa
     return out
 
 
-def first_k_select(pts, pts_p, perm, inv_perm, r1: float, k1: int, r2: float, k2: int, chunks: int):
+def first_k_select(pts, pts_p, perm, inv_perm, r1: float, k1: int, r2: float, k2: int):
     """Chunked-budget first_k select, dispatched by device (see module docstring)."""
     if pts.device.type == "cpu":
-        return first_k_select_plain(pts, pts_p, perm, inv_perm, r1, k1, r2, k2, chunks)
-    return first_k_select_cuda(pts, pts_p, perm, inv_perm, r1, k1, r2, k2, chunks)
+        return first_k_select_plain(pts, pts_p, perm, inv_perm, r1, k1, r2, k2)
+    return first_k_select_cuda(pts, pts_p, perm, inv_perm, r1, k1, r2, k2)
 
 
 def permutation(N: int, device) -> tuple[torch.Tensor, torch.Tensor]:
@@ -172,7 +173,7 @@ def permutation(N: int, device) -> tuple[torch.Tensor, torch.Tensor]:
     return torch.from_numpy(perm).to(device), torch.from_numpy(inv).to(device)
 
 
-def first_k_budget_select(r1: float, k1: int, r2: float, k2: int, pts: torch.Tensor, chunks: int = 4):
+def first_k_budget_select(r1: float, k1: int, r2: float, k2: int, pts: torch.Tensor):
     """Select plus the scale-2 slot gather (``_first_k_budget_select`` with
     ``global_compact=True``). Returns the select dict plus ``g2`` (three
     (B, N, k2) pad-filled planes) and the permuted planes."""
@@ -180,7 +181,7 @@ def first_k_budget_select(r1: float, k1: int, r2: float, k2: int, pts: torch.Ten
     N = pts.shape[1]
     perm, inv_perm = permutation(N, pts.device)
     pts_p = pts.index_select(1, perm.long())
-    sel = first_k_select(pts, pts_p, perm, inv_perm, r1, k1, r2, k2, chunks)
+    sel = first_k_select(pts, pts_p, perm, inv_perm, r1, k1, r2, k2)
     xp, yp, zp = (t.contiguous() for t in pts_p.unbind(-1))
     sel["g2"] = gather_planar(xp, yp, zp, sel["idx_p"])
     sel.update(xp=xp, yp=yp, zp=zp, inv_perm=inv_perm)
@@ -199,11 +200,11 @@ def packed_multiset_weights(sel, k1: int, k2: int):
     return w1, w2
 
 
-def two_scale_group_first_k_packed(r1: float, k1: int, r2: float, k2: int, pts: torch.Tensor, chunks: int = 4):
+def two_scale_group_first_k_packed(r1: float, k1: int, r2: float, k2: int, pts: torch.Tensor):
     """Packed exact first_k grouping: (g2 planes, w1, w2, total2, overflow).
     On overflow the fast outputs are invalid and the caller must use
     ``two_scale_group_exact_planar``."""
-    sel = first_k_budget_select(r1, k1, r2, k2, pts, chunks)
+    sel = first_k_budget_select(r1, k1, r2, k2, pts)
     w1, w2 = packed_multiset_weights(sel, k1, k2)
     return sel["g2"], w1, w2, sel["total2"], sel["overflow"]
 

@@ -5,7 +5,7 @@ from __future__ import annotations
 import torch
 
 
-def pairwise_sqdist(x: torch.Tensor, y: torch.Tensor, normalized: bool = False) -> torch.Tensor:
+def pairwise_sqdist(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """Squared distances (*, N, M) between (*, N, C) and (*, M, C), clamped at 0.
 
     Expansion form x2 - 2 x.y + y2 in float32; the package keeps TF32 off,
@@ -15,13 +15,9 @@ def pairwise_sqdist(x: torch.Tensor, y: torch.Tensor, normalized: bool = False) 
     x = x.float()
     y = y.float()
     xy = torch.matmul(x, y.transpose(-1, -2))
-    if normalized:
-        sq = 2.0 - 2.0 * xy
-    else:
-        x2 = (x * x).sum(-1)[..., :, None]
-        y2 = (y * y).sum(-1)[..., None, :]
-        sq = x2 - 2.0 * xy + y2
-    return sq.clamp_min(0.0)
+    x2 = (x * x).sum(-1)[..., :, None]
+    y2 = (y * y).sum(-1)[..., None, :]
+    return (x2 - 2.0 * xy + y2).clamp_min(0.0)
 
 
 def normalize_vec(v: torch.Tensor, dim: int = -1, eps: float = 1e-12) -> torch.Tensor:
@@ -31,18 +27,12 @@ def normalize_vec(v: torch.Tensor, dim: int = -1, eps: float = 1e-12) -> torch.T
 def compute_feature_similarity(
     feat1: torch.Tensor,
     feat2: torch.Tensor,
-    sim_type: str = "cosine",
     temp: float = 1.0,
     normalize_feat: bool = True,
 ) -> torch.Tensor:
-    """(B, N, C) x (B, M, C) -> (B, N, M) temperature-scaled similarity, float32."""
+    """(B, N, C) x (B, M, C) -> (B, N, M) temperature-scaled cosine similarity,
+    float32 (the model's ``sim_type="cosine"``; the port refuses other types)."""
     if normalize_feat:
         feat1 = normalize_vec(feat1)
         feat2 = normalize_vec(feat2)
-    if sim_type == "cosine":
-        atten = torch.matmul(feat1.float(), feat2.float().transpose(-1, -2))
-    elif sim_type == "L2":
-        atten = torch.sqrt(pairwise_sqdist(feat1, feat2, normalized=True))
-    else:
-        raise ValueError(f"unknown sim_type: {sim_type}")
-    return atten / temp
+    return torch.matmul(feat1.float(), feat2.float().transpose(-1, -2)) / temp

@@ -65,7 +65,6 @@ def compute_coarse_Rt_overlap(
     score: torch.Tensor,
     pts1: torch.Tensor,
     pts2: torch.Tensor,
-    model_pts: torch.Tensor | None = None,
     n_proposal1: int = 6000,
     n_proposal2: int = 300,
     uniforms: torch.Tensor | None = None,
@@ -83,8 +82,6 @@ def compute_coarse_Rt_overlap(
     pts2 = pts2.float()
     B, N1, _ = pts1.shape
     N2 = pts2.shape[1]
-    if model_pts is None:
-        model_pts = pts2
 
     pred, w1, w2, _, _ = dual_softmax_assignment(atten, score, N1, N2)
     ps = (pred[:, 1:, 1:] * w1[:, :, None] * w2[:, None, :]).reshape(B, N1 * N2) ** 1.5
@@ -143,7 +140,7 @@ def compute_coarse_Rt_overlap(
     w1_sum = w1.sum(dim=1)[:, None]
 
     tp = torch.matmul(pts1[:, None] - ts, rs)  # (B, P2, N1, 3)
-    d2 = pairwise_sqdist(tp, model_pts[:, None])  # (B, P2, N1, N2)
+    d2 = pairwise_sqdist(tp, pts2[:, None])  # (B, P2, N1, N2)
     d = torch.sqrt(torch.clamp_min(d2.amin(dim=-1), 0.0))
     scores = w1_sum / ((d * w1[:, None]).sum(dim=2) + 1e-8)
     best = torch.argmax(scores, dim=1)
@@ -156,18 +153,15 @@ def compute_fine_Rt_overlap(
     score: torch.Tensor,
     pts1: torch.Tensor,
     pts2: torch.Tensor,
-    model_pts: torch.Tensor | None = None,
     dis_thres: float = 0.15,
-    return_aux: bool = False,
 ):
     """Weighted-SVD fine pose from the mutually consistent soft assignment.
-    Returns R (B, 3, 3), t (B, 3), pose_score (B,) [, max WSVD row weight (B,)]."""
+    Returns R (B, 3, 3), t (B, 3), pose_score (B,) and the max WSVD row
+    weight (B,) (the JAX solver's ``return_aux=True`` outputs)."""
     pts1 = pts1.float()
     pts2 = pts2.float()
     B, N1, _ = pts1.shape
     N2 = pts2.shape[1]
-    if model_pts is None:
-        model_pts = pts2
 
     A, w1, w2, label1, _ = dual_softmax_assignment(atten, score, N1, N2)
     A = A[:, 1:, 1:] * w1[:, :, None] * w2[:, None, :]
@@ -178,11 +172,9 @@ def compute_fine_Rt_overlap(
     R, t = weighted_procrustes(pred_pts, pts1, weights, weight_thresh=0.001)
 
     proj = torch.matmul(pts1 - t[:, None, :], R)
-    d = torch.sqrt(torch.clamp_min(pairwise_sqdist(proj, model_pts).amin(dim=2), 0.0))
+    d = torch.sqrt(torch.clamp_min(pairwise_sqdist(proj, pts2).amin(dim=2), 0.0))
     mask = (label1 > 0).float()
     inlier = (d < dis_thres).float()
     pose_score = (inlier * mask).sum(dim=1) / (mask.sum(dim=1) + 1e-8)
     pose_score = pose_score * mask.mean(dim=1)
-    if return_aux:
-        return R, t, pose_score, weights.amax(dim=1)
-    return R, t, pose_score
+    return R, t, pose_score, weights.amax(dim=1)
