@@ -8,16 +8,33 @@ Phases, each fatal on failure:
 1. device check: a CUDA card must be present;
 2. build the hand-written kernels (``unopose_tpu_torch/kernels/csrc``);
 3. each kernel against its plain PyTorch version on the card, at the shapes
-   the main path gives it (FPS and the gather: equal indices / bitwise
-   values; the first_k select: every output equal), with CUDA-event times;
-4. one forced grouping overflow: the PE must take the exact fallback, whose
+   the main paths give it, with CUDA-event times, its bound and, where one
+   PyTorch call computes the same function, that call's time:
+   FPS and the gather equal indices / bitwise values, the first_k select
+   every output equal; the int8 geometric embedding (32 x 197 x 197 x 256,
+   bf16 model dtype) at most one step off on at most 0.1% of entries; the PE
+   channels and MLP/pool (32 x 2048 x 256) on two kinds of cloud: the main
+   path's uniform cubes, whose isotropic neighbourhoods nearly all fit one
+   64-slot chunk and have ill-conditioned local frames (at most twice as
+   many unequal bf16 entries as the plain version shows against itself one
+   ulp up), and sphere surfaces with over 1000 points in each of the four
+   tiers (99.9% of entries within one bf16 ulp, none more than 2^-5 off);
+   on both the rel xyz channels bitwise equal and the MLP/pool, fed the
+   plain channels, within 1e-2 of the output's max;
+4. one forced grouping overflow, through the plain and the fused PE: both
+   must take the exact fallback (and with it the gather kernel), whose
    grouping equals the CPU plain version's;
-5. the float32 slice at a tiny width on the card (kernels) against the CPU
-   (plain versions), same weights and draws;
-6. the slice at full width (ViT-B/14-reg4 at 224 px, 2048-point clouds, a
-   5000-point template, 6000/300 hypotheses, bf16), seeded random weights,
-   ``--batches`` batches of 16 pairs; finite, orthonormal poses; every
-   kernel launched during this phase.
+5. the float32 slice and fused-matcher configs at a tiny width on the card
+   (kernels) against the CPU (plain versions), same weights and draws: FPS
+   indices and int8 embedding codes equal, the coarse attention within 1e-3
+   of its max, the coarse scores within 1e-4, the fine scores' median error
+   under 5e-3 and 95th percentile under 5e-2 (the CPU slice tests' gates);
+6. the two main paths at full width (ViT-B/14-reg4 at 224 px, 2048-point
+   clouds, a 5000-point template, 6000/300 hypotheses, bf16, seeded random
+   weights, batches of 16 pairs): ``slice_config()`` for 2 batches, then
+   ``fused_matcher_config()`` for ``--batches``; finite,
+   orthonormal poses; the launch counts are zeroed just before each path
+   and read just after, and every kernel of the path must have launched.
 
 Log lines are prefixed with the card's name and power limit. Before the
 last line come one JSON line with the kernels' results and the raw
@@ -38,6 +55,22 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 BATCH = 16
+SLICE_BATCHES = 2  # full-width batches of the slice path; the fused-matcher path takes --batches
+# published H100 SXM peaks (dense): HBM bytes/s, float32 FFMA and bf16 tensor-core FLOP/s
+HBM_BPS, F32_FLOPS, BF16_FLOPS = 3.35e12, 67e12, 989e12
+# which TPU kernel each hand-written kernel replaces, and its source
+KERNELS = {
+    "fps": ("unopose_tpu_torch/kernels/csrc/fps.cu", "unopose_tpu/ops/fps.py:80"),
+    "first_k_select": ("unopose_tpu_torch/kernels/csrc/first_k_select.cu", "unopose_tpu/ops/ball_query.py:175"),
+    "gather_planar": ("unopose_tpu_torch/kernels/csrc/gather_planar.cu", "unopose_tpu/ops/gather_pallas.py:73"),
+    "geo_rpe": ("unopose_tpu_torch/kernels/csrc/geo_rpe.cu", "unopose_tpu/ops/geo_fused.py:194"),
+    "pe_channels": ("unopose_tpu_torch/kernels/csrc/pe_channels.cu", "unopose_tpu/ops/pe_fused.py:1000"),
+    "pe_mlp_pool": ("unopose_tpu_torch/kernels/csrc/pe_mlp_pool.cu", "unopose_tpu/ops/pe_fused.py:1034"),
+}
+PATH_KERNELS = {
+    "slice": ("fps", "first_k_select", "gather_planar"),
+    "fused_matchers": ("fps", "first_k_select", "geo_rpe", "pe_channels", "pe_mlp_pool"),
+}
 
 
 def card_info() -> str:
@@ -73,8 +106,26 @@ def cuda_ms(fn, reps: int = 5) -> float:
     return float(np.median(times))
 
 
+def bound(nbytes: float, flops: float, peak_flops: float) -> dict:
+    """The least time the card could take: bytes moved over the HBM rate or
+    operations over the peak rate for their type, whichever is larger."""
+    t_bytes, t_ops = nbytes / HBM_BPS * 1e3, flops / peak_flops * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def lrf_cloud(rng, dev, b: int, n: int):
+    """Uniform clouds in a 0.2 m cube 0.6 m away, in their global LRF (the
+    fine PE's and the FPS's inputs on the main path)."""
+    import torch
+
+    from unopose_tpu_torch.ops.lrf import global_lrf
+
+    pts = rng.uniform(-0.1, 0.1, size=(b, n, 3)).astype(np.float32) + np.array([0, 0, 0.6], np.float32)
+    return global_lrf(torch.from_numpy(pts).to(dev))
+
+
 def check_kernels(log, dev, seed: int) -> dict:
-    """Phase 3. Returns {kernel name: {max_abs_err, ms, plain_ms}}."""
+    """Phase 3 for FPS, the first_k select and the gather. Returns {kernel name: measurements}."""
     import torch
 
     from unopose_tpu_torch.ops.ball_query import (
@@ -82,36 +133,35 @@ def check_kernels(log, dev, seed: int) -> dict:
     )
     from unopose_tpu_torch.ops.fps import fps_cuda, fps_plain
     from unopose_tpu_torch.ops.gather import gather_planar_cuda, gather_planar_plain
-    from unopose_tpu_torch.ops.lrf import global_lrf
 
     rng = np.random.default_rng(seed)
     results = {}
 
-    def cloud(b, n):
-        pts = rng.uniform(-0.1, 0.1, size=(b, n, 3)).astype(np.float32) + np.array([0, 0, 0.6], np.float32)
-        return global_lrf(torch.from_numpy(pts).to(dev))
-
     # K1 FPS: template 16 x 5000 -> 2048, then both clouds 16 x 2048 -> 196
     worst = 0
     for b, n, k in ((BATCH, 5000, 2048), (BATCH, 2048, 196)):
-        pts = cloud(b, n)
+        pts = lrf_cloud(rng, dev, b, n)
         got, ref = fps_cuda(pts, k), fps_plain(pts, k)
         torch.cuda.synchronize()
         mismatch = int((got.long() - ref.long()).abs().max())
         worst = max(worst, mismatch)
         ms, plain_ms = cuda_ms(lambda: fps_cuda(pts, k)), cuda_ms(lambda: fps_plain(pts, k), reps=2)
-        log(f"fps {b}x{n}->{k}: max |index diff| {mismatch}, kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
+        # per point and step: 3 sub, 3 mul, 2 add, a min and an argmax compare
+        fps_bound = bound(b * n * 12 + b * k * 4, 10.0 * b * (k - 1) * n, F32_FLOPS)
+        log(f"fps {b}x{n}->{k}: max |index diff| {mismatch}, kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+            f"bound {fps_bound['bound_ms']:.4f} ms ({fps_bound['bound_by']})")
         if (b, n) == (BATCH, 5000):
-            results["fps"] = dict(ms=ms, plain_ms=plain_ms)
+            results["fps"] = dict(ms=ms, plain_ms=plain_ms, library_ms=None, **fps_bound)
     if worst != 0:
         raise AssertionError("fps kernel indices differ from the plain version")
     results["fps"]["max_abs_err"] = float(worst)
 
     # K3 first_k select on both clouds of the PE: 32 x 2048, k1/k2 = 64/256
-    pts = cloud(2 * BATCH, 2048)
-    perm, inv_perm = permutation(2048, dev)
+    B2, N, S = 2 * BATCH, 2048, 256
+    pts = lrf_cloud(rng, dev, B2, N)
+    perm, inv_perm = permutation(N, dev)
     pts_p = pts.index_select(1, perm.long())
-    args = (pts, pts_p, perm, inv_perm, 0.1, 64, 0.2, 256)
+    args = (pts, pts_p, perm, inv_perm, 0.1, 64, 0.2, S)
     got, ref = first_k_select_cuda(*args), first_k_select_plain(*args)
     torch.cuda.synchronize()
     errs = {k: int((got[k].long() - ref[k].long()).abs().max()) for k in SELECT_KEYS}
@@ -120,7 +170,11 @@ def check_kernels(log, dev, seed: int) -> dict:
         f"mean r2 hits {ref['total2'].float().mean().item():.1f}, kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
     if any(errs.values()):
         raise AssertionError(f"first_k_select kernel differs from the plain version: {errs}")
-    results["first_k_select"] = dict(max_abs_err=float(max(errs.values())), ms=ms, plain_ms=plain_ms)
+    # reads both clouds and the permutations; writes idx_p (2 B), two masks (1 B each) and four (B, N) int32;
+    # per pair: the dot product (5), d2 (3) and two radius compares
+    select_bytes = B2 * N * 24 + 2 * N * 4 + B2 * N * S * 4 + 4 * B2 * N * 4
+    results["first_k_select"] = dict(max_abs_err=float(max(errs.values())), ms=ms, plain_ms=plain_ms,
+                                     library_ms=None, **bound(select_bytes, 10.0 * B2 * N * N, F32_FLOPS))
 
     # K2 gather: the PE's scale-2 slots, planes (32, 2048), idx (32, 2048, 256) int16
     planes = tuple(t.contiguous() for t in pts_p.unbind(-1))
@@ -130,18 +184,157 @@ def check_kernels(log, dev, seed: int) -> dict:
     bitwise = all(torch.equal(a.view(torch.int32), b.view(torch.int32)) for a, b in zip(got, want))
     err = max(float((a - b).abs().max()) for a, b in zip(got, want))
     ms, plain_ms = cuda_ms(lambda: gather_planar_cuda(*planes, idx)), cuda_ms(lambda: gather_planar_plain(*planes, idx))
-    log(f"gather_planar 32x2048x256 int16: bitwise {bitwise}, kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
+    # the library yardstick: one torch.gather over the stacked planes (inputs prepared outside the timing)
+    stacked = torch.stack(planes)
+    idx3 = idx.reshape(1, B2, -1).long().expand(3, -1, -1).contiguous()
+    library_ms = cuda_ms(lambda: torch.gather(stacked, 2, idx3))
+    log(f"gather_planar 32x2048x256 int16: bitwise {bitwise}, kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+        f"torch.gather {library_ms:.3f} ms")
     if not bitwise:
         raise AssertionError("gather_planar kernel is not bitwise equal to the plain version")
-    results["gather_planar"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+    results["gather_planar"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                                    **bound(idx.numel() * 2 + 3 * B2 * N * 4 + 3 * idx.numel() * 4, 0.0, F32_FLOPS))
     return results
 
 
-def check_overflow(log, dev, seed: int) -> None:
-    """Phase 4: a dense cloud overflows the packed budget; the PE must take
-    the exact fallback, and its grouping must equal the CPU plain one."""
+def check_fused_kernels(log, dev, seed: int) -> dict:
+    """Phase 3, the fused matchers' kernels K4-K6 at the main path's shapes; K5 and K6
+    also on sphere surfaces that fill every 64-slot tier."""
     import torch
 
+    from unopose_tpu_torch.configs import surface_clouds
+    from unopose_tpu_torch.models.embedding import GeometricStructureEmbedding, knn_anchor_vectors
+    from unopose_tpu_torch.models.matching import FinePositionalEncoding
+    from unopose_tpu_torch.ops.ball_query import permutation
+    from unopose_tpu_torch.ops.geo_fused import build_taylor_table, geo_rpe_fused_cuda, geo_rpe_fused_plain
+
+    rng = np.random.default_rng(seed + 3)
+    torch.manual_seed(seed)
+    results = {}
+
+    # K4: both clouds' 196 FPS nodes in their LRF plus the (1, 1, 1) bg point, 256 channels, T = 128
+    B2, N, D, T, k = 2 * BATCH, 197, 256, 128, 3
+    nodes = lrf_cloud(rng, dev, B2, N - 1)
+    points = torch.cat([torch.ones((B2, 1, 3), device=dev), nodes], dim=1)
+    ge = GeometricStructureEmbedding(D, dtype=torch.bfloat16, d_index_max=float(2.1 * np.sqrt(3.0) / 0.2),
+                                     fused_table=T, quant_int8=True).to(dev)
+    factor_a = 180.0 / (ge.sigma_a * np.pi)
+    _, ref_vec = knn_anchor_vectors(points, k)
+    tab_d, scale_d = build_taylor_table(ge.proj_d.weight.t(), ge.proj_d.bias, ge.d_index_max, T)
+    tab_a, scale_a = build_taylor_table(ge.proj_a.weight.t(), ge.proj_a.bias, float(np.pi * factor_a), T)
+    args = (points, ref_vec, tab_d.detach(), tab_a.detach(), scale_d, scale_a, ge.sigma_d, factor_a, torch.bfloat16, True)
+    with torch.no_grad():
+        (e8, sc), (p8, psc) = geo_rpe_fused_cuda(*args), geo_rpe_fused_plain(*args)
+        torch.cuda.synchronize()
+        diff = (e8.int() - p8.int()).abs()
+        share, worst = diff.gt(0).float().mean().item(), int(diff.max())
+        ms, plain_ms = cuda_ms(lambda: geo_rpe_fused_cuda(*args)), cuda_ms(lambda: geo_rpe_fused_plain(*args), reps=3)
+    log(f"geo_rpe 32x197x197x256 int8 (bf16 tables): {100 * share:.4f}% of entries differ, max {worst} step, "
+        f"scale equal {torch.equal(sc, psc)}, kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
+    if worst > 1 or share > 1e-3 or not torch.equal(sc, psc):
+        raise AssertionError("geo_rpe kernel differs from the plain version beyond one step on 0.1% of entries")
+    # writes the int8 embedding, reads the points, anchors and both (T, D) tables; per output entry
+    # four 3-term stencils (5 operations each), the max over k, the sum and the quantisation
+    geo_bytes = e8.numel() + points.numel() * 4 + ref_vec.numel() * 4 + 2 * T * D * 4 + D * 4
+    results["geo_rpe"] = dict(max_abs_err=float(worst), ms=ms, plain_ms=plain_ms, library_ms=None,
+                              **bound(geo_bytes, 25.0 * e8.numel(), F32_FLOPS))
+
+    # K5, K6 on the fine PE's input: both clouds, 32 x 2048, budgets 64/256
+    pe = FinePositionalEncoding(256, fused=True).to(dev)
+    mlp1, mlp2, packed = pe.folded_weights()
+    iso = pe_kernels(dev, lrf_cloud(rng, dev, 2 * BATCH, 2048), mlp1, mlp2, packed)
+    perm, _ = permutation(2048, "cpu")
+    surf = pe_kernels(dev, torch.from_numpy(surface_clouds(rng, 2 * BATCH, perm.numpy())).to(dev), mlp1, mlp2, packed)
+    for name, r in (("uniform cube", iso), ("sphere surfaces", surf)):
+        log(f"PE on {name}: tiers (points needing 1/2/3/4 chunks of 64 slots) {r['hist']}, overflow {r['overflow']}, "
+            f"mean r2 hits {r['mean_hits']:.1f}")
+        log(f"pe_channels 32x2048x256 on {name}: {100 * r['equal']:.4f}% of needed bf16 entries equal, "
+            f"{100 * r['within_ulp']:.4f}% within one bf16 ulp (plain vs itself one ulp up: {100 * r['spread']:.4f}% "
+            f"equal), rel xyz bitwise {r['rel_bitwise']}, max |diff| {r['c_err']:.3e}, "
+            f"kernel {r['c_ms']:.3f} ms, plain {r['c_plain']:.3f} ms")
+        log(f"pe_mlp_pool 32x2048x256 on {name} (plain channels): max |diff| {r['m_err']:.3e} of max "
+            f"{r['m_ref']:.3e}, kernel {r['m_ms']:.3f} ms, plain {r['m_plain']:.3f} ms")
+        if r["overflow"] or not r["rel_bitwise"]:
+            raise AssertionError(f"PE on {name}: grouping overflow or rel xyz channels not bitwise equal")
+        if not r["m_err"] <= 1e-2 * r["m_ref"]:
+            raise AssertionError(f"pe_mlp_pool on {name} differs from the plain version by more than 1e-2 of the max")
+    # the LRF frames of the cube's isotropic neighbourhoods are ill conditioned: there the gate is the
+    # plain version's own one-ulp spread (at most twice as many unequal entries)
+    if 1.0 - iso["equal"] > 2.0 * (1.0 - iso["spread"]):
+        raise AssertionError("pe_channels kernel differs from the plain version beyond its one-ulp spread")
+    # on the surfaces every tier holds thousands of points and the frames are well conditioned: 99.9% of
+    # entries within one bf16 ulp and none more than 2^-5 off (two ulps at the channels' largest magnitude, 2)
+    if min(surf["hist"]) < 1000 or surf["within_ulp"] < 0.999 or surf["c_err"] > 2.0**-5:
+        raise AssertionError("pe_channels kernel on the surfaces: a tier under 1000 points, or entries beyond "
+                             "one bf16 ulp on more than 0.1%, or one more than 2^-5 off")
+    # bounds: per needed slot, K5 reads 2 index + 2 x 2 weight bytes and writes 24 channel bytes (plus the
+    # planes and centres) in ~160 float32 operations (both scales' moments, vote, x-axis sums, projections);
+    # K6, per needed slot and scale: 2 x (6*32 + 32*64 + 64*128) bf16 tensor-core operations
+    B2, N = 2 * BATCH, 2048
+    ch_bound = lambda slots: bound(slots * (2 + 4 + 24) + 6 * B2 * N * 4 + B2 * N * 4, 160.0 * slots, F32_FLOPS)
+    mlp_bound = lambda slots: bound(slots * (24 + 4) + B2 * N * (4 + 256 * 4),
+                                    slots * 2 * 2 * (6 * 32 + 32 * 64 + 64 * 128), BF16_FLOPS)
+    for name, err, ms, plain, bnd in (("pe_channels", "c_err", "c_ms", "c_plain", ch_bound),
+                                      ("pe_mlp_pool", "m_err", "m_ms", "m_plain", mlp_bound)):
+        # the main path's (cube) numbers, and beside them the surfaces'
+        results[name] = dict(max_abs_err=iso[err], ms=iso[ms], plain_ms=iso[plain], library_ms=None,
+                             **bnd(iso["slots"]), surface_max_abs_err=surf[err], surface_ms=surf[ms],
+                             surface_plain_ms=surf[plain], surface_bound_ms=bnd(surf["slots"])["bound_ms"])
+    return results
+
+
+def pe_kernels(dev, pts, mlp1, mlp2, packed) -> dict:
+    """K5 and K6 against their plain versions on one (32, 2048, 3) cloud,
+    K6 fed the plain channels; the comparisons cover the slots each point
+    needs. Returns the agreement measures, the tier histogram and the times."""
+    import torch
+
+    from unopose_tpu_torch.ops.ball_query import two_scale_group_first_k_packed_idx
+    from unopose_tpu_torch.ops.pe_fused import (
+        CHUNK, chunks_needed, pe_channels_cuda, pe_channels_plain, pe_mlp_pool_cuda, pe_mlp_pool_plain,
+    )
+
+    S = 256
+    with torch.no_grad():
+        planes, idx_p, w1, w2, total2, overflow = two_scale_group_first_k_packed_idx(0.1, 64, 0.2, S, pts)
+        center = tuple(pts.unbind(-1))
+        cargs = (planes, idx_p, w1, w2, total2, center, 0.1, 0.2)
+        chans, pchans = pe_channels_cuda(*cargs), pe_channels_plain(*cargs)
+        # the plain version's own spread: the same slots, coordinates one ulp up
+        up = lambda x: torch.nextafter(x, torch.full_like(x, float("inf")))
+        nchans = pe_channels_plain(tuple(map(up, planes)), idx_p, w1, w2, total2, tuple(map(up, center)), 0.1, 0.2)
+        torch.cuda.synchronize()
+        chunks = chunks_needed(total2, S)
+        needed = torch.arange(S, device=dev)[None, None, :] < (chunks * CHUNK)[..., None]  # (B, P, S)
+        a, b, n = chans[needed].float(), pchans[needed].float(), nchans[needed].float()
+        diff = (a - b).abs()
+        _, e = torch.frexp(torch.maximum(a.abs(), b.abs()))
+        ulp = torch.ldexp(torch.ones_like(diff), e - 8)  # one bf16 step at the larger magnitude
+        r = dict(
+            equal=(a == b).float().mean().item(), within_ulp=(diff <= ulp).float().mean().item(),
+            spread=(n == b).float().mean().item(), c_err=float(diff.max()),
+            rel_bitwise=torch.equal(a[:, [0, 1, 2, 6, 7, 8]], b[:, [0, 1, 2, 6, 7, 8]]),
+            hist=torch.bincount(chunks.flatten(), minlength=5)[1:].tolist(), slots=int(chunks.sum()) * CHUNK,
+            overflow=bool(overflow), mean_hits=total2.float().mean().item(),
+        )
+        del nchans, a, b, n, diff, e, ulp
+        r["c_ms"], r["c_plain"] = cuda_ms(lambda: pe_channels_cuda(*cargs)), cuda_ms(lambda: pe_channels_plain(*cargs), reps=3)
+        margs = (pchans, w1, w2, total2)
+        pooled, ppooled = pe_mlp_pool_cuda(*margs, packed), pe_mlp_pool_plain(*margs, mlp1, mlp2)
+        torch.cuda.synchronize()
+        r["m_err"], r["m_ref"] = float((pooled - ppooled).abs().max()), float(ppooled.abs().max())
+        r["m_ms"] = cuda_ms(lambda: pe_mlp_pool_cuda(*margs, packed))
+        r["m_plain"] = cuda_ms(lambda: pe_mlp_pool_plain(*margs, mlp1, mlp2), reps=3)
+    return r
+
+
+def check_overflow(log, dev, seed: int) -> None:
+    """Phase 4: a dense cloud overflows the packed budget; the plain and the
+    fused PE must take the exact fallback, and its grouping (gather kernel
+    included) must equal the CPU plain one."""
+    import torch
+
+    from unopose_tpu_torch.kernels import LAUNCHES
     from unopose_tpu_torch.models.matching import FinePositionalEncoding
     from unopose_tpu_torch.ops.ball_query import first_k_in_radius, sqdist_expansion, two_scale_group_first_k_packed
 
@@ -150,65 +343,85 @@ def check_overflow(log, dev, seed: int) -> None:
     *_, overflow = two_scale_group_first_k_packed(0.1, 64, 0.2, 256, pts.to(dev))
     if not bool(overflow):
         raise AssertionError("the dense cloud did not overflow the packed grouping")
-    torch.manual_seed(seed)
-    pe = FinePositionalEncoding(256).to(dev)
-    feat = pe(pts.to(dev))
-    torch.cuda.synchronize()
-    if pe.last_branch != "exact" or not torch.isfinite(feat).all():
-        raise AssertionError(f"overflow fallback not taken or not finite: {pe.last_branch}")
+    for fused in (False, True):
+        torch.manual_seed(seed)
+        pe = FinePositionalEncoding(256, fused=fused).to(dev)
+        before = LAUNCHES["gather_planar"]
+        with torch.no_grad():
+            feat = pe(pts.to(dev))
+        torch.cuda.synchronize()
+        gathers = LAUNCHES["gather_planar"] - before
+        if pe.last_branch != "exact" or not torch.isfinite(feat).all() or gathers == 0:
+            raise AssertionError(f"overflow fallback not taken, not finite or not gathered by the kernel "
+                                 f"(fused={fused}): {pe.last_branch}, {gathers} gather launches")
+        with torch.no_grad():
+            feat_cpu = pe.cpu()(pts)
+        err = (feat.cpu() - feat_cpu).abs().amax(-1)
+        log(f"overflow ({'fused' if fused else 'plain'} PE): fallback taken ({pe.last_branch}), "
+            f"{gathers} gather launches, PE vs CPU median row error {err.median().item():.2e}")
     for r, k in ((0.1, 64), (0.2, 256)):
         gpu = first_k_in_radius(sqdist_expansion(pts.to(dev), pts.to(dev)) < r * r, k).cpu()
         cpu = first_k_in_radius(sqdist_expansion(pts, pts) < r * r, k)
         if not torch.equal(gpu, cpu):
             raise AssertionError(f"exact grouping (r={r}, k={k}) differs between card and CPU")
-    feat_cpu = pe.cpu()(pts)
-    err = (feat.cpu() - feat_cpu).abs().amax(-1)
-    log(f"overflow: fallback taken ({pe.last_branch}), exact grouping equal to the CPU's, "
-        f"PE vs CPU median row error {err.median().item():.2e}")
+    log("overflow: exact grouping equal to the CPU's")
 
 
-def check_tiny_slice(log, dev, seed: int) -> None:
-    """Phase 5: float32 tiny slice, card (kernels) vs CPU (plain versions)."""
+def check_tiny(log, dev, seed: int, name: str) -> None:
+    """Phase 5: a float32 tiny config, card (kernels) vs CPU (plain versions)."""
     import torch
 
-    from unopose_tpu_torch.configs import slice_config, synthetic_inputs
+    from unopose_tpu_torch import configs
     from unopose_tpu_torch.models import UNOPose
 
-    cfg = slice_config(tiny=True)
+    cfg = configs.slice_config(tiny=True) if name == "slice" else configs.fused_matcher_config(tiny=True)
     torch.manual_seed(seed)
     model = UNOPose.from_config(cfg, torch.float32, torch.float32).eval()
     rng = np.random.default_rng(seed + 2)
-    inputs = synthetic_inputs(rng, 2, tiny=True)
+    inputs = configs.synthetic_inputs(rng, 2, tiny=True)
     uniforms = torch.from_numpy(rng.uniform(size=(2, 3 * cfg.coarse_point_matching.nproposal1)).astype(np.float32))
     out_cpu = model({k: torch.from_numpy(v) for k, v in inputs.items()}, uniforms=uniforms, return_intermediates=True)
+    branch_cpu = model.fine_matching.pe.last_branch
     model.to(dev)
     out_gpu = model({k: torch.from_numpy(v).to(dev) for k, v in inputs.items()}, uniforms=uniforms.to(dev),
                     return_intermediates=True)
     idx_equal = all(torch.equal(out_gpu[k].cpu(), out_cpu[k]) for k in ("fps_idx_m", "fps_idx_o"))
     a_err = ((out_gpu["coarse_atten"].cpu() - out_cpu["coarse_atten"]).abs().max() / out_cpu["coarse_atten"].abs().max()).item()
     s_err = (out_gpu["coarse_score"].cpu() - out_cpu["coarse_score"]).abs().max().item()
-    log(f"tiny fp32 slice, card vs CPU: FPS indices equal {idx_equal}, coarse atten rel {a_err:.2e}, "
-        f"coarse score {s_err:.2e}")
-    if not idx_equal or a_err > 1e-3 or s_err > 1e-4:
-        raise AssertionError("the tiny slice on the card disagrees with the CPU plain path")
+    f_err = (out_gpu["fine_score"].cpu() - out_cpu["fine_score"]).abs().flatten()
+    f_med, f_p95 = f_err.median().item(), f_err.quantile(0.95).item()
+    geo_ok, geo_note = True, ""
+    if isinstance(out_cpu["geo"], tuple):
+        (e8, sc), (e8_cpu, sc_cpu) = (out_gpu["geo"][0].cpu(), out_gpu["geo"][1].cpu()), out_cpu["geo"]
+        geo_diff = (e8.int() - e8_cpu.int()).abs()
+        sc_rel = ((sc - sc_cpu).abs() / sc_cpu.abs()).max().item()
+        geo_ok = int(geo_diff.max()) == 0 and sc_rel <= 1e-6
+        geo_note = (f", int8 embedding entries differing {geo_diff.gt(0).float().mean().item():.2e} "
+                    f"(max {int(geo_diff.max())}), scale rel {sc_rel:.2e}")
+    log(f"tiny fp32 {name}, card vs CPU: FPS indices equal {idx_equal}, coarse atten rel {a_err:.2e}, "
+        f"coarse score {s_err:.2e}, fine score median {f_med:.2e} p95 {f_p95:.2e}, "
+        f"PE branch {model.fine_matching.pe.last_branch}{geo_note}")
+    if (not idx_equal or a_err > 1e-3 or s_err > 1e-4 or f_med >= 5e-3 or f_p95 >= 5e-2 or not geo_ok
+            or model.fine_matching.pe.last_branch != branch_cpu):
+        raise AssertionError(f"the tiny {name} config on the card disagrees with the CPU plain path")
 
 
-def run_slice(log, dev, seed: int, batches: int) -> dict:
-    """Phase 6: the full-width slice. Returns timing and counts."""
+def run_path(log, dev, seed: int, batches: int, name: str) -> dict:
+    """Phase 6: one main path at full width. Returns timing and its launch counts."""
     import torch
 
-    from unopose_tpu_torch.configs import slice_config, synthetic_inputs
+    from unopose_tpu_torch import configs
     from unopose_tpu_torch.kernels import LAUNCHES, reset_launch_counts
     from unopose_tpu_torch.models import UNOPose
 
-    cfg = slice_config()
+    cfg = configs.slice_config() if name == "slice" else configs.fused_matcher_config()
     torch.manual_seed(seed)
     model = UNOPose.from_config(cfg, torch.bfloat16, torch.bfloat16).to(dev).eval()
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     rng = np.random.default_rng(seed)
     batch_inputs = [
-        {k: torch.from_numpy(v).to(dev) for k, v in synthetic_inputs(rng, BATCH).items()} for _ in range(batches)
+        {k: torch.from_numpy(v).to(dev) for k, v in configs.synthetic_inputs(rng, BATCH).items()} for _ in range(batches)
     ]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
@@ -224,27 +437,29 @@ def run_slice(log, dev, seed: int, batches: int) -> dict:
         orth = (R @ R.transpose(1, 2) - eye).abs().max().item()
         det = (torch.linalg.det(R) - 1).abs().max().item()
         finite = bool(torch.isfinite(R).all() and torch.isfinite(t).all() and torch.isfinite(score).all())
-        log(f"batch {i}: {times[-1]:.1f} ms, PE branch {model.fine_matching.pe.last_branch}, "
+        log(f"{name} batch {i}: {times[-1]:.1f} ms, PE branch {model.fine_matching.pe.last_branch}, "
             f"|RR^T - I| {orth:.2e}, |det - 1| {det:.2e}, finite {finite}, "
             f"pose score mean {score.mean().item():.3f}")
         if not finite or orth > 1e-3 or det > 1e-3 or tuple(R.shape) != (BATCH, 3, 3) or tuple(t.shape) != (BATCH, 3):
-            raise AssertionError(f"batch {i}: poses are not finite orthonormal (B, 3, 3) / (B, 3)")
+            raise AssertionError(f"{name} batch {i}: poses are not finite orthonormal (B, 3, 3) / (B, 3)")
     launches = dict(LAUNCHES)
-    missing = [k for k in ("fps", "gather_planar", "first_k_select") if launches.get(k, 0) == 0]
+    missing = [k for k in PATH_KERNELS[name] if launches.get(k, 0) == 0]
     if missing:
-        raise AssertionError(f"kernels never launched on the main path: {missing}")
+        raise AssertionError(f"kernels never launched on the {name} path: {missing}")
     peak = torch.cuda.max_memory_allocated(dev) / 2**30
     steady = float(np.median(times[1:])) if len(times) > 1 else times[0]
-    log(f"slice: ms per 16-pair batch {['%.1f' % x for x in times]} (first includes warm-up), "
+    log(f"{name}: ms per 16-pair batch {['%.1f' % x for x in times]} (first includes warm-up), "
         f"steady {steady:.1f} ms = {BATCH * 1e3 / steady:.1f} pairs/s, peak memory {peak:.2f} GiB, "
         f"launches {launches}")
+    del model, batch_inputs
+    torch.cuda.empty_cache()
     return dict(launches=launches, steady_ms=steady)
 
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
-    parser.add_argument("--batches", type=int, default=3)
+    parser.add_argument("--batches", type=int, default=3, help="full-width batches of the fused-matcher path")
     args = parser.parse_args()
 
     import torch
@@ -268,19 +483,20 @@ def main() -> int:
             log(f"ptxas: {line.strip()}")
 
     results = check_kernels(log, dev, args.seed)
+    results.update(check_fused_kernels(log, dev, args.seed))
     check_overflow(log, dev, args.seed)
-    check_tiny_slice(log, dev, args.seed)
-    run = run_slice(log, dev, args.seed, args.batches)
-
-    sources = {
-        "fps": ("unopose_tpu_torch/kernels/csrc/fps.cu", "unopose_tpu/ops/fps.py:80"),
-        "gather_planar": ("unopose_tpu_torch/kernels/csrc/gather_planar.cu", "unopose_tpu/ops/gather_pallas.py:73"),
-        "first_k_select": ("unopose_tpu_torch/kernels/csrc/first_k_select.cu", "unopose_tpu/ops/ball_query.py:175"),
+    for name in PATH_KERNELS:
+        check_tiny(log, dev, args.seed, name)
+    runs = {
+        "slice": run_path(log, dev, args.seed, SLICE_BATCHES, "slice"),
+        "fused_matchers": run_path(log, dev, args.seed, args.batches, "fused_matchers"),
     }
-    kernels = [
-        dict(name=name, route="cuda", source=src, replaces=rep, launches=run["launches"][name], **results[name])
-        for name, (src, rep) in sources.items()
-    ]
+
+    kernels = []
+    for name, (src, rep) in KERNELS.items():
+        by_path = {p: run["launches"].get(name, 0) for p, run in runs.items() if name in PATH_KERNELS[p]}
+        kernels.append(dict(name=name, route="cuda", source=src, replaces=rep, launches=sum(by_path.values()),
+                            launches_by_path=by_path, **results[name]))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

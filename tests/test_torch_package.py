@@ -21,9 +21,9 @@ import numpy as np
 import pytest
 import torch
 
-from unopose_tpu_torch.configs import TINY_SIZES, slice_config
+from unopose_tpu_torch.configs import TINY_SIZES, fused_matcher_config, slice_config, surface_clouds
 from unopose_tpu_torch.kernels import LAUNCHES, build
-from unopose_tpu_torch.ops import ball_query, fps as fps_mod, gather
+from unopose_tpu_torch.ops import ball_query, fps as fps_mod, gather, geo_fused, pe_fused
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "unopose_tpu_torch"
@@ -36,22 +36,25 @@ def _run(code: str, cwd=ROOT, timeout=120):
 
 
 def test_port_runs_with_jax_unavailable():
-    """Importing and running the port (tiny float32 slice on the CPU) with
-    ``jax``, ``flax`` and the JAX package blocked in ``sys.modules``."""
+    """Importing and running the port (both tiny float32 configs on the CPU)
+    with ``jax``, ``flax`` and the JAX package blocked in ``sys.modules``."""
     code = """
 import sys
 for name in ("jax", "flax", "unopose_tpu"):
     sys.modules[name] = None
 import numpy as np, torch
 import chip_smoke
-from unopose_tpu_torch.configs import slice_config, synthetic_inputs
+import unopose_tpu_torch.tools.profile_slice
+from unopose_tpu_torch.configs import fused_matcher_config, slice_config, synthetic_inputs
 from unopose_tpu_torch.models import UNOPose
 from unopose_tpu_torch.utils.convert import flax_to_torch
-torch.manual_seed(0)
-model = UNOPose.from_config(slice_config(tiny=True), torch.float32, torch.float32)
-inputs = synthetic_inputs(np.random.default_rng(0), 2, tiny=True)
-out = model({k: torch.from_numpy(v) for k, v in inputs.items()}, generator=torch.Generator().manual_seed(0))
-assert torch.isfinite(out["pred_R"]).all(), out
+for config in (slice_config, fused_matcher_config):
+    torch.manual_seed(0)
+    model = UNOPose.from_config(config(tiny=True), torch.float32, torch.float32)
+    inputs = synthetic_inputs(np.random.default_rng(0), 2, tiny=True)
+    out = model({k: torch.from_numpy(v) for k, v in inputs.items()}, generator=torch.Generator().manual_seed(0))
+    assert torch.isfinite(out["pred_R"]).all(), out
+assert model.fine_matching.pe.last_branch == "v5"
 loaded = {m.split(".")[0] for m in sys.modules if sys.modules[m] is not None}
 assert not loaded & {"jax", "flax", "jaxlib", "unopose_tpu"}, loaded
 print("ok")
@@ -126,6 +129,17 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     perm, inv = ball_query.permutation(256, "cpu")
     with pytest.raises(ValueError):
         ball_query.first_k_select_cuda(pts, pts, perm, inv, 0.1, 64, 0.2, 256)
+    tab = torch.rand(128, 32)
+    with pytest.raises(ValueError):
+        geo_fused.geo_rpe_fused_cuda(pts[:, :17], torch.rand(1, 17, 3, 3), tab, tab, 1.0, 1.0, 0.2, 1.0)
+    planes, idx, w1, w2, total2, _ = ball_query.two_scale_group_first_k_packed_idx(0.1, 64, 0.2, 256, pts)
+    center = tuple(pts.unbind(-1))
+    with pytest.raises(ValueError):
+        pe_fused.pe_channels_cuda(planes, idx, w1, w2, total2, center, 0.1, 0.2)
+    mlp = ([torch.rand(6, 32), torch.rand(32, 64), torch.rand(64, 128)], [torch.rand(32), torch.rand(64), torch.rand(128)])
+    with pytest.raises(ValueError):
+        pe_fused.pe_mlp_pool_cuda(torch.zeros(1, 256, 256, 12, dtype=torch.bfloat16), w1, w2, total2,
+                                  pe_fused.pack_mlp(mlp, mlp))
 
 
 def test_cpu_tensors_take_the_plain_versions(monkeypatch):
@@ -141,7 +155,32 @@ def test_cpu_tensors_take_the_plain_versions(monkeypatch):
     sel = ball_query.first_k_budget_select(0.1, 64, 0.2, 256, pts)
     gx, _, _ = gather.gather_planar(*pts.unbind(-1), idx[:, :, None].to(torch.int16))
     assert idx.shape == (2, 16) and sel["g2"][0].shape == (2, 256, 256) and gx.shape == (2, 16, 1)
+    tab = torch.rand(128, 32)
+    e8, scale = geo_fused.geo_rpe_fused(pts[:, :17], torch.rand(2, 17, 3, 3), tab, tab, 1.0, 1.0, 0.2, 1.0,
+                                        quantize=True)
+    assert e8.shape == (2, 17, 17, 32) and e8.dtype == torch.int8 and scale.shape == (32,)
+    planes, idx_p, w1, w2, total2, _ = ball_query.two_scale_group_first_k_packed_idx(0.1, 64, 0.2, 256, pts)
+    mlp = ([torch.rand(6, 32), torch.rand(32, 64), torch.rand(64, 128)], [torch.rand(32), torch.rand(64), torch.rand(128)])
+    feat = pe_fused.pe_fused_v5(planes, idx_p, w1, w2, total2, tuple(pts.unbind(-1)), *mlp, *mlp, 0.1, 0.2, None)
+    assert feat.shape == (2, 256, 256)
     assert dict(LAUNCHES) == before
+
+
+def test_pe_weights_are_folded_once_per_weight_set():
+    """The PE folds (and on the card packs) its MLP weights once; an in-place
+    change of a weight or a move with ``.to()`` makes them anew."""
+    from unopose_tpu_torch.models.matching import FinePositionalEncoding
+
+    pe = FinePositionalEncoding(32, fused=True)
+    first = pe.folded_weights()
+    assert pe.folded_weights() is first and first[2] is None  # packed only for the card
+    with torch.no_grad():
+        pe.mlp2_bn1.var.mul_(4.0)
+    second = pe.folded_weights()
+    assert second is not first and torch.equal(second[1][0][1], pe.folded("mlp2")[0][1])
+    assert not torch.equal(second[1][0][1], first[1][0][1])
+    pe.to(torch.float64)
+    assert pe.folded_weights()[0][0][0].dtype == torch.float64
 
 
 def test_unported_modes_are_refused():
@@ -149,7 +188,6 @@ def test_unported_modes_are_refused():
 
     for key, value in (
         ("feature_extraction.fused_attn", True),
-        ("fine_point_matching.pe_fused", True),
         ("fine_point_matching.pe_neighbor_mode", "subset"),
         ("coarse_point_matching.sim_type", "L2"),
         ("fused_assignment", True),
@@ -163,12 +201,17 @@ def test_unported_modes_are_refused():
         node[leaf] = value
         with pytest.raises(NotImplementedError):
             UNOPose.from_config(cfg)
+    cfg = fused_matcher_config(tiny=True)
+    cfg.geo_embedding.quant_int8 = False
+    with pytest.raises(NotImplementedError):
+        UNOPose.from_config(cfg)
 
 
-def test_profile_tool_fails_without_a_card():
+@pytest.mark.parametrize("config", ["slice", "fused_matchers"])
+def test_profile_tool_fails_without_a_card(config):
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
-    r = subprocess.run([sys.executable, "-m", "unopose_tpu_torch.tools.profile_slice"], cwd=ROOT, env=env,
-                       capture_output=True, text=True, timeout=120)
+    r = subprocess.run([sys.executable, "-m", "unopose_tpu_torch.tools.profile_slice", "--config", config], cwd=ROOT,
+                       env=env, capture_output=True, text=True, timeout=120)
     assert r.returncode != 0 and "no CUDA device" in r.stderr
 
 
@@ -223,3 +266,81 @@ def test_first_k_select_and_gather_kernels_match_plain(cuda):
         for idx in (want["idx_p"], want["idx_p"].to(torch.int32)):
             for a, b in zip(gather.gather_planar_cuda(*planes, idx), gather.gather_planar_plain(*planes, idx)):
                 assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_geo_rpe_kernel_matches_plain(cuda):
+    """int8 codes equal but for one step on at most 0.1% of entries, with
+    bf16 (bf16 model) and float32 (float32 model) contraction."""
+    from unopose_tpu_torch.models.embedding import knn_anchor_vectors
+
+    rng = np.random.default_rng(2)
+    pts = torch.cat([torch.ones(4, 1, 3, device=cuda), _lrf_cloud(rng, 4, 196, cuda)], dim=1)
+    _, ref_vec = knn_anchor_vectors(pts, 3)
+    for D in (256, 32):
+        W, b = torch.randn(D, D, device=cuda) / D**0.5, torch.randn(D, device=cuda) * 0.1
+        tab_d, sd = geo_fused.build_taylor_table(W, b, 18.2, 128)
+        tab_a, sa = geo_fused.build_taylor_table(W.t().contiguous(), b, 12.0, 128)
+        args = (pts, ref_vec, tab_d, tab_a, sd, sa, 0.2, 3.8)
+        for dtype in (torch.bfloat16, torch.float32):
+            (e8, sc) = geo_fused.geo_rpe_fused_cuda(*args, dtype, True)
+            (p8, psc) = geo_fused.geo_rpe_fused_plain(*args, dtype, True)
+            steps = (e8.int() - p8.int()).abs()
+            assert int(steps.max()) <= 1 and steps.gt(0).float().mean().item() <= 1e-3 and torch.equal(sc, psc)
+        with pytest.raises(ValueError):
+            geo_fused.geo_rpe_fused_cuda(*args)
+
+
+@pytest.mark.cuda
+def test_pe_kernels_match_plain(cuda):
+    """Channels: rel xyz bitwise, unequal entries at most twice the plain
+    version's own one-ulp spread; pool (fed the plain channels) within 1e-2
+    of its max."""
+    pts = _lrf_cloud(np.random.default_rng(3), 4, 2048, cuda)
+    planes, idx_p, w1, w2, total2, overflow = ball_query.two_scale_group_first_k_packed_idx(0.1, 64, 0.2, 256, pts)
+    assert not bool(overflow)
+    center = tuple(pts.unbind(-1))
+    got = pe_fused.pe_channels_cuda(planes, idx_p, w1, w2, total2, center, 0.1, 0.2)
+    want = pe_fused.pe_channels_plain(planes, idx_p, w1, w2, total2, center, 0.1, 0.2)
+    up = lambda x: torch.nextafter(x, torch.full_like(x, float("inf")))
+    nudged = pe_fused.pe_channels_plain(tuple(map(up, planes)), idx_p, w1, w2, total2, tuple(map(up, center)), 0.1, 0.2)
+    need = torch.arange(256, device=cuda)[None, None, :] < (pe_fused.chunks_needed(total2, 256) * 64)[..., None]
+    g, w, n = got[need].float(), want[need].float(), nudged[need].float()
+    assert torch.equal(g[:, [0, 1, 2, 6, 7, 8]], w[:, [0, 1, 2, 6, 7, 8]])
+    assert (g != w).sum() <= 2 * (n != w).sum()
+    mlp = [([torch.randn(6, 32, device=cuda) * 0.3, torch.randn(32, 64, device=cuda) * 0.3,
+             torch.randn(64, 128, device=cuda) * 0.3], [torch.randn(d, device=cuda) * 0.1 for d in (32, 64, 128)])
+           for _ in range(2)]
+    pooled = pe_fused.pe_mlp_pool_cuda(want, w1, w2, total2, pe_fused.pack_mlp(*mlp))
+    ref = pe_fused.pe_mlp_pool_plain(want, w1, w2, total2, *mlp)
+    assert (pooled - ref).abs().max().item() <= 1e-2 * ref.abs().max().item()
+
+
+@pytest.mark.cuda
+def test_pe_kernels_match_plain_on_surfaces(cuda):
+    """On sphere surfaces with points in all four 64-slot tiers (the 3- and
+    4-chunk loops run), where the local frames are well conditioned: at
+    least 99.9% of the needed channel entries within one bf16 ulp of the
+    plain version's, none more than 2^-5 off (two ulps at the channels'
+    largest magnitude, 2); pool (fed the plain channels) within 1e-2 of its
+    max."""
+    perm, _ = ball_query.permutation(2048, "cpu")
+    pts = torch.from_numpy(surface_clouds(np.random.default_rng(4), 4, perm.numpy())).to(cuda)
+    planes, idx_p, w1, w2, total2, overflow = ball_query.two_scale_group_first_k_packed_idx(0.1, 64, 0.2, 256, pts)
+    chunks = pe_fused.chunks_needed(total2, 256)
+    assert not bool(overflow) and torch.bincount(chunks.flatten(), minlength=5)[1:].min().item() >= 1000
+    center = tuple(pts.unbind(-1))
+    got = pe_fused.pe_channels_cuda(planes, idx_p, w1, w2, total2, center, 0.1, 0.2)
+    want = pe_fused.pe_channels_plain(planes, idx_p, w1, w2, total2, center, 0.1, 0.2)
+    need = torch.arange(256, device=cuda)[None, None, :] < (chunks * 64)[..., None]
+    g, w = got[need].float(), want[need].float()
+    _, e = torch.frexp(torch.maximum(g.abs(), w.abs()))
+    diff = (g - w).abs()
+    assert (diff <= torch.ldexp(torch.ones_like(diff), e - 8)).float().mean().item() >= 0.999
+    assert diff.max().item() <= 2.0**-5
+    mlp = [([torch.randn(6, 32, device=cuda) * 0.3, torch.randn(32, 64, device=cuda) * 0.3,
+             torch.randn(64, 128, device=cuda) * 0.3], [torch.randn(d, device=cuda) * 0.1 for d in (32, 64, 128)])
+           for _ in range(2)]
+    pooled = pe_fused.pe_mlp_pool_cuda(want, w1, w2, total2, pe_fused.pack_mlp(*mlp))
+    ref = pe_fused.pe_mlp_pool_plain(want, w1, w2, total2, *mlp)
+    assert (pooled - ref).abs().max().item() <= 1e-2 * ref.abs().max().item()

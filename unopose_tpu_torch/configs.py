@@ -1,4 +1,4 @@
-"""What the port runs: the slice's model configuration and its synthetic inputs.
+"""What the port runs: the two model configurations and their synthetic inputs.
 
 ``slice_config()`` is the model section of the JAX package's
 ``configs/main_cfg.py:get_cfg()`` with the four switches that keep the
@@ -11,9 +11,13 @@ inference path off the TPU-only kernels, and ``use_ref_rad=False``:
   plain MLP;
 - ``fused_assignment=False``: the materialised fine solver.
 
+``fused_matcher_config()`` turns the fused geometric embedding and the fused
+PE back on, as in production.
+
 The values are written out here so that the port never imports the JAX
-package; ``tests/test_torch_package.py`` holds them equal to ``get_cfg()``
-(and ``get_tiny_cfg``) with the switches applied. Only the keys the model
+package; ``tests/test_torch_package.py`` and ``tests/test_torch_fused.py``
+hold them equal to ``get_cfg()`` (and ``get_tiny_cfg``) with the switches
+applied. Only the keys the model
 reads are kept: the data, training and checkpoint settings stay in the JAX
 package.
 """
@@ -61,7 +65,10 @@ def slice_config(tiny: bool = False) -> Config:
             vit_type="vit_base_patch14_reg4_dinov2", up_type="linear", embed_dim=768, out_dim=256,
             use_pyramid_feat=True, img_size=FULL_SIZES["img"], fused_attn=False,
         ),
-        geo_embedding=dict(sigma_d=0.2, sigma_a=15, angle_k=3, reduction_a="max", hidden_dim=256, fused_table=0),
+        geo_embedding=dict(
+            sigma_d=0.2, sigma_a=15, angle_k=3, reduction_a="max", hidden_dim=256, fused_table=0,
+            quant_int8=True,  # get_cfg()'s value; read only by the fused embedding
+        ),
         coarse_point_matching=dict(
             nblock=3, input_dim=256, hidden_dim=256, out_dim=256, temp=0.1, sim_type="cosine",
             normalize_feat=True, nproposal1=6000, nproposal2=300,
@@ -81,6 +88,53 @@ def slice_config(tiny: bool = False) -> Config:
             cfg[k].update(input_dim=32, hidden_dim=32, out_dim=32)
         cfg.coarse_point_matching.update(nproposal1=100, nproposal2=20)
     return cfg
+
+
+def fused_matcher_config(tiny: bool = False) -> Config:
+    """``slice_config(tiny)`` with the fused matchers of the production config
+    on: the fused int8 geometric embedding (``geo_embedding.fused_table=128``,
+    ``quant_int8=True``, kernel ``geo_rpe``) and the fused PE-v5
+    (``fine_point_matching.pe_fused=True``, kernels ``pe_channels`` and
+    ``pe_mlp_pool``). That is ``get_cfg()`` with only ``fused_attn=False``
+    and ``fused_assignment=False``."""
+    cfg = slice_config(tiny)
+    cfg.geo_embedding.update(fused_table=128, quant_int8=True)
+    cfg.fine_point_matching.pe_fused = True
+    return cfg
+
+
+def surface_clouds(rng: np.random.Generator, batch: int, perm: np.ndarray) -> np.ndarray:
+    """(batch, 2048, 3) float32 clouds on four spheres of 512 points each,
+    for the fused PE's kernel checks: unlike the uniform clouds of
+    ``synthetic_inputs`` their neighbourhoods are 2-D surfaces, as on depth
+    maps, and the spheres' radii put each sphere's points in a different
+    64-slot tier of the 0.2 m scale (~40, ~96, ~160 and ~216 hits, from
+    n r^2 / (4 R^2) on a sphere). Each sphere is a Fibonacci lattice, turned
+    at random, jittered tangentially by 1/5 of its spacing and radially by
+    0.5 mm. ``perm`` is the PE's candidate permutation
+    (``ops/ball_query.py:permutation``): lattice point k of a sphere is put
+    in permuted chunk k % 4, so that every neighbourhood's hits spread evenly
+    over the four 64-hit chunk budgets and the packed grouping never
+    overflows."""
+    n_sphere, r2 = 512, 0.2
+    hits = np.array([40.0, 96.0, 160.0, 216.0])
+    radii = r2 * np.sqrt(n_sphere / (4.0 * hits))
+    centres = np.array([[-0.6, -0.6, 0.6], [0.6, -0.6, 0.6], [-0.6, 0.6, 0.6], [0.6, 0.6, 0.6]])
+    k = np.arange(n_sphere)
+    z = 1.0 - (2.0 * k + 1.0) / n_sphere
+    phi = k * np.pi * (3.0 - np.sqrt(5.0))
+    unit = np.stack([np.sqrt(1.0 - z * z) * np.cos(phi), np.sqrt(1.0 - z * z) * np.sin(phi), z], axis=-1)
+    chunk, quarter = k % 4, n_sphere // 4
+    out = np.empty((batch, 4 * n_sphere, 3), np.float32)
+    for b in range(batch):
+        for s, (R, c) in enumerate(zip(radii, centres)):
+            q, _ = np.linalg.qr(rng.normal(size=(3, 3)))
+            u = unit @ q.T + rng.normal(scale=0.2 * np.sqrt(4.0 * np.pi / n_sphere), size=unit.shape)
+            u /= np.linalg.norm(u, axis=-1, keepdims=True)
+            p = c + u * (R + rng.normal(scale=5e-4, size=(n_sphere, 1)))
+            # permuted position of lattice point k: chunk k % 4, sphere s's quarter of that chunk
+            out[b, perm[chunk * 4 * quarter + s * quarter + k // 4]] = p
+    return out
 
 
 def synthetic_inputs(rng: np.random.Generator, batch: int, tiny: bool = False) -> dict:

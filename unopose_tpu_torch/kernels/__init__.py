@@ -2,9 +2,11 @@
 
 ``csrc/`` holds the sources; ``build.load()`` compiles them at first use.
 The Python wrappers live beside their plain PyTorch twins in ``ops/``:
-``ops/fps.py:fps_cuda``, ``ops/gather.py:gather_planar_cuda`` and
-``ops/ball_query.py:first_k_select_cuda``. Each wrapper counts its
-launches in ``LAUNCHES`` under its kernel's name.
+``ops/fps.py:fps_cuda``, ``ops/gather.py:gather_planar_cuda``,
+``ops/ball_query.py:first_k_select_cuda``,
+``ops/geo_fused.py:geo_rpe_fused_cuda``, ``ops/pe_fused.py:pe_channels_cuda``
+and ``ops/pe_fused.py:pe_mlp_pool_cuda``. Each wrapper counts its launches
+in ``LAUNCHES`` under its kernel's name.
 """
 
 from __future__ import annotations

@@ -1,7 +1,8 @@
 """Build and load the hand-written CUDA kernels (``csrc/*.cu``).
 
-The sources are compiled at first use with ``nvcc`` into one shared library
-with a plain C interface, cached under ``kernels/_build/`` by a hash of the
+The sources are compiled at first use with ``nvcc``, one process per source
+started together, and linked into one shared library with a plain C
+interface, cached under ``kernels/_build/`` by a hash of the
 sources and flags, and loaded with ``ctypes``. Every entry point takes raw
 device pointers and the CUDA stream as integers and returns the
 ``cudaError_t`` of its launch; :func:`check` turns a non-zero code into an
@@ -22,14 +23,18 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 CUDA_ROOTS = ("/usr/local/cuda",)
+# -fmad=false for every source: the kernels repeat their plain PyTorch twins'
+# float32 arithmetic one rounded operation at a time (FPS and the select
+# bit for bit, the embedding and the LRF channels to the last bit but for
+# the order of the slot sums); tensor-core products are unaffected.
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-fmad=false", "-Xptxas", "-v",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-fmad=false", "-Xptxas", "-v", "-Xcompiler", "-fPIC",
 )
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 _SIGNATURES = {
     "unopose_fps": [_P, _P, _I, _I, _I, _P],
     "unopose_gather_planar": [_P, _P, _P, _P, _I, _P, _P, _P, _I, _I, ctypes.c_longlong, _P],
@@ -37,6 +42,12 @@ _SIGNATURES = {
     "unopose_first_k_select": [_P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_float, ctypes.c_float]
     + [_P] * 8
     + [_P],
+    # pts, ref_vec, tab_d, tab_a, qscale, out, B, N, k, T, D, bf16_weights, sd, sa, factor_a, stream
+    "unopose_geo_rpe": [_P] * 6 + [_I] * 6 + [_F] * 3 + [_P],
+    # xp, yp, zp, idx_p, w1, w2, total2, cx, cy, cz, out, B, N, P, S2, r1, r2, 1/r1, 1/r2, stream
+    "unopose_pe_channels": [_P] * 11 + [_I] * 4 + [_F] * 4 + [_P],
+    # chans, w1, w2, total2, wpack, bpack, out, points, S2, stream
+    "unopose_pe_mlp_pool": [_P] * 7 + [ctypes.c_longlong, _I, _P],
 }
 
 _lock = threading.Lock()
@@ -71,16 +82,37 @@ def library_path() -> Path:
     return BUILD_DIR / f"libunopose_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _run(procs: list[tuple[list[str], subprocess.Popen]]) -> str:
+    """Wait for every compiler process; raise on the first that failed."""
+    logs, failed = [], None
+    for cmd, proc in procs:
+        out, _ = proc.communicate()
+        logs.append(out)
+        if proc.returncode != 0 and failed is None:
+            failed = f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{out}"
+    if failed:
+        raise KernelBuildError(failed)
+    return "".join(logs)
+
+
+def _start(cmd: list[str]) -> tuple[list[str], subprocess.Popen]:
+    return cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
 def _compile(target: Path) -> str:
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = target.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
+    objs = [target.with_suffix(f".{src.stem}.{os.getpid()}.o") for src in _sources()]
+    try:
+        log = _run([_start([nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(src)]) for src, o in zip(_sources(), objs)])
+        log += _run([_start([nvcc, "-shared", "-o", str(tmp), *map(str, objs)])])
+    except BaseException:
         tmp.unlink(missing_ok=True)
-        raise KernelBuildError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{log}")
+        raise
+    finally:
+        for o in objs:
+            o.unlink(missing_ok=True)
     os.replace(tmp, target)  # atomic: a concurrent loader never sees a partial file
     return log
 

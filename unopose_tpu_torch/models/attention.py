@@ -71,9 +71,16 @@ class RPEMultiHeadAttention(nn.Module):
         self.proj_p = FoldedPosProj(d_model, num_heads, dtype)
 
     def forward(self, q_in, k_in, v_in, embed_qk):
+        """``embed_qk`` is (B, N, M, C), or the fused embedding's (e, scale)
+        with e holding int8 codes (already in the model dtype, see
+        ``UNOPose.forward``) and scale (C,) the per-channel dequant factor,
+        which is folded into q-tilde."""
         h = self.num_heads
         q, k, v = (_heads(p(x), h) for p, x in ((self.proj_q, q_in), (self.proj_k, k_in), (self.proj_v, v_in)))
         qt, qb = self.proj_p(q)
+        if isinstance(embed_qk, tuple):
+            embed_qk, esc = embed_qk
+            qt = qt * esc.to(self.dtype)[None, None, None, :]
         scores_p = torch.einsum("bhnd,bnmd->bhnm", qt, embed_qk.to(self.dtype)) + qb[..., None]
         scores = (torch.matmul(q, k.transpose(-1, -2)) + scores_p) / (q.shape[-1] ** 0.5)
         attn = torch.softmax(scores.float(), dim=-1).to(self.dtype)

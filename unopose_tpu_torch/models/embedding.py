@@ -1,6 +1,7 @@
-"""Geometric structure embedding (counterpart of ``unopose_tpu/models/embedding.py``
-on its XLA path, ``fused_table=0``): pairwise-distance and k-NN angle
-sinusoids, each through a learned projection, max over the k angles."""
+"""Geometric structure embedding (counterpart of ``unopose_tpu/models/embedding.py``):
+pairwise-distance and k-NN angle sinusoids, each through a learned
+projection, max over the k angles; exact (``fused_table=0``) or fused from
+pre-projected tables (``ops/geo_fused.py``)."""
 
 from __future__ import annotations
 
@@ -11,6 +12,7 @@ import torch
 from torch import nn
 
 from unopose_tpu_torch.models.layers import Dense
+from unopose_tpu_torch.ops.geo_fused import build_taylor_table, geo_rpe_fused
 from unopose_tpu_torch.ops.geometry import pairwise_sqdist
 
 
@@ -51,32 +53,54 @@ def sinusoidal_embedding(indices: torch.Tensor, d_model: int, poly_xmax: float |
     return torch.cat([sin_hi, sin_lo, cos_hi, cos_lo], dim=-1)
 
 
+def knn_anchor_vectors(points: torch.Tensor, k: int):
+    """(B, N, 3) -> (pairwise distances (B, N, N), vectors to each point's
+    k nearest other points (B, N, k, 3))."""
+    dist = torch.sqrt(pairwise_sqdist(points, points))
+    knn_idx = torch.topk(-dist, k + 1, dim=-1).indices[..., 1:]  # nearest k, self excluded
+    knn_pts = torch.gather(
+        points[:, None].expand(-1, points.shape[1], -1, -1), 2, knn_idx[..., None].expand(-1, -1, -1, 3)
+    )
+    return dist, knn_pts - points[:, :, None, :]
+
+
 class GeometricStructureEmbedding(nn.Module):
-    """points (B, N, 3) -> embeddings (B, N, N, hidden_dim) in ``dtype``."""
+    """points (B, N, 3) -> embeddings (B, N, N, hidden_dim) in ``dtype``.
+
+    ``fused_table`` > 0 (with ``d_index_max`` set and ``reduction_a="max"``,
+    the JAX package's conditions) takes the fused path of ``ops/geo_fused.py``
+    (the ``geo_rpe`` kernel on the card) on T-point pre-projected tables;
+    with ``quant_int8`` it returns (e8 (B, N, N, D) int8, scale (D,) float32).
+    """
 
     def __init__(self, hidden_dim: int = 256, sigma_d: float = 0.2, sigma_a: float = 15.0, angle_k: int = 3,
-                 reduction_a: str = "max", d_index_max: float | None = None, dtype: torch.dtype = torch.float32):
+                 reduction_a: str = "max", d_index_max: float | None = None, dtype: torch.dtype = torch.float32,
+                 fused_table: int = 0, quant_int8: bool = False):
         super().__init__()
         if reduction_a not in ("max", "mean"):
             raise ValueError(reduction_a)
         self.hidden_dim, self.sigma_d, self.sigma_a = hidden_dim, sigma_d, sigma_a
         self.angle_k, self.reduction_a, self.d_index_max = angle_k, reduction_a, d_index_max
         self.dtype = dtype
+        self.fused_table = fused_table if d_index_max is not None and reduction_a == "max" else 0
+        self.quant_int8 = quant_int8
         self.proj_d = Dense(hidden_dim, hidden_dim, dtype)
         self.proj_a = Dense(hidden_dim, hidden_dim, dtype)
 
-    def forward(self, points: torch.Tensor) -> torch.Tensor:
+    def forward(self, points: torch.Tensor):
         points = points.detach().float()
         k = self.angle_k
         factor_a = 180.0 / (self.sigma_a * math.pi)
-        dist = torch.sqrt(pairwise_sqdist(points, points))
-        d_indices = dist / self.sigma_d
-        knn_idx = torch.topk(-dist, k + 1, dim=-1).indices[..., 1:]  # nearest k, self excluded
-        knn_pts = torch.gather(
-            points[:, None].expand(-1, points.shape[1], -1, -1), 2, knn_idx[..., None].expand(-1, -1, -1, 3)
-        )
-        ref_vec = knn_pts - points[:, :, None, :]  # (B, N, k, 3)
+        dist, ref_vec = knn_anchor_vectors(points, k)
+        if self.fused_table:
+            T = self.fused_table
+            # the raw float32 projections: nn.Linear (out, in) -> the flax (in, out) kernel
+            tab_d, scale_d = build_taylor_table(self.proj_d.weight.t(), self.proj_d.bias, float(self.d_index_max), T)
+            tab_a, scale_a = build_taylor_table(self.proj_a.weight.t(), self.proj_a.bias, float(np.pi * factor_a), T)
+            return geo_rpe_fused(points, ref_vec, tab_d, tab_a, scale_d, scale_a, self.sigma_d, factor_a,
+                                 out_dtype=self.dtype, quantize=self.quant_int8)
 
+        d_indices = dist / self.sigma_d
         ax = points[:, None, :, 0] - points[:, :, None, 0]
         ay = points[:, None, :, 1] - points[:, :, None, 1]
         az = points[:, None, :, 2] - points[:, :, None, 2]

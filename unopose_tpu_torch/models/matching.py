@@ -2,9 +2,9 @@
 ``unopose_tpu/models/matching.py``), inference only.
 
 The fine positional encoding runs the packed first_k path with folded
-BatchNorm and the plain MLP (``pe_fused=False``). ``lax.cond`` on the
-grouping's overflow flag becomes a host branch: one device-to-host sync per
-forward.
+BatchNorm and the plain MLP (``pe_fused=False``) or the fused PE-v5
+(``pe_fused=True``). ``lax.cond`` on the grouping's overflow flag becomes a
+host branch: one device-to-host sync per forward.
 """
 
 from __future__ import annotations
@@ -14,9 +14,14 @@ from torch import nn
 
 from unopose_tpu_torch.models.layers import Dense
 from unopose_tpu_torch.models.transformer import GeometricTransformer, SparseToDenseTransformer
-from unopose_tpu_torch.ops.ball_query import two_scale_group_exact_planar, two_scale_group_first_k_packed
+from unopose_tpu_torch.ops.ball_query import (
+    two_scale_group_exact_planar,
+    two_scale_group_first_k_packed,
+    two_scale_group_first_k_packed_idx,
+)
 from unopose_tpu_torch.ops.geometry import compute_feature_similarity
 from unopose_tpu_torch.ops.lrf import batch_lrf_planar
+from unopose_tpu_torch.ops.pe_fused import pack_mlp, pe_fused_v5
 
 
 def block_outputs(scores, n1: int):
@@ -97,18 +102,20 @@ def folded_scale_planar(center, grouped, r: float, Ws, bs, lrf_w=None, pool_mask
 
 
 class FinePositionalEncoding(nn.Module):
-    """Two-scale local-geometry encoding on the packed first_k path.
+    """Two-scale local-geometry encoding on the packed first_k path, with the
+    plain MLP or, with ``fused``, the fused PE-v5 (``ops/pe_fused.py``: the
+    channels and MLP/pool kernels on the card).
 
     ``last_branch`` records which branch the last forward took: "packed",
-    or "exact" after a grouping overflow.
+    "v5", or "exact" after a grouping overflow.
     """
 
     MLP_DIMS = (32, 64, 128)
 
     def __init__(self, out_dim: int = 256, r1: float = 0.1, r2: float = 0.2, nsample1: int = 64,
-                 nsample2: int = 256):
+                 nsample2: int = 256, fused: bool = False):
         super().__init__()
-        self.r1, self.r2, self.nsample1, self.nsample2 = r1, r2, nsample1, nsample2
+        self.r1, self.r2, self.nsample1, self.nsample2, self.fused = r1, r2, nsample1, nsample2, fused
         for name in ("mlp1", "mlp2"):
             cin = 6
             for i, d in enumerate(self.MLP_DIMS):
@@ -118,6 +125,7 @@ class FinePositionalEncoding(nn.Module):
                 cin = d
         self.mlp3 = Dense(2 * self.MLP_DIMS[-1], out_dim, torch.float32)
         self.last_branch = None
+        self._weights = None  # (key, (mlp1, mlp2, packed)) of folded_weights()
 
     def folded(self, name: str):
         Ws, bs = [], []
@@ -127,6 +135,25 @@ class FinePositionalEncoding(nn.Module):
             Ws.append(W)
             bs.append(b)
         return Ws, bs
+
+    def folded_weights(self):
+        """(mlp1, mlp2, packed): both scales' folded (Ws, bs) and, for the
+        fused PE on the card, their ``pack_mlp`` (else None). Made once per
+        set of weights, not per forward: the key follows the MLP tensors'
+        storage and in-place versions, and ``.to()`` drops it."""
+        tensors = [t for name, t in (*self.named_parameters(), *self.named_buffers()) if name.startswith("mlp1")
+                   or name.startswith("mlp2")]
+        key = tuple((t.data_ptr(), t._version) for t in tensors)
+        if self._weights is None or self._weights[0] != key:
+            with torch.no_grad():
+                mlp1, mlp2 = self.folded("mlp1"), self.folded("mlp2")
+                packed = pack_mlp(mlp1, mlp2) if self.fused and tensors[0].is_cuda else None
+            self._weights = (key, (mlp1, mlp2, packed))
+        return self._weights[1]
+
+    def _apply(self, fn, *args, **kwargs):
+        self._weights = None
+        return super()._apply(fn, *args, **kwargs)
 
     def packed_ok(self, N: int) -> bool:
         k2 = self.nsample2
@@ -141,17 +168,30 @@ class FinePositionalEncoding(nn.Module):
                 f"only the packed first_k PE path is ported (N={N}, nsample2={self.nsample2})"
             )
         center = tuple(pts.unbind(-1))
-        mlp1, mlp2 = self.folded("mlp1"), self.folded("mlp2")
-        g2, w1, _, _, overflow = two_scale_group_first_k_packed(self.r1, self.nsample1, self.r2, self.nsample2, pts)
-        if bool(overflow.item()):
-            self.last_branch = "exact"
-            g1e, g2e = two_scale_group_exact_planar(self.r1, self.nsample1, self.r2, self.nsample2, pts)
-            f1 = folded_scale_planar(center, g1e, self.r1, *mlp1)
-            f2 = folded_scale_planar(center, g2e, self.r2, *mlp2)
+        mlp1, mlp2, packed = self.folded_weights()
+        args = (self.r1, self.nsample1, self.r2, self.nsample2, pts)
+        if self.fused:
+            if N % 128 or self.nsample2 != 256:
+                raise NotImplementedError(
+                    f"pe_fused needs N % 128 == 0 and nsample2 == 256 for PE-v5 (N={N}, nsample2={self.nsample2}); "
+                    "the other fused PE kernels are not ported"
+                )
+            planes, idx_p, w1, w2, total2, overflow = two_scale_group_first_k_packed_idx(*args)
+            if not bool(overflow.item()):
+                self.last_branch = "v5"
+                feat = pe_fused_v5(planes, idx_p, w1, w2, total2, center, *mlp1, *mlp2, self.r1, self.r2, packed)
+                return self.mlp3(feat)
         else:
-            self.last_branch = "packed"
-            f1 = folded_scale_planar(center, g2, self.r1, *mlp1, lrf_w=w1, pool_mask=w1 > 0)
-            f2 = folded_scale_planar(center, g2, self.r2, *mlp2)
+            g2, w1, _, _, overflow = two_scale_group_first_k_packed(*args)
+            if not bool(overflow.item()):
+                self.last_branch = "packed"
+                f1 = folded_scale_planar(center, g2, self.r1, *mlp1, lrf_w=w1, pool_mask=w1 > 0)
+                f2 = folded_scale_planar(center, g2, self.r2, *mlp2)
+                return self.mlp3(torch.cat([f1, f2], dim=-1))
+        self.last_branch = "exact"
+        g1e, g2e = two_scale_group_exact_planar(*args)
+        f1 = folded_scale_planar(center, g1e, self.r1, *mlp1)
+        f2 = folded_scale_planar(center, g2e, self.r2, *mlp2)
         return self.mlp3(torch.cat([f1, f2], dim=-1))
 
 
@@ -170,10 +210,11 @@ class FinePointMatching(nn.Module):
     def __init__(self, nblock: int = 3, input_dim: int = 256, hidden_dim: int = 256, out_dim: int = 256,
                  num_heads: int = 4, temp: float = 0.1, normalize_feat: bool = True,
                  focusing_factor: float = 3.0, pe_radius1: float = 0.1, pe_radius2: float = 0.2,
-                 nsample1: int = 64, nsample2: int = 256, dtype: torch.dtype = torch.float32):
+                 nsample1: int = 64, nsample2: int = 256, pe_fused: bool = False,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.temp, self.normalize_feat, self.dtype = temp, normalize_feat, dtype
-        self.pe = FinePositionalEncoding(hidden_dim, pe_radius1, pe_radius2, nsample1, nsample2)
+        self.pe = FinePositionalEncoding(hidden_dim, pe_radius1, pe_radius2, nsample1, nsample2, pe_fused)
         self.in_proj = Dense(input_dim, hidden_dim, dtype)
         self.out_proj = Dense(hidden_dim, out_dim, dtype)
         self.bg_token = nn.Parameter(torch.randn(1, 1, hidden_dim) * 0.02)

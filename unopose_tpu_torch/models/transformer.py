@@ -29,10 +29,18 @@ class GeometricTransformer(nn.Module):
             setattr(self, f"layer{i}", layer)
 
     def forward(self, feats0, emb0, feats1, emb1):
-        if feats0.shape != feats1.shape or emb0.shape != emb1.shape:
+        """emb0/emb1: (B, N, N, C) embeddings, or (codes, scale) pairs of the
+        int8 embedding sharing one scale object; both stack along the batch."""
+        quantized = isinstance(emb0, tuple)
+        t0, t1 = (emb0[0], emb1[0]) if quantized else (emb0, emb1)
+        if feats0.shape != feats1.shape or t0.shape != t1.shape:
             raise ValueError("both clouds must have the same token count")
+        if quantized and emb0[1] is not emb1[1]:
+            raise ValueError("the two clouds' int8 embeddings must share one scale")
         B = feats0.shape[0]
-        emb = torch.cat([emb0, emb1], dim=0)
+        emb = torch.cat([t0, t1], dim=0)
+        if quantized:
+            emb = (emb, emb0[1])
         for i, block in enumerate(self.blocks):
             layer = getattr(self, f"layer{i}")
             if block == "self":

@@ -2,8 +2,9 @@
 ``train=False`` branch with the materialised fine solver).
 
 features -> global LRF of both clouds -> FPS to ``coarse_npoint`` nodes ->
-geometric embeddings with a bg point at (1, 1, 1) -> coarse matching ->
-coarse hypothesis search -> fine matching -> weighted-SVD fine pose.
+geometric embeddings with a bg point at (1, 1, 1) (exact, or fused and
+int8) -> coarse matching -> coarse hypothesis search -> fine matching
+(packed or fused PE) -> weighted-SVD fine pose.
 """
 
 from __future__ import annotations
@@ -31,13 +32,16 @@ def _require(cond: bool, what: str) -> None:
 
 
 def _check_ported(cfg: Config) -> None:
-    """The port runs the path the JAX package takes off the TPU. A config that
-    forces a TPU-only mode, or another entry point, is refused."""
+    """The port runs the slice's paths: a config that forces a mode whose
+    kernel is not ported yet, or another entry point, is refused. The fused
+    geo embedding (``fused_table`` with ``quant_int8``: its kernel writes
+    int8 only) and the fused PE (``pe_fused``) are ported; their keys select
+    the kernel path directly, with no backend gate."""
     fe, ge, fm = cfg.feature_extraction, cfg.geo_embedding, cfg.fine_point_matching
     _require(fe.get("fused_attn") is not True, "feature_extraction.fused_attn (mha_fused, W8A8, tanh-GELU)")
-    _require(not ge.get("fused_interpret", False), "geo_embedding.fused_interpret (geo_rpe_fused)")
+    _require(not ge.get("fused_table", 0) or ge.get("quant_int8", False),
+             "geo_embedding.fused_table with quant_int8=False (a float or bf16 fused embedding)")
     _require(ge.get("reduction_a", "max") in ("max", "mean"), "geo_embedding.reduction_a")
-    _require(fm.get("pe_fused") is not True, "fine_point_matching.pe_fused (pe_fused_v5)")
     _require(fm.get("pe_packed") is not False, "fine_point_matching.pe_packed=False")
     _require(fm.get("pe_neighbor_mode", "first_k") == "first_k", "pe_neighbor_mode other than first_k")
     _require(not fm.get("parity_gather", False), "fine_point_matching.parity_gather")
@@ -82,6 +86,8 @@ class UNOPose(nn.Module):
             # pairwise distances stay below 2 sqrt(3) (5% slack)
             d_index_max=None if self.use_ref_rad else float(2.1 * np.sqrt(3.0) / sigma_d),
             dtype=dtype,
+            fused_table=ge.get("fused_table", 0),
+            quant_int8=ge.get("quant_int8", False),
         )
         self.coarse_matching = CoarsePointMatching(
             nblock=cm.get("nblock", 3),
@@ -104,6 +110,7 @@ class UNOPose(nn.Module):
             pe_radius2=fm.get("pe_radius2", 0.2),
             nsample1=fm.get("nsample1", 64),
             nsample2=fm.get("nsample2", 256),
+            pe_fused=fm.get("pe_fused", False),
             dtype=dtype,
         )
 
@@ -154,7 +161,16 @@ class UNOPose(nn.Module):
         geo_both = self.geo_embed(
             torch.cat([torch.cat([bg_point, sparse_pm_lrf], dim=1), torch.cat([bg_point, sparse_po_lrf], dim=1)], dim=0)
         )
-        geo_m, geo_o = geo_both[:B], geo_both[B:]
+        if isinstance(geo_both, tuple):
+            # int8 embedding: one scale for both clouds. The codes go to the
+            # model dtype once and serve all six RPE layers; int8 values are
+            # exact in bf16 and float32, so this is numerically identical to
+            # the JAX package's convert fused into each layer's einsum.
+            e, esc = geo_both
+            e = e.to(self.dtype)
+            geo_m, geo_o = (e[:B], esc), (e[B:], esc)
+        else:
+            geo_m, geo_o = geo_both[:B], geo_both[B:]
 
         c_atten, c_score = self.coarse_matching(sparse_fm, geo_m, sparse_fo, geo_o)
         init_R, init_t, init_score = compute_coarse_Rt_overlap(

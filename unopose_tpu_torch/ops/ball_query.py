@@ -173,18 +173,24 @@ def permutation(N: int, device) -> tuple[torch.Tensor, torch.Tensor]:
     return torch.from_numpy(perm).to(device), torch.from_numpy(inv).to(device)
 
 
-def first_k_budget_select(r1: float, k1: int, r2: float, k2: int, pts: torch.Tensor):
-    """Select plus the scale-2 slot gather (``_first_k_budget_select`` with
-    ``global_compact=True``). Returns the select dict plus ``g2`` (three
-    (B, N, k2) pad-filled planes) and the permuted planes."""
+def _select_permuted(r1: float, k1: int, r2: float, k2: int, pts: torch.Tensor):
+    """The select dict on the permuted cloud, plus its (xp, yp, zp) planes."""
     pts = pts.float()
     N = pts.shape[1]
     perm, inv_perm = permutation(N, pts.device)
     pts_p = pts.index_select(1, perm.long())
     sel = first_k_select(pts, pts_p, perm, inv_perm, r1, k1, r2, k2)
-    xp, yp, zp = (t.contiguous() for t in pts_p.unbind(-1))
+    sel.update(inv_perm=inv_perm)
+    return sel, tuple(t.contiguous() for t in pts_p.unbind(-1))
+
+
+def first_k_budget_select(r1: float, k1: int, r2: float, k2: int, pts: torch.Tensor):
+    """Select plus the scale-2 slot gather (``_first_k_budget_select`` with
+    ``global_compact=True``). Returns the select dict plus ``g2`` (three
+    (B, N, k2) pad-filled planes) and the permuted planes."""
+    sel, (xp, yp, zp) = _select_permuted(r1, k1, r2, k2, pts)
     sel["g2"] = gather_planar(xp, yp, zp, sel["idx_p"])
-    sel.update(xp=xp, yp=yp, zp=zp, inv_perm=inv_perm)
+    sel.update(xp=xp, yp=yp, zp=zp)
     return sel
 
 
@@ -207,6 +213,16 @@ def two_scale_group_first_k_packed(r1: float, k1: int, r2: float, k2: int, pts: 
     sel = first_k_budget_select(r1, k1, r2, k2, pts)
     w1, w2 = packed_multiset_weights(sel, k1, k2)
     return sel["g2"], w1, w2, sel["total2"], sel["overflow"]
+
+
+def two_scale_group_first_k_packed_idx(r1: float, k1: int, r2: float, k2: int, pts: torch.Tensor):
+    """``two_scale_group_first_k_packed`` without the slot gather, for the
+    fused PE (``ops/pe_fused.py``), which gathers in its own kernel:
+    ((xp, yp, zp) permuted (B, N) planes, idx_p (B, N, k2) int16 pad-filled
+    permuted slot positions, w1, w2, total2, overflow)."""
+    sel, planes = _select_permuted(r1, k1, r2, k2, pts)
+    w1, w2 = packed_multiset_weights(sel, k1, k2)
+    return planes, sel["idx_p"], w1, w2, sel["total2"], sel["overflow"]
 
 
 def two_scale_group_exact_planar(r1: float, k1: int, r2: float, k2: int, pts: torch.Tensor):

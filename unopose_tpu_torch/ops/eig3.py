@@ -59,9 +59,34 @@ def smallest_eigvec_sym3(A: torch.Tensor) -> torch.Tensor:
     return _eigvec_for(A, lams[..., 0], lams[..., 1])
 
 
-def smallest_eigvec_sym3_planar(a, b, c, d, e, f):
+def _cos_acos_div3_newton(r: torch.Tensor, iters: int = 6) -> torch.Tensor:
+    """cos(arccos(r) / 3) without acos: Newton on the triple-angle cubic
+    4c^3 - 3c = r, whose root lies in [1/2, 1] for r in [-1, 1]."""
+    r = torch.clamp(r, -1.0, 1.0)
+    c = 0.5 + 0.5 * torch.sqrt(torch.clamp_min((r + 1.0) * 0.5, 0.0))
+    for _ in range(iters):
+        f = 4.0 * c * c * c - 3.0 * c - r
+        df = torch.clamp_min(12.0 * c * c - 3.0, 1e-3)
+        c = torch.clamp(c - f / df, 0.5, 1.0)
+    return c
+
+
+def cos_phi_pair(r: torch.Tensor, use_newton: bool = False):
+    """(cos(phi), cos(phi + 2 pi / 3)) for phi = arccos(r) / 3, r in [-1, 1];
+    ``use_newton`` takes the acos-free trisection of the fused PE kernel."""
+    if use_newton:
+        c1 = _cos_acos_div3_newton(r)
+        s1 = torch.sqrt(torch.clamp_min(1.0 - c1 * c1, 0.0))  # sin(phi) >= 0 on [0, pi/3]
+        return c1, -0.5 * c1 - (math.sqrt(3.0) / 2.0) * s1
+    phi = torch.arccos(torch.clamp(r, -1.0, 1.0)) / 3.0
+    return torch.cos(phi), torch.cos(phi + 2.0 * math.pi / 3.0)
+
+
+def smallest_eigvec_sym3_planar(a, b, c, d, e, f, use_newton: bool = False):
     """Planar form for [[a, b, c], [b, d, e], [c, e, f]] given as 6 arrays;
-    returns the three components of the unit smallest eigenvector."""
+    returns the three components of the unit smallest eigenvector.
+    ``use_newton``: the eigenvalues by the acos-free trisection, as the fused
+    PE (``ops/pe_fused.py``) and its kernel compute them."""
     a, b, c, d, e, f = (t.float() for t in (a, b, c, d, e, f))
     p1 = b * b + c * c + e * e
     q = (a + d + f) / 3.0
@@ -72,9 +97,9 @@ def smallest_eigvec_sym3_planar(a, b, c, d, e, f):
     bb, bc, be = b / sp, c / sp, e / sp
     detB = ba * (bd * bf - be * be) - bb * (bb * bf - be * bc) + bc * (bb * be - bd * bc)
     r = torch.clamp(detB / 2.0, -1.0, 1.0)
-    phi = torch.arccos(r) / 3.0
-    l1 = q + 2.0 * p * torch.cos(phi)
-    l3 = q + 2.0 * p * torch.cos(phi + 2.0 * math.pi / 3.0)
+    cp1, cp3 = cos_phi_pair(r, use_newton)
+    l1 = q + 2.0 * p * cp1
+    l3 = q + 2.0 * p * cp3
     l2 = 3.0 * q - l1 - l3
     iso = p2 <= 1e-30
     l1 = torch.where(iso, q, l1)

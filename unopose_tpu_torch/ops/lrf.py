@@ -43,13 +43,15 @@ def global_lrf(pts: torch.Tensor, r_lrf: torch.Tensor | None = None) -> torch.Te
     return torch.einsum("...ij,...mj->...mi", lrf, rel) / r_lrf[..., None, None]
 
 
-def batch_lrf_planar(center, grouped, r_lrf: float, mask=None):
+def batch_lrf_planar(center, grouped, r_lrf: float, mask=None, use_newton: bool = False):
     """Per-neighbourhood LRF coordinates in planar form.
 
     center: (cx, cy, cz) each (B, P); grouped: (gx, gy, gz) each (B, P, M)
     absolute neighbour coordinates; mask: optional (B, P, M) weights (bool
-    or multiset multiplicities) for the moments, votes and sums. Returns
-    (o0, o1, o2) each (B, P, M), divided by r_lrf.
+    or multiset multiplicities) for the moments, votes and sums;
+    ``use_newton``: the acos-free eigenvalues of the fused PE kernel
+    (``_masked_lrf_block_t`` of the JAX package). Returns (o0, o1, o2) each
+    (B, P, M), divided by r_lrf.
     """
     cx, cy, cz = (c.float()[..., None] for c in center)
     gx, gy, gz = (g.float() for g in grouped)
@@ -72,7 +74,8 @@ def batch_lrf_planar(center, grouped, r_lrf: float, mask=None):
             return (t * m).sum(dim=-1)
 
     z0, z1, z2 = smallest_eigvec_sym3_planar(
-        mean(rx * rx), mean(rx * ry), mean(rx * rz), mean(ry * ry), mean(ry * rz), mean(rz * rz)
+        mean(rx * rx), mean(rx * ry), mean(rx * rz), mean(ry * ry), mean(ry * rz), mean(rz * rz),
+        use_newton=use_newton,
     )
 
     cp = -(z0[..., None] * rx + z1[..., None] * ry + z2[..., None] * rz)

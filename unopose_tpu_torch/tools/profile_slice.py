@@ -1,9 +1,11 @@
-"""Where the time goes in the full-width slice on one CUDA card.
+"""Where the time goes in a full-width configuration on one CUDA card.
 
-    python -m unopose_tpu_torch.tools.profile_slice [--batches 8] [--warmup 2] [--seed 0] [--out FILE]
+    python -m unopose_tpu_torch.tools.profile_slice [--config slice|fused_matchers] [--batches 8]
+        [--warmup 2] [--seed 0] [--out FILE]
 
-Runs the slice as ``chip_smoke.py`` does (``configs.slice_config()``, bf16,
-seeded random weights, synthetic batches of 16 pairs) and reports:
+Runs a configuration as ``chip_smoke.py`` does (``configs.slice_config()``,
+the default, or ``configs.fused_matcher_config()``; bf16, seeded random
+weights, synthetic batches of 16 pairs) and reports:
 
 - per stage of ``UNOPose.forward``, the median device time over the steady
   batches (CUDA events recorded around the stage) and its share of the
@@ -14,8 +16,11 @@ seeded random weights, synthetic batches of 16 pairs) and reports:
   time of the hand-written kernels;
 - the card's name, power limit, SM clock and power draw after the run.
 
-Stages nest: 1a and 1b lie inside 1, 7a inside 7 and 7b inside 7a. With
-``--out`` the report is also written there as JSON.
+Stages nest: 1a and 1b lie inside 1, 7a inside 7, and 7b and 7c inside 7a.
+Stage 4 is the exact embedding or the fused int8 one (kernel geo_rpe); 7b is
+the grouping (with the slot gather on the slice path, without it on the
+fused path); 7c, on the fused path only, is PE-v5 (kernels pe_channels and
+pe_mlp_pool). With ``--out`` the report is also written there as JSON.
 """
 
 from __future__ import annotations
@@ -32,7 +37,8 @@ import numpy as np
 import torch
 
 BATCH = 16
-OURS = ("fps_kernel", "first_k_select_kernel", "gather_planar_kernel")
+OURS = ("fps_kernel", "first_k_select_kernel", "gather_planar_kernel", "geo_rpe_kernel", "pe_channels_kernel",
+        "pe_mlp_pool_kernel")
 
 
 def _timed(name: str, fn, marks: list):
@@ -56,7 +62,7 @@ def instrument(model, marks: list) -> None:
     for name, mod in (
         ("1 encoder: ViT x2, upscaler, pixel gather, template FPS", model.encoder),
         ("1a ViT x2 + upscaler", model.encoder.rgb_net),
-        ("4 exact geometric embedding", model.geo_embed),
+        ("4 geometric embedding", model.geo_embed),
         ("5 coarse matcher", model.coarse_matching),
         ("7 fine matching: PE, blocks, similarity", model.fine_matching),
         ("7a fine PE", model.fine_matching.pe),
@@ -68,6 +74,8 @@ def instrument(model, marks: list) -> None:
         (un, "sample_pts_feats_wlrf", "3 FPS 2048->196 + gathers, both clouds"),
         (un, "compute_coarse_Rt_overlap", "6 coarse solver"),
         (mm, "two_scale_group_first_k_packed", "7b first_k select + slot gather + weights"),
+        (mm, "two_scale_group_first_k_packed_idx", "7b first_k select + weights (index grouping)"),
+        (mm, "pe_fused_v5", "7c PE-v5: channels + MLP/pool kernels"),
         (un, "compute_fine_Rt_overlap", "8 fine solver"),
     ):
         setattr(module, attr, _timed(name, getattr(module, attr), marks))
@@ -112,6 +120,7 @@ def kernel_summary(prof, wall_ms: float) -> dict:
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--config", choices=("slice", "fused_matchers"), default="slice")
     parser.add_argument("--batches", type=int, default=8)
     parser.add_argument("--warmup", type=int, default=2)
     parser.add_argument("--seed", type=int, default=0)
@@ -120,12 +129,13 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("profile_slice: no CUDA device", file=sys.stderr)
         return 1
-    from unopose_tpu_torch.configs import slice_config, synthetic_inputs
+    from unopose_tpu_torch.configs import fused_matcher_config, slice_config, synthetic_inputs
     from unopose_tpu_torch.models import UNOPose
 
     dev = torch.device("cuda", 0)
     torch.manual_seed(args.seed)
-    model = UNOPose.from_config(slice_config(), torch.bfloat16, torch.bfloat16).to(dev).eval()
+    cfg = slice_config() if args.config == "slice" else fused_matcher_config()
+    model = UNOPose.from_config(cfg, torch.bfloat16, torch.bfloat16).to(dev).eval()
     gen = torch.Generator(device=dev)
     gen.manual_seed(args.seed)
     rng = np.random.default_rng(args.seed)
@@ -165,10 +175,10 @@ def main() -> int:
     ).stdout.strip()
 
     report = dict(
-        card=card, batch=BATCH, walls_ms=walls, steady_ms=steady, pairs_per_s=BATCH * 1e3 / steady,
+        config=args.config, card=card, batch=BATCH, walls_ms=walls, steady_ms=steady, pairs_per_s=BATCH * 1e3 / steady,
         stages_ms={name: float(np.median(v)) for name, v in sorted(stages.items())}, profiled=summary,
     )
-    print(f"card (name, power limit, SM clock, power draw): {card}")
+    print(f"config {args.config}; card (name, power limit, SM clock, power draw): {card}")
     print(f"batch walls ms {[round(w, 3) for w in walls]}; steady median {steady:.3f} ms, "
           f"{report['pairs_per_s']:.1f} pairs/s")
     for name, ms in report["stages_ms"].items():
