@@ -20,21 +20,31 @@ Phases, each fatal on failure:
    ulp up), and sphere surfaces with over 1000 points in each of the four
    tiers (99.9% of entries within one bf16 ulp, none more than 2^-5 off);
    on both the rel xyz channels bitwise equal and the MLP/pool, fed the
-   plain channels, within 1e-2 of the output's max;
+   plain channels, within 1e-2 of the output's max; the production path's
+   fused attention (32 x 261 x 768 bf16, read in place from the qkv output;
+   at least 99% of outputs bitwise equal, none more than one bf16 ulp of its
+   row's largest output off; also the tiny hd 16 and the float32 variant)
+   and the three sweeps of the fused assignment (16 pairs of 2049 x 2049,
+   C 256), each sweep fed the plain twin's inputs, then the whole chain
+   (labels equal on at least 99.9% of rows, weights and soft targets within
+   1e-4 of their max on the rows whose labels agree);
 4. one forced grouping overflow, through the plain and the fused PE: both
    must take the exact fallback (and with it the gather kernel), whose
    grouping equals the CPU plain version's;
-5. the float32 slice and fused-matcher configs at a tiny width on the card
-   (kernels) against the CPU (plain versions), same weights and draws: FPS
-   indices and int8 embedding codes equal, the coarse attention within 1e-3
-   of its max, the coarse scores within 1e-4, the fine scores' median error
-   under 5e-3 and 95th percentile under 5e-2 (the CPU slice tests' gates);
-6. the two main paths at full width (ViT-B/14-reg4 at 224 px, 2048-point
+5. the float32 slice, fused-matcher and production configs at a tiny width
+   on the card (kernels) against the CPU (plain versions), same weights and
+   draws: FPS indices and int8 embedding codes equal, the coarse attention
+   within 1e-3 of its max, the coarse scores within 1e-4, the fine scores'
+   median error under 5e-3 and 95th percentile under 5e-2 (the CPU slice
+   tests' gates); on the production config also the fused assignment's
+   labels on the CPU's projections (99% equal);
+6. the three main paths at full width (ViT-B/14-reg4 at 224 px, 2048-point
    clouds, a 5000-point template, 6000/300 hypotheses, bf16, seeded random
-   weights, batches of 16 pairs): ``slice_config()`` for 2 batches, then
-   ``fused_matcher_config()`` for ``--batches``; finite,
-   orthonormal poses; the launch counts are zeroed just before each path
-   and read just after, and every kernel of the path must have launched.
+   weights, batches of 16 pairs): ``slice_config()`` and
+   ``fused_matcher_config()`` for 2 batches each, then
+   ``production_config()`` for ``--batches``; finite, orthonormal poses;
+   the launch counts are zeroed just before each path and read just after,
+   and every kernel of the path must have launched.
 
 Log lines are prefixed with the card's name and power limit. Before the
 last line come one JSON line with the kernels' results and the raw
@@ -55,9 +65,12 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 BATCH = 16
-SLICE_BATCHES = 2  # full-width batches of the slice path; the fused-matcher path takes --batches
+EARLY_BATCHES = 2  # full-width batches of the slice and fused-matcher paths; production takes --batches
 # published H100 SXM peaks (dense): HBM bytes/s, float32 FFMA and bf16 tensor-core FLOP/s
 HBM_BPS, F32_FLOPS, BF16_FLOPS = 3.35e12, 67e12, 989e12
+# exponentials per second: 16 special-function results per clock per SM (CUDA programming guide,
+# compute capability 9.0) x 132 SMs x the 1980 MHz boost clock
+SFU_RATE = 16 * 132 * 1.98e9
 # which TPU kernel each hand-written kernel replaces, and its source
 KERNELS = {
     "fps": ("unopose_tpu_torch/kernels/csrc/fps.cu", "unopose_tpu/ops/fps.py:80"),
@@ -66,10 +79,16 @@ KERNELS = {
     "geo_rpe": ("unopose_tpu_torch/kernels/csrc/geo_rpe.cu", "unopose_tpu/ops/geo_fused.py:194"),
     "pe_channels": ("unopose_tpu_torch/kernels/csrc/pe_channels.cu", "unopose_tpu/ops/pe_fused.py:1000"),
     "pe_mlp_pool": ("unopose_tpu_torch/kernels/csrc/pe_mlp_pool.cu", "unopose_tpu/ops/pe_fused.py:1034"),
+    "mha_fused": ("unopose_tpu_torch/kernels/csrc/vit_attn.cu", "unopose_tpu/ops/vit_attn.py:53"),
+    "fine_assign_colstats": ("unopose_tpu_torch/kernels/csrc/fine_assign.cu", "unopose_tpu/ops/assignment_fused.py:48"),
+    "fine_assign_labels": ("unopose_tpu_torch/kernels/csrc/fine_assign.cu", "unopose_tpu/ops/assignment_fused.py:83"),
+    "fine_assign_accum": ("unopose_tpu_torch/kernels/csrc/fine_assign.cu", "unopose_tpu/ops/assignment_fused.py:122"),
 }
+FUSED = ("fps", "first_k_select", "geo_rpe", "pe_channels", "pe_mlp_pool")
 PATH_KERNELS = {
     "slice": ("fps", "first_k_select", "gather_planar"),
-    "fused_matchers": ("fps", "first_k_select", "geo_rpe", "pe_channels", "pe_mlp_pool"),
+    "fused_matchers": FUSED,
+    "production": FUSED + ("mha_fused", "fine_assign_colstats", "fine_assign_labels", "fine_assign_accum"),
 }
 
 
@@ -106,10 +125,11 @@ def cuda_ms(fn, reps: int = 5) -> float:
     return float(np.median(times))
 
 
-def bound(nbytes: float, flops: float, peak_flops: float) -> dict:
+def bound(nbytes: float, flops: float, peak_flops: float, exps: float = 0.0) -> dict:
     """The least time the card could take: bytes moved over the HBM rate or
-    operations over the peak rate for their type, whichever is larger."""
-    t_bytes, t_ops = nbytes / HBM_BPS * 1e3, flops / peak_flops * 1e3
+    operations over the peak rate for their type (the tensor-core or float32
+    operations, or the exponentials over ``SFU_RATE``), whichever is larger."""
+    t_bytes, t_ops = nbytes / HBM_BPS * 1e3, max(flops / peak_flops, exps / SFU_RATE) * 1e3
     return dict(bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -283,6 +303,141 @@ def check_fused_kernels(log, dev, seed: int) -> dict:
     return results
 
 
+def ulp_bf16(x):
+    """One bf16 step at |x| (float32 tensor)."""
+    import torch
+
+    _, e = torch.frexp(x.abs())
+    return torch.ldexp(torch.ones_like(x), e - 8)
+
+
+def check_production_kernels(log, dev, seed: int) -> dict:
+    """Phase 3, the production path's kernels: K7 (fused attention) and
+    K8-K10 (the fused assignment's three sweeps) at the main path's shapes."""
+    import torch
+    import torch.nn.functional as F
+
+    from unopose_tpu_torch.ops import assignment_fused as af
+    from unopose_tpu_torch.ops.geometry import compute_feature_similarity
+    from unopose_tpu_torch.ops.solver import compute_fine_Rt_overlap
+    from unopose_tpu_torch.ops.vit_attn import mha_fused_cuda, mha_fused_plain
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 5)
+    results = {}
+
+    # K7: the ViT-B attention of a 16-pair batch, 32 images x 261 tokens, 12 heads, read from the qkv output
+    B2, N, H, hd = 2 * BATCH, 261, 12, 64
+    D = H * hd
+    with torch.no_grad():
+        qkv = torch.randn(B2, N, 3 * D, device=dev, generator=gen).to(torch.bfloat16)
+        q, k, v = qkv.split(D, dim=-1)
+        got, want = mha_fused_cuda(q, k, v, H).float(), mha_fused_plain(q, k, v, H).float()
+        torch.cuda.synchronize()
+        equal = (got == want).float().mean().item()
+        diff = (got - want).abs()
+        ulps = (diff / ulp_bf16(torch.maximum(got.abs(), want.abs()).clamp_min(2.0**-126))).max().item()
+        row_ulps = (diff / ulp_bf16(want.abs().amax(dim=-1, keepdim=True))).max().item()
+        err = diff.max().item()
+        ms, plain_ms = cuda_ms(lambda: mha_fused_cuda(q, k, v, H)), cuda_ms(lambda: mha_fused_plain(q, k, v, H), reps=3)
+        qh, kh, vh = (x.reshape(B2, N, H, hd).transpose(1, 2).contiguous() for x in (q, k, v))
+        library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh))
+        # the tiny config's hd 16 in bf16, and the float32 variant at the main shape
+        small = torch.randn(4, 9, 96, device=dev, generator=gen).to(torch.bfloat16).split(32, dim=-1)
+        s_got, s_want = mha_fused_cuda(*small, 2).float(), mha_fused_plain(*small, 2).float()
+        s_ok = bool(((s_got - s_want).abs() <= ulp_bf16(s_want.abs().amax(dim=-1, keepdim=True))).all())
+        q32, k32, v32 = (x.float() for x in (q, k, v))
+        f_err = ((mha_fused_cuda(q32, k32, v32, H) - mha_fused_plain(q32, k32, v32, H)).abs().max()
+                 / want.abs().max()).item()
+    log(f"mha_fused 32x261x768 bf16 (12 heads, in place from qkv): {100 * equal:.4f}% of outputs bitwise equal, "
+        f"max diff {ulps:.0f} bf16 ulps of the output ({row_ulps:.3f} of its row's largest), max |diff| {err:.3e}; "
+        f"hd 16 within a row ulp {s_ok}; float32 variant rel {f_err:.2e}; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+        f"SDPA {library_ms:.3f} ms")
+    if equal < 0.99 or row_ulps > 1.0 or not s_ok or f_err > 1e-5:
+        raise AssertionError("mha_fused kernel differs from the plain version beyond its gates")
+    # reads q, k, v and writes o once; QK^T and PV on the tensor cores
+    results["mha_fused"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                                equal_share=equal, max_ulps=ulps, max_row_ulps=row_ulps,
+                                **bound(4 * B2 * N * D * 2, 2 * 2 * B2 * H * N * N * hd, BF16_FLOPS))
+    del qkv, q, k, v, got, want, diff, qh, kh, vh, q32, k32, v32
+
+    # K8-K10: 16 pairs of 2049 x 2049 at C 256: three quarters of the query rows match a reference row
+    Bp, M, C = BATCH, 2049, 256
+    with torch.no_grad():
+        f2 = torch.randn(Bp, M, C, device=dev, generator=gen)
+        f1 = torch.randn(Bp, M, C, device=dev, generator=gen)
+        match = torch.randperm(M, device=dev, generator=gen)[: 3 * M // 4]
+        f1[:, : len(match)] = f2[:, match] + 0.5 * f1[:, : len(match)]
+        score = torch.rand(Bp, 2 * (M - 1), device=dev, generator=gen)
+        pts1 = torch.rand(Bp, M - 1, 3, device=dev, generator=gen) * 2 - 1
+        pts2 = torch.rand(Bp, M - 1, 3, device=dev, generator=gen) * 2 - 1
+        f1n, f2n, s1, s2 = af.operands(f1, f2, score, 0.1)
+        cm, cs = af.colstats_plain(f1n, f2n)
+        rm, rs, l1, l2 = af.labels_plain(f1n, f2n, cm, cs, s1, s2)
+        largs = (f1n, f2n, cm, cs, s1, s2)
+        aargs = (f1n, f2n, cm, cs, s1, s2, rm, rs, l1, l2, pts2)
+        g_cm, g_cs = af.colstats_cuda(f1n, f2n)
+        g_rm, g_rs, g_l1, g_l2 = af.labels_cuda(*largs)
+        g_w, g_n = af.accum_cuda(*aargs)
+        p_w, p_n = af.accum_plain(*aargs)
+        torch.cuda.synchronize()
+        rel = lambda a, b: ((a - b).abs() / b.abs().clamp_min(1.0)).max().item()
+        stats = dict(cm=rel(g_cm, cm), cs=rel(g_cs, cs), rm=rel(g_rm, rm), rs=rel(g_rs, rs))
+        amax = lambda *pairs: max((a - b).abs().max().item() for a, b in pairs)
+        errs = dict(colstats=amax((g_cm, cm), (g_cs, cs)), labels=amax((g_rm, rm), (g_rs, rs)),
+                    accum=amax((g_w, p_w), (g_n, p_n)))
+        l1_eq, l2_eq = (g_l1 == l1).float().mean().item(), (g_l2 == l2).float().mean().item()
+        w_err = ((g_w - p_w).abs().max() / p_w.abs().max()).item()
+        n_err = ((g_n - p_n).abs().max() / p_n.abs().max()).item()
+        # the whole chain, kernels against plain twins
+        pp, pw, pl = af.fine_assignment_fused_plain(f1, f2, score, pts2)
+        gp, gw, gl = af.fine_assignment_fused_cuda(f1, f2, score, pts2)
+        torch.cuda.synchronize()
+        agree = gl == pl
+        chain_l1 = agree.float().mean().item()
+        chain_w = ((gw - pw).abs()[agree].max() / pw.abs().max()).item()
+        chain_p = ((gp - pp).abs()[agree].max() / pp.abs().max()).item()
+        live = (l1[:, 1:] > 0).sum(1).double() * (l2[:, 1:] > 0).sum(1).double()
+        times = dict(
+            colstats=(cuda_ms(lambda: af.colstats_cuda(f1n, f2n)),
+                      cuda_ms(lambda: af.colstats_plain(f1n, f2n), reps=3)),
+            labels=(cuda_ms(lambda: af.labels_cuda(*largs)), cuda_ms(lambda: af.labels_plain(*largs), reps=3)),
+            accum=(cuda_ms(lambda: af.accum_cuda(*aargs)), cuda_ms(lambda: af.accum_plain(*aargs), reps=3)),
+        )
+        fused_ms = cuda_ms(lambda: af.compute_fine_Rt_overlap_fused(f1, f2, score, pts1, pts2))
+        materialised_ms = cuda_ms(lambda: compute_fine_Rt_overlap(
+            compute_feature_similarity(f1, f2, 0.1, True), score, pts1, pts2), reps=3)
+    log(f"fine_assign 16x2049x2049 C 256, each sweep on the plain twin's inputs: rel err {stats}, label1 equal "
+        f"{100 * l1_eq:.4f}%, label2 equal {100 * l2_eq:.4f}%, weights {w_err:.2e}, numerators {n_err:.2e} of max; "
+        f"chain: label1 equal {100 * chain_l1:.4f}%, weights {chain_w:.2e}, soft targets {chain_p:.2e} of max on "
+        f"agreeing rows; foreground rows {100 * (pl > 0).float().mean().item():.1f}%")
+    log("fine_assign times (kernel, plain ms): " + ", ".join(f"{k} {a:.3f} / {b:.3f}" for k, (a, b) in times.items())
+        + f"; fused solver {fused_ms:.3f} ms, materialised solver (similarity + dual softmax + WSVD) "
+        f"{materialised_ms:.3f} ms")
+    if max(stats.values()) > 1e-5 or min(l1_eq, l2_eq, chain_l1) < 0.999 or max(w_err, n_err, chain_w, chain_p) > 1e-4:
+        raise AssertionError("fine_assign kernels differ from the plain versions beyond their gates")
+    # operands read once (bf16), statistics and labels read or written once; each function needs the
+    # logits once (K9's second sweep is its design's cost, not the function's): 2 B M^2 C bf16
+    # tensor-core operations; K10 needs only the entries of live rows and columns
+    opnd = 2 * Bp * M * C * 2
+    rebuild = 2.0 * Bp * M * M * C
+    ent = float(Bp) * M * M
+    bounds = dict(
+        colstats=bound(opnd + 2 * Bp * M * 4, rebuild, BF16_FLOPS, exps=ent),
+        labels=bound(opnd + 4 * Bp * M * 4 + 2 * Bp * M * 4, rebuild, BF16_FLOPS, exps=3 * ent),
+        accum=bound(opnd + 8 * Bp * M * 4 + Bp * M * 3 * 4 + 4 * Bp * M * 4, 2.0 * C * live.sum().item(), BF16_FLOPS,
+                    exps=2 * live.sum().item()),
+    )
+    for name in ("colstats", "labels", "accum"):
+        results[f"fine_assign_{name}"] = dict(
+            max_abs_err=errs[name], ms=times[name][0], plain_ms=times[name][1], library_ms=None,
+            materialised_solver_ms=materialised_ms, fused_solver_ms=fused_ms, **bounds[name])
+    results["fine_assign_labels"].update(label1_equal=l1_eq, label2_equal=l2_eq)
+    results["fine_assign_accum"].update(chain_label1_equal=chain_l1, chain_weights_rel=chain_w,
+                                        chain_targets_rel=chain_p)
+    return results
+
+
 def pe_kernels(dev, pts, mlp1, mlp2, packed) -> dict:
     """K5 and K6 against their plain versions on one (32, 2048, 3) cloud,
     K6 fed the plain channels; the comparisons cover the slots each point
@@ -374,7 +529,7 @@ def check_tiny(log, dev, seed: int, name: str) -> None:
     from unopose_tpu_torch import configs
     from unopose_tpu_torch.models import UNOPose
 
-    cfg = configs.slice_config(tiny=True) if name == "slice" else configs.fused_matcher_config(tiny=True)
+    cfg = configs.CONFIGS[name](tiny=True)
     torch.manual_seed(seed)
     model = UNOPose.from_config(cfg, torch.float32, torch.float32).eval()
     rng = np.random.default_rng(seed + 2)
@@ -398,11 +553,20 @@ def check_tiny(log, dev, seed: int, name: str) -> None:
         geo_ok = int(geo_diff.max()) == 0 and sc_rel <= 1e-6
         geo_note = (f", int8 embedding entries differing {geo_diff.gt(0).float().mean().item():.2e} "
                     f"(max {int(geo_diff.max())}), scale rel {sc_rel:.2e}")
+    labels_ok, labels_note = True, ""
+    if "fine_proj" in out_cpu:
+        from unopose_tpu_torch.ops.assignment_fused import fine_assignment_fused_cuda, fine_assignment_fused_plain
+
+        args = (*out_cpu["fine_proj"], out_cpu["fine_score"], out_cpu["dense_po"])
+        want = fine_assignment_fused_plain(*args)[2]
+        got = fine_assignment_fused_cuda(*(x.to(dev) for x in args))[2].cpu()
+        share = (got == want).float().mean().item()
+        labels_ok, labels_note = share >= 0.99, f", fused assignment labels on the CPU's projections equal {share:.4f}"
     log(f"tiny fp32 {name}, card vs CPU: FPS indices equal {idx_equal}, coarse atten rel {a_err:.2e}, "
         f"coarse score {s_err:.2e}, fine score median {f_med:.2e} p95 {f_p95:.2e}, "
-        f"PE branch {model.fine_matching.pe.last_branch}{geo_note}")
+        f"PE branch {model.fine_matching.pe.last_branch}{geo_note}{labels_note}")
     if (not idx_equal or a_err > 1e-3 or s_err > 1e-4 or f_med >= 5e-3 or f_p95 >= 5e-2 or not geo_ok
-            or model.fine_matching.pe.last_branch != branch_cpu):
+            or not labels_ok or model.fine_matching.pe.last_branch != branch_cpu):
         raise AssertionError(f"the tiny {name} config on the card disagrees with the CPU plain path")
 
 
@@ -414,7 +578,7 @@ def run_path(log, dev, seed: int, batches: int, name: str) -> dict:
     from unopose_tpu_torch.kernels import LAUNCHES, reset_launch_counts
     from unopose_tpu_torch.models import UNOPose
 
-    cfg = configs.slice_config() if name == "slice" else configs.fused_matcher_config()
+    cfg = configs.CONFIGS[name]()
     torch.manual_seed(seed)
     model = UNOPose.from_config(cfg, torch.bfloat16, torch.bfloat16).to(dev).eval()
     gen = torch.Generator(device=dev)
@@ -459,7 +623,7 @@ def run_path(log, dev, seed: int, batches: int, name: str) -> dict:
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
-    parser.add_argument("--batches", type=int, default=3, help="full-width batches of the fused-matcher path")
+    parser.add_argument("--batches", type=int, default=3, help="full-width batches of the production path")
     args = parser.parse_args()
 
     import torch
@@ -484,12 +648,14 @@ def main() -> int:
 
     results = check_kernels(log, dev, args.seed)
     results.update(check_fused_kernels(log, dev, args.seed))
+    results.update(check_production_kernels(log, dev, args.seed))
     check_overflow(log, dev, args.seed)
     for name in PATH_KERNELS:
         check_tiny(log, dev, args.seed, name)
     runs = {
-        "slice": run_path(log, dev, args.seed, SLICE_BATCHES, "slice"),
-        "fused_matchers": run_path(log, dev, args.seed, args.batches, "fused_matchers"),
+        "slice": run_path(log, dev, args.seed, EARLY_BATCHES, "slice"),
+        "fused_matchers": run_path(log, dev, args.seed, EARLY_BATCHES, "fused_matchers"),
+        "production": run_path(log, dev, args.seed, args.batches, "production"),
     }
 
     kernels = []

@@ -23,7 +23,7 @@ import torch
 
 from unopose_tpu_torch.configs import TINY_SIZES, fused_matcher_config, slice_config, surface_clouds
 from unopose_tpu_torch.kernels import LAUNCHES, build
-from unopose_tpu_torch.ops import ball_query, fps as fps_mod, gather, geo_fused, pe_fused
+from unopose_tpu_torch.ops import assignment_fused, ball_query, fps as fps_mod, gather, geo_fused, pe_fused, vit_attn
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "unopose_tpu_torch"
@@ -36,7 +36,7 @@ def _run(code: str, cwd=ROOT, timeout=120):
 
 
 def test_port_runs_with_jax_unavailable():
-    """Importing and running the port (both tiny float32 configs on the CPU)
+    """Importing and running the port (the three tiny float32 configs on the CPU)
     with ``jax``, ``flax`` and the JAX package blocked in ``sys.modules``."""
     code = """
 import sys
@@ -45,10 +45,10 @@ for name in ("jax", "flax", "unopose_tpu"):
 import numpy as np, torch
 import chip_smoke
 import unopose_tpu_torch.tools.profile_slice
-from unopose_tpu_torch.configs import fused_matcher_config, slice_config, synthetic_inputs
+from unopose_tpu_torch.configs import fused_matcher_config, production_config, slice_config, synthetic_inputs
 from unopose_tpu_torch.models import UNOPose
 from unopose_tpu_torch.utils.convert import flax_to_torch
-for config in (slice_config, fused_matcher_config):
+for config in (slice_config, fused_matcher_config, production_config):
     torch.manual_seed(0)
     model = UNOPose.from_config(config(tiny=True), torch.float32, torch.float32)
     inputs = synthetic_inputs(np.random.default_rng(0), 2, tiny=True)
@@ -140,6 +140,12 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError):
         pe_fused.pe_mlp_pool_cuda(torch.zeros(1, 256, 256, 12, dtype=torch.bfloat16), w1, w2, total2,
                                   pe_fused.pack_mlp(mlp, mlp))
+    qkv = torch.rand(2, 9, 96, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        vit_attn.mha_fused_cuda(*qkv.split(32, dim=-1), 2)
+    feats = torch.rand(1, 65, 32)
+    with pytest.raises(ValueError):
+        assignment_fused.fine_assignment_fused_cuda(feats, feats, torch.rand(1, 128), torch.rand(1, 64, 3))
 
 
 def test_cpu_tensors_take_the_plain_versions(monkeypatch):
@@ -163,6 +169,13 @@ def test_cpu_tensors_take_the_plain_versions(monkeypatch):
     mlp = ([torch.rand(6, 32), torch.rand(32, 64), torch.rand(64, 128)], [torch.rand(32), torch.rand(64), torch.rand(128)])
     feat = pe_fused.pe_fused_v5(planes, idx_p, w1, w2, total2, tuple(pts.unbind(-1)), *mlp, *mlp, 0.1, 0.2, None)
     assert feat.shape == (2, 256, 256)
+    qkv = torch.rand(2, 9, 96, dtype=torch.bfloat16)
+    attn = vit_attn.mha_fused(*qkv.split(32, dim=-1), 2)
+    assert attn.shape == (2, 9, 32) and attn.dtype == torch.bfloat16
+    feats = torch.rand(2, 65, 32)
+    pred_pts, weights, label1 = assignment_fused.fine_assignment_fused(feats, feats, torch.rand(2, 128),
+                                                                       torch.rand(2, 64, 3))
+    assert pred_pts.shape == (2, 64, 3) and weights.shape == (2, 64) and label1.dtype == torch.int32
     assert dict(LAUNCHES) == before
 
 
@@ -187,10 +200,8 @@ def test_unported_modes_are_refused():
     from unopose_tpu_torch.models import UNOPose
 
     for key, value in (
-        ("feature_extraction.fused_attn", True),
         ("fine_point_matching.pe_neighbor_mode", "subset"),
         ("coarse_point_matching.sim_type", "L2"),
-        ("fused_assignment", True),
         ("test_coarse_only", True),
     ):
         cfg = slice_config(tiny=True)
@@ -207,7 +218,7 @@ def test_unported_modes_are_refused():
         UNOPose.from_config(cfg)
 
 
-@pytest.mark.parametrize("config", ["slice", "fused_matchers"])
+@pytest.mark.parametrize("config", ["slice", "fused_matchers", "production"])
 def test_profile_tool_fails_without_a_card(config):
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     r = subprocess.run([sys.executable, "-m", "unopose_tpu_torch.tools.profile_slice", "--config", config], cwd=ROOT,
@@ -344,3 +355,56 @@ def test_pe_kernels_match_plain_on_surfaces(cuda):
     pooled = pe_fused.pe_mlp_pool_cuda(want, w1, w2, total2, pe_fused.pack_mlp(*mlp))
     ref = pe_fused.pe_mlp_pool_plain(want, w1, w2, total2, *mlp)
     assert (pooled - ref).abs().max().item() <= 1e-2 * ref.abs().max().item()
+
+
+@pytest.mark.cuda
+def test_mha_fused_kernel_matches_plain(cuda):
+    """bf16 at the ViT-B shape, read in place from the qkv output, and at the
+    tiny config's hd 16: at least 99% of outputs bitwise equal to the plain
+    twin and none more than one bf16 ulp of its row's largest output off
+    (float32 sums in another order); the float32 variant within 1e-5 of the
+    output's max. An N whose K and V exceed a block's shared memory raises
+    the launcher's error, and the card goes on working."""
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    for B, N, H, hd in ((32, 261, 12, 64), (4, 9, 2, 16)):
+        for dtype in (torch.bfloat16, torch.float32):
+            qkv = torch.randn(B, N, 3 * H * hd, device=cuda, generator=gen).to(dtype)
+            q, k, v = qkv.split(H * hd, dim=-1)
+            got, want = vit_attn.mha_fused_cuda(q, k, v, H).float(), vit_attn.mha_fused_plain(q, k, v, H).float()
+            if dtype == torch.float32:
+                assert (got - want).abs().max() <= 1e-5 * want.abs().max()
+                continue
+            _, e = torch.frexp(want.abs().amax(dim=-1, keepdim=True))
+            assert (got == want).float().mean() >= 0.99
+            assert ((got - want).abs() <= torch.ldexp(torch.ones_like(got), e - 8)).all()
+    big = torch.randn(1, 1024, 3 * 128, device=cuda, generator=gen).to(torch.bfloat16)
+    with pytest.raises(RuntimeError, match="mha_fused"):
+        vit_attn.mha_fused_cuda(*big.split(128, dim=-1), 1)
+    assert torch.ones(4, device=cuda).sum().item() == 4.0
+
+
+@pytest.mark.cuda
+def test_fine_assign_kernels_match_plain(cuda):
+    """Each sweep against its plain twin on the same inputs (two pairs of
+    2049 x 2049 at C 256, and C 32 at 300 x 300): column and row statistics
+    within 1e-5 relative, labels equal on at least 99.9% of rows and columns
+    (near ties under another float32 summation order), sums within 1e-4 of
+    their max."""
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    for B, M, C in ((2, 2049, 256), (2, 300, 32)):
+        f1, f2 = (torch.randn(B, M, C, device=cuda, generator=gen) for _ in range(2))
+        f1[:, : 3 * M // 4] = f2[:, : 3 * M // 4] + 0.5 * f1[:, : 3 * M // 4]
+        score = torch.rand(B, 2 * (M - 1), device=cuda, generator=gen)
+        pts2 = torch.rand(B, M - 1, 3, device=cuda, generator=gen)
+        f1n, f2n, s1, s2 = assignment_fused.operands(f1, f2, score, 0.1)
+        cm, cs = assignment_fused.colstats_plain(f1n, f2n)
+        for a, b in zip(assignment_fused.colstats_cuda(f1n, f2n), (cm, cs)):
+            assert ((a - b).abs() <= 1e-5 * b.abs().clamp_min(1.0)).all()
+        rm, rs, l1, l2 = assignment_fused.labels_plain(f1n, f2n, cm, cs, s1, s2)
+        got = assignment_fused.labels_cuda(f1n, f2n, cm, cs, s1, s2)
+        for a, b in zip(got[:2], (rm, rs)):
+            assert ((a - b).abs() <= 1e-5 * b.abs().clamp_min(1.0)).all()
+        assert (got[2] == l1).float().mean() >= 0.999 and (got[3] == l2).float().mean() >= 0.999
+        args = (f1n, f2n, cm, cs, s1, s2, rm, rs, l1, l2, pts2)
+        for a, b in zip(assignment_fused.accum_cuda(*args), assignment_fused.accum_plain(*args)):
+            assert (a - b).abs().max() <= 1e-4 * b.abs().max()

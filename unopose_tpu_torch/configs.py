@@ -1,4 +1,4 @@
-"""What the port runs: the two model configurations and their synthetic inputs.
+"""What the port runs: the three model configurations and their synthetic inputs.
 
 ``slice_config()`` is the model section of the JAX package's
 ``configs/main_cfg.py:get_cfg()`` with the four switches that keep the
@@ -12,12 +12,17 @@ inference path off the TPU-only kernels, and ``use_ref_rad=False``:
 - ``fused_assignment=False``: the materialised fine solver.
 
 ``fused_matcher_config()`` turns the fused geometric embedding and the fused
-PE back on, as in production.
+PE back on, as in production. ``production_config()`` is ``get_cfg()``'s
+model section with no switch: ``fused_attn``, ``pe_fused`` and
+``fused_assignment`` are left out, which in the port means "on" (the JAX
+package's ``None``, "on for TPU inference"), so the ViT runs ``mha_fused``
+with the W8A8 ``DenseQ`` GEMMs (``int8_gemm=True``) and tanh-GELU, and the
+fine solver runs the three ``fine_assignment_fused`` sweeps.
 
 The values are written out here so that the port never imports the JAX
 package; ``tests/test_torch_package.py`` and ``tests/test_torch_fused.py``
-hold them equal to ``get_cfg()`` (and ``get_tiny_cfg``) with the switches
-applied. Only the keys the model
+and ``tests/test_torch_production.py`` hold them equal to ``get_cfg()`` (and
+``get_tiny_cfg``) with the switches applied. Only the keys the model
 reads are kept: the data, training and checkpoint settings stay in the JAX
 package.
 """
@@ -64,6 +69,7 @@ def slice_config(tiny: bool = False) -> Config:
         feature_extraction=dict(
             vit_type="vit_base_patch14_reg4_dinov2", up_type="linear", embed_dim=768, out_dim=256,
             use_pyramid_feat=True, img_size=FULL_SIZES["img"], fused_attn=False,
+            int8_gemm=True,  # get_cfg()'s value; read only with fused_attn
         ),
         geo_embedding=dict(
             sigma_d=0.2, sigma_a=15, angle_k=3, reduction_a="max", hidden_dim=256, fused_table=0,
@@ -101,6 +107,20 @@ def fused_matcher_config(tiny: bool = False) -> Config:
     cfg.geo_embedding.update(fused_table=128, quant_int8=True)
     cfg.fine_point_matching.pe_fused = True
     return cfg
+
+
+def production_config(tiny: bool = False) -> Config:
+    """``get_cfg()``'s model section with no switch (``use_ref_rad=False``
+    as in the other two): ``fused_matcher_config(tiny)`` without its
+    ``fused_attn``, ``pe_fused`` and ``fused_assignment`` keys, so all three
+    take their "on" default."""
+    cfg = fused_matcher_config(tiny)
+    del cfg.feature_extraction["fused_attn"], cfg.fine_point_matching["pe_fused"], cfg["fused_assignment"]
+    return cfg
+
+
+# the configurations by the name chip_smoke.py and tools/profile_slice.py give them
+CONFIGS = {"slice": slice_config, "fused_matchers": fused_matcher_config, "production": production_config}
 
 
 def surface_clouds(rng: np.random.Generator, batch: int, perm: np.ndarray) -> np.ndarray:

@@ -4,9 +4,11 @@
 The Python wrappers live beside their plain PyTorch twins in ``ops/``:
 ``ops/fps.py:fps_cuda``, ``ops/gather.py:gather_planar_cuda``,
 ``ops/ball_query.py:first_k_select_cuda``,
-``ops/geo_fused.py:geo_rpe_fused_cuda``, ``ops/pe_fused.py:pe_channels_cuda``
-and ``ops/pe_fused.py:pe_mlp_pool_cuda``. Each wrapper counts its launches
-in ``LAUNCHES`` under its kernel's name.
+``ops/geo_fused.py:geo_rpe_fused_cuda``, ``ops/pe_fused.py:pe_channels_cuda``,
+``ops/pe_fused.py:pe_mlp_pool_cuda``, ``ops/vit_attn.py:mha_fused_cuda``
+and the three sweeps of ``ops/assignment_fused.py`` (``colstats_cuda``,
+``labels_cuda``, ``accum_cuda``). Each wrapper counts its launches in
+``LAUNCHES`` under its kernel's name.
 """
 
 from __future__ import annotations

@@ -48,6 +48,14 @@ _SIGNATURES = {
     "unopose_pe_channels": [_P] * 11 + [_I] * 4 + [_F] * 4 + [_P],
     # chans, w1, w2, total2, wpack, bpack, out, points, S2, stream
     "unopose_pe_mlp_pool": [_P] * 7 + [ctypes.c_longlong, _I, _P],
+    # q, k, v, out, B, N, heads, hd, batch stride, row stride, bf16, scale, stream
+    "unopose_mha_fused": [_P] * 4 + [_I] * 4 + [ctypes.c_longlong] * 2 + [_I, _F, _P],
+    # f1n, f2n, cm, cs, B, M1, M2, C, stream
+    "unopose_fine_colstats": [_P] * 4 + [_I] * 4 + [_P],
+    # f1n, f2n, cm, cs, s1, s2, rm, rs, label1, keys, B, M1, M2, C, stream
+    "unopose_fine_labels": [_P] * 10 + [_I] * 4 + [_P],
+    # f1n, f2n, cm, cs, s1, s2, rm, rs, label1, label2, pts2, wsum, num, B, M1, M2, C, stream
+    "unopose_fine_accum": [_P] * 13 + [_I] * 4 + [_P],
 }
 
 _lock = threading.Lock()

@@ -52,14 +52,17 @@ def bilinear_gather(feat_map: torch.Tensor, choose: torch.Tensor, out_size: int)
 
 
 class ViTAE(nn.Module):
-    """ViT pyramid (4 taps concatenated) + linear upscaler to a (4g, 4g) map."""
+    """ViT pyramid (4 taps concatenated) + linear upscaler to a (4g, 4g) map.
+    ``fused_attn`` and ``int8_gemm`` select the ViT's production mode
+    (``models/vit.py``)."""
 
     def __init__(self, vit_type: str, up_type: str = "linear", embed_dim: int = 768, out_dim: int = 256,
-                 use_pyramid_feat: bool = True, img_size: int = 224, dtype: torch.dtype = torch.float32):
+                 use_pyramid_feat: bool = True, img_size: int = 224, dtype: torch.dtype = torch.float32,
+                 fused_attn: bool = False, int8_gemm: bool = False):
         super().__init__()
         if up_type != "linear":
             raise NotImplementedError(f"up_type {up_type!r} is not ported; only 'linear'")
-        self.vit = make_vit(vit_type, img_size=img_size, dtype=dtype)
+        self.vit = make_vit(vit_type, img_size=img_size, dtype=dtype, fused_attn=fused_attn, int8_gemm=int8_gemm)
         self.out_dim = out_dim
         self.use_pyramid_feat = use_pyramid_feat
         in_dim = self.vit.embed_dim * (4 if use_pyramid_feat else 1)
@@ -82,10 +85,11 @@ class ViTEncoderOneRef(nn.Module):
 
     def __init__(self, npoint: int = 2048, vit_type: str = "vit_base_patch14_reg4_dinov2", up_type: str = "linear",
                  embed_dim: int = 768, out_dim: int = 256, use_pyramid_feat: bool = True, img_size: int = 224,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, fused_attn: bool = False, int8_gemm: bool = False):
         super().__init__()
         self.npoint = npoint
-        self.rgb_net = ViTAE(vit_type, up_type, embed_dim, out_dim, use_pyramid_feat, img_size, dtype)
+        self.rgb_net = ViTAE(vit_type, up_type, embed_dim, out_dim, use_pyramid_feat, img_size, dtype, fused_attn,
+                             int8_gemm)
 
     def encode_pair(self, rgb, rgb_choose, tem1_rgb, tem1_choose):
         """Both crops through the backbone as one 2B batch."""

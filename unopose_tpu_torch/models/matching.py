@@ -222,10 +222,13 @@ class FinePointMatching(nn.Module):
             _FineBlock(hidden_dim, num_heads, focusing_factor, dtype) for _ in range(nblock)
         )
 
-    def forward(self, p1, f1, geo1, fps_idx1, p2, f2, geo2, fps_idx2, init_R, init_t):
+    def forward(self, p1, f1, geo1, fps_idx1, p2, f2, geo2, fps_idx2, init_R, init_t, return_proj: bool = False):
         """Dense clouds p1/p2 (B, n, 3), features f1/f2 (B, n, C), sparse
         embeddings geo* (B, 197, 197, C), FPS indices (B, 196), coarse pose.
-        Returns (atten (B, n1+1, n2+1), score (B, n1+n2)) of the last block."""
+        Returns (atten (B, n1+1, n2+1), score (B, n1+n2)) of the last block;
+        with ``return_proj`` (the fused assignment) the two projected
+        features ((B, n1+1, C), (B, n2+1, C)) float32, bg token included,
+        stand in place of the similarity matrix, which is never built."""
         B, n1 = p1.shape[:2]
         p1_aligned = torch.matmul(p1 - init_t[:, None, :], init_R)
         pe = self.pe(torch.cat([p1_aligned, p2], dim=0))
@@ -234,7 +237,7 @@ class FinePointMatching(nn.Module):
         f2 = torch.cat([bg, self.in_proj(f2) + pe[B:].to(self.dtype)], dim=1)
         for blk in self.blocks:
             f1, f2, scores = blk(f1, geo1, fps_idx1, f2, geo2, fps_idx2)
-        atten = compute_feature_similarity(
-            self.out_proj(f1).float(), self.out_proj(f2).float(), self.temp, self.normalize_feat
-        )
-        return atten, block_outputs(scores, n1)
+        proj = (self.out_proj(f1).float(), self.out_proj(f2).float())
+        if return_proj:
+            return proj, block_outputs(scores, n1)
+        return compute_feature_similarity(*proj, self.temp, self.normalize_feat), block_outputs(scores, n1)

@@ -1,10 +1,18 @@
 """UNOPose inference (counterpart of ``unopose_tpu/models/unopose.py``, its
-``train=False`` branch with the materialised fine solver).
+``train=False`` branch).
 
-features -> global LRF of both clouds -> FPS to ``coarse_npoint`` nodes ->
-geometric embeddings with a bg point at (1, 1, 1) (exact, or fused and
+features (exact ViT, or the production ViT: fused attention, W8A8 GEMMs,
+tanh-GELU) -> global LRF of both clouds -> FPS to ``coarse_npoint`` nodes
+-> geometric embeddings with a bg point at (1, 1, 1) (exact, or fused and
 int8) -> coarse matching -> coarse hypothesis search -> fine matching
-(packed or fused PE) -> weighted-SVD fine pose.
+(packed or fused PE) -> weighted-SVD fine pose, from the materialised
+similarity matrix or the fused assignment.
+
+The JAX package's three auto switches (``feature_extraction.fused_attn``,
+``fine_point_matching.pe_fused``, ``fused_assignment``) default to None,
+"on for TPU inference". The port is inference only on one production
+device, so None means on; the fused assignment, like the JAX package's
+auto gate, also needs ``normalize_feat``.
 """
 
 from __future__ import annotations
@@ -19,6 +27,7 @@ from unopose_tpu_torch.configs import Config
 from unopose_tpu_torch.models.embedding import GeometricStructureEmbedding
 from unopose_tpu_torch.models.feature_extraction import ViTEncoderOneRef
 from unopose_tpu_torch.models.matching import CoarsePointMatching, FinePointMatching
+from unopose_tpu_torch.ops.assignment_fused import compute_fine_Rt_overlap_fused
 from unopose_tpu_torch.ops.fps import sample_pts_feats_wlrf
 from unopose_tpu_torch.ops.lrf import global_lrf
 from unopose_tpu_torch.ops.solver import compute_coarse_Rt_overlap, compute_fine_Rt_overlap
@@ -31,14 +40,18 @@ def _require(cond: bool, what: str) -> None:
         raise NotImplementedError(f"not ported: {what}")
 
 
+def _on(value, default: bool = True) -> bool:
+    """An auto switch: None takes ``default``."""
+    return default if value is None else bool(value)
+
+
 def _check_ported(cfg: Config) -> None:
-    """The port runs the slice's paths: a config that forces a mode whose
+    """The port runs the ported paths: a config that forces a mode whose
     kernel is not ported yet, or another entry point, is refused. The fused
     geo embedding (``fused_table`` with ``quant_int8``: its kernel writes
-    int8 only) and the fused PE (``pe_fused``) are ported; their keys select
-    the kernel path directly, with no backend gate."""
-    fe, ge, fm = cfg.feature_extraction, cfg.geo_embedding, cfg.fine_point_matching
-    _require(fe.get("fused_attn") is not True, "feature_extraction.fused_attn (mha_fused, W8A8, tanh-GELU)")
+    int8 only), the fused PE, the production ViT and the fused assignment
+    are ported; their keys select the kernel path directly."""
+    ge, fm = cfg.geo_embedding, cfg.fine_point_matching
     _require(not ge.get("fused_table", 0) or ge.get("quant_int8", False),
              "geo_embedding.fused_table with quant_int8=False (a float or bf16 fused embedding)")
     _require(ge.get("reduction_a", "max") in ("max", "mean"), "geo_embedding.reduction_a")
@@ -48,7 +61,6 @@ def _check_ported(cfg: Config) -> None:
     _require(fm.get("use_lrf", True) and fm.get("use_xyz", True), "PE without LRF or xyz channels")
     for m in (cfg.coarse_point_matching, fm):
         _require(m.get("sim_type", "cosine") == "cosine", "sim_type other than cosine")
-    _require(cfg.get("fused_assignment") is not True, "fused_assignment (fine_assignment_fused)")
     _require(not cfg.get("test_coarse_only", False), "test_coarse_only")
     _require(not cfg.get("fine_only", False), "fine_only")
 
@@ -65,6 +77,9 @@ class UNOPose(nn.Module):
         cm, fm = cfg.coarse_point_matching, cfg.fine_point_matching
         self.nproposal1 = cm.get("nproposal1", 6000)
         self.nproposal2 = cm.get("nproposal2", 300)
+        fused_attn = _on(fe.get("fused_attn"))
+        self.fused_assignment = _on(cfg.get("fused_assignment"), fm.get("normalize_feat", True))
+        self.fine_temp = fm.get("temp", 0.1)
         self.encoder = ViTEncoderOneRef(
             npoint=self.fine_npoint,
             vit_type=fe.get("vit_type", "vit_base_patch14_reg4_dinov2"),
@@ -74,6 +89,8 @@ class UNOPose(nn.Module):
             use_pyramid_feat=fe.get("use_pyramid_feat", True),
             img_size=fe.get("img_size", 224),
             dtype=backbone_dtype,
+            fused_attn=fused_attn,
+            int8_gemm=bool(fe.get("int8_gemm", False)),
         )
         sigma_d = ge.get("sigma_d", 0.2)
         self.geo_embed = GeometricStructureEmbedding(
@@ -110,7 +127,7 @@ class UNOPose(nn.Module):
             pe_radius2=fm.get("pe_radius2", 0.2),
             nsample1=fm.get("nsample1", 64),
             nsample2=fm.get("nsample2", 256),
-            pe_fused=fm.get("pe_fused", False),
+            pe_fused=_on(fm.get("pe_fused")),
             dtype=dtype,
         )
 
@@ -178,9 +195,15 @@ class UNOPose(nn.Module):
             uniforms=uniforms, generator=generator,
         )
         f_atten, f_score = self.fine_matching(
-            dense_pm, dense_fm, geo_m, fps_idx_m, dense_po, dense_fo, geo_o, fps_idx_o, init_R, init_t
+            dense_pm, dense_fm, geo_m, fps_idx_m, dense_po, dense_fo, geo_o, fps_idx_o, init_R, init_t,
+            return_proj=self.fused_assignment,
         )
-        pred_R, pred_t, pred_score, max_w = compute_fine_Rt_overlap(f_atten, f_score, dense_pm, dense_po)
+        if self.fused_assignment:
+            pred_R, pred_t, pred_score, max_w = compute_fine_Rt_overlap_fused(
+                *f_atten, f_score, dense_pm, dense_po, temp=self.fine_temp
+            )
+        else:
+            pred_R, pred_t, pred_score, max_w = compute_fine_Rt_overlap(f_atten, f_score, dense_pm, dense_po)
         out = dict(
             radius=radius,
             init_R=init_R,
@@ -195,6 +218,7 @@ class UNOPose(nn.Module):
             out.update(
                 dense_pm=dense_pm, dense_po=dense_po, dense_fm=dense_fm, dense_fo=dense_fo,
                 sparse_pm=sparse_pm, sparse_po=sparse_po, fps_idx_m=fps_idx_m, fps_idx_o=fps_idx_o, geo=geo_both,
-                coarse_atten=c_atten, coarse_score=c_score, fine_atten=f_atten, fine_score=f_score,
+                coarse_atten=c_atten, coarse_score=c_score, fine_score=f_score,
+                **{"fine_proj" if self.fused_assignment else "fine_atten": f_atten},
             )
         return out

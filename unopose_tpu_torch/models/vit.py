@@ -1,6 +1,11 @@
 """DINOv2-style ViT backbone with four pyramid taps (counterpart of
-``unopose_tpu/models/vit.py`` on its exact path: plain attention with a
-softmax over the scores, exact-erf GELU, no int8 GEMMs).
+``unopose_tpu/models/vit.py``).
+
+Two modes, as in the JAX package: the exact path (plain attention with a
+softmax over the scores, exact-erf GELU), and with ``fused_attn`` the
+production inference path: the fused attention ``ops/vit_attn.py:mha_fused``
+(kernel ``vit_attn.cu`` on the card), tanh-GELU, and with ``int8_gemm`` the
+W8A8 ``DenseQ`` GEMMs of every block.
 
 The 12 blocks of ViT-B are four segments ``blocks0..3`` (``nn.ModuleList``
 each, the flax scanned segments); the final LayerNorm of each segment's
@@ -16,30 +21,90 @@ import torch.nn.functional as F
 from torch import nn
 
 from unopose_tpu_torch.models.layers import Dense, LayerNorm
+from unopose_tpu_torch.ops.vit_attn import mha_fused
+
+
+def quantize_rows(x: torch.Tensor):
+    """Per-token int8 codes of x (..., K): (codes int8, scales (..., 1)
+    float32), ``sx = max(max|x|, 1e-6) / 127`` and ``round(x / sx)``."""
+    xf = x.float()
+    sx = torch.clamp_min(xf.abs().amax(dim=-1, keepdim=True), 1e-6) * (1.0 / 127.0)
+    return torch.round(xf / sx).to(torch.int8), sx
+
+
+class DenseQ(Dense):
+    """``Dense`` with the JAX package's W8A8 path (``models/vit.py:DenseQ``):
+    per-token activation scales ``sx = max(max|x|, 1e-6) / 127``, codes
+    ``round(x / sx)`` (half to even), per-output-channel weight scales
+    ``sw = max(max|W|, 1e-12) / 127``, an int8 x int8 -> int32 product
+    (``torch._int_mm``), then ``y * (sx * sw) + bias`` in float32, cast to
+    the compute dtype. The same leaves (``weight``, ``bias``) as ``Dense``.
+    The weight codes and scales are made once per weight set (keyed on the
+    weight's storage and in-place version; ``.to()`` drops them)."""
+
+    def __init__(self, in_features: int, out_features: int, dtype: torch.dtype = torch.float32, int8: bool = False):
+        super().__init__(in_features, out_features, dtype)
+        self.int8 = int8
+        self._quant = None  # (key, (codes (in, out) int8 view, scales (out,) float32))
+
+    def quantized_weight(self):
+        key = (self.weight.data_ptr(), self.weight._version)
+        if self._quant is None or self._quant[0] != key:
+            with torch.no_grad():
+                w = self.weight.float()
+                sw = torch.clamp_min(w.abs().amax(dim=1), 1e-12) * (1.0 / 127.0)
+                codes = torch.round(w / sw[:, None]).to(torch.int8)
+            self._quant = (key, (codes.t(), sw))
+        return self._quant[1]
+
+    def _apply(self, fn, *args, **kwargs):
+        self._quant = None
+        return super()._apply(fn, *args, **kwargs)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.int8:
+            return super().forward(x)
+        K, N = self.in_features, self.out_features
+        if K % 8 or N % 8:
+            raise ValueError(f"the int8 product needs in and out features that are multiples of 8, got {K}, {N}")
+        xq, sx = quantize_rows(x)
+        xq = xq.reshape(-1, K)
+        M = xq.shape[0]
+        if M <= 16:  # the card's int8 product takes more than 16 rows
+            xq = F.pad(xq, (0, 0, 0, 17 - M))
+        codes, sw = self.quantized_weight()
+        y = torch._int_mm(xq, codes)[:M].reshape(*x.shape[:-1], N)
+        return (y.float() * (sx * sw) + self.bias.float()).to(self.compute_dtype)
 
 
 class Mlp(nn.Module):
-    def __init__(self, dim: int, hidden: int, dtype: torch.dtype):
+    def __init__(self, dim: int, hidden: int, dtype: torch.dtype, gelu_tanh: bool = False, int8: bool = False):
         super().__init__()
-        self.fc1 = Dense(dim, hidden, dtype)
-        self.fc2 = Dense(hidden, dim, dtype)
+        self.fc1 = DenseQ(dim, hidden, dtype, int8)
+        self.fc2 = DenseQ(hidden, dim, dtype, int8)
+        self.approximate = "tanh" if gelu_tanh else "none"
 
     def forward(self, x):
-        return self.fc2(F.gelu(self.fc1(x)))
+        return self.fc2(F.gelu(self.fc1(x), approximate=self.approximate))
 
 
 class ViTBlock(nn.Module):
-    """Pre-norm block with LayerScale (timm ``Block``)."""
+    """Pre-norm block with LayerScale (timm ``Block``). With ``fused_attn``
+    the attention is ``mha_fused`` on the three column slices of the qkv
+    output and the MLP's GELU is tanh-approximate; ``int8`` makes every
+    GEMM of the block a ``DenseQ`` W8A8 product."""
 
-    def __init__(self, dim: int, num_heads: int, mlp_ratio: float, init_values: Optional[float], dtype: torch.dtype):
+    def __init__(self, dim: int, num_heads: int, mlp_ratio: float, init_values: Optional[float], dtype: torch.dtype,
+                 fused_attn: bool = False, int8: bool = False):
         super().__init__()
         self.num_heads = num_heads
         self.dtype = dtype
+        self.fused_attn = fused_attn
         self.norm1 = LayerNorm(dim, dtype)
-        self.qkv = Dense(dim, 3 * dim, dtype)
-        self.attn_proj = Dense(dim, dim, dtype)
+        self.qkv = DenseQ(dim, 3 * dim, dtype, int8)
+        self.attn_proj = DenseQ(dim, dim, dtype, int8)
         self.norm2 = LayerNorm(dim, dtype)
-        self.mlp = Mlp(dim, int(dim * mlp_ratio), dtype)
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), dtype, gelu_tanh=fused_attn, int8=int8)
         if init_values is not None:
             self.ls1 = nn.Parameter(torch.full((dim,), float(init_values)))
             self.ls2 = nn.Parameter(torch.full((dim,), float(init_values)))
@@ -49,13 +114,17 @@ class ViTBlock(nn.Module):
     def forward(self, x):
         B, N, D = x.shape
         hd = D // self.num_heads
-        q, k, v = self.qkv(self.norm1(x)).reshape(B, N, 3, self.num_heads, hd).permute(2, 0, 3, 1, 4)
-        attn = torch.matmul(q, k.transpose(-1, -2)) / hd**0.5
-        if self.dtype.itemsize >= 4:
-            attn = torch.softmax(attn.float(), dim=-1).to(self.dtype)
+        qkv = self.qkv(self.norm1(x))
+        if self.fused_attn:
+            out = mha_fused(*qkv.split(D, dim=-1), self.num_heads)
         else:
-            attn = torch.softmax(attn, dim=-1)
-        out = torch.matmul(attn, v).transpose(1, 2).reshape(B, N, D)
+            q, k, v = qkv.reshape(B, N, 3, self.num_heads, hd).permute(2, 0, 3, 1, 4)
+            attn = torch.matmul(q, k.transpose(-1, -2)) / hd**0.5
+            if self.dtype.itemsize >= 4:
+                attn = torch.softmax(attn.float(), dim=-1).to(self.dtype)
+            else:
+                attn = torch.softmax(attn, dim=-1)
+            out = torch.matmul(attn, v).transpose(1, 2).reshape(B, N, D)
         out = self.attn_proj(out)
         if self.ls1 is not None:
             out = out * self.ls1.to(self.dtype)
@@ -68,7 +137,9 @@ class ViTBlock(nn.Module):
 
 class ViTPyramid(nn.Module):
     """ViT returning ``norm(x)`` after each of 4 segments, and the final cls token.
-    Images are channels-last (B, H, W, 3)."""
+    Images are channels-last (B, H, W, 3). ``fused_attn`` selects the
+    production inference blocks; ``int8_gemm`` applies only with it, as in
+    the JAX package (``int8=int8_gemm and fused``)."""
 
     def __init__(
         self,
@@ -82,6 +153,8 @@ class ViTPyramid(nn.Module):
         reg_tokens: int = 4,
         no_embed_class: bool = True,
         dtype: torch.dtype = torch.float32,
+        fused_attn: bool = False,
+        int8_gemm: bool = False,
     ):
         super().__init__()
         if not no_embed_class:
@@ -98,7 +171,8 @@ class ViTPyramid(nn.Module):
         n = depth // 4
         for si, seg_len in enumerate([depth - 3 * n] + [n] * 3):
             blocks = nn.ModuleList(
-                ViTBlock(embed_dim, num_heads, mlp_ratio, init_values, dtype) for _ in range(seg_len)
+                ViTBlock(embed_dim, num_heads, mlp_ratio, init_values, dtype, fused_attn, int8_gemm and fused_attn)
+                for _ in range(seg_len)
             )
             setattr(self, f"blocks{si}", blocks)
 
@@ -137,7 +211,9 @@ VIT_VARIANTS = {
 }
 
 
-def make_vit(vit_type: str, img_size: int = 224, dtype: torch.dtype = torch.float32) -> ViTPyramid:
+def make_vit(vit_type: str, img_size: int = 224, dtype: torch.dtype = torch.float32, fused_attn: bool = False,
+             int8_gemm: bool = False) -> ViTPyramid:
     if vit_type not in VIT_VARIANTS:
         raise ValueError(f"unknown or unported vit_type {vit_type}; known: {sorted(VIT_VARIANTS)}")
-    return ViTPyramid(img_size=img_size, dtype=dtype, **VIT_VARIANTS[vit_type])
+    return ViTPyramid(img_size=img_size, dtype=dtype, fused_attn=fused_attn, int8_gemm=int8_gemm,
+                      **VIT_VARIANTS[vit_type])

@@ -22,7 +22,6 @@ to even, like ``jnp.round``.
 
 from __future__ import annotations
 
-import contextlib
 import ctypes
 
 import numpy as np
@@ -30,6 +29,7 @@ import torch
 
 from unopose_tpu_torch.kernels import LAUNCHES
 from unopose_tpu_torch.kernels import build
+from unopose_tpu_torch.ops.geometry import no_tf32
 
 MAX_N = 512  # columns of one cloud the kernel keeps stencils of in shared memory
 MAX_K = 4
@@ -61,16 +61,6 @@ def atan2_pos_sin(s: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     return torch.where(c < 0, np.float32(np.pi).item() - a, a)
 
 
-@contextlib.contextmanager
-def _no_tf32():
-    saved = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = saved
-
-
 def build_taylor_table(W: torch.Tensor, b: torch.Tensor, x_max: float, T: int):
     """(T, D) float32 table of f(grid) = sinusoid(grid) @ W + b on a uniform
     grid over [0, x_max], and its scale 1 / h (grid position = x * scale).
@@ -84,7 +74,7 @@ def build_taylor_table(W: torch.Tensor, b: torch.Tensor, x_max: float, T: int):
     grid = torch.arange(T, dtype=torch.float32, device=dev) * h
     arg = grid[:, None] * om[None, :]
     f0 = torch.cat([torch.sin(arg), torch.cos(arg)], dim=-1)
-    with _no_tf32():
+    with no_tf32():
         t0 = torch.matmul(f0, W.float())
     return t0 + b.float(), float(1.0 / h)
 

@@ -2,7 +2,21 @@
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
+
+
+@contextlib.contextmanager
+def no_tf32():
+    """Float32 matrix products in full float32 inside the block, whatever
+    the caller set ``torch.backends.cuda.matmul.allow_tf32`` to."""
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
 
 
 def pairwise_sqdist(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:

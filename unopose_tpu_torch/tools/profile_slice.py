@@ -1,26 +1,38 @@
 """Where the time goes in a full-width configuration on one CUDA card.
 
-    python -m unopose_tpu_torch.tools.profile_slice [--config slice|fused_matchers] [--batches 8]
+    python -m unopose_tpu_torch.tools.profile_slice [--config slice|fused_matchers|production] [--batches 8]
         [--warmup 2] [--seed 0] [--out FILE]
 
 Runs a configuration as ``chip_smoke.py`` does (``configs.slice_config()``,
-the default, or ``configs.fused_matcher_config()``; bf16, seeded random
-weights, synthetic batches of 16 pairs) and reports:
+the default, ``configs.fused_matcher_config()`` or
+``configs.production_config()``; bf16, seeded random weights, synthetic
+batches of 16 pairs) and reports:
 
-- per stage of ``UNOPose.forward``, the median device time over the steady
-  batches (CUDA events recorded around the stage) and its share of the
+- per stage of ``UNOPose.forward``, the median time between CUDA events
+  recorded around the stage over the steady batches (device time plus the
+  launch gaps inside the stage, which follow the host) and its share of the
   median batch wall time (host clock, ending in a synchronize);
 - one more batch under ``torch.profiler``: the number of kernels, their
   summed time, the union of their intervals (busy time) against the host
-  wall of that batch (idle share), the top kernels by device time, and the
-  time of the hand-written kernels;
+  wall of that batch (idle share), per stage the summed time of the
+  kernels launched inside it (a ``record_function`` range around each
+  stage, attributed by the host time of its launch), the top kernels by
+  device time, and the time of the hand-written kernels; the peak device
+  memory of the run;
 - the card's name, power limit, SM clock and power draw after the run.
 
-Stages nest: 1a and 1b lie inside 1, 7a inside 7, and 7b and 7c inside 7a.
-Stage 4 is the exact embedding or the fused int8 one (kernel geo_rpe); 7b is
-the grouping (with the slot gather on the slice path, without it on the
-fused path); 7c, on the fused path only, is PE-v5 (kernels pe_channels and
-pe_mlp_pool). With ``--out`` the report is also written there as JSON.
+Stages nest: 1a and 1b lie inside 1, 1c and 1d inside 1a, 7a inside 7, and
+7b and 7c inside 7a. 1c is the fused attention (production only, kernel
+mha_fused); 1d the 48 block GEMMs with, on the production path, their
+per-token int8 quantisation. 1c and 1d run 12 and 48 times a batch, so
+they have kernel times only: CUDA events around each call would add to
+the stages they sit in. Stage 4 is the exact embedding or the fused
+int8 one (kernel geo_rpe); 7b is the grouping (with the slot gather on the
+slice path, without it on the fused paths); 7c, on the fused paths only, is
+PE-v5 (kernels pe_channels and pe_mlp_pool). Stage 8 is the materialised
+solver, or on the production path the fused assignment (kernels
+fine_assign_colstats, _labels, _accum) and its Procrustes. With ``--out``
+the report is also written there as JSON.
 """
 
 from __future__ import annotations
@@ -36,13 +48,25 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from unopose_tpu_torch import configs
+
 BATCH = 16
 OURS = ("fps_kernel", "first_k_select_kernel", "gather_planar_kernel", "geo_rpe_kernel", "pe_channels_kernel",
-        "pe_mlp_pool_kernel")
+        "pe_mlp_pool_kernel", "mha_bf16_kernel", "colstats_kernel", "labels_kernel", "accum_kernel")
 
 
-def _timed(name: str, fn, marks: list):
+def _timed(name: str, fn, marks: list, events: bool = True):
+    """``fn`` inside a ``record_function`` range while the profiler runs;
+    otherwise, with ``events``, between two CUDA events appended to
+    ``marks``, and without, untouched (the sub-stages called dozens of times
+    a batch, whose events would add to the times they sit in)."""
+
     def inner(*args, **kwargs):
+        if torch.autograd._profiler_enabled():
+            with torch.profiler.record_function(name):
+                return fn(*args, **kwargs)
+        if not events:
+            return fn(*args, **kwargs)
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         out = fn(*args, **kwargs)
@@ -53,22 +77,33 @@ def _timed(name: str, fn, marks: list):
     return inner
 
 
-def instrument(model, marks: list) -> None:
-    """Record CUDA events around each stage of ``model.forward`` into ``marks``."""
+def instrument(model, marks: list) -> list:
+    """Wrap the stages of ``model.forward`` (module docstring); returns
+    their names."""
     import unopose_tpu_torch.models.feature_extraction as fe
     import unopose_tpu_torch.models.matching as mm
     import unopose_tpu_torch.models.unopose as un
+    import unopose_tpu_torch.models.vit as vit
 
+    names = []
     for name, mod in (
         ("1 encoder: ViT x2, upscaler, pixel gather, template FPS", model.encoder),
         ("1a ViT x2 + upscaler", model.encoder.rgb_net),
         ("4 geometric embedding", model.geo_embed),
         ("5 coarse matcher", model.coarse_matching),
-        ("7 fine matching: PE, blocks, similarity", model.fine_matching),
+        ("7 fine matching: PE, blocks, similarity or projections", model.fine_matching),
         ("7a fine PE", model.fine_matching.pe),
     ):
         mod.forward = _timed(name, mod.forward, marks)
+        names.append(name)
     model._lrf = _timed("2 global LRF, both clouds", model._lrf, marks)
+    names.append("2 global LRF, both clouds")
+    gemms = "1d of which block GEMMs (48 DenseQ: bf16, or W8A8 and its quantisation)"
+    for mod in model.encoder.modules():
+        if isinstance(mod, vit.DenseQ):
+            mod.forward = _timed(gemms, mod.forward, marks, events=False)
+    vit.mha_fused = _timed("1c of which fused attention (K7)", vit.mha_fused, marks, events=False)
+    names += [gemms, "1c of which fused attention (K7)"]
     for module, attr, name in (
         (fe, "sample_pts_feats", "1b template FPS 5000->2048 + gathers"),
         (un, "sample_pts_feats_wlrf", "3 FPS 2048->196 + gathers, both clouds"),
@@ -77,13 +112,37 @@ def instrument(model, marks: list) -> None:
         (mm, "two_scale_group_first_k_packed_idx", "7b first_k select + weights (index grouping)"),
         (mm, "pe_fused_v5", "7c PE-v5: channels + MLP/pool kernels"),
         (un, "compute_fine_Rt_overlap", "8 fine solver"),
+        (un, "compute_fine_Rt_overlap_fused", "8 fine solver (fused assignment K8-K10)"),
     ):
         setattr(module, attr, _timed(name, getattr(module, attr), marks))
+        names.append(name)
+    return names
 
 
-def kernel_summary(prof, wall_ms: float) -> dict:
-    """Kernel count, summed and busy (interval union) time, idle share and
-    the top kernels of one profiled batch, from its chrome trace."""
+def stage_kernel_ms(events: list, names) -> dict:
+    """Summed time of the kernels whose launch (the runtime or driver call
+    sharing the kernel's correlation id) lies inside each stage's host range,
+    from the chrome trace; kernels launched outside every stage are summed
+    under ``"outside the stages"``."""
+    ranges = [(e["ts"], e["ts"] + e["dur"], e["name"]) for e in events
+              if e.get("cat") == "user_annotation" and e.get("name") in names]
+    launched = {e["args"]["correlation"]: e["ts"] for e in events
+                if e.get("cat") in ("cuda_runtime", "cuda_driver") and "correlation" in e.get("args", {})}
+    out = dict.fromkeys(sorted(names) + ["outside the stages"], 0.0)
+    for e in events:
+        if e.get("cat") != "kernel" or "dur" not in e:
+            continue
+        ts = launched.get(e.get("args", {}).get("correlation"))
+        hits = [n for s, t, n in ranges if ts is not None and s <= ts <= t]
+        for n in hits or ["outside the stages"]:
+            out[n] += e["dur"] / 1e3
+    return out
+
+
+def kernel_summary(prof, wall_ms: float, stage_names) -> dict:
+    """Kernel count, summed and busy (interval union) time, idle share, the
+    kernel time of each stage and the top kernels of one profiled batch,
+    from its chrome trace."""
     with tempfile.TemporaryDirectory() as tmp:
         trace = Path(tmp) / "trace.json"
         prof.export_chrome_trace(str(trace))
@@ -115,12 +174,13 @@ def kernel_summary(prof, wall_ms: float) -> dict:
         idle_share=1.0 - busy_us / 1e3 / wall_ms,
         top=[dict(name=n[:120], ms=ms, count=c) for n, (ms, c) in top],
         hand_written_ms={k: sum(ms for n, (ms, _) in by_name.items() if k in n) for k in OURS},
+        stage_kernel_ms=stage_kernel_ms(events, stage_names),
     )
 
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--config", choices=("slice", "fused_matchers"), default="slice")
+    parser.add_argument("--config", choices=tuple(configs.CONFIGS), default="slice")
     parser.add_argument("--batches", type=int, default=8)
     parser.add_argument("--warmup", type=int, default=2)
     parser.add_argument("--seed", type=int, default=0)
@@ -129,22 +189,24 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("profile_slice: no CUDA device", file=sys.stderr)
         return 1
-    from unopose_tpu_torch.configs import fused_matcher_config, slice_config, synthetic_inputs
     from unopose_tpu_torch.models import UNOPose
 
     dev = torch.device("cuda", 0)
     torch.manual_seed(args.seed)
-    cfg = slice_config() if args.config == "slice" else fused_matcher_config()
+    cfg = configs.CONFIGS[args.config]()
     model = UNOPose.from_config(cfg, torch.bfloat16, torch.bfloat16).to(dev).eval()
     gen = torch.Generator(device=dev)
     gen.manual_seed(args.seed)
     rng = np.random.default_rng(args.seed)
     batches = [
-        {k: torch.from_numpy(v).to(dev) for k, v in synthetic_inputs(rng, BATCH).items()} for _ in range(args.batches)
+        {k: torch.from_numpy(v).to(dev) for k, v in configs.synthetic_inputs(rng, BATCH).items()}
+        for _ in range(args.batches)
     ]
     marks: list = []
-    instrument(model, marks)
+    names = instrument(model, marks)
 
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
     walls, stages = [], {}
     for i, inputs in enumerate(batches):
         marks.clear()
@@ -160,6 +222,7 @@ def main() -> int:
             for name, ms in per_batch.items():
                 stages.setdefault(name, []).append(ms)
     steady = float(np.median(walls[args.warmup:]))
+    peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
 
     activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
@@ -168,7 +231,7 @@ def main() -> int:
         model(batches[-1], generator=gen)
         torch.cuda.synchronize()
         profiled_wall = (time.perf_counter() - t0) * 1e3
-    summary = kernel_summary(prof, profiled_wall)
+    summary = kernel_summary(prof, profiled_wall, set(names))
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit,clocks.sm,power.draw", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
@@ -176,13 +239,21 @@ def main() -> int:
 
     report = dict(
         config=args.config, card=card, batch=BATCH, walls_ms=walls, steady_ms=steady, pairs_per_s=BATCH * 1e3 / steady,
-        stages_ms={name: float(np.median(v)) for name, v in sorted(stages.items())}, profiled=summary,
+        stages_ms={name: float(np.median(v)) for name, v in sorted(stages.items())}, peak_gib=peak_gib,
+        profiled=summary,
     )
     print(f"config {args.config}; card (name, power limit, SM clock, power draw): {card}")
     print(f"batch walls ms {[round(w, 3) for w in walls]}; steady median {steady:.3f} ms, "
-          f"{report['pairs_per_s']:.1f} pairs/s")
-    for name, ms in report["stages_ms"].items():
-        print(f"  {name:<58s} {ms:9.3f} ms {100 * ms / steady:6.1f}%")
+          f"{report['pairs_per_s']:.1f} pairs/s, peak memory {peak_gib:.3f} GiB")
+    print(f"  {'stage':<58s} {'events ms':>12s} {'share':>7s} {'kernels ms (profiled batch)':>28s}")
+    for name in sorted(names):
+        dev_ms = summary["stage_kernel_ms"][name]
+        if name in report["stages_ms"]:
+            ms = report["stages_ms"][name]
+            print(f"  {name:<58s} {ms:9.3f} ms {100 * ms / steady:6.1f}% {dev_ms:25.3f} ms")
+        elif dev_ms:  # a sub-stage timed in the profiled batch only
+            print(f"  {name:<58s} {'-':>12s} {'':>7s} {dev_ms:25.3f} ms")
+    print(f"  {'kernels launched outside the stages':<76s} {summary['stage_kernel_ms']['outside the stages']:25.3f} ms")
     print(f"profiled batch: wall {summary['wall_ms']:.3f} ms, {summary['kernels']} kernels, "
           f"kernel time {summary['kernel_ms']:.3f} ms, busy {summary['busy_ms']:.3f} ms, "
           f"idle share {100 * summary['idle_share']:.1f}%")
