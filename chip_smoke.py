@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch port (``unopose_tpu_torch``) on one CUDA card.
 
-    python3 chip_smoke.py [--seed N] [--batches 3]
+    python3 chip_smoke.py [--seed N] [--batches 3] [--train-steps 3]
 
 Phases, each fatal on failure:
 
@@ -27,7 +27,13 @@ Phases, each fatal on failure:
    and the three sweeps of the fused assignment (16 pairs of 2049 x 2049,
    C 256), each sweep fed the plain twin's inputs, then the whole chain
    (labels equal on at least 99.9% of rows, weights and soft targets within
-   1e-4 of their max on the rows whose labels agree);
+   1e-4 of their max on the rows whose labels agree); the train path's PE
+   kernels K11-K14 (B 8, P 2048, S 256 and 64), each fed its plain pass's
+   statistics (and each backward its own side's forward maximum): batch
+   means and variances within 1e-4 relative, the pooled output, the sums
+   and the dW within 1e-2 of each tensor's max with the median under 1e-3,
+   the tie counts equal; then the whole autograd function against the plain
+   twin on autograd (2e-2, median 2e-3);
 4. one forced grouping overflow, through the plain and the fused PE: both
    must take the exact fallback (and with it the gather kernel), whose
    grouping equals the CPU plain version's;
@@ -37,13 +43,20 @@ Phases, each fatal on failure:
    within 1e-3 of its max, the coarse scores within 1e-4, the fine scores'
    median error under 5e-3 and 95th percentile under 5e-2 (the CPU slice
    tests' gates); on the production config also the fused assignment's
-   labels on the CPU's projections (99% equal);
+   labels on the CPU's projections (99% equal); the train path's grouping
+   on the main path's clouds (B 8, N 2048) equal to the CPU's slot for slot;
+   and one tiny float32 train step (``train_config(tiny=True)`` on surface
+   clouds), card against CPU, with the gates of ``check_tiny_train``;
 6. the three main paths at full width (ViT-B/14-reg4 at 224 px, 2048-point
    clouds, a 5000-point template, 6000/300 hypotheses, bf16, seeded random
    weights, batches of 16 pairs): ``slice_config()`` and
    ``fused_matcher_config()`` for 2 batches each, then
    ``production_config()`` for ``--batches``; finite, orthonormal poses;
-   the launch counts are zeroed just before each path and read just after,
+   then ``train_config()`` (B 8, bf16) for ``--train-steps`` training
+   steps: finite loss terms, a finite positive gradient norm, the frozen
+   ViT bitwise unchanged, every trainable module and all six BatchNorm
+   layers of the fine PE moved, and one profiled step's device time; the
+   launch counts are zeroed just before each path and read just after,
    and every kernel of the path must have launched.
 
 Log lines are prefixed with the card's name and power limit. Before the
@@ -83,13 +96,20 @@ KERNELS = {
     "fine_assign_colstats": ("unopose_tpu_torch/kernels/csrc/fine_assign.cu", "unopose_tpu/ops/assignment_fused.py:48"),
     "fine_assign_labels": ("unopose_tpu_torch/kernels/csrc/fine_assign.cu", "unopose_tpu/ops/assignment_fused.py:83"),
     "fine_assign_accum": ("unopose_tpu_torch/kernels/csrc/fine_assign.cu", "unopose_tpu/ops/assignment_fused.py:122"),
+    "pe_train_stats": ("unopose_tpu_torch/kernels/csrc/pe_train.cu", "unopose_tpu/ops/pe_train.py:96"),
+    "pe_train_fwd": ("unopose_tpu_torch/kernels/csrc/pe_train.cu", "unopose_tpu/ops/pe_train.py:112"),
+    "pe_train_bwd_sums": ("unopose_tpu_torch/kernels/csrc/pe_train.cu", "unopose_tpu/ops/pe_train.py:190"),
+    "pe_train_bwd_dw": ("unopose_tpu_torch/kernels/csrc/pe_train.cu", "unopose_tpu/ops/pe_train.py:210"),
 }
 FUSED = ("fps", "first_k_select", "geo_rpe", "pe_channels", "pe_mlp_pool")
 PATH_KERNELS = {
     "slice": ("fps", "first_k_select", "gather_planar"),
     "fused_matchers": FUSED,
     "production": FUSED + ("mha_fused", "fine_assign_colstats", "fine_assign_labels", "fine_assign_accum"),
+    "train": ("fps", "first_k_select", "gather_planar", "pe_train_stats", "pe_train_fwd", "pe_train_bwd_sums",
+              "pe_train_bwd_dw"),
 }
+INFER_PATHS = ("slice", "fused_matchers", "production")
 
 
 def card_info() -> str:
@@ -483,6 +503,164 @@ def pe_kernels(dev, pts, mlp1, mlp2, packed) -> dict:
     return r
 
 
+def train_chans(rng, dev, b: int, p: int, s: int):
+    """(b, 6, p, s) float32 PE channels whose first third of slots per point
+    holds distinct values and the rest duplicate slot 0, as the grouping's
+    pads duplicate the first hit (so the max pool has ties to split)."""
+    import torch
+
+    chans = torch.from_numpy(rng.standard_normal((b, 6, p, s)).astype(np.float32) * 0.3).to(dev)
+    chans[..., s // 3:] = chans[..., :1]
+    return chans.contiguous()
+
+
+def train_weights(dev, seed: int):
+    """He-normal Ws, gammas near 1 and betas near 0 of one PE scale, seeded."""
+    import torch
+
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    dims = (6, 32, 64, 128)
+    Ws = [(torch.randn(a, b, generator=gen) * (2.0 / a) ** 0.5).to(dev) for a, b in zip(dims[:-1], dims[1:])]
+    gammas = [(1.0 + 0.1 * torch.randn(d, generator=gen)).to(dev) for d in dims[1:]]
+    betas = [(0.1 * torch.randn(d, generator=gen)).to(dev) for d in dims[1:]]
+    return Ws, gammas, betas
+
+
+def check_train_kernels(log, dev, seed: int) -> dict:
+    """Phase 3, the train path's PE kernels K11-K14 against their plain
+    versions at the train step's shapes (B = 8, P = 2048, S = 256 and 64),
+    each kernel fed the plain pipeline's statistics, then the whole autograd
+    function against the plain twin on autograd."""
+    import torch
+
+    from unopose_tpu_torch.ops import pe_train as pt
+
+    rng = np.random.default_rng(seed + 7)
+    Bt, P = 8, 2048
+    Ws, gammas, betas = train_weights(dev, seed)
+    results, worst = {}, {}
+
+    def rel(got, want):
+        d = (got - want).abs()
+        scale = want.abs().max().clamp_min(1e-30)
+        return (d.max() / scale).item(), (d.median() / scale).item()
+
+    for S in (256, 64):
+        chans = train_chans(rng, dev, Bt, P, S)
+        n = Bt * P * S
+        bn, gb = pt.stats_buffer(gammas, betas, dev)
+        stats, absolute = {}, dict(stats=0.0, sums=0.0)  # max |kernel - plain| of each kernel's outputs
+        for depth in (1, 2, 3):
+            pt.stats_plain(chans, Ws, gb, bn, depth, 1e-5)
+            got = bn.clone()
+            pt.stats_cuda(chans, Ws, gb, got, depth, 1e-5)
+            d = pt.DIMS[depth]
+            mu, var = bn[depth - 1, pt.MU, :d], bn[depth - 1, pt.VAR, :d]
+            k_mu, k_var = got[depth - 1, pt.MU, :d], got[depth - 1, pt.VAR, :d]
+            stats[depth] = (((k_mu - mu).abs().max() / mu.abs().max()).item(), ((k_var - var).abs() / var).max().item())
+            absolute["stats"] = max(absolute["stats"], (k_mu - mu).abs().max().item(), (k_var - var).abs().max().item())
+        pooled, cnt = pt.fwd_plain(chans, Ws, bn)
+        k_pooled, k_cnt = pt.fwd_cuda(chans, Ws, bn)
+        fwd_err = rel(k_pooled, pooled)
+        absolute["fwd"] = (k_pooled - pooled).abs().max().item()
+        cnt_equal = (k_cnt == cnt).float().mean().item()
+        dpool = torch.from_numpy(rng.standard_normal((Bt, P, 128)).astype(np.float32)).to(dev)
+        # the backward kernels find each point's max slots by comparing their recomputed y3 with the
+        # forward's max, so each side is fed its own forward's max and tie count
+        sums = {}
+        for layer in (3, 2, 1):
+            got = bn.clone()
+            pt.bwd_sums_plain(chans, Ws, bn, pooled, cnt, dpool, layer)
+            pt.bwd_sums_cuda(chans, Ws, got, k_pooled, k_cnt, dpool, layer)
+            d = pt.DIMS[layer]
+            sums[layer] = (rel(got[layer - 1, pt.SG, :d], bn[layer - 1, pt.SG, :d]),
+                           rel(got[layer - 1, pt.SGZ, :d], bn[layer - 1, pt.SGZ, :d]))
+            absolute["sums"] = max(absolute["sums"], (got[layer - 1, pt.SG:, :d] - bn[layer - 1, pt.SG:, :d]).abs().max().item())
+        dws = pt.bwd_dw_plain(chans, Ws, bn, pooled, cnt, dpool)
+        k_dws = pt.bwd_dw_cuda(chans, Ws, bn, k_pooled, k_cnt, dpool)
+        dw_err = [rel(a, b) for a, b in zip(k_dws, dws)]
+        absolute["dw"] = max((a - b).abs().max().item() for a, b in zip(k_dws, dws))
+        torch.cuda.synchronize()
+        times = dict(
+            stats=[(cuda_ms(lambda: pt.stats_cuda(chans, Ws, gb, bn.clone(), d, 1e-5)),
+                    cuda_ms(lambda: pt.stats_plain(chans, Ws, gb, bn.clone(), d, 1e-5), reps=2))
+                   for d in (1, 2, 3)],
+            fwd=(cuda_ms(lambda: pt.fwd_cuda(chans, Ws, bn)), cuda_ms(lambda: pt.fwd_plain(chans, Ws, bn), reps=2)),
+            sums=[(cuda_ms(lambda: pt.bwd_sums_cuda(chans, Ws, bn.clone(), k_pooled, k_cnt, dpool, L)),
+                   cuda_ms(lambda: pt.bwd_sums_plain(chans, Ws, bn.clone(), pooled, cnt, dpool, L), reps=2))
+                  for L in (3, 2, 1)],
+            dw=(cuda_ms(lambda: pt.bwd_dw_cuda(chans, Ws, bn, k_pooled, k_cnt, dpool)),
+                cuda_ms(lambda: pt.bwd_dw_plain(chans, Ws, bn, pooled, cnt, dpool), reps=2)),
+        )
+        log(f"pe_train S={S} ({Bt}x{P}x{S}): stats (mean rel of max, var rel) by depth {stats}; "
+            f"pooled (max, median of max) {fwd_err}, tie counts equal {100 * cnt_equal:.4f}%; "
+            f"sums (g, g zhat) by layer {sums}; dW {dw_err}")
+        log(f"pe_train S={S} times (kernel, plain ms): stats {times['stats']}, fwd {times['fwd']}, "
+            f"sums {times['sums']}, dw {times['dw']}")
+        errs = [e for v in stats.values() for e in v]
+        if max(errs) > 1e-4:
+            raise AssertionError(f"pe_train_stats S={S}: batch mean or variance beyond 1e-4 relative: {stats}")
+        tensor_errs = [fwd_err, *(e for v in sums.values() for e in v), *dw_err]
+        if any(mx > 1e-2 or med > 1e-3 for mx, med in tensor_errs):
+            raise AssertionError(f"pe_train S={S}: a kernel's output beyond 1e-2 of its max or median beyond 1e-3")
+
+        # the bounds of this run's shapes: float32 chans read once; MACs per slot of each pass
+        chain = sum(a * b for a, b in zip(pt.DIMS[:-1], pt.DIMS[1:]))  # 10432
+        macs = {1: 6 * 32, 2: 6 * 32 + 32 * 64, 3: chain}
+        cbytes, pbytes = chans.numel() * 4, Bt * P * 128 * 4
+        bounds = dict(
+            stats=[bound(cbytes + 2 * 128 * 4, 2.0 * n * macs[d], BF16_FLOPS) for d in (1, 2, 3)],
+            fwd=bound(cbytes + 2 * pbytes, 2.0 * n * chain, BF16_FLOPS),
+            sums=[bound(cbytes + 3 * pbytes + 2 * 128 * 4, 2.0 * n * (chain + {3: 0, 2: 128 * 64, 1: 128 * 64 + 64 * 32}[L]),
+                        BF16_FLOPS) for L in (3, 2, 1)],
+            dw=bound(cbytes + 3 * pbytes + pt.DW_SIZE * 4, 2.0 * n * (2 * chain + 128 * 64 + 64 * 32), BF16_FLOPS),
+        )
+        worst[S] = dict(times=times, bounds=bounds, absolute=absolute, cnt_equal=cnt_equal,
+                        rel=dict(stats=max(e for v in stats.values() for e in v), fwd=fwd_err[0],
+                                 sums=max(e[0] for v in sums.values() for e in v), dw=max(e[0] for e in dw_err)))
+        del chans, bn, pooled, cnt, dpool, k_pooled, k_cnt
+        torch.cuda.empty_cache()
+
+    # the whole function: kernels (autograd function) against the plain twin on autograd, scale 2's shape
+    chans = train_chans(rng, dev, Bt, P, 256)
+    R = torch.from_numpy(rng.standard_normal((Bt, P, 128)).astype(np.float32)).to(dev)
+    grads = []
+    for fn in (pt.pe_mlp_bn_pool_train, pt.pe_mlp_bn_pool_train_plain):
+        params = [t.clone().requires_grad_() for t in (*Ws, *gammas, *betas)]
+        out, (mus, vars_) = fn(chans, params[:3], params[3:6], params[6:])
+        (out * R).sum().backward()
+        grads.append((out.detach(), [*mus, *vars_], [p.grad for p in params]))
+        del out
+        torch.cuda.empty_cache()
+    (ko, ks, kg), (po, ps, pg) = grads
+    whole = dict(pooled=rel(ko, po), stats=max((a - b).abs().max().item() / b.abs().max().item() for a, b in zip(ks, ps)),
+                 grads=[rel(a, b) for a, b in zip(kg, pg)])
+    log(f"pe_train whole function vs the plain twin on autograd (S=256): {whole}")
+    # each kernel above matches its plain pass within 1e-3 of the max; here the autograd twin's own
+    # forward (cuBLAS sums) picks the max slots and rounds its BN backward's dz after other float32
+    # operations, and a gradient sums 4.19 M slots' bf16 flips: 2e-2 of the max, median 2e-3
+    if whole["stats"] > 1e-4 or any(mx > 2e-2 or med > 2e-3 for mx, med in [whole["pooled"], *whole["grads"]]):
+        raise AssertionError("pe_mlp_bn_pool_train on the card differs from the plain twin beyond its gates")
+
+    # the main path's numbers are scale 2's (S = 256), scale 1's (S = 64) beside them
+    main, small = worst[256], worst[64]
+    # K11 and K13 run three times a call: their line holds the deepest pass (depth 3, layer 1)
+    for name, key in (("pe_train_stats", "stats"), ("pe_train_fwd", "fwd"), ("pe_train_bwd_sums", "sums"),
+                      ("pe_train_bwd_dw", "dw")):
+        pick = (lambda x: x[2]) if key in ("stats", "sums") else (lambda x: x)
+        t, b = pick(main["times"][key]), pick(main["bounds"][key])
+        t64, b64 = pick(small["times"][key]), pick(small["bounds"][key])
+        results[name] = dict(max_abs_err=main["absolute"][key], max_rel_err=main["rel"][key], ms=t[0], plain_ms=t[1],
+                             library_ms=None, **b, s64_ms=t64[0], s64_plain_ms=t64[1], s64_bound_ms=b64["bound_ms"])
+    # every depth / layer of the passes that run three times
+    results["pe_train_stats"]["by_depth_ms"] = [m[0] for m in main["times"]["stats"]]
+    results["pe_train_stats"]["by_depth_bound_ms"] = [b["bound_ms"] for b in main["bounds"]["stats"]]
+    results["pe_train_bwd_sums"]["by_layer_ms"] = [m[0] for m in main["times"]["sums"]]
+    results["pe_train_bwd_sums"]["by_layer_bound_ms"] = [b["bound_ms"] for b in main["bounds"]["sums"]]
+    results["pe_train_fwd"]["tie_counts_equal"] = main["cnt_equal"]
+    return results
+
+
 def check_overflow(log, dev, seed: int) -> None:
     """Phase 4: a dense cloud overflows the packed budget; the plain and the
     fused PE must take the exact fallback, and its grouping (gather kernel
@@ -570,6 +748,285 @@ def check_tiny(log, dev, seed: int, name: str) -> None:
         raise AssertionError(f"the tiny {name} config on the card disagrees with the CPU plain path")
 
 
+def surface_train_inputs(rng, batch: int) -> dict:
+    """A tiny training batch (``configs.synthetic_train_inputs(tiny=True)``)
+    whose template lies on a bumpy closed surface with every 16th point 0.1 m
+    out (they set the radius, so the surface stays dense after the
+    normalisation), the observed cloud its points under the label pose: the
+    PE's local frames are then mostly well conditioned, unlike on the
+    uniform cubes, where a frame that flips between two devices moves the
+    whole fine stage."""
+    from unopose_tpu_torch.configs import synthetic_train_inputs
+
+    b = synthetic_train_inputs(rng, batch, tiny=True)
+    R, t, tem = b["rotation_label"], b["translation_label"], b["tem1_pts"]
+    B, n = tem.shape[:2]
+    dirs = rng.normal(size=(B, n, 3))
+    dirs /= np.linalg.norm(dirs, axis=-1, keepdims=True)
+    bump = 1.0 + 0.25 * np.sin(3.0 * dirs[..., 0] + 1.0) * np.cos(2.0 * dirs[..., 1])
+    tem = np.array([0.0, 0.0, 0.6]) + 0.03 * bump[..., None] * dirs + rng.normal(size=(B, n, 3)) * 5e-4
+    far = rng.normal(size=(B, n // 16, 3))
+    tem[:, ::16] = np.array([0.0, 0.0, 0.6]) + 0.1 * far / np.linalg.norm(far, axis=-1, keepdims=True)
+    sel = rng.integers(0, n, size=b["pts"].shape[:2])
+    pts = np.einsum("bij,bnj->bni", R, np.take_along_axis(tem, sel[..., None], axis=1)) + t[:, None]
+    b.update(tem1_pts=tem.astype(np.float32), pts=(pts + 5e-4 * rng.standard_normal(pts.shape)).astype(np.float32))
+    return b
+
+
+def module_grads(trainer) -> dict:
+    """The trainable gradients, flattened and joined per top-level module."""
+    import torch
+
+    out = {}
+    for name, p in trainer.params:
+        out.setdefault(name.split(".")[0], []).append(p.grad.detach().double().cpu().flatten())
+    return {k: torch.cat(v) for k, v in out.items()}
+
+
+def check_train_grouping(log, dev, seed: int) -> None:
+    """Phase 5, the train path's grouping (``two_scale_group_first_k_fast``:
+    the select and the gather kernels, then scale 1 sorted out of scale 2's
+    slots) on the main path's clouds (B 8, N 2048, uniform cubes in their
+    global LRF, the train config's radii and budgets) equal to the CPU's,
+    slot for slot at both scales."""
+    import torch
+
+    from unopose_tpu_torch import configs
+    from unopose_tpu_torch.ops.ball_query import two_scale_group_first_k_fast
+
+    fm = configs.train_config().model.fine_point_matching
+    args = (fm.pe_radius1, fm.nsample1, fm.pe_radius2, fm.nsample2)
+    pts = lrf_cloud(np.random.default_rng(seed + 12), dev, 8, 2048)
+    card = two_scale_group_first_k_fast(*args, pts)
+    cpu = two_scale_group_first_k_fast(*args, pts.cpu())
+    equal = all(torch.equal(a.cpu(), b) for ga, gb in zip(card, cpu) for a, b in zip(ga, gb))
+    log(f"train grouping (8 x 2048, r/k {args}), card vs CPU: every slot equal {equal}")
+    if not equal:
+        raise AssertionError("the train grouping on the card differs from the CPU's")
+
+
+def check_tiny_train(log, dev, seed: int) -> None:
+    """Phase 5, the train step: the float32 tiny ``train_config`` on surface
+    clouds, one step from the same weights, batch and noise draws on the card
+    (the PE train kernels) and on the CPU (their plain passes). The PE's
+    local frames are ill conditioned on some neighbourhoods of these
+    256-point clouds (ROADMAP Queue 3): their float32 sums and arccos run
+    differently on each device, a frame that flips moves the fine stage, and
+    with random weights the fine losses and every gradient upstream of it
+    move with it. So the checks, each at a gate fixed here:
+
+    - the grouping of each cloud the fine PE sees in the CPU step, made on
+      the card, equals the CPU's slot for slot;
+    - the PE's channels made on the card from the CPU step's clouds and
+      groupings: the offsets bitwise equal, and every row whose local-frame
+      coordinates differ from the CPU's by over 1e-3 one whose coordinates
+      move that far on the CPU alone when the centres or the neighbours move
+      one ulp up or down (an ill-conditioned row);
+    - the card step with its fine PE fed the CPU step's channels (nothing
+      else replaced): every loss term within 1e-3 relative, each top-level
+      module's gradient at cosine >= 0.99, the fine PE's BatchNorm running
+      buffers within 1e-3 of their max;
+    - the card step as it is, where the fine PE does not reach (the coarse
+      loss terms and the coarse matcher's gradient): the same gates. The
+      rest of it is logged beside the CPU's own spread under one-ulp nudges
+      of either cloud."""
+    import copy
+
+    import torch
+
+    from unopose_tpu_torch.configs import train_config
+    from unopose_tpu_torch.engine.train import Trainer
+    from unopose_tpu_torch.models import UNOPose
+    from unopose_tpu_torch.models.matching import FinePositionalEncoding
+    from unopose_tpu_torch.ops.ball_query import two_scale_group_first_k_fast
+    from unopose_tpu_torch.ops.rotation import PoseNoiseDraws
+
+    cfg = train_config(tiny=True)
+    rng = np.random.default_rng(seed + 9)
+    batch = surface_train_inputs(rng, 2)
+    draws = PoseNoiseDraws.draw(2, torch.Generator().manual_seed(seed))
+    torch.manual_seed(seed)
+    state = copy.deepcopy(UNOPose.from_config(cfg.model, torch.float32, torch.float32).state_dict())
+
+    def step(where, batch=batch, channels=None):
+        """One step: (loss terms, module gradients, BN buffers) and each fine
+        PE call's (cloud, grouping, channels) on the CPU; ``channels(i)``,
+        if given, replaces the channels of call i."""
+        model = UNOPose.from_config(cfg.model, torch.float32, torch.float32)
+        model.load_state_dict(state)
+        model.to(where)
+        pe, seen = model.fine_matching.pe, []
+        own = pe.train_channels
+
+        def record(center, grouped, r):
+            chans = own(center, grouped, r) if channels is None else channels(len(seen)).to(where)
+            seen.append((tuple(c.cpu() for c in center), tuple(g.cpu() for g in grouped), r, chans.cpu()))
+            return chans
+
+        pe.train_channels = record
+        trainer = Trainer(model, cfg)
+        metrics = trainer.step({k: torch.from_numpy(v).to(where) for k, v in batch.items()},
+                               pose_noise=PoseNoiseDraws(draws.std_index, draws.angles.to(where), draws.trans.to(where)))
+        bns = {k: v.detach().cpu().double() for k, v in pe.named_buffers()}
+        return ({k: float(v) for k, v in metrics.items() if "loss" in k}, module_grads(trainer), bns), seen
+
+    cos = lambda a, b: float(a @ b / (a.norm() * b.norm()))
+
+    def compare(a, b):
+        """(term, 1 - cosine, BN) differences of run a against run b, and their gates."""
+        (ma, ga, ba), (mb, gb_, bb) = a, b
+        diffs = ({k: abs(ma[k] - mb[k]) for k in mb}, {k: 1 - cos(ga[k], gb_[k]) for k in gb_},
+                 {k: (ba[k] - bb[k]).abs().max().item() for k in bb})
+        gates = ({k: 1e-3 * abs(mb[k]) for k in mb}, {k: 0.01 for k in gb_},
+                 {k: 1e-3 * bb[k].abs().max().item() for k in bb})
+        return diffs, gates
+
+    cpu, cpu_seen = step("cpu")
+    card, card_seen = step(dev)
+    replayed, _ = step(dev, channels=lambda i: cpu_seen[i][3])
+    spread = [compare(step("cpu", {**batch, k: np.nextafter(batch[k], d * np.inf).astype(np.float32)})[0], cpu)[0]
+              for k in ("pts", "tem1_pts") for d in (1, -1)]
+    spread = tuple({k: max(s[i][k] for s in spread) for k in spread[0][i]} for i in range(3))
+
+    # the grouping of each cloud the CPU step's fine PE saw (calls 2c and 2c + 1: cloud c's scales 1 and 2)
+    fm = cfg.model.fine_point_matching
+    args = (fm.pe_radius1, fm.nsample1, fm.pe_radius2, fm.nsample2)
+    grouping_equal = True
+    for c in range(len(cpu_seen) // 2):
+        groups = two_scale_group_first_k_fast(*args, torch.stack(cpu_seen[2 * c][0], dim=-1).to(dev))
+        for g, (_, want, _, _) in zip(groups, cpu_seen[2 * c: 2 * c + 2]):
+            grouping_equal &= all(torch.equal(a.cpu(), b) for a, b in zip(g, want))
+    # the channels alone, from the CPU step's clouds and groupings: the offsets bitwise equal, and every
+    # row (point, scale) whose local-frame coordinates differ by over 1e-3 one that moves that far on the
+    # CPU when the centres or the neighbours move one ulp up or down
+    channels = FinePositionalEncoding.train_channels
+    up = lambda xs, d: tuple(torch.nextafter(x, torch.full_like(x, d * np.inf)) for x in xs)
+    moved = lambda a, b: (a[:, 3:] - b[:, 3:]).abs().amax(dim=(1, 3)) > 1e-3  # (B, P)
+    lrf_rows, offsets_equal = [], True
+    for center, grouped, r, want in cpu_seen:
+        got = channels(tuple(x.to(dev) for x in center), tuple(x.to(dev) for x in grouped), r).cpu()
+        offsets_equal &= torch.equal(got[:, :3], want[:, :3])
+        spread_rows = torch.zeros(want.shape[0], want.shape[2], dtype=torch.bool)
+        for d in (1, -1):
+            spread_rows |= moved(channels(up(center, d), grouped, r), want) | moved(channels(center, up(grouped, d), r), want)
+        card_rows = moved(got, want)
+        lrf_rows.append((int(card_rows.sum()), int(spread_rows.sum()), int((card_rows & spread_rows).sum())))
+    lrf_ok = offsets_equal and all(c == both for c, _, both in lrf_rows)
+    rows = [((a[3] - b[3]).abs().amax(dim=3) > 1e-4).float() for a, b in zip(card_seen, cpu_seen)]  # (B, 6, P)
+    offsets = [r[:, :3].amax(dim=1).mean().item() for r in rows]
+    frames = [r[:, 3:].amax(dim=1).mean().item() for r in rows]
+    log(f"tiny fp32 train step: the grouping of the fine PE's clouds on the card equal to the CPU's "
+        f"{grouping_equal}; on the CPU's clouds and groupings, channel offsets bitwise equal {offsets_equal}, "
+        f"rows with local-frame coordinates off by over 1e-3 by call (card, CPU one-ulp spread, both) {lrf_rows} "
+        f"of {cpu_seen[0][3].shape[0] * cpu_seen[0][3].shape[2]}; in the card step, channel rows off the CPU "
+        f"step's by over 1e-4, by call: offsets {[round(x, 4) for x in offsets]}, local-frame coordinates "
+        f"{[round(x, 4) for x in frames]}")
+
+    worst = lambda d, g: max((v / max(g[k], 1e-30) for k, v in d.items()), default=0.0)
+    failed = ([] if grouping_equal else ["grouping"]) + ([] if lrf_ok else ["channels"])
+    coarse = lambda k: k.startswith("coarse")
+    for name, run, held in (("card on the CPU's PE channels vs CPU", replayed, lambda k: True),
+                            ("card vs CPU, where the fine PE does not reach", card, coarse)):
+        diffs, gates = (tuple({k: v for k, v in x.items() if held(k)} for x in y) for y in compare(run, cpu))
+        ratios = [worst(d, g) for d, g in zip(diffs, gates)]
+        log(f"tiny fp32 train step, {name}: loss {run[0]['loss']:.6f}, worst loss term "
+            f"{max(diffs[0].values(), default=0.0):.2e}, 1 - module gradient cosines "
+            f"{({k: round(v, 9) for k, v in diffs[1].items()})}, BN running buffers worst "
+            f"{max(diffs[2].values(), default=0.0):.2e}; worst share of the gate (terms, cosines, BN) "
+            f"{[round(r, 3) for r in ratios]}, of {[max(d, key=lambda k: d[k] / max(g[k], 1e-30), default=None) for d, g in zip(diffs, gates)]}")
+        if max(ratios) > 1.0:
+            failed.append(name)
+    diffs, _ = compare(card, cpu)
+    reached = [{k: v for k, v in d.items() if not coarse(k)} for d in diffs]
+    log(f"tiny fp32 train step, card vs CPU where the fine PE reaches (not gated: its channels differ, see "
+        f"above), against the CPU's own one-ulp spread: worst loss term {max(reached[0].values()):.2e} vs "
+        f"{max(v for k, v in spread[0].items() if not coarse(k)):.2e}, 1 - cos {({k: round(v, 9) for k, v in reached[1].items()})} "
+        f"vs {({k: round(v, 9) for k, v in spread[1].items() if not coarse(k)})}, BN {max(reached[2].values()):.2e} "
+        f"vs {max(spread[2].values()):.2e}")
+    if failed:
+        raise AssertionError(f"the tiny train step disagrees: {failed}")
+
+
+def run_train(log, dev, seed: int, steps: int) -> dict:
+    """The train path at full width: ``train_config()``, B = 8, bf16, seeded
+    random weights, ``steps`` steps on synthetic batches. Checks the loss
+    terms and the gradient norm, the frozen ViT, that every trainable module
+    and all six BatchNorm layers of the fine PE moved, and the path's
+    kernel launches; then one more step under the profiler for the device
+    time and the PE train kernels' share of it."""
+    import torch
+
+    from unopose_tpu_torch import configs
+    from unopose_tpu_torch.engine.train import Trainer
+    from unopose_tpu_torch.kernels import LAUNCHES, reset_launch_counts
+    from unopose_tpu_torch.models import UNOPose
+
+    cfg = configs.train_config()
+    torch.manual_seed(seed)
+    model = UNOPose.from_config(cfg.model, torch.bfloat16, torch.bfloat16).to(dev)
+    trainer = Trainer(model, cfg)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    rng = np.random.default_rng(seed + 11)
+    batches = [{k: torch.from_numpy(v).to(dev) for k, v in configs.synthetic_train_inputs(rng, cfg.batch_size).items()}
+               for _ in range(steps + 1)]
+    frozen = {n: p.detach().clone() for n, p in model.named_parameters() if "vit" in n}
+    before = {n: p.detach().clone() for n, p in trainer.params}
+    bn_before = {n: b.clone() for n, b in model.fine_matching.pe.named_buffers()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launch_counts()
+    times = []
+    for i, batch in enumerate(batches[:steps]):
+        t0 = time.perf_counter()
+        metrics = trainer.step(batch, generator=gen)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        m = {k: float(v) for k, v in metrics.items()}
+        bad = [k for k, v in m.items() if not np.isfinite(v)]
+        log(f"train step {i}: {times[-1]:.1f} ms, loss {m['loss']:.4f}, grad norm {m['grad_norm']:.4f}, "
+            f"fine acc {m['fine_acc']:.4f}, coarse acc {m['coarse_hard_acc']:.4f}")
+        if bad or not m["grad_norm"] > 0:
+            raise AssertionError(f"train step {i}: non-finite {bad} or a zero gradient norm: {m}")
+    launches = dict(LAUNCHES)
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    missing = [k for k in PATH_KERNELS["train"] if launches.get(k, 0) == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the train path: {missing}")
+    if not all(torch.equal(p.detach(), frozen[n]) for n, p in model.named_parameters() if "vit" in n):
+        raise AssertionError("a frozen ViT parameter moved")
+    moved = {}
+    for n, p in trainer.params:
+        moved[n.split(".")[0]] = moved.get(n.split(".")[0], False) or not torch.equal(p.detach(), before[n])
+    bns = dict(model.fine_matching.pe.named_buffers())
+    bn_moved = {n: not torch.equal(bns[n], bn_before[n]) for n in bn_before}
+    if not all(moved.values()) or len(bn_moved) != 12 or not all(bn_moved.values()):
+        raise AssertionError(f"a trainable module or a BatchNorm buffer of the fine PE did not move: {moved}, {bn_moved}")
+    steady = float(np.median(times[1:])) if len(times) > 1 else times[0]
+
+    # one more step under the profiler: the kernels' time, the device's busy share, the PE train kernels' part
+    from unopose_tpu_torch.tools.profile_slice import PE_TRAIN, kernel_summary
+
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        trainer.step(batches[steps], generator=gen)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    prof_sum = kernel_summary(prof, wall, set())
+    pe_ms = sum(prof_sum["hand_written_ms"][k] for k in PE_TRAIN)
+    log(f"train: ms per {cfg.batch_size}-sample step {['%.1f' % x for x in times]} (first includes warm-up), "
+        f"steady {steady:.1f} ms = {cfg.batch_size * 1e3 / steady:.2f} samples/s, peak memory {peak:.2f} GiB, "
+        f"launches {launches}")
+    log(f"train, profiled step: wall {wall:.1f} ms, {prof_sum['kernels']} kernels, {prof_sum['kernel_ms']:.2f} ms of "
+        f"kernels, device busy {prof_sum['busy_ms']:.2f} ms (idle {100 * prof_sum['idle_share']:.1f}%), PE train "
+        f"kernels {pe_ms:.2f} ms ({100 * pe_ms / prof_sum['kernel_ms']:.1f}% of the kernel time); top kernels "
+        + ", ".join(f"{k['name'][:60]} {k['ms']:.2f} ms x{k['count']}" for k in prof_sum["top"][:8]))
+    del model, trainer, batches
+    torch.cuda.empty_cache()
+    return dict(launches=launches, steady_ms=steady, peak_gib=peak, profiled=prof_sum, pe_train_ms=pe_ms)
+
+
 def run_path(log, dev, seed: int, batches: int, name: str) -> dict:
     """Phase 6: one main path at full width. Returns timing and its launch counts."""
     import torch
@@ -624,6 +1081,7 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--batches", type=int, default=3, help="full-width batches of the production path")
+    parser.add_argument("--train-steps", type=int, default=3, help="full-width steps of the train path")
     args = parser.parse_args()
 
     import torch
@@ -649,13 +1107,17 @@ def main() -> int:
     results = check_kernels(log, dev, args.seed)
     results.update(check_fused_kernels(log, dev, args.seed))
     results.update(check_production_kernels(log, dev, args.seed))
+    results.update(check_train_kernels(log, dev, args.seed))
     check_overflow(log, dev, args.seed)
-    for name in PATH_KERNELS:
+    for name in INFER_PATHS:
         check_tiny(log, dev, args.seed, name)
+    check_train_grouping(log, dev, args.seed)
+    check_tiny_train(log, dev, args.seed)
     runs = {
         "slice": run_path(log, dev, args.seed, EARLY_BATCHES, "slice"),
         "fused_matchers": run_path(log, dev, args.seed, EARLY_BATCHES, "fused_matchers"),
         "production": run_path(log, dev, args.seed, args.batches, "production"),
+        "train": run_train(log, dev, args.seed, args.train_steps),
     }
 
     kernels = []

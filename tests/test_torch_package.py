@@ -23,7 +23,9 @@ import torch
 
 from unopose_tpu_torch.configs import TINY_SIZES, fused_matcher_config, slice_config, surface_clouds
 from unopose_tpu_torch.kernels import LAUNCHES, build
-from unopose_tpu_torch.ops import assignment_fused, ball_query, fps as fps_mod, gather, geo_fused, pe_fused, vit_attn
+from unopose_tpu_torch.ops import (
+    assignment_fused, ball_query, fps as fps_mod, gather, geo_fused, pe_fused, pe_train, vit_attn,
+)
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "unopose_tpu_torch"
@@ -45,7 +47,10 @@ for name in ("jax", "flax", "unopose_tpu"):
 import numpy as np, torch
 import chip_smoke
 import unopose_tpu_torch.tools.profile_slice
-from unopose_tpu_torch.configs import fused_matcher_config, production_config, slice_config, synthetic_inputs
+from unopose_tpu_torch.configs import (
+    fused_matcher_config, production_config, slice_config, synthetic_inputs, synthetic_train_inputs, train_config,
+)
+from unopose_tpu_torch.engine.train import Trainer
 from unopose_tpu_torch.models import UNOPose
 from unopose_tpu_torch.utils.convert import flax_to_torch
 for config in (slice_config, fused_matcher_config, production_config):
@@ -55,6 +60,11 @@ for config in (slice_config, fused_matcher_config, production_config):
     out = model({k: torch.from_numpy(v) for k, v in inputs.items()}, generator=torch.Generator().manual_seed(0))
     assert torch.isfinite(out["pred_R"]).all(), out
 assert model.fine_matching.pe.last_branch == "v5"
+cfg = train_config(tiny=True)
+trainer = Trainer(UNOPose.from_config(cfg.model, torch.float32, torch.float32), cfg)
+batch = synthetic_train_inputs(np.random.default_rng(0), 2, tiny=True)
+metrics = trainer.step({k: torch.from_numpy(v) for k, v in batch.items()}, generator=torch.Generator().manual_seed(0))
+assert torch.isfinite(metrics["loss"]) and metrics["grad_norm"] > 0, metrics
 loaded = {m.split(".")[0] for m in sys.modules if sys.modules[m] is not None}
 assert not loaded & {"jax", "flax", "jaxlib", "unopose_tpu"}, loaded
 print("ok")
@@ -146,6 +156,23 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     feats = torch.rand(1, 65, 32)
     with pytest.raises(ValueError):
         assignment_fused.fine_assignment_fused_cuda(feats, feats, torch.rand(1, 128), torch.rand(1, 64, 3))
+    chans, (Ws, gammas, betas) = torch.rand(1, 6, 32, 16), _pe_train_params(torch.device("cpu"))
+    bn, gb = pe_train.stats_buffer(gammas, betas, "cpu")
+    pooled = torch.rand(1, 32, 128)
+    for call in (lambda: pe_train.stats_cuda(chans, Ws, gb, bn, 1, 1e-5), lambda: pe_train.fwd_cuda(chans, Ws, bn),
+                 lambda: pe_train.bwd_sums_cuda(chans, Ws, bn, pooled, pooled, pooled, 3),
+                 lambda: pe_train.bwd_dw_cuda(chans, Ws, bn, pooled, pooled, pooled)):
+        with pytest.raises(ValueError):
+            call()
+
+
+def _pe_train_params(dev, seed=0):
+    gen = torch.Generator().manual_seed(seed)
+    dims = (6, 32, 64, 128)
+    Ws = [(torch.randn(a, b, generator=gen) * (2.0 / a) ** 0.5).to(dev) for a, b in zip(dims[:-1], dims[1:])]
+    gammas = [(1.0 + 0.1 * torch.randn(d, generator=gen)).to(dev) for d in dims[1:]]
+    betas = [(0.1 * torch.randn(d, generator=gen)).to(dev) for d in dims[1:]]
+    return Ws, gammas, betas
 
 
 def test_cpu_tensors_take_the_plain_versions(monkeypatch):
@@ -176,6 +203,11 @@ def test_cpu_tensors_take_the_plain_versions(monkeypatch):
     pred_pts, weights, label1 = assignment_fused.fine_assignment_fused(feats, feats, torch.rand(2, 128),
                                                                        torch.rand(2, 64, 3))
     assert pred_pts.shape == (2, 64, 3) and weights.shape == (2, 64) and label1.dtype == torch.int32
+    Ws, gammas, betas = _pe_train_params(torch.device("cpu"))
+    Ws = [W.requires_grad_() for W in Ws]
+    pooled, (mus, vars_) = pe_train.pe_mlp_bn_pool_train(torch.rand(2, 6, 32, 16), Ws, gammas, betas)
+    pooled.sum().backward()
+    assert pooled.shape == (2, 32, 128) and [m.shape[0] for m in mus] == [32, 64, 128] and Ws[2].grad is not None
     assert dict(LAUNCHES) == before
 
 
@@ -253,6 +285,55 @@ def _lrf_cloud(rng, B, N, dev):
 
     pts = rng.uniform(-0.1, 0.1, size=(B, N, 3)).astype(np.float32) + np.float32(0.6)
     return global_lrf(torch.from_numpy(pts).to(dev))
+
+
+@pytest.mark.cuda
+def test_pe_train_kernels_match_plain(cuda):
+    """K11-K14 against their plain passes on the card (B 2, P 256, S 64 and
+    256, the last two thirds of each point's slots duplicating the first):
+    the batch statistics within 1e-4 relative; the pooled output, every
+    layer's sums and the dW within 1e-2 of each tensor's max (bf16 rounding
+    flips where float32 sums reassociate); the tie counts equal; each
+    backward pass fed its own side's forward max; and a whole forward and
+    backward through the autograd function launches each kernel."""
+    Ws, gammas, betas = _pe_train_params(cuda)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    for S in (64, 256):
+        chans = torch.randn(2, 6, 256, S, device=cuda, generator=gen) * 0.3
+        chans[..., S // 3:] = chans[..., :1]
+        chans = chans.contiguous()
+        bn, gb = pe_train.stats_buffer(gammas, betas, cuda)
+        for depth in (1, 2, 3):
+            pe_train.stats_plain(chans, Ws, gb, bn, depth, 1e-5)
+            got = bn.clone()
+            pe_train.stats_cuda(chans, Ws, gb, got, depth, 1e-5)
+            d = pe_train.DIMS[depth]
+            for row in (pe_train.MU, pe_train.VAR):
+                want = bn[depth - 1, row, :d]
+                assert ((got[depth - 1, row, :d] - want).abs().max() / want.abs().max()).item() < 1e-4
+        pooled, cnt = pe_train.fwd_plain(chans, Ws, bn)
+        k_pooled, k_cnt = pe_train.fwd_cuda(chans, Ws, bn)
+        assert ((k_pooled - pooled).abs().max() / pooled.abs().max()).item() < 1e-2 and torch.equal(k_cnt, cnt)
+        dpool = torch.randn(2, 256, 128, device=cuda, generator=gen)
+        for layer in (3, 2, 1):
+            got = bn.clone()
+            pe_train.bwd_sums_plain(chans, Ws, bn, pooled, cnt, dpool, layer)
+            pe_train.bwd_sums_cuda(chans, Ws, got, k_pooled, k_cnt, dpool, layer)
+            for row in (pe_train.SG, pe_train.SGZ):
+                want = bn[layer - 1, row, : pe_train.DIMS[layer]]
+                assert ((got[layer - 1, row, : pe_train.DIMS[layer]] - want).abs().max() / want.abs().max()).item() < 1e-2
+        for a, b in zip(pe_train.bwd_dw_cuda(chans, Ws, bn, k_pooled, k_cnt, dpool),
+                        pe_train.bwd_dw_plain(chans, Ws, bn, pooled, cnt, dpool)):
+            assert ((a - b).abs().max() / b.abs().max()).item() < 1e-2
+    before = dict(LAUNCHES)
+    params = [t.clone().requires_grad_() for t in (*Ws, *gammas, *betas)]
+    out, _ = pe_train.pe_mlp_bn_pool_train(chans, params[:3], params[3:6], params[6:])
+    out.sum().backward()
+    torch.cuda.synchronize()
+    counts = {k: LAUNCHES[k] - before.get(k, 0) for k in ("pe_train_stats", "pe_train_fwd", "pe_train_bwd_sums",
+                                                          "pe_train_bwd_dw")}
+    assert counts == dict(pe_train_stats=3, pe_train_fwd=1, pe_train_bwd_sums=3, pe_train_bwd_dw=1)
+    assert all(torch.isfinite(p.grad).all() for p in params)
 
 
 @pytest.mark.cuda

@@ -31,6 +31,8 @@ from __future__ import annotations
 
 import numpy as np
 
+from unopose_tpu_torch.ops.rotation import random_rotation_np
+
 # image side, query points, template points of one pair
 FULL_SIZES = dict(img=224, npts=2048, ntem=5000)
 # the tiny config of the CPU tests: the packed first_k PE still engages
@@ -119,6 +121,39 @@ def production_config(tiny: bool = False) -> Config:
     return cfg
 
 
+# configs/main_cfg.py's schedule length: 3 epochs of the 2,008,971 training images at 8 per rank on 4 ranks
+TRAIN_BATCH = 8
+MAX_ITER = (2008971 // (TRAIN_BATCH * 4)) * 3
+
+
+def train_config(tiny: bool = False) -> Config:
+    """The training step's configuration: the model section is
+    ``production_config(tiny)`` with ``freeze_vit``, and the train settings
+    the step reads are ``get_cfg()``'s: Adam lr 1e-4, betas (0.5, 0.999),
+    eps 1e-6, no weight decay, the flat-and-anneal schedule (linear warmup
+    from 0.001 over 1000 iterations, cosine anneal to 0 from there), no
+    gradient clipping, no model EMA, batch ``TRAIN_BATCH`` per card.
+
+    ``pe_fused`` is left out, as in ``production_config``: in the port None
+    means on, and in training that is the PE train kernels
+    (``ops/pe_train.py``, K11-K14); the JAX package's None means its XLA
+    formulation in training. Both compute the same function. The other
+    auto switches follow the JAX package's train gates (see
+    ``models/unopose.py``)."""
+    model = production_config(tiny)
+    model.feature_extraction.freeze_vit = True
+    return Config(
+        model=model,
+        optimizer=dict(type="adam", lr=1e-4, betas=(0.5, 0.999), weight_decay=0.0, eps=1e-6),
+        lr_multiplier=dict(
+            warmup_method="linear", warmup_factor=0.001, warmup_iters=1000, total_iters=MAX_ITER,
+            anneal_point=min(1000 / MAX_ITER, 1.0), anneal_method="cosine", target_lr_factor=0.0,
+        ),
+        train=dict(max_iter=MAX_ITER, clip_grad=dict(enabled=False, params=dict(max_norm=35, norm_type=2)), seed=1),
+        batch_size=TRAIN_BATCH,
+    )
+
+
 # the configurations by the name chip_smoke.py and tools/profile_slice.py give them
 CONFIGS = {"slice": slice_config, "fused_matchers": fused_matcher_config, "production": production_config}
 
@@ -172,4 +207,36 @@ def synthetic_inputs(rng: np.random.Generator, batch: int, tiny: bool = False) -
         tem1_rgb=rng.uniform(-1, 1, size=(batch, img, img, 3)).astype(np.float32),
         tem1_choose=rng.integers(0, img * img, size=(batch, ntem)).astype(np.int32),
         tem1_pts=rng.uniform(-0.1, 0.1, size=(batch, ntem, 3)).astype(np.float32) + offset,
+    )
+
+
+def synthetic_train_inputs(rng: np.random.Generator, batch: int, tiny: bool = False) -> dict:
+    """A training batch built like the JAX package's ``synthetic_train_iter``
+    (``data/loader.py``), draw for draw: random crops in [-1, 1], a template
+    cloud uniform in a 0.16 m cube 0.6 m away, and the observed cloud the
+    template's points under a random rotation and a translation near
+    (0, 0, 0.55) m, plus 2 mm of noise; ``rotation_label`` (B, 3, 3) and
+    ``translation_label`` (B, 3) are that pose. numpy arrays."""
+    sizes = TINY_SIZES if tiny else FULL_SIZES
+    img, npts, ntem = sizes["img"], sizes["npts"], sizes["ntem"]
+    B = batch
+    rgb = rng.uniform(-1, 1, size=(B, img, img, 3)).astype(np.float32)
+    tem_rgb = rng.uniform(-1, 1, size=(B, img, img, 3)).astype(np.float32)
+    tem_pts = rng.uniform(-0.08, 0.08, size=(B, ntem, 3)).astype(np.float32)
+    tem_pts[..., 2] += 0.6
+    R = np.stack([random_rotation_np(rng) for _ in range(B)])
+    t = rng.uniform(-0.02, 0.02, size=(B, 3)).astype(np.float32)
+    t[:, 2] += 0.55
+    sel = rng.integers(0, ntem, size=(B, npts))
+    pts = np.einsum("bij,bnj->bni", R, np.take_along_axis(tem_pts, sel[..., None], axis=1)) + t[:, None]
+    pts = (pts + 0.002 * rng.standard_normal((B, npts, 3))).astype(np.float32)
+    return dict(
+        rgb=rgb,
+        rgb_choose=rng.integers(0, img * img, size=(B, npts)).astype(np.int32),
+        pts=pts,
+        tem1_rgb=tem_rgb,
+        tem1_choose=rng.integers(0, img * img, size=(B, ntem)).astype(np.int32),
+        tem1_pts=tem_pts,
+        rotation_label=R.astype(np.float32),
+        translation_label=t,
     )

@@ -6,8 +6,10 @@ The Python wrappers live beside their plain PyTorch twins in ``ops/``:
 ``ops/ball_query.py:first_k_select_cuda``,
 ``ops/geo_fused.py:geo_rpe_fused_cuda``, ``ops/pe_fused.py:pe_channels_cuda``,
 ``ops/pe_fused.py:pe_mlp_pool_cuda``, ``ops/vit_attn.py:mha_fused_cuda``
-and the three sweeps of ``ops/assignment_fused.py`` (``colstats_cuda``,
-``labels_cuda``, ``accum_cuda``). Each wrapper counts its launches in
+the three sweeps of ``ops/assignment_fused.py`` (``colstats_cuda``,
+``labels_cuda``, ``accum_cuda``) and the four passes of the PE train stack
+in ``ops/pe_train.py`` (``stats_cuda``, ``fwd_cuda``, ``bwd_sums_cuda``,
+``bwd_dw_cuda``). Each wrapper counts its launches in
 ``LAUNCHES`` under its kernel's name.
 """
 

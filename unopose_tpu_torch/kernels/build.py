@@ -56,6 +56,14 @@ _SIGNATURES = {
     "unopose_fine_labels": [_P] * 10 + [_I] * 4 + [_P],
     # f1n, f2n, cm, cs, s1, s2, rm, rs, label1, label2, pts2, wsum, num, B, M1, M2, C, stream
     "unopose_fine_accum": [_P] * 13 + [_I] * 4 + [_P],
+    # chans, w0, w1, w2, gb, bn, partial, cap, B, P, S, depth, eps, stream
+    "unopose_pe_train_stats": [_P] * 7 + [_I] * 5 + [_F, _P],
+    # chans, w0, w1, w2, bn, pooled, cnt, B, P, S, stream
+    "unopose_pe_train_fwd": [_P] * 7 + [_I] * 3 + [_P],
+    # chans, w0, w1, w2, bn, pooled, cnt, dpool, partial, cap, B, P, S, depth, stream
+    "unopose_pe_train_bwd_sums": [_P] * 9 + [_I] * 5 + [_P],
+    # chans, w0, w1, w2, bn, pooled, cnt, dpool, partial, cap, dw, B, P, S, stream
+    "unopose_pe_train_bwd_dw": [_P] * 9 + [_I, _P] + [_I] * 3 + [_P],
 }
 
 _lock = threading.Lock()

@@ -87,12 +87,15 @@ class GeometricStructureEmbedding(nn.Module):
         self.proj_d = Dense(hidden_dim, hidden_dim, dtype)
         self.proj_a = Dense(hidden_dim, hidden_dim, dtype)
 
-    def forward(self, points: torch.Tensor):
+    def forward(self, points: torch.Tensor, train: bool = False):
+        """In training the exact path runs whatever ``fused_table`` says (the
+        JAX package's gate: the fused kernel has no backward); the gradient
+        reaches the two projections, not the points."""
         points = points.detach().float()
         k = self.angle_k
         factor_a = 180.0 / (self.sigma_a * math.pi)
         dist, ref_vec = knn_anchor_vectors(points, k)
-        if self.fused_table:
+        if self.fused_table and not train:
             T = self.fused_table
             # the raw float32 projections: nn.Linear (out, in) -> the flax (in, out) kernel
             tab_d, scale_d = build_taylor_table(self.proj_d.weight.t(), self.proj_d.bias, float(self.d_index_max), T)

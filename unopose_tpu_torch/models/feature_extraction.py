@@ -68,10 +68,14 @@ class ViTAE(nn.Module):
         in_dim = self.vit.embed_dim * (4 if use_pyramid_feat else 1)
         self.output_upscaling = Dense(in_dim, 16 * out_dim, dtype)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """(B, H, W, 3) -> (B, 4g, 4g, out_dim) low-resolution feature map."""
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        """(B, H, W, 3) -> (B, 4g, 4g, out_dim) low-resolution feature map.
+        In training the ViT is frozen: it runs its exact path without
+        autograd (the JAX package cuts the gradient at its output), and only
+        ``output_upscaling`` is differentiated."""
         B = x.shape[0]
-        outs, _ = self.vit(x)
+        with torch.set_grad_enabled(torch.is_grad_enabled() and not train):
+            outs, _ = self.vit(x, train=train)
         npfx = self.vit.num_prefix_tokens
         outs = [o[:, npfx:, :] for o in outs]
         feat = torch.cat(outs, dim=2) if self.use_pyramid_feat else outs[-1]
@@ -91,13 +95,13 @@ class ViTEncoderOneRef(nn.Module):
         self.rgb_net = ViTAE(vit_type, up_type, embed_dim, out_dim, use_pyramid_feat, img_size, dtype, fused_attn,
                              int8_gemm)
 
-    def encode_pair(self, rgb, rgb_choose, tem1_rgb, tem1_choose):
+    def encode_pair(self, rgb, rgb_choose, tem1_rgb, tem1_choose, train: bool = False):
         """Both crops through the backbone as one 2B batch."""
         B = rgb.shape[0]
-        low = self.rgb_net(torch.cat([rgb, tem1_rgb], dim=0))
+        low = self.rgb_net(torch.cat([rgb, tem1_rgb], dim=0), train)
         return bilinear_gather(low[:B], rgb_choose, rgb.shape[1]), bilinear_gather(low[B:], tem1_choose, rgb.shape[1])
 
-    def forward(self, rgb, rgb_choose, pts, tem1_rgb, tem1_choose, tem1_pts):
+    def forward(self, rgb, rgb_choose, pts, tem1_rgb, tem1_choose, tem1_pts, train: bool = False):
         """Returns (dense_pm, dense_fm, dense_po, dense_fo, radius): both clouds
         divided by the reference radius, the reference FPS-subsampled to
         ``npoint`` points."""
@@ -106,6 +110,6 @@ class ViTEncoderOneRef(nn.Module):
         r = radius[:, None, None] + 1e-6
         dense_pm = pts / r
         tem1_pts = tem1_pts / r
-        dense_fm, tem_feat = self.encode_pair(rgb, rgb_choose, tem1_rgb, tem1_choose)
+        dense_fm, tem_feat = self.encode_pair(rgb, rgb_choose, tem1_rgb, tem1_choose, train)
         dense_po, dense_fo = sample_pts_feats(tem1_pts, tem_feat, self.npoint)
         return dense_pm, dense_fm, dense_po, dense_fo, radius

@@ -1,10 +1,18 @@
 """Coarse and fine point-matching stages with overlap heads (counterpart of
-``unopose_tpu/models/matching.py``), inference only.
+``unopose_tpu/models/matching.py``).
 
-The fine positional encoding runs the packed first_k path with folded
-BatchNorm and the plain MLP (``pe_fused=False``) or the fused PE-v5
-(``pe_fused=True``). ``lax.cond`` on the grouping's overflow flag becomes a
-host branch: one device-to-host sync per forward.
+Inference: the fine positional encoding runs the packed first_k path with
+folded BatchNorm and the plain MLP (``pe_fused=False``) or the fused PE-v5
+(``pe_fused=True``), both clouds as one batch. Training (``train=True``):
+each cloud separately (batch statistics are per cloud), the first_k
+grouping of ``two_scale_group_first_k_fast``, and per scale the MLP with
+batch-statistics BatchNorm: the kernels' pass structure of
+``ops/pe_train.py:pe_mlp_bn_pool_train`` with ``pe_fused`` (K11-K14 on the
+card), the plain float32 formulation without; the BatchNorm running
+statistics take flax's update. Both matchers then return every block's
+similarity, overlap scores and saliencies for the loss. ``lax.cond`` on the
+grouping's overflow flag becomes a host branch: one device-to-host sync per
+grouping.
 """
 
 from __future__ import annotations
@@ -16,20 +24,30 @@ from unopose_tpu_torch.models.layers import Dense
 from unopose_tpu_torch.models.transformer import GeometricTransformer, SparseToDenseTransformer
 from unopose_tpu_torch.ops.ball_query import (
     two_scale_group_exact_planar,
+    two_scale_group_first_k_fast,
     two_scale_group_first_k_packed,
     two_scale_group_first_k_packed_idx,
 )
 from unopose_tpu_torch.ops.geometry import compute_feature_similarity
 from unopose_tpu_torch.ops.lrf import batch_lrf_planar
 from unopose_tpu_torch.ops.pe_fused import pack_mlp, pe_fused_v5
+from unopose_tpu_torch.ops.pe_train import pe_mlp_bn_pool_train, pe_mlp_bn_pool_train_plain
 
 
-def block_outputs(scores, n1: int):
-    """Per-point overlap scores (B, n1+n2) from the raw head outputs on
-    [bg, f1..., bg, f2...]."""
+def block_outputs(atten, scores, n1: int, need_saliency: bool = False):
+    """(overlap scores (B, n1+n2), saliencies (B, n1+n2) or None) from the raw
+    head outputs on [bg, f1..., bg, f2...] and the similarity (B, n1+1,
+    n2+1). The saliency (the loss's alone) contracts the row and the column
+    softmax of the similarity with the other cloud's raw scores."""
     s1 = scores[:, 1 : n1 + 1]
     s2 = scores[:, n1 + 2 :]
-    return torch.sigmoid(torch.cat([s1, s2], dim=1)[..., 0].float()).clamp(0.0, 1.0)
+    score = torch.sigmoid(torch.cat([s1, s2], dim=1)[..., 0].float()).clamp(0.0, 1.0)
+    if not need_saliency:
+        return score, None
+    a = atten[:, 1:, 1:].float()
+    m1 = torch.matmul(torch.softmax(a, dim=2), s2.float())
+    m2 = torch.einsum("bij,bik->bjk", torch.softmax(a, dim=1), s1.float())
+    return score, torch.sigmoid(torch.cat([m1, m2], dim=1)[..., 0]).clamp(0.0, 1.0)
 
 
 class _CoarseBlock(nn.Module):
@@ -54,24 +72,43 @@ class CoarsePointMatching(nn.Module):
         self.bg_token = nn.Parameter(torch.randn(1, 1, hidden_dim) * 0.02)
         self.blocks = nn.ModuleList(_CoarseBlock(hidden_dim, num_heads, dtype) for _ in range(nblock))
 
-    def forward(self, f1, geo1, f2, geo2):
+    def forward(self, f1, geo1, f2, geo2, all_blocks: bool = False):
         """f1 (B, n1, C), geo1 (B, n1+1, n1+1, C), likewise f2/geo2 ->
-        (atten (B, n1+1, n2+1), score (B, n1+n2)) of the last block."""
+        (atten (B, n1+1, n2+1), score (B, n1+n2)) of the last block; with
+        ``all_blocks`` (training) the lists (attens, scores, saliencies) of
+        every block."""
         B, n1 = f1.shape[:2]
         bg = self.bg_token.to(self.dtype).expand(B, 1, -1)
         f1 = torch.cat([bg, self.in_proj(f1)], dim=1)
         f2 = torch.cat([bg, self.in_proj(f2)], dim=1)
+        outs = []
         for blk in self.blocks:
             f1, f2, scores = blk(f1, geo1, f2, geo2)
-        atten = compute_feature_similarity(
-            self.out_proj(f1).float(), self.out_proj(f2).float(), self.temp, self.normalize_feat
-        )
-        return atten, block_outputs(scores, n1)
+            outs.append((f1, f2, scores))
+        if not all_blocks:
+            atten = compute_feature_similarity(
+                self.out_proj(f1).float(), self.out_proj(f2).float(), self.temp, self.normalize_feat
+            )
+            return atten, block_outputs(atten, scores, n1)[0]
+        return _all_block_outputs(self, outs, n1)
+
+
+def _all_block_outputs(m, outs, n1: int):
+    """(attens, scores, saliencies) of every block, for the training loss."""
+    attens, scores_l, sals = [], [], []
+    for f1, f2, scores in outs:
+        atten = compute_feature_similarity(m.out_proj(f1).float(), m.out_proj(f2).float(), m.temp, m.normalize_feat)
+        score, sal = block_outputs(atten, scores, n1, need_saliency=True)
+        attens.append(atten)
+        scores_l.append(score)
+        sals.append(sal)
+    return attens, scores_l, sals
 
 
 class BNVars(nn.Module):
-    """Inference BatchNorm parameters and running statistics, folded into the
-    preceding linear layer rather than applied."""
+    """BatchNorm parameters and running statistics: folded into the preceding
+    linear layer at inference; in training, applied with the batch
+    statistics by ``ops/pe_train.py``, which also update the running ones."""
 
     def __init__(self, features: int):
         super().__init__()
@@ -102,12 +139,13 @@ def folded_scale_planar(center, grouped, r: float, Ws, bs, lrf_w=None, pool_mask
 
 
 class FinePositionalEncoding(nn.Module):
-    """Two-scale local-geometry encoding on the packed first_k path, with the
-    plain MLP or, with ``fused``, the fused PE-v5 (``ops/pe_fused.py``: the
-    channels and MLP/pool kernels on the card).
+    """Two-scale local-geometry encoding. Inference: the packed first_k path
+    with the plain MLP or, with ``fused``, the fused PE-v5
+    (``ops/pe_fused.py``: the channels and MLP/pool kernels on the card).
+    Training: see the module docstring.
 
-    ``last_branch`` records which branch the last forward took: "packed",
-    "v5", or "exact" after a grouping overflow.
+    ``last_branch`` records which branch the last inference forward took:
+    "packed", "v5", or "exact" after a grouping overflow.
     """
 
     MLP_DIMS = (32, 64, 128)
@@ -158,6 +196,46 @@ class FinePositionalEncoding(nn.Module):
     def packed_ok(self, N: int) -> bool:
         k2 = self.nsample2
         return N % 64 == 0 and N <= 4096 and N >= k2 and k2 % 256 == 0
+
+    @staticmethod
+    def train_channels(center, grouped, r: float) -> torch.Tensor:
+        """One scale's MLP input in training: (B, 6, P, S) float32, each
+        slot's offset from its centre and its local-frame coordinates, with
+        no gradient (the clouds are data)."""
+        rel = [g - c[..., None] for g, c in zip(grouped, center)]
+        return torch.stack([*rel, *batch_lrf_planar(center, grouped, r)], dim=1).float().detach()
+
+    def _scale_train(self, center, grouped, r: float, name: str) -> torch.Tensor:
+        """One scale in training: (B, P, 128) pooled features, and flax's
+        running update of the scale's BatchNorm statistics (momentum 0.9,
+        biased batch variance)."""
+        chans = self.train_channels(center, grouped, r)
+        Ws = [getattr(self, f"{name}_fc{i}_kernel") for i in range(len(self.MLP_DIMS))]
+        bns = [getattr(self, f"{name}_bn{i}") for i in range(len(self.MLP_DIMS))]
+        args = (chans, Ws, [bn.weight for bn in bns], [bn.bias for bn in bns])
+        if self.fused:
+            pooled, (mus, vars_) = pe_mlp_bn_pool_train(*args)
+        else:
+            pooled, (mus, vars_) = pe_mlp_bn_pool_train_plain(*args, mm_dtype=torch.float32)
+        with torch.no_grad():
+            for bn, mu, var in zip(bns, mus, vars_):
+                bn.mean.copy_(0.9 * bn.mean + 0.1 * mu)
+                bn.var.copy_(0.9 * bn.var + 0.1 * var)
+        return pooled
+
+    def forward_train(self, pts: torch.Tensor) -> torch.Tensor:
+        """One cloud in training: pts (B, N, 3) -> (B, N, out_dim)."""
+        pts = pts.float().detach()
+        N = pts.shape[1]
+        center = tuple(pts.unbind(-1))
+        args = (self.r1, self.nsample1, self.r2, self.nsample2, pts)
+        if N % 4 == 0 and self.nsample2 % 4 == 0:
+            g1, g2 = two_scale_group_first_k_fast(*args)
+        else:
+            g1, g2 = two_scale_group_exact_planar(*args)
+        f1 = self._scale_train(center, g1, self.r1, "mlp1")
+        f2 = self._scale_train(center, g2, self.r2, "mlp2")
+        return self.mlp3(torch.cat([f1, f2], dim=-1))
 
     def forward(self, pts: torch.Tensor) -> torch.Tensor:
         """pts (B, N, 3) -> (B, N, out_dim)."""
@@ -222,22 +300,33 @@ class FinePointMatching(nn.Module):
             _FineBlock(hidden_dim, num_heads, focusing_factor, dtype) for _ in range(nblock)
         )
 
-    def forward(self, p1, f1, geo1, fps_idx1, p2, f2, geo2, fps_idx2, init_R, init_t, return_proj: bool = False):
+    def forward(self, p1, f1, geo1, fps_idx1, p2, f2, geo2, fps_idx2, init_R, init_t, return_proj: bool = False,
+                train: bool = False):
         """Dense clouds p1/p2 (B, n, 3), features f1/f2 (B, n, C), sparse
-        embeddings geo* (B, 197, 197, C), FPS indices (B, 196), coarse pose.
+        embeddings geo* (B, 197, 197, C), FPS indices (B, 196), initial pose.
         Returns (atten (B, n1+1, n2+1), score (B, n1+n2)) of the last block;
         with ``return_proj`` (the fused assignment) the two projected
         features ((B, n1+1, C), (B, n2+1, C)) float32, bg token included,
-        stand in place of the similarity matrix, which is never built."""
+        stand in place of the similarity matrix, which is never built. With
+        ``train`` the lists (attens, scores, saliencies) of every block."""
         B, n1 = p1.shape[:2]
         p1_aligned = torch.matmul(p1 - init_t[:, None, :], init_R)
-        pe = self.pe(torch.cat([p1_aligned, p2], dim=0))
+        if train:
+            pe1, pe2 = self.pe.forward_train(p1_aligned), self.pe.forward_train(p2)
+        else:
+            pe = self.pe(torch.cat([p1_aligned, p2], dim=0))
+            pe1, pe2 = pe[:B], pe[B:]
         bg = self.bg_token.to(self.dtype).expand(B, 1, -1)
-        f1 = torch.cat([bg, self.in_proj(f1) + pe[:B].to(self.dtype)], dim=1)
-        f2 = torch.cat([bg, self.in_proj(f2) + pe[B:].to(self.dtype)], dim=1)
+        f1 = torch.cat([bg, self.in_proj(f1) + pe1.to(self.dtype)], dim=1)
+        f2 = torch.cat([bg, self.in_proj(f2) + pe2.to(self.dtype)], dim=1)
+        outs = []
         for blk in self.blocks:
             f1, f2, scores = blk(f1, geo1, fps_idx1, f2, geo2, fps_idx2)
+            outs.append((f1, f2, scores))
+        if train:
+            return _all_block_outputs(self, outs, n1)
         proj = (self.out_proj(f1).float(), self.out_proj(f2).float())
+        score = block_outputs(None, scores, n1)[0]
         if return_proj:
-            return proj, block_outputs(scores, n1)
-        return compute_feature_similarity(*proj, self.temp, self.normalize_feat), block_outputs(scores, n1)
+            return proj, score
+        return compute_feature_similarity(*proj, self.temp, self.normalize_feat), score

@@ -1,5 +1,5 @@
-"""UNOPose inference (counterpart of ``unopose_tpu/models/unopose.py``, its
-``train=False`` branch).
+"""UNOPose (counterpart of ``unopose_tpu/models/unopose.py``): inference, and
+the network pass and loss terms of the training step (``train=True``).
 
 features (exact ViT, or the production ViT: fused attention, W8A8 GEMMs,
 tanh-GELU) -> global LRF of both clouds -> FPS to ``coarse_npoint`` nodes
@@ -8,11 +8,22 @@ int8) -> coarse matching -> coarse hypothesis search -> fine matching
 (packed or fused PE) -> weighted-SVD fine pose, from the materialised
 similarity matrix or the fused assignment.
 
+Training: the frozen ViT (exact path, no autograd) -> both clouds' LRFs ->
+FPS -> the exact geometric embedding (differentiated) -> every coarse
+block's similarity, scores and saliencies -> the ground-truth pose with
+``aug_pose_noise`` as the fine initial pose -> every fine block's outputs,
+the fine PE per cloud with batch-statistics BatchNorm. ``compute_train_losses``
+turns them into the per-sample loss terms.
+
 The JAX package's three auto switches (``feature_extraction.fused_attn``,
 ``fine_point_matching.pe_fused``, ``fused_assignment``) default to None,
-"on for TPU inference". The port is inference only on one production
-device, so None means on; the fused assignment, like the JAX package's
-auto gate, also needs ``normalize_feat``.
+"on for TPU inference". The port runs on one production device, so None
+means on; the fused assignment, like the JAX package's auto gate, also
+needs ``normalize_feat``. In training the JAX package's gates turn off the
+ViT's production mode, the fused embedding and the fused assignment, and
+the port follows them; ``pe_fused`` (None or True) selects the PE train
+kernels (``ops/pe_train.py``), where the JAX package's None selects its XLA
+formulation of the same function.
 """
 
 from __future__ import annotations
@@ -24,12 +35,14 @@ import torch
 from torch import nn
 
 from unopose_tpu_torch.configs import Config
+from unopose_tpu_torch.losses import compute_overlap_loss
 from unopose_tpu_torch.models.embedding import GeometricStructureEmbedding
 from unopose_tpu_torch.models.feature_extraction import ViTEncoderOneRef
 from unopose_tpu_torch.models.matching import CoarsePointMatching, FinePointMatching
 from unopose_tpu_torch.ops.assignment_fused import compute_fine_Rt_overlap_fused
 from unopose_tpu_torch.ops.fps import sample_pts_feats_wlrf
 from unopose_tpu_torch.ops.lrf import global_lrf
+from unopose_tpu_torch.ops.rotation import PoseNoiseDraws, aug_pose_noise
 from unopose_tpu_torch.ops.solver import compute_coarse_Rt_overlap, compute_fine_Rt_overlap
 
 POSE_KEYS = ("radius", "init_R", "init_t", "init_pose_score", "pred_R", "pred_t", "pred_pose_score", "fine_wsvd_max_w")
@@ -141,24 +154,34 @@ class UNOPose(nn.Module):
             return global_lrf(pts, torch.ones(pts.shape[0], dtype=torch.float32, device=pts.device))
         return global_lrf(pts)
 
-    @torch.no_grad()
     def forward(
         self,
         inputs: Dict[str, torch.Tensor],
         generator: Optional[torch.Generator] = None,
         uniforms: Optional[torch.Tensor] = None,
         return_intermediates: bool = False,
+        train: bool = False,
+        pose_noise: Optional[PoseNoiseDraws] = None,
     ) -> Dict[str, torch.Tensor]:
         """inputs: rgb (B, H, W, 3), rgb_choose (B, P1), pts (B, P1, 3),
-        tem1_rgb, tem1_choose (B, P2), tem1_pts (B, P2, 3).
+        tem1_rgb, tem1_choose (B, P2), tem1_pts (B, P2, 3); in training also
+        rotation_label (B, 3, 3) and translation_label (B, 3).
 
-        The coarse search draws (B, 3 * nproposal1) uniforms from
-        ``generator``, or uses ``uniforms``. Returns the pose keys
-        (``POSE_KEYS``), plus every intermediate with ``return_intermediates``.
+        Inference (no autograd): the coarse search draws (B, 3 * nproposal1)
+        uniforms from ``generator``, or uses ``uniforms``. Returns the pose
+        keys (``POSE_KEYS``), plus every intermediate with
+        ``return_intermediates``. Training: see ``forward_train``.
         """
+        if train:
+            return self.forward_train(inputs, pose_noise, generator)
+        with torch.no_grad():
+            return self._infer(inputs, generator, uniforms, return_intermediates)
+
+    def _encode(self, inputs, train: bool):
+        """Features, both clouds' FPS nodes and their geometric embeddings."""
         dense_pm, dense_fm, dense_po, dense_fo, radius = self.encoder(
             inputs["rgb"], inputs["rgb_choose"], inputs["pts"],
-            inputs["tem1_rgb"], inputs["tem1_choose"], inputs["tem1_pts"],
+            inputs["tem1_rgb"], inputs["tem1_choose"], inputs["tem1_pts"], train=train,
         )
         dense_fm = dense_fm.to(self.dtype)
         dense_fo = dense_fo.to(self.dtype)
@@ -166,7 +189,6 @@ class UNOPose(nn.Module):
         # ones the FPS indices reach (the reference's own quirk)
         dense_pm_lrf = self._lrf(inputs["pts"])
         dense_po_lrf = self._lrf(inputs["tem1_pts"])
-
         B = dense_pm.shape[0]
         sparse_pm, sparse_pm_lrf, sparse_fm, fps_idx_m = sample_pts_feats_wlrf(
             dense_pm, dense_pm_lrf, dense_fm, self.coarse_npoint
@@ -176,16 +198,59 @@ class UNOPose(nn.Module):
         )
         bg_point = torch.ones((B, 1, 3), dtype=torch.float32, device=dense_pm.device)
         geo_both = self.geo_embed(
-            torch.cat([torch.cat([bg_point, sparse_pm_lrf], dim=1), torch.cat([bg_point, sparse_po_lrf], dim=1)], dim=0)
+            torch.cat([torch.cat([bg_point, sparse_pm_lrf], dim=1), torch.cat([bg_point, sparse_po_lrf], dim=1)], dim=0),
+            train=train,
         )
+        return dict(
+            dense_pm=dense_pm, dense_fm=dense_fm, dense_po=dense_po, dense_fo=dense_fo, radius=radius,
+            sparse_pm=sparse_pm, sparse_fm=sparse_fm, fps_idx_m=fps_idx_m,
+            sparse_po=sparse_po, sparse_fo=sparse_fo, fps_idx_o=fps_idx_o, geo=geo_both,
+        )
+
+    def forward_train(self, inputs: Dict[str, torch.Tensor], pose_noise: Optional[PoseNoiseDraws] = None,
+                      generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+        """The network pass of a training step, on autograd: every block's
+        coarse and fine outputs (``coarse_attens``, ``coarse_scores``,
+        ``coarse_saliencies``, likewise ``fine_*``), the clouds, the radius
+        and the noisy initial pose. The noise's draws are ``pose_noise``, or
+        drawn from ``generator``."""
+        e = self._encode(inputs, train=True)
+        B = e["dense_pm"].shape[0]
+        geo_m, geo_o = e["geo"][:B], e["geo"][B:]
+        c_attens, c_scores, c_sals = self.coarse_matching(e["sparse_fm"], geo_m, e["sparse_fo"], geo_o, all_blocks=True)
+        radius = e["radius"]
+        gt_r = inputs["rotation_label"].float()
+        gt_t = inputs["translation_label"].float() / (radius[:, None] + 1e-6)
+        if pose_noise is None:
+            pose_noise = PoseNoiseDraws.draw(B, generator, device=gt_r.device)
+        init_R, init_t = aug_pose_noise(gt_r, gt_t, pose_noise)
+        f_attens, f_scores, f_sals = self.fine_matching(
+            e["dense_pm"], e["dense_fm"], geo_m, e["fps_idx_m"], e["dense_po"], e["dense_fo"], geo_o, e["fps_idx_o"],
+            init_R, init_t, train=True,
+        )
+        return dict(
+            radius=radius, dense_pm=e["dense_pm"], dense_po=e["dense_po"], sparse_pm=e["sparse_pm"],
+            sparse_po=e["sparse_po"], init_R=init_R, init_t=init_t,
+            coarse_attens=c_attens, coarse_scores=c_scores, coarse_saliencies=c_sals,
+            fine_attens=f_attens, fine_scores=f_scores, fine_saliencies=f_sals,
+        )
+
+    def _infer(self, inputs, generator, uniforms, return_intermediates: bool) -> Dict[str, torch.Tensor]:
+        e = self._encode(inputs, train=False)
+        dense_pm, dense_fm, dense_po, dense_fo, radius = (e[k] for k in ("dense_pm", "dense_fm", "dense_po",
+                                                                         "dense_fo", "radius"))
+        sparse_pm, sparse_fm, fps_idx_m = e["sparse_pm"], e["sparse_fm"], e["fps_idx_m"]
+        sparse_po, sparse_fo, fps_idx_o = e["sparse_po"], e["sparse_fo"], e["fps_idx_o"]
+        geo_both = e["geo"]
+        B = dense_pm.shape[0]
         if isinstance(geo_both, tuple):
             # int8 embedding: one scale for both clouds. The codes go to the
             # model dtype once and serve all six RPE layers; int8 values are
             # exact in bf16 and float32, so this is numerically identical to
             # the JAX package's convert fused into each layer's einsum.
-            e, esc = geo_both
-            e = e.to(self.dtype)
-            geo_m, geo_o = (e[:B], esc), (e[B:], esc)
+            codes, esc = geo_both
+            codes = codes.to(self.dtype)
+            geo_m, geo_o = (codes[:B], esc), (codes[B:], esc)
         else:
             geo_m, geo_o = geo_both[:B], geo_both[B:]
 
@@ -222,3 +287,21 @@ class UNOPose(nn.Module):
                 **{"fine_proj" if self.fused_assignment else "fine_atten": f_atten},
             )
         return out
+
+
+def compute_train_losses(outputs: Dict[str, torch.Tensor], inputs: Dict[str, torch.Tensor], cfg: Config) -> Dict[str, torch.Tensor]:
+    """Per-sample loss terms of both stages from ``UNOPose.forward_train``'s
+    outputs; ``cfg`` is the model section of the configuration."""
+    radius = outputs["radius"]
+    gt_r = inputs["rotation_label"].float()
+    gt_t = inputs["translation_label"].float() / (radius[:, None] + 1e-6)
+    terms = {}
+    for stage, pts in (("coarse", ("sparse_pm", "sparse_po")), ("fine", ("dense_pm", "dense_po"))):
+        m = cfg[f"{stage}_point_matching"]
+        terms.update(compute_overlap_loss(
+            outputs[f"{stage}_attens"], outputs[f"{stage}_scores"], outputs[f"{stage}_saliencies"],
+            outputs[pts[0]], outputs[pts[1]], gt_r, gt_t,
+            predator_thres=m.get("loss_predator_thres", 0.15), dis_thres=m.get("loss_dis_thres", 0.3),
+            loss_str="coarse_hard" if stage == "coarse" else "fine",
+        ))
+    return terms

@@ -5,7 +5,9 @@ Two modes, as in the JAX package: the exact path (plain attention with a
 softmax over the scores, exact-erf GELU), and with ``fused_attn`` the
 production inference path: the fused attention ``ops/vit_attn.py:mha_fused``
 (kernel ``vit_attn.cu`` on the card), tanh-GELU, and with ``int8_gemm`` the
-W8A8 ``DenseQ`` GEMMs of every block.
+W8A8 ``DenseQ`` GEMMs of every block. ``forward(x, train=True)`` runs the
+exact path whatever the module was built with: the JAX package's auto gate
+turns the production mode on for inference only.
 
 The 12 blocks of ViT-B are four segments ``blocks0..3`` (``nn.ModuleList``
 each, the flax scanned segments); the final LayerNorm of each segment's
@@ -61,8 +63,8 @@ class DenseQ(Dense):
         self._quant = None
         return super()._apply(fn, *args, **kwargs)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if not self.int8:
+    def forward(self, x: torch.Tensor, exact: bool = False) -> torch.Tensor:
+        if not self.int8 or exact:
             return super().forward(x)
         K, N = self.in_features, self.out_features
         if K % 8 or N % 8:
@@ -84,8 +86,9 @@ class Mlp(nn.Module):
         self.fc2 = DenseQ(hidden, dim, dtype, int8)
         self.approximate = "tanh" if gelu_tanh else "none"
 
-    def forward(self, x):
-        return self.fc2(F.gelu(self.fc1(x), approximate=self.approximate))
+    def forward(self, x, exact: bool = False):
+        approximate = "none" if exact else self.approximate
+        return self.fc2(F.gelu(self.fc1(x, exact), approximate=approximate), exact)
 
 
 class ViTBlock(nn.Module):
@@ -111,11 +114,11 @@ class ViTBlock(nn.Module):
         else:
             self.ls1 = self.ls2 = None
 
-    def forward(self, x):
+    def forward(self, x, exact: bool = False):
         B, N, D = x.shape
         hd = D // self.num_heads
-        qkv = self.qkv(self.norm1(x))
-        if self.fused_attn:
+        qkv = self.qkv(self.norm1(x), exact)
+        if self.fused_attn and not exact:
             out = mha_fused(*qkv.split(D, dim=-1), self.num_heads)
         else:
             q, k, v = qkv.reshape(B, N, 3, self.num_heads, hd).permute(2, 0, 3, 1, 4)
@@ -125,11 +128,11 @@ class ViTBlock(nn.Module):
             else:
                 attn = torch.softmax(attn, dim=-1)
             out = torch.matmul(attn, v).transpose(1, 2).reshape(B, N, D)
-        out = self.attn_proj(out)
+        out = self.attn_proj(out, exact)
         if self.ls1 is not None:
             out = out * self.ls1.to(self.dtype)
         x = x + out
-        h = self.mlp(self.norm2(x))
+        h = self.mlp(self.norm2(x), exact)
         if self.ls2 is not None:
             h = h * self.ls2.to(self.dtype)
         return x + h
@@ -184,7 +187,7 @@ class ViTPyramid(nn.Module):
     def num_prefix_tokens(self) -> int:
         return 1 + self.reg_tokens
 
-    def forward(self, x: torch.Tensor) -> Tuple[List[torch.Tensor], torch.Tensor]:
+    def forward(self, x: torch.Tensor, train: bool = False) -> Tuple[List[torch.Tensor], torch.Tensor]:
         B, H, W, _ = x.shape
         g, P, D = self.grid, self.patch_size, self.embed_dim
         if H != self.img_size or W != self.img_size:
@@ -198,7 +201,7 @@ class ViTPyramid(nn.Module):
         outs = []
         for si in range(4):
             for blk in getattr(self, f"blocks{si}"):
-                tokens = blk(tokens)
+                tokens = blk(tokens, exact=train)
             outs.append(self.norm(tokens))
         return outs, outs[-1][:, 0, :]
 

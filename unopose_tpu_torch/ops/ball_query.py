@@ -225,6 +225,35 @@ def two_scale_group_first_k_packed_idx(r1: float, k1: int, r2: float, k2: int, p
     return planes, sel["idx_p"], w1, w2, sel["total2"], sel["overflow"]
 
 
+def two_scale_group_first_k_fast(r1: float, k1: int, r2: float, k2: int, pts: torch.Tensor):
+    """The train path's exact first_k grouping (``two_scale_group_first_k_fast``
+    of the JAX package): scale 2's pad-filled slots from the chunked select
+    and the gather, scale 1 sorted out of them (its r1 hits, which are a
+    subset of scale 2's kept hits when nothing overflows, then pads of the
+    r1 hit with the smallest original index). On overflow the exact two-sort
+    grouping runs instead (a host branch on the overflow flag).
+
+    The select writes its slots globally compacted; the JAX package's train
+    path keeps the per-chunk order. Each neighbourhood's multiset of points
+    is the same, and the PE is invariant to the slot order.
+
+    Returns ((g1x, g1y, g1z) each (B, N, k1), (g2x, g2y, g2z) each (B, N, k2))."""
+    pts = pts.float()
+    sel = first_k_budget_select(r1, k1, r2, k2, pts)
+    if bool(sel["overflow"].item()):
+        return two_scale_group_exact_planar(r1, k1, r2, k2, pts)
+    g2 = sel["g2"]
+    siota = torch.arange(k2, dtype=torch.int32, device=pts.device)
+    key1 = torch.where(sel["m1slot"], 2 * k2 - siota, k2 - siota)  # r1 hits first, each in slot order
+    top, order = torch.topk(key1, k1, dim=-1, sorted=True)
+    valid1 = top > k2
+    first1_orig = sel["enc1"] >> 12
+    q1 = sel["inv_perm"][torch.where(sel["cnt1"] > 0, first1_orig, 0).long()]
+    pads = gather_planar(sel["xp"], sel["yp"], sel["zp"], q1[..., None])
+    g1 = tuple(torch.where(valid1, torch.gather(g, -1, order), p) for g, p in zip(g2, pads))
+    return g1, g2
+
+
 def two_scale_group_exact_planar(r1: float, k1: int, r2: float, k2: int, pts: torch.Tensor):
     """Exact reference grouping: two independent first-k ball queries of the
     cloud around its own points, padded with the first hit. Returns

@@ -5,7 +5,12 @@
 gather_planar.cu`` through ``gather_planar_cuda``, which replaces the TPU
 kernel ``unopose_tpu/ops/gather_pallas.py:gather_planar``. Indices are
 clamped to [0, N - 1] by both; in range the two agree bit for bit.
-Inference only: the scatter-add backward comes with the train path.
+
+The gradient with respect to the planes is the JAX package's scatter-add
+(``gather_pallas.py``'s ``segment_sum``, no kernel there either): plain
+``index_add_`` into each plane, on either device. The train step sends no
+gradient through it (the grouped coordinates are data); it is there for a
+caller whose planes require one.
 """
 
 from __future__ import annotations
@@ -60,8 +65,36 @@ def gather_planar_cuda(x: torch.Tensor, y: torch.Tensor, z: torch.Tensor, idx: t
     return tuple(outs)
 
 
-def gather_planar(x: torch.Tensor, y: torch.Tensor, z: torch.Tensor, idx: torch.Tensor):
-    """Gather three (B, N) planes at (B, P, S) indices, dispatched by device."""
+def _gather(x, y, z, idx):
     if x.device.type == "cpu":
         return gather_planar_plain(x, y, z, idx)
     return gather_planar_cuda(x, y, z, idx)
+
+
+class _GatherPlanar(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, y, z, idx):
+        ctx.save_for_backward(idx)
+        ctx.plane_shape = x.shape
+        ctx.mark_non_differentiable(idx)
+        return _gather(x, y, z, idx)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        (idx,) = ctx.saved_tensors
+        B, N = ctx.plane_shape
+        offsets = torch.arange(B, device=idx.device)[:, None] * N
+        flat = (idx.reshape(B, -1).long().clamp(0, N - 1) + offsets).reshape(-1)
+        out = []
+        for g in grads:
+            acc = torch.zeros(B * N, dtype=torch.float32, device=flat.device)
+            out.append(acc.index_add_(0, flat, g.reshape(-1).float()).view(B, N))
+        return (*out, None)
+
+
+def gather_planar(x: torch.Tensor, y: torch.Tensor, z: torch.Tensor, idx: torch.Tensor):
+    """Gather three (B, N) planes at (B, P, S) indices, dispatched by device;
+    differentiable with respect to the planes (scatter-add backward)."""
+    if torch.is_grad_enabled() and any(p.requires_grad for p in (x, y, z)):
+        return _GatherPlanar.apply(x, y, z, idx)
+    return _gather(x, y, z, idx)

@@ -52,7 +52,9 @@ from unopose_tpu_torch import configs
 
 BATCH = 16
 OURS = ("fps_kernel", "first_k_select_kernel", "gather_planar_kernel", "geo_rpe_kernel", "pe_channels_kernel",
-        "pe_mlp_pool_kernel", "mha_bf16_kernel", "colstats_kernel", "labels_kernel", "accum_kernel")
+        "pe_mlp_pool_kernel", "mha_bf16_kernel", "colstats_kernel", "labels_kernel", "accum_kernel",
+        "pe_train_kernel", "stats_finish", "sums_finish", "dw_finish")
+PE_TRAIN = OURS[-4:]  # K11-K14 and the second passes of their launches
 
 
 def _timed(name: str, fn, marks: list, events: bool = True):

@@ -4,7 +4,9 @@ The torch modules use the flax module and parameter names, so the mapping
 is structural:
 
 - ``params`` and ``batch_stats`` merge into one namespace (BatchNorm running
-  statistics are the buffers ``mean``/``var`` beside ``weight``/``bias``);
+  statistics are the buffers ``mean``/``var`` beside ``weight``/``bias``;
+  a train state's ``batch_stats`` go to those buffers, which the train step
+  updates, and ``scale``/``bias`` to the trainable parameters);
 - a module holding ``kernel`` (and ``bias``) with a 2-D kernel is a Dense:
   the flax (in, out) kernel becomes the torch (out, in) ``weight``;
 - a module holding exactly ``scale`` and ``bias`` is a norm: ``scale``
