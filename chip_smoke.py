@@ -33,31 +33,40 @@ Phases, each fatal on failure:
    means and variances within 1e-4 relative, the pooled output, the sums
    and the dW within 1e-2 of each tensor's max with the median under 1e-3,
    the tie counts equal; then the whole autograd function against the plain
-   twin on autograd (2e-2, median 2e-3);
+   twin on autograd (2e-2, median 2e-3); the subset grouping (32 x 2048, S
+   64 and 256) bitwise equal to its plain version on every output, miss
+   slots included; the masked PE (S 64 + 256) on those groupings of the
+   uniform cubes and on the unpacked first_k grouping with all-ones masks
+   (at most twice as many unequal outputs as the plain version shows against
+   itself one ulp up) and of sphere surfaces (99.9% of outputs within one
+   bf16 ulp, none more than two ulps of the largest output off);
 4. one forced grouping overflow, through the plain and the fused PE: both
    must take the exact fallback (and with it the gather kernel), whose
    grouping equals the CPU plain version's;
-5. the float32 slice, fused-matcher and production configs at a tiny width
-   on the card (kernels) against the CPU (plain versions), same weights and
-   draws: FPS indices and int8 embedding codes equal, the coarse attention
-   within 1e-3 of its max, the coarse scores within 1e-4, the fine scores'
-   median error under 5e-3 and 95th percentile under 5e-2 (the CPU slice
-   tests' gates); on the production config also the fused assignment's
-   labels on the CPU's projections (99% equal); the train path's grouping
+5. the float32 slice, fused-matcher, production, subset and unpacked
+   first_k configs at a tiny width on the card (kernels) against the CPU
+   (plain versions), same weights and draws: FPS indices and int8 embedding
+   codes equal, the coarse attention within 1e-3 of its max, the coarse
+   scores within 1e-4, the fine scores' median error under 5e-3 and 95th
+   percentile under 5e-2 (the CPU slice tests' gates); on the fused
+   assignment's configs also its labels on the CPU's projections (99%
+   equal); the subset config as ``check_tiny`` says; the train path's grouping
    on the main path's clouds (B 8, N 2048) equal to the CPU's slot for slot;
    and one tiny float32 train step (``train_config(tiny=True)`` on surface
    clouds), card against CPU, with the gates of ``check_tiny_train``;
-6. the three main paths at full width (ViT-B/14-reg4 at 224 px, 2048-point
+6. the main paths at full width (ViT-B/14-reg4 at 224 px, 2048-point
    clouds, a 5000-point template, 6000/300 hypotheses, bf16, seeded random
    weights, batches of 16 pairs): ``slice_config()`` and
    ``fused_matcher_config()`` for 2 batches each, then
-   ``production_config()`` for ``--batches``; finite, orthonormal poses;
+   ``production_config()`` for ``--batches``, ``subset_config()`` for 2 and
+   ``firstk_unpacked_config()`` for 1; finite, orthonormal poses;
    then ``train_config()`` (B 8, bf16) for ``--train-steps`` training
    steps: finite loss terms, a finite positive gradient norm, the frozen
    ViT bitwise unchanged, every trainable module and all six BatchNorm
    layers of the fine PE moved, and one profiled step's device time; the
    launch counts are zeroed just before each path and read just after,
-   and every kernel of the path must have launched.
+   every kernel of the path must have launched, and on the subset and
+   unpacked paths no PE kernel of the other PE paths.
 
 Log lines are prefixed with the card's name and power limit. Before the
 last line come one JSON line with the kernels' results and the raw
@@ -100,16 +109,26 @@ KERNELS = {
     "pe_train_fwd": ("unopose_tpu_torch/kernels/csrc/pe_train.cu", "unopose_tpu/ops/pe_train.py:112"),
     "pe_train_bwd_sums": ("unopose_tpu_torch/kernels/csrc/pe_train.cu", "unopose_tpu/ops/pe_train.py:190"),
     "pe_train_bwd_dw": ("unopose_tpu_torch/kernels/csrc/pe_train.cu", "unopose_tpu/ops/pe_train.py:210"),
+    "ball_group_subset": ("unopose_tpu_torch/kernels/csrc/ball_group_subset.cu", "unopose_tpu/ops/ball_query.py:964"),
+    "pe_masked": ("unopose_tpu_torch/kernels/csrc/pe_masked.cu", "unopose_tpu/ops/pe_fused.py:163"),
 }
 FUSED = ("fps", "first_k_select", "geo_rpe", "pe_channels", "pe_mlp_pool")
+PRODUCTION = ("fps", "geo_rpe", "mha_fused", "fine_assign_colstats", "fine_assign_labels", "fine_assign_accum")
 PATH_KERNELS = {
     "slice": ("fps", "first_k_select", "gather_planar"),
     "fused_matchers": FUSED,
-    "production": FUSED + ("mha_fused", "fine_assign_colstats", "fine_assign_labels", "fine_assign_accum"),
+    "production": FUSED + PRODUCTION[2:],
+    "subset": PRODUCTION + ("ball_group_subset", "pe_masked"),
+    "firstk_unpacked": PRODUCTION + ("first_k_select", "gather_planar", "pe_masked"),
     "train": ("fps", "first_k_select", "gather_planar", "pe_train_stats", "pe_train_fwd", "pe_train_bwd_sums",
               "pe_train_bwd_dw"),
 }
-INFER_PATHS = ("slice", "fused_matchers", "production")
+# kernels a path must not launch: the PE kernels of the other first_k and subset paths
+PATH_NOT_LAUNCHED = {
+    "subset": ("first_k_select", "gather_planar", "pe_channels", "pe_mlp_pool"),
+    "firstk_unpacked": ("ball_group_subset", "pe_channels", "pe_mlp_pool"),
+}
+INFER_PATHS = ("slice", "fused_matchers", "production", "subset", "firstk_unpacked")
 
 
 def card_info() -> str:
@@ -661,6 +680,132 @@ def check_train_kernels(log, dev, seed: int) -> dict:
     return results
 
 
+def masked_pe_case(groups, center, mlp1, mlp2, packed) -> dict:
+    """K16 against its plain twin on one pair of groupings (scale 1's planes
+    and mask, scale 2's), both at the PE's radii 0.1 / 0.2: the agreement
+    measures, the plain twin's own spread one ulp up, the valid slots and
+    the times."""
+    import torch
+
+    from unopose_tpu_torch.ops.pe_fused import pe_fused_masked_cuda, pe_fused_masked_plain
+
+    g1, m1, g2, m2 = groups
+    up = lambda xs: tuple(torch.nextafter(x, torch.full_like(x, float("inf"))) for x in xs)
+    with torch.no_grad():
+        got = pe_fused_masked_cuda(g1, m1, g2, m2, center, 0.1, 0.2, packed)
+        want = pe_fused_masked_plain(g1, m1, g2, m2, center, mlp1, mlp2, 0.1, 0.2)
+        nudged = pe_fused_masked_plain(up(g1), m1, up(g2), m2, up(center), mlp1, mlp2, 0.1, 0.2)
+        torch.cuda.synchronize()
+        diff = (got - want).abs()
+        ref = want.abs().max().item()
+        r = dict(
+            equal=(got == want).float().mean().item(), spread=(nudged == want).float().mean().item(),
+            within_ulp=(diff <= ulp_bf16(torch.maximum(got.abs(), want.abs()))).float().mean().item(),
+            err=diff.max().item(), ref=ref, two_ulps=2 * ulp_bf16(torch.tensor(ref)).item(),
+            valid=(int(m1.sum()), int(m2.sum())), slots=(m1.numel(), m2.numel()),
+        )
+        del got, want, nudged, diff
+        r["ms"] = cuda_ms(lambda: pe_fused_masked_cuda(g1, m1, g2, m2, center, 0.1, 0.2, packed))
+        r["plain_ms"] = cuda_ms(lambda: pe_fused_masked_plain(g1, m1, g2, m2, center, mlp1, mlp2, 0.1, 0.2), reps=3)
+    return r
+
+
+def check_subset_kernels(log, dev, seed: int) -> dict:
+    """Phase 3, the subset and unpacked first_k PE's kernels at the main
+    path's shapes (both clouds, 32 x 2048): K15 (the subset grouping) against
+    its plain twin bitwise on every output at S 64 and 256; K16 (the masked
+    PE) on those groupings of the uniform cubes (at most twice as many
+    unequal entries as the plain twin shows against itself one ulp up), of
+    sphere surfaces (99.9% of entries within one bf16 ulp, none more than two
+    bf16 ulps of the output's largest magnitude off) and on the unpacked
+    first_k grouping with all-ones masks (the cubes' gate)."""
+    import torch
+
+    from unopose_tpu_torch.configs import surface_clouds
+    from unopose_tpu_torch.models.matching import FinePositionalEncoding
+    from unopose_tpu_torch.ops.ball_query import (
+        ball_group_subset_cuda, ball_group_subset_plain, permutation, subset_scans, two_scale_group_first_k_fast,
+    )
+
+    rng = np.random.default_rng(seed + 13)
+    B2, N = 2 * BATCH, 2048
+    cube = lrf_cloud(rng, dev, B2, N)
+    perm, _ = permutation(N, "cpu")
+    surf = torch.from_numpy(surface_clouds(rng, B2, perm.numpy())).to(dev)
+    results, groups = {}, {}
+
+    # K15 at both scales of the cubes; the surfaces' groupings feed K16 below
+    k15 = {}
+    for r, S in ((0.1, 64), (0.2, 256)):
+        got, want = ball_group_subset_cuda(r, S, cube), ball_group_subset_plain(r, S, cube)
+        torch.cuda.synchronize()
+        flat = lambda o: (*o[0], o[1])
+        bitwise = all(torch.equal(a.view(torch.int32), b.view(torch.int32)) for a, b in zip(flat(got), flat(want)))
+        bitwise &= torch.equal(got[2], want[2])
+        err = max((a - b).abs().max().item() for a, b in zip(flat(got), flat(want)))
+        scans = subset_scans(r, S, cube)
+        ms = cuda_ms(lambda: ball_group_subset_cuda(r, S, cube))
+        plain_ms = cuda_ms(lambda: ball_group_subset_plain(r, S, cube), reps=3)
+        # writes 4 float32 planes and a byte per (centre, slot), reads the clouds and the permutation;
+        # per candidate scanned: 3 differences, a product, 2 fused multiply-adds (4) and a compare
+        bnd = bound(B2 * N * S * 17 + B2 * N * 12 + N * 4, 9.0 * scans, F32_FLOPS)
+        k15[S] = dict(bitwise=bitwise, err=err, ms=ms, plain_ms=plain_ms, valid=want[2].float().mean().item(),
+                      scans=scans, **bnd)
+        log(f"ball_group_subset 32x2048 S={S} r={r} (uniform cubes): every output bitwise equal {bitwise}, "
+            f"valid slots {100 * k15[S]['valid']:.2f}%, candidates scanned {scans}, kernel {ms:.3f} ms, "
+            f"plain {plain_ms:.3f} ms, bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']})")
+        if not bitwise:
+            raise AssertionError(f"ball_group_subset S={S} differs from the plain version")
+        groups.setdefault("uniform cube", ([], cube))[0].extend([want[0], want[2]])
+        g, _, v = ball_group_subset_cuda(r, S, surf)
+        groups.setdefault("sphere surfaces", ([], surf))[0].extend([g, v])
+        del got, want
+    g1, g2 = two_scale_group_first_k_fast(0.1, 64, 0.2, 256, cube)
+    ones = lambda g: torch.ones(g[0].shape, dtype=torch.bool, device=dev)
+    groups["unpacked first_k, all-ones masks"] = ([g1, ones(g1), g2, ones(g2)], cube)
+    main = k15[256]
+    results["ball_group_subset"] = dict(max_abs_err=main["err"], ms=main["ms"], plain_ms=main["plain_ms"],
+                                        library_ms=None, bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+                                        s64_ms=k15[64]["ms"], s64_plain_ms=k15[64]["plain_ms"],
+                                        s64_bound_ms=k15[64]["bound_ms"])
+
+    # K16 with the PE's seeded weights
+    torch.manual_seed(seed)
+    pe = FinePositionalEncoding(256, fused=True, neighbor_mode="subset").to(dev)
+    mlp1, mlp2, packed = pe.folded_weights()
+    k16 = {}
+    for name, (grp, cloud) in groups.items():
+        r = masked_pe_case(grp, tuple(cloud.unbind(-1)), mlp1, mlp2, packed)
+        valid = sum(r["valid"])
+        # reads each slot's planes and mask, the centres and the weights, writes 256 float32 a point;
+        # per valid slot and scale 2 x 10432 bf16 tensor-core operations (masked slots need none)
+        r.update(bound(sum(r["slots"]) * 13 + B2 * N * (12 + 1024) + 2 * 12544 * 2,
+                       2.0 * 10432 * valid, BF16_FLOPS))
+        k16[name] = r
+        log(f"pe_masked 32x2048 (S 64 + 256) on {name}: {100 * r['equal']:.4f}% of outputs bitwise equal "
+            f"(plain vs itself one ulp up: {100 * r['spread']:.4f}%), {100 * r['within_ulp']:.4f}% within one bf16 "
+            f"ulp, max |diff| {r['err']:.3e} of max {r['ref']:.3e} (two ulps there {r['two_ulps']:.3e}), valid slots "
+            f"{r['valid']} of {r['slots']}, kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
+    del groups
+    torch.cuda.empty_cache()
+    for name in ("uniform cube", "unpacked first_k, all-ones masks"):
+        if 1.0 - k16[name]["equal"] > 2.0 * (1.0 - k16[name]["spread"]):
+            raise AssertionError(f"pe_masked on {name} differs from the plain version beyond its one-ulp spread")
+    surf16 = k16["sphere surfaces"]
+    if surf16["within_ulp"] < 0.999 or surf16["err"] > surf16["two_ulps"]:
+        raise AssertionError("pe_masked on the surfaces: entries beyond one bf16 ulp on more than 0.1%, or one "
+                             "more than two ulps of the output's largest magnitude off")
+    main, unpacked = k16["uniform cube"], k16["unpacked first_k, all-ones masks"]
+    results["pe_masked"] = dict(
+        max_abs_err=main["err"], ms=main["ms"], plain_ms=main["plain_ms"], library_ms=None,
+        bound_ms=main["bound_ms"], bound_by=main["bound_by"], equal_share=main["equal"],
+        surface_max_abs_err=surf16["err"], surface_within_ulp=surf16["within_ulp"], surface_ms=surf16["ms"],
+        surface_bound_ms=surf16["bound_ms"], unpacked_ms=unpacked["ms"], unpacked_plain_ms=unpacked["plain_ms"],
+        unpacked_bound_ms=unpacked["bound_ms"], unpacked_max_abs_err=unpacked["err"])
+    return results
+
+
 def check_overflow(log, dev, seed: int) -> None:
     """Phase 4: a dense cloud overflows the packed budget; the plain and the
     fused PE must take the exact fallback, and its grouping (gather kernel
@@ -701,7 +846,16 @@ def check_overflow(log, dev, seed: int) -> None:
 
 
 def check_tiny(log, dev, seed: int, name: str) -> None:
-    """Phase 5: a float32 tiny config, card (kernels) vs CPU (plain versions)."""
+    """Phase 5: a float32 tiny config, card (kernels) vs CPU (plain versions).
+
+    The subset config's fine scores move by about the slice's gates on the
+    CPU alone: its subset neighbourhoods hold a few points each, and their
+    local frames flip under a one-ulp nudge of either cloud (ROADMAP Queue
+    3). There the slice's fine-score gates hold the card's fine stage fed
+    the CPU's PE features; the card's subset groupings of the CPU's PE input
+    must equal the CPU's bit for bit; and the card's fine scores as they are
+    must stay within twice the CPU's own largest one-ulp spread (median and
+    95th percentile, four nudges)."""
     import torch
 
     from unopose_tpu_torch import configs
@@ -711,24 +865,62 @@ def check_tiny(log, dev, seed: int, name: str) -> None:
     torch.manual_seed(seed)
     model = UNOPose.from_config(cfg, torch.float32, torch.float32).eval()
     rng = np.random.default_rng(seed + 2)
-    inputs = configs.synthetic_inputs(rng, 2, tiny=True)
+    inputs = configs.synthetic_inputs(rng, 2, tiny=True, npts=cfg.fine_npoint)
     uniforms = torch.from_numpy(rng.uniform(size=(2, 3 * cfg.coarse_point_matching.nproposal1)).astype(np.float32))
-    out_cpu = model({k: torch.from_numpy(v) for k, v in inputs.items()}, uniforms=uniforms, return_intermediates=True)
+    pe, seen = model.fine_matching.pe, []
+    own = pe.forward
+
+    def record(pts):
+        out = own(pts)
+        seen.append((pts.cpu(), out.cpu()))
+        return out
+
+    pe.forward = record
+    run = lambda where, inp: model({k: torch.from_numpy(v).to(where) for k, v in inp.items()},
+                                   uniforms=uniforms.to(where), return_intermediates=True)
+    out_cpu = run("cpu", inputs)
     branch_cpu = model.fine_matching.pe.last_branch
+    fine_err = lambda out: (out["fine_score"].cpu() - out_cpu["fine_score"]).abs().flatten()
+    quantiles = lambda e: (e.median().item(), e.quantile(0.95).item())
+    subset = cfg.fine_point_matching.get("pe_neighbor_mode") == "subset"
+    if subset:
+        nudged = [quantiles(fine_err(run("cpu", {**inputs, k: np.nextafter(inputs[k], d * np.inf).astype(np.float32)})))
+                  for k in ("pts", "tem1_pts") for d in (1, -1)]
+        spread = tuple(max(q[i] for q in nudged) for i in range(2))
     model.to(dev)
-    out_gpu = model({k: torch.from_numpy(v).to(dev) for k, v in inputs.items()}, uniforms=uniforms.to(dev),
-                    return_intermediates=True)
+    out_gpu = run(dev, inputs)
     idx_equal = all(torch.equal(out_gpu[k].cpu(), out_cpu[k]) for k in ("fps_idx_m", "fps_idx_o"))
     a_err = ((out_gpu["coarse_atten"].cpu() - out_cpu["coarse_atten"]).abs().max() / out_cpu["coarse_atten"].abs().max()).item()
     s_err = (out_gpu["coarse_score"].cpu() - out_cpu["coarse_score"]).abs().max().item()
-    f_err = (out_gpu["fine_score"].cpu() - out_cpu["fine_score"]).abs().flatten()
-    f_med, f_p95 = f_err.median().item(), f_err.quantile(0.95).item()
+    f_med, f_p95 = quantiles(fine_err(out_gpu))
+    fine_ok, fine_note = f_med < 5e-3 and f_p95 < 5e-2, ""
+    if subset:
+        from unopose_tpu_torch.ops.ball_query import ball_group_subset, ball_group_subset_plain
+
+        pe_in, pe_out = seen[0]
+        fm = cfg.fine_point_matching
+        groups_equal = True
+        for r, k in ((fm.pe_radius1, fm.nsample1), (fm.pe_radius2, fm.nsample2)):
+            got, want = ball_group_subset(r, k, pe_in.to(dev)), ball_group_subset_plain(r, k, pe_in)
+            groups_equal &= all(torch.equal(a.cpu(), b) for a, b in zip((*got[0], *got[1:]), (*want[0], *want[1:])))
+        pe.forward = lambda pts: pe_out.to(dev)
+        r_med, r_p95 = quantiles(fine_err(run(dev, inputs)))
+        fine_ok = (groups_equal and r_med < 5e-3 and r_p95 < 5e-2 and f_med <= 2 * spread[0]
+                   and f_p95 <= 2 * spread[1])
+        fine_note = (f" (the CPU's own one-ulp spread: median {spread[0]:.2e} p95 {spread[1]:.2e}); on the CPU's "
+                     f"PE features: fine score median {r_med:.2e} p95 {r_p95:.2e}; subset groupings of the CPU's PE "
+                     f"input equal {groups_equal}")
+    pe.forward = own
     geo_ok, geo_note = True, ""
     if isinstance(out_cpu["geo"], tuple):
         (e8, sc), (e8_cpu, sc_cpu) = (out_gpu["geo"][0].cpu(), out_gpu["geo"][1].cpu()), out_cpu["geo"]
         geo_diff = (e8.int() - e8_cpu.int()).abs()
         sc_rel = ((sc - sc_cpu).abs() / sc_cpu.abs()).max().item()
-        geo_ok = int(geo_diff.max()) == 0 and sc_rel <= 1e-6
+        # the subset config's 512-point clouds put one code at a rounding tie: there the codes are held at
+        # phase 3's gate for the embedding kernel (one step on at most 0.1% of entries), elsewhere equal
+        steps_ok = int(geo_diff.max()) <= 1 and geo_diff.gt(0).float().mean().item() <= 1e-3 if subset else \
+            int(geo_diff.max()) == 0
+        geo_ok = steps_ok and sc_rel <= 1e-6
         geo_note = (f", int8 embedding entries differing {geo_diff.gt(0).float().mean().item():.2e} "
                     f"(max {int(geo_diff.max())}), scale rel {sc_rel:.2e}")
     labels_ok, labels_note = True, ""
@@ -741,9 +933,9 @@ def check_tiny(log, dev, seed: int, name: str) -> None:
         share = (got == want).float().mean().item()
         labels_ok, labels_note = share >= 0.99, f", fused assignment labels on the CPU's projections equal {share:.4f}"
     log(f"tiny fp32 {name}, card vs CPU: FPS indices equal {idx_equal}, coarse atten rel {a_err:.2e}, "
-        f"coarse score {s_err:.2e}, fine score median {f_med:.2e} p95 {f_p95:.2e}, "
+        f"coarse score {s_err:.2e}, fine score median {f_med:.2e} p95 {f_p95:.2e}{fine_note}, "
         f"PE branch {model.fine_matching.pe.last_branch}{geo_note}{labels_note}")
-    if (not idx_equal or a_err > 1e-3 or s_err > 1e-4 or f_med >= 5e-3 or f_p95 >= 5e-2 or not geo_ok
+    if (not idx_equal or a_err > 1e-3 or s_err > 1e-4 or not fine_ok or not geo_ok
             or not labels_ok or model.fine_matching.pe.last_branch != branch_cpu):
         raise AssertionError(f"the tiny {name} config on the card disagrees with the CPU plain path")
 
@@ -1067,6 +1259,9 @@ def run_path(log, dev, seed: int, batches: int, name: str) -> dict:
     missing = [k for k in PATH_KERNELS[name] if launches.get(k, 0) == 0]
     if missing:
         raise AssertionError(f"kernels never launched on the {name} path: {missing}")
+    stray = [k for k in PATH_NOT_LAUNCHED.get(name, ()) if launches.get(k, 0)]
+    if stray:
+        raise AssertionError(f"kernels of another PE path launched on the {name} path: {stray}")
     peak = torch.cuda.max_memory_allocated(dev) / 2**30
     steady = float(np.median(times[1:])) if len(times) > 1 else times[0]
     log(f"{name}: ms per 16-pair batch {['%.1f' % x for x in times]} (first includes warm-up), "
@@ -1108,6 +1303,7 @@ def main() -> int:
     results.update(check_fused_kernels(log, dev, args.seed))
     results.update(check_production_kernels(log, dev, args.seed))
     results.update(check_train_kernels(log, dev, args.seed))
+    results.update(check_subset_kernels(log, dev, args.seed))
     check_overflow(log, dev, args.seed)
     for name in INFER_PATHS:
         check_tiny(log, dev, args.seed, name)
@@ -1117,6 +1313,8 @@ def main() -> int:
         "slice": run_path(log, dev, args.seed, EARLY_BATCHES, "slice"),
         "fused_matchers": run_path(log, dev, args.seed, EARLY_BATCHES, "fused_matchers"),
         "production": run_path(log, dev, args.seed, args.batches, "production"),
+        "subset": run_path(log, dev, args.seed, EARLY_BATCHES, "subset"),
+        "firstk_unpacked": run_path(log, dev, args.seed, 1, "firstk_unpacked"),
         "train": run_train(log, dev, args.seed, args.train_steps),
     }
 

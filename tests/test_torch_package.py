@@ -38,7 +38,7 @@ def _run(code: str, cwd=ROOT, timeout=120):
 
 
 def test_port_runs_with_jax_unavailable():
-    """Importing and running the port (the three tiny float32 configs on the CPU)
+    """Importing and running the port (every tiny float32 config on the CPU)
     with ``jax``, ``flax`` and the JAX package blocked in ``sys.modules``."""
     code = """
 import sys
@@ -47,19 +47,21 @@ for name in ("jax", "flax", "unopose_tpu"):
 import numpy as np, torch
 import chip_smoke
 import unopose_tpu_torch.tools.profile_slice
-from unopose_tpu_torch.configs import (
-    fused_matcher_config, production_config, slice_config, synthetic_inputs, synthetic_train_inputs, train_config,
-)
+from unopose_tpu_torch.configs import CONFIGS, synthetic_inputs, synthetic_train_inputs, train_config
 from unopose_tpu_torch.engine.train import Trainer
 from unopose_tpu_torch.models import UNOPose
 from unopose_tpu_torch.utils.convert import flax_to_torch
-for config in (slice_config, fused_matcher_config, production_config):
+branches = {}
+for name, config in CONFIGS.items():
     torch.manual_seed(0)
-    model = UNOPose.from_config(config(tiny=True), torch.float32, torch.float32)
-    inputs = synthetic_inputs(np.random.default_rng(0), 2, tiny=True)
+    cfg = config(tiny=True)
+    model = UNOPose.from_config(cfg, torch.float32, torch.float32)
+    inputs = synthetic_inputs(np.random.default_rng(0), 2, tiny=True, npts=cfg.fine_npoint)
     out = model({k: torch.from_numpy(v) for k, v in inputs.items()}, generator=torch.Generator().manual_seed(0))
     assert torch.isfinite(out["pred_R"]).all(), out
-assert model.fine_matching.pe.last_branch == "v5"
+    branches[name] = model.fine_matching.pe.last_branch
+assert branches == dict(slice="packed", fused_matchers="v5", production="v5", subset="subset",
+                        firstk_unpacked="unpacked"), branches
 cfg = train_config(tiny=True)
 trainer = Trainer(UNOPose.from_config(cfg.model, torch.float32, torch.float32), cfg)
 batch = synthetic_train_inputs(np.random.default_rng(0), 2, tiny=True)
@@ -156,6 +158,12 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     feats = torch.rand(1, 65, 32)
     with pytest.raises(ValueError):
         assignment_fused.fine_assignment_fused_cuda(feats, feats, torch.rand(1, 128), torch.rand(1, 64, 3))
+    with pytest.raises(ValueError):
+        ball_query.ball_group_subset_cuda(0.2, 64, pts)
+    g1, _, m1 = ball_query.ball_group_subset_plain(0.1, 16, pts)
+    g2, _, m2 = ball_query.ball_group_subset_plain(0.2, 64, pts)
+    with pytest.raises(ValueError):
+        pe_fused.pe_fused_masked_cuda(g1, m1, g2, m2, center, 0.1, 0.2, pe_fused.pack_mlp(mlp, mlp))
     chans, (Ws, gammas, betas) = torch.rand(1, 6, 32, 16), _pe_train_params(torch.device("cpu"))
     bn, gb = pe_train.stats_buffer(gammas, betas, "cpu")
     pooled = torch.rand(1, 32, 128)
@@ -196,6 +204,11 @@ def test_cpu_tensors_take_the_plain_versions(monkeypatch):
     mlp = ([torch.rand(6, 32), torch.rand(32, 64), torch.rand(64, 128)], [torch.rand(32), torch.rand(64), torch.rand(128)])
     feat = pe_fused.pe_fused_v5(planes, idx_p, w1, w2, total2, tuple(pts.unbind(-1)), *mlp, *mlp, 0.1, 0.2, None)
     assert feat.shape == (2, 256, 256)
+    g1, _, m1 = ball_query.ball_group_subset(0.1, 16, pts)
+    g2, d2, m2 = ball_query.ball_group_subset(0.2, 64, pts)
+    assert d2.shape == (2, 256, 64) and m2.dtype == torch.bool
+    feat = pe_fused.pe_fused_masked(g1, m1, g2, m2, tuple(pts.unbind(-1)), mlp, mlp, 0.1, 0.2, None)
+    assert feat.shape == (2, 256, 256)
     qkv = torch.rand(2, 9, 96, dtype=torch.bfloat16)
     attn = vit_attn.mha_fused(*qkv.split(32, dim=-1), 2)
     assert attn.shape == (2, 9, 32) and attn.dtype == torch.bfloat16
@@ -232,7 +245,8 @@ def test_unported_modes_are_refused():
     from unopose_tpu_torch.models import UNOPose
 
     for key, value in (
-        ("fine_point_matching.pe_neighbor_mode", "subset"),
+        ("fine_point_matching.parity_gather", True),
+        ("fine_point_matching.pe_dtype", "bf16"),
         ("coarse_point_matching.sim_type", "L2"),
         ("test_coarse_only", True),
     ):
@@ -250,7 +264,7 @@ def test_unported_modes_are_refused():
         UNOPose.from_config(cfg)
 
 
-@pytest.mark.parametrize("config", ["slice", "fused_matchers", "production"])
+@pytest.mark.parametrize("config", ["slice", "fused_matchers", "production", "subset", "firstk_unpacked"])
 def test_profile_tool_fails_without_a_card(config):
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     r = subprocess.run([sys.executable, "-m", "unopose_tpu_torch.tools.profile_slice", "--config", config], cwd=ROOT,
@@ -436,6 +450,33 @@ def test_pe_kernels_match_plain_on_surfaces(cuda):
     pooled = pe_fused.pe_mlp_pool_cuda(want, w1, w2, total2, pe_fused.pack_mlp(*mlp))
     ref = pe_fused.pe_mlp_pool_plain(want, w1, w2, total2, *mlp)
     assert (pooled - ref).abs().max().item() <= 1e-2 * ref.abs().max().item()
+
+
+@pytest.mark.cuda
+def test_subset_kernels_match_plain(cuda):
+    """The subset grouping bitwise equal to its plain twin (every output, miss
+    slots included) at S 64 and 256; the masked PE on those groupings with
+    at most twice as many entries unequal to the plain twin's as the plain
+    twin shows against itself one ulp up (the uniform cubes' frames are ill
+    conditioned, as for the PE-v5 channels)."""
+    pts = _lrf_cloud(np.random.default_rng(5), 4, 2048, cuda)
+    groups = []
+    for r, S in ((0.1, 64), (0.2, 256)):
+        got, want = ball_query.ball_group_subset_cuda(r, S, pts), ball_query.ball_group_subset_plain(r, S, pts)
+        for a, b in zip((*got[0], got[1]), (*want[0], want[1])):
+            assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+        assert torch.equal(got[2], want[2]) and 0 < want[2].float().mean().item() < 1
+        groups += [want[0], want[2]]
+    mlp = [([torch.randn(6, 32, device=cuda) * 0.3, torch.randn(32, 64, device=cuda) * 0.3,
+             torch.randn(64, 128, device=cuda) * 0.3], [torch.randn(d, device=cuda) * 0.1 for d in (32, 64, 128)])
+           for _ in range(2)]
+    center = tuple(pts.unbind(-1))
+    got = pe_fused.pe_fused_masked_cuda(*groups, center, 0.1, 0.2, pe_fused.pack_mlp(*mlp))
+    want = pe_fused.pe_fused_masked_plain(*groups, center, *mlp, 0.1, 0.2)
+    up = lambda xs: tuple(torch.nextafter(x, torch.full_like(x, float("inf"))) for x in xs)
+    nudged = pe_fused.pe_fused_masked_plain(up(groups[0]), groups[1], up(groups[2]), groups[3], up(center), *mlp,
+                                            0.1, 0.2)
+    assert (got != want).sum() <= 2 * (nudged != want).sum()
 
 
 @pytest.mark.cuda

@@ -1,4 +1,4 @@
-"""What the port runs: the three model configurations and their synthetic inputs.
+"""What the port runs: the model configurations and their synthetic inputs.
 
 ``slice_config()`` is the model section of the JAX package's
 ``configs/main_cfg.py:get_cfg()`` with the four switches that keep the
@@ -18,6 +18,9 @@ model section with no switch: ``fused_attn``, ``pe_fused`` and
 package's ``None``, "on for TPU inference"), so the ViT runs ``mha_fused``
 with the W8A8 ``DenseQ`` GEMMs (``int8_gemm=True``) and tanh-GELU, and the
 fine solver runs the three ``fine_assignment_fused`` sweeps.
+``subset_config()`` and ``firstk_unpacked_config()`` are ``production_config()``
+with one key of the fine PE switched: ``pe_neighbor_mode="subset"``, or
+``pe_packed=False``.
 
 The values are written out here so that the port never imports the JAX
 package; ``tests/test_torch_package.py`` and ``tests/test_torch_fused.py``
@@ -38,6 +41,8 @@ FULL_SIZES = dict(img=224, npts=2048, ntem=5000)
 # the tiny config of the CPU tests: the packed first_k PE still engages
 # (256 points hold the 256-slot scale-2 budget)
 TINY_SIZES = dict(img=28, npts=256, ntem=384)
+# the tiny subset config's clouds: at the budgets 64/256 a slot has G = 8 and 2 candidates (1 at 256 points)
+SUBSET_TINY_NPTS = 512
 
 
 class Config(dict):
@@ -121,6 +126,28 @@ def production_config(tiny: bool = False) -> Config:
     return cfg
 
 
+def subset_config(tiny: bool = False) -> Config:
+    """``production_config(tiny)`` with ``fine_point_matching.pe_neighbor_mode
+    = "subset"``: both PE scales group by the subset mode (kernel
+    ``ball_group_subset``) and run the masked PE (kernel ``pe_masked``).
+    With ``tiny`` the clouds hold ``SUBSET_TINY_NPTS`` points (the JAX
+    package's ``get_tiny_cfg(n_pts=512, n_tem=768)``)."""
+    cfg = production_config(tiny)
+    cfg.fine_point_matching.pe_neighbor_mode = "subset"
+    if tiny:
+        cfg.fine_npoint = SUBSET_TINY_NPTS
+    return cfg
+
+
+def firstk_unpacked_config(tiny: bool = False) -> Config:
+    """``production_config(tiny)`` with ``fine_point_matching.pe_packed=False``:
+    the unpacked first_k grouping (kernels ``first_k_select`` and
+    ``gather_planar``) and the masked PE with all-ones masks (``pe_masked``)."""
+    cfg = production_config(tiny)
+    cfg.fine_point_matching.pe_packed = False
+    return cfg
+
+
 # configs/main_cfg.py's schedule length: 3 epochs of the 2,008,971 training images at 8 per rank on 4 ranks
 TRAIN_BATCH = 8
 MAX_ITER = (2008971 // (TRAIN_BATCH * 4)) * 3
@@ -155,7 +182,8 @@ def train_config(tiny: bool = False) -> Config:
 
 
 # the configurations by the name chip_smoke.py and tools/profile_slice.py give them
-CONFIGS = {"slice": slice_config, "fused_matchers": fused_matcher_config, "production": production_config}
+CONFIGS = {"slice": slice_config, "fused_matchers": fused_matcher_config, "production": production_config,
+           "subset": subset_config, "firstk_unpacked": firstk_unpacked_config}
 
 
 def surface_clouds(rng: np.random.Generator, batch: int, perm: np.ndarray) -> np.ndarray:
@@ -192,13 +220,16 @@ def surface_clouds(rng: np.random.Generator, batch: int, perm: np.ndarray) -> np
     return out
 
 
-def synthetic_inputs(rng: np.random.Generator, batch: int, tiny: bool = False) -> dict:
+def synthetic_inputs(rng: np.random.Generator, batch: int, tiny: bool = False, npts: int | None = None) -> dict:
     """A batch built like the bench's: random crops in [-1, 1], random pixel
     choices, uniform clouds in a 0.2 m cube 0.6 m from the camera. numpy
     arrays: rgb / tem1_rgb (B, H, W, 3) float32, rgb_choose (B, P1) and
-    tem1_choose (B, P2) int32, pts (B, P1, 3) and tem1_pts (B, P2, 3) float32."""
+    tem1_choose (B, P2) int32, pts (B, P1, 3) and tem1_pts (B, P2, 3) float32.
+    ``npts`` sets P1 in place of the sizes' (a config's ``fine_npoint``),
+    with P2 kept at the sizes' P2 / P1 ratio."""
     sizes = TINY_SIZES if tiny else FULL_SIZES
-    img, npts, ntem = sizes["img"], sizes["npts"], sizes["ntem"]
+    npts = sizes["npts"] if npts is None else npts
+    img, ntem = sizes["img"], sizes["ntem"] * npts // sizes["npts"]
     offset = np.array([0, 0, 0.6], np.float32)
     return dict(
         rgb=rng.uniform(-1, 1, size=(batch, img, img, 3)).astype(np.float32),

@@ -5,7 +5,8 @@ The Python wrappers live beside their plain PyTorch twins in ``ops/``:
 ``ops/fps.py:fps_cuda``, ``ops/gather.py:gather_planar_cuda``,
 ``ops/ball_query.py:first_k_select_cuda``,
 ``ops/geo_fused.py:geo_rpe_fused_cuda``, ``ops/pe_fused.py:pe_channels_cuda``,
-``ops/pe_fused.py:pe_mlp_pool_cuda``, ``ops/vit_attn.py:mha_fused_cuda``
+``ops/pe_fused.py:pe_mlp_pool_cuda``, ``ops/vit_attn.py:mha_fused_cuda``,
+``ops/ball_query.py:ball_group_subset_cuda``, ``ops/pe_fused.py:pe_fused_masked_cuda``,
 the three sweeps of ``ops/assignment_fused.py`` (``colstats_cuda``,
 ``labels_cuda``, ``accum_cuda``) and the four passes of the PE train stack
 in ``ops/pe_train.py`` (``stats_cuda``, ``fwd_cuda``, ``bwd_sums_cuda``,

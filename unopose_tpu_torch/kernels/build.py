@@ -1,4 +1,5 @@
-"""Build and load the hand-written CUDA kernels (``csrc/*.cu``).
+"""Build and load the hand-written CUDA kernels (``csrc/*.cu``, with the
+device code they share in ``csrc/*.cuh``).
 
 The sources are compiled at first use with ``nvcc``, one process per source
 started together, and linked into one shared library with a plain C
@@ -64,6 +65,10 @@ _SIGNATURES = {
     "unopose_pe_train_bwd_sums": [_P] * 9 + [_I] * 5 + [_P],
     # chans, w0, w1, w2, bn, pooled, cnt, dpool, partial, cap, dw, B, P, S, stream
     "unopose_pe_train_bwd_dw": [_P] * 9 + [_I, _P] + [_I] * 3 + [_P],
+    # pts, perm, gx, gy, gz, d2, valid, B, N, S, r2, stream
+    "unopose_ball_group_subset": [_P] * 7 + [_I] * 3 + [_F, _P],
+    # g1x, g1y, g1z, m1, g2x, g2y, g2z, m2, cx, cy, cz, wpack, bpack, out, points, S1, S2, r1, r2, 1/r1, 1/r2, stream
+    "unopose_pe_masked": [_P] * 14 + [ctypes.c_longlong, _I, _I] + [_F] * 4 + [_P],
 }
 
 _lock = threading.Lock()
@@ -92,7 +97,7 @@ def _sources() -> list[Path]:
 
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in [*_sources(), *sorted(CSRC.glob("*.cuh"))]:  # the sources and the headers they include
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libunopose_kernels_{h.hexdigest()[:16]}.so"

@@ -1,0 +1,263 @@
+// Device code shared by the fine-PE inference kernels pe_channels.cu (K5),
+// pe_mlp_pool.cu (K6) and pe_masked.cu (K16): the warp-per-point local
+// reference frame of a neighbourhood over weighted slots (ops/lrf.py:
+// batch_lrf_planar with use_newton), and the folded-BatchNorm MLP
+// 6 -> 32 -> 64 -> 128 on mma.sync m16n8k16 bf16 tiles of 16 slots with its
+// running max. Each kernel's source says how it uses them.
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kMaxSlots = 256;
+constexpr int kPerLane = kMaxSlots / 32;
+constexpr int kLd0 = 16 + 8;  // row strides of the transposed weights, in bf16
+constexpr int kLd1 = 32 + 8;
+constexpr int kLd2 = 64 + 8;
+constexpr int kW0 = 32 * kLd0;
+constexpr int kW1 = 64 * kLd1;
+constexpr int kW2 = 128 * kLd2;
+constexpr int kWScale = kW0 + kW1 + kW2;  // ops/pe_fused.py:pack_mlp
+constexpr int kBScale = 32 + 64 + 128;
+
+__device__ __forceinline__ float warp_sum(float v) {
+  // butterfly: a + b == b + a, so every lane ends with the same bits
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+// cos(arccos(r) / 3) by Newton on 4c^3 - 3c = r (ops/eig3.py:_cos_acos_div3_newton)
+__device__ __forceinline__ float cos_acos_div3_newton(float r) {
+  r = fminf(fmaxf(r, -1.0f), 1.0f);
+  float c = 0.5f + 0.5f * sqrtf(fmaxf((r + 1.0f) * 0.5f, 0.0f));
+  for (int it = 0; it < 6; ++it) {
+    const float f = ((4.0f * c) * c) * c - 3.0f * c - r;
+    const float df = fmaxf((12.0f * c) * c - 3.0f, static_cast<float>(1e-3));
+    c = fminf(fmaxf(c - f / df, 0.5f), 1.0f);
+  }
+  return c;
+}
+
+// unit eigenvector of the smallest eigenvalue of [[a, b, c], [b, d, e], [c, e, f]]
+// (ops/eig3.py:smallest_eigvec_sym3_planar with use_newton)
+__device__ void smallest_eigvec(float a, float b, float c, float d, float e, float f, float& v0, float& v1,
+                                float& v2) {
+  const float p1 = (b * b + c * c) + e * e;
+  const float q = ((a + d) + f) / 3.0f;
+  const float da = a - q, dd = d - q, df = f - q;
+  const float p2 = ((da * da + dd * dd) + df * df) + 2.0f * p1;
+  const float p = sqrtf(fmaxf(p2 / 6.0f, 0.0f));
+  const float sp = p > 0.0f ? p : 1.0f;
+  const float ba = da / sp, bd = dd / sp, bf = df / sp;
+  const float bb = b / sp, bc = c / sp, be = e / sp;
+  const float det = (ba * (bd * bf - be * be) - bb * (bb * bf - be * bc)) + bc * (bb * be - bd * bc);
+  const float r = fminf(fmaxf(det / 2.0f, -1.0f), 1.0f);
+  const float c1 = cos_acos_div3_newton(r);
+  const float s1 = sqrtf(fmaxf(1.0f - c1 * c1, 0.0f));
+  const float c3 = -0.5f * c1 - static_cast<float>(0.8660254037844386) * s1;  // sqrt(3) / 2
+  float l1 = q + (2.0f * p) * c1;
+  const float l3 = q + (2.0f * p) * c3;
+  float l2 = (3.0f * q - l1) - l3;
+  if (p2 <= static_cast<float>(1e-30)) {
+    l1 = q;
+    l2 = q;
+  }
+  const float s = l1 + l2, pr = l1 * l2;
+  const float m00 = (((a * a + b * b) + c * c) - s * a) + pr;
+  const float m01 = ((a * b + b * d) + c * e) - s * b;
+  const float m02 = ((a * c + b * e) + c * f) - s * c;
+  const float m11 = (((b * b + d * d) + e * e) - s * d) + pr;
+  const float m12 = ((b * c + d * e) + e * f) - s * e;
+  const float m22 = (((c * c + e * e) + f * f) - s * f) + pr;
+  const float n0 = (m00 * m00 + m01 * m01) + m02 * m02;
+  const float n1 = (m01 * m01 + m11 * m11) + m12 * m12;
+  const float n2 = (m02 * m02 + m12 * m12) + m22 * m22;
+  const bool best01 = n0 >= n1;
+  const bool use2 = n2 > (best01 ? n0 : n1);
+  const float x0 = use2 ? m02 : (best01 ? m00 : m01);
+  const float x1 = use2 ? m12 : (best01 ? m01 : m11);
+  const float x2 = use2 ? m22 : (best01 ? m02 : m12);
+  const float nrm = sqrtf((x0 * x0 + x1 * x1) + x2 * x2);
+  const float scale = fmaxf(fmaxf(fmaxf(fabsf(a), fabsf(d)), fabsf(f)), static_cast<float>(1e-30));
+  const bool ok = nrm > (static_cast<float>(1e-20) * scale) * scale;
+  const float inv = ok ? 1.0f / fmaxf(nrm, static_cast<float>(1e-30)) : 0.0f;
+  v0 = x0 * inv;
+  v1 = x1 * inv;
+  v2 = ok ? x2 * inv : 1.0f;
+}
+
+// the LRF coordinates of one scale (ops/lrf.py:batch_lrf_planar with weights m)
+__device__ __forceinline__ void masked_lrf(const float (&rx)[kPerLane], const float (&ry)[kPerLane],
+                                           const float (&rz)[kPerLane], const float (&m)[kPerLane], int nu,
+                                           float r_lrf, float inv_r, float (&o0)[kPerLane],
+                                           float (&o1)[kPerLane], float (&o2)[kPerLane]) {
+  float cnt = 0.0f, sa = 0.0f, sb = 0.0f, sc = 0.0f, sd = 0.0f, se = 0.0f, sf = 0.0f;
+#pragma unroll
+  for (int u = 0; u < kPerLane; ++u) {
+    if (u < nu) {
+      cnt += m[u];
+      sa += (rx[u] * rx[u]) * m[u];
+      sb += (rx[u] * ry[u]) * m[u];
+      sc += (rx[u] * rz[u]) * m[u];
+      sd += (ry[u] * ry[u]) * m[u];
+      se += (ry[u] * rz[u]) * m[u];
+      sf += (rz[u] * rz[u]) * m[u];
+    }
+  }
+  cnt = fmaxf(warp_sum(cnt), 1.0f);
+  float z0, z1, z2;
+  smallest_eigvec(warp_sum(sa) / cnt, warp_sum(sb) / cnt, warp_sum(sc) / cnt, warp_sum(sd) / cnt,
+                  warp_sum(se) / cnt, warp_sum(sf) / cnt, z0, z1, z2);
+
+  float pos = 0.0f, neg = 0.0f;
+#pragma unroll
+  for (int u = 0; u < kPerLane; ++u) {
+    if (u < nu) {
+      const float cp = -((z0 * rx[u] + z1 * ry[u]) + z2 * rz[u]);
+      pos += (cp > static_cast<float>(1e-3) ? 1.0f : 0.0f) * m[u];
+      neg += (cp < static_cast<float>(-1e-3) ? 1.0f : 0.0f) * m[u];
+    }
+  }
+  const float sgn = warp_sum(pos) - warp_sum(neg) < 0.0f ? -1.0f : 1.0f;
+  z0 *= sgn;
+  z1 *= sgn;
+  z2 *= sgn;
+
+  float vx = 0.0f, vy = 0.0f, vz = 0.0f;
+#pragma unroll
+  for (int u = 0; u < kPerLane; ++u) {
+    if (u < nu) {
+      const float norm = (z0 * rx[u] + z1 * ry[u]) + z2 * rz[u];
+      const float x_l2 = sqrtf((rx[u] * rx[u] + ry[u] * ry[u]) + rz[u] * rz[u]);
+      const float dl = r_lrf - x_l2;
+      const float w = (dl * dl) * (norm * norm);
+      vx += (w * (rx[u] - norm * z0)) * m[u];
+      vy += (w * (ry[u] - norm * z1)) * m[u];
+      vz += (w * (rz[u] - norm * z2)) * m[u];
+    }
+  }
+  vx = warp_sum(vx);
+  vy = warp_sum(vy);
+  vz = warp_sum(vz);
+  const float vn = sqrtf((vx * vx + vy * vy) + vz * vz) + static_cast<float>(1e-10);
+  const float x0 = vx / vn, x1 = vy / vn, x2 = vz / vn;
+  const float y0 = x1 * z2 - x2 * z1;
+  const float y1 = x2 * z0 - x0 * z2;
+  const float y2 = x0 * z1 - x1 * z0;
+#pragma unroll
+  for (int u = 0; u < kPerLane; ++u) {
+    if (u < nu) {
+      o0[u] = ((x0 * rx[u] + x1 * ry[u]) + x2 * rz[u]) * inv_r;
+      o1[u] = ((y0 * rx[u] + y1 * ry[u]) + y2 * rz[u]) * inv_r;
+      o2[u] = ((z0 * rx[u] + z1 * ry[u]) + z2 * rz[u]) * inv_r;
+    }
+  }
+}
+
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) { return *reinterpret_cast<const uint32_t*>(p); }
+
+// bias + ReLU, rounded to a bf16 pair (low half = lower column)
+__device__ __forceinline__ uint32_t relu_pack(float x, float y) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(fmaxf(x, 0.0f), fmaxf(y, 0.0f));
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+__device__ __forceinline__ float relu_bf16(float x) { return __bfloat162float(__float2bfloat16_rn(fmaxf(x, 0.0f))); }
+
+// One 16-slot tile of a point's neighbourhood through the scale's three
+// layers (W0 = the scale's packed weights, B0 its biases), into the running
+// max mx of this lane's columns: a1 is the tile's layer-1 A fragment (the 6
+// channels, zero-padded to K = 16), keep0 / keep1 whether the lane's two
+// rows (slots) take part in the max.
+__device__ __forceinline__ void mlp_tile(const uint32_t (&a1)[4], const __nv_bfloat16* W0, const float* B0,
+                                         bool keep0, bool keep1, float (&mx)[16][2]) {
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;  // row group of the mma fragments
+  const int t = lane & 3;   // thread in group
+  const __nv_bfloat16* W1 = W0 + kW0;
+  const __nv_bfloat16* W2 = W1 + kW1;
+  const float* B1 = B0 + 32;
+  const float* B2 = B1 + 64;
+  // layer 1: 6 -> 32
+  uint32_t a2[2][4];
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt) {
+    float c[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    const __nv_bfloat16* wr = W0 + (nt * 8 + g) * kLd0 + 2 * t;
+    mma_bf16(c, a1, ld32(wr), ld32(wr + 8));
+    const int col = nt * 8 + 2 * t;
+    a2[nt >> 1][(nt & 1) * 2] = relu_pack(c[0] + B0[col], c[1] + B0[col + 1]);
+    a2[nt >> 1][(nt & 1) * 2 + 1] = relu_pack(c[2] + B0[col], c[3] + B0[col + 1]);
+  }
+  // layer 2: 32 -> 64
+  uint32_t a3[4][4];
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt) {
+    float c[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+    for (int kt = 0; kt < 2; ++kt) {
+      const __nv_bfloat16* wr = W1 + (nt * 8 + g) * kLd1 + kt * 16 + 2 * t;
+      mma_bf16(c, a2[kt], ld32(wr), ld32(wr + 8));
+    }
+    const int col = nt * 8 + 2 * t;
+    a3[nt >> 1][(nt & 1) * 2] = relu_pack(c[0] + B1[col], c[1] + B1[col + 1]);
+    a3[nt >> 1][(nt & 1) * 2 + 1] = relu_pack(c[2] + B1[col], c[3] + B1[col + 1]);
+  }
+  // layer 3: 64 -> 128, straight into the masked running max
+#pragma unroll
+  for (int nt = 0; nt < 16; ++nt) {
+    float c[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+    for (int kt = 0; kt < 4; ++kt) {
+      const __nv_bfloat16* wr = W2 + (nt * 8 + g) * kLd2 + kt * 16 + 2 * t;
+      mma_bf16(c, a3[kt], ld32(wr), ld32(wr + 8));
+    }
+    const int col = nt * 8 + 2 * t;
+    const float h0 = keep0 ? relu_bf16(c[0] + B2[col]) : 0.0f;
+    const float h1 = keep0 ? relu_bf16(c[1] + B2[col + 1]) : 0.0f;
+    const float h2 = keep1 ? relu_bf16(c[2] + B2[col]) : 0.0f;
+    const float h3 = keep1 ? relu_bf16(c[3] + B2[col + 1]) : 0.0f;
+    mx[nt][0] = fmaxf(mx[nt][0], fmaxf(h0, h2));
+    mx[nt][1] = fmaxf(mx[nt][1], fmaxf(h1, h3));
+  }
+}
+
+// The running max reduced across the 8 row groups and stored: out[0..127].
+__device__ __forceinline__ void store_max(float (&mx)[16][2], float* out) {
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+#pragma unroll
+  for (int nt = 0; nt < 16; ++nt) {
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      float v = mx[nt][j];
+      v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 4));
+      v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 8));
+      v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 16));
+      mx[nt][j] = v;
+    }
+    if (g == 0) {
+      *reinterpret_cast<float2*>(out + nt * 8 + 2 * t) = make_float2(mx[nt][0], mx[nt][1]);
+    }
+  }
+}
+
+}  // namespace

@@ -18,7 +18,8 @@
 // column pair, reduced across the 8 row groups by shuffles at the end). The
 // weights of both scales, transposed to (out, in) with K padded to 16 for the
 // first layer and each row padded by 8 bf16 (conflict-free fragment loads),
-// sit in shared memory (51 KB) for a persistent grid of blocks.
+// sit in shared memory (51 KB) for a persistent grid of blocks. The tile
+// (mlp_tile) and the final max (store_max) are pe_common.cuh's.
 //
 // A point runs ceil(total2 / 64) 64-slot chunks (at least one), the slots
 // the channels kernel (pe_channels.cu) wrote: every slot past total2 has
@@ -32,41 +33,12 @@
 // TMA; its padding of the first layer (K 6 -> 16) is not counted in the
 // bound.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "pe_common.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kLd0 = 16 + 8;  // row strides of the transposed weights, in bf16
-constexpr int kLd1 = 32 + 8;
-constexpr int kLd2 = 64 + 8;
-constexpr int kW0 = 32 * kLd0;
-constexpr int kW1 = 64 * kLd1;
-constexpr int kW2 = 128 * kLd2;
-constexpr int kWScale = kW0 + kW1 + kW2;  // ops/pe_fused.py:pack_mlp
-constexpr int kBScale = 32 + 64 + 128;
-constexpr int kMaxSlots = 256;
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) { return *reinterpret_cast<const uint32_t*>(p); }
-
-// bias + ReLU, rounded to a bf16 pair (low half = lower column)
-__device__ __forceinline__ uint32_t relu_pack(float x, float y) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(fmaxf(x, 0.0f), fmaxf(y, 0.0f));
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-__device__ __forceinline__ float relu_bf16(float x) { return __bfloat162float(__float2bfloat16_rn(fmaxf(x, 0.0f))); }
 
 __global__ void __launch_bounds__(kThreads)
 pe_mlp_pool_kernel(const __nv_bfloat16* __restrict__ chans, const __nv_bfloat16* __restrict__ w1,
@@ -89,12 +61,6 @@ pe_mlp_pool_kernel(const __nv_bfloat16* __restrict__ chans, const __nv_bfloat16*
     const __nv_bfloat16* ch = chans + pt * s2 * 12;
 #pragma unroll 1
     for (int sc = 0; sc < 2; ++sc) {
-      const __nv_bfloat16* W0 = s_w + sc * kWScale;
-      const __nv_bfloat16* W1 = W0 + kW0;
-      const __nv_bfloat16* W2 = W1 + kW1;
-      const float* B0 = s_b + sc * kBScale;
-      const float* B1 = B0 + 32;
-      const float* B2 = B1 + 64;
       const __nv_bfloat16* wm = (sc ? w2 : w1) + pt * s2;
       float mx[16][2];
 #pragma unroll
@@ -103,70 +69,16 @@ pe_mlp_pool_kernel(const __nv_bfloat16* __restrict__ chans, const __nv_bfloat16*
 #pragma unroll 1
       for (int mt = 0; mt < 4 * chunks; ++mt) {
         const int r0 = mt * 16 + g, r1 = r0 + 8;  // the two slots (rows) this lane holds
-        const bool keep0 = __bfloat162float(wm[r0]) > 0.0f;
-        const bool keep1 = __bfloat162float(wm[r1]) > 0.0f;
-        // layer 1: K = the scale's 6 channels, zero-padded to 16
+        // layer 1's A fragment: K = the scale's 6 channels, zero-padded to 16
         uint32_t a1[4] = {0u, 0u, 0u, 0u};
         if (t < 3) {
           a1[0] = ld32(ch + r0 * 12 + 6 * sc + 2 * t);
           a1[1] = ld32(ch + r1 * 12 + 6 * sc + 2 * t);
         }
-        uint32_t a2[2][4];
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt) {
-          float c[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-          const __nv_bfloat16* wr = W0 + (nt * 8 + g) * kLd0 + 2 * t;
-          mma_bf16(c, a1, ld32(wr), ld32(wr + 8));
-          const int col = nt * 8 + 2 * t;
-          a2[nt >> 1][(nt & 1) * 2] = relu_pack(c[0] + B0[col], c[1] + B0[col + 1]);
-          a2[nt >> 1][(nt & 1) * 2 + 1] = relu_pack(c[2] + B0[col], c[3] + B0[col + 1]);
-        }
-        // layer 2: 32 -> 64
-        uint32_t a3[4][4];
-#pragma unroll
-        for (int nt = 0; nt < 8; ++nt) {
-          float c[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-#pragma unroll
-          for (int kt = 0; kt < 2; ++kt) {
-            const __nv_bfloat16* wr = W1 + (nt * 8 + g) * kLd1 + kt * 16 + 2 * t;
-            mma_bf16(c, a2[kt], ld32(wr), ld32(wr + 8));
-          }
-          const int col = nt * 8 + 2 * t;
-          a3[nt >> 1][(nt & 1) * 2] = relu_pack(c[0] + B1[col], c[1] + B1[col + 1]);
-          a3[nt >> 1][(nt & 1) * 2 + 1] = relu_pack(c[2] + B1[col], c[3] + B1[col + 1]);
-        }
-        // layer 3: 64 -> 128, straight into the masked running max
-#pragma unroll
-        for (int nt = 0; nt < 16; ++nt) {
-          float c[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-#pragma unroll
-          for (int kt = 0; kt < 4; ++kt) {
-            const __nv_bfloat16* wr = W2 + (nt * 8 + g) * kLd2 + kt * 16 + 2 * t;
-            mma_bf16(c, a3[kt], ld32(wr), ld32(wr + 8));
-          }
-          const int col = nt * 8 + 2 * t;
-          const float h0 = keep0 ? relu_bf16(c[0] + B2[col]) : 0.0f;
-          const float h1 = keep0 ? relu_bf16(c[1] + B2[col + 1]) : 0.0f;
-          const float h2 = keep1 ? relu_bf16(c[2] + B2[col]) : 0.0f;
-          const float h3 = keep1 ? relu_bf16(c[3] + B2[col + 1]) : 0.0f;
-          mx[nt][0] = fmaxf(mx[nt][0], fmaxf(h0, h2));
-          mx[nt][1] = fmaxf(mx[nt][1], fmaxf(h1, h3));
-        }
+        mlp_tile(a1, s_w + sc * kWScale, s_b + sc * kBScale, __bfloat162float(wm[r0]) > 0.0f,
+                 __bfloat162float(wm[r1]) > 0.0f, mx);
       }
-#pragma unroll
-      for (int nt = 0; nt < 16; ++nt) {
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          float v = mx[nt][j];
-          v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 4));
-          v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 8));
-          v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 16));
-          mx[nt][j] = v;
-        }
-        if (g == 0) {
-          *reinterpret_cast<float2*>(out + pt * 256 + sc * 128 + nt * 8 + 2 * t) = make_float2(mx[nt][0], mx[nt][1]);
-        }
-      }
+      store_max(mx, out + pt * 256 + sc * 128);
     }
   }
 }

@@ -1,9 +1,13 @@
 """Coarse and fine point-matching stages with overlap heads (counterpart of
 ``unopose_tpu/models/matching.py``).
 
-Inference: the fine positional encoding runs the packed first_k path with
-folded BatchNorm and the plain MLP (``pe_fused=False``) or the fused PE-v5
-(``pe_fused=True``), both clouds as one batch. Training (``train=True``):
+Inference: the fine positional encoding runs, both clouds as one batch and
+with folded BatchNorm, the packed first_k path with the plain MLP
+(``pe_fused=False``) or the fused PE-v5 (``pe_fused=True``); where the
+packed path is off (``pe_packed=False``) or cannot take the cloud, the
+unpacked first_k grouping; in ``subset`` mode two subset groupings. The
+last two run the masked PE (``ops/pe_fused.py:pe_fused_masked``) with
+``pe_fused``, else the plain MLP. Training (``train=True``):
 each cloud separately (batch statistics are per cloud), the first_k
 grouping of ``two_scale_group_first_k_fast``, and per scale the MLP with
 batch-statistics BatchNorm: the kernels' pass structure of
@@ -23,6 +27,9 @@ from torch import nn
 from unopose_tpu_torch.models.layers import Dense
 from unopose_tpu_torch.models.transformer import GeometricTransformer, SparseToDenseTransformer
 from unopose_tpu_torch.ops.ball_query import (
+    CHUNKS,
+    ball_group_planar,
+    ball_group_subset,
     two_scale_group_exact_planar,
     two_scale_group_first_k_fast,
     two_scale_group_first_k_packed,
@@ -30,7 +37,7 @@ from unopose_tpu_torch.ops.ball_query import (
 )
 from unopose_tpu_torch.ops.geometry import compute_feature_similarity
 from unopose_tpu_torch.ops.lrf import batch_lrf_planar
-from unopose_tpu_torch.ops.pe_fused import pack_mlp, pe_fused_v5
+from unopose_tpu_torch.ops.pe_fused import pack_mlp, pe_fused_masked, pe_fused_v5
 from unopose_tpu_torch.ops.pe_train import pe_mlp_bn_pool_train, pe_mlp_bn_pool_train_plain
 
 
@@ -124,36 +131,57 @@ def fold_bn(W, scale, bias, mean, var, eps: float = 1e-5):
     return W * inv[None, :], bias - mean * inv
 
 
-def folded_scale_planar(center, grouped, r: float, Ws, bs, lrf_w=None, pool_mask=None) -> torch.Tensor:
+def folded_scale_planar(center, grouped, r: float, Ws, bs, lrf_w=None, pool_mask=None,
+                        dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """One PE scale: relative xyz + LRF coordinates through the folded MLP,
     max over the slots. ``lrf_w`` weights the LRF sums by multiplicity,
-    ``pool_mask`` restricts the max. Returns (B, P, d_last) float32."""
+    ``pool_mask`` restricts the max; ``dtype`` stores the channels and each
+    layer's activations (the JAX package's ``compute_dtype``: bf16 in subset
+    mode), the products run in float32. Returns (B, P, d_last) float32."""
     rel = [g - c[..., None] for g, c in zip(grouped, center)]
     lrf = batch_lrf_planar(center, grouped, r, mask=lrf_w)
-    h = torch.stack([*rel, *lrf], dim=-1).float()  # (B, P, S, 6), channels last
+    h = torch.stack([*rel, *lrf], dim=-1).to(dtype)  # (B, P, S, 6), channels last
     for W, b in zip(Ws, bs):
-        h = torch.matmul(h, W).add_(b).relu_()
+        h = torch.matmul(h.float(), W).add_(b).relu_().to(dtype)
+    h = h.float()
     if pool_mask is not None:
         h.masked_fill_(~pool_mask[..., None], float("-inf"))
     return h.amax(dim=2)
 
 
+NEIGHBOR_MODES = ("first_k", "subset")
+
+
 class FinePositionalEncoding(nn.Module):
-    """Two-scale local-geometry encoding. Inference: the packed first_k path
-    with the plain MLP or, with ``fused``, the fused PE-v5
-    (``ops/pe_fused.py``: the channels and MLP/pool kernels on the card).
+    """Two-scale local-geometry encoding. Inference (``neighbor_mode``
+    "first_k"): the packed first_k path with the plain MLP or, with
+    ``fused``, the fused PE-v5 (``ops/pe_fused.py``: the channels and
+    MLP/pool kernels on the card); with ``packed=False``, or on a cloud the
+    packed path cannot take (``packed_ok``) or PE-v5 cannot (``fused`` with
+    N % 128 or nsample2 != 256), the unpacked first_k grouping
+    (``two_scale_group_first_k_fast``) through the masked PE with all-ones
+    masks (``fused``) or the plain MLP over every slot. "subset": two subset
+    groupings (``ball_group_subset`` with ``fused`` where nsample1 and
+    nsample2 divide N, else ``ball_group_planar``) through the masked PE
+    (``fused``) or the plain MLP with bf16 activations and masks.
     Training: see the module docstring.
 
     ``last_branch`` records which branch the last inference forward took:
-    "packed", "v5", or "exact" after a grouping overflow.
+    "packed", "v5", "unpacked", "subset", or "exact" after a grouping
+    overflow.
     """
 
     MLP_DIMS = (32, 64, 128)
 
     def __init__(self, out_dim: int = 256, r1: float = 0.1, r2: float = 0.2, nsample1: int = 64,
-                 nsample2: int = 256, fused: bool = False):
+                 nsample2: int = 256, fused: bool = False, neighbor_mode: str = "first_k", packed=None):
         super().__init__()
+        if neighbor_mode not in NEIGHBOR_MODES:
+            raise ValueError(f"unknown neighbour mode {neighbor_mode!r}; one of {NEIGHBOR_MODES}")
         self.r1, self.r2, self.nsample1, self.nsample2, self.fused = r1, r2, nsample1, nsample2, fused
+        self.neighbor_mode, self.packed = neighbor_mode, packed
+        # the plain MLP's activation storage: the JAX package's default compute_dtype
+        self.compute_dtype = torch.float32 if neighbor_mode == "first_k" else torch.bfloat16
         for name in ("mlp1", "mlp2"):
             cin = 6
             for i, d in enumerate(self.MLP_DIMS):
@@ -223,37 +251,72 @@ class FinePositionalEncoding(nn.Module):
                 bn.var.copy_(0.9 * bn.var + 0.1 * var)
         return pooled
 
+    def _first_k_groups(self, pts: torch.Tensor):
+        """Both scales' first_k groupings: the chunked select where it can
+        take the cloud, else the exact two-sort grouping (the same slots)."""
+        N, k2 = pts.shape[1], self.nsample2
+        args = (self.r1, self.nsample1, self.r2, k2, pts)
+        if N % CHUNKS == 0 and k2 % CHUNKS == 0 and k2 <= N <= 4096 and self.nsample1 <= k2 and self.r1 < self.r2:
+            return two_scale_group_first_k_fast(*args)
+        return two_scale_group_exact_planar(*args)
+
     def forward_train(self, pts: torch.Tensor) -> torch.Tensor:
         """One cloud in training: pts (B, N, 3) -> (B, N, out_dim)."""
+        if self.neighbor_mode != "first_k":
+            raise NotImplementedError("not ported: the subset-mode train step")
         pts = pts.float().detach()
-        N = pts.shape[1]
         center = tuple(pts.unbind(-1))
-        args = (self.r1, self.nsample1, self.r2, self.nsample2, pts)
-        if N % 4 == 0 and self.nsample2 % 4 == 0:
-            g1, g2 = two_scale_group_first_k_fast(*args)
-        else:
-            g1, g2 = two_scale_group_exact_planar(*args)
+        g1, g2 = self._first_k_groups(pts)
         f1 = self._scale_train(center, g1, self.r1, "mlp1")
         f2 = self._scale_train(center, g2, self.r2, "mlp2")
         return self.mlp3(torch.cat([f1, f2], dim=-1))
+
+    def _masked(self, center, g1, valid1, g2, valid2) -> torch.Tensor:
+        """(B, P, 256) features of two masked groupings: the masked PE with
+        ``fused``, else the plain MLP in ``compute_dtype``."""
+        mlp1, mlp2, packed = self.folded_weights()
+        if self.fused:
+            return pe_fused_masked(g1, valid1, g2, valid2, center, mlp1, mlp2, self.r1, self.r2, packed)
+        f1 = folded_scale_planar(center, g1, self.r1, *mlp1, lrf_w=valid1, pool_mask=valid1, dtype=self.compute_dtype)
+        f2 = folded_scale_planar(center, g2, self.r2, *mlp2, lrf_w=valid2, pool_mask=valid2, dtype=self.compute_dtype)
+        return torch.cat([f1, f2], dim=-1)
+
+    def _subset_groups(self, pts: torch.Tensor):
+        """Both scales' subset groupings with their validity: the grouping
+        kernel with ``fused`` where each budget divides N, else the plain
+        ``ball_group_planar``."""
+        N = pts.shape[1]
+        if self.fused and N % self.nsample1 == 0 and N % self.nsample2 == 0:
+            g1, _, valid1 = ball_group_subset(self.r1, self.nsample1, pts)
+            g2, _, valid2 = ball_group_subset(self.r2, self.nsample2, pts)
+        else:
+            g1, _, valid1 = ball_group_planar(self.r1, self.nsample1, pts, mode="subset")
+            g2, _, valid2 = ball_group_planar(self.r2, self.nsample2, pts, mode="subset")
+        return g1, valid1, g2, valid2
 
     def forward(self, pts: torch.Tensor) -> torch.Tensor:
         """pts (B, N, 3) -> (B, N, out_dim)."""
         pts = pts.float()
         N = pts.shape[1]
-        if not self.packed_ok(N):
-            raise NotImplementedError(
-                f"only the packed first_k PE path is ported (N={N}, nsample2={self.nsample2})"
-            )
         center = tuple(pts.unbind(-1))
+        if self.neighbor_mode == "subset":
+            self.last_branch = "subset"
+            return self.mlp3(self._masked(center, *self._subset_groups(pts)))
+        v5_ok = N % 128 == 0 and self.nsample2 == 256
+        if self.packed is False or not self.packed_ok(N) or (self.fused and not v5_ok):
+            # the unpacked first_k path: every slot materialised, pads included (all-ones masks)
+            self.last_branch = "unpacked"
+            g1, g2 = self._first_k_groups(pts)
+            if self.fused:
+                ones1, ones2 = (torch.ones(g[0].shape, dtype=torch.bool, device=pts.device) for g in (g1, g2))
+                return self.mlp3(self._masked(center, g1, ones1, g2, ones2))
+            mlp1, mlp2, _ = self.folded_weights()
+            f1 = folded_scale_planar(center, g1, self.r1, *mlp1, dtype=self.compute_dtype)
+            f2 = folded_scale_planar(center, g2, self.r2, *mlp2, dtype=self.compute_dtype)
+            return self.mlp3(torch.cat([f1, f2], dim=-1))
         mlp1, mlp2, packed = self.folded_weights()
         args = (self.r1, self.nsample1, self.r2, self.nsample2, pts)
         if self.fused:
-            if N % 128 or self.nsample2 != 256:
-                raise NotImplementedError(
-                    f"pe_fused needs N % 128 == 0 and nsample2 == 256 for PE-v5 (N={N}, nsample2={self.nsample2}); "
-                    "the other fused PE kernels are not ported"
-                )
             planes, idx_p, w1, w2, total2, overflow = two_scale_group_first_k_packed_idx(*args)
             if not bool(overflow.item()):
                 self.last_branch = "v5"
@@ -288,11 +351,12 @@ class FinePointMatching(nn.Module):
     def __init__(self, nblock: int = 3, input_dim: int = 256, hidden_dim: int = 256, out_dim: int = 256,
                  num_heads: int = 4, temp: float = 0.1, normalize_feat: bool = True,
                  focusing_factor: float = 3.0, pe_radius1: float = 0.1, pe_radius2: float = 0.2,
-                 nsample1: int = 64, nsample2: int = 256, pe_fused: bool = False,
-                 dtype: torch.dtype = torch.float32):
+                 nsample1: int = 64, nsample2: int = 256, pe_fused: bool = False, pe_neighbor_mode: str = "first_k",
+                 pe_packed=None, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.temp, self.normalize_feat, self.dtype = temp, normalize_feat, dtype
-        self.pe = FinePositionalEncoding(hidden_dim, pe_radius1, pe_radius2, nsample1, nsample2, pe_fused)
+        self.pe = FinePositionalEncoding(hidden_dim, pe_radius1, pe_radius2, nsample1, nsample2, pe_fused,
+                                         pe_neighbor_mode, pe_packed)
         self.in_proj = Dense(input_dim, hidden_dim, dtype)
         self.out_proj = Dense(hidden_dim, out_dim, dtype)
         self.bg_token = nn.Parameter(torch.randn(1, 1, hidden_dim) * 0.02)

@@ -5,8 +5,8 @@ features (exact ViT, or the production ViT: fused attention, W8A8 GEMMs,
 tanh-GELU) -> global LRF of both clouds -> FPS to ``coarse_npoint`` nodes
 -> geometric embeddings with a bg point at (1, 1, 1) (exact, or fused and
 int8) -> coarse matching -> coarse hypothesis search -> fine matching
-(packed or fused PE) -> weighted-SVD fine pose, from the materialised
-similarity matrix or the fused assignment.
+(first_k packed, unpacked or fused PE, or the subset-mode PE) -> weighted-SVD
+fine pose, from the materialised similarity matrix or the fused assignment.
 
 Training: the frozen ViT (exact path, no autograd) -> both clouds' LRFs ->
 FPS -> the exact geometric embedding (differentiated) -> every coarse
@@ -62,15 +62,16 @@ def _check_ported(cfg: Config) -> None:
     """The port runs the ported paths: a config that forces a mode whose
     kernel is not ported yet, or another entry point, is refused. The fused
     geo embedding (``fused_table`` with ``quant_int8``: its kernel writes
-    int8 only), the fused PE, the production ViT and the fused assignment
-    are ported; their keys select the kernel path directly."""
+    int8 only), the fused PE, both neighbour modes, the unpacked first_k PE
+    (``pe_packed=False``), the production ViT and the fused assignment are
+    ported; their keys select the kernel path directly. An unknown
+    ``pe_neighbor_mode`` raises ``ValueError``."""
     ge, fm = cfg.geo_embedding, cfg.fine_point_matching
     _require(not ge.get("fused_table", 0) or ge.get("quant_int8", False),
              "geo_embedding.fused_table with quant_int8=False (a float or bf16 fused embedding)")
     _require(ge.get("reduction_a", "max") in ("max", "mean"), "geo_embedding.reduction_a")
-    _require(fm.get("pe_packed") is not False, "fine_point_matching.pe_packed=False")
-    _require(fm.get("pe_neighbor_mode", "first_k") == "first_k", "pe_neighbor_mode other than first_k")
     _require(not fm.get("parity_gather", False), "fine_point_matching.parity_gather")
+    _require(fm.get("pe_dtype") is None, "fine_point_matching.pe_dtype (the PE's storage follows the neighbour mode)")
     _require(fm.get("use_lrf", True) and fm.get("use_xyz", True), "PE without LRF or xyz channels")
     for m in (cfg.coarse_point_matching, fm):
         _require(m.get("sim_type", "cosine") == "cosine", "sim_type other than cosine")
@@ -141,6 +142,8 @@ class UNOPose(nn.Module):
             nsample1=fm.get("nsample1", 64),
             nsample2=fm.get("nsample2", 256),
             pe_fused=_on(fm.get("pe_fused")),
+            pe_neighbor_mode=fm.get("pe_neighbor_mode", "first_k"),
+            pe_packed=fm.get("pe_packed", None),
             dtype=dtype,
         )
 

@@ -1,5 +1,5 @@
-"""first_k neighbour grouping for the fine PE (counterpart of
-``unopose_tpu/ops/ball_query.py``).
+"""Neighbour grouping for the fine PE (counterpart of
+``unopose_tpu/ops/ball_query.py``): first_k, and the subset mode.
 
 Reference semantics (the CUDA ball query of the original model): around
 every point, each scale keeps the first <= k in-radius points by original
@@ -17,6 +17,17 @@ kernel ``kernels/csrc/first_k_select.cu``, which replaces the TPU pair
 ``_first_k_keys_pallas`` (int8-mask mode) + ``_compact_stage_pallas``.
 The two produce the same outputs bit for bit: both compute
 d2 = (cn - 2 xy) + pn elementwise in one fixed order (``sqdist_expansion``).
+
+Subset mode (``ball_group_planar(mode="subset")``, ``ball_group_subset``):
+the cloud in the fixed permuted order is cut into G = N / S candidates per
+slot (permuted column g * S + s is slot s's candidate g), and each slot
+takes its first candidate strictly inside the radius. ``ball_group_subset``
+dispatches on device: the plain ``ball_group_subset_plain`` on CPU tensors,
+the kernel ``kernels/csrc/ball_group_subset.cu`` (which replaces the TPU
+kernel ``ball_group_subset_pallas``) on CUDA tensors; both compute the
+distance by direct differences as the TPU kernel does, contracted into
+fused multiply-adds as XLA compiles it (``subset_sqdist``), and agree bit for
+bit with each other and with the JAX kernel in interpret mode.
 """
 
 from __future__ import annotations
@@ -29,6 +40,7 @@ import torch
 from unopose_tpu_torch.kernels import LAUNCHES
 from unopose_tpu_torch.kernels import build
 from unopose_tpu_torch.ops.gather import gather_planar
+from unopose_tpu_torch.ops.geometry import pairwise_sqdist
 
 PERM_SEED = 20240613  # the fixed decorrelating permutation of the JAX package
 CHUNKS = 4  # the JAX package's chunk count; fixed in the kernel too
@@ -51,14 +63,16 @@ def sqdist_expansion(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def first_k_in_radius(mask: torch.Tensor, nsample: int) -> torch.Tensor:
     """First ``nsample`` True positions per row of a (..., N) mask in index
-    order, padded with the first True position (0 for all-False rows)."""
+    order, padded with the first True position (0 for all-False rows). With
+    ``nsample > N`` the slots past N are pads, as in the reference's ball
+    query."""
     N = mask.shape[-1]
-    if nsample > N:
-        raise ValueError(f"nsample {nsample} > N {N}")
     iota = torch.arange(N, dtype=torch.int32, device=mask.device)
     key = torch.where(mask, 2 * N - iota, N - iota)  # unique keys: a plain top-k is exact
-    top = torch.topk(key, nsample, dim=-1, sorted=True).values
+    top = torch.topk(key, min(nsample, N), dim=-1, sorted=True).values
     idx = torch.where(top > N, 2 * N - top, N - top)
+    if nsample > N:
+        idx = torch.cat([idx, idx[..., :1].expand(*idx.shape[:-1], nsample - N)], dim=-1)
     cnt = mask.sum(dim=-1, dtype=torch.int32)[..., None]
     slot = torch.arange(nsample, dtype=torch.int32, device=mask.device)
     first = torch.where(cnt > 0, idx[..., :1], torch.zeros_like(idx[..., :1]))
@@ -264,3 +278,137 @@ def two_scale_group_exact_planar(r1: float, k1: int, r2: float, k2: int, pts: to
     idx1 = first_k_in_radius(d2 < r1 * r1, k1)
     idx2 = first_k_in_radius(d2 < r2 * r2, k2)
     return gather_planar(x, y, z, idx1), gather_planar(x, y, z, idx2)
+
+
+def ball_group_planar(radius: float, nsample: int, pts: torch.Tensor, mode: str = "subset"):
+    """One ball grouping of the cloud around its own points, plain (the XLA
+    path of the JAX ``ball_group_planar``): ((gx, gy, gz) each (B, N, S),
+    d2_sel (B, N, S), valid (B, N, S) bool). ``"subset"`` with S | N: slot s
+    takes its first in-radius candidate of the permuted columns g * S + s
+    (``pairwise_sqdist`` distances); a slot with no hit holds candidate G - 1.
+    Otherwise (``"first_k"``, or ``"subset"`` with N % S != 0) the first S
+    in-radius points by index, padded with the first hit, valid where the
+    slot is below the hit count. Only valid slots are meaningful."""
+    pts = pts.float()
+    B, N, _ = pts.shape
+    x, y, z = (t.contiguous() for t in pts.unbind(-1))
+    if mode == "subset" and N % nsample == 0:
+        G = N // nsample
+        perm, _ = permutation(N, pts.device)
+        pts_p = pts.index_select(1, perm.long())
+        mask = pairwise_sqdist(pts, pts_p) < radius * radius  # columns in permuted order
+        giota = torch.arange(G, dtype=torch.int32, device=pts.device)[:, None]
+        g_min = torch.where(mask.view(B, N, G, nsample), giota, G).amin(dim=2)  # (B, N, S)
+        valid = g_min < G
+        slot = torch.arange(nsample, dtype=torch.int32, device=pts.device)
+        idx_p = torch.clamp_max(g_min, G - 1) * nsample + slot
+        planes = gather_planar(*(t.contiguous() for t in pts_p.unbind(-1)), idx_p)
+    elif mode in ("subset", "first_k"):
+        mask = pairwise_sqdist(pts, pts) < radius * radius
+        idx = first_k_in_radius(mask, nsample)
+        cnt = mask.sum(dim=-1, dtype=torch.int32)
+        slot = torch.arange(nsample, dtype=torch.int32, device=pts.device)
+        valid = slot < torch.clamp_max(cnt, nsample)[..., None]
+        planes = gather_planar(x, y, z, idx)
+    else:
+        raise ValueError(f"unknown neighbour mode {mode!r}")
+    d2_sel = (planes[0] - x[..., None]) ** 2 + (planes[1] - y[..., None]) ** 2 + (planes[2] - z[..., None]) ** 2
+    return planes, d2_sel, valid
+
+
+def _check_subset(nsample: int, pts: torch.Tensor):
+    if pts.dim() != 3 or pts.shape[-1] != 3:
+        raise ValueError(f"pts must be (B, N, 3), got {tuple(pts.shape)}")
+    N = pts.shape[1]
+    if nsample <= 0 or N % nsample:
+        raise ValueError(f"the subset grouping needs nsample | N (N={N}, nsample={nsample})")
+
+
+def subset_sqdist(dx: torch.Tensor, dy: torch.Tensor, dz: torch.Tensor) -> torch.Tensor:
+    """fma(dz, dz, fma(dx, dx, dy * dy)) in float32: the TPU kernel's
+    dx * dx + dy * dy + dz * dz as XLA contracts it into fused multiply-adds
+    (what the JAX package's interpret mode computes), and what the kernel
+    computes with ``__fmaf_rn``. Each fused operation is formed in float64
+    (the float32 product is exact there) and rounded to float32; a float64
+    rounding of the sum can only move that at a float32 rounding tie."""
+    inner = (dx.double() * dx.double() + (dy * dy).double()).float()
+    return (dz.double() * dz.double() + inner.double()).float()
+
+
+def _subset_first(radius: float, nsample: int, pts: torch.Tensor):
+    """(the cloud in permuted order (B, N, 3), the (B, N, G, S) squared
+    distances of centre to candidate, each slot's first hit (B, N, 1, S)
+    int64, G where it has none)."""
+    _check_subset(nsample, pts)
+    pts = pts.float()
+    B, N, _ = pts.shape
+    S, G = nsample, N // nsample
+    perm, _ = permutation(N, pts.device)
+    pts_p = pts.index_select(1, perm.long())
+    cand = pts_p.view(B, 1, G, S, 3)
+    dx, dy, dz = (pts[:, :, None, None, i] - cand[..., i] for i in range(3))  # (B, N, G, S)
+    d2 = subset_sqdist(dx, dy, dz)
+    del dx, dy, dz
+    giota = torch.arange(G, dtype=torch.int32, device=pts.device)[:, None]
+    first = torch.where(d2 < radius * radius, giota, G).amin(dim=2, keepdim=True).long()
+    return pts_p, d2, first
+
+
+def subset_scans(radius: float, nsample: int, pts: torch.Tensor) -> int:
+    """The candidates the subset grouping tests on this cloud: each slot's up
+    to its first hit, all G where it has none (the work of its kernel)."""
+    G = pts.shape[1] // nsample
+    return int(torch.clamp_max(_subset_first(radius, nsample, pts)[2] + 1, G).sum())
+
+
+def ball_group_subset_plain(radius: float, nsample: int, pts: torch.Tensor):
+    """Plain twin of the subset grouping kernel (the TPU kernel
+    ``ball_group_subset_pallas``): slot s takes its first candidate g whose
+    permuted column g * S + s lies strictly within ``radius``, the squared
+    distance ``subset_sqdist`` of centre minus candidate. A
+    slot with no hit holds candidate 0 and d2 0. Returns ((gx, gy, gz),
+    d2_sel, valid) as ``ball_group_planar``."""
+    pts_p, d2, first = _subset_first(radius, nsample, pts)
+    B, N, S, G = pts.shape[0], pts.shape[1], nsample, pts.shape[1] // nsample
+    valid = first[:, :, 0] < G
+    first = torch.where(first < G, first, 0)
+    d2_sel = torch.where(valid, torch.take_along_dim(d2, first, dim=2)[:, :, 0], 0.0)
+    del d2
+    idx = (first[:, :, 0] * S + torch.arange(S, device=pts.device)).view(B, N * S)
+    planes = tuple(torch.gather(pts_p[..., i], 1, idx).view(B, N, S) for i in range(3))
+    return planes, d2_sel, valid
+
+
+def ball_group_subset_cuda(radius: float, nsample: int, pts: torch.Tensor):
+    """The subset grouping on the card (``csrc/ball_group_subset.cu``): one
+    block per cloud and tile of centres, the permuted cloud in shared memory,
+    one thread per (centre, slot)."""
+    _check_subset(nsample, pts)
+    if pts.device.type != "cuda":
+        raise ValueError("ball_group_subset_cuda needs a CUDA tensor")
+    B, N, _ = pts.shape
+    if N > 4096:
+        raise ValueError(f"ball_group_subset_cuda takes N <= 4096 (N={N})")
+    pts = pts.float().contiguous()
+    perm, _ = permutation(N, pts.device)
+    dev = pts.device
+    planes = tuple(torch.empty((B, N, nsample), dtype=torch.float32, device=dev) for _ in range(3))
+    d2_sel = torch.empty((B, N, nsample), dtype=torch.float32, device=dev)
+    valid = torch.empty((B, N, nsample), dtype=torch.bool, device=dev)
+    lib = build.load()
+    ptr = ctypes.c_void_p
+    with torch.cuda.device(dev):
+        err = lib.unopose_ball_group_subset(
+            ptr(pts.data_ptr()), ptr(perm.data_ptr()), *(ptr(t.data_ptr()) for t in (*planes, d2_sel, valid)),
+            B, N, nsample, float(radius * radius), ptr(build.stream_of(pts)),
+        )
+    build.check(err, "ball_group_subset")
+    LAUNCHES["ball_group_subset"] += 1
+    return planes, d2_sel, valid
+
+
+def ball_group_subset(radius: float, nsample: int, pts: torch.Tensor):
+    """The subset grouping of ``ball_group_subset_pallas``, dispatched by device."""
+    if pts.device.type == "cpu":
+        return ball_group_subset_plain(radius, nsample, pts)
+    return ball_group_subset_cuda(radius, nsample, pts)

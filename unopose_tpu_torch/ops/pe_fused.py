@@ -20,6 +20,15 @@ total2 carry weight 0 in both scales, so they change neither the LRF sums
 nor the masked max. The kernels process and write only those slots; the
 plain versions compute every slot (the channels) or every 64-slot chunk any
 point needs (the pool), which gives the same values.
+
+``pe_fused_masked`` is the masked point-major PE (counterpart of
+``unopose_tpu/ops/pe_fused.py:pe_fused``) on two materialised groupings
+with their validity masks: the subset mode, and the unpacked first_k
+grouping with all-ones masks. Per scale: the LRF over the valid slots, the
+six channels rounded to bf16, the same MLP, and the max over the valid
+slots as a multiply by the mask after the ReLU. Kernel
+``kernels/csrc/pe_masked.cu`` (the TPU kernel ``_pe_kernel``), dispatched by
+device like the others.
 """
 
 from __future__ import annotations
@@ -163,16 +172,21 @@ def pack_mlp(mlp1, mlp2):
     return torch.cat(blocks).to(torch.bfloat16).contiguous(), bias.contiguous()
 
 
-def pe_mlp_pool_cuda(chans, w1, w2, total2, packed) -> torch.Tensor:
-    """The MLP and pool on the card (``csrc/pe_mlp_pool.cu``): one warp per
-    point, mma.sync bf16 tensor-core products chained in registers.
-    ``packed`` is both scales' ``pack_mlp``."""
-    _check_mlp(chans, w1, w2, total2)
+def _check_packed(packed):
     wpack, bpack = packed
     if (wpack.numel(), wpack.dtype, bpack.numel(), bpack.dtype) != (
             2 * _PACKED_PER_SCALE, torch.bfloat16, 2 * sum(_MLP_DIMS), torch.float32):
         raise ValueError(f"packed must be pack_mlp's output, got {wpack.numel()} {wpack.dtype} and "
                          f"{bpack.numel()} {bpack.dtype} values")
+    return wpack, bpack
+
+
+def pe_mlp_pool_cuda(chans, w1, w2, total2, packed) -> torch.Tensor:
+    """The MLP and pool on the card (``csrc/pe_mlp_pool.cu``): one warp per
+    point, mma.sync bf16 tensor-core products chained in registers.
+    ``packed`` is both scales' ``pack_mlp``."""
+    _check_mlp(chans, w1, w2, total2)
+    wpack, bpack = _check_packed(packed)
     _check_cuda("pe_mlp_pool_cuda", (chans, w1, w2, total2, wpack, bpack))
     B, P, S2, _ = chans.shape
     if chans.dtype != torch.bfloat16:
@@ -208,3 +222,80 @@ def pe_fused_v5(planes, idx_p, w1, w2, total2, center, w1_mlp, b1_mlp, w2_mlp, b
     ``packed``: the weights' ``pack_mlp`` for the MLP kernel (None on the CPU)."""
     chans = pe_channels(planes, idx_p, w1, w2, total2, center, r1, r2)
     return pe_mlp_pool(chans, w1, w2, total2, (w1_mlp, b1_mlp), (w2_mlp, b2_mlp), packed)
+
+
+def _check_masked(grouped1, mask1, grouped2, mask2, center):
+    B, P = center[0].shape
+    if any(c.shape != (B, P) for c in center):
+        raise ValueError("centres must be three (B, P) planes")
+    for grouped, mask in ((grouped1, mask1), (grouped2, mask2)):
+        S = mask.shape[-1]
+        if mask.shape != (B, P, S) or any(g.shape != (B, P, S) for g in grouped):
+            raise ValueError(f"each scale's planes and mask must be (B, P, S) with centres (B, P) = {(B, P)}, got "
+                             f"{[tuple(g.shape) for g in grouped]} and {tuple(mask.shape)}")
+        if not 0 < S <= 256:
+            raise ValueError(f"S must be in 1..256, got {S}")
+
+
+def _masked_scale_plain(center, grouped, mask, r: float, Ws, bs) -> torch.Tensor:
+    """One scale of ``pe_fused_masked_plain``: (B, P, 128) float32."""
+    rel = [g.float() - c.float()[..., None] for g, c in zip(grouped, center)]
+    lrf = batch_lrf_planar(center, grouped, r, mask=mask, use_newton=True)
+    chans = torch.stack([*rel, *lrf], dim=-1).to(torch.bfloat16)  # (B, P, S, 6)
+    keep = mask[..., None].float()
+    Wb = [W.to(torch.bfloat16).float() for W in Ws]
+    pooled = None
+    for c in range(0, chans.shape[2], CHUNK):  # 64-slot chunks bound the activations' memory
+        h = chans[:, :, c:c + CHUNK].float()
+        for W, b in zip(Wb, bs):
+            h = torch.relu(torch.matmul(h, W) + b.float()).to(torch.bfloat16).float()
+        m = (h * keep[:, :, c:c + CHUNK]).amax(dim=2)  # ReLU outputs are >= 0
+        pooled = m if pooled is None else torch.maximum(pooled, m)
+    return pooled
+
+
+def pe_fused_masked_plain(grouped1, mask1, grouped2, mask2, center, mlp1, mlp2, r1: float, r2: float) -> torch.Tensor:
+    """Plain twin of the masked PE: scale 1's planes (three (B, P, S1)) and
+    bool mask, scale 2's, the centres (three (B, P)) and each scale's folded
+    (Ws, bs) -> (B, P, 256) float32 (see module docstring)."""
+    _check_masked(grouped1, mask1, grouped2, mask2, center)
+    _check_weights(mlp1, mlp2)
+    f1 = _masked_scale_plain(center, grouped1, mask1, r1, *mlp1)
+    f2 = _masked_scale_plain(center, grouped2, mask2, r2, *mlp2)
+    return torch.cat([f1, f2], dim=-1)
+
+
+def pe_fused_masked_cuda(grouped1, mask1, grouped2, mask2, center, r1: float, r2: float, packed) -> torch.Tensor:
+    """The masked PE on the card (``csrc/pe_masked.cu``): one warp per point,
+    the LRF on the lanes, the MLP on mma.sync bf16 tiles staged in shared
+    memory. ``packed`` is both scales' ``pack_mlp``."""
+    _check_masked(grouped1, mask1, grouped2, mask2, center)
+    wpack, bpack = _check_packed(packed)
+    _check_cuda("pe_fused_masked_cuda", (*grouped1, mask1, *grouped2, mask2, *center, wpack, bpack))
+    B, P = center[0].shape
+    S1, S2 = mask1.shape[-1], mask2.shape[-1]
+    g1 = [g.float().contiguous() for g in grouped1]
+    g2 = [g.float().contiguous() for g in grouped2]
+    m1, m2 = (m.to(torch.bool).contiguous() for m in (mask1, mask2))
+    cx, cy, cz = (c.float().contiguous() for c in center)
+    out = torch.empty((B, P, 256), dtype=torch.float32, device=cx.device)
+    lib = build.load()
+    ptr = ctypes.c_void_p
+    with torch.cuda.device(cx.device):
+        err = lib.unopose_pe_masked(
+            *(ptr(t.data_ptr()) for t in (*g1, m1, *g2, m2, cx, cy, cz, wpack, bpack, out)),
+            B * P, S1, S2, float(r1), float(r2), float(1.0 / r1), float(1.0 / r2), ptr(build.stream_of(cx)),
+        )
+    build.check(err, "pe_masked")
+    LAUNCHES["pe_masked"] += 1
+    return out
+
+
+def pe_fused_masked(grouped1, mask1, grouped2, mask2, center, mlp1, mlp2, r1: float, r2: float,
+                    packed) -> torch.Tensor:
+    """(B, P, 256) float32 features of the masked PE, dispatched by device:
+    the plain version reads ``mlp1``/``mlp2``, the kernel their ``pack_mlp``
+    (``packed``, may be None on the CPU)."""
+    if mask1.device.type == "cpu":
+        return pe_fused_masked_plain(grouped1, mask1, grouped2, mask2, center, mlp1, mlp2, r1, r2)
+    return pe_fused_masked_cuda(grouped1, mask1, grouped2, mask2, center, r1, r2, packed)

@@ -1,12 +1,12 @@
 """Where the time goes in a full-width configuration on one CUDA card.
 
-    python -m unopose_tpu_torch.tools.profile_slice [--config slice|fused_matchers|production] [--batches 8]
-        [--warmup 2] [--seed 0] [--out FILE]
+    python -m unopose_tpu_torch.tools.profile_slice [--config slice|fused_matchers|production|subset|firstk_unpacked]
+        [--batches 8] [--warmup 2] [--seed 0] [--out FILE]
 
-Runs a configuration as ``chip_smoke.py`` does (``configs.slice_config()``,
-the default, ``configs.fused_matcher_config()`` or
-``configs.production_config()``; bf16, seeded random weights, synthetic
-batches of 16 pairs) and reports:
+Runs a configuration of ``configs.CONFIGS`` as ``chip_smoke.py`` does
+(``slice_config()``, the default, ``fused_matcher_config()``,
+``production_config()``, ``subset_config()`` or ``firstk_unpacked_config()``;
+bf16, seeded random weights, synthetic batches of 16 pairs) and reports:
 
 - per stage of ``UNOPose.forward``, the median time between CUDA events
   recorded around the stage over the steady batches (device time plus the
@@ -28,8 +28,10 @@ per-token int8 quantisation. 1c and 1d run 12 and 48 times a batch, so
 they have kernel times only: CUDA events around each call would add to
 the stages they sit in. Stage 4 is the exact embedding or the fused
 int8 one (kernel geo_rpe); 7b is the grouping (with the slot gather on the
-slice path, without it on the fused paths); 7c, on the fused paths only, is
-PE-v5 (kernels pe_channels and pe_mlp_pool). Stage 8 is the materialised
+slice path, without it on the fused paths; the unpacked first_k grouping,
+with the gather; or the subset grouping, kernel ball_group_subset, twice);
+7c, on the fused paths only, is PE-v5 (kernels pe_channels and
+pe_mlp_pool) or the masked PE (kernel pe_masked). Stage 8 is the materialised
 solver, or on the production path the fused assignment (kernels
 fine_assign_colstats, _labels, _accum) and its Procrustes. With ``--out``
 the report is also written there as JSON.
@@ -53,7 +55,8 @@ from unopose_tpu_torch import configs
 BATCH = 16
 OURS = ("fps_kernel", "first_k_select_kernel", "gather_planar_kernel", "geo_rpe_kernel", "pe_channels_kernel",
         "pe_mlp_pool_kernel", "mha_bf16_kernel", "colstats_kernel", "labels_kernel", "accum_kernel",
-        "pe_train_kernel", "stats_finish", "sums_finish", "dw_finish")
+        "ball_group_subset_kernel", "pe_masked_kernel", "pe_train_kernel", "stats_finish", "sums_finish",
+        "dw_finish")
 PE_TRAIN = OURS[-4:]  # K11-K14 and the second passes of their launches
 
 
@@ -113,6 +116,9 @@ def instrument(model, marks: list) -> list:
         (mm, "two_scale_group_first_k_packed", "7b first_k select + slot gather + weights"),
         (mm, "two_scale_group_first_k_packed_idx", "7b first_k select + weights (index grouping)"),
         (mm, "pe_fused_v5", "7c PE-v5: channels + MLP/pool kernels"),
+        (mm, "two_scale_group_first_k_fast", "7b first_k select + slot gather (unpacked)"),
+        (mm, "ball_group_subset", "7b subset grouping (K15, both scales)"),
+        (mm, "pe_fused_masked", "7c masked PE (K16)"),
         (un, "compute_fine_Rt_overlap", "8 fine solver"),
         (un, "compute_fine_Rt_overlap_fused", "8 fine solver (fused assignment K8-K10)"),
     ):
