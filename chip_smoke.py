@@ -39,7 +39,14 @@ Phases, each fatal on failure:
    uniform cubes and on the unpacked first_k grouping with all-ones masks
    (at most twice as many unequal outputs as the plain version shows against
    itself one ulp up) and of sphere surfaces (99.9% of outputs within one
-   bf16 ulp, none more than two ulps of the largest output off);
+   bf16 ulp, none more than two ulps of the largest output off); the subset
+   grouping of ``subset_config()`` at N 8192 bitwise equal to its plain
+   version; the coarse selection kernel in both modes (16 x 300 hypotheses,
+   N 196) bitwise equal to its plain twins, within 1e-4 of the plain
+   selection it replaces; the frozen-BN train stack (K12 on the running
+   statistics, the one-sweep backward K18) against its plain passes at the
+   K11-K14 gates, K18 deterministic, and the whole function against its
+   twin on autograd;
 4. one forced grouping overflow, through the plain and the fused PE: both
    must take the exact fallback (and with it the gather kernel), whose
    grouping equals the CPU plain version's;
@@ -52,21 +59,28 @@ Phases, each fatal on failure:
    assignment's configs also its labels on the CPU's projections (99%
    equal); the subset config as ``check_tiny`` says; the train path's grouping
    on the main path's clouds (B 8, N 2048) equal to the CPU's slot for slot;
-   and one tiny float32 train step (``train_config(tiny=True)`` on surface
-   clouds), card against CPU, with the gates of ``check_tiny_train``;
+   the tiny production config under ``UNOPOSE_HYPSEL_V2=1`` as
+   ``check_tiny_hypsel`` says; and one tiny float32 train step
+   (``train_config(tiny=True)`` on surface clouds), card against CPU, with
+   the gates of ``check_tiny_train``, again under
+   ``UNOPOSE_PE_TRAIN_FROZEN=1``;
 6. the main paths at full width (ViT-B/14-reg4 at 224 px, 2048-point
    clouds, a 5000-point template, 6000/300 hypotheses, bf16, seeded random
    weights, batches of 16 pairs): ``slice_config()`` and
    ``fused_matcher_config()`` for 2 batches each, then
-   ``production_config()`` for ``--batches``, ``subset_config()`` for 2 and
-   ``firstk_unpacked_config()`` for 1; finite, orthonormal poses;
-   then ``train_config()`` (B 8, bf16) for ``--train-steps`` training
-   steps: finite loss terms, a finite positive gradient norm, the frozen
-   ViT bitwise unchanged, every trainable module and all six BatchNorm
-   layers of the fine PE moved, and one profiled step's device time; the
-   launch counts are zeroed just before each path and read just after,
-   every kernel of the path must have launched, and on the subset and
-   unpacked paths no PE kernel of the other PE paths.
+   ``production_config()`` for ``--batches`` without and then with
+   ``UNOPOSE_HYPSEL_V2=1`` (``production_hypsel``), ``subset_config()`` for
+   2 and ``firstk_unpacked_config()`` for 1; finite, orthonormal poses and
+   the peak memory; then ``train_config()`` (B 8, bf16) for
+   ``--train-steps`` training steps: finite loss terms, a finite positive
+   gradient norm, the frozen ViT bitwise unchanged, every trainable module
+   and all six BatchNorm layers of the fine PE moved, and one profiled
+   step's device time; and again under ``UNOPOSE_PE_TRAIN_FROZEN=1``
+   (``train_frozen``), where the six layers' gammas and betas must move and
+   their running statistics stay bitwise unchanged. The launch counts are
+   zeroed just before each path and read just after, every kernel of the
+   path must have launched, and no path may launch the PE kernels of the
+   other PE paths nor, with its switch off, a switched path's kernels.
 
 Log lines are prefixed with the card's name and power limit. Before the
 last line come one JSON line with the kernels' results and the raw
@@ -77,6 +91,7 @@ last line come one JSON line with the kernels' results and the raw
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import subprocess
@@ -111,6 +126,9 @@ KERNELS = {
     "pe_train_bwd_dw": ("unopose_tpu_torch/kernels/csrc/pe_train.cu", "unopose_tpu/ops/pe_train.py:210"),
     "ball_group_subset": ("unopose_tpu_torch/kernels/csrc/ball_group_subset.cu", "unopose_tpu/ops/ball_query.py:964"),
     "pe_masked": ("unopose_tpu_torch/kernels/csrc/pe_masked.cu", "unopose_tpu/ops/pe_fused.py:163"),
+    "hyp_select": ("unopose_tpu_torch/kernels/csrc/hyp_select.cu", "unopose_tpu/ops/hyp_select.py:86"),
+    "hyp_select_v2": ("unopose_tpu_torch/kernels/csrc/hyp_select.cu", "unopose_tpu/ops/hyp_select2.py:72"),
+    "pe_train_frozen_bwd": ("unopose_tpu_torch/kernels/csrc/pe_train.cu", "unopose_tpu/ops/pe_train.py:450"),
 }
 FUSED = ("fps", "first_k_select", "geo_rpe", "pe_channels", "pe_mlp_pool")
 PRODUCTION = ("fps", "geo_rpe", "mha_fused", "fine_assign_colstats", "fine_assign_labels", "fine_assign_accum")
@@ -122,13 +140,39 @@ PATH_KERNELS = {
     "firstk_unpacked": PRODUCTION + ("first_k_select", "gather_planar", "pe_masked"),
     "train": ("fps", "first_k_select", "gather_planar", "pe_train_stats", "pe_train_fwd", "pe_train_bwd_sums",
               "pe_train_bwd_dw"),
+    "production_hypsel": FUSED + PRODUCTION[2:] + ("hyp_select_v2",),
+    "train_frozen": ("fps", "first_k_select", "gather_planar", "pe_train_fwd", "pe_train_frozen_bwd"),
 }
-# kernels a path must not launch: the PE kernels of the other first_k and subset paths
+# kernels a path must not launch: the PE kernels of the other first_k and subset paths, and the kernels of
+# the two switched paths (UNOPOSE_HYPSEL_V2, UNOPOSE_PE_TRAIN_FROZEN) where their switch is off
+SWITCHED = ("hyp_select", "hyp_select_v2", "pe_train_frozen_bwd")
 PATH_NOT_LAUNCHED = {
-    "subset": ("first_k_select", "gather_planar", "pe_channels", "pe_mlp_pool"),
-    "firstk_unpacked": ("ball_group_subset", "pe_channels", "pe_mlp_pool"),
+    "slice": SWITCHED, "fused_matchers": SWITCHED, "production": SWITCHED, "train": SWITCHED,
+    "subset": ("first_k_select", "gather_planar", "pe_channels", "pe_mlp_pool") + SWITCHED,
+    "firstk_unpacked": ("ball_group_subset", "pe_channels", "pe_mlp_pool") + SWITCHED,
+    "production_hypsel": ("hyp_select", "pe_train_frozen_bwd"),
+    "train_frozen": ("pe_train_stats", "pe_train_bwd_sums", "pe_train_bwd_dw", "hyp_select", "hyp_select_v2"),
 }
 INFER_PATHS = ("slice", "fused_matchers", "production", "subset", "firstk_unpacked")
+# the switched paths: (configuration, environment)
+HYPSEL = {"UNOPOSE_HYPSEL_V2": "1"}
+FROZEN = {"UNOPOSE_PE_TRAIN_FROZEN": "1"}
+PATH_CONFIG = {"production_hypsel": ("production", HYPSEL)}
+
+
+@contextlib.contextmanager
+def env_switch(env: dict):
+    """Sets environment variables inside a ``with`` block and restores them after."""
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
 
 
 def card_info() -> str:
@@ -806,6 +850,206 @@ def check_subset_kernels(log, dev, seed: int) -> dict:
     return results
 
 
+def random_rotations(gen, shape, dev):
+    """Uniform random rotations of ``shape`` + (3, 3) float32 (QR of Gaussians, determinant +1)."""
+    import torch
+
+    q, r = torch.linalg.qr(torch.randn(*shape, 3, 3, generator=gen, dtype=torch.float64))
+    q = q * torch.sign(torch.diagonal(r, dim1=-2, dim2=-1))[..., None, :]
+    q = q * torch.sign(torch.linalg.det(q))[..., None, None]
+    return q.float().to(dev)
+
+
+def check_hypsel_kernels(log, dev, seed: int) -> dict:
+    """Phase 3, the coarse selection kernel K17 in its two modes (TP in the
+    kernel from bf16 operands, row 18; TP read from the float32 product, row
+    19) at the production path's shapes: 16 clouds of 196 FPS nodes, 300
+    hypotheses, 196 model nodes. Against its plain twins bitwise (the same
+    float32 operations in one order) and the same argmax; beside it the
+    plain selection it replaces (the (B, P2, N1, N2) expansion-form
+    distances), whose scores row 19 meets within 1e-4 relative (direct
+    against expansion form), with the same argmax wherever the plain
+    selection's best two scores lie further apart than that (row 18's bf16
+    TP moves its scores by a few percent from the float32 plain selection:
+    logged)."""
+    import torch
+
+    from unopose_tpu_torch.ops import hyp_select as hs
+    from unopose_tpu_torch.ops.solver import select_scores_plain
+
+    rng = np.random.default_rng(seed + 17)
+    gen = torch.Generator().manual_seed(seed + 17)
+    B, N, P2 = BATCH, 196, 300
+    model = lrf_cloud(rng, dev, B, N)
+    # the observed nodes: the model's under one pose per cloud, with noise; the hypotheses near it
+    true_R = random_rotations(gen, (B,), dev)
+    pts1 = torch.matmul(model, true_R.transpose(1, 2)) + 0.05 + 0.002 * torch.randn(B, N, 3, generator=gen).to(dev)
+    skew = torch.randn(B, P2, 3, 3, generator=gen).to(dev)
+    rs = torch.matmul(true_R[:, None], torch.linalg.matrix_exp(0.1 * (skew - skew.transpose(-1, -2))))
+    ts = 0.05 + 0.01 * torch.randn(B, P2, 3, generator=gen).to(dev)
+    w1 = torch.from_numpy((rng.random((B, N)) < 0.7).astype(np.float32)).to(dev)
+    args = (pts1, model, rs, ts, w1)
+    sel = select_scores_plain(*args)
+    top2 = sel.topk(2, dim=1).values
+    apart = (top2[:, 0] - top2[:, 1]) > 1e-4 * top2[:, 0]
+    sel_ms = cuda_ms(lambda: select_scores_plain(*args), reps=3)
+    results = {}
+    for name, mode, kernel, plain in (
+            ("hyp_select", 0, hs.hypothesis_select_scores_cuda, hs.hypothesis_select_scores_plain),
+            ("hyp_select_v2", 1, hs.hypothesis_select_scores_v2_cuda, hs.hypothesis_select_scores_v2_plain)):
+        got, want = kernel(*args), plain(*args)
+        torch.cuda.synchronize()
+        bitwise = torch.equal(got, want)
+        sel_rel = ((got - sel).abs() / sel.abs()).max().item()
+        sel_argmax = bool((got.argmax(1) == sel.argmax(1))[apart].all())
+        argmax_ok = bool(torch.equal(got.argmax(1), want.argmax(1))) and (mode == 0 or sel_argmax)
+        if mode == 0:
+            launch = lambda: hs._dist_sums_cuda(0, pts1, model, w1, rs=rs, ts=ts)
+            nbytes = 4 * (3 * B * N * 2 + 12 * B * P2 + B * N + B * P2)
+            per_row = 21.0  # TP: 3 differences, 9 products, 6 sums; then the square root, the weight, the sum
+        else:
+            tp = hs.transform_f32(pts1, rs, ts)
+            launch = lambda: hs._dist_sums_cuda(1, pts1, model, w1, tp=tp)
+            nbytes = 4 * (3 * B * P2 * N + 3 * B * N + B * N + B * P2)
+            per_row = 3.0
+        # per (hypothesis, row, model point) 3 differences, 3 products, 2 sums and the min
+        bnd = bound(nbytes, 9.0 * B * P2 * N * N + per_row * B * P2 * N, F32_FLOPS)
+        r = dict(max_abs_err=(got - want).abs().max().item(), ms=cuda_ms(launch), plain_ms=cuda_ms(lambda: plain(*args),
+                 reps=3), library_ms=None, **bnd, wrapper_ms=cuda_ms(lambda: kernel(*args)), plain_selection_ms=sel_ms,
+                 plain_selection_max_rel=sel_rel, bitwise=bitwise, ties=int((~apart).sum()))
+        results[name] = r
+        log(f"{name} ({B} clouds x {P2} hypotheses, N1 = N2 = {N}; mode {mode}): bitwise equal to the plain twin "
+            f"{bitwise}, argmax equal {argmax_ok}; vs the plain selection max rel {sel_rel:.3e}, argmax equal where "
+            f"apart {sel_argmax}, clouds whose best two "
+            f"plain scores lie within 1e-4 {r['ties']} of {B}; kernel {r['ms']:.4f} ms (wrapper {r['wrapper_ms']:.4f} "
+            f"ms), plain twin {r['plain_ms']:.3f} ms, plain selection {sel_ms:.3f} ms, bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']})")
+        if not bitwise or not argmax_ok or (mode == 1 and sel_rel > 1e-4):
+            raise AssertionError(f"{name} differs from its plain twin or from the plain selection beyond its gates")
+    return results
+
+
+def check_frozen_kernels(log, dev, seed: int) -> dict:
+    """Phase 3, the frozen-BN train stack at the train step's shapes (B 8, P
+    2048, S 256 and 64): K12 on the buffer filled from the running
+    statistics and K18 (the one-sweep backward) against their plain passes,
+    K18 fed its own side's forward: the pooled output, the dW and every
+    layer's sums of g and g zhat within 1e-2 of each tensor's max with the
+    median under 1e-3 (the gates of K11-K14), the tie counts and two runs of
+    K18 equal; then the whole autograd function against the frozen twin on
+    autograd (2e-2, median 2e-3, the gates of the batch-statistics stack)."""
+    import torch
+
+    from unopose_tpu_torch.ops import pe_train as pt
+
+    rng = np.random.default_rng(seed + 19)
+    gen = torch.Generator().manual_seed(seed + 19)
+    Bt, P = 8, 2048
+    Ws, gammas, betas = train_weights(dev, seed)
+    means = [(0.1 * torch.randn(d, generator=gen)).to(dev) for d in pt.DIMS[1:]]
+    vars_ = [(0.5 + torch.rand(d, generator=gen)).to(dev) for d in pt.DIMS[1:]]
+
+    def rel(got, want):
+        d = (got - want).abs()
+        scale = want.abs().max().clamp_min(1e-30)
+        return (d.max() / scale).item(), (d.median() / scale).item()
+
+    out = {}
+    for S in (256, 64):
+        chans = train_chans(rng, dev, Bt, P, S)
+        n = Bt * P * S
+        bn = pt.frozen_buffer(gammas, betas, means, vars_, 1e-5, dev)
+        pooled, cnt = pt.fwd_plain(chans, Ws, bn)
+        k_pooled, k_cnt = pt.fwd_cuda(chans, Ws, bn)
+        fwd_err, cnt_equal = rel(k_pooled, pooled), (k_cnt == cnt).float().mean().item()
+        dpool = torch.from_numpy(rng.standard_normal((Bt, P, 128)).astype(np.float32)).to(dev)
+        bn_plain, bn_k, bn_again = bn.clone(), bn.clone(), bn.clone()
+        dws = pt.frozen_bwd_plain(chans, Ws, bn_plain, pooled, cnt, dpool)
+        k_dws = pt.frozen_bwd_cuda(chans, Ws, bn_k, k_pooled, k_cnt, dpool)
+        again = pt.frozen_bwd_cuda(chans, Ws, bn_again, k_pooled, k_cnt, dpool)
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(k_dws, again)) and torch.equal(bn_k, bn_again)
+        dw_err = [rel(a, b) for a, b in zip(k_dws, dws)]
+        sums = [(bn_k[l, row, :d], bn_plain[l, row, :d]) for l, d in enumerate(pt.DIMS[1:]) for row in (pt.SG, pt.SGZ)]
+        sums_err = [rel(a, b) for a, b in sums]
+        absolute = max(max((a - b).abs().max().item() for a, b in zip(k_dws, dws)),
+                       max((a - b).abs().max().item() for a, b in sums))
+        ms = cuda_ms(lambda: pt.frozen_bwd_cuda(chans, Ws, bn.clone(), k_pooled, k_cnt, dpool))
+        plain_ms = cuda_ms(lambda: pt.frozen_bwd_plain(chans, Ws, bn.clone(), pooled, cnt, dpool), reps=2)
+        fwd_ms = cuda_ms(lambda: pt.fwd_cuda(chans, Ws, bn))
+        # K14's work (the recompute, every dz, the dW) and the sums; float32 chans, pooled, counts and dpool
+        # read once, the dW and the sums written once
+        chain = sum(a * b for a, b in zip(pt.DIMS[:-1], pt.DIMS[1:]))
+        bnd = bound(chans.numel() * 4 + 3 * Bt * P * 128 * 4 + (pt.DW_SIZE + pt.FROZEN_SUMS) * 4,
+                    2.0 * n * (2 * chain + 128 * 64 + 64 * 32), BF16_FLOPS)
+        out[S] = dict(ms=ms, plain_ms=plain_ms, fwd_ms=fwd_ms, absolute=absolute, rel=max(e[0] for e in dw_err + sums_err),
+                      same=same, **bnd)
+        log(f"pe_train frozen S={S} ({Bt}x{P}x{S}): K12 on the running statistics: pooled (max, median of max) "
+            f"{fwd_err}, tie counts equal {100 * cnt_equal:.4f}%, {fwd_ms:.3f} ms; K18 dW {dw_err}, sums (g, g zhat by "
+            f"layer) {sums_err}, two runs equal {same}, kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+            f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']})")
+        if any(mx > 1e-2 or med > 1e-3 for mx, med in [fwd_err, *dw_err, *sums_err]) or cnt_equal < 1.0 or not same:
+            raise AssertionError(f"the frozen-BN kernels at S={S} differ from their plain passes beyond the gates")
+        del chans, bn, pooled, cnt, dpool, k_pooled, k_cnt
+        torch.cuda.empty_cache()
+
+    # the whole function on the card against the frozen twin on autograd, scale 2's shape
+    chans = train_chans(rng, dev, Bt, P, 256)
+    R = torch.from_numpy(rng.standard_normal((Bt, P, 128)).astype(np.float32)).to(dev)
+    grads = []
+    for fn in (pt.pe_mlp_bn_pool_frozen, pt.pe_mlp_bn_pool_frozen_plain):
+        params = [t.clone().requires_grad_() for t in (*Ws, *gammas, *betas)]
+        pooled = fn(chans, params[:3], params[3:6], params[6:], means, vars_)
+        (pooled * R).sum().backward()
+        grads.append((pooled.detach(), [p.grad for p in params]))
+        del pooled
+        torch.cuda.empty_cache()
+    (ko, kg), (po, pg) = grads
+    whole = dict(pooled=rel(ko, po), grads=[rel(a, b) for a, b in zip(kg, pg)])
+    log(f"pe_mlp_bn_pool_frozen whole function vs the frozen twin on autograd (S=256): {whole}")
+    if any(mx > 2e-2 or med > 2e-3 for mx, med in [whole["pooled"], *whole["grads"]]):
+        raise AssertionError("pe_mlp_bn_pool_frozen on the card differs from the frozen twin beyond its gates")
+    main, small = out[256], out[64]
+    return {"pe_train_frozen_bwd": dict(
+        max_abs_err=main["absolute"], max_rel_err=main["rel"], ms=main["ms"], plain_ms=main["plain_ms"],
+        library_ms=None, bound_ms=main["bound_ms"], bound_by=main["bound_by"], frozen_fwd_ms=main["fwd_ms"],
+        s64_ms=small["ms"], s64_plain_ms=small["plain_ms"], s64_bound_ms=small["bound_ms"])}
+
+
+def check_subset_8192(log, dev, seed: int) -> dict:
+    """Phase 3, ``subset_config()``'s fine PE grouping at N 8192 (two clouds):
+    both scales through K15 (the permuted cloud staged in two chunks),
+    bitwise equal to the plain twin on every output, miss slots included."""
+    import torch
+
+    from unopose_tpu_torch.configs import subset_config
+    from unopose_tpu_torch.kernels import LAUNCHES
+    from unopose_tpu_torch.models.matching import FinePositionalEncoding
+    from unopose_tpu_torch.ops.ball_query import ball_group_subset_plain
+
+    fm = subset_config().fine_point_matching
+    pe = FinePositionalEncoding(256, fm.pe_radius1, fm.pe_radius2, fm.nsample1, fm.nsample2, fused=True,
+                                neighbor_mode="subset").to(dev)
+    pts = lrf_cloud(np.random.default_rng(seed + 21), dev, 2, 8192)
+    before = LAUNCHES["ball_group_subset"]
+    g1, v1, g2, v2 = pe._subset_groups(pts)
+    launched = LAUNCHES["ball_group_subset"] - before
+    bitwise = True
+    for (g, v), (r, S) in zip(((g1, v1), (g2, v2)), ((fm.pe_radius1, fm.nsample1), (fm.pe_radius2, fm.nsample2))):
+        want = ball_group_subset_plain(r, S, pts)
+        bitwise &= all(torch.equal(a.view(torch.int32), b.view(torch.int32)) for a, b in zip(g, want[0]))
+        bitwise &= torch.equal(v, want[2])
+        del want
+    ms = cuda_ms(lambda: pe._subset_groups(pts))
+    log(f"subset_config grouping at N 8192 (2 clouds, S {fm.nsample1} and {fm.nsample2}): K15 launched {launched}x, "
+        f"every output bitwise equal to the plain twin {bitwise}, valid slots {100 * v1.float().mean().item():.2f}% / "
+        f"{100 * v2.float().mean().item():.2f}%, both scales {ms:.3f} ms")
+    if not bitwise or launched != 2:
+        raise AssertionError("the subset grouping at N 8192 differs from its plain twin or skipped K15")
+    torch.cuda.empty_cache()
+    return dict(n8192_bitwise=bitwise, n8192_ms=ms)
+
+
 def check_overflow(log, dev, seed: int) -> None:
     """Phase 4: a dense cloud overflows the packed budget; the plain and the
     fused PE must take the exact fallback, and its grouping (gather kernel
@@ -940,6 +1184,88 @@ def check_tiny(log, dev, seed: int, name: str) -> None:
         raise AssertionError(f"the tiny {name} config on the card disagrees with the CPU plain path")
 
 
+def check_tiny_hypsel(log, dev, seed: int) -> None:
+    """Phase 5, the coarse selection under ``UNOPOSE_HYPSEL_V2=1`` on the
+    float32 tiny production config, card (K17) against CPU (where the switch
+    keeps the plain selection), same weights, inputs and draws. On the
+    hypotheses the card's solver made: K17's scores within 1e-5 relative of
+    its plain twin on the CPU (TP from each device's float32 product) and of
+    a float64 evaluation, and the same argmax as the twin wherever the
+    twin's best two scores lie further apart than that. The plain selection
+    on the CPU is logged beside: its expansion-form distances cancel on the
+    tiny clouds' close points (2.0e-4 relative, chip run). Then the card's
+    forward with the switch against the card's forward without it (the same
+    hypotheses): the coarse pose equal on the clouds whose best two scores
+    lie 1e-3 apart, the score within 1e-3 relative. The CPU forward's coarse
+    score, from its own hypotheses, is logged too."""
+    import torch
+
+    from unopose_tpu_torch import configs
+    from unopose_tpu_torch.kernels import LAUNCHES
+    from unopose_tpu_torch.models import UNOPose
+    from unopose_tpu_torch.ops import solver
+
+    cfg = configs.production_config(tiny=True)
+    torch.manual_seed(seed)
+    model = UNOPose.from_config(cfg, torch.float32, torch.float32).eval()
+    rng = np.random.default_rng(seed + 4)
+    inputs = configs.synthetic_inputs(rng, 2, tiny=True)
+    uniforms = torch.from_numpy(rng.uniform(size=(2, 3 * cfg.coarse_point_matching.nproposal1)).astype(np.float32))
+    run = lambda where: model({k: torch.from_numpy(v).to(where) for k, v in inputs.items()}, uniforms=uniforms.to(where))
+    seen = []
+    own = solver.hypothesis_select_scores_v2
+
+    def record(*args):
+        out = own(*args)
+        seen.append(([a.cpu() for a in args], out.cpu()))
+        return out
+
+    solver.hypothesis_select_scores_v2 = record
+    try:
+        with env_switch(HYPSEL):
+            out_cpu = run("cpu")
+            model.to(dev)
+            before = LAUNCHES["hyp_select_v2"]
+            out_card = run(dev)
+            launched = LAUNCHES["hyp_select_v2"] - before
+        out_plain = run(dev)
+    finally:
+        solver.hypothesis_select_scores_v2 = own
+    if len(seen) != 1 or launched != 1:
+        raise AssertionError(f"the tiny hypsel run launched K17 {launched}x, recorded {len(seen)} calls (want 1)")
+    from unopose_tpu_torch.ops import hyp_select as hs
+
+    (args, got), = seen
+    rel_of = lambda a, b: ((a - b).abs() / b.abs()).max().item()
+    twin = hs.hypothesis_select_scores_v2_plain(*args)
+    p1, m, r, t, w = (a.double() for a in args)
+    tp = torch.matmul(p1[:, None] - t[:, :, None, :], r)
+    d = ((tp[:, :, :, None, :] - m[:, None, None]) ** 2).sum(-1).amin(-1).sqrt()
+    exact = (w.sum(1)[:, None] / ((d * w[:, None]).sum(2) + 1e-8)).float()
+    plain = solver.select_scores_plain(*args)
+    rel, rel_exact, rel_plain = rel_of(got, twin), rel_of(got, exact), rel_of(plain, exact)
+    top2 = twin.topk(2, dim=1).values
+    apart = (top2[:, 0] - top2[:, 1]) > 1e-5 * top2[:, 0]
+    argmax_ok = bool((got.argmax(1) == twin.argmax(1))[apart].all())
+    top2 = plain.topk(2, dim=1).values
+    wide = (top2[:, 0] - top2[:, 1]) > 1e-3 * top2[:, 0]
+    R, R0 = out_card["init_R"].cpu(), out_plain["init_R"].cpu()
+    pose_ok = bool(torch.equal(R[wide], R0[wide])
+                   and torch.equal(out_card["init_t"].cpu()[wide], out_plain["init_t"].cpu()[wide]))
+    score_rel = ((out_card["init_pose_score"] - out_plain["init_pose_score"]).abs()
+                 / out_plain["init_pose_score"].abs()).max().item()
+    cpu_rel = ((out_card["init_pose_score"].cpu() - out_cpu["init_pose_score"]).abs()
+               / out_cpu["init_pose_score"].abs()).max().item()
+    log(f"tiny fp32 production under UNOPOSE_HYPSEL_V2=1: K17 launched {launched}x on the card, none on the CPU; on "
+        f"the card's hypotheses K17 vs the CPU's twin max rel {rel:.3e}, vs float64 {rel_exact:.3e} (the CPU's plain "
+        f"selection vs float64 {rel_plain:.3e}), argmax equal to the twin's {argmax_ok} on the {int(apart.sum())} of "
+        f"{len(apart)} clouds whose best two scores lie apart; card with vs without the switch: coarse pose equal on "
+        f"the {int(wide.sum())} clouds 1e-3 apart {pose_ok}, score rel {score_rel:.3e}; card vs CPU coarse score rel "
+        f"{cpu_rel:.3e} (not gated: each from its own hypotheses)")
+    if rel > 1e-5 or rel_exact > 1e-5 or not argmax_ok or not pose_ok or score_rel > 1e-3:
+        raise AssertionError("the selection kernel on the tiny production config disagrees with the plain selection")
+
+
 def surface_train_inputs(rng, batch: int) -> dict:
     """A tiny training batch (``configs.synthetic_train_inputs(tiny=True)``)
     whose template lies on a bumpy closed surface with every 16th point 0.1 m
@@ -997,10 +1323,13 @@ def check_train_grouping(log, dev, seed: int) -> None:
         raise AssertionError("the train grouping on the card differs from the CPU's")
 
 
-def check_tiny_train(log, dev, seed: int) -> None:
+def check_tiny_train(log, dev, seed: int, frozen: bool = False) -> None:
     """Phase 5, the train step: the float32 tiny ``train_config`` on surface
     clouds, one step from the same weights, batch and noise draws on the card
-    (the PE train kernels) and on the CPU (their plain passes). The PE's
+    (the PE train kernels) and on the CPU (their plain passes); with
+    ``frozen``, under ``UNOPOSE_PE_TRAIN_FROZEN=1`` (K12 and K18 on the card,
+    which must launch, and every run's fine-PE BatchNorm running statistics
+    bitwise unchanged). The PE's
     local frames are ill conditioned on some neighbourhoods of these
     256-point clouds (ROADMAP Queue 3): their float32 sums and arccos run
     differently on each device, a frame that flips moves the fine stage, and
@@ -1028,11 +1357,13 @@ def check_tiny_train(log, dev, seed: int) -> None:
 
     from unopose_tpu_torch.configs import train_config
     from unopose_tpu_torch.engine.train import Trainer
+    from unopose_tpu_torch.kernels import LAUNCHES
     from unopose_tpu_torch.models import UNOPose
     from unopose_tpu_torch.models.matching import FinePositionalEncoding
     from unopose_tpu_torch.ops.ball_query import two_scale_group_first_k_fast
     from unopose_tpu_torch.ops.rotation import PoseNoiseDraws
 
+    title = "tiny fp32 train step" + (" (frozen BN)" if frozen else "")
     cfg = train_config(tiny=True)
     rng = np.random.default_rng(seed + 9)
     batch = surface_train_inputs(rng, 2)
@@ -1057,8 +1388,10 @@ def check_tiny_train(log, dev, seed: int) -> None:
 
         pe.train_channels = record
         trainer = Trainer(model, cfg)
-        metrics = trainer.step({k: torch.from_numpy(v).to(where) for k, v in batch.items()},
-                               pose_noise=PoseNoiseDraws(draws.std_index, draws.angles.to(where), draws.trans.to(where)))
+        with env_switch(FROZEN if frozen else {}):
+            metrics = trainer.step({k: torch.from_numpy(v).to(where) for k, v in batch.items()},
+                                   pose_noise=PoseNoiseDraws(draws.std_index, draws.angles.to(where),
+                                                             draws.trans.to(where)))
         bns = {k: v.detach().cpu().double() for k, v in pe.named_buffers()}
         return ({k: float(v) for k, v in metrics.items() if "loss" in k}, module_grads(trainer), bns), seen
 
@@ -1074,8 +1407,10 @@ def check_tiny_train(log, dev, seed: int) -> None:
         return diffs, gates
 
     cpu, cpu_seen = step("cpu")
+    before = LAUNCHES["pe_train_frozen_bwd"]
     card, card_seen = step(dev)
     replayed, _ = step(dev, channels=lambda i: cpu_seen[i][3])
+    frozen_launches = LAUNCHES["pe_train_frozen_bwd"] - before
     spread = [compare(step("cpu", {**batch, k: np.nextafter(batch[k], d * np.inf).astype(np.float32)})[0], cpu)[0]
               for k in ("pts", "tem1_pts") for d in (1, -1)]
     spread = tuple({k: max(s[i][k] for s in spread) for k in spread[0][i]} for i in range(3))
@@ -1107,7 +1442,7 @@ def check_tiny_train(log, dev, seed: int) -> None:
     rows = [((a[3] - b[3]).abs().amax(dim=3) > 1e-4).float() for a, b in zip(card_seen, cpu_seen)]  # (B, 6, P)
     offsets = [r[:, :3].amax(dim=1).mean().item() for r in rows]
     frames = [r[:, 3:].amax(dim=1).mean().item() for r in rows]
-    log(f"tiny fp32 train step: the grouping of the fine PE's clouds on the card equal to the CPU's "
+    log(f"{title}: the grouping of the fine PE's clouds on the card equal to the CPU's "
         f"{grouping_equal}; on the CPU's clouds and groupings, channel offsets bitwise equal {offsets_equal}, "
         f"rows with local-frame coordinates off by over 1e-3 by call (card, CPU one-ulp spread, both) {lrf_rows} "
         f"of {cpu_seen[0][3].shape[0] * cpu_seen[0][3].shape[2]}; in the card step, channel rows off the CPU "
@@ -1121,7 +1456,7 @@ def check_tiny_train(log, dev, seed: int) -> None:
                             ("card vs CPU, where the fine PE does not reach", card, coarse)):
         diffs, gates = (tuple({k: v for k, v in x.items() if held(k)} for x in y) for y in compare(run, cpu))
         ratios = [worst(d, g) for d, g in zip(diffs, gates)]
-        log(f"tiny fp32 train step, {name}: loss {run[0]['loss']:.6f}, worst loss term "
+        log(f"{title}, {name}: loss {run[0]['loss']:.6f}, worst loss term "
             f"{max(diffs[0].values(), default=0.0):.2e}, 1 - module gradient cosines "
             f"{({k: round(v, 9) for k, v in diffs[1].items()})}, BN running buffers worst "
             f"{max(diffs[2].values(), default=0.0):.2e}; worst share of the gate (terms, cosines, BN) "
@@ -1130,22 +1465,38 @@ def check_tiny_train(log, dev, seed: int) -> None:
             failed.append(name)
     diffs, _ = compare(card, cpu)
     reached = [{k: v for k, v in d.items() if not coarse(k)} for d in diffs]
-    log(f"tiny fp32 train step, card vs CPU where the fine PE reaches (not gated: its channels differ, see "
+    log(f"{title}, card vs CPU where the fine PE reaches (not gated: its channels differ, see "
         f"above), against the CPU's own one-ulp spread: worst loss term {max(reached[0].values()):.2e} vs "
         f"{max(v for k, v in spread[0].items() if not coarse(k)):.2e}, 1 - cos {({k: round(v, 9) for k, v in reached[1].items()})} "
         f"vs {({k: round(v, 9) for k, v in spread[1].items() if not coarse(k)})}, BN {max(reached[2].values()):.2e} "
         f"vs {max(spread[2].values()):.2e}")
+    if frozen:
+        start = {k[len("fine_matching.pe."):]: v.double() for k, v in state.items() if k.startswith("fine_matching.pe.")
+                 and (k.endswith(".mean") or k.endswith(".var"))}
+        unchanged = all(torch.equal(run[2][k], v) for run in (cpu, card, replayed) for k, v in start.items())
+        log(f"{title}: K18 launched {frozen_launches}x in the two card steps, the {len(start)} running statistics "
+            f"bitwise unchanged in every run {unchanged}")
+        if frozen_launches != 8 or len(start) != 12 or not unchanged:
+            failed.append("frozen BN (K18 launches or running statistics)")
     if failed:
-        raise AssertionError(f"the tiny train step disagrees: {failed}")
+        raise AssertionError(f"the {title} disagrees: {failed}")
 
 
-def run_train(log, dev, seed: int, steps: int) -> dict:
+def run_train(log, dev, seed: int, steps: int, frozen: bool = False) -> dict:
     """The train path at full width: ``train_config()``, B = 8, bf16, seeded
     random weights, ``steps`` steps on synthetic batches. Checks the loss
     terms and the gradient norm, the frozen ViT, that every trainable module
     and all six BatchNorm layers of the fine PE moved, and the path's
     kernel launches; then one more step under the profiler for the device
-    time and the PE train kernels' share of it."""
+    time and the PE train kernels' share of it. With ``frozen`` the
+    ``train_frozen`` path, under ``UNOPOSE_PE_TRAIN_FROZEN=1``: there the six
+    BatchNorm layers' gammas and betas must move and their running
+    statistics stay bitwise unchanged."""
+    with env_switch(FROZEN if frozen else {}):
+        return _run_train(log, dev, seed, steps, "train_frozen" if frozen else "train")
+
+
+def _run_train(log, dev, seed: int, steps: int, name: str) -> dict:
     import torch
 
     from unopose_tpu_torch import configs
@@ -1176,15 +1527,16 @@ def run_train(log, dev, seed: int, steps: int) -> dict:
         times.append((time.perf_counter() - t0) * 1e3)
         m = {k: float(v) for k, v in metrics.items()}
         bad = [k for k, v in m.items() if not np.isfinite(v)]
-        log(f"train step {i}: {times[-1]:.1f} ms, loss {m['loss']:.4f}, grad norm {m['grad_norm']:.4f}, "
+        log(f"{name} step {i}: {times[-1]:.1f} ms, loss {m['loss']:.4f}, grad norm {m['grad_norm']:.4f}, "
             f"fine acc {m['fine_acc']:.4f}, coarse acc {m['coarse_hard_acc']:.4f}")
         if bad or not m["grad_norm"] > 0:
-            raise AssertionError(f"train step {i}: non-finite {bad} or a zero gradient norm: {m}")
+            raise AssertionError(f"{name} step {i}: non-finite {bad} or a zero gradient norm: {m}")
     launches = dict(LAUNCHES)
     peak = torch.cuda.max_memory_allocated(dev) / 2**30
-    missing = [k for k in PATH_KERNELS["train"] if launches.get(k, 0) == 0]
-    if missing:
-        raise AssertionError(f"kernels never launched on the train path: {missing}")
+    missing = [k for k in PATH_KERNELS[name] if launches.get(k, 0) == 0]
+    stray = [k for k in PATH_NOT_LAUNCHED[name] if launches.get(k, 0)]
+    if missing or stray:
+        raise AssertionError(f"the {name} path: kernels never launched {missing}, kernels of another path {stray}")
     if not all(torch.equal(p.detach(), frozen[n]) for n, p in model.named_parameters() if "vit" in n):
         raise AssertionError("a frozen ViT parameter moved")
     moved = {}
@@ -1192,7 +1544,16 @@ def run_train(log, dev, seed: int, steps: int) -> dict:
         moved[n.split(".")[0]] = moved.get(n.split(".")[0], False) or not torch.equal(p.detach(), before[n])
     bns = dict(model.fine_matching.pe.named_buffers())
     bn_moved = {n: not torch.equal(bns[n], bn_before[n]) for n in bn_before}
-    if not all(moved.values()) or len(bn_moved) != 12 or not all(bn_moved.values()):
+    if name == "train_frozen":
+        affine = {n: not torch.equal(p.detach(), before[n]) for n, p in trainer.params
+                  if ".pe.mlp" in n and "_bn" in n}
+        log(f"{name}: the 12 gammas and betas of the fine PE's BatchNorm moved {sum(affine.values())}/{len(affine)}, "
+            f"its 12 running statistics unchanged {len(bn_moved) - sum(bn_moved.values())}/{len(bn_moved)}")
+        if not all(moved.values()) or len(affine) != 12 or not all(affine.values()) or len(bn_moved) != 12 \
+                or any(bn_moved.values()):
+            raise AssertionError(f"{name}: a module or a BatchNorm gamma/beta did not move, or a running statistic "
+                                 f"moved: {moved}, {affine}, {bn_moved}")
+    elif not all(moved.values()) or len(bn_moved) != 12 or not all(bn_moved.values()):
         raise AssertionError(f"a trainable module or a BatchNorm buffer of the fine PE did not move: {moved}, {bn_moved}")
     steady = float(np.median(times[1:])) if len(times) > 1 else times[0]
 
@@ -1207,10 +1568,10 @@ def run_train(log, dev, seed: int, steps: int) -> dict:
         wall = (time.perf_counter() - t0) * 1e3
     prof_sum = kernel_summary(prof, wall, set())
     pe_ms = sum(prof_sum["hand_written_ms"][k] for k in PE_TRAIN)
-    log(f"train: ms per {cfg.batch_size}-sample step {['%.1f' % x for x in times]} (first includes warm-up), "
+    log(f"{name}: ms per {cfg.batch_size}-sample step {['%.1f' % x for x in times]} (first includes warm-up), "
         f"steady {steady:.1f} ms = {cfg.batch_size * 1e3 / steady:.2f} samples/s, peak memory {peak:.2f} GiB, "
         f"launches {launches}")
-    log(f"train, profiled step: wall {wall:.1f} ms, {prof_sum['kernels']} kernels, {prof_sum['kernel_ms']:.2f} ms of "
+    log(f"{name}, profiled step: wall {wall:.1f} ms, {prof_sum['kernels']} kernels, {prof_sum['kernel_ms']:.2f} ms of "
         f"kernels, device busy {prof_sum['busy_ms']:.2f} ms (idle {100 * prof_sum['idle_share']:.1f}%), PE train "
         f"kernels {pe_ms:.2f} ms ({100 * pe_ms / prof_sum['kernel_ms']:.1f}% of the kernel time); top kernels "
         + ", ".join(f"{k['name'][:60]} {k['ms']:.2f} ms x{k['count']}" for k in prof_sum["top"][:8]))
@@ -1220,14 +1581,22 @@ def run_train(log, dev, seed: int, steps: int) -> dict:
 
 
 def run_path(log, dev, seed: int, batches: int, name: str) -> dict:
-    """Phase 6: one main path at full width. Returns timing and its launch counts."""
+    """Phase 6: one main path at full width (a config of ``configs.CONFIGS``,
+    or a switched path of ``PATH_CONFIG``). Returns timing, peak memory and
+    its launch counts."""
+    config, env = PATH_CONFIG.get(name, (name, {}))
+    with env_switch(env):
+        return _run_path(log, dev, seed, batches, name, config)
+
+
+def _run_path(log, dev, seed: int, batches: int, name: str, config: str) -> dict:
     import torch
 
     from unopose_tpu_torch import configs
     from unopose_tpu_torch.kernels import LAUNCHES, reset_launch_counts
     from unopose_tpu_torch.models import UNOPose
 
-    cfg = configs.CONFIGS[name]()
+    cfg = configs.CONFIGS[config]()
     torch.manual_seed(seed)
     model = UNOPose.from_config(cfg, torch.bfloat16, torch.bfloat16).to(dev).eval()
     gen = torch.Generator(device=dev)
@@ -1269,7 +1638,7 @@ def run_path(log, dev, seed: int, batches: int, name: str) -> dict:
         f"launches {launches}")
     del model, batch_inputs
     torch.cuda.empty_cache()
-    return dict(launches=launches, steady_ms=steady)
+    return dict(launches=launches, steady_ms=steady, peak_gib=peak)
 
 
 def main() -> int:
@@ -1304,18 +1673,25 @@ def main() -> int:
     results.update(check_production_kernels(log, dev, args.seed))
     results.update(check_train_kernels(log, dev, args.seed))
     results.update(check_subset_kernels(log, dev, args.seed))
+    results["ball_group_subset"].update(check_subset_8192(log, dev, args.seed))
+    results.update(check_hypsel_kernels(log, dev, args.seed))
+    results.update(check_frozen_kernels(log, dev, args.seed))
     check_overflow(log, dev, args.seed)
     for name in INFER_PATHS:
         check_tiny(log, dev, args.seed, name)
+    check_tiny_hypsel(log, dev, args.seed)
     check_train_grouping(log, dev, args.seed)
     check_tiny_train(log, dev, args.seed)
+    check_tiny_train(log, dev, args.seed, frozen=True)
     runs = {
         "slice": run_path(log, dev, args.seed, EARLY_BATCHES, "slice"),
         "fused_matchers": run_path(log, dev, args.seed, EARLY_BATCHES, "fused_matchers"),
         "production": run_path(log, dev, args.seed, args.batches, "production"),
+        "production_hypsel": run_path(log, dev, args.seed, args.batches, "production_hypsel"),
         "subset": run_path(log, dev, args.seed, EARLY_BATCHES, "subset"),
         "firstk_unpacked": run_path(log, dev, args.seed, 1, "firstk_unpacked"),
         "train": run_train(log, dev, args.seed, args.train_steps),
+        "train_frozen": run_train(log, dev, args.seed, args.train_steps, frozen=True),
     }
 
     kernels = []

@@ -530,3 +530,99 @@ def test_fine_assign_kernels_match_plain(cuda):
         args = (f1n, f2n, cm, cs, s1, s2, rm, rs, l1, l2, pts2)
         for a, b in zip(assignment_fused.accum_cuda(*args), assignment_fused.accum_plain(*args)):
             assert (a - b).abs().max() <= 1e-4 * b.abs().max()
+
+
+@pytest.mark.cuda
+def test_hyp_select_kernel_matches_plain(cuda):
+    """K17 in both modes (TP in the kernel from bf16 operands; TP read from
+    the float32 product) bitwise equal to its plain twins at the main path's
+    shapes (B 4 here, P2 300, N 196): the same float32 operations in the
+    same order, the row sums in the kernel's lane order. Each launch is
+    counted; a model cloud beyond a block's shared memory raises, and the
+    card goes on working."""
+    from unopose_tpu_torch.ops import hyp_select
+
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    B, N, P2 = 4, 196, 300
+    pts1, model = (torch.rand(B, N, 3, device=cuda, generator=gen) - 0.5 for _ in range(2))
+    rs = torch.linalg.qr(torch.randn(B, P2, 3, 3, device=cuda, generator=gen))[0]
+    ts = (torch.rand(B, P2, 3, device=cuda, generator=gen) - 0.5) * 0.4
+    w1 = (torch.rand(B, N, device=cuda, generator=gen) < 0.7).float()
+    before = dict(LAUNCHES)
+    for kernel, plain in ((hyp_select.hypothesis_select_scores_cuda, hyp_select.hypothesis_select_scores_plain),
+                          (hyp_select.hypothesis_select_scores_v2_cuda, hyp_select.hypothesis_select_scores_v2_plain)):
+        got, want = kernel(pts1, model, rs, ts, w1), plain(pts1, model, rs, ts, w1)
+        assert torch.equal(got, want)
+    assert {k: LAUNCHES[k] - before.get(k, 0) for k in ("hyp_select", "hyp_select_v2")} == dict(hyp_select=1,
+                                                                                            hyp_select_v2=1)
+    big = torch.rand(1, 20000, 3, device=cuda)
+    with pytest.raises(RuntimeError, match="hyp_select"):
+        hyp_select.hypothesis_select_scores_cuda(pts1[:1], big, rs[:1], ts[:1], w1[:1])
+    assert torch.ones(4, device=cuda).sum().item() == 4.0
+
+
+@pytest.mark.cuda
+def test_pe_train_frozen_kernels_match_plain(cuda):
+    """The frozen-BN stack on the card: K12 on the buffer filled from the
+    running statistics against its plain pass (pooled within 1e-2 of the
+    max, tie counts equal), K18 against ``frozen_bwd_plain`` fed its own
+    side's forward (dW and every layer's sums of g and g zhat within 1e-2
+    of each tensor's max: bf16 rounding flips where float32 sums
+    reassociate), K18 run twice bitwise equal (block sums added in order),
+    at B 2, P 256, S 64 and 256; and a forward and backward through
+    ``pe_mlp_bn_pool_frozen`` launches K12 and K18 once each, nothing of
+    K11, K13, K14."""
+    Ws, gammas, betas = _pe_train_params(cuda)
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    means = [0.2 * torch.randn(d, device=cuda, generator=gen) for d in (32, 64, 128)]
+    vars_ = [0.5 + torch.rand(d, device=cuda, generator=gen) for d in (32, 64, 128)]
+    rel = lambda a, b: ((a - b).abs().max() / b.abs().max()).item()
+    for S in (64, 256):
+        chans = torch.randn(2, 6, 256, S, device=cuda, generator=gen) * 0.3
+        chans[..., S // 3:] = chans[..., :1]
+        chans = chans.contiguous()
+        bn = pe_train.frozen_buffer(gammas, betas, means, vars_, 1e-5, cuda)
+        pooled, cnt = pe_train.fwd_plain(chans, Ws, bn)
+        k_pooled, k_cnt = pe_train.fwd_cuda(chans, Ws, bn)
+        assert rel(k_pooled, pooled) < 1e-2 and torch.equal(k_cnt, cnt)
+        dpool = torch.randn(2, 256, 128, device=cuda, generator=gen)
+        want_bn, got_bn, again_bn = bn.clone(), bn.clone(), bn.clone()
+        want = pe_train.frozen_bwd_plain(chans, Ws, want_bn, pooled, cnt, dpool)
+        got = pe_train.frozen_bwd_cuda(chans, Ws, got_bn, k_pooled, k_cnt, dpool)
+        again = pe_train.frozen_bwd_cuda(chans, Ws, again_bn, k_pooled, k_cnt, dpool)
+        assert all(rel(a, b) < 1e-2 for a, b in zip(got, want))
+        for l, d in enumerate(pe_train.DIMS[1:]):
+            for row in (pe_train.SG, pe_train.SGZ):
+                assert rel(got_bn[l, row, :d], want_bn[l, row, :d]) < 1e-2
+        assert all(torch.equal(a, b) for a, b in zip(got, again)) and torch.equal(got_bn, again_bn)
+    before = dict(LAUNCHES)
+    params = [t.clone().requires_grad_() for t in (*Ws, *gammas, *betas)]
+    pe_train.pe_mlp_bn_pool_frozen(chans, params[:3], params[3:6], params[6:], means, vars_).sum().backward()
+    torch.cuda.synchronize()
+    counts = {k: LAUNCHES[k] - before.get(k, 0) for k in ("pe_train_stats", "pe_train_fwd", "pe_train_bwd_sums",
+                                                          "pe_train_bwd_dw", "pe_train_frozen_bwd")}
+    assert counts == dict(pe_train_stats=0, pe_train_fwd=1, pe_train_bwd_sums=0, pe_train_bwd_dw=0,
+                          pe_train_frozen_bwd=1)
+    assert all(torch.isfinite(p.grad).all() for p in params)
+
+
+@pytest.mark.cuda
+def test_subset_grouping_at_8192_points_matches_plain(cuda):
+    """``subset_config()``'s fine PE grouping at N 8192 (the JAX package's
+    ``fine_npoint`` of 8192 takes it too): both scales through K15, which
+    stages the permuted cloud in two chunks, bitwise equal to the plain twin
+    on every output, miss slots included, and nothing raised."""
+    from unopose_tpu_torch.configs import subset_config
+    from unopose_tpu_torch.models.matching import FinePositionalEncoding
+
+    fm = subset_config().fine_point_matching
+    pe = FinePositionalEncoding(256, fm.pe_radius1, fm.pe_radius2, fm.nsample1, fm.nsample2, fused=True,
+                                neighbor_mode="subset").to(cuda)
+    pts = _lrf_cloud(np.random.default_rng(6), 2, 8192, cuda)
+    before = LAUNCHES["ball_group_subset"]
+    g1, v1, g2, v2 = pe._subset_groups(pts)
+    assert LAUNCHES["ball_group_subset"] - before == 2
+    for (g, v), (r, S) in zip(((g1, v1), (g2, v2)), ((fm.pe_radius1, fm.nsample1), (fm.pe_radius2, fm.nsample2))):
+        want = ball_query.ball_group_subset_plain(r, S, pts)
+        assert all(torch.equal(a.view(torch.int32), b.view(torch.int32)) for a, b in zip(g, want[0]))
+        assert torch.equal(v, want[2]) and 0 < v.float().mean().item() < 1

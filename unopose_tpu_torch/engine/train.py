@@ -10,7 +10,9 @@
 - the step: the train forward with the initial-pose noise, the loss terms
   and ``process_loss``, backward, non-finite gradients zeroed, the global
   gradient norm of the trainable parameters, the update. The BatchNorm
-  running statistics are updated inside the forward.
+  running statistics are updated inside the forward; under
+  ``UNOPOSE_PE_TRAIN_FROZEN=1`` the fine PE normalises with them instead
+  and leaves them unchanged (its gammas and betas still train).
 
 Not ported: training the ViT, gradient clipping (off in the
 configuration), the model EMA, the checkpointer, the metrics writer and the

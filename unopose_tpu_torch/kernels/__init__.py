@@ -8,9 +8,12 @@ The Python wrappers live beside their plain PyTorch twins in ``ops/``:
 ``ops/pe_fused.py:pe_mlp_pool_cuda``, ``ops/vit_attn.py:mha_fused_cuda``,
 ``ops/ball_query.py:ball_group_subset_cuda``, ``ops/pe_fused.py:pe_fused_masked_cuda``,
 the three sweeps of ``ops/assignment_fused.py`` (``colstats_cuda``,
-``labels_cuda``, ``accum_cuda``) and the four passes of the PE train stack
+``labels_cuda``, ``accum_cuda``), the four passes of the PE train stack
 in ``ops/pe_train.py`` (``stats_cuda``, ``fwd_cuda``, ``bwd_sums_cuda``,
-``bwd_dw_cuda``). Each wrapper counts its launches in
+``bwd_dw_cuda``) and its frozen-BN backward (``frozen_bwd_cuda``), and the
+coarse hypothesis selection's two modes in ``ops/hyp_select.py``
+(``hypothesis_select_scores_cuda``, ``hypothesis_select_scores_v2_cuda``:
+``hyp_select`` and ``hyp_select_v2``). Each wrapper counts its launches in
 ``LAUNCHES`` under its kernel's name.
 """
 

@@ -65,8 +65,12 @@ _SIGNATURES = {
     "unopose_pe_train_bwd_sums": [_P] * 9 + [_I] * 5 + [_P],
     # chans, w0, w1, w2, bn, pooled, cnt, dpool, partial, cap, dw, B, P, S, stream
     "unopose_pe_train_bwd_dw": [_P] * 9 + [_I, _P] + [_I] * 3 + [_P],
+    # chans, w0, w1, w2, bn, pooled, cnt, dpool, partial, cap, dw, B, P, S, stream
+    "unopose_pe_train_frozen_bwd": [_P] * 9 + [_I, _P] + [_I] * 3 + [_P],
     # pts, perm, gx, gy, gz, d2, valid, B, N, S, r2, stream
     "unopose_ball_group_subset": [_P] * 7 + [_I] * 3 + [_F, _P],
+    # pts1, rs, ts, tp, model, w1, dsum, B, P2, N1, N2, mode, stream
+    "unopose_hyp_select": [_P] * 7 + [_I] * 5 + [_P],
     # g1x, g1y, g1z, m1, g2x, g2y, g2z, m2, cx, cy, cz, wpack, bpack, out, points, S1, S2, r1, r2, 1/r1, 1/r2, stream
     "unopose_pe_masked": [_P] * 14 + [ctypes.c_longlong, _I, _I] + [_F] * 4 + [_P],
 }

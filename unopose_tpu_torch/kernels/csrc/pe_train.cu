@@ -1,7 +1,7 @@
 // Fine-PE train stack: per cloud and scale, the shared MLP 6 -> 32 -> 64 ->
 // 128 with batch-statistics BatchNorm (flax's: biased fast variance
 // E[z^2] - E[z]^2 clipped at 0, eps 1e-5) and ReLU after each layer, then
-// the max over each point's S slots, forward and backward. Four kernels,
+// the max over each point's S slots, forward and backward. Five kernels,
 // one template body:
 //
 //   K11 pe_train_stats (depth d = 1, 2, 3): recompute the chain to layer d
@@ -12,11 +12,18 @@
 //       pool backward (ties split evenly) and the BN backward of the layers
 //       below L, then sum g and g * zhat of layer L (its dbeta and dgamma);
 //   K14 pe_train_bwd_dw: recompute everything, every layer's dz, and the
-//       weight gradients dW_l = y_{l-1}^T dz_l.
+//       weight gradients dW_l = y_{l-1}^T dz_l;
+//   K18 pe_train_frozen_bwd: the backward of the frozen-BN variant, whose BN
+//       normalises with the running statistics (constants): one sweep that
+//       recomputes the chain, takes the pool backward and, per layer, g =
+//       dy relu', dz = a g (a = gamma / sigma, no batch-statistics terms),
+//       the sums of g (dbeta) and g zhat (dgamma), and K14's dW; its
+//       forward is K12 on an affine filled from the running statistics.
 //
 // Replaces the TPU kernels of unopose_tpu/ops/pe_train.py:
 // pe_mlp_bn_pool_train (_kernel_stats, _kernel_fwd, _kernel_bwdA,
-// _kernel_bwdB), with the same pass structure and rounding points: chans,
+// _kernel_bwdB) and pe_mlp_bn_pool_frozen (_kernel_fwd,
+// _kernel_bwd_frozen), with the same pass structure and rounding points: chans,
 // W, the post-ReLU activations and dz are rounded to bf16 before each
 // product, products accumulate in float32 (mma.sync m16n8k16), and the
 // statistics, zhat and the affines are float32.
@@ -47,6 +54,13 @@
 // registers without wgmma or TMA and reads chans in its (B, 6, P, S)
 // float32 layout in every pass; the bf16 rounding, affine and gating of
 // every element run on the CUDA cores beside the products.
+//
+// K18 is K14 plus the three layers' sums: per 16-slot tile and 8-channel
+// n-tile, each lane adds its two rows, the warp's eight row groups are
+// added by a fixed shuffle tree (a reduce-scatter over the row group's lane
+// bits), and the result goes to the warp's row of sums in shared memory;
+// the block adds its warps' rows in order, the second pass the blocks'.
+// Its bound is K14's, 0.26 ms at the shapes above.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -56,7 +70,7 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-enum Mode { kStats = 0, kFwd = 1, kBwdSums = 2, kBwdDw = 3 };
+enum Mode { kStats = 0, kFwd = 1, kBwdSums = 2, kBwdDw = 3, kBwdFrozen = 4 };
 // rows of the per-layer statistics buffer bn (3, kBnRows, 128), ops/pe_train.py
 enum BnRow { kMu = 0, kVar = 1, kInv = 2, kA = 3, kB = 4, kSg = 5, kSgz = 6, kBnRows = 8 };
 // bf16 weights in shared memory: forward (out, in) rows with layer 1's K padded 6 -> 16, backward
@@ -75,6 +89,9 @@ constexpr int kLdS = kWarps * 16 + 8;
 constexpr int kSChans = 0, kSY1 = 16, kSY2 = 48, kSD1 = 112, kSD2 = 144, kSD3 = 208, kSRows = 336;
 constexpr int kDW = 6 * 32 + 32 * 64 + 64 * 128;
 constexpr int kDW2 = 6 * 32, kDW3 = 6 * 32 + 32 * 64;  // offsets of dW2 and dW3 in a dW row
+// K18's sums of g and g zhat per layer (32, 64, 128 channels), each layer's g then its g zhat
+constexpr int kSums = 2 * (32 + 64 + 128);
+__host__ __device__ constexpr int sums_base(int layer) { return layer == 1 ? 0 : layer == 2 ? 64 : 192; }
 
 __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
   asm volatile(
@@ -125,6 +142,23 @@ __device__ __forceinline__ void max_count(float& m, float& c, float v) {
 
 __host__ __device__ constexpr int width_of(int layer) { return layer == 1 ? 32 : layer == 2 ? 64 : 128; }
 
+// K18: one n-tile's column sums of g and g zhat (columns col and col + 1, rows g and g + 8 of each lane),
+// reduced over the warp's 8 row groups by a fixed tree (lane bits 4, 3, 2: each step keeps half the
+// values and hands the other half to the partner), then added to the warp's sums in shared memory
+__device__ __forceinline__ void frozen_col_sums(float* sums, int layer, int col, const float (&gv)[4],
+                                                const float (&zh)[4], int lane) {
+  const float v0 = gv[0] + gv[2], v1 = gv[1] + gv[3];
+  const float v2 = gv[0] * zh[0] + gv[2] * zh[2], v3 = gv[1] * zh[1] + gv[3] * zh[3];
+  const bool hi16 = (lane & 16) != 0, hi8 = (lane & 8) != 0;
+  float k0 = hi16 ? v2 : v0, k1 = hi16 ? v3 : v1;
+  k0 += __shfl_xor_sync(0xffffffffu, hi16 ? v0 : v2, 16);
+  k1 += __shfl_xor_sync(0xffffffffu, hi16 ? v1 : v3, 16);
+  float k = hi8 ? k1 : k0;
+  k += __shfl_xor_sync(0xffffffffu, hi8 ? k0 : k1, 8);
+  k += __shfl_xor_sync(0xffffffffu, k, 4);
+  if ((lane & 4) == 0) sums[sums_base(layer) + (hi16 ? width_of(layer) : 0) + col + (hi8 ? 1 : 0)] += k;
+}
+
 template <int kMode, int kDepth>
 __global__ void __launch_bounds__(kThreads)
 pe_train_kernel(const float* __restrict__ chans, const float* __restrict__ w0, const float* __restrict__ w1,
@@ -133,15 +167,18 @@ pe_train_kernel(const float* __restrict__ chans, const float* __restrict__ w0, c
                 float* __restrict__ cnt_out, float* __restrict__ partial, int B, int P, int S) {
   // the layer whose per-channel sums K11 / K13 accumulate, and its n-tiles of 8 channels
   constexpr int kSumTiles = (kMode == kStats || kMode == kBwdSums) ? width_of(kDepth) / 8 : 1;
-  constexpr bool kBackward = kMode == kBwdSums || kMode == kBwdDw;
-  constexpr int kLowest = kMode == kBwdDw ? 0 : kDepth;  // the lowest layer the backward reaches
+  constexpr bool kBackward = kMode == kBwdSums || kMode == kBwdDw || kMode == kBwdFrozen;
+  constexpr bool kDw = kMode == kBwdDw || kMode == kBwdFrozen;  // the weight gradients, over staged tiles
+  constexpr bool kFrozen = kMode == kBwdFrozen;
+  constexpr int kLowest = kDw ? 0 : kDepth;  // the lowest layer the backward reaches
 
   extern __shared__ uint4 smem[];
   __nv_bfloat16* s_w = reinterpret_cast<__nv_bfloat16*>(smem);
   float* s_c = reinterpret_cast<float*>(s_w + kWElems);
   float* s_pool = s_c + kConsts;           // per warp: the point's max (128), then (1 / count) * dpool (128)
   float* s_red = s_pool + kWarps * 256;    // per warp: two rows of 128 channel sums
-  uint16_t* s_st = reinterpret_cast<uint16_t*>(s_red + kWarps * 256);
+  float* s_sums = s_red + kWarps * 256;    // K18, per warp: the three layers' sums of g and g zhat
+  uint16_t* s_st = reinterpret_cast<uint16_t*>(s_sums + (kFrozen ? kWarps * kSums : 0));
 
   for (int i = threadIdx.x; i < 32 * kLdF0; i += kThreads) {
     const int o = i / kLdF0, k = i % kLdF0;
@@ -177,8 +214,11 @@ pe_train_kernel(const float* __restrict__ chans, const float* __restrict__ w0, c
     d[cG * 128] = r[kSg * 128] * inv_n;
     d[cGz * 128] = r[kSgz * 128] * inv_n;
   }
-  if (kMode == kBwdDw) {
+  if (kDw) {
     for (int i = threadIdx.x; i < kSRows * kLdS; i += kThreads) s_st[i] = 0;
+  }
+  if (kFrozen) {
+    for (int i = threadIdx.x; i < kWarps * kSums; i += kThreads) s_sums[i] = 0.0f;
   }
   __syncthreads();
 
@@ -192,6 +232,7 @@ pe_train_kernel(const float* __restrict__ chans, const float* __restrict__ w0, c
   const float* C2 = s_c + kCRows * 128;
   const float* C3 = s_c + 2 * kCRows * 128;
   float* pool = s_pool + warp * 256;
+  float* sums = s_sums + warp * kSums;
 
   float sum1[kSumTiles][2], sum2[kSumTiles][2];  // K11: z, z^2; K13: g, g zhat
 #pragma unroll
@@ -206,7 +247,7 @@ pe_train_kernel(const float* __restrict__ chans, const float* __restrict__ w0, c
   for (long long base = (long long)blockIdx.x * kWarps; base < points; base += (long long)gridDim.x * kWarps) {
     const long long pt = base + warp;
     const bool active = pt < points;
-    if (kMode != kBwdDw && !active) break;
+    if (!kDw && !active) break;
     const long long b = active ? pt / P : 0, p = active ? pt % P : 0;
     const float* cb = chans + (b * 6 * P + p) * S;
     if (kBackward) {
@@ -233,7 +274,7 @@ pe_train_kernel(const float* __restrict__ chans, const float* __restrict__ w0, c
       uint32_t a1[4] = {0u, 0u, 0u, 0u};  // chans (bf16), K 6 padded to 16
       uint32_t a2[2][4], a3[4][4];         // y1, y2 (bf16)
       uint32_t d1[2][4], d2[4][4], d3[8][4];  // dz1, dz2, dz3 (bf16)
-      if (kMode == kBwdDw) {
+      if (kDw) {
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           a2[i >> 1][i & 1] = a2[i >> 1][(i & 1) + 2] = d1[i >> 1][i & 1] = d1[i >> 1][(i & 1) + 2] = 0u;
@@ -324,7 +365,7 @@ pe_train_kernel(const float* __restrict__ chans, const float* __restrict__ w0, c
             }
             continue;
           }
-          float dz[4];
+          float dz[4], gvs[4], zhs[4];
 #pragma unroll
           for (int j = 0; j < 4; ++j) {
             const int col = nt * 8 + 2 * t + (j & 1);
@@ -340,9 +381,13 @@ pe_train_kernel(const float* __restrict__ chans, const float* __restrict__ w0, c
                 sum1[nt % kSumTiles][j & 1] += gv;
                 sum2[nt % kSumTiles][j & 1] += gv * zh;
               }
-              dz[j] = C3[cA * 128 + col] * ((gv - C3[cG * 128 + col]) - zh * C3[cGz * 128 + col]);
+              gvs[j] = gv;
+              zhs[j] = zh;
+              dz[j] = kFrozen ? C3[cA * 128 + col] * gv
+                              : C3[cA * 128 + col] * ((gv - C3[cG * 128 + col]) - zh * C3[cGz * 128 + col]);
             }
           }
+          if (kFrozen) frozen_col_sums(sums, 3, nt * 8 + 2 * t, gvs, zhs, lane);
           if (kLowest < 3) {
             d3[nt >> 1][(nt & 1) * 2] = pack(dz[0], dz[1]);
             d3[nt >> 1][(nt & 1) * 2 + 1] = pack(dz[2], dz[3]);
@@ -360,7 +405,7 @@ pe_train_kernel(const float* __restrict__ chans, const float* __restrict__ w0, c
             }
             const uint32_t y_g = a3[nt >> 1][(nt & 1) * 2], y_g8 = a3[nt >> 1][(nt & 1) * 2 + 1];
             const bool on[4] = {pos_lo(y_g), pos_hi(y_g), pos_lo(y_g8), pos_hi(y_g8)};
-            float dz[4];
+            float dz[4], gvs[4], zhs[4];
 #pragma unroll
             for (int j = 0; j < 4; ++j) {
               const int col = nt * 8 + 2 * t + (j & 1);
@@ -370,8 +415,12 @@ pe_train_kernel(const float* __restrict__ chans, const float* __restrict__ w0, c
                 sum1[nt % kSumTiles][j & 1] += gv;
                 sum2[nt % kSumTiles][j & 1] += gv * zh;
               }
-              dz[j] = C2[cA * 128 + col] * ((gv - C2[cG * 128 + col]) - zh * C2[cGz * 128 + col]);
+              gvs[j] = gv;
+              zhs[j] = zh;
+              dz[j] = kFrozen ? C2[cA * 128 + col] * gv
+                              : C2[cA * 128 + col] * ((gv - C2[cG * 128 + col]) - zh * C2[cGz * 128 + col]);
             }
+            if (kFrozen) frozen_col_sums(sums, 2, nt * 8 + 2 * t, gvs, zhs, lane);
             if (kLowest < 2) {
               d2[nt >> 1][(nt & 1) * 2] = pack(dz[0], dz[1]);
               d2[nt >> 1][(nt & 1) * 2 + 1] = pack(dz[2], dz[3]);
@@ -390,7 +439,7 @@ pe_train_kernel(const float* __restrict__ chans, const float* __restrict__ w0, c
             }
             const uint32_t y_g = a2[nt >> 1][(nt & 1) * 2], y_g8 = a2[nt >> 1][(nt & 1) * 2 + 1];
             const bool on[4] = {pos_lo(y_g), pos_hi(y_g), pos_lo(y_g8), pos_hi(y_g8)};
-            float dz[4];
+            float dz[4], gvs[4], zhs[4];
 #pragma unroll
             for (int j = 0; j < 4; ++j) {
               const int col = nt * 8 + 2 * t + (j & 1);
@@ -400,8 +449,12 @@ pe_train_kernel(const float* __restrict__ chans, const float* __restrict__ w0, c
                 sum1[nt % kSumTiles][j & 1] += gv;
                 sum2[nt % kSumTiles][j & 1] += gv * zh;
               }
-              dz[j] = C1[cA * 128 + col] * ((gv - C1[cG * 128 + col]) - zh * C1[cGz * 128 + col]);
+              gvs[j] = gv;
+              zhs[j] = zh;
+              dz[j] = kFrozen ? C1[cA * 128 + col] * gv
+                              : C1[cA * 128 + col] * ((gv - C1[cG * 128 + col]) - zh * C1[cGz * 128 + col]);
             }
+            if (kFrozen) frozen_col_sums(sums, 1, nt * 8 + 2 * t, gvs, zhs, lane);
             if (kLowest < 1) {
               d1[nt >> 1][(nt & 1) * 2] = pack(dz[0], dz[1]);
               d1[nt >> 1][(nt & 1) * 2 + 1] = pack(dz[2], dz[3]);
@@ -409,7 +462,7 @@ pe_train_kernel(const float* __restrict__ chans, const float* __restrict__ w0, c
           }
         }
       }
-      if (kMode == kBwdDw) {
+      if (kDw) {
         // stage this warp's 16 slots, then every warp takes its dW tiles over the block's 128 slots
         const int col = warp * 16;
         put(s_st, kSChans + 2 * t, col + g, a1[0]);
@@ -505,8 +558,8 @@ pe_train_kernel(const float* __restrict__ chans, const float* __restrict__ w0, c
       partial[(long long)blockIdx.x * 256 + c] = (c & 127) < kSumTiles * 8 ? v : 0.0f;
     }
   }
-  if (kMode == kBwdDw) {
-    float* out = partial + (long long)blockIdx.x * kDW;
+  if (kDw) {
+    float* out = partial + (long long)blockIdx.x * (kFrozen ? kDW + kSums : kDW);
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       const int r = (warp & 3) * 16 + g, c = ((warp >> 2) * 8 + j) * 8 + 2 * t;
@@ -526,6 +579,14 @@ pe_train_kernel(const float* __restrict__ chans, const float* __restrict__ w0, c
     if (warp < 4 && g < 6) {
       out[g * 32 + warp * 8 + 2 * t] = dw1[0];
       out[g * 32 + warp * 8 + 2 * t + 1] = dw1[1];
+    }
+    if (kFrozen) {  // the warps' sums, added in warp order, after the dW row
+      __syncthreads();
+      for (int c = threadIdx.x; c < kSums; c += kThreads) {
+        float v = 0.0f;
+        for (int w = 0; w < kWarps; ++w) v += s_sums[w * kSums + c];
+        out[kDW + c] = v;
+      }
     }
   }
 }
@@ -574,6 +635,23 @@ __global__ void dw_finish(const float* __restrict__ partial, int blocks, float* 
   dw[i] = (float)s;
 }
 
+// second pass of K18: K14's dW, then each layer's sum g (dbeta) and sum g zhat (dgamma) into bn
+__global__ void frozen_finish(const float* __restrict__ partial, int blocks, float* __restrict__ dw,
+                              float* __restrict__ bn) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= kDW + kSums) return;
+  double s = 0.0;
+  for (int b = 0; b < blocks; ++b) s += partial[(long long)b * (kDW + kSums) + i];
+  if (i < kDW) {
+    dw[i] = (float)s;
+    return;
+  }
+  const int j = i - kDW;
+  const int layer = j < sums_base(2) ? 1 : j < sums_base(3) ? 2 : 3;
+  const int k = j - sums_base(layer), w = width_of(layer);
+  bn[((layer - 1) * kBnRows + (k < w ? kSg : kSgz)) * 128 + k % w] = (float)s;
+}
+
 template <int kMode, int kDepth>
 cudaError_t launch(const float* chans, const float* w0, const float* w1, const float* w2, const float* bn,
                    const float* pooled_in, const float* cnt_in, const float* dpool, float* pooled_out,
@@ -581,7 +659,8 @@ cudaError_t launch(const float* chans, const float* w0, const float* w1, const f
                    cudaStream_t stream) {
   auto kernel = pe_train_kernel<kMode, kDepth>;
   const size_t smem = (size_t)kWElems * 2 + (size_t)(kConsts + 2 * kWarps * 256) * 4 +
-                      (kMode == kBwdDw ? (size_t)kSRows * kLdS * 2 : 0);
+                      (kMode == kBwdDw || kMode == kBwdFrozen ? (size_t)kSRows * kLdS * 2 : 0) +
+                      (kMode == kBwdFrozen ? (size_t)kWarps * kSums * 4 : 0);
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   int dev = 0, sms = 0, per_sm = 0;
@@ -676,5 +755,21 @@ extern "C" int unopose_pe_train_bwd_dw(const float* chans, const float* w0, cons
                                       P, S, &blocks, stream);
   if (err != cudaSuccess) return (int)err;
   dw_finish<<<(kDW + 255) / 256, 256, 0, stream>>>(partial, blocks, dw);
+  return (int)cudaGetLastError();
+}
+
+// K18. The frozen-BN backward: bn holds every layer's mu, inv and affine (from the running statistics);
+// writes dw as K14 does and each layer's sum g (row kSg) and sum g zhat (row kSgz) into bn; partial: cap x
+// (dW floats + 448) floats of scratch.
+extern "C" int unopose_pe_train_frozen_bwd(const float* chans, const float* w0, const float* w1, const float* w2,
+                                           float* bn, const float* pooled, const float* cnt, const float* dpool,
+                                           float* partial, int cap, float* dw, int B, int P, int S,
+                                           cudaStream_t stream) {
+  if (bad_shape(B, P, S) || cap <= 0) return (int)cudaErrorInvalidValue;
+  int blocks = 0;
+  cudaError_t err = launch<kBwdFrozen, 0>(chans, w0, w1, w2, bn, pooled, cnt, dpool, nullptr, nullptr, partial, cap,
+                                          B, P, S, &blocks, stream);
+  if (err != cudaSuccess) return (int)err;
+  frozen_finish<<<(kDW + kSums + 255) / 256, 256, 0, stream>>>(partial, blocks, dw, bn);
   return (int)cudaGetLastError();
 }

@@ -13,13 +13,19 @@ grouping of ``two_scale_group_first_k_fast``, and per scale the MLP with
 batch-statistics BatchNorm: the kernels' pass structure of
 ``ops/pe_train.py:pe_mlp_bn_pool_train`` with ``pe_fused`` (K11-K14 on the
 card), the plain float32 formulation without; the BatchNorm running
-statistics take flax's update. Both matchers then return every block's
+statistics take flax's update. With ``UNOPOSE_PE_TRAIN_FROZEN=1``, as in
+the JAX package, a scale whose shapes the frozen kernels take (P % 32 ==
+0) runs the frozen-BN variant instead (``pe_mlp_bn_pool_frozen``: BN with
+the running statistics, which stay unchanged; K12 and K18 on the card,
+their plain passes on the CPU). Both matchers then return every block's
 similarity, overlap scores and saliencies for the loss. ``lax.cond`` on the
 grouping's overflow flag becomes a host branch: one device-to-host sync per
 grouping.
 """
 
 from __future__ import annotations
+
+import os
 
 import torch
 from torch import nn
@@ -38,7 +44,7 @@ from unopose_tpu_torch.ops.ball_query import (
 from unopose_tpu_torch.ops.geometry import compute_feature_similarity
 from unopose_tpu_torch.ops.lrf import batch_lrf_planar
 from unopose_tpu_torch.ops.pe_fused import pack_mlp, pe_fused_masked, pe_fused_v5
-from unopose_tpu_torch.ops.pe_train import pe_mlp_bn_pool_train, pe_mlp_bn_pool_train_plain
+from unopose_tpu_torch.ops.pe_train import pe_mlp_bn_pool_frozen, pe_mlp_bn_pool_train, pe_mlp_bn_pool_train_plain
 
 
 def block_outputs(atten, scores, n1: int, need_saliency: bool = False):
@@ -236,11 +242,15 @@ class FinePositionalEncoding(nn.Module):
     def _scale_train(self, center, grouped, r: float, name: str) -> torch.Tensor:
         """One scale in training: (B, P, 128) pooled features, and flax's
         running update of the scale's BatchNorm statistics (momentum 0.9,
-        biased batch variance)."""
+        biased batch variance); under ``UNOPOSE_PE_TRAIN_FROZEN=1`` with P %
+        32 == 0 (the JAX package's gate), the frozen-BN stack, which leaves
+        the statistics as they are."""
         chans = self.train_channels(center, grouped, r)
         Ws = [getattr(self, f"{name}_fc{i}_kernel") for i in range(len(self.MLP_DIMS))]
         bns = [getattr(self, f"{name}_bn{i}") for i in range(len(self.MLP_DIMS))]
         args = (chans, Ws, [bn.weight for bn in bns], [bn.bias for bn in bns])
+        if os.environ.get("UNOPOSE_PE_TRAIN_FROZEN") == "1" and chans.shape[2] % 32 == 0:
+            return pe_mlp_bn_pool_frozen(*args, [bn.mean for bn in bns], [bn.var for bn in bns])
         if self.fused:
             pooled, (mus, vars_) = pe_mlp_bn_pool_train(*args)
         else:

@@ -12,7 +12,8 @@ Training: the frozen ViT (exact path, no autograd) -> both clouds' LRFs ->
 FPS -> the exact geometric embedding (differentiated) -> every coarse
 block's similarity, scores and saliencies -> the ground-truth pose with
 ``aug_pose_noise`` as the fine initial pose -> every fine block's outputs,
-the fine PE per cloud with batch-statistics BatchNorm. ``compute_train_losses``
+the fine PE per cloud with batch-statistics BatchNorm (or, under
+``UNOPOSE_PE_TRAIN_FROZEN=1``, the running statistics, frozen). ``compute_train_losses``
 turns them into the per-sample loss terms.
 
 The JAX package's three auto switches (``feature_extraction.fused_attn``,

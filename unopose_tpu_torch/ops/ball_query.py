@@ -381,14 +381,12 @@ def ball_group_subset_plain(radius: float, nsample: int, pts: torch.Tensor):
 
 def ball_group_subset_cuda(radius: float, nsample: int, pts: torch.Tensor):
     """The subset grouping on the card (``csrc/ball_group_subset.cu``): one
-    block per cloud and tile of centres, the permuted cloud in shared memory,
-    one thread per (centre, slot)."""
+    block per cloud and tile of centres, the permuted cloud staged in shared
+    memory 4096 points at a time, one thread per (centre, slot)."""
     _check_subset(nsample, pts)
     if pts.device.type != "cuda":
         raise ValueError("ball_group_subset_cuda needs a CUDA tensor")
     B, N, _ = pts.shape
-    if N > 4096:
-        raise ValueError(f"ball_group_subset_cuda takes N <= 4096 (N={N})")
     pts = pts.float().contiguous()
     perm, _ = permutation(N, pts.device)
     dev = pts.device

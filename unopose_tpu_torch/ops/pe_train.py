@@ -1,5 +1,6 @@
 """The fine PE's train stack with batch-statistics BatchNorm (counterpart of
-``unopose_tpu/ops/pe_train.py:pe_mlp_bn_pool_train``).
+``unopose_tpu/ops/pe_train.py:pe_mlp_bn_pool_train``), and its frozen-BN
+variant (``pe_mlp_bn_pool_frozen``).
 
 Per cloud and scale: the shared MLP 6 -> 32 -> 64 -> 128 on the (B, 6, P, S)
 channels, each layer followed by flax's train-mode BatchNorm (biased fast
@@ -25,6 +26,16 @@ rows ``MU`` .. ``SGZ``: the batch mean, variance and 1/sigma, the affine
 a = gamma / sigma and b = beta - gamma mu / sigma, and the backward's sums
 of g and g * zhat (the layer's dbeta and dgamma). The passes' products
 round their operands to bf16 (``MM_DTYPE``), as the kernels do.
+
+The frozen-BN variant normalises with the running statistics, as flax's
+``BatchNorm(use_running_average=True)``, in training (an opt-in deviation
+from the reference recipe, ``UNOPOSE_PE_TRAIN_FROZEN=1``): the statistics
+are constants, so the backward has no batch-statistics terms and is one
+sweep. ``pe_mlp_bn_pool_frozen_plain`` is its formulation on autograd;
+``pe_mlp_bn_pool_frozen`` fills the buffer from the running statistics,
+runs the forward pass (K12, ``fwd_cuda``, unchanged) and, as its backward,
+``frozen_bwd_plain`` / ``frozen_bwd_cuda`` (K18). No gradient reaches the
+running statistics and nothing updates them.
 """
 
 from __future__ import annotations
@@ -41,6 +52,7 @@ DIMS = (6, 32, 64, 128)
 MU, VAR, INV, A, B_, SG, SGZ = range(7)  # rows of the statistics buffer
 MM_DTYPE = torch.bfloat16
 DW_SIZE = sum(DIMS[i] * DIMS[i + 1] for i in range(3))
+FROZEN_SUMS = 2 * sum(DIMS[1:])  # K18's per-block sums of g and g zhat, every layer
 
 
 def _round(x: torch.Tensor, mm_dtype: torch.dtype) -> torch.Tensor:
@@ -127,9 +139,14 @@ def _chain(chans, Ws, bn, depth: int):
 
 def bn_from_sums(bn, layer: int, s1, s2, gamma, beta, n: int, eps: float) -> None:
     """Fill layer ``layer``'s mu, var, inv, a, b of ``bn`` from its sums of z and z^2."""
-    d = DIMS[layer + 1]
     mu = s1.float() / n
-    var = torch.clamp_min(s2.float() / n - mu * mu, 0.0)
+    bn_from_stats(bn, layer, mu, torch.clamp_min(s2.float() / n - mu * mu, 0.0), gamma, beta, eps)
+
+
+def bn_from_stats(bn, layer: int, mu, var, gamma, beta, eps: float) -> None:
+    """Fill layer ``layer``'s mu, var, inv, a, b of ``bn`` from its mean and variance."""
+    d = DIMS[layer + 1]
+    mu, var = mu.float(), var.float()
     inv = 1.0 / torch.sqrt(var + eps)
     gam, bet = gamma.float(), beta.float()
     for row, v in ((MU, mu), (VAR, var), (INV, inv), (A, gam * inv), (B_, bet - gam * mu * inv)):
@@ -203,6 +220,33 @@ def bwd_dw_plain(chans, Ws, bn, pooled, cnt, dpool):
         return tuple(inp.t() @ dzs[l + 1] for l, inp in enumerate((x, *ys)))
 
 
+def frozen_bwd_plain(chans, Ws, bn, pooled, cnt, dpool):
+    """K18's plain twin, the frozen-BN backward in one sweep: recompute the
+    chain, the pool backward (ties split evenly), then per layer g = dy
+    relu', dz = a g, sum g and sum g zhat (zhat from the running mu and
+    1/sigma in ``bn``) into ``bn``'s SG and SGZ rows. Returns (dW1, dW2, dW3)."""
+    B, _, P, S = chans.shape
+    with no_tf32():
+        zs, ys = _chain(chans, Ws, bn, 3)
+        pre = bn[2, A] * zs[2] + bn[2, B_]
+        y3 = torch.clamp_min(pre, 0.0).view(B, P, S, -1)
+        share = ((1.0 / cnt) * dpool)[:, :, None]
+        g = torch.where(y3 == pooled[:, :, None], share, torch.zeros_like(share)).view(B * P * S, -1)
+        g = torch.where(pre > 0.0, g, torch.zeros_like(g))
+        dws = [None] * 3
+        for l in (3, 2, 1):
+            st = bn[l - 1, :, : DIMS[l]]
+            zhat = (zs[l - 1] - st[MU]) * st[INV]
+            bn[l - 1, SG, : DIMS[l]] = g.sum(0)
+            bn[l - 1, SGZ, : DIMS[l]] = (g * zhat).sum(0)
+            dz = _round(st[A] * g, MM_DTYPE)
+            dws[l - 1] = (ys[l - 2] if l > 1 else _round(_rows(chans), MM_DTYPE)).t() @ dz
+            if l > 1:
+                dy = dz @ _round(Ws[l - 1].float(), MM_DTYPE).t()
+                g = torch.where(ys[l - 2] > 0.0, dy, torch.zeros_like(dy))
+    return tuple(dws)
+
+
 # ------------------------------------------------------------------ the passes, on the card
 def _cap(dev) -> int:
     """Scratch rows (one per block) of the persistent kernels: 4 blocks per SM at most."""
@@ -267,6 +311,10 @@ def bwd_sums_cuda(chans, Ws, bn, pooled, cnt, dpool, layer: int) -> None:
     LAUNCHES["pe_train_bwd_sums"] += 1
 
 
+def _split_dw(dw):
+    return tuple(part.view(DIMS[i], DIMS[i + 1]) for i, part in enumerate(dw.split([6 * 32, 32 * 64, 64 * 128])))
+
+
 def bwd_dw_cuda(chans, Ws, bn, pooled, cnt, dpool):
     """K14 on the card: (dW1, dW2, dW3) float32."""
     ws, (B, P, S) = _cuda_args(chans, Ws, bn, pooled, cnt, dpool)
@@ -279,7 +327,23 @@ def bwd_dw_cuda(chans, Ws, bn, pooled, cnt, dpool):
                                           cap, _p(dw), B, P, S, ctypes.c_void_p(build.stream_of(chans)))
     build.check(err, "pe_train_bwd_dw")
     LAUNCHES["pe_train_bwd_dw"] += 1
-    return tuple(part.view(DIMS[i], DIMS[i + 1]) for i, part in enumerate(dw.split([6 * 32, 32 * 64, 64 * 128])))
+    return _split_dw(dw)
+
+
+def frozen_bwd_cuda(chans, Ws, bn, pooled, cnt, dpool):
+    """K18 on the card: (dW1, dW2, dW3) float32, and every layer's sum g and
+    sum g zhat into ``bn``'s SG and SGZ rows."""
+    ws, (B, P, S) = _cuda_args(chans, Ws, bn, pooled, cnt, dpool)
+    cap = _cap(chans.device)
+    partial = torch.empty(cap * (DW_SIZE + FROZEN_SUMS), dtype=torch.float32, device=chans.device)
+    dw = torch.empty(DW_SIZE, dtype=torch.float32, device=chans.device)
+    lib = build.load()
+    with torch.cuda.device(chans.device):
+        err = lib.unopose_pe_train_frozen_bwd(*map(_p, (chans, *ws, bn, pooled, cnt, dpool.contiguous(), partial)),
+                                              cap, _p(dw), B, P, S, ctypes.c_void_p(build.stream_of(chans)))
+    build.check(err, "pe_train_frozen_bwd")
+    LAUNCHES["pe_train_frozen_bwd"] += 1
+    return _split_dw(dw)
 
 
 # ------------------------------------------------------------------ the autograd function
@@ -348,3 +412,65 @@ def pe_mlp_bn_pool_train(chans, Ws, gammas, betas, eps: float = 1e-5):
     chans = chans.detach().float().contiguous()
     pooled, *stats = _PETrain.apply(chans, float(eps), *Ws, *gammas, *betas)
     return pooled, (stats[:3], stats[3:])
+
+
+# ------------------------------------------------------------------ the frozen-BN variant
+def pe_mlp_bn_pool_frozen_plain(chans, Ws, gammas, betas, means, vars_, eps: float = 1e-5, mm_dtype=MM_DTYPE):
+    """The frozen-BN stack on autograd: BN with the running ``means`` and
+    ``vars_`` (constants) as the affine a z + b, the kernels' rounding points
+    (chans, W, the post-ReLU activations and dz rounded to ``mm_dtype``).
+    Returns pooled (B, P, 128) float32, differentiable with respect to Ws,
+    gammas and betas."""
+    _check(chans, Ws, gammas, betas)
+    B, C, P, S = chans.shape
+    h = _round(chans.detach().float().permute(0, 2, 3, 1).reshape(B * P * S, C), mm_dtype)
+    with no_tf32():
+        for l, (W, gam, bet, mu, var) in enumerate(zip(Ws, gammas, betas, means, vars_)):
+            z = _RoundCotangent.apply(h @ _RoundOperand.apply(W.float(), mm_dtype), mm_dtype)
+            mu, var = mu.detach().float(), var.detach().float()
+            inv = 1.0 / torch.sqrt(var + eps)
+            y = torch.clamp_min(gam * inv * z + (bet - gam * mu * inv), 0.0)
+            h = _RoundOperand.apply(y, mm_dtype) if l < 2 else y
+    return h.view(B, P, S, DIMS[-1]).amax(dim=2)
+
+
+def frozen_buffer(gammas, betas, means, vars_, eps: float, device):
+    """The statistics buffer (3, 8, 128) of the frozen variant: each layer's
+    mu, var, inv = 1 / sqrt(var + eps), a = gamma inv and b = beta - gamma
+    mu inv from the running statistics."""
+    bn = torch.zeros((3, 8, DIMS[-1]), dtype=torch.float32, device=device)
+    for l in range(3):
+        bn_from_stats(bn, l, means[l].detach(), vars_[l].detach(), gammas[l].detach(), betas[l].detach(), eps)
+    return bn
+
+
+class _PEFrozen(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, chans, bn, w0, w1, w2, g0, g1, g2, b0, b1, b2):
+        pooled, cnt = _passes(chans)[1](chans, (w0, w1, w2), bn)
+        ctx.save_for_backward(chans, w0, w1, w2, bn, pooled, cnt)
+        return pooled
+
+    @staticmethod
+    def backward(ctx, dpool):
+        chans, w0, w1, w2, bn, pooled, cnt = ctx.saved_tensors
+        bwd = frozen_bwd_plain if chans.device.type == "cpu" else frozen_bwd_cuda
+        bn = bn.clone()
+        dws = bwd(chans, (w0, w1, w2), bn, pooled, cnt, dpool.contiguous())
+        dgammas = tuple(bn[l, SGZ, : DIMS[l + 1]].clone() for l in range(3))
+        dbetas = tuple(bn[l, SG, : DIMS[l + 1]].clone() for l in range(3))
+        return (None, None, *dws, *dgammas, *dbetas)
+
+
+def pe_mlp_bn_pool_frozen(chans, Ws, gammas, betas, means, vars_, eps: float = 1e-5):
+    """The frozen-BN train stack (``use_running_average=True`` in training):
+    chans (B, 6, P, S) float32 (no gradient), Ws, gammas, betas and the
+    running ``means``, ``vars_`` of the three layers. Returns pooled (B, P,
+    128) float32, differentiable with respect to Ws, gammas and betas; the
+    running statistics get no gradient and are not updated. CPU tensors take
+    the plain passes, CUDA tensors K12 and K18."""
+    _check(chans, Ws, gammas, betas)
+    _check(chans, Ws, means, vars_)
+    chans = chans.detach().float().contiguous()
+    bn = frozen_buffer(gammas, betas, means, vars_, eps, chans.device)
+    return _PEFrozen.apply(chans, bn, *Ws, *gammas, *betas)

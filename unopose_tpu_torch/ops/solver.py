@@ -5,15 +5,22 @@ The coarse search draws its (B, 3 * n_proposal1) uniforms from an explicit
 ``torch.Generator``, or takes them as an argument so that a test can hand
 both packages the same draws. The JAX package gathers the sampled points
 with a one-hot bf16x3 matmul, a TPU device trick; a plain index gather
-returns the same float32 values.
+returns the same float32 values. Its hypothesis selection is the plain
+pass of the JAX package's XLA path (the (B, P2, N1, N2) squared distances,
+by hypothesis chunks above 3e8 entries) or, with ``UNOPOSE_HYPSEL_V2=1`` on
+a CUDA tensor, the fused selection kernel (``ops/hyp_select.py``), where
+the JAX package takes its Pallas kernel on the TPU.
 """
 
 from __future__ import annotations
+
+import os
 
 import torch
 
 from unopose_tpu_torch.ops.fps import gather_points
 from unopose_tpu_torch.ops.geometry import pairwise_sqdist
+from unopose_tpu_torch.ops.hyp_select import hypothesis_select_scores_v2
 from unopose_tpu_torch.ops.procrustes import kabsch_rotation_planar, weighted_procrustes
 
 
@@ -60,6 +67,18 @@ def dual_softmax_assignment(atten: torch.Tensor, score: torch.Tensor, n1: int, n
     return pred, (label1 > 0).float(), (label2 > 0).float(), label1, label2
 
 
+def select_scores_plain(pts1, model_pts, rs, ts, w1) -> torch.Tensor:
+    """The plain hypothesis selection (the JAX package's XLA pass): (B, P2)
+    scores sum(w1) / (sum(w1 d) + 1e-8), d the distance of each transformed
+    point (pts1 - t) R to its nearest model point, from the (B, P2, N1, M)
+    expansion-form squared distances. pts1 (B, N1, 3), model_pts (B, M, 3),
+    rs (B, P2, 3, 3), ts (B, P2, 3), w1 (B, N1)."""
+    tp = torch.matmul(pts1[:, None] - ts[:, :, None, :], rs)  # (B, P2, N1, 3)
+    d2 = pairwise_sqdist(tp, model_pts[:, None])  # (B, P2, N1, M)
+    d = torch.sqrt(torch.clamp_min(d2.amin(dim=-1), 0.0))
+    return w1.sum(dim=1)[:, None] / ((d * w1[:, None]).sum(dim=2) + 1e-8)
+
+
 def compute_coarse_Rt_overlap(
     atten: torch.Tensor,
     score: torch.Tensor,
@@ -69,19 +88,26 @@ def compute_coarse_Rt_overlap(
     n_proposal2: int = 300,
     uniforms: torch.Tensor | None = None,
     generator: torch.Generator | None = None,
+    *,
+    model_pts: torch.Tensor | None = None,
+    selection_chunks: int = 10,
 ):
     """RANSAC-like coarse pose search: sample 3 * n_proposal1 correspondences
     by inverse CDF, solve one rigid transform per triplet, keep the
-    n_proposal2 with the lowest residual, return the best-scoring one.
+    n_proposal2 with the lowest residual, return the one that scores best
+    against ``model_pts`` (B, M, 3) (defaults to pts2).
 
     atten (B, N1+1, N2+1), score (B, N1+N2), pts1 (B, N1, 3), pts2 (B, N2, 3).
     ``uniforms`` (B, 3 * n_proposal1) in [0, 1), else drawn from ``generator``.
-    Returns R (B, 3, 3), t (B, 3), pose_score (B,) with p1 ~= R p2 + t.
+    Above 3e8 squared distances the plain selection splits the hypotheses
+    into ``selection_chunks``. Returns R (B, 3, 3), t (B, 3), pose_score (B,)
+    with p1 ~= R p2 + t.
     """
     pts1 = pts1.float()
     pts2 = pts2.float()
     B, N1, _ = pts1.shape
     N2 = pts2.shape[1]
+    model_pts = pts2 if model_pts is None else model_pts.float()
 
     pred, w1, w2, _, _ = dual_softmax_assignment(atten, score, N1, N2)
     ps = (pred[:, 1:, 1:] * w1[:, :, None] * w2[:, None, :]).reshape(B, N1 * N2) ** 1.5
@@ -137,12 +163,15 @@ def compute_coarse_Rt_overlap(
     )  # (B, P2, 3, 3)
     ts = torch.stack([take(tx), take(ty), take(tz)], dim=-1)[:, :, None, :]  # (B, P2, 1, 3)
 
-    w1_sum = w1.sum(dim=1)[:, None]
-
-    tp = torch.matmul(pts1[:, None] - ts, rs)  # (B, P2, N1, 3)
-    d2 = pairwise_sqdist(tp, pts2[:, None])  # (B, P2, N1, N2)
-    d = torch.sqrt(torch.clamp_min(d2.amin(dim=-1), 0.0))
-    scores = w1_sum / ((d * w1[:, None]).sum(dim=2) + 1e-8)
+    ts3 = ts[:, :, 0, :]
+    if pts1.is_cuda and os.environ.get("UNOPOSE_HYPSEL_V2", "0") == "1":
+        scores = hypothesis_select_scores_v2(pts1, model_pts, rs, ts3, w1)
+    elif selection_chunks > 1 and B * n_proposal2 * N1 * model_pts.shape[1] > 300_000_000:
+        chunk = -(-n_proposal2 // selection_chunks)
+        scores = torch.cat([select_scores_plain(pts1, model_pts, rs[:, i: i + chunk], ts3[:, i: i + chunk], w1)
+                            for i in range(0, n_proposal2, chunk)], dim=1)
+    else:
+        scores = select_scores_plain(pts1, model_pts, rs, ts3, w1)
     best = torch.argmax(scores, dim=1)
     ar = torch.arange(B, device=best.device)
     return rs[ar, best], ts[ar, best, 0], scores[ar, best]

@@ -1,12 +1,14 @@
 """Where the time goes in a full-width configuration on one CUDA card.
 
-    python -m unopose_tpu_torch.tools.profile_slice [--config slice|fused_matchers|production|subset|firstk_unpacked]
-        [--batches 8] [--warmup 2] [--seed 0] [--out FILE]
+    python -m unopose_tpu_torch.tools.profile_slice [--config slice|fused_matchers|production|subset|firstk_unpacked
+        |production_hypsel] [--batches 8] [--warmup 2] [--seed 0] [--out FILE]
 
 Runs a configuration of ``configs.CONFIGS`` as ``chip_smoke.py`` does
 (``slice_config()``, the default, ``fused_matcher_config()``,
 ``production_config()``, ``subset_config()`` or ``firstk_unpacked_config()``;
-bf16, seeded random weights, synthetic batches of 16 pairs) and reports:
+``production_hypsel`` is the production config under ``UNOPOSE_HYPSEL_V2=1``,
+the coarse selection through its kernel; bf16, seeded random weights,
+synthetic batches of 16 pairs) and reports:
 
 - per stage of ``UNOPose.forward``, the median time between CUDA events
   recorded around the stage over the steady batches (device time plus the
@@ -31,7 +33,8 @@ int8 one (kernel geo_rpe); 7b is the grouping (with the slot gather on the
 slice path, without it on the fused paths; the unpacked first_k grouping,
 with the gather; or the subset grouping, kernel ball_group_subset, twice);
 7c, on the fused paths only, is PE-v5 (kernels pe_channels and
-pe_mlp_pool) or the masked PE (kernel pe_masked). Stage 8 is the materialised
+pe_mlp_pool) or the masked PE (kernel pe_masked). Stage 6 holds, on
+production_hypsel, the selection kernel (hyp_select). Stage 8 is the materialised
 solver, or on the production path the fused assignment (kernels
 fine_assign_colstats, _labels, _accum) and its Procrustes. With ``--out``
 the report is also written there as JSON.
@@ -41,6 +44,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import subprocess
 import sys
 import tempfile
@@ -53,11 +57,14 @@ import torch
 from unopose_tpu_torch import configs
 
 BATCH = 16
+# the PE train kernels K11-K14 and K18 and the second passes of their launches
+PE_TRAIN = ("pe_train_kernel", "stats_finish", "sums_finish", "dw_finish", "frozen_finish")
 OURS = ("fps_kernel", "first_k_select_kernel", "gather_planar_kernel", "geo_rpe_kernel", "pe_channels_kernel",
         "pe_mlp_pool_kernel", "mha_bf16_kernel", "colstats_kernel", "labels_kernel", "accum_kernel",
-        "ball_group_subset_kernel", "pe_masked_kernel", "pe_train_kernel", "stats_finish", "sums_finish",
-        "dw_finish")
-PE_TRAIN = OURS[-4:]  # K11-K14 and the second passes of their launches
+        "ball_group_subset_kernel", "pe_masked_kernel", "hyp_select_kernel") + PE_TRAIN
+# the profiles: each config, and the production config with an environment switch
+PROFILES = {**{name: (config, {}) for name, config in configs.CONFIGS.items()},
+            "production_hypsel": (configs.production_config, {"UNOPOSE_HYPSEL_V2": "1"})}
 
 
 def _timed(name: str, fn, marks: list, events: bool = True):
@@ -188,7 +195,7 @@ def kernel_summary(prof, wall_ms: float, stage_names) -> dict:
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--config", choices=tuple(configs.CONFIGS), default="slice")
+    parser.add_argument("--config", choices=tuple(PROFILES), default="slice")
     parser.add_argument("--batches", type=int, default=8)
     parser.add_argument("--warmup", type=int, default=2)
     parser.add_argument("--seed", type=int, default=0)
@@ -201,7 +208,9 @@ def main() -> int:
 
     dev = torch.device("cuda", 0)
     torch.manual_seed(args.seed)
-    cfg = configs.CONFIGS[args.config]()
+    config, env = PROFILES[args.config]
+    os.environ.update(env)
+    cfg = config()
     model = UNOPose.from_config(cfg, torch.bfloat16, torch.bfloat16).to(dev).eval()
     gen = torch.Generator(device=dev)
     gen.manual_seed(args.seed)
