@@ -46,10 +46,18 @@ Phases, each fatal on failure:
    selection it replaces; the frozen-BN train stack (K12 on the running
    statistics, the one-sweep backward K18) against its plain passes at the
    K11-K14 gates, K18 deterministic, and the whole function against its
-   twin on autograd;
-4. one forced grouping overflow, through the plain and the fused PE: both
-   must take the exact fallback (and with it the gather kernel), whose
-   grouping equals the CPU plain version's;
+   twin on autograd; the packed PE's other layouts K19-K22 (32 x 2048, S2
+   256) on the cubes (at most twice the twin's own one-ulp count of unequal
+   outputs; K20, fed the twin's channels with a float32 last layer, within
+   1e-2 of its max, K6's gate) and the surfaces (99.9% within one bf16 ulp,
+   none more than two ulps of the largest output off), all four at S2 512
+   on cubes shrunk by ``DENSE_SCALE`` (K19's full blocks, K21's and K22's
+   512-slot tier; the cubes' gates), K19 also at S2 512 on the main cubes
+   and at N 1984, K21 bitwise equal to K5 followed by K6, and K3 at N 1984
+   and 2000 equal to its plain version on every output;
+4. one forced grouping overflow, through the plain PE, PE-v5 and row 10
+   (``UNOPOSE_PE_V5=0``): each must take the exact fallback (and with it
+   the gather kernel), whose grouping equals the CPU plain version's;
 5. the float32 slice, fused-matcher, production, subset and unpacked
    first_k configs at a tiny width on the card (kernels) against the CPU
    (plain versions), same weights and draws: FPS indices and int8 embedding
@@ -60,7 +68,9 @@ Phases, each fatal on failure:
    equal); the subset config as ``check_tiny`` says; the train path's grouping
    on the main path's clouds (B 8, N 2048) equal to the CPU's slot for slot;
    the tiny production config under ``UNOPOSE_HYPSEL_V2=1`` as
-   ``check_tiny_hypsel`` says; and one tiny float32 train step
+   ``check_tiny_hypsel`` says; the production fine PE with no switch at N
+   576 and 1984 (row 10, K19) and 272 (the plain float32 MLP), card
+   against CPU, as ``check_pe_routes`` says; and one tiny float32 train step
    (``train_config(tiny=True)`` on surface clouds), card against CPU, with
    the gates of ``check_tiny_train``, again under
    ``UNOPOSE_PE_TRAIN_FROZEN=1``;
@@ -70,8 +80,13 @@ Phases, each fatal on failure:
    ``fused_matcher_config()`` for 2 batches each, then
    ``production_config()`` for ``--batches`` without and then with
    ``UNOPOSE_HYPSEL_V2=1`` (``production_hypsel``), ``subset_config()`` for
-   2 and ``firstk_unpacked_config()`` for 1; finite, orthonormal poses and
-   the peak memory; then ``train_config()`` (B 8, bf16) for
+   2 and ``firstk_unpacked_config()`` for 1, and the production config for 1
+   under each fine-PE switch (the profiles of ``tools/profile_slice.py``;
+   ``production_pe_packed``: ``UNOPOSE_PE_V5=0``,
+   K19; ``production_pe_v3``: and ``UNOPOSE_PE_V3=1``, K20;
+   ``production_pe_v4``: and ``UNOPOSE_PE_V4=1``, K21;
+   ``production_pe_slot_major``: and ``UNOPOSE_PE_SLOT_MAJOR=1``, K22);
+   finite, orthonormal poses and the peak memory; then ``train_config()`` (B 8, bf16) for
    ``--train-steps`` training steps: finite loss terms, a finite positive
    gradient norm, the frozen ViT bitwise unchanged, every trainable module
    and all six BatchNorm layers of the fine PE moved, and one profiled
@@ -91,7 +106,6 @@ last line come one JSON line with the kernels' results and the raw
 from __future__ import annotations
 
 import argparse
-import contextlib
 import json
 import os
 import subprocess
@@ -129,6 +143,10 @@ KERNELS = {
     "hyp_select": ("unopose_tpu_torch/kernels/csrc/hyp_select.cu", "unopose_tpu/ops/hyp_select.py:86"),
     "hyp_select_v2": ("unopose_tpu_torch/kernels/csrc/hyp_select.cu", "unopose_tpu/ops/hyp_select2.py:72"),
     "pe_train_frozen_bwd": ("unopose_tpu_torch/kernels/csrc/pe_train.cu", "unopose_tpu/ops/pe_train.py:450"),
+    "pe_packed": ("unopose_tpu_torch/kernels/csrc/pe_packed.cu", "unopose_tpu/ops/pe_fused.py:332"),
+    "pe_mlp_pool_packed": ("unopose_tpu_torch/kernels/csrc/pe_mlp_pool_packed.cu", "unopose_tpu/ops/pe_fused.py:1157"),
+    "pe_gather_fused": ("unopose_tpu_torch/kernels/csrc/pe_gather_fused.cu", "unopose_tpu/ops/pe_fused.py:751"),
+    "pe_packed_t": ("unopose_tpu_torch/kernels/csrc/pe_packed_t.cu", "unopose_tpu/ops/pe_fused.py:547"),
 }
 FUSED = ("fps", "first_k_select", "geo_rpe", "pe_channels", "pe_mlp_pool")
 PRODUCTION = ("fps", "geo_rpe", "mha_fused", "fine_assign_colstats", "fine_assign_labels", "fine_assign_accum")
@@ -143,36 +161,34 @@ PATH_KERNELS = {
     "production_hypsel": FUSED + PRODUCTION[2:] + ("hyp_select_v2",),
     "train_frozen": ("fps", "first_k_select", "gather_planar", "pe_train_fwd", "pe_train_frozen_bwd"),
 }
+# the production path with the fine PE switched to one of the packed PE's other layouts (rows 10-13)
+PE_BASE = ("fps", "first_k_select", "geo_rpe") + PRODUCTION[2:]
+PE_PATHS = {
+    "production_pe_packed": ("pe_packed", "gather_planar"),
+    "production_pe_v3": ("pe_mlp_pool_packed", "gather_planar"),
+    "production_pe_v4": ("pe_gather_fused",),
+    "production_pe_slot_major": ("pe_packed_t", "gather_planar"),
+}
+PATH_KERNELS.update({name: PE_BASE + kernels for name, kernels in PE_PATHS.items()})
+PE_VARIANTS = tuple(kernels[0] for kernels in PE_PATHS.values())
 # kernels a path must not launch: the PE kernels of the other first_k and subset paths, and the kernels of
-# the two switched paths (UNOPOSE_HYPSEL_V2, UNOPOSE_PE_TRAIN_FROZEN) where their switch is off
-SWITCHED = ("hyp_select", "hyp_select_v2", "pe_train_frozen_bwd")
+# the switched paths (UNOPOSE_HYPSEL_V2, UNOPOSE_PE_TRAIN_FROZEN, the PE switches) where their switch is off
+SWITCHED = ("hyp_select", "hyp_select_v2", "pe_train_frozen_bwd") + PE_VARIANTS
 PATH_NOT_LAUNCHED = {
     "slice": SWITCHED, "fused_matchers": SWITCHED, "production": SWITCHED, "train": SWITCHED,
     "subset": ("first_k_select", "gather_planar", "pe_channels", "pe_mlp_pool") + SWITCHED,
     "firstk_unpacked": ("ball_group_subset", "pe_channels", "pe_mlp_pool") + SWITCHED,
-    "production_hypsel": ("hyp_select", "pe_train_frozen_bwd"),
-    "train_frozen": ("pe_train_stats", "pe_train_bwd_sums", "pe_train_bwd_dw", "hyp_select", "hyp_select_v2"),
+    "production_hypsel": ("hyp_select", "pe_train_frozen_bwd") + PE_VARIANTS,
+    "train_frozen": ("pe_train_stats", "pe_train_bwd_sums", "pe_train_bwd_dw", "hyp_select", "hyp_select_v2")
+    + PE_VARIANTS,
 }
+PATH_NOT_LAUNCHED.update({
+    name: ("pe_channels", "pe_mlp_pool", "pe_masked", "ball_group_subset", "hyp_select", "hyp_select_v2",
+           "pe_train_frozen_bwd") + tuple(k for k in PE_VARIANTS if k != kernels[0])
+    for name, kernels in PE_PATHS.items()})
 INFER_PATHS = ("slice", "fused_matchers", "production", "subset", "firstk_unpacked")
-# the switched paths: (configuration, environment)
-HYPSEL = {"UNOPOSE_HYPSEL_V2": "1"}
+# the environment of the train path's switch (the inference paths take theirs from profile_slice.PROFILES)
 FROZEN = {"UNOPOSE_PE_TRAIN_FROZEN": "1"}
-PATH_CONFIG = {"production_hypsel": ("production", HYPSEL)}
-
-
-@contextlib.contextmanager
-def env_switch(env: dict):
-    """Sets environment variables inside a ``with`` block and restores them after."""
-    saved = {k: os.environ.get(k) for k in env}
-    os.environ.update(env)
-    try:
-        yield
-    finally:
-        for k, v in saved.items():
-            if v is None:
-                os.environ.pop(k, None)
-            else:
-                os.environ[k] = v
 
 
 def card_info() -> str:
@@ -850,6 +866,273 @@ def check_subset_kernels(log, dev, seed: int) -> dict:
     return results
 
 
+# bf16 tensor-core operations of one slot through one scale's MLP 6 -> 32 -> 64 -> 128
+SLOT_FLOPS = 2.0 * (6 * 32 + 32 * 64 + 64 * 128)
+
+
+def twin_case(kernel, plain, nudged) -> dict:
+    """One kernel against its plain twin on the card: unequal outputs, the
+    twin's own count against itself on inputs one ulp up (``nudged``), the
+    share within one bf16 ulp, the largest difference against two bf16 ulps
+    of the largest output, and both times."""
+    import torch
+
+    with torch.no_grad():
+        got, want, moved = kernel(), plain(), nudged()
+        torch.cuda.synchronize()
+        diff = (got - want).abs()
+        ref = want.abs().max().item()
+        r = dict(unequal=int((got != want).sum()), spread=int((moved != want).sum()), entries=got.numel(),
+                 within_ulp=(diff <= ulp_bf16(torch.maximum(got.abs(), want.abs()))).float().mean().item(),
+                 err=diff.max().item(), ref=ref, two_ulps=2 * ulp_bf16(torch.tensor(ref)).item(),
+                 finite=bool(torch.isfinite(got).all()))
+        del got, want, moved, diff
+        r["ms"], r["plain_ms"] = cuda_ms(kernel), cuda_ms(plain, reps=2)
+    return r
+
+
+def packed_pe_inputs(pts, k2: int = 256) -> dict:
+    """Every input of the packed PE's four layouts on one cloud batch, and
+    the same one ulp up: the materialised grouping (K19, K20's channels,
+    K22 transposed) and the index grouping (K21)."""
+    import torch
+
+    from unopose_tpu_torch.ops.ball_query import two_scale_group_first_k_packed, two_scale_group_first_k_packed_idx
+
+    up = lambda xs: tuple(torch.nextafter(x, torch.full_like(x, float("inf"))) for x in xs)
+    with torch.no_grad():
+        g2, w1, w2, total2, overflow = two_scale_group_first_k_packed(0.1, 64, 0.2, k2, pts)
+        planes, idx_p, _, _, _, _ = two_scale_group_first_k_packed_idx(0.1, 64, 0.2, k2, pts)
+    center = tuple(pts.unbind(-1))
+    return dict(g2=g2, w1=w1, w2=w2, total2=total2, center=center, planes=planes, idx_p=idx_p,
+                g2_up=up(g2), center_up=up(center), planes_up=up(planes), overflow=bool(overflow))
+
+
+PACKED_PE = ("pe_packed", "pe_mlp_pool_packed", "pe_gather_fused", "pe_packed_t")
+# the main path's cubes shrunk by this factor: at S2 512 a third to two thirds of their 64-point blocks hold a
+# point with over 256 hits, and no point has over 64 hits at r1 (the grouping's own budget)
+DENSE_SCALE = 0.55
+
+
+def cube_gate(name: str, r: dict) -> bool:
+    """The gate of K19-K22 on uniform cubes: at most twice as many unequal
+    outputs as the plain twin shows against itself one ulp up. K20 is K6's
+    counterpart (the MLP and pool fed the twin's channels, no LRF) and takes
+    K6's gate, within 1e-2 of the output's max: its last layer stays
+    float32, so most entries differ in the last float bits by the sum order
+    alone and the count of unequal entries says nothing there."""
+    if name == "pe_mlp_pool_packed":
+        return r["err"] <= 1e-2 * r["ref"]
+    return r["unequal"] <= 2 * r["spread"]
+
+
+def packed_pe_cases(d: dict, mlp1, mlp2, packed) -> dict:
+    """K19-K22 against their twins on one grouping (``packed_pe_inputs``),
+    each with its bound. The bounds count what this grouping needs: K19
+    reads S2/2 slots on a fast 64-point block and S2 on a full one and runs
+    the MLP on the kept slots (scale 2 on every slot of a full block, whose
+    pool is unmasked); K20 reads and runs each point's tier of chunks (its
+    pool is unmasked); K21 reads each point's 64-slot chunks up to its hits,
+    as K5 does, and K21 and K22 run the MLP on the kept slots (w > 0, the
+    pools' masks); K22 reads every slot (its frames sum over all S2). At S2
+    256 K21 is also held bitwise to K5 followed by K6."""
+    import torch
+
+    from unopose_tpu_torch.ops import pe_fused as pf
+
+    g2, w1, w2, t2, c = d["g2"], d["w1"], d["w2"], d["total2"], d["center"]
+    B2, N, S2 = w1.shape
+    if d["overflow"]:
+        raise AssertionError(f"the packed grouping overflowed at S2 {S2}")
+    per_point = B2 * N * (4 + 12 + 1024)  # total2, the centres, the pooled row
+    kept = (w1 > 0).sum().item() + (w2 > 0).sum().item()
+    out = {}
+
+    def k19(g2=g2, c=c):
+        return pf.pe_fused_packed_plain(g2, w1, w2, t2, c, mlp1, mlp2, 0.1, 0.2)
+
+    out["pe_packed"] = twin_case(lambda: pf.pe_fused_packed_cuda(g2, w1, w2, t2, c, 0.1, 0.2, packed),
+                                 k19, lambda: k19(d["g2_up"], d["center_up"]))
+    half = S2 // 2
+    fast = (pf.block_max(t2, 64) <= half).view(B2, N // 64, 64)[..., 0].flatten()
+    keep1, keep2 = (w1 > 0).view(-1, 64, S2).float(), (w2 > 0).view(-1, 64, S2).float()
+    rows = torch.where(fast, keep1[..., :half].sum((1, 2)) + keep2[..., :half].sum((1, 2)),
+                       keep1.sum((1, 2)) + 64 * S2).sum().item()
+    slots = 64 * torch.where(fast, half, S2).sum().item()
+    out["pe_packed"].update(fast=fast.float().mean().item(),
+                            **bound(slots * (3 * 4 + 2 * 2) + per_point, SLOT_FLOPS * rows, BF16_FLOPS))
+
+    chunks, w = pf.pe_channels_packed(g2, w1, w2, c, 0.1, 0.2)
+    chunks_up, _ = pf.pe_channels_packed(d["g2_up"], w1, w2, d["center_up"], 0.1, 0.2)
+    tiers = pf.chunk_tiers(t2, w)
+    out["pe_mlp_pool_packed"] = twin_case(
+        lambda: pf.pe_mlp_pool_packed_cuda(chunks, t2, packed),
+        lambda: pf.pe_mlp_pool_packed_plain(chunks, t2, mlp1, mlp2),
+        lambda: pf.pe_mlp_pool_packed_plain(chunks_up, t2, mlp1, mlp2))
+    rows = w * tiers.sum().item()
+    out["pe_mlp_pool_packed"].update(tiers=torch.bincount(tiers.flatten(), minlength=5)[1:].tolist(), **bound(
+        rows * 12 * 2 + B2 * N * (4 + 1024), 2 * SLOT_FLOPS * rows, BF16_FLOPS))
+    del chunks, chunks_up
+
+    planes, idx_p = d["planes"], d["idx_p"]
+
+    def k21(planes=planes, c=c):
+        return pf.pe_fused_gather_t_plain(planes, idx_p, w1, w2, t2, c, mlp1, mlp2, 0.1, 0.2)
+
+    run21 = lambda: pf.pe_fused_gather_t_cuda(planes, idx_p, w1, w2, t2, c, 0.1, 0.2, packed)
+    out["pe_gather_fused"] = twin_case(run21, k21, lambda: k21(d["planes_up"], d["center_up"]))
+    needed = pf.CHUNK * pf.chunks_needed(t2, S2).sum().item()
+    out["pe_gather_fused"].update(**max(
+        (bound(needed * (2 + 4) + B2 * N * 12 + per_point, SLOT_FLOPS * kept, BF16_FLOPS),
+         bound(0.0, 160.0 * needed, F32_FLOPS)), key=lambda b: b["bound_ms"]))
+    if S2 == 256:  # the PE-v5 kernels take S2 256 only
+        v5 = lambda: pf.pe_mlp_pool_cuda(pf.pe_channels_cuda(planes, idx_p, w1, w2, t2, c, 0.1, 0.2), w1, w2, t2,
+                                         packed)
+        with torch.no_grad():
+            bitwise = torch.equal(run21().view(torch.int32), v5().view(torch.int32))
+        out["pe_gather_fused"].update(bitwise_v5=bitwise, v5_ms=cuda_ms(v5))
+
+    slot_major = lambda x: x.transpose(1, 2).contiguous()
+    gt, w1t, w2t = tuple(map(slot_major, g2)), slot_major(w1), slot_major(w2)
+    gt_up = tuple(map(slot_major, d["g2_up"]))
+
+    def k22(gt=gt, c=c):
+        return pf.pe_fused_packed_t_plain(gt, w1t, w2t, t2, c, mlp1, mlp2, 0.1, 0.2)
+
+    out["pe_packed_t"] = twin_case(lambda: pf.pe_fused_packed_t_cuda(gt, w1t, w2t, t2, c, 0.1, 0.2, packed),
+                                   k22, lambda: k22(gt_up, d["center_up"]))
+    out["pe_packed_t"].update(**bound(B2 * N * S2 * (3 * 4 + 2 * 2) + per_point, SLOT_FLOPS * kept, BF16_FLOPS))
+    return out
+
+
+def check_packed_kernels(log, dev, seed: int) -> dict:
+    """Phase 3, the packed PE's other layouts, K19-K22, at the main path's
+    shapes (both clouds, 32 x 2048, S2 256) on the uniform cubes (at most
+    twice as many unequal outputs as the plain twin shows against itself one
+    ulp up; K20, fed the twin's channels, within 1e-2 of the output's max,
+    K6's gate) and on sphere surfaces (99.9% of outputs within one bf16
+    ulp, none more than two ulps of the largest output off); all four at S2
+    512 on denser cubes, where K19's full blocks and K21's and K22's
+    512-slot tier run, and K19 at S2 512 on the main cubes and at N 1984 (the
+    cubes' gate); K21 bitwise equal to K5 followed by K6 on the same inputs;
+    and K3 at N 1984 and 2000, every output equal to its plain version."""
+    import torch
+
+    from unopose_tpu_torch.configs import surface_clouds
+    from unopose_tpu_torch.models.matching import FinePositionalEncoding
+    from unopose_tpu_torch.ops import pe_fused as pf
+    from unopose_tpu_torch.ops.ball_query import SELECT_KEYS, first_k_select_cuda, first_k_select_plain, permutation
+
+    rng = np.random.default_rng(seed + 31)
+    B2, N = 2 * BATCH, 2048
+    results = {}
+
+    # K3 at cloud sizes whose chunks of N / 4 points end inside a 32-point word
+    k3 = {}
+    for n in (1984, 2000):
+        pts = lrf_cloud(rng, dev, B2, n)
+        perm, inv_perm = permutation(n, dev)
+        args = (pts, pts.index_select(1, perm.long()), perm, inv_perm, 0.1, 64, 0.2, 256)
+        got, ref = first_k_select_cuda(*args), first_k_select_plain(*args)
+        torch.cuda.synchronize()
+        errs = {k: int((got[k].long() - ref[k].long()).abs().max()) for k in SELECT_KEYS}
+        k3[n] = dict(equal=not any(errs.values()), ms=cuda_ms(lambda: first_k_select_cuda(*args)))
+        log(f"first_k_select 32x{n} (64/256): max |diff| per output {errs}, overflow {bool(ref['overflow'])}, "
+            f"kernel {k3[n]['ms']:.3f} ms")
+        if any(errs.values()):
+            raise AssertionError(f"first_k_select at N {n} differs from the plain version: {errs}")
+
+    torch.manual_seed(seed)
+    pe = FinePositionalEncoding(256, fused=True).to(dev)
+    mlp1, mlp2, packed = pe.folded_weights()
+    perm, _ = permutation(N, "cpu")
+    clouds = {"uniform cube": lrf_cloud(rng, dev, B2, N),
+              "sphere surfaces": torch.from_numpy(surface_clouds(rng, B2, perm.numpy())).to(dev)}
+    cases = {name: {} for name in PACKED_PE}
+    for cname, cloud in clouds.items():
+        for name, r in packed_pe_cases(packed_pe_inputs(cloud), mlp1, mlp2, packed).items():
+            cases[name][cname] = r
+        torch.cuda.empty_cache()
+    # all four at S2 512 on denser cubes (a 64-point block takes K19's full path when a point has over 256 hits,
+    # and K21's and K22's 128-point blocks the 512-slot tier); K19 also at S2 512 on the main cubes (every block
+    # fast) and at N 1984 (N % 128 == 64, where the production fine PE takes row 10)
+    dense = packed_pe_inputs(clouds["uniform cube"] * DENSE_SCALE, 512)
+    s512 = packed_pe_cases(dense, mlp1, mlp2, packed)
+    fast512 = (pf.block_max(dense["total2"], 64) <= 256).float().mean().item()
+    tiers512 = pf.slot_tiers(dense["total2"], 512)
+    s512_full = dict(fast=fast512, tier512=(tiers512 == 512).float().mean().item())
+    del dense
+    extra = {}
+    for label, cloud, k2 in (("S2 512", clouds["uniform cube"], 512), ("N 1984", lrf_cloud(rng, dev, B2, 1984), 256)):
+        d = packed_pe_inputs(cloud, k2)
+        g2, w1, w2, t2, c = d["g2"], d["w1"], d["w2"], d["total2"], d["center"]
+        k19 = lambda g2=g2, c=c: pf.pe_fused_packed_plain(g2, w1, w2, t2, c, mlp1, mlp2, 0.1, 0.2)
+        extra[label] = twin_case(lambda: pf.pe_fused_packed_cuda(g2, w1, w2, t2, c, 0.1, 0.2, packed), k19,
+                                 lambda: k19(d["g2_up"], d["center_up"]))
+        extra[label]["overflow"] = d["overflow"]
+        del d
+
+    def line(name, where, r):
+        note = ""
+        if name == "pe_packed":
+            note = f", fast blocks {100 * r['fast']:.1f}%"
+        elif name == "pe_mlp_pool_packed":
+            note = f", points on 1/2/3/4 chunks {r['tiers']}"
+        elif name == "pe_gather_fused" and "bitwise_v5" in r:
+            note = f", bitwise equal to K5 -> K6 {r['bitwise_v5']} (K5 + K6 {r['v5_ms']:.3f} ms)"
+        log(f"{name} {where}: {r['unequal']} of {r['entries']} outputs unequal (plain vs itself one ulp up: "
+            f"{r['spread']}), {100 * r['within_ulp']:.4f}% within one bf16 ulp, max |diff| {r['err']:.3e} of max "
+            f"{r['ref']:.3e} (two ulps {r['two_ulps']:.3e}){note}, kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} "
+            f"ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+
+    for name, by_cloud in cases.items():
+        for cname, r in by_cloud.items():
+            line(name, f"32x2048 S2 256 on {cname}", r)
+    for name, r in s512.items():
+        line(name, f"32x2048 S2 512 on cubes x{DENSE_SCALE}", r)
+    log(f"S2 512 cubes x{DENSE_SCALE}: 64-point blocks on K19's fast path "
+        f"{100 * s512_full['fast']:.1f}%, points on the 512-slot tier of K21/K22 {100 * s512_full['tier512']:.1f}%")
+    for label, r in extra.items():
+        log(f"pe_packed 32 clouds at {label} (uniform cubes): {r['unequal']} of {r['entries']} outputs unequal "
+            f"(plain vs itself one ulp up: {r['spread']}), max |diff| {r['err']:.3e}, overflow {r['overflow']}, "
+            f"kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms")
+
+    failed = []
+    for name, by_cloud in cases.items():
+        cube, surf = by_cloud["uniform cube"], by_cloud["sphere surfaces"]
+        if not (cube["finite"] and surf["finite"] and cube_gate(name, cube)):
+            failed.append(f"{name} on the cubes: beyond its gate, or not finite")
+        if surf["within_ulp"] < 0.999 or surf["err"] > surf["two_ulps"]:
+            failed.append(f"{name} on the surfaces: beyond one bf16 ulp on more than 0.1%, or two ulps of the max")
+        if name == "pe_gather_fused" and not (cube["bitwise_v5"] and surf["bitwise_v5"]):
+            failed.append("pe_gather_fused is not bitwise equal to pe_channels -> pe_mlp_pool")
+    if s512_full["fast"] == 1.0 or s512_full["tier512"] == 0.0:
+        failed.append("the S2 512 cubes left K19's full path or the 512-slot tier unused")
+    for name, r in s512.items():
+        if not (r["finite"] and cube_gate(name, r)):
+            failed.append(f"{name} at S2 512: beyond its gate, or not finite")
+    for label, r in extra.items():
+        if r["overflow"] or not r["finite"] or r["unequal"] > 2 * r["spread"]:
+            failed.append(f"pe_packed at {label}: overflow, not finite or beyond twice the twin's one-ulp spread")
+    if failed:
+        raise AssertionError("; ".join(failed))
+    for name, by_cloud in cases.items():
+        cube, surf = by_cloud["uniform cube"], by_cloud["sphere surfaces"]
+        results[name] = dict(max_abs_err=cube["err"], ms=cube["ms"], plain_ms=cube["plain_ms"], library_ms=None,
+                             bound_ms=cube["bound_ms"], bound_by=cube["bound_by"], unequal=cube["unequal"],
+                             spread=cube["spread"], surface_max_abs_err=surf["err"], surface_within_ulp=surf["within_ulp"],
+                             surface_ms=surf["ms"], surface_plain_ms=surf["plain_ms"], surface_bound_ms=surf["bound_ms"],
+                             s512_ms=s512[name]["ms"], s512_plain_ms=s512[name]["plain_ms"],
+                             s512_bound_ms=s512[name]["bound_ms"], s512_max_abs_err=s512[name]["err"])
+    results["pe_gather_fused"].update(bitwise_v5=True, v5_ms=cases["pe_gather_fused"]["uniform cube"]["v5_ms"],
+                                      surface_v5_ms=cases["pe_gather_fused"]["sphere surfaces"]["v5_ms"])
+    results["pe_packed"].update(s512_fast=s512_full["fast"], s512_cube_ms=extra["S2 512"]["ms"],
+                                s512_cube_plain_ms=extra["S2 512"]["plain_ms"], n1984_ms=extra["N 1984"]["ms"],
+                                n1984_plain_ms=extra["N 1984"]["plain_ms"])
+    results["first_k_select"] = dict(n1984_ms=k3[1984]["ms"], n2000_ms=k3[2000]["ms"])
+    return results
+
+
 def random_rotations(gen, shape, dev):
     """Uniform random rotations of ``shape`` + (3, 3) float32 (QR of Gaussians, determinant +1)."""
     import torch
@@ -1051,35 +1334,38 @@ def check_subset_8192(log, dev, seed: int) -> dict:
 
 
 def check_overflow(log, dev, seed: int) -> None:
-    """Phase 4: a dense cloud overflows the packed budget; the plain and the
-    fused PE must take the exact fallback, and its grouping (gather kernel
-    included) must equal the CPU plain one."""
+    """Phase 4: a dense cloud overflows the packed budget; the plain PE, the
+    fused PE-v5 and the fused PE under ``UNOPOSE_PE_V5=0`` (row 10) must
+    take the exact fallback, launching no fused PE kernel, and its grouping
+    (gather kernel included) must equal the CPU plain one."""
     import torch
 
     from unopose_tpu_torch.kernels import LAUNCHES
     from unopose_tpu_torch.models.matching import FinePositionalEncoding
     from unopose_tpu_torch.ops.ball_query import first_k_in_radius, sqdist_expansion, two_scale_group_first_k_packed
+    from unopose_tpu_torch.tools.profile_slice import PE_OFF, V5_OFF, env_switch
 
     rng = np.random.default_rng(seed + 1)
     pts = torch.from_numpy(rng.uniform(-0.08, 0.08, size=(4, 2048, 3)).astype(np.float32))
     *_, overflow = two_scale_group_first_k_packed(0.1, 64, 0.2, 256, pts.to(dev))
     if not bool(overflow):
         raise AssertionError("the dense cloud did not overflow the packed grouping")
-    for fused in (False, True):
+    # the plain PE, PE-v5, and row 10 (the fused PE on the materialised packed grouping, UNOPOSE_PE_V5=0)
+    for fused, env, label in ((False, PE_OFF, "plain"), (True, PE_OFF, "PE-v5"), (True, V5_OFF, "row 10")):
         torch.manual_seed(seed)
         pe = FinePositionalEncoding(256, fused=fused).to(dev)
-        before = LAUNCHES["gather_planar"]
-        with torch.no_grad():
+        before = dict(LAUNCHES)
+        with env_switch(env), torch.no_grad():
             feat = pe(pts.to(dev))
-        torch.cuda.synchronize()
-        gathers = LAUNCHES["gather_planar"] - before
-        if pe.last_branch != "exact" or not torch.isfinite(feat).all() or gathers == 0:
-            raise AssertionError(f"overflow fallback not taken, not finite or not gathered by the kernel "
-                                 f"(fused={fused}): {pe.last_branch}, {gathers} gather launches")
-        with torch.no_grad():
+            torch.cuda.synchronize()
+            gathers = LAUNCHES["gather_planar"] - before.get("gather_planar", 0)
+            fused_pe = sum(LAUNCHES[k] - before.get(k, 0) for k in ("pe_channels", "pe_mlp_pool") + PE_VARIANTS)
+            if pe.last_branch != "exact" or not torch.isfinite(feat).all() or gathers == 0 or fused_pe:
+                raise AssertionError(f"overflow fallback not taken, not finite, not gathered by the kernel or a fused "
+                                     f"PE launched ({label} PE): {pe.last_branch}, {gathers} gather launches")
             feat_cpu = pe.cpu()(pts)
         err = (feat.cpu() - feat_cpu).abs().amax(-1)
-        log(f"overflow ({'fused' if fused else 'plain'} PE): fallback taken ({pe.last_branch}), "
+        log(f"overflow ({label} PE): fallback taken ({pe.last_branch}), "
             f"{gathers} gather launches, PE vs CPU median row error {err.median().item():.2e}")
     for r, k in ((0.1, 64), (0.2, 256)):
         gpu = first_k_in_radius(sqdist_expansion(pts.to(dev), pts.to(dev)) < r * r, k).cpu()
@@ -1184,6 +1470,52 @@ def check_tiny(log, dev, seed: int, name: str) -> None:
         raise AssertionError(f"the tiny {name} config on the card disagrees with the CPU plain path")
 
 
+def check_pe_routes(log, dev, seed: int) -> None:
+    """Phase 5: the production fine PE (fused, budgets 64/256, seeded
+    weights) on the card against the CPU with no switch, on uniform cubes
+    of 2 clouds at N 576 and 1984 (N % 128 == 64: row 10, K19, on the card,
+    neither K16 nor a raise) and at N 272 (N % 32 != 0: the unpacked
+    grouping and the plain float32 MLP, as in the JAX package): the same
+    branch on both, and the fused PE module's gates of the CPU tests
+    (``test_fine_positional_encoding_fused_matches_jax``): median row error
+    1e-3, and no more rows off by 0.05 than max(3, twice the CPU's own count
+    one ulp up)."""
+    import torch
+
+    from unopose_tpu_torch.configs import production_config
+    from unopose_tpu_torch.kernels import LAUNCHES
+    from unopose_tpu_torch.models.matching import FinePositionalEncoding
+    from unopose_tpu_torch.tools.profile_slice import PE_OFF, env_switch
+
+    fm = production_config().fine_point_matching
+    torch.manual_seed(seed)
+    pe = FinePositionalEncoding(256, fm.pe_radius1, fm.pe_radius2, fm.nsample1, fm.nsample2, fused=True)
+    rng = np.random.default_rng(seed + 41)
+    for n, branch, kernel in ((576, "packed", "pe_packed"), (1984, "packed", "pe_packed"), (272, "unpacked_plain", None)):
+        pts = lrf_cloud(rng, "cpu", 2, n)
+        with env_switch(PE_OFF), torch.no_grad():
+            pe.cpu()
+            want = pe(pts)
+            branch_cpu = pe.last_branch
+            nudged = pe(torch.nextafter(pts, torch.full_like(pts, float("inf"))))
+            pe.to(dev)
+            before = dict(LAUNCHES)
+            got = pe(pts.to(dev)).cpu()
+            torch.cuda.synchronize()
+        launched = {k: v - before.get(k, 0) for k, v in LAUNCHES.items() if v - before.get(k, 0)}
+        err = (got - want).abs().amax(-1)
+        ulp = (nudged - want).abs().amax(-1)
+        far, far_ulp = int((err > 0.05).sum()), int((ulp > 0.05).sum())
+        log(f"fine PE N {n} (no switch), card vs CPU: branch {pe.last_branch} / {branch_cpu}, median row error "
+            f"{err.median().item():.2e}, rows off by 0.05: {far} (CPU vs itself one ulp up: {far_ulp}), "
+            f"launches {launched}")
+        ok = (pe.last_branch == branch_cpu == branch and bool(torch.isfinite(got).all())
+              and err.median().item() <= 1e-3 and far <= max(3, 2 * far_ulp) and "pe_masked" not in launched
+              and (kernel is None or launched.get(kernel, 0) == 1))
+        if not ok:
+            raise AssertionError(f"the fine PE at N {n} on the card disagrees with the CPU or took another branch")
+
+
 def check_tiny_hypsel(log, dev, seed: int) -> None:
     """Phase 5, the coarse selection under ``UNOPOSE_HYPSEL_V2=1`` on the
     float32 tiny production config, card (K17) against CPU (where the switch
@@ -1204,6 +1536,7 @@ def check_tiny_hypsel(log, dev, seed: int) -> None:
     from unopose_tpu_torch.kernels import LAUNCHES
     from unopose_tpu_torch.models import UNOPose
     from unopose_tpu_torch.ops import solver
+    from unopose_tpu_torch.tools.profile_slice import PROFILES, env_switch
 
     cfg = configs.production_config(tiny=True)
     torch.manual_seed(seed)
@@ -1222,7 +1555,7 @@ def check_tiny_hypsel(log, dev, seed: int) -> None:
 
     solver.hypothesis_select_scores_v2 = record
     try:
-        with env_switch(HYPSEL):
+        with env_switch(PROFILES["production_hypsel"][1]):
             out_cpu = run("cpu")
             model.to(dev)
             before = LAUNCHES["hyp_select_v2"]
@@ -1362,6 +1695,7 @@ def check_tiny_train(log, dev, seed: int, frozen: bool = False) -> None:
     from unopose_tpu_torch.models.matching import FinePositionalEncoding
     from unopose_tpu_torch.ops.ball_query import two_scale_group_first_k_fast
     from unopose_tpu_torch.ops.rotation import PoseNoiseDraws
+    from unopose_tpu_torch.tools.profile_slice import env_switch
 
     title = "tiny fp32 train step" + (" (frozen BN)" if frozen else "")
     cfg = train_config(tiny=True)
@@ -1492,6 +1826,8 @@ def run_train(log, dev, seed: int, steps: int, frozen: bool = False) -> dict:
     ``train_frozen`` path, under ``UNOPOSE_PE_TRAIN_FROZEN=1``: there the six
     BatchNorm layers' gammas and betas must move and their running
     statistics stay bitwise unchanged."""
+    from unopose_tpu_torch.tools.profile_slice import env_switch
+
     with env_switch(FROZEN if frozen else {}):
         return _run_train(log, dev, seed, steps, "train_frozen" if frozen else "train")
 
@@ -1581,22 +1917,25 @@ def _run_train(log, dev, seed: int, steps: int, name: str) -> dict:
 
 
 def run_path(log, dev, seed: int, batches: int, name: str) -> dict:
-    """Phase 6: one main path at full width (a config of ``configs.CONFIGS``,
-    or a switched path of ``PATH_CONFIG``). Returns timing, peak memory and
+    """Phase 6: one main path at full width (a profile of
+    ``tools/profile_slice.py:PROFILES``: a config of ``configs.CONFIGS``, or
+    the production config under an environment switch). Returns timing, peak memory and
     its launch counts."""
-    config, env = PATH_CONFIG.get(name, (name, {}))
+    from unopose_tpu_torch.tools.profile_slice import PROFILES, env_switch
+
+    config, env = PROFILES[name]
     with env_switch(env):
         return _run_path(log, dev, seed, batches, name, config)
 
 
-def _run_path(log, dev, seed: int, batches: int, name: str, config: str) -> dict:
+def _run_path(log, dev, seed: int, batches: int, name: str, config) -> dict:
     import torch
 
     from unopose_tpu_torch import configs
     from unopose_tpu_torch.kernels import LAUNCHES, reset_launch_counts
     from unopose_tpu_torch.models import UNOPose
 
-    cfg = configs.CONFIGS[config]()
+    cfg = config()
     torch.manual_seed(seed)
     model = UNOPose.from_config(cfg, torch.bfloat16, torch.bfloat16).to(dev).eval()
     gen = torch.Generator(device=dev)
@@ -1676,9 +2015,13 @@ def main() -> int:
     results["ball_group_subset"].update(check_subset_8192(log, dev, args.seed))
     results.update(check_hypsel_kernels(log, dev, args.seed))
     results.update(check_frozen_kernels(log, dev, args.seed))
+    packed = check_packed_kernels(log, dev, args.seed)
+    results["first_k_select"].update(packed.pop("first_k_select"))
+    results.update(packed)
     check_overflow(log, dev, args.seed)
     for name in INFER_PATHS:
         check_tiny(log, dev, args.seed, name)
+    check_pe_routes(log, dev, args.seed)
     check_tiny_hypsel(log, dev, args.seed)
     check_train_grouping(log, dev, args.seed)
     check_tiny_train(log, dev, args.seed)
@@ -1690,6 +2033,7 @@ def main() -> int:
         "production_hypsel": run_path(log, dev, args.seed, args.batches, "production_hypsel"),
         "subset": run_path(log, dev, args.seed, EARLY_BATCHES, "subset"),
         "firstk_unpacked": run_path(log, dev, args.seed, 1, "firstk_unpacked"),
+        **{name: run_path(log, dev, args.seed, 1, name) for name in PE_PATHS},
         "train": run_train(log, dev, args.seed, args.train_steps),
         "train_frozen": run_train(log, dev, args.seed, args.train_steps, frozen=True),
     }

@@ -174,6 +174,83 @@ def test_cuda_wrappers_refuse_cpu_tensors():
             call()
 
 
+def _packed_pe_case(dev, B=1, N=256, k2=256, seed=0):
+    """Inputs of the packed PE's four layouts on one small cloud: (the
+    materialised grouping, its slot-major copy, the index grouping, the
+    centres, both scales' weights)."""
+    gen = torch.Generator().manual_seed(seed)
+    pts = (torch.rand(B, N, 3, generator=gen) * 0.5).to(dev)
+    g2, w1, w2, total2, _ = ball_query.two_scale_group_first_k_packed(0.1, 64, 0.2, k2, pts)
+    planes, idx, _, _, _, _ = ball_query.two_scale_group_first_k_packed_idx(0.1, 64, 0.2, k2, pts)
+    sm = lambda x: x.transpose(1, 2).contiguous()
+    mlp = ([torch.rand(6, 32), torch.rand(32, 64), torch.rand(64, 128)], [torch.rand(32), torch.rand(64), torch.rand(128)])
+    mlp = tuple(([W.to(dev) for W in Ws], [b.to(dev) for b in bs]) for Ws, bs in (mlp, mlp))
+    return dict(g2=g2, w1=w1, w2=w2, total2=total2, gt=tuple(map(sm, g2)), w1t=sm(w1), w2t=sm(w2), planes=planes,
+                idx=idx, center=tuple(pts.unbind(-1)), mlp=mlp)
+
+
+def test_packed_pe_wrappers_refuse_cpu_tensors():
+    """The four packed-PE kernels' wrappers (K19-K22) raise on CPU tensors."""
+    d = _packed_pe_case("cpu")
+    packed = pe_fused.pack_mlp(*d["mlp"])
+    chunks, _ = pe_fused.pe_channels_packed(d["g2"], d["w1"], d["w2"], d["center"], 0.1, 0.2)
+    for call in (
+        lambda: pe_fused.pe_fused_packed_cuda(d["g2"], d["w1"], d["w2"], d["total2"], d["center"], 0.1, 0.2, packed),
+        lambda: pe_fused.pe_mlp_pool_packed_cuda(chunks, d["total2"], packed),
+        lambda: pe_fused.pe_fused_gather_t_cuda(d["planes"], d["idx"], d["w1"], d["w2"], d["total2"], d["center"],
+                                                0.1, 0.2, packed),
+        lambda: pe_fused.pe_fused_packed_t_cuda(d["gt"], d["w1t"], d["w2t"], d["total2"], d["center"], 0.1, 0.2,
+                                                packed),
+    ):
+        with pytest.raises(ValueError):
+            call()
+
+
+def test_packed_pe_dispatch_takes_the_plain_versions_on_cpu(monkeypatch):
+    """On CPU tensors the four packed-PE dispatchers never reach the loader
+    or count a launch, and each returns (B, P, 256) float32."""
+
+    def no_loader():
+        raise AssertionError("the kernel loader was called for a CPU tensor")
+
+    monkeypatch.setattr(build, "load", no_loader)
+    before = dict(LAUNCHES)
+    d = _packed_pe_case("cpu")
+    w = (*d["mlp"][0], *d["mlp"][1])
+    chunks, _ = pe_fused.pe_channels_packed(d["g2"], d["w1"], d["w2"], d["center"], 0.1, 0.2)
+    outs = (
+        pe_fused.pe_fused_packed(d["g2"], d["w1"], d["w2"], d["total2"], d["center"], *w, 0.1, 0.2, None),
+        pe_fused.pe_mlp_pool_packed(chunks, d["total2"], *w, None),
+        pe_fused.pe_fused_gather_t(d["planes"], d["idx"], d["w1"], d["w2"], d["total2"], d["center"], *w, 0.1, 0.2,
+                                   None),
+        pe_fused.pe_fused_packed_t(d["gt"], d["w1t"], d["w2t"], d["total2"], d["center"], *w, 0.1, 0.2, None),
+    )
+    assert all(o.shape == (1, 256, 256) and o.dtype == torch.float32 and torch.isfinite(o).all() for o in outs)
+    assert dict(LAUNCHES) == before
+
+
+def test_kernel_sources_are_built_and_listed():
+    """The loader builds every ``csrc/*.cu`` source, among them the four
+    packed-PE kernels; each of ``chip_smoke.py``'s kernels names a source
+    that exists and a TPU kernel file of the JAX package; every C entry
+    point the loader binds is defined in a source; and no kernel source
+    includes a file of the JAX package."""
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+
+    built = {p.name for p in build._sources()}
+    assert {"pe_packed.cu", "pe_mlp_pool_packed.cu", "pe_gather_fused.cu", "pe_packed_t.cu"} <= built
+    assert built == {p.name for p in (PORT / "kernels" / "csrc").glob("*.cu")}
+    named = {Path(src).name for src, _ in chip_smoke.KERNELS.values()}
+    assert named == built, named ^ built
+    for src, rep in chip_smoke.KERNELS.values():
+        assert (ROOT / src).is_file() and (ROOT / rep.split(":")[0]).is_file(), (src, rep)
+    sources = "".join(p.read_text() for p in (PORT / "kernels" / "csrc").iterdir())
+    for entry in build._SIGNATURES:
+        assert f'extern "C" int {entry}(' in sources, entry
+    assert not re.search(r"#include\s*[<\"][^>\"]*unopose_tpu/", sources)
+
+
 def _pe_train_params(dev, seed=0):
     gen = torch.Generator().manual_seed(seed)
     dims = (6, 32, 64, 128)
@@ -264,7 +341,9 @@ def test_unported_modes_are_refused():
         UNOPose.from_config(cfg)
 
 
-@pytest.mark.parametrize("config", ["slice", "fused_matchers", "production", "subset", "firstk_unpacked"])
+@pytest.mark.parametrize("config", ["slice", "fused_matchers", "production", "subset", "firstk_unpacked",
+                                    "production_pe_packed", "production_pe_v3", "production_pe_v4",
+                                    "production_pe_slot_major"])
 def test_profile_tool_fails_without_a_card(config):
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     r = subprocess.run([sys.executable, "-m", "unopose_tpu_torch.tools.profile_slice", "--config", config], cwd=ROOT,
@@ -626,3 +705,82 @@ def test_subset_grouping_at_8192_points_matches_plain(cuda):
         want = ball_query.ball_group_subset_plain(r, S, pts)
         assert all(torch.equal(a.view(torch.int32), b.view(torch.int32)) for a, b in zip(g, want[0]))
         assert torch.equal(v, want[2]) and 0 < v.float().mean().item() < 1
+
+
+@pytest.mark.cuda
+def test_first_k_select_at_any_n_divisible_by_4(cuda):
+    """K3 at cloud sizes whose chunks of N / 4 points end inside a 32-point
+    word (N 1984, 2000; N 2048 beside them): every output equal to the plain
+    select, and the fine PE's unpacked grouping at N 2000 runs on the card."""
+    for N in (1984, 2000, 2048):
+        pts = _lrf_cloud(np.random.default_rng(7), 4, N, cuda)
+        perm, inv = ball_query.permutation(N, cuda)
+        args = (pts, pts.index_select(1, perm.long()), perm, inv, 0.1, 64, 0.2, 256)
+        got, want = ball_query.first_k_select_cuda(*args), ball_query.first_k_select_plain(*args)
+        for k in ball_query.SELECT_KEYS:
+            assert torch.equal(got[k], want[k]), (N, k)
+    g1, g2 = ball_query.two_scale_group_first_k_fast(0.1, 64, 0.2, 256, pts[:, :2000].contiguous())
+    assert g1[0].shape == (4, 2000, 64) and g2[0].shape == (4, 2000, 256)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cloud", ["cubes", "surfaces", "dense_s2_512"])
+def test_packed_pe_kernels_match_plain(cuda, cloud):
+    """K19-K22 against their plain twins at B 4, N 2048: at S2 256 on the
+    uniform cubes at most twice as many unequal outputs as the twin shows
+    against itself one ulp up (K20, fed the twin's channels and with a
+    float32 last layer: within 1e-2 of the output's max, K6's gate); on
+    sphere surfaces at least 99.9% of outputs within one bf16 ulp and none
+    more than two ulps of the largest output off; K21 bitwise equal to K5
+    followed by K6. At S2 512 on the cubes shrunk by 0.55, the cubes' gates:
+    there a point of a 64-point block has over 256 hits, so K19 takes its
+    full path, and K21 and K22 their 512-slot tier."""
+    k2 = 512 if cloud == "dense_s2_512" else 256
+    if cloud == "surfaces":
+        perm, _ = ball_query.permutation(2048, "cpu")
+        pts = torch.from_numpy(surface_clouds(np.random.default_rng(8), 4, perm.numpy())).to(cuda)
+    else:
+        pts = _lrf_cloud(np.random.default_rng(8), 4, 2048, cuda) * (0.55 if k2 == 512 else 1.0)
+    up = lambda xs: tuple(torch.nextafter(x, torch.full_like(x, float("inf"))) for x in xs)
+    g2, w1, w2, t2, overflow = ball_query.two_scale_group_first_k_packed(0.1, 64, 0.2, k2, pts)
+    planes, idx, _, _, _, _ = ball_query.two_scale_group_first_k_packed_idx(0.1, 64, 0.2, k2, pts)
+    assert not bool(overflow)
+    if k2 == 512:
+        assert (pe_fused.block_max(t2, 64) > 256).any() and (pe_fused.slot_tiers(t2, 512) == 512).any()
+    c = tuple(pts.unbind(-1))
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    mlp = [([torch.randn(6, 32, device=cuda, generator=gen) * 0.3, torch.randn(32, 64, device=cuda, generator=gen) * 0.3,
+             torch.randn(64, 128, device=cuda, generator=gen) * 0.3],
+            [torch.randn(d, device=cuda, generator=gen) * 0.1 for d in (32, 64, 128)]) for _ in range(2)]
+    packed = pe_fused.pack_mlp(*mlp)
+    sm = lambda x: x.transpose(1, 2).contiguous()
+    ch, _ = pe_fused.pe_channels_packed(g2, w1, w2, c, 0.1, 0.2)
+    cases = {
+        "K19": (lambda g, cc: pe_fused.pe_fused_packed_plain(g, w1, w2, t2, cc, *mlp, 0.1, 0.2),
+                pe_fused.pe_fused_packed_cuda(g2, w1, w2, t2, c, 0.1, 0.2, packed), (g2, c)),
+        "K21": (lambda p, cc: pe_fused.pe_fused_gather_t_plain(p, idx, w1, w2, t2, cc, *mlp, 0.1, 0.2),
+                pe_fused.pe_fused_gather_t_cuda(planes, idx, w1, w2, t2, c, 0.1, 0.2, packed), (planes, c)),
+        "K22": (lambda g, cc: pe_fused.pe_fused_packed_t_plain(tuple(map(sm, g)), sm(w1), sm(w2), t2, cc, *mlp, 0.1,
+                                                               0.2),
+                pe_fused.pe_fused_packed_t_cuda(tuple(map(sm, g2)), sm(w1), sm(w2), t2, c, 0.1, 0.2, packed), (g2, c)),
+        "K20": (lambda chunks, _: pe_fused.pe_mlp_pool_packed_plain(chunks, t2, *mlp),
+                pe_fused.pe_mlp_pool_packed_cuda(ch, t2, packed), (ch, None)),
+    }
+    for name, (plain, got, (a, b)) in cases.items():
+        want = plain(a, b)
+        assert torch.isfinite(got).all(), name
+        if cloud == "surfaces":
+            diff = (got - want).abs()
+            _, e = torch.frexp(torch.maximum(got.abs(), want.abs()))
+            assert (diff <= torch.ldexp(torch.ones_like(diff), e - 8)).float().mean().item() >= 0.999, name
+            _, e = torch.frexp(want.abs().max())
+            assert diff.max().item() <= 2.0 * torch.ldexp(torch.ones_like(diff.max()), e - 8).item(), name
+        elif name == "K20":
+            assert (got - want).abs().max().item() <= 1e-2 * want.abs().max().item()
+        else:
+            assert (got != want).sum() <= 2 * (plain(up(a), up(b)) != want).sum(), name
+    if k2 == 256:
+        v5 = pe_fused.pe_mlp_pool_cuda(pe_fused.pe_channels_cuda(planes, idx, w1, w2, t2, c, 0.1, 0.2), w1, w2, t2,
+                                       packed)
+        assert torch.equal(cases["K21"][1].view(torch.int32), v5.view(torch.int32))
+    assert torch.ones(4, device=cuda).sum().item() == 4.0

@@ -13,8 +13,12 @@ in ``ops/pe_train.py`` (``stats_cuda``, ``fwd_cuda``, ``bwd_sums_cuda``,
 ``bwd_dw_cuda``) and its frozen-BN backward (``frozen_bwd_cuda``), and the
 coarse hypothesis selection's two modes in ``ops/hyp_select.py``
 (``hypothesis_select_scores_cuda``, ``hypothesis_select_scores_v2_cuda``:
-``hyp_select`` and ``hyp_select_v2``). Each wrapper counts its launches in
-``LAUNCHES`` under its kernel's name.
+``hyp_select`` and ``hyp_select_v2``), and the packed fine PE in the JAX
+package's other layouts in ``ops/pe_fused.py`` (``pe_fused_packed_cuda``,
+``pe_mlp_pool_packed_cuda``, ``pe_fused_gather_t_cuda``,
+``pe_fused_packed_t_cuda``: ``pe_packed``, ``pe_mlp_pool_packed``,
+``pe_gather_fused`` and ``pe_packed_t``). Each wrapper counts its launches
+in ``LAUNCHES`` under its kernel's name.
 """
 
 from __future__ import annotations

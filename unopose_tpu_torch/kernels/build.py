@@ -73,6 +73,13 @@ _SIGNATURES = {
     "unopose_hyp_select": [_P] * 7 + [_I] * 5 + [_P],
     # g1x, g1y, g1z, m1, g2x, g2y, g2z, m2, cx, cy, cz, wpack, bpack, out, points, S1, S2, r1, r2, 1/r1, 1/r2, stream
     "unopose_pe_masked": [_P] * 14 + [ctypes.c_longlong, _I, _I] + [_F] * 4 + [_P],
+    # gx, gy, gz, w1, w2, total2, cx, cy, cz, wpack, bpack, out, B, P, S2, r1, r2, 1/r1, 1/r2, stream
+    "unopose_pe_packed": [_P] * 12 + [_I] * 3 + [_F] * 4 + [_P],
+    "unopose_pe_packed_t": [_P] * 12 + [_I] * 3 + [_F] * 4 + [_P],
+    # c0, c1, c2, c3, total2, wpack, bpack, out, B, P, w, ld, stream
+    "unopose_pe_mlp_pool_packed": [_P] * 8 + [_I] * 4 + [_P],
+    # xp, yp, zp, idx_p, w1, w2, total2, cx, cy, cz, wpack, bpack, out, B, N, P, S2, r1, r2, 1/r1, 1/r2, stream
+    "unopose_pe_gather_fused": [_P] * 13 + [_I] * 4 + [_F] * 4 + [_P],
 }
 
 _lock = threading.Lock()

@@ -9,7 +9,8 @@
 // permuted order) 32 at a time, turns the two radius tests into
 // __ballot_sync words kept in shared memory, and then emits the kept hits
 // straight to their compacted slots with __popc prefix ranks. Nothing but
-// the final (B, N, k2) selection reaches device memory.
+// the final (B, N, k2) selection reaches device memory. Any N % 4 == 0 up
+// to 4096, as the JAX select takes (see kAligned for N % 128 != 0).
 //
 // Bound: N * N distance evaluations (6 flops each) and N * k2 slot writes
 // per cloud; at N = 2048 that is ~25 Mflop and ~2.5 MB of output per cloud,
@@ -42,6 +43,13 @@ __device__ __forceinline__ float dot3(float ax, float ay, float az, float bx, fl
   return __fadd_rn(__fadd_rn(__fmul_rn(ax, bx), __fmul_rn(ay, by)), __fmul_rn(az, bz));
 }
 
+// kAligned: n % 128 == 0, so every chunk of W = n / 4 positions fills whole
+// 32-position words, and each word's hits are counted at once by __popc of
+// its ballot. Otherwise a chunk may start and end inside a word: each lane
+// counts the hits of its own position in its chunk (the counts summed over
+// the warp after the scan), and the compaction masks each word to the
+// chunk's bits.
+template <bool kAligned>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 first_k_select_kernel(const float* __restrict__ pts, const float* __restrict__ pts_p,
                       const int* __restrict__ perm, const int* __restrict__ inv_perm, int batch,
@@ -63,8 +71,9 @@ first_k_select_kernel(const float* __restrict__ pts, const float* __restrict__ p
   const float cn = dot3(cx, cy, cz, cx, cy, cz);
   const float* cand = pts_p + (size_t)b * n * 3;
 
-  const int words = n >> 5;
-  const int words_per_chunk = words / kChunks;
+  const int words = (n + 31) >> 5;
+  const int width = n / kChunks;
+  const int words_per_chunk = words / kChunks;  // kAligned only
   int ccnt[kChunks];
   int c1cnt[kChunks];
   for (int c = 0; c < kChunks; ++c) {
@@ -76,30 +85,54 @@ first_k_select_kernel(const float* __restrict__ pts, const float* __restrict__ p
 
   for (int g = 0; g < words; ++g) {
     const int pos = (g << 5) + lane;
-    const float px = __ldg(cand + 3 * pos);
-    const float py = __ldg(cand + 3 * pos + 1);
-    const float pz = __ldg(cand + 3 * pos + 2);
-    const float pn = dot3(px, py, pz, px, py, pz);
-    const float xy = dot3(cx, cy, cz, px, py, pz);
-    const float d2 = __fadd_rn(__fsub_rn(cn, __fmul_rn(2.0f, xy)), pn);
-    const bool m2 = d2 < r2sq;
-    const bool m1 = d2 < r1sq;
+    const bool in = kAligned || pos < n;
+    bool m2 = false, m1 = false;
+    if (in) {
+      const float px = __ldg(cand + 3 * pos);
+      const float py = __ldg(cand + 3 * pos + 1);
+      const float pz = __ldg(cand + 3 * pos + 2);
+      const float pn = dot3(px, py, pz, px, py, pz);
+      const float xy = dot3(cx, cy, cz, px, py, pz);
+      const float d2 = __fadd_rn(__fsub_rn(cn, __fmul_rn(2.0f, xy)), pn);
+      m2 = d2 < r2sq;
+      m1 = d2 < r1sq;
+    }
     const uint32_t b2 = __ballot_sync(0xffffffffu, m2);
     const uint32_t b1 = __ballot_sync(0xffffffffu, m1);
     if (lane == 0) {
       s_m2[warp][g] = b2;
       s_m1[warp][g] = b1;
     }
-    const int orig = __ldg(perm + pos);
-    if (m2) first2 = min(first2, orig);
-    if (m1) enc1 = min(enc1, orig * 4096 + pos);
-    const int c = g / words_per_chunk;
-    ccnt[c] += __popc(b2);
-    c1cnt[c] += __popc(b1);
+    if (in) {
+      const int orig = __ldg(perm + pos);
+      if (m2) first2 = min(first2, orig);
+      if (m1) enc1 = min(enc1, orig * 4096 + pos);
+    }
+    if (kAligned) {
+      const int c = g / words_per_chunk;
+      ccnt[c] += __popc(b2);
+      c1cnt[c] += __popc(b1);
+    } else if (m2) {
+      const int c = pos / width;
+#pragma unroll
+      for (int cc = 0; cc < kChunks; ++cc) {
+        ccnt[cc] += cc == c;
+        c1cnt[cc] += cc == c && m1;
+      }
+    }
   }
   for (int off = 16; off > 0; off >>= 1) {
     first2 = min(first2, __shfl_xor_sync(0xffffffffu, first2, off));
     enc1 = min(enc1, __shfl_xor_sync(0xffffffffu, enc1, off));
+  }
+  if (!kAligned) {
+#pragma unroll
+    for (int c = 0; c < kChunks; ++c) {
+      for (int off = 16; off > 0; off >>= 1) {
+        ccnt[c] += __shfl_xor_sync(0xffffffffu, ccnt[c], off);
+        c1cnt[c] += __shfl_xor_sync(0xffffffffu, c1cnt[c], off);
+      }
+    }
   }
   int total2 = 0, cnt1 = 0;
   bool over = false;
@@ -127,9 +160,16 @@ first_k_select_kernel(const float* __restrict__ pts, const float* __restrict__ p
   for (int c = 0; c < kChunks; ++c) {
     int r1rank = 0, r2rank = 0;
     const int c1 = c1cnt[c];
-    for (int g = c * words_per_chunk; g < (c + 1) * words_per_chunk; ++g) {
-      const uint32_t b1 = s_m1[warp][g];
-      const uint32_t b2only = s_m2[warp][g] & ~b1;
+    const int lo = c * width, hi = lo + width;  // the chunk's permuted positions [lo, hi)
+    for (int g = lo >> 5; g <= (hi - 1) >> 5; ++g) {
+      uint32_t b1 = s_m1[warp][g];
+      uint32_t b2only = s_m2[warp][g] & ~b1;
+      if (!kAligned) {  // the word's bits inside the chunk
+        const int from = max(lo - (g << 5), 0), to = min(hi - (g << 5), 32);
+        const uint32_t in_chunk = (to == 32 ? 0xffffffffu : (1u << to) - 1u) & ~((1u << from) - 1u);
+        b1 &= in_chunk;
+        b2only &= in_chunk;
+      }
       const int pos = (g << 5) + lane;
       if ((b1 >> lane) & 1u) {
         const int rank = r1rank + __popc(b1 & below);
@@ -167,13 +207,14 @@ extern "C" int unopose_first_k_select(const float* pts, const float* pts_p, cons
                                       uint8_t* validslot, uint8_t* m1slot, int* cnt1, int* enc1,
                                       int* total2, int* q_first, int* overflow,
                                       cudaStream_t stream) {
-  if (n > kMaxN || n % (32 * kChunks) != 0 || k2 % kChunks != 0) {
+  if (n > kMaxN || n % kChunks != 0 || k2 % kChunks != 0 || k2 > n) {
     return (int)cudaErrorInvalidValue;
   }
   const long long rows = (long long)batch * n;
   if (rows == 0) return 0;
   const unsigned blocks = (unsigned)((rows + kWarpsPerBlock - 1) / kWarpsPerBlock);
-  first_k_select_kernel<<<blocks, kWarpsPerBlock * 32, 0, stream>>>(
+  auto kernel = n % (32 * kChunks) == 0 ? first_k_select_kernel<true> : first_k_select_kernel<false>;
+  kernel<<<blocks, kWarpsPerBlock * 32, 0, stream>>>(
       pts, pts_p, perm, inv_perm, batch, n, k2 / kChunks, k1, k2, r1sq, r2sq, idx_p,
       validslot, m1slot, cnt1, enc1, total2, q_first, overflow);
   return (int)cudaGetLastError();

@@ -29,7 +29,8 @@
 // Arithmetic follows the plain version (ops/pe_fused.py:pe_channels_plain,
 // via ops/lrf.py:batch_lrf_planar and ops/eig3.py with use_newton) operation
 // by operation, each rounded on its own (-fmad=false); only the order of the
-// slot sums differs. The LRF (masked_lrf) is pe_common.cuh's.
+// slot sums differs. The per-point work (point_channels, with masked_lrf) is
+// pe_common.cuh's, shared with pe_gather_fused.cu (K21).
 
 #include "pe_common.cuh"
 
@@ -57,40 +58,14 @@ pe_channels_kernel(const float* __restrict__ xp, const float* __restrict__ yp, c
   }
   __syncthreads();
 
-  const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int p_end = min(p0 + kPointsPerBlock, np);
   for (int p = p0 + warp; p < p_end; p += kWarps) {
     const size_t pt = (size_t)b * np + p;
     const int chunks = max(1, min((total2[pt] + 63) >> 6, s2 >> 6));
     const int nu = 2 * chunks;  // slots per lane
-    const float px = cx[pt], py = cy[pt], pz = cz[pt];
-    float rx[kPerLane], ry[kPerLane], rz[kPerLane], m1[kPerLane], m2[kPerLane];
-#pragma unroll
-    for (int u = 0; u < kPerLane; ++u) {
-      if (u < nu) {
-        const size_t s = pt * s2 + u * 32 + lane;
-        int q = idx[s];
-        q = q < 0 ? 0 : (q >= n ? n - 1 : q);
-        rx[u] = s_planes[q] - px;
-        ry[u] = s_planes[n + q] - py;
-        rz[u] = s_planes[2 * n + q] - pz;
-        m1[u] = __bfloat162float(w1[s]);
-        m2[u] = __bfloat162float(w2[s]);
-      }
-    }
-    float a0[kPerLane], a1[kPerLane], a2[kPerLane], c0[kPerLane], c1[kPerLane], c2[kPerLane];
-    masked_lrf(rx, ry, rz, m1, nu, r1, inv_r1, a0, a1, a2);
-    masked_lrf(rx, ry, rz, m2, nu, r2, inv_r2, c0, c1, c2);
-#pragma unroll
-    for (int u = 0; u < kPerLane; ++u) {
-      if (u < nu) {
-        uint2* dst = reinterpret_cast<uint2*>(out + (pt * s2 + u * 32 + lane) * 12);
-        dst[0] = make_uint2(pack2(rx[u], ry[u]), pack2(rz[u], a0[u]));
-        dst[1] = make_uint2(pack2(a1[u], a2[u]), pack2(rx[u], ry[u]));
-        dst[2] = make_uint2(pack2(rz[u], c0[u]), pack2(c1[u], c2[u]));
-      }
-    }
+    point_channels<kPerLane>(s_planes, n, idx + pt * s2, w1 + pt * s2, w2 + pt * s2, nu, cx[pt], cy[pt], cz[pt], r1,
+                             r2, inv_r1, inv_r2, out + pt * s2 * 12);
   }
 }
 

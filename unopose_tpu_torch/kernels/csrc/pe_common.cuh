@@ -1,9 +1,15 @@
 // Device code shared by the fine-PE inference kernels pe_channels.cu (K5),
-// pe_mlp_pool.cu (K6) and pe_masked.cu (K16): the warp-per-point local
-// reference frame of a neighbourhood over weighted slots (ops/lrf.py:
-// batch_lrf_planar with use_newton), and the folded-BatchNorm MLP
-// 6 -> 32 -> 64 -> 128 on mma.sync m16n8k16 bf16 tiles of 16 slots with its
-// running max. Each kernel's source says how it uses them.
+// pe_mlp_pool.cu (K6), pe_masked.cu (K16), pe_packed.cu (K19),
+// pe_mlp_pool_packed.cu (K20), pe_gather_fused.cu (K21) and pe_packed_t.cu
+// (K22): the warp-per-point local reference frame of a neighbourhood over
+// weighted slots (ops/lrf.py: batch_lrf_planar with use_newton), the
+// folded-BatchNorm MLP 6 -> 32 -> 64 -> 128 on mma.sync m16n8k16 bf16 tiles
+// of 16 slots with its running max, and three per-point routines built from
+// them: K5's channels (point_channels), K6's pool (point_pool) and K16's
+// staged scale (staged_pool). A lane holds slots lane, lane + 32, ...: the
+// per-lane slot count is a template parameter, kPerLane (256 slots) for
+// K5, K6 and K16, up to kPerLaneMax (512 slots) for K19, K21 and K22. Each
+// kernel's source says how it uses them.
 
 #pragma once
 
@@ -13,8 +19,10 @@
 
 namespace {
 
-constexpr int kMaxSlots = 256;
+constexpr int kMaxSlots = 256;  // K5, K6, K16
 constexpr int kPerLane = kMaxSlots / 32;
+constexpr int kMaxSlotsPacked = 512;  // K19-K22: the JAX gates admit nsample2 512
+constexpr int kPerLaneMax = kMaxSlotsPacked / 32;
 constexpr int kLd0 = 16 + 8;  // row strides of the transposed weights, in bf16
 constexpr int kLd1 = 32 + 8;
 constexpr int kLd2 = 64 + 8;
@@ -91,13 +99,13 @@ __device__ void smallest_eigvec(float a, float b, float c, float d, float e, flo
 }
 
 // the LRF coordinates of one scale (ops/lrf.py:batch_lrf_planar with weights m)
-__device__ __forceinline__ void masked_lrf(const float (&rx)[kPerLane], const float (&ry)[kPerLane],
-                                           const float (&rz)[kPerLane], const float (&m)[kPerLane], int nu,
-                                           float r_lrf, float inv_r, float (&o0)[kPerLane],
-                                           float (&o1)[kPerLane], float (&o2)[kPerLane]) {
+template <int PL>
+__device__ __forceinline__ void masked_lrf(const float (&rx)[PL], const float (&ry)[PL], const float (&rz)[PL],
+                                           const float (&m)[PL], int nu, float r_lrf, float inv_r, float (&o0)[PL],
+                                           float (&o1)[PL], float (&o2)[PL]) {
   float cnt = 0.0f, sa = 0.0f, sb = 0.0f, sc = 0.0f, sd = 0.0f, se = 0.0f, sf = 0.0f;
 #pragma unroll
-  for (int u = 0; u < kPerLane; ++u) {
+  for (int u = 0; u < PL; ++u) {
     if (u < nu) {
       cnt += m[u];
       sa += (rx[u] * rx[u]) * m[u];
@@ -115,7 +123,7 @@ __device__ __forceinline__ void masked_lrf(const float (&rx)[kPerLane], const fl
 
   float pos = 0.0f, neg = 0.0f;
 #pragma unroll
-  for (int u = 0; u < kPerLane; ++u) {
+  for (int u = 0; u < PL; ++u) {
     if (u < nu) {
       const float cp = -((z0 * rx[u] + z1 * ry[u]) + z2 * rz[u]);
       pos += (cp > static_cast<float>(1e-3) ? 1.0f : 0.0f) * m[u];
@@ -129,7 +137,7 @@ __device__ __forceinline__ void masked_lrf(const float (&rx)[kPerLane], const fl
 
   float vx = 0.0f, vy = 0.0f, vz = 0.0f;
 #pragma unroll
-  for (int u = 0; u < kPerLane; ++u) {
+  for (int u = 0; u < PL; ++u) {
     if (u < nu) {
       const float norm = (z0 * rx[u] + z1 * ry[u]) + z2 * rz[u];
       const float x_l2 = sqrtf((rx[u] * rx[u] + ry[u] * ry[u]) + rz[u] * rz[u]);
@@ -149,7 +157,7 @@ __device__ __forceinline__ void masked_lrf(const float (&rx)[kPerLane], const fl
   const float y1 = x2 * z0 - x0 * z2;
   const float y2 = x0 * z1 - x1 * z0;
 #pragma unroll
-  for (int u = 0; u < kPerLane; ++u) {
+  for (int u = 0; u < PL; ++u) {
     if (u < nu) {
       o0[u] = ((x0 * rx[u] + x1 * ry[u]) + x2 * rz[u]) * inv_r;
       o1[u] = ((y0 * rx[u] + y1 * ry[u]) + y2 * rz[u]) * inv_r;
@@ -181,11 +189,19 @@ __device__ __forceinline__ uint32_t relu_pack(float x, float y) {
 
 __device__ __forceinline__ float relu_bf16(float x) { return __bfloat162float(__float2bfloat16_rn(fmaxf(x, 0.0f))); }
 
+template <bool kRound>
+__device__ __forceinline__ float relu_last(float x) {
+  return kRound ? relu_bf16(x) : fmaxf(x, 0.0f);
+}
+
 // One 16-slot tile of a point's neighbourhood through the scale's three
 // layers (W0 = the scale's packed weights, B0 its biases), into the running
 // max mx of this lane's columns: a1 is the tile's layer-1 A fragment (the 6
 // channels, zero-padded to K = 16), keep0 / keep1 whether the lane's two
-// rows (slots) take part in the max.
+// rows (slots) take part in the max. kRoundLast: the last layer's ReLU
+// output rounded to bf16 (every kernel but K20, whose TPU kernel keeps it
+// in float32).
+template <bool kRoundLast = true>
 __device__ __forceinline__ void mlp_tile(const uint32_t (&a1)[4], const __nv_bfloat16* W0, const float* B0,
                                          bool keep0, bool keep1, float (&mx)[16][2]) {
   const int lane = threadIdx.x & 31;
@@ -230,10 +246,10 @@ __device__ __forceinline__ void mlp_tile(const uint32_t (&a1)[4], const __nv_bfl
       mma_bf16(c, a3[kt], ld32(wr), ld32(wr + 8));
     }
     const int col = nt * 8 + 2 * t;
-    const float h0 = keep0 ? relu_bf16(c[0] + B2[col]) : 0.0f;
-    const float h1 = keep0 ? relu_bf16(c[1] + B2[col + 1]) : 0.0f;
-    const float h2 = keep1 ? relu_bf16(c[2] + B2[col]) : 0.0f;
-    const float h3 = keep1 ? relu_bf16(c[3] + B2[col + 1]) : 0.0f;
+    const float h0 = keep0 ? relu_last<kRoundLast>(c[0] + B2[col]) : 0.0f;
+    const float h1 = keep0 ? relu_last<kRoundLast>(c[1] + B2[col + 1]) : 0.0f;
+    const float h2 = keep1 ? relu_last<kRoundLast>(c[2] + B2[col]) : 0.0f;
+    const float h3 = keep1 ? relu_last<kRoundLast>(c[3] + B2[col + 1]) : 0.0f;
     mx[nt][0] = fmaxf(mx[nt][0], fmaxf(h0, h2));
     mx[nt][1] = fmaxf(mx[nt][1], fmaxf(h1, h3));
   }
@@ -258,6 +274,142 @@ __device__ __forceinline__ void store_max(float (&mx)[16][2], float* out) {
       *reinterpret_cast<float2*>(out + nt * 8 + 2 * t) = make_float2(mx[nt][0], mx[nt][1]);
     }
   }
+}
+
+// K5's work on one point (pe_channels.cu): gather its first 32 * nu slots
+// from the cloud's permuted planes in shared memory (s_planes: x, y, z, n
+// each) through the int16 indices idx, both scales' LRFs over the slot
+// weights w1 / w2 (idx, w1, w2 point at the point's row), and the 12
+// channels (rel xyz, LRF-1, rel xyz, LRF-2) of each slot as bf16, 24 bytes a
+// slot from dst on (global memory for K5, the warp's shared buffer for K21).
+template <int PL>
+__device__ __forceinline__ void point_channels(const float* s_planes, int n, const int16_t* __restrict__ idx,
+                                               const __nv_bfloat16* __restrict__ w1,
+                                               const __nv_bfloat16* __restrict__ w2, int nu, float px, float py,
+                                               float pz, float r1, float r2, float inv_r1, float inv_r2,
+                                               __nv_bfloat16* dst) {
+  const int lane = threadIdx.x & 31;
+  float rx[PL], ry[PL], rz[PL], m1[PL], m2[PL];
+#pragma unroll
+  for (int u = 0; u < PL; ++u) {
+    if (u < nu) {
+      const int s = u * 32 + lane;
+      int q = idx[s];
+      q = q < 0 ? 0 : (q >= n ? n - 1 : q);
+      rx[u] = s_planes[q] - px;
+      ry[u] = s_planes[n + q] - py;
+      rz[u] = s_planes[2 * n + q] - pz;
+      m1[u] = __bfloat162float(w1[s]);
+      m2[u] = __bfloat162float(w2[s]);
+    }
+  }
+  float a0[PL], a1[PL], a2[PL], c0[PL], c1[PL], c2[PL];
+  masked_lrf(rx, ry, rz, m1, nu, r1, inv_r1, a0, a1, a2);
+  masked_lrf(rx, ry, rz, m2, nu, r2, inv_r2, c0, c1, c2);
+#pragma unroll
+  for (int u = 0; u < PL; ++u) {
+    if (u < nu) {
+      uint2* out = reinterpret_cast<uint2*>(dst + (u * 32 + lane) * 12);
+      out[0] = make_uint2(pack2(rx[u], ry[u]), pack2(rz[u], a0[u]));
+      out[1] = make_uint2(pack2(a1[u], a2[u]), pack2(rx[u], ry[u]));
+      out[2] = make_uint2(pack2(rz[u], c0[u]), pack2(c1[u], c2[u]));
+    }
+  }
+}
+
+// K6's work on one point (pe_mlp_pool.cu): both scales' MLP over the
+// first 16 * tiles slots of its 12-channel rows ch (as point_channels
+// writes them), each scale's max over the slots whose weight (wm1 / wm2,
+// the point's row) is > 0, stored to out[0..255]. s_w / s_b: both scales'
+// pack_mlp weights and biases.
+__device__ __forceinline__ void point_pool(const __nv_bfloat16* ch, const __nv_bfloat16* __restrict__ wm1,
+                                           const __nv_bfloat16* __restrict__ wm2, int tiles,
+                                           const __nv_bfloat16* s_w, const float* s_b, float* __restrict__ out) {
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;  // row group of the mma fragments
+  const int t = lane & 3;   // thread in group
+#pragma unroll 1
+  for (int sc = 0; sc < 2; ++sc) {
+    const __nv_bfloat16* wm = sc ? wm2 : wm1;
+    float mx[16][2];
+#pragma unroll
+    for (int nt = 0; nt < 16; ++nt) mx[nt][0] = mx[nt][1] = 0.0f;  // ReLU outputs are >= 0
+#pragma unroll 1
+    for (int mt = 0; mt < tiles; ++mt) {
+      const int r0 = mt * 16 + g, r1 = r0 + 8;  // the two slots (rows) this lane holds
+      // layer 1's A fragment: K = the scale's 6 channels, zero-padded to 16
+      uint32_t a1[4] = {0u, 0u, 0u, 0u};
+      if (t < 3) {
+        a1[0] = ld32(ch + r0 * 12 + 6 * sc + 2 * t);
+        a1[1] = ld32(ch + r1 * 12 + 6 * sc + 2 * t);
+      }
+      mlp_tile(a1, s_w + sc * kWScale, s_b + sc * kBScale, __bfloat162float(wm[r0]) > 0.0f,
+               __bfloat162float(wm[r1]) > 0.0f, mx);
+    }
+    store_max(mx, out + sc * 128);
+  }
+}
+
+constexpr int kRow = 8;  // bf16 per staged row of staged_pool: rel xyz, LRF xyz, 1 (0 past the kept rows), 0
+
+// K16's second half on one scale of one point (pe_masked.cu): the kept
+// slots among the lane's first nu (keep[u]) written as bf16 rows of the
+// warp's buffer stage (32 * nu rows at most), packed to the front by ballot
+// ranks (a masked slot's outputs are multiplied by 0 and a ReLU output never
+// lowers a max that starts at 0, so the max over the kept rows, in any
+// order, is the multiply-masked max), zero rows up to a whole tile, then the
+// MLP (W0 / B0: the scale's packed weights) on ceil(kept / 16) tiles and the
+// max, stored to out[0..127].
+template <int PL>
+__device__ __forceinline__ void staged_pool(const float (&rx)[PL], const float (&ry)[PL], const float (&rz)[PL],
+                                            const float (&o0)[PL], const float (&o1)[PL], const float (&o2)[PL],
+                                            const bool (&keep)[PL], int nu, const __nv_bfloat16* W0,
+                                            const float* B0, __nv_bfloat16* stage, float* __restrict__ out) {
+  const int lane = threadIdx.x & 31;
+  int valid = 0;
+#pragma unroll
+  for (int u = 0; u < PL; ++u) {
+    if (u < nu) {
+      const unsigned ballot = __ballot_sync(0xffffffffu, keep[u]);
+      if (keep[u]) {
+        const int row = valid + __popc(ballot & ((1u << lane) - 1u));
+        *reinterpret_cast<uint4*>(stage + row * kRow) =
+            make_uint4(pack2(rx[u], ry[u]), pack2(rz[u], o0[u]), pack2(o1[u], o2[u]), pack2(1.0f, 0.0f));
+      }
+      valid += __popc(ballot);
+    }
+  }
+  const int tiles = (valid + 15) >> 4;
+  if (valid + lane < tiles * 16) *reinterpret_cast<uint4*>(stage + (valid + lane) * kRow) = make_uint4(0u, 0u, 0u, 0u);
+  __syncwarp();
+
+  const int g = lane >> 2;  // row group of the mma fragments
+  const int t = lane & 3;   // thread in group
+  float mx[16][2];
+#pragma unroll
+  for (int nt = 0; nt < 16; ++nt) mx[nt][0] = mx[nt][1] = 0.0f;  // ReLU outputs are >= 0
+#pragma unroll 1
+  for (int mt = 0; mt < tiles; ++mt) {
+    const int r0 = mt * 16 + g, r1 = r0 + 8;  // the two rows this lane holds
+    // layer 1's A fragment: K = the 6 channels, zero-padded to 16 (column 6, the row's flag, left out)
+    uint32_t a1[4] = {0u, 0u, 0u, 0u};
+    if (t < 3) {
+      a1[0] = ld32(stage + r0 * kRow + 2 * t);
+      a1[1] = ld32(stage + r1 * kRow + 2 * t);
+    }
+    mlp_tile(a1, W0, B0, __bfloat162float(stage[r0 * kRow + 6]) > 0.0f,
+             __bfloat162float(stage[r1 * kRow + 6]) > 0.0f, mx);
+  }
+  store_max(mx, out);
+  __syncwarp();  // the staging buffer is rewritten by the next call
+}
+
+// The largest of n int32 values from p on, reduced over the warp (every lane gets it).
+__device__ __forceinline__ int warp_max_of(const int* __restrict__ p, int n) {
+  int v = 0;
+  for (int i = threadIdx.x & 31; i < n; i += 32) v = max(v, p[i]);
+  for (int off = 16; off > 0; off >>= 1) v = max(v, __shfl_xor_sync(0xffffffffu, v, off));
+  return v;
 }
 
 }  // namespace

@@ -40,8 +40,8 @@
 // via ops/lrf.py:batch_lrf_planar and ops/eig3.py with use_newton) operation
 // by operation, each rounded on its own (-fmad=false); only the order of the
 // slot sums and of the products' accumulation differs. The LRF (masked_lrf),
-// the tile (mlp_tile) and the final max (store_max) are pe_common.cuh's, as
-// in pe_channels.cu and pe_mlp_pool.cu.
+// the staging, tile and max (staged_pool, with mlp_tile and store_max) are
+// pe_common.cuh's, shared with pe_packed.cu (K19) and pe_packed_t.cu (K22).
 
 #include "pe_common.cuh"
 
@@ -49,10 +49,9 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kRow = 8;  // bf16 per staged row: rel xyz, LRF xyz, 1 (0 on the rows past the valid ones), 0
 
-// One scale of one point: the masked LRF, the valid slots' channels staged as
-// bf16 rows of `stage`, then the MLP and the max, written to out[0..127].
+// One scale of one point: the masked LRF, then the valid slots through the
+// MLP and the max (staged_pool), written to out[0..127].
 __device__ void pe_scale(const float* __restrict__ gx, const float* __restrict__ gy, const float* __restrict__ gz,
                          const uint8_t* __restrict__ mask, int s, float px, float py, float pz, float r_lrf,
                          float inv_r, const __nv_bfloat16* W0, const float* B0, __nv_bfloat16* stage,
@@ -60,6 +59,7 @@ __device__ void pe_scale(const float* __restrict__ gx, const float* __restrict__
   const int lane = threadIdx.x & 31;
   const int nu = (s + 31) >> 5;
   float rx[kPerLane], ry[kPerLane], rz[kPerLane], m[kPerLane];
+  bool keep[kPerLane];
 #pragma unroll
   for (int u = 0; u < kPerLane; ++u) {
     const int slot = u * 32 + lane;
@@ -68,48 +68,11 @@ __device__ void pe_scale(const float* __restrict__ gx, const float* __restrict__
     ry[u] = in ? gy[slot] - py : 0.0f;
     rz[u] = in ? gz[slot] - pz : 0.0f;
     m[u] = in && mask[slot] ? 1.0f : 0.0f;
+    keep[u] = m[u] > 0.0f;
   }
   float o0[kPerLane], o1[kPerLane], o2[kPerLane];
   masked_lrf(rx, ry, rz, m, nu, r_lrf, inv_r, o0, o1, o2);
-
-  // stage the valid slots as bf16 rows packed to the front, then zero rows up to a whole tile
-  int valid = 0;
-#pragma unroll
-  for (int u = 0; u < kPerLane; ++u) {
-    if (u < nu) {
-      const bool keep = m[u] > 0.0f;
-      const unsigned ballot = __ballot_sync(0xffffffffu, keep);
-      if (keep) {
-        const int row = valid + __popc(ballot & ((1u << lane) - 1u));
-        *reinterpret_cast<uint4*>(stage + row * kRow) =
-            make_uint4(pack2(rx[u], ry[u]), pack2(rz[u], o0[u]), pack2(o1[u], o2[u]), pack2(1.0f, 0.0f));
-      }
-      valid += __popc(ballot);
-    }
-  }
-  const int tiles = (valid + 15) >> 4;
-  if (valid + lane < tiles * 16) *reinterpret_cast<uint4*>(stage + (valid + lane) * kRow) = make_uint4(0u, 0u, 0u, 0u);
-  __syncwarp();
-
-  const int g = lane >> 2;  // row group of the mma fragments
-  const int t = lane & 3;   // thread in group
-  float mx[16][2];
-#pragma unroll
-  for (int nt = 0; nt < 16; ++nt) mx[nt][0] = mx[nt][1] = 0.0f;  // ReLU outputs are >= 0
-#pragma unroll 1
-  for (int mt = 0; mt < tiles; ++mt) {
-    const int r0 = mt * 16 + g, r1 = r0 + 8;  // the two rows this lane holds
-    // layer 1's A fragment: K = the 6 channels, zero-padded to 16 (column 6, the row's flag, left out)
-    uint32_t a1[4] = {0u, 0u, 0u, 0u};
-    if (t < 3) {
-      a1[0] = ld32(stage + r0 * kRow + 2 * t);
-      a1[1] = ld32(stage + r1 * kRow + 2 * t);
-    }
-    mlp_tile(a1, W0, B0, __bfloat162float(stage[r0 * kRow + 6]) > 0.0f,
-             __bfloat162float(stage[r1 * kRow + 6]) > 0.0f, mx);
-  }
-  store_max(mx, out);
-  __syncwarp();  // the staging buffer is rewritten by the next scale
+  staged_pool(rx, ry, rz, o0, o1, o2, keep, nu, W0, B0, stage, out);
 }
 
 __global__ void __launch_bounds__(kThreads)

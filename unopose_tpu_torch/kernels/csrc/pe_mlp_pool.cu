@@ -18,8 +18,9 @@
 // column pair, reduced across the 8 row groups by shuffles at the end). The
 // weights of both scales, transposed to (out, in) with K padded to 16 for the
 // first layer and each row padded by 8 bf16 (conflict-free fragment loads),
-// sit in shared memory (51 KB) for a persistent grid of blocks. The tile
-// (mlp_tile) and the final max (store_max) are pe_common.cuh's.
+// sit in shared memory (51 KB) for a persistent grid of blocks. The
+// per-point work (point_pool, with mlp_tile and store_max) is
+// pe_common.cuh's, shared with pe_gather_fused.cu (K21).
 //
 // A point runs ceil(total2 / 64) 64-slot chunks (at least one), the slots
 // the channels kernel (pe_channels.cu) wrote: every slot past total2 has
@@ -52,34 +53,10 @@ pe_mlp_pool_kernel(const __nv_bfloat16* __restrict__ chans, const __nv_bfloat16*
   for (int i = threadIdx.x; i < 2 * kBScale; i += kThreads) s_b[i] = bpack[i];
   __syncthreads();
 
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;  // row group of the mma fragments
-  const int t = lane & 3;   // thread in group
   for (long long pt = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5); pt < points;
        pt += (long long)gridDim.x * kWarps) {
     const int chunks = max(1, min((total2[pt] + 63) >> 6, s2 >> 6));
-    const __nv_bfloat16* ch = chans + pt * s2 * 12;
-#pragma unroll 1
-    for (int sc = 0; sc < 2; ++sc) {
-      const __nv_bfloat16* wm = (sc ? w2 : w1) + pt * s2;
-      float mx[16][2];
-#pragma unroll
-      for (int nt = 0; nt < 16; ++nt) mx[nt][0] = mx[nt][1] = 0.0f;  // ReLU outputs are >= 0
-
-#pragma unroll 1
-      for (int mt = 0; mt < 4 * chunks; ++mt) {
-        const int r0 = mt * 16 + g, r1 = r0 + 8;  // the two slots (rows) this lane holds
-        // layer 1's A fragment: K = the scale's 6 channels, zero-padded to 16
-        uint32_t a1[4] = {0u, 0u, 0u, 0u};
-        if (t < 3) {
-          a1[0] = ld32(ch + r0 * 12 + 6 * sc + 2 * t);
-          a1[1] = ld32(ch + r1 * 12 + 6 * sc + 2 * t);
-        }
-        mlp_tile(a1, s_w + sc * kWScale, s_b + sc * kBScale, __bfloat162float(wm[r0]) > 0.0f,
-                 __bfloat162float(wm[r1]) > 0.0f, mx);
-      }
-      store_max(mx, out + pt * 256 + sc * 128);
-    }
+    point_pool(chans + pt * s2 * 12, w1 + pt * s2, w2 + pt * s2, 4 * chunks, s_w, s_b, out + pt * 256);
   }
 }
 

@@ -3,11 +3,13 @@
 
 Inference: the fine positional encoding runs, both clouds as one batch and
 with folded BatchNorm, the packed first_k path with the plain MLP
-(``pe_fused=False``) or the fused PE-v5 (``pe_fused=True``); where the
-packed path is off (``pe_packed=False``) or cannot take the cloud, the
-unpacked first_k grouping; in ``subset`` mode two subset groupings. The
-last two run the masked PE (``ops/pe_fused.py:pe_fused_masked``) with
-``pe_fused``, else the plain MLP. Training (``train=True``):
+(``pe_fused=False``) or a fused PE (``pe_fused=True``: PE-v5, or the packed
+PE's other layouts where the JAX package's gates and switches send the
+cloud; ``FinePositionalEncoding``); where the packed path is off
+(``pe_packed=False``) or cannot take the cloud, the unpacked first_k
+grouping; in ``subset`` mode two subset groupings. The last two run the
+masked PE (``ops/pe_fused.py:pe_fused_masked``) with ``pe_fused``, else the
+plain MLP. Training (``train=True``):
 each cloud separately (batch statistics are per cloud), the first_k
 grouping of ``two_scale_group_first_k_fast``, and per scale the MLP with
 batch-statistics BatchNorm: the kernels' pass structure of
@@ -43,7 +45,16 @@ from unopose_tpu_torch.ops.ball_query import (
 )
 from unopose_tpu_torch.ops.geometry import compute_feature_similarity
 from unopose_tpu_torch.ops.lrf import batch_lrf_planar
-from unopose_tpu_torch.ops.pe_fused import pack_mlp, pe_fused_masked, pe_fused_v5
+from unopose_tpu_torch.ops.pe_fused import (
+    pack_mlp,
+    pe_channels_packed,
+    pe_fused_gather_t,
+    pe_fused_masked,
+    pe_fused_packed,
+    pe_fused_packed_t,
+    pe_fused_v5,
+    pe_mlp_pool_packed,
+)
 from unopose_tpu_torch.ops.pe_train import pe_mlp_bn_pool_frozen, pe_mlp_bn_pool_train, pe_mlp_bn_pool_train_plain
 
 
@@ -160,20 +171,27 @@ NEIGHBOR_MODES = ("first_k", "subset")
 
 class FinePositionalEncoding(nn.Module):
     """Two-scale local-geometry encoding. Inference (``neighbor_mode``
-    "first_k"): the packed first_k path with the plain MLP or, with
-    ``fused``, the fused PE-v5 (``ops/pe_fused.py``: the channels and
-    MLP/pool kernels on the card); with ``packed=False``, or on a cloud the
-    packed path cannot take (``packed_ok``) or PE-v5 cannot (``fused`` with
-    N % 128 or nsample2 != 256), the unpacked first_k grouping
-    (``two_scale_group_first_k_fast``) through the masked PE with all-ones
-    masks (``fused``) or the plain MLP over every slot. "subset": two subset
-    groupings (``ball_group_subset`` with ``fused`` where nsample1 and
-    nsample2 divide N, else ``ball_group_planar``) through the masked PE
-    (``fused``) or the plain MLP with bf16 activations and masks.
-    Training: see the module docstring.
+    "first_k"), as the JAX package routes it (see ``forward``): where the
+    packed grouping can take the cloud (``packed_ok``, ``packed`` not
+    False), the plain MLP on the materialised packed grouping, or with
+    ``fused`` PE-v5 (``ops/pe_fused.py``: the channels and MLP/pool
+    kernels), or one of the packed PE's other layouts (rows 10-13 of the
+    JAX package's kernels, three of them behind its switches
+    ``UNOPOSE_PE_V4``, ``UNOPOSE_PE_V3`` and ``UNOPOSE_PE_SLOT_MAJOR``, and
+    row 10 where PE-v5 cannot take the cloud or ``UNOPOSE_PE_V5=0``);
+    otherwise the unpacked first_k grouping (``two_scale_group_first_k_fast``)
+    through the masked PE with all-ones masks (``fused``, 32 | N) or the
+    plain MLP over every slot. "subset": two subset groupings
+    (``ball_group_subset`` with ``fused`` where nsample1 and nsample2
+    divide N, else ``ball_group_planar``) through the masked PE (``fused``)
+    or the plain MLP with bf16 activations and masks. Training: see the
+    module docstring.
 
     ``last_branch`` records which branch the last inference forward took:
-    "packed", "v5", "unpacked", "subset", or "exact" after a grouping
+    "v5", "gather_t" (row 12), "v3" (row 13), "packed_t" (row 11),
+    "packed" (row 10 with ``fused``, else the plain MLP on the packed
+    grouping), "unpacked", "unpacked_plain" (``fused`` on an unpacked cloud
+    the masked PE does not take), "subset", or "exact" after a grouping
     overflow.
     """
 
@@ -304,41 +322,78 @@ class FinePositionalEncoding(nn.Module):
             g2, _, valid2 = ball_group_planar(self.r2, self.nsample2, pts, mode="subset")
         return g1, valid1, g2, valid2
 
+    def _unpacked(self, pts: torch.Tensor, center) -> torch.Tensor:
+        """The unpacked first_k path: every slot materialised, pads included,
+        through the masked PE with all-ones masks (``fused``, where 32 | N as
+        in the JAX package) or the plain MLP in ``compute_dtype``."""
+        g1, g2 = self._first_k_groups(pts)
+        if self.fused and pts.shape[1] % 32 == 0:
+            self.last_branch = "unpacked"
+            ones1, ones2 = (torch.ones(g[0].shape, dtype=torch.bool, device=pts.device) for g in (g1, g2))
+            return self.mlp3(self._masked(center, g1, ones1, g2, ones2))
+        self.last_branch = "unpacked_plain" if self.fused else "unpacked"
+        mlp1, mlp2, _ = self.folded_weights()
+        f1 = folded_scale_planar(center, g1, self.r1, *mlp1, dtype=self.compute_dtype)
+        f2 = folded_scale_planar(center, g2, self.r2, *mlp2, dtype=self.compute_dtype)
+        return self.mlp3(torch.cat([f1, f2], dim=-1))
+
+    def _packed_pe(self, center, g2, w1, w2, total2, tiled: bool) -> torch.Tensor:
+        """(B, P, 256) features on the materialised packed grouping: the plain
+        MLP, or with ``fused`` row 13 (``UNOPOSE_PE_V3=1``), row 11
+        (``UNOPOSE_PE_SLOT_MAJOR=1``), both where ``tiled``, else row 10."""
+        mlp1, mlp2, packed = self.folded_weights()
+        weights = (*mlp1, *mlp2)
+        if not self.fused:
+            self.last_branch = "packed"
+            f1 = folded_scale_planar(center, g2, self.r1, *mlp1, lrf_w=w1, pool_mask=w1 > 0)
+            f2 = folded_scale_planar(center, g2, self.r2, *mlp2)
+            return torch.cat([f1, f2], dim=-1)
+        if tiled and os.environ.get("UNOPOSE_PE_V3", "0") == "1":
+            self.last_branch = "v3"
+            chunks, _ = pe_channels_packed(g2, w1, w2, center, self.r1, self.r2)
+            return pe_mlp_pool_packed(chunks, total2, *weights, packed)
+        if tiled and os.environ.get("UNOPOSE_PE_SLOT_MAJOR") == "1":
+            self.last_branch = "packed_t"
+            slot_major = lambda x: x.transpose(1, 2).contiguous()  # the JAX package's swapaxes, a PyTorch op here
+            return pe_fused_packed_t(tuple(map(slot_major, g2)), slot_major(w1), slot_major(w2), total2, center,
+                                     *weights, self.r1, self.r2, packed)
+        self.last_branch = "packed"
+        return pe_fused_packed(g2, w1, w2, total2, center, *weights, self.r1, self.r2, packed)
+
     def forward(self, pts: torch.Tensor) -> torch.Tensor:
-        """pts (B, N, 3) -> (B, N, out_dim)."""
+        """pts (B, N, 3) -> (B, N, out_dim). The first_k branch follows the
+        JAX package's decisions (``models/matching.py:pe_packed_firstk_path``),
+        reading its switches at the call: PE-v5 with ``fused`` at N % 128 ==
+        0, nsample2 256 and ``UNOPOSE_PE_V5`` unset or "1"; else row 12 with
+        ``fused``, ``UNOPOSE_PE_V4=1`` and N % 128 == 0 == nsample2 % 256;
+        else the materialised packed grouping (``_packed_pe``); every
+        overflow takes the exact fallback."""
         pts = pts.float()
         N = pts.shape[1]
         center = tuple(pts.unbind(-1))
         if self.neighbor_mode == "subset":
             self.last_branch = "subset"
             return self.mlp3(self._masked(center, *self._subset_groups(pts)))
-        v5_ok = N % 128 == 0 and self.nsample2 == 256
-        if self.packed is False or not self.packed_ok(N) or (self.fused and not v5_ok):
-            # the unpacked first_k path: every slot materialised, pads included (all-ones masks)
-            self.last_branch = "unpacked"
-            g1, g2 = self._first_k_groups(pts)
-            if self.fused:
-                ones1, ones2 = (torch.ones(g[0].shape, dtype=torch.bool, device=pts.device) for g in (g1, g2))
-                return self.mlp3(self._masked(center, g1, ones1, g2, ones2))
-            mlp1, mlp2, _ = self.folded_weights()
-            f1 = folded_scale_planar(center, g1, self.r1, *mlp1, dtype=self.compute_dtype)
-            f2 = folded_scale_planar(center, g2, self.r2, *mlp2, dtype=self.compute_dtype)
-            return self.mlp3(torch.cat([f1, f2], dim=-1))
+        if self.packed is False or not self.packed_ok(N):
+            return self._unpacked(pts, center)
         mlp1, mlp2, packed = self.folded_weights()
         args = (self.r1, self.nsample1, self.r2, self.nsample2, pts)
-        if self.fused:
+        tiled = N % 128 == 0 and self.nsample2 % 256 == 0
+        index_pe = None
+        if self.fused and N % 128 == 0 and self.nsample2 == 256 and os.environ.get("UNOPOSE_PE_V5", "1") == "1":
+            index_pe = ("v5", pe_fused_v5)
+        elif self.fused and tiled and os.environ.get("UNOPOSE_PE_V4", "0") == "1":
+            index_pe = ("gather_t", pe_fused_gather_t)
+        if index_pe is not None:
             planes, idx_p, w1, w2, total2, overflow = two_scale_group_first_k_packed_idx(*args)
             if not bool(overflow.item()):
-                self.last_branch = "v5"
-                feat = pe_fused_v5(planes, idx_p, w1, w2, total2, center, *mlp1, *mlp2, self.r1, self.r2, packed)
+                self.last_branch, fn = index_pe
+                feat = fn(planes, idx_p, w1, w2, total2, center, *mlp1, *mlp2, self.r1, self.r2, packed)
                 return self.mlp3(feat)
         else:
-            g2, w1, _, _, overflow = two_scale_group_first_k_packed(*args)
+            g2, w1, w2, total2, overflow = two_scale_group_first_k_packed(*args)
             if not bool(overflow.item()):
-                self.last_branch = "packed"
-                f1 = folded_scale_planar(center, g2, self.r1, *mlp1, lrf_w=w1, pool_mask=w1 > 0)
-                f2 = folded_scale_planar(center, g2, self.r2, *mlp2)
-                return self.mlp3(torch.cat([f1, f2], dim=-1))
+                return self.mlp3(self._packed_pe(center, g2, w1, w2, total2, tiled))
         self.last_branch = "exact"
         g1e, g2e = two_scale_group_exact_planar(*args)
         f1 = folded_scale_planar(center, g1e, self.r1, *mlp1)

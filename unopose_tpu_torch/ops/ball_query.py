@@ -136,14 +136,13 @@ def first_k_select_plain(pts, pts_p, perm, inv_perm, r1: float, k1: int, r2: flo
 
 
 def first_k_select_cuda(pts, pts_p, perm, inv_perm, r1: float, k1: int, r2: float, k2: int):
-    """The select on the card (``csrc/first_k_select.cu``), one warp per centre row."""
+    """The select on the card (``csrc/first_k_select.cu``), one warp per
+    centre row; any N % 4 == 0 up to 4096 with k2 <= N, as the plain select."""
     _check_select(pts, pts_p, r1, k1, r2, k2)
     tensors = (pts, pts_p, perm, inv_perm)
     if any(t.device.type != "cuda" or t.device != pts.device for t in tensors):
         raise ValueError("first_k_select_cuda needs all tensors on one CUDA device")
     B, N, _ = pts.shape
-    if N % (32 * CHUNKS):
-        raise ValueError(f"first_k_select_cuda needs N divisible by {32 * CHUNKS} (N={N})")
     pts, pts_p = pts.float().contiguous(), pts_p.float().contiguous()
     perm, inv_perm = perm.to(torch.int32).contiguous(), inv_perm.to(torch.int32).contiguous()
     dev = pts.device

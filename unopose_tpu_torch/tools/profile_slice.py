@@ -1,14 +1,20 @@
 """Where the time goes in a full-width configuration on one CUDA card.
 
     python -m unopose_tpu_torch.tools.profile_slice [--config slice|fused_matchers|production|subset|firstk_unpacked
-        |production_hypsel] [--batches 8] [--warmup 2] [--seed 0] [--out FILE]
+        |production_hypsel|production_pe_packed|production_pe_v3|production_pe_v4|production_pe_slot_major]
+        [--batches 8] [--warmup 2] [--seed 0] [--out FILE]
 
 Runs a configuration of ``configs.CONFIGS`` as ``chip_smoke.py`` does
 (``slice_config()``, the default, ``fused_matcher_config()``,
 ``production_config()``, ``subset_config()`` or ``firstk_unpacked_config()``;
 ``production_hypsel`` is the production config under ``UNOPOSE_HYPSEL_V2=1``,
-the coarse selection through its kernel; bf16, seeded random weights,
-synthetic batches of 16 pairs) and reports:
+the coarse selection through its kernel; ``production_pe_packed``,
+``_v3``, ``_v4`` and ``_slot_major`` are the production config under
+``UNOPOSE_PE_V5=0`` alone or with ``UNOPOSE_PE_V3=1``, ``UNOPOSE_PE_V4=1``
+or ``UNOPOSE_PE_SLOT_MAJOR=1``, the fine PE through the packed PE's other
+layouts, kernels pe_packed, pe_mlp_pool_packed, pe_gather_fused and
+pe_packed_t; bf16, seeded random weights, synthetic batches of 16 pairs)
+and reports:
 
 - per stage of ``UNOPose.forward``, the median time between CUDA events
   recorded around the stage over the steady batches (device time plus the
@@ -33,7 +39,9 @@ int8 one (kernel geo_rpe); 7b is the grouping (with the slot gather on the
 slice path, without it on the fused paths; the unpacked first_k grouping,
 with the gather; or the subset grouping, kernel ball_group_subset, twice);
 7c, on the fused paths only, is PE-v5 (kernels pe_channels and
-pe_mlp_pool) or the masked PE (kernel pe_masked). Stage 6 holds, on
+pe_mlp_pool), the masked PE (kernel pe_masked), or on the switched PE
+profiles the packed PE's other layout (row 13 in two ranges: its
+channels in PyTorch, then its MLP/pool kernel). Stage 6 holds, on
 production_hypsel, the selection kernel (hyp_select). Stage 8 is the materialised
 solver, or on the production path the fused assignment (kernels
 fine_assign_colstats, _labels, _accum) and its Procrustes. With ``--out``
@@ -43,6 +51,7 @@ the report is also written there as JSON.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import subprocess
@@ -61,10 +70,41 @@ BATCH = 16
 PE_TRAIN = ("pe_train_kernel", "stats_finish", "sums_finish", "dw_finish", "frozen_finish")
 OURS = ("fps_kernel", "first_k_select_kernel", "gather_planar_kernel", "geo_rpe_kernel", "pe_channels_kernel",
         "pe_mlp_pool_kernel", "mha_bf16_kernel", "colstats_kernel", "labels_kernel", "accum_kernel",
-        "ball_group_subset_kernel", "pe_masked_kernel", "hyp_select_kernel") + PE_TRAIN
-# the profiles: each config, and the production config with an environment switch
-PROFILES = {**{name: (config, {}) for name, config in configs.CONFIGS.items()},
-            "production_hypsel": (configs.production_config, {"UNOPOSE_HYPSEL_V2": "1"})}
+        "ball_group_subset_kernel", "pe_masked_kernel", "hyp_select_kernel", "pe_packed_kernel",
+        "pe_mlp_pool_packed_kernel", "pe_gather_fused_kernel", "pe_packed_t_kernel") + PE_TRAIN
+# the profiles: each config, and the production config with an environment switch (the fine PE's
+# switches are each set or unset explicitly, so a caller's environment does not leak into a profile)
+# (``chip_smoke.py`` runs its main paths from this table)
+PE_OFF = dict.fromkeys(("UNOPOSE_PE_V5", "UNOPOSE_PE_V3", "UNOPOSE_PE_V4", "UNOPOSE_PE_SLOT_MAJOR"))
+V5_OFF = {**PE_OFF, "UNOPOSE_PE_V5": "0"}
+PROFILES = {**{name: (config, PE_OFF) for name, config in configs.CONFIGS.items()},
+            "production_hypsel": (configs.production_config, {**PE_OFF, "UNOPOSE_HYPSEL_V2": "1"}),
+            "production_pe_packed": (configs.production_config, V5_OFF),
+            "production_pe_v3": (configs.production_config, {**V5_OFF, "UNOPOSE_PE_V3": "1"}),
+            "production_pe_v4": (configs.production_config, {**V5_OFF, "UNOPOSE_PE_V4": "1"}),
+            "production_pe_slot_major": (configs.production_config, {**V5_OFF, "UNOPOSE_PE_SLOT_MAJOR": "1"})}
+
+
+def set_env(env: dict) -> dict:
+    """Sets environment variables (unsets those given as None); returns
+    their earlier values in the same form."""
+    saved = {k: os.environ.get(k) for k in env}
+    for k, v in env.items():
+        if v is None:
+            os.environ.pop(k, None)
+        else:
+            os.environ[k] = v
+    return saved
+
+
+@contextlib.contextmanager
+def env_switch(env: dict):
+    """``set_env`` inside a ``with`` block, the earlier values restored after."""
+    saved = set_env(env)
+    try:
+        yield
+    finally:
+        set_env(saved)
 
 
 def _timed(name: str, fn, marks: list, events: bool = True):
@@ -126,6 +166,11 @@ def instrument(model, marks: list) -> list:
         (mm, "two_scale_group_first_k_fast", "7b first_k select + slot gather (unpacked)"),
         (mm, "ball_group_subset", "7b subset grouping (K15, both scales)"),
         (mm, "pe_fused_masked", "7c masked PE (K16)"),
+        (mm, "pe_fused_packed", "7c row 10: packed PE (K19)"),
+        (mm, "pe_channels_packed", "7c row 13: channels (PyTorch)"),
+        (mm, "pe_mlp_pool_packed", "7c row 13: MLP/pool (K20)"),
+        (mm, "pe_fused_gather_t", "7c row 12: gather-fused PE (K21)"),
+        (mm, "pe_fused_packed_t", "7c row 11: slot-major PE (K22)"),
         (un, "compute_fine_Rt_overlap", "8 fine solver"),
         (un, "compute_fine_Rt_overlap_fused", "8 fine solver (fused assignment K8-K10)"),
     ):
@@ -209,7 +254,7 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     torch.manual_seed(args.seed)
     config, env = PROFILES[args.config]
-    os.environ.update(env)
+    set_env(env)
     cfg = config()
     model = UNOPose.from_config(cfg, torch.bfloat16, torch.bfloat16).to(dev).eval()
     gen = torch.Generator(device=dev)
