@@ -10,7 +10,8 @@ Phases, each fatal on failure:
 3. each kernel against its plain PyTorch version on the card, at the shapes
    the main paths give it, with CUDA-event times, its bound and, where one
    PyTorch call computes the same function, that call's time:
-   FPS and the gather equal indices / bitwise values, the first_k select
+   FPS and the gather equal indices / bitwise values (FPS also timed beside
+   its dependent-step floor, ``FPS_FLOOR_SRC``), the first_k select
    every output equal; the int8 geometric embedding (32 x 197 x 197 x 256,
    bf16 model dtype) at most one step off on at most 0.1% of entries; the PE
    channels and MLP/pool (32 x 2048 x 256) on two kinds of cloud: the main
@@ -23,7 +24,8 @@ Phases, each fatal on failure:
    plain channels, within 1e-2 of the output's max; the production path's
    fused attention (32 x 261 x 768 bf16, read in place from the qkv output;
    at least 99% of outputs bitwise equal, none more than one bf16 ulp of its
-   row's largest output off; also the tiny hd 16 and the float32 variant)
+   row's largest output off; also the tiny hd 16, the float32 variant, N 257
+   and 289 and q scaled by 40, at the same gates)
    and the three sweeps of the fused assignment (16 pairs of 2049 x 2049,
    C 256), each sweep fed the plain twin's inputs, then the whole chain
    (labels equal on at least 99.9% of rows, weights and soft targets within
@@ -52,7 +54,10 @@ Phases, each fatal on failure:
    1e-2 of its max, K6's gate) and the surfaces (99.9% within one bf16 ulp,
    none more than two ulps of the largest output off), all four at S2 512
    on cubes shrunk by ``DENSE_SCALE`` (K19's full blocks, K21's and K22's
-   512-slot tier; the cubes' gates), K19 also at S2 512 on the main cubes
+   512-slot tier; the cubes' gates), all four at S2 768 on cubes shrunk by
+   ``DENSE_768_SCALE`` with r1 ``R1_768`` (past one 512-slot window: K19's
+   full blocks, K21's and K22's 768-slot tier, K20's 192-slot chunks; the
+   cubes' gates), K19 also at S2 512 on the main cubes
    and at N 1984, K21 bitwise equal to K5 followed by K6, and K3 at N 1984
    and 2000 equal to its plain version on every output;
 4. one forced grouping overflow, through the plain PE, PE-v5 and row 10
@@ -85,7 +90,8 @@ Phases, each fatal on failure:
    ``production_pe_packed``: ``UNOPOSE_PE_V5=0``,
    K19; ``production_pe_v3``: and ``UNOPOSE_PE_V3=1``, K20;
    ``production_pe_v4``: and ``UNOPOSE_PE_V4=1``, K21;
-   ``production_pe_slot_major``: and ``UNOPOSE_PE_SLOT_MAJOR=1``, K22);
+   ``production_pe_slot_major``: and ``UNOPOSE_PE_SLOT_MAJOR=1``, K22), and
+   ``production_s768`` (nsample2 768, K19) for 1;
    finite, orthonormal poses and the peak memory; then ``train_config()`` (B 8, bf16) for
    ``--train-steps`` training steps: finite loss terms, a finite positive
    gradient norm, the frozen ViT bitwise unchanged, every trainable module
@@ -170,6 +176,8 @@ PE_PATHS = {
     "production_pe_slot_major": ("pe_packed_t", "gather_planar"),
 }
 PATH_KERNELS.update({name: PE_BASE + kernels for name, kernels in PE_PATHS.items()})
+# the production config with a scale-2 budget of 768 slots: the JAX package's gates send it to row 10 (K19)
+PATH_KERNELS["production_s768"] = PATH_KERNELS["production_pe_packed"]
 PE_VARIANTS = tuple(kernels[0] for kernels in PE_PATHS.values())
 # kernels a path must not launch: the PE kernels of the other first_k and subset paths, and the kernels of
 # the switched paths (UNOPOSE_HYPSEL_V2, UNOPOSE_PE_TRAIN_FROZEN, the PE switches) where their switch is off
@@ -186,6 +194,7 @@ PATH_NOT_LAUNCHED.update({
     name: ("pe_channels", "pe_mlp_pool", "pe_masked", "ball_group_subset", "hyp_select", "hyp_select_v2",
            "pe_train_frozen_bwd") + tuple(k for k in PE_VARIANTS if k != kernels[0])
     for name, kernels in PE_PATHS.items()})
+PATH_NOT_LAUNCHED["production_s768"] = PATH_NOT_LAUNCHED["production_pe_packed"]
 INFER_PATHS = ("slice", "fused_matchers", "production", "subset", "firstk_unpacked")
 # the environment of the train path's switch (the inference paths take theirs from profile_slice.PROFILES)
 FROZEN = {"UNOPOSE_PE_TRAIN_FROZEN": "1"}
@@ -243,6 +252,85 @@ def lrf_cloud(rng, dev, b: int, n: int):
     return global_lrf(torch.from_numpy(pts).to(dev))
 
 
+# The dependent-step floor of K1 (fps.cu): its step loop with the distance work taken out, at its thread
+# count (256 up to 6144 points, else 1024). Each thread's key is a hash of the last winner's coordinate (so no
+# step can start early), then fps.cu's warp reduction, the per-warp slots of the step's parity, its one
+# __syncthreads, every warp's reduction of the slots, the winner's lookup in shared memory and its store.
+# Built and timed here only, not part of the port.
+FPS_FLOOR_SRC = r"""
+#include <cuda_runtime.h>
+#include <limits.h>
+
+__global__ void __launch_bounds__(1024, 1)
+fps_floor_kernel(const float* __restrict__ pts, int n, int npoint, int* __restrict__ out) {
+  extern __shared__ float xs[];
+  __shared__ unsigned s_bits[2][32];
+  __shared__ int s_idx[2][32];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, warps = blockDim.x >> 5;
+  const float* p = pts + (size_t)blockIdx.x * n * 3;
+  for (int i = tid; i < n; i += blockDim.x) xs[i] = p[3 * i];
+  __syncthreads();
+  int last = 0;
+  for (int j = 1; j < npoint; ++j) {
+    const float x1 = xs[last];
+    unsigned bits = (__float_as_uint(x1) ^ ((unsigned)tid * 2654435761u)) >> 1;
+    unsigned top = __reduce_max_sync(0xffffffffu, bits);
+    int idx = __reduce_min_sync(0xffffffffu, bits == top ? tid : INT_MAX);
+    const int par = j & 1;
+    if (lane == 0) {
+      s_bits[par][warp] = top;
+      s_idx[par][warp] = idx;
+    }
+    __syncthreads();
+    bits = lane < warps ? s_bits[par][lane] : 0u;
+    top = __reduce_max_sync(0xffffffffu, bits);
+    idx = __reduce_min_sync(0xffffffffu, bits == top && lane < warps ? s_idx[par][lane] : INT_MAX);
+    last = min(idx, n - 1);
+    if (tid == 0) out[(size_t)blockIdx.x * npoint + j] = last;
+  }
+}
+
+extern "C" int fps_floor(const float* pts, int* out, int batch, int n, int npoint, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(fps_floor_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)(n * sizeof(float)));
+  if (err != cudaSuccess) return (int)err;
+  fps_floor_kernel<<<batch, n <= 6144 ? 256 : 1024, n * sizeof(float), stream>>>(pts, n, npoint, out);
+  return (int)cudaGetLastError();
+}
+"""
+
+
+def fps_floor_ms(pts, npoint: int) -> float:
+    """CUDA-event time of ``FPS_FLOOR_SRC`` on K1's launch shape: npoint - 1
+    of K1's steps with no distance work, built with K1's flags."""
+    import ctypes
+    import hashlib
+
+    import torch
+
+    from unopose_tpu_torch.kernels import build
+
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = hashlib.sha256((FPS_FLOOR_SRC + " ".join(build.NVCC_FLAGS)).encode()).hexdigest()[:16]
+    lib_path = build.BUILD_DIR / f"fps_floor_{tag}.so"
+    if not lib_path.exists():
+        src = lib_path.with_suffix(".cu")
+        src.write_text(FPS_FLOOR_SRC)
+        subprocess.run([build.find_nvcc(), *build.NVCC_FLAGS, "-shared", "-o", str(lib_path), str(src)],
+                       check=True, capture_output=True, text=True, timeout=300)
+    lib = ctypes.CDLL(str(lib_path))
+    lib.fps_floor.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    B, N, _ = pts.shape
+    out = torch.empty((B, npoint), dtype=torch.int32, device=pts.device)
+
+    def run():
+        err = lib.fps_floor(pts.data_ptr(), out.data_ptr(), B, N, npoint, torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"fps_floor failed to launch: cudaError_t {err}")
+
+    return cuda_ms(run)
+
+
 def check_kernels(log, dev, seed: int) -> dict:
     """Phase 3 for FPS, the first_k select and the gather. Returns {kernel name: measurements}."""
     import torch
@@ -256,7 +344,8 @@ def check_kernels(log, dev, seed: int) -> dict:
     rng = np.random.default_rng(seed)
     results = {}
 
-    # K1 FPS: template 16 x 5000 -> 2048, then both clouds 16 x 2048 -> 196
+    # K1 FPS: template 16 x 5000 -> 2048, then both clouds 16 x 2048 -> 196; beside each, its
+    # dependent-step floor (FPS_FLOOR_SRC: the same steps with no distance work)
     worst = 0
     for b, n, k in ((BATCH, 5000, 2048), (BATCH, 2048, 196)):
         pts = lrf_cloud(rng, dev, b, n)
@@ -265,12 +354,17 @@ def check_kernels(log, dev, seed: int) -> dict:
         mismatch = int((got.long() - ref.long()).abs().max())
         worst = max(worst, mismatch)
         ms, plain_ms = cuda_ms(lambda: fps_cuda(pts, k)), cuda_ms(lambda: fps_plain(pts, k), reps=2)
+        floor_ms = fps_floor_ms(pts, k)
         # per point and step: 3 sub, 3 mul, 2 add, a min and an argmax compare
         fps_bound = bound(b * n * 12 + b * k * 4, 10.0 * b * (k - 1) * n, F32_FLOPS)
         log(f"fps {b}x{n}->{k}: max |index diff| {mismatch}, kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
-            f"bound {fps_bound['bound_ms']:.4f} ms ({fps_bound['bound_by']})")
+            f"bound {fps_bound['bound_ms']:.4f} ms ({fps_bound['bound_by']}), dependent-step floor "
+            f"{floor_ms:.3f} ms ({k - 1} steps at {1e3 * floor_ms / (k - 1):.3f} us)")
         if (b, n) == (BATCH, 5000):
-            results["fps"] = dict(ms=ms, plain_ms=plain_ms, library_ms=None, **fps_bound)
+            results["fps"] = dict(ms=ms, plain_ms=plain_ms, library_ms=None, floor_ms=floor_ms, **fps_bound)
+        else:
+            results["fps"].update(n2048_ms=ms, n2048_plain_ms=plain_ms, n2048_floor_ms=floor_ms,
+                                  n2048_bound_ms=fps_bound["bound_ms"])
     if worst != 0:
         raise AssertionError("fps kernel indices differ from the plain version")
     results["fps"]["max_abs_err"] = float(worst)
@@ -448,15 +542,29 @@ def check_production_kernels(log, dev, seed: int) -> dict:
         q32, k32, v32 = (x.float() for x in (q, k, v))
         f_err = ((mha_fused_cuda(q32, k32, v32, H) - mha_fused_plain(q32, k32, v32, H)).abs().max()
                  / want.abs().max()).item()
+        # at the main gates: ragged N at the main width (257 ends in a one-row tile of the register path, 289
+        # is past the register budget, the three-pass path), and q scaled by 40 at N 261 (scores far below their
+        # row's max: the division's exact path for tiny quotients)
+        ragged = {}
+        for nr, q_scale in ((257, 1.0), (289, 1.0), (261, 40.0)):
+            rq = torch.randn(8, nr, 3 * D, device=dev, generator=gen)
+            rq[..., :D] *= q_scale
+            rq = rq.to(torch.bfloat16).split(D, dim=-1)
+            r_got, r_want = mha_fused_cuda(*rq, H).float(), mha_fused_plain(*rq, H).float()
+            ragged[f"{nr}" + ("" if q_scale == 1.0 else f", q x{q_scale:g}")] = (
+                (r_got == r_want).float().mean().item(),
+                ((r_got - r_want).abs() / ulp_bf16(r_want.abs().amax(dim=-1, keepdim=True))).max().item())
     log(f"mha_fused 32x261x768 bf16 (12 heads, in place from qkv): {100 * equal:.4f}% of outputs bitwise equal, "
         f"max diff {ulps:.0f} bf16 ulps of the output ({row_ulps:.3f} of its row's largest), max |diff| {err:.3e}; "
-        f"hd 16 within a row ulp {s_ok}; float32 variant rel {f_err:.2e}; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
-        f"SDPA {library_ms:.3f} ms")
-    if equal < 0.99 or row_ulps > 1.0 or not s_ok or f_err > 1e-5:
+        f"hd 16 within a row ulp {s_ok}; float32 variant rel {f_err:.2e}; ragged 8xNx768 (bitwise share, row ulps) "
+        f"{ragged}; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, SDPA {library_ms:.3f} ms")
+    if (equal < 0.99 or row_ulps > 1.0 or not s_ok or f_err > 1e-5
+            or any(eq < 0.99 or ru > 1.0 for eq, ru in ragged.values())):
         raise AssertionError("mha_fused kernel differs from the plain version beyond its gates")
     # reads q, k, v and writes o once; QK^T and PV on the tensor cores
     results["mha_fused"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                                 equal_share=equal, max_ulps=ulps, max_row_ulps=row_ulps,
+                                ragged=ragged,
                                 **bound(4 * B2 * N * D * 2, 2 * 2 * B2 * H * N * N * hd, BF16_FLOPS))
     del qkv, q, k, v, got, want, diff, qh, kh, vh, q32, k32, v32
 
@@ -891,20 +999,20 @@ def twin_case(kernel, plain, nudged) -> dict:
     return r
 
 
-def packed_pe_inputs(pts, k2: int = 256) -> dict:
+def packed_pe_inputs(pts, k2: int = 256, r1: float = 0.1) -> dict:
     """Every input of the packed PE's four layouts on one cloud batch, and
     the same one ulp up: the materialised grouping (K19, K20's channels,
-    K22 transposed) and the index grouping (K21)."""
+    K22 transposed) and the index grouping (K21), at radii r1 and 0.2."""
     import torch
 
     from unopose_tpu_torch.ops.ball_query import two_scale_group_first_k_packed, two_scale_group_first_k_packed_idx
 
     up = lambda xs: tuple(torch.nextafter(x, torch.full_like(x, float("inf"))) for x in xs)
     with torch.no_grad():
-        g2, w1, w2, total2, overflow = two_scale_group_first_k_packed(0.1, 64, 0.2, k2, pts)
-        planes, idx_p, _, _, _, _ = two_scale_group_first_k_packed_idx(0.1, 64, 0.2, k2, pts)
+        g2, w1, w2, total2, overflow = two_scale_group_first_k_packed(r1, 64, 0.2, k2, pts)
+        planes, idx_p, _, _, _, _ = two_scale_group_first_k_packed_idx(r1, 64, 0.2, k2, pts)
     center = tuple(pts.unbind(-1))
-    return dict(g2=g2, w1=w1, w2=w2, total2=total2, center=center, planes=planes, idx_p=idx_p,
+    return dict(r1=r1, g2=g2, w1=w1, w2=w2, total2=total2, center=center, planes=planes, idx_p=idx_p,
                 g2_up=up(g2), center_up=up(center), planes_up=up(planes), overflow=bool(overflow))
 
 
@@ -912,6 +1020,10 @@ PACKED_PE = ("pe_packed", "pe_mlp_pool_packed", "pe_gather_fused", "pe_packed_t"
 # the main path's cubes shrunk by this factor: at S2 512 a third to two thirds of their 64-point blocks hold a
 # point with over 256 hits, and no point has over 64 hits at r1 (the grouping's own budget)
 DENSE_SCALE = 0.55
+# at S2 768 (past one 512-slot window of K19, K21 and K22): the cubes shrunk by 0.48 put a point with over 384
+# hits in a third of the 64-point blocks (K19's full path) and every 128-point block on the 768-slot tier; at
+# that density r1 0.1 holds over 64 hits somewhere (the grouping overflows), r1 0.08 at most about 45
+DENSE_768_SCALE, R1_768 = 0.48, 0.08
 
 
 def cube_gate(name: str, r: dict) -> bool:
@@ -940,7 +1052,7 @@ def packed_pe_cases(d: dict, mlp1, mlp2, packed) -> dict:
 
     from unopose_tpu_torch.ops import pe_fused as pf
 
-    g2, w1, w2, t2, c = d["g2"], d["w1"], d["w2"], d["total2"], d["center"]
+    g2, w1, w2, t2, c, r1 = d["g2"], d["w1"], d["w2"], d["total2"], d["center"], d["r1"]
     B2, N, S2 = w1.shape
     if d["overflow"]:
         raise AssertionError(f"the packed grouping overflowed at S2 {S2}")
@@ -949,9 +1061,9 @@ def packed_pe_cases(d: dict, mlp1, mlp2, packed) -> dict:
     out = {}
 
     def k19(g2=g2, c=c):
-        return pf.pe_fused_packed_plain(g2, w1, w2, t2, c, mlp1, mlp2, 0.1, 0.2)
+        return pf.pe_fused_packed_plain(g2, w1, w2, t2, c, mlp1, mlp2, r1, 0.2)
 
-    out["pe_packed"] = twin_case(lambda: pf.pe_fused_packed_cuda(g2, w1, w2, t2, c, 0.1, 0.2, packed),
+    out["pe_packed"] = twin_case(lambda: pf.pe_fused_packed_cuda(g2, w1, w2, t2, c, r1, 0.2, packed),
                                  k19, lambda: k19(d["g2_up"], d["center_up"]))
     half = S2 // 2
     fast = (pf.block_max(t2, 64) <= half).view(B2, N // 64, 64)[..., 0].flatten()
@@ -962,8 +1074,8 @@ def packed_pe_cases(d: dict, mlp1, mlp2, packed) -> dict:
     out["pe_packed"].update(fast=fast.float().mean().item(),
                             **bound(slots * (3 * 4 + 2 * 2) + per_point, SLOT_FLOPS * rows, BF16_FLOPS))
 
-    chunks, w = pf.pe_channels_packed(g2, w1, w2, c, 0.1, 0.2)
-    chunks_up, _ = pf.pe_channels_packed(d["g2_up"], w1, w2, d["center_up"], 0.1, 0.2)
+    chunks, w = pf.pe_channels_packed(g2, w1, w2, c, r1, 0.2)
+    chunks_up, _ = pf.pe_channels_packed(d["g2_up"], w1, w2, d["center_up"], r1, 0.2)
     tiers = pf.chunk_tiers(t2, w)
     out["pe_mlp_pool_packed"] = twin_case(
         lambda: pf.pe_mlp_pool_packed_cuda(chunks, t2, packed),
@@ -977,16 +1089,16 @@ def packed_pe_cases(d: dict, mlp1, mlp2, packed) -> dict:
     planes, idx_p = d["planes"], d["idx_p"]
 
     def k21(planes=planes, c=c):
-        return pf.pe_fused_gather_t_plain(planes, idx_p, w1, w2, t2, c, mlp1, mlp2, 0.1, 0.2)
+        return pf.pe_fused_gather_t_plain(planes, idx_p, w1, w2, t2, c, mlp1, mlp2, r1, 0.2)
 
-    run21 = lambda: pf.pe_fused_gather_t_cuda(planes, idx_p, w1, w2, t2, c, 0.1, 0.2, packed)
+    run21 = lambda: pf.pe_fused_gather_t_cuda(planes, idx_p, w1, w2, t2, c, r1, 0.2, packed)
     out["pe_gather_fused"] = twin_case(run21, k21, lambda: k21(d["planes_up"], d["center_up"]))
     needed = pf.CHUNK * pf.chunks_needed(t2, S2).sum().item()
     out["pe_gather_fused"].update(**max(
         (bound(needed * (2 + 4) + B2 * N * 12 + per_point, SLOT_FLOPS * kept, BF16_FLOPS),
          bound(0.0, 160.0 * needed, F32_FLOPS)), key=lambda b: b["bound_ms"]))
     if S2 == 256:  # the PE-v5 kernels take S2 256 only
-        v5 = lambda: pf.pe_mlp_pool_cuda(pf.pe_channels_cuda(planes, idx_p, w1, w2, t2, c, 0.1, 0.2), w1, w2, t2,
+        v5 = lambda: pf.pe_mlp_pool_cuda(pf.pe_channels_cuda(planes, idx_p, w1, w2, t2, c, r1, 0.2), w1, w2, t2,
                                          packed)
         with torch.no_grad():
             bitwise = torch.equal(run21().view(torch.int32), v5().view(torch.int32))
@@ -997,9 +1109,9 @@ def packed_pe_cases(d: dict, mlp1, mlp2, packed) -> dict:
     gt_up = tuple(map(slot_major, d["g2_up"]))
 
     def k22(gt=gt, c=c):
-        return pf.pe_fused_packed_t_plain(gt, w1t, w2t, t2, c, mlp1, mlp2, 0.1, 0.2)
+        return pf.pe_fused_packed_t_plain(gt, w1t, w2t, t2, c, mlp1, mlp2, r1, 0.2)
 
-    out["pe_packed_t"] = twin_case(lambda: pf.pe_fused_packed_t_cuda(gt, w1t, w2t, t2, c, 0.1, 0.2, packed),
+    out["pe_packed_t"] = twin_case(lambda: pf.pe_fused_packed_t_cuda(gt, w1t, w2t, t2, c, r1, 0.2, packed),
                                    k22, lambda: k22(gt_up, d["center_up"]))
     out["pe_packed_t"].update(**bound(B2 * N * S2 * (3 * 4 + 2 * 2) + per_point, SLOT_FLOPS * kept, BF16_FLOPS))
     return out
@@ -1062,6 +1174,12 @@ def check_packed_kernels(log, dev, seed: int) -> dict:
     tiers512 = pf.slot_tiers(dense["total2"], 512)
     s512_full = dict(fast=fast512, tier512=(tiers512 == 512).float().mean().item())
     del dense
+    # all four at S2 768, past one window: K19's full blocks, K21's and K22's 768-slot tier, K20's 192-slot chunks
+    dense = packed_pe_inputs(clouds["uniform cube"] * DENSE_768_SCALE, 768, R1_768)
+    s768 = packed_pe_cases(dense, mlp1, mlp2, packed)
+    s768_full = dict(fast=(pf.block_max(dense["total2"], 64) <= 384).float().mean().item(),
+                     tier768=(pf.slot_tiers(dense["total2"], 768) == 768).float().mean().item())
+    del dense
     extra = {}
     for label, cloud, k2 in (("S2 512", clouds["uniform cube"], 512), ("N 1984", lrf_cloud(rng, dev, B2, 1984), 256)):
         d = packed_pe_inputs(cloud, k2)
@@ -1092,6 +1210,10 @@ def check_packed_kernels(log, dev, seed: int) -> dict:
         line(name, f"32x2048 S2 512 on cubes x{DENSE_SCALE}", r)
     log(f"S2 512 cubes x{DENSE_SCALE}: 64-point blocks on K19's fast path "
         f"{100 * s512_full['fast']:.1f}%, points on the 512-slot tier of K21/K22 {100 * s512_full['tier512']:.1f}%")
+    for name, r in s768.items():
+        line(name, f"32x2048 S2 768 on cubes x{DENSE_768_SCALE}, r1 {R1_768}", r)
+    log(f"S2 768 cubes x{DENSE_768_SCALE}: 64-point blocks on K19's fast path {100 * s768_full['fast']:.1f}%, "
+        f"points on the 768-slot tier of K21/K22 {100 * s768_full['tier768']:.1f}%")
     for label, r in extra.items():
         log(f"pe_packed 32 clouds at {label} (uniform cubes): {r['unequal']} of {r['entries']} outputs unequal "
             f"(plain vs itself one ulp up: {r['spread']}), max |diff| {r['err']:.3e}, overflow {r['overflow']}, "
@@ -1111,6 +1233,11 @@ def check_packed_kernels(log, dev, seed: int) -> dict:
     for name, r in s512.items():
         if not (r["finite"] and cube_gate(name, r)):
             failed.append(f"{name} at S2 512: beyond its gate, or not finite")
+    if s768_full["fast"] == 1.0 or s768_full["tier768"] == 0.0:
+        failed.append("the S2 768 cubes left K19's full path or the 768-slot tier unused")
+    for name, r in s768.items():
+        if not (r["finite"] and cube_gate(name, r)):
+            failed.append(f"{name} at S2 768: beyond its gate, or not finite")
     for label, r in extra.items():
         if r["overflow"] or not r["finite"] or r["unequal"] > 2 * r["spread"]:
             failed.append(f"pe_packed at {label}: overflow, not finite or beyond twice the twin's one-ulp spread")
@@ -1123,10 +1250,13 @@ def check_packed_kernels(log, dev, seed: int) -> dict:
                              spread=cube["spread"], surface_max_abs_err=surf["err"], surface_within_ulp=surf["within_ulp"],
                              surface_ms=surf["ms"], surface_plain_ms=surf["plain_ms"], surface_bound_ms=surf["bound_ms"],
                              s512_ms=s512[name]["ms"], s512_plain_ms=s512[name]["plain_ms"],
-                             s512_bound_ms=s512[name]["bound_ms"], s512_max_abs_err=s512[name]["err"])
+                             s512_bound_ms=s512[name]["bound_ms"], s512_max_abs_err=s512[name]["err"],
+                             s768_ms=s768[name]["ms"], s768_plain_ms=s768[name]["plain_ms"],
+                             s768_bound_ms=s768[name]["bound_ms"], s768_max_abs_err=s768[name]["err"],
+                             s768_unequal=s768[name]["unequal"], s768_spread=s768[name]["spread"])
     results["pe_gather_fused"].update(bitwise_v5=True, v5_ms=cases["pe_gather_fused"]["uniform cube"]["v5_ms"],
                                       surface_v5_ms=cases["pe_gather_fused"]["sphere surfaces"]["v5_ms"])
-    results["pe_packed"].update(s512_fast=s512_full["fast"], s512_cube_ms=extra["S2 512"]["ms"],
+    results["pe_packed"].update(s512_fast=s512_full["fast"], s768_fast=s768_full["fast"], s512_cube_ms=extra["S2 512"]["ms"],
                                 s512_cube_plain_ms=extra["S2 512"]["plain_ms"], n1984_ms=extra["N 1984"]["ms"],
                                 n1984_plain_ms=extra["N 1984"]["plain_ms"])
     results["first_k_select"] = dict(n1984_ms=k3[1984]["ms"], n2000_ms=k3[2000]["ms"])
@@ -2034,6 +2164,7 @@ def main() -> int:
         "subset": run_path(log, dev, args.seed, EARLY_BATCHES, "subset"),
         "firstk_unpacked": run_path(log, dev, args.seed, 1, "firstk_unpacked"),
         **{name: run_path(log, dev, args.seed, 1, name) for name in PE_PATHS},
+        "production_s768": run_path(log, dev, args.seed, 1, "production_s768"),
         "train": run_train(log, dev, args.seed, args.train_steps),
         "train_frozen": run_train(log, dev, args.seed, args.train_steps, frozen=True),
     }

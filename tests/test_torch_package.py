@@ -343,11 +343,43 @@ def test_unported_modes_are_refused():
 
 @pytest.mark.parametrize("config", ["slice", "fused_matchers", "production", "subset", "firstk_unpacked",
                                     "production_pe_packed", "production_pe_v3", "production_pe_v4",
-                                    "production_pe_slot_major"])
+                                    "production_pe_slot_major", "production_s768"])
 def test_profile_tool_fails_without_a_card(config):
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     r = subprocess.run([sys.executable, "-m", "unopose_tpu_torch.tools.profile_slice", "--config", config], cwd=ROOT,
                        env=env, capture_output=True, text=True, timeout=120)
+    assert r.returncode != 0 and "no CUDA device" in r.stderr
+
+
+@pytest.mark.parametrize("tiny", [False, True])
+def test_production_s768_config_is_production_at_nsample2_768(tiny):
+    """The config of ``chip_smoke.py``'s and the profile tool's
+    ``production_s768``: ``production_config()`` but for the scale-2
+    budget, which the fine PE's routing sends to row 10 (K19)."""
+    from unopose_tpu_torch.configs import production_config, production_s768_config
+
+    got, want = production_s768_config(tiny), production_config(tiny)
+    assert got.fine_point_matching.nsample2 == 768
+    got.fine_point_matching.nsample2 = want.fine_point_matching.nsample2
+    assert got == want
+
+
+def test_kernel_variants_tool_follows_the_shipped_sources():
+    """``tools/kernel_variants.py`` makes each variant by replacing text of
+    the shipped ``fps.cu`` and ``vit_attn.cu``: every replacement still finds
+    its text (it raises otherwise), each variant differs from the shipped
+    source, and the tool fails without a card."""
+    from unopose_tpu_torch.tools import kernel_variants
+
+    srcs = kernel_variants.sources(None)
+    assert set(srcs) == {"fps", "fps_t1024", "fps_t512", "fps_cluster2", "fps_cluster4", "vit_attn",
+                         "vit_attn_ieee_division", "vit_attn_padded_two_blocks", "vit_attn_runtime_steps"}
+    for name, (kernel, text) in srcs.items():
+        shipped = srcs["fps" if kernel == "K1" else "vit_attn"][1]
+        assert (text == shipped) == (name in ("fps", "vit_attn")), name
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    r = subprocess.run([sys.executable, "-m", "unopose_tpu_torch.tools.kernel_variants"], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=120)
     assert r.returncode != 0 and "no CUDA device" in r.stderr
 
 
@@ -431,9 +463,17 @@ def test_pe_train_kernels_match_plain(cuda):
 
 @pytest.mark.cuda
 def test_fps_kernel_matches_plain(cuda):
-    pts = _lrf_cloud(np.random.default_rng(0), 4, 5000, cuda)
+    """K1's indices equal to the plain loop's: the template's 5000 -> 2048 and
+    -> 196, the clouds' 2048 -> 196, an N that is not a multiple of the
+    1024-thread block, npoint = N, and the largest N the kernel takes
+    (``fps.MAX_N``, its coordinates read from shared memory)."""
+    rng = np.random.default_rng(0)
+    pts = _lrf_cloud(rng, 4, 5000, cuda)
     for k in (2048, 196):
         assert torch.equal(fps_mod.fps_cuda(pts, k), fps_mod.fps_plain(pts, k))
+    for B, N, k in ((4, 2048, 196), (3, 4097, 300), (2, 700, 700), (2, fps_mod.MAX_N, 128)):
+        pts = _lrf_cloud(rng, B, N, cuda)
+        assert torch.equal(fps_mod.fps_cuda(pts, k), fps_mod.fps_plain(pts, k)), (B, N, k)
 
 
 @pytest.mark.cuda
@@ -560,16 +600,26 @@ def test_subset_kernels_match_plain(cuda):
 
 @pytest.mark.cuda
 def test_mha_fused_kernel_matches_plain(cuda):
-    """bf16 at the ViT-B shape, read in place from the qkv output, and at the
-    tiny config's hd 16: at least 99% of outputs bitwise equal to the plain
-    twin and none more than one bf16 ulp of its row's largest output off
-    (float32 sums in another order); the float32 variant within 1e-5 of the
-    output's max. An N whose K and V exceed a block's shared memory raises
-    the launcher's error, and the card goes on working."""
+    """bf16 at the ViT-B shape, read in place from the qkv output, at the
+    tiny config's hd 16, at ragged N (a one-row last tile, the register
+    budget's 272 and past it, where the scores are recomputed per pass), at
+    every hd the kernel takes, and with q scaled by 40 (scores far below
+    their row's max: the division's exact path for tiny quotients): at
+    least 99% of outputs bitwise equal to the plain twin and none more than
+    one bf16 ulp of its row's largest output off (float32 sums in another
+    order); the float32 variant within 1e-5 of the output's max. An N whose
+    K and V exceed a block's shared memory raises the launcher's error, and
+    the card goes on working."""
     gen = torch.Generator(device=cuda).manual_seed(0)
-    for B, N, H, hd in ((32, 261, 12, 64), (4, 9, 2, 16)):
-        for dtype in (torch.bfloat16, torch.float32):
-            qkv = torch.randn(B, N, 3 * H * hd, device=cuda, generator=gen).to(dtype)
+    both = (torch.bfloat16, torch.float32)
+    cases = [(32, 261, 12, 64, both, 1.0), (4, 9, 2, 16, both, 1.0), (4, 261, 12, 64, (torch.bfloat16,), 40.0)]
+    cases += [(4, N, 12, 64, both, 1.0) for N in (1, 17, 257, 261, 272, 273, 289)]
+    cases += [(4, 261, 4, hd, (torch.bfloat16,), 1.0) for hd in range(16, 129, 16)]
+    for B, N, H, hd, dtypes, q_scale in cases:
+        for dtype in dtypes:
+            qkv = torch.randn(B, N, 3 * H * hd, device=cuda, generator=gen)
+            qkv[..., : H * hd] *= q_scale
+            qkv = qkv.to(dtype)
             q, k, v = qkv.split(H * hd, dim=-1)
             got, want = vit_attn.mha_fused_cuda(q, k, v, H).float(), vit_attn.mha_fused_plain(q, k, v, H).float()
             if dtype == torch.float32:
@@ -724,7 +774,7 @@ def test_first_k_select_at_any_n_divisible_by_4(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("cloud", ["cubes", "surfaces", "dense_s2_512"])
+@pytest.mark.parametrize("cloud", ["cubes", "surfaces", "dense_s2_512", "dense_s2_768"])
 def test_packed_pe_kernels_match_plain(cuda, cloud):
     """K19-K22 against their plain twins at B 4, N 2048: at S2 256 on the
     uniform cubes at most twice as many unequal outputs as the twin shows
@@ -734,19 +784,23 @@ def test_packed_pe_kernels_match_plain(cuda, cloud):
     more than two ulps of the largest output off; K21 bitwise equal to K5
     followed by K6. At S2 512 on the cubes shrunk by 0.55, the cubes' gates:
     there a point of a 64-point block has over 256 hits, so K19 takes its
-    full path, and K21 and K22 their 512-slot tier."""
-    k2 = 512 if cloud == "dense_s2_512" else 256
+    full path, and K21 and K22 their 512-slot tier. At S2 768 (past one
+    512-slot window) on the cubes shrunk by 0.48 with r1 0.08 (at r1 0.1
+    that density overflows the grouping's 64 scale-1 slots), the same: K19's
+    full blocks, K21's and K22's 768-slot tier, K20's 192-slot chunks."""
+    k2 = {"dense_s2_512": 512, "dense_s2_768": 768}.get(cloud, 256)
+    r1 = 0.08 if k2 == 768 else 0.1
     if cloud == "surfaces":
         perm, _ = ball_query.permutation(2048, "cpu")
         pts = torch.from_numpy(surface_clouds(np.random.default_rng(8), 4, perm.numpy())).to(cuda)
     else:
-        pts = _lrf_cloud(np.random.default_rng(8), 4, 2048, cuda) * (0.55 if k2 == 512 else 1.0)
+        pts = _lrf_cloud(np.random.default_rng(8), 4, 2048, cuda) * {512: 0.55, 768: 0.48}.get(k2, 1.0)
     up = lambda xs: tuple(torch.nextafter(x, torch.full_like(x, float("inf"))) for x in xs)
-    g2, w1, w2, t2, overflow = ball_query.two_scale_group_first_k_packed(0.1, 64, 0.2, k2, pts)
-    planes, idx, _, _, _, _ = ball_query.two_scale_group_first_k_packed_idx(0.1, 64, 0.2, k2, pts)
+    g2, w1, w2, t2, overflow = ball_query.two_scale_group_first_k_packed(r1, 64, 0.2, k2, pts)
+    planes, idx, _, _, _, _ = ball_query.two_scale_group_first_k_packed_idx(r1, 64, 0.2, k2, pts)
     assert not bool(overflow)
-    if k2 == 512:
-        assert (pe_fused.block_max(t2, 64) > 256).any() and (pe_fused.slot_tiers(t2, 512) == 512).any()
+    if k2 > 256:
+        assert (pe_fused.block_max(t2, 64) > k2 // 2).any() and (pe_fused.slot_tiers(t2, k2) == k2).any()
     c = tuple(pts.unbind(-1))
     gen = torch.Generator(device=cuda).manual_seed(9)
     mlp = [([torch.randn(6, 32, device=cuda, generator=gen) * 0.3, torch.randn(32, 64, device=cuda, generator=gen) * 0.3,
@@ -754,15 +808,15 @@ def test_packed_pe_kernels_match_plain(cuda, cloud):
             [torch.randn(d, device=cuda, generator=gen) * 0.1 for d in (32, 64, 128)]) for _ in range(2)]
     packed = pe_fused.pack_mlp(*mlp)
     sm = lambda x: x.transpose(1, 2).contiguous()
-    ch, _ = pe_fused.pe_channels_packed(g2, w1, w2, c, 0.1, 0.2)
+    ch, _ = pe_fused.pe_channels_packed(g2, w1, w2, c, r1, 0.2)
     cases = {
-        "K19": (lambda g, cc: pe_fused.pe_fused_packed_plain(g, w1, w2, t2, cc, *mlp, 0.1, 0.2),
-                pe_fused.pe_fused_packed_cuda(g2, w1, w2, t2, c, 0.1, 0.2, packed), (g2, c)),
-        "K21": (lambda p, cc: pe_fused.pe_fused_gather_t_plain(p, idx, w1, w2, t2, cc, *mlp, 0.1, 0.2),
-                pe_fused.pe_fused_gather_t_cuda(planes, idx, w1, w2, t2, c, 0.1, 0.2, packed), (planes, c)),
-        "K22": (lambda g, cc: pe_fused.pe_fused_packed_t_plain(tuple(map(sm, g)), sm(w1), sm(w2), t2, cc, *mlp, 0.1,
+        "K19": (lambda g, cc: pe_fused.pe_fused_packed_plain(g, w1, w2, t2, cc, *mlp, r1, 0.2),
+                pe_fused.pe_fused_packed_cuda(g2, w1, w2, t2, c, r1, 0.2, packed), (g2, c)),
+        "K21": (lambda p, cc: pe_fused.pe_fused_gather_t_plain(p, idx, w1, w2, t2, cc, *mlp, r1, 0.2),
+                pe_fused.pe_fused_gather_t_cuda(planes, idx, w1, w2, t2, c, r1, 0.2, packed), (planes, c)),
+        "K22": (lambda g, cc: pe_fused.pe_fused_packed_t_plain(tuple(map(sm, g)), sm(w1), sm(w2), t2, cc, *mlp, r1,
                                                                0.2),
-                pe_fused.pe_fused_packed_t_cuda(tuple(map(sm, g2)), sm(w1), sm(w2), t2, c, 0.1, 0.2, packed), (g2, c)),
+                pe_fused.pe_fused_packed_t_cuda(tuple(map(sm, g2)), sm(w1), sm(w2), t2, c, r1, 0.2, packed), (g2, c)),
         "K20": (lambda chunks, _: pe_fused.pe_mlp_pool_packed_plain(chunks, t2, *mlp),
                 pe_fused.pe_mlp_pool_packed_cuda(ch, t2, packed), (ch, None)),
     }
@@ -780,7 +834,7 @@ def test_packed_pe_kernels_match_plain(cuda, cloud):
         else:
             assert (got != want).sum() <= 2 * (plain(up(a), up(b)) != want).sum(), name
     if k2 == 256:
-        v5 = pe_fused.pe_mlp_pool_cuda(pe_fused.pe_channels_cuda(planes, idx, w1, w2, t2, c, 0.1, 0.2), w1, w2, t2,
+        v5 = pe_fused.pe_mlp_pool_cuda(pe_fused.pe_channels_cuda(planes, idx, w1, w2, t2, c, r1, 0.2), w1, w2, t2,
                                        packed)
         assert torch.equal(cases["K21"][1].view(torch.int32), v5.view(torch.int32))
     assert torch.ones(4, device=cuda).sum().item() == 4.0

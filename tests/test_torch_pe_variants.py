@@ -61,15 +61,28 @@ def cloud(n: int) -> np.ndarray:
     return np.concatenate([pts, pts[:, : n - pts.shape[1]] + np.float32(0.3)], axis=1)
 
 
-def dense_cloud() -> np.ndarray:
-    """448 points in a 0.408 cube, and 64 in a flat 0.3 x 0.16 x 0.06 box
-    2 away: at S2 512 each of the cube's seven 64-point blocks holds a point
-    with over 256 hits at R2 (row 10's full path; rows 11 and 12's 512-slot
-    tier), the box's block none (row 10's fast path), and no point has over
-    60 hits at R1."""
-    rng = np.random.default_rng(2)
-    pts = rng.uniform(-0.204, 0.204, size=(1, 512, 3))
-    pts[:, 448:] = rng.uniform(-1.0, 1.0, size=(1, 64, 3)) * np.array([0.15, 0.08, 0.03]) + 2.0
+def dense_cloud(n: int = 512) -> np.ndarray:
+    """n - 64 points in a dense cube, and 64 in a flat 0.3 x 0.16 x 0.06 box
+    2 away, whose 64-point block has few hits (row 10's fast path).
+
+    n 512: 448 points uniform in a 0.408 cube: at S2 512 each of the cube's
+    seven 64-point blocks holds a point with over 256 hits at R2 (row 10's
+    full path; rows 11 and 12's 512-slot tier), and no point has over 60
+    hits at R1. n 768: 704 points of a 9 x 9 x 9 lattice of step 0.052,
+    jittered by a tenth of a step and shuffled: a uniform cloud dense enough
+    for over 384 hits at R2 holds over 64 at R1 somewhere (the grouping's
+    overflow), a lattice does not. At S2 768 eight of its eleven blocks hold
+    a point with over 384 hits (row 10's full path, past one 512-slot window
+    on the card), three do not, every 128-point block holds one with over 128
+    (rows 11 and 12's 768-slot tier), and no point has over 57 hits at R1."""
+    rng = np.random.default_rng(2 if n == 512 else 3)
+    if n == 512:
+        pts = rng.uniform(-0.204, 0.204, size=(1, 512, 3))
+    else:
+        grid = np.stack(np.meshgrid(*[np.arange(9)] * 3, indexing="ij"), -1).reshape(-1, 3)[: n - 64] * 0.052
+        grid = grid - grid.mean(0) + rng.uniform(-0.1, 0.1, size=grid.shape) * 0.052
+        pts = np.concatenate([grid[rng.permutation(n - 64)], np.zeros((64, 3))])[None]
+    pts[:, n - 64:] = rng.uniform(-1.0, 1.0, size=(1, 64, 3)) * np.array([0.15, 0.08, 0.03]) + 2.0
     return pts.astype(np.float32)
 
 
@@ -88,8 +101,8 @@ def tmlps():
 @functools.lru_cache(maxsize=None)
 def grouping(n: int, k2: int, dense: bool = False):
     """JAX's packed grouping (materialised and index) of ``cloud(n)`` (with
-    ``dense``, of ``dense_cloud()``), the centres, and the port's copies."""
-    pts = dense_cloud() if dense else cloud(n)
+    ``dense``, of ``dense_cloud(n)``), the centres, and the port's copies."""
+    pts = dense_cloud(n) if dense else cloud(n)
     g2, w1, w2, t2, ov = jbq.two_scale_group_first_k_packed(R1, 64, R2, k2, jnp.asarray(pts))
     planes, idx, iw1, iw2, it2, iov = jbq.two_scale_group_first_k_packed_idx(R1, 64, R2, k2, jnp.asarray(pts))
     assert not bool(ov) and not bool(iov)
@@ -210,15 +223,27 @@ def test_pe_fused_packed_t_plain_matches_jax():
 
 
 def test_packed_pe_twins_refuse_larger_budgets():
-    """S2 past 512 (or not a multiple of 256) raises, with no fallback."""
+    """An S2 past the cloud's N (768 slots on 512 points) or not a multiple
+    of 256 (384) raises in each of the four twins, with no fallback; JAX's
+    gates admit neither (``tests/test_torch_pe_s768.py`` runs S2 768 on 768
+    points)."""
     _, p = grouping(512, 256)
-    wide = lambda x: torch.cat([x, x, x], dim=-1)  # S2 768
-    with pytest.raises(ValueError):
-        tpf.pe_fused_packed_plain(tuple(map(wide, p["g2"])), wide(p["w1"]), wide(p["w2"]), p["total2"],
-                                  p["center"], *tmlps(), R1, R2)
-    with pytest.raises(ValueError):
-        tpf.pe_fused_gather_t(p["planes"], wide(p["idx"]), wide(p["w1"]), wide(p["w2"]), p["total2"], p["center"],
-                              *tmlps()[0], *tmlps()[1], R1, R2, None)
+    sm = lambda x: x.transpose(1, 2).contiguous()
+    for width in (768, 384):
+        wide = lambda x: torch.cat([x, x, x], dim=-1)[..., :width]
+        g2, w1, w2 = tuple(map(wide, p["g2"])), wide(p["w1"]), wide(p["w2"])
+        chunks, _ = tpf.pe_channels_packed(g2, w1, w2, p["center"], R1, R2)
+        calls = (
+            lambda: tpf.pe_fused_packed_plain(g2, w1, w2, p["total2"], p["center"], *tmlps(), R1, R2),
+            lambda: tpf.pe_mlp_pool_packed_plain(chunks, p["total2"], *tmlps()),
+            lambda: tpf.pe_fused_gather_t(p["planes"], wide(p["idx"]), w1, w2, p["total2"], p["center"],
+                                          *tmlps()[0], *tmlps()[1], R1, R2, None),
+            lambda: tpf.pe_fused_packed_t_plain(tuple(map(sm, g2)), sm(w1), sm(w2), p["total2"], p["center"],
+                                                *tmlps(), R1, R2),
+        )
+        for call in calls:
+            with pytest.raises(ValueError):
+                call()
 
 
 # ------------------------------------------------------------------ the routing
@@ -256,13 +281,14 @@ def jax_branch(pts: np.ndarray, k2: int) -> str:
 
 
 ROUTES = [(n, k2, sw) for n in (512, 576, 272) for k2 in (256, 512) if k2 <= n for sw in SWITCHES]
+ROUTES += [(768, 768, sw) for sw in SWITCHES]  # nsample2 768: JAX's gates admit any multiple of 256 up to N
 
 
 @pytest.mark.parametrize("n, k2, switch", ROUTES)
 def test_fine_pe_routing_follows_jax(n, k2, switch, monkeypatch):
     """``FinePositionalEncoding(fused=True)`` takes JAX's branch for every
     cloud size (N % 128 == 0, N % 128 == 64, N % 64 != 0), scale-2 budget
-    and switch, and its features are finite."""
+    (256, 512, and 768 at N 768) and switch, and its features are finite."""
     for name in ALL_SWITCHES:
         monkeypatch.delenv(name, raising=False)
     for name, value in SWITCHES[switch].items():

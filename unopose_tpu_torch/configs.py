@@ -148,6 +148,16 @@ def firstk_unpacked_config(tiny: bool = False) -> Config:
     return cfg
 
 
+def production_s768_config(tiny: bool = False) -> Config:
+    """``production_config(tiny)`` with ``fine_point_matching.nsample2=768``:
+    a scale-2 budget the JAX package's gates admit (a multiple of 256 up to
+    N) and PE-v5 does not take, so the fine PE runs the point-major packed
+    layout (``pe_packed``), past one 512-slot window on its full blocks."""
+    cfg = production_config(tiny)
+    cfg.fine_point_matching.nsample2 = 768
+    return cfg
+
+
 # configs/main_cfg.py's schedule length: 3 epochs of the 2,008,971 training images at 8 per rank on 4 ranks
 TRAIN_BATCH = 8
 MAX_ITER = (2008971 // (TRAIN_BATCH * 4)) * 3

@@ -174,7 +174,19 @@ def check(err: int, name: str) -> None:
 
 
 def stream_of(t) -> int:
-    """The current CUDA stream of ``t``'s device, as an integer handle."""
+    """The current CUDA stream of ``t``'s device, as an integer handle (the
+    raw query: ``torch.cuda.current_stream`` builds a Stream object, a few
+    microseconds a launch)."""
     import torch
 
-    return torch.cuda.current_stream(t.device).cuda_stream
+    return torch._C._cuda_getCurrentRawStream(t.device.index)
+
+
+def on_device(dev):
+    """``torch.cuda.device(dev)``, or nothing when ``dev`` is already the
+    current device (the common case, which then costs no device switch)."""
+    import contextlib
+
+    import torch
+
+    return contextlib.nullcontext() if dev.index == torch.cuda.current_device() else torch.cuda.device(dev)

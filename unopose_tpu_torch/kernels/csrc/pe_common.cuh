@@ -8,8 +8,13 @@
 // them: K5's channels (point_channels), K6's pool (point_pool) and K16's
 // staged scale (staged_pool). A lane holds slots lane, lane + 32, ...: the
 // per-lane slot count is a template parameter, kPerLane (256 slots) for
-// K5, K6 and K16, up to kPerLaneMax (512 slots) for K19, K21 and K22. Each
-// kernel's source says how it uses them.
+// K5, K6 and K16, up to kPerLaneMax (a window of 512 slots) for K19, K21
+// and K22. Those three take up to kMaxSlotsPacked slots: past one window a
+// point's slots are walked window by window (windowed_frame, the windowed
+// branches of the kernels), each lane's LRF sums carried across windows in
+// the slot order one wider array would take and the pooled max carried
+// across them (a max is exact in any order), so that one window is the
+// single-array code bit for bit. Each kernel's source says how it uses them.
 
 #pragma once
 
@@ -21,8 +26,9 @@ namespace {
 
 constexpr int kMaxSlots = 256;  // K5, K6, K16
 constexpr int kPerLane = kMaxSlots / 32;
-constexpr int kMaxSlotsPacked = 512;  // K19-K22: the JAX gates admit nsample2 512
-constexpr int kPerLaneMax = kMaxSlotsPacked / 32;
+constexpr int kMaxSlotsPacked = 4096;  // K19-K22: the JAX gates admit nsample2 % 256 == 0 up to N <= 4096
+constexpr int kWindow = 512;           // slots a warp holds in registers (and stages) at once in K19, K21, K22
+constexpr int kPerLaneMax = kWindow / 32;
 constexpr int kLd0 = 16 + 8;  // row strides of the transposed weights, in bf16
 constexpr int kLd1 = 32 + 8;
 constexpr int kLd2 = 64 + 8;
@@ -98,72 +104,157 @@ __device__ void smallest_eigvec(float a, float b, float c, float d, float e, flo
   v2 = ok ? x2 * inv : 1.0f;
 }
 
-// the LRF coordinates of one scale (ops/lrf.py:batch_lrf_planar with weights m)
-template <int PL>
-__device__ __forceinline__ void masked_lrf(const float (&rx)[PL], const float (&ry)[PL], const float (&rz)[PL],
-                                           const float (&m)[PL], int nu, float r_lrf, float inv_r, float (&o0)[PL],
-                                           float (&o1)[PL], float (&o2)[PL]) {
+// The weighted LRF of one scale (ops/lrf.py:batch_lrf_planar with weights
+// m), in the steps a windowed walk over a point's slots repeats: each
+// lane's sums over its slots u < nu in u order, then across the warp.
+struct LrfMoments {
   float cnt = 0.0f, sa = 0.0f, sb = 0.0f, sc = 0.0f, sd = 0.0f, se = 0.0f, sf = 0.0f;
+};
+
+struct Frame {
+  float x0, x1, x2, y0, y1, y2, z0, z1, z2;
+};
+
+template <int PL>
+__device__ __forceinline__ void lrf_moments(const float (&rx)[PL], const float (&ry)[PL], const float (&rz)[PL],
+                                            const float (&m)[PL], int nu, LrfMoments& s) {
 #pragma unroll
   for (int u = 0; u < PL; ++u) {
     if (u < nu) {
-      cnt += m[u];
-      sa += (rx[u] * rx[u]) * m[u];
-      sb += (rx[u] * ry[u]) * m[u];
-      sc += (rx[u] * rz[u]) * m[u];
-      sd += (ry[u] * ry[u]) * m[u];
-      se += (ry[u] * rz[u]) * m[u];
-      sf += (rz[u] * rz[u]) * m[u];
+      s.cnt += m[u];
+      s.sa += (rx[u] * rx[u]) * m[u];
+      s.sb += (rx[u] * ry[u]) * m[u];
+      s.sc += (rx[u] * rz[u]) * m[u];
+      s.sd += (ry[u] * ry[u]) * m[u];
+      s.se += (ry[u] * rz[u]) * m[u];
+      s.sf += (rz[u] * rz[u]) * m[u];
     }
   }
-  cnt = fmaxf(warp_sum(cnt), 1.0f);
-  float z0, z1, z2;
-  smallest_eigvec(warp_sum(sa) / cnt, warp_sum(sb) / cnt, warp_sum(sc) / cnt, warp_sum(sd) / cnt,
-                  warp_sum(se) / cnt, warp_sum(sf) / cnt, z0, z1, z2);
+}
 
-  float pos = 0.0f, neg = 0.0f;
+// the frame's normal, its sign not yet fixed: the smallest eigenvector of the weighted moments
+__device__ __forceinline__ void lrf_normal(const LrfMoments& s, Frame& f) {
+  const float cnt = fmaxf(warp_sum(s.cnt), 1.0f);
+  smallest_eigvec(warp_sum(s.sa) / cnt, warp_sum(s.sb) / cnt, warp_sum(s.sc) / cnt, warp_sum(s.sd) / cnt,
+                  warp_sum(s.se) / cnt, warp_sum(s.sf) / cnt, f.z0, f.z1, f.z2);
+}
+
+template <int PL>
+__device__ __forceinline__ void lrf_votes(const Frame& f, const float (&rx)[PL], const float (&ry)[PL],
+                                          const float (&rz)[PL], const float (&m)[PL], int nu, float& pos,
+                                          float& neg) {
 #pragma unroll
   for (int u = 0; u < PL; ++u) {
     if (u < nu) {
-      const float cp = -((z0 * rx[u] + z1 * ry[u]) + z2 * rz[u]);
+      const float cp = -((f.z0 * rx[u] + f.z1 * ry[u]) + f.z2 * rz[u]);
       pos += (cp > static_cast<float>(1e-3) ? 1.0f : 0.0f) * m[u];
       neg += (cp < static_cast<float>(-1e-3) ? 1.0f : 0.0f) * m[u];
     }
   }
-  const float sgn = warp_sum(pos) - warp_sum(neg) < 0.0f ? -1.0f : 1.0f;
-  z0 *= sgn;
-  z1 *= sgn;
-  z2 *= sgn;
+}
 
-  float vx = 0.0f, vy = 0.0f, vz = 0.0f;
+__device__ __forceinline__ void lrf_orient(float pos, float neg, Frame& f) {
+  const float sgn = warp_sum(pos) - warp_sum(neg) < 0.0f ? -1.0f : 1.0f;
+  f.z0 *= sgn;
+  f.z1 *= sgn;
+  f.z2 *= sgn;
+}
+
+template <int PL>
+__device__ __forceinline__ void lrf_tangent(const Frame& f, const float (&rx)[PL], const float (&ry)[PL],
+                                            const float (&rz)[PL], const float (&m)[PL], int nu, float r_lrf,
+                                            float& vx, float& vy, float& vz) {
 #pragma unroll
   for (int u = 0; u < PL; ++u) {
     if (u < nu) {
-      const float norm = (z0 * rx[u] + z1 * ry[u]) + z2 * rz[u];
+      const float norm = (f.z0 * rx[u] + f.z1 * ry[u]) + f.z2 * rz[u];
       const float x_l2 = sqrtf((rx[u] * rx[u] + ry[u] * ry[u]) + rz[u] * rz[u]);
       const float dl = r_lrf - x_l2;
       const float w = (dl * dl) * (norm * norm);
-      vx += (w * (rx[u] - norm * z0)) * m[u];
-      vy += (w * (ry[u] - norm * z1)) * m[u];
-      vz += (w * (rz[u] - norm * z2)) * m[u];
+      vx += (w * (rx[u] - norm * f.z0)) * m[u];
+      vy += (w * (ry[u] - norm * f.z1)) * m[u];
+      vz += (w * (rz[u] - norm * f.z2)) * m[u];
     }
   }
+}
+
+__device__ __forceinline__ void lrf_axes(float vx, float vy, float vz, Frame& f) {
   vx = warp_sum(vx);
   vy = warp_sum(vy);
   vz = warp_sum(vz);
   const float vn = sqrtf((vx * vx + vy * vy) + vz * vz) + static_cast<float>(1e-10);
-  const float x0 = vx / vn, x1 = vy / vn, x2 = vz / vn;
-  const float y0 = x1 * z2 - x2 * z1;
-  const float y1 = x2 * z0 - x0 * z2;
-  const float y2 = x0 * z1 - x1 * z0;
+  f.x0 = vx / vn;
+  f.x1 = vy / vn;
+  f.x2 = vz / vn;
+  f.y0 = f.x1 * f.z2 - f.x2 * f.z1;
+  f.y1 = f.x2 * f.z0 - f.x0 * f.z2;
+  f.y2 = f.x0 * f.z1 - f.x1 * f.z0;
+}
+
+template <int PL>
+__device__ __forceinline__ void lrf_coords(const Frame& f, const float (&rx)[PL], const float (&ry)[PL],
+                                           const float (&rz)[PL], int nu, float inv_r, float (&o0)[PL],
+                                           float (&o1)[PL], float (&o2)[PL]) {
 #pragma unroll
   for (int u = 0; u < PL; ++u) {
     if (u < nu) {
-      o0[u] = ((x0 * rx[u] + x1 * ry[u]) + x2 * rz[u]) * inv_r;
-      o1[u] = ((y0 * rx[u] + y1 * ry[u]) + y2 * rz[u]) * inv_r;
-      o2[u] = ((z0 * rx[u] + z1 * ry[u]) + z2 * rz[u]) * inv_r;
+      o0[u] = ((f.x0 * rx[u] + f.x1 * ry[u]) + f.x2 * rz[u]) * inv_r;
+      o1[u] = ((f.y0 * rx[u] + f.y1 * ry[u]) + f.y2 * rz[u]) * inv_r;
+      o2[u] = ((f.z0 * rx[u] + f.z1 * ry[u]) + f.z2 * rz[u]) * inv_r;
     }
   }
+}
+
+// the LRF coordinates of one scale over the slots a lane holds
+template <int PL>
+__device__ __forceinline__ void masked_lrf(const float (&rx)[PL], const float (&ry)[PL], const float (&rz)[PL],
+                                           const float (&m)[PL], int nu, float r_lrf, float inv_r, float (&o0)[PL],
+                                           float (&o1)[PL], float (&o2)[PL]) {
+  LrfMoments s;
+  lrf_moments(rx, ry, rz, m, nu, s);
+  Frame f;
+  lrf_normal(s, f);
+  float pos = 0.0f, neg = 0.0f;
+  lrf_votes(f, rx, ry, rz, m, nu, pos, neg);
+  lrf_orient(pos, neg, f);
+  float vx = 0.0f, vy = 0.0f, vz = 0.0f;
+  lrf_tangent(f, rx, ry, rz, m, nu, r_lrf, vx, vy, vz);
+  lrf_axes(vx, vy, vz, f);
+  lrf_coords(f, rx, ry, rz, nu, inv_r, o0, o1, o2);
+}
+
+// The frame of one scale over a lane's nu slots, more than one window
+// holds: load(w, rx, ry, rz, m) fills window w, a lane's slots
+// (w * PL + u) * 32 + lane for u < nu - w * PL (the rest zero). Each pass
+// walks the windows in order, so that every sum takes the per-lane order of
+// one array of nu slots; the windows are loaded once per pass.
+template <int PL, class Load>
+__device__ Frame windowed_frame(Load&& load, int nu, float r_lrf) {
+  float rx[PL], ry[PL], rz[PL], m[PL];
+  const int nwin = (nu + PL - 1) / PL;
+  LrfMoments s;
+#pragma unroll 1
+  for (int w = 0; w < nwin; ++w) {
+    load(w, rx, ry, rz, m);
+    lrf_moments(rx, ry, rz, m, min(PL, nu - w * PL), s);
+  }
+  Frame f;
+  lrf_normal(s, f);
+  float pos = 0.0f, neg = 0.0f;
+#pragma unroll 1
+  for (int w = 0; w < nwin; ++w) {
+    load(w, rx, ry, rz, m);
+    lrf_votes(f, rx, ry, rz, m, min(PL, nu - w * PL), pos, neg);
+  }
+  lrf_orient(pos, neg, f);
+  float vx = 0.0f, vy = 0.0f, vz = 0.0f;
+#pragma unroll 1
+  for (int w = 0; w < nwin; ++w) {
+    load(w, rx, ry, rz, m);
+    lrf_tangent(f, rx, ry, rz, m, min(PL, nu - w * PL), r_lrf, vx, vy, vz);
+  }
+  lrf_axes(vx, vy, vz, f);
+  return f;
 }
 
 __device__ __forceinline__ uint32_t pack2(float lo, float hi) {
@@ -255,8 +346,9 @@ __device__ __forceinline__ void mlp_tile(const uint32_t (&a1)[4], const __nv_bfl
   }
 }
 
-// The running max reduced across the 8 row groups and stored: out[0..127].
-__device__ __forceinline__ void store_max(float (&mx)[16][2], float* out) {
+// The running max reduced across the 8 row groups and stored: out[0..127];
+// with acc, the max of it and what out holds (a later window of the point).
+__device__ __forceinline__ void store_max(float (&mx)[16][2], float* out, bool acc = false) {
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2;
   const int t = lane & 3;
@@ -271,7 +363,8 @@ __device__ __forceinline__ void store_max(float (&mx)[16][2], float* out) {
       mx[nt][j] = v;
     }
     if (g == 0) {
-      *reinterpret_cast<float2*>(out + nt * 8 + 2 * t) = make_float2(mx[nt][0], mx[nt][1]);
+      float2* o = reinterpret_cast<float2*>(out + nt * 8 + 2 * t);
+      *o = acc ? make_float2(fmaxf(mx[nt][0], o->x), fmaxf(mx[nt][1], o->y)) : make_float2(mx[nt][0], mx[nt][1]);
     }
   }
 }
@@ -320,11 +413,12 @@ __device__ __forceinline__ void point_channels(const float* s_planes, int n, con
 // K6's work on one point (pe_mlp_pool.cu): both scales' MLP over the
 // first 16 * tiles slots of its 12-channel rows ch (as point_channels
 // writes them), each scale's max over the slots whose weight (wm1 / wm2,
-// the point's row) is > 0, stored to out[0..255]. s_w / s_b: both scales'
-// pack_mlp weights and biases.
+// the point's row) is > 0, stored to out[0..255] (with acc, maxed into it).
+// s_w / s_b: both scales' pack_mlp weights and biases.
 __device__ __forceinline__ void point_pool(const __nv_bfloat16* ch, const __nv_bfloat16* __restrict__ wm1,
                                            const __nv_bfloat16* __restrict__ wm2, int tiles,
-                                           const __nv_bfloat16* s_w, const float* s_b, float* __restrict__ out) {
+                                           const __nv_bfloat16* s_w, const float* s_b, float* __restrict__ out,
+                                           bool acc = false) {
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2;  // row group of the mma fragments
   const int t = lane & 3;   // thread in group
@@ -346,7 +440,65 @@ __device__ __forceinline__ void point_pool(const __nv_bfloat16* ch, const __nv_b
       mlp_tile(a1, s_w + sc * kWScale, s_b + sc * kBScale, __bfloat162float(wm[r0]) > 0.0f,
                __bfloat162float(wm[r1]) > 0.0f, mx);
     }
-    store_max(mx, out + sc * 128);
+    store_max(mx, out + sc * 128, acc);
+  }
+}
+
+// K21's work on one point whose tier exceeds a window (pe_gather_fused.cu):
+// both scales' frames over the lane's nu slots (windowed_frame on the slots
+// gathered as point_channels gathers them), then window by window the 12
+// channels of the window's slots into the warp's buffer (point_channels'
+// layout) and point_pool on them, each scale's max carried in out.
+template <int PL>
+__device__ void point_channels_pool_windowed(const float* s_planes, int n, const int16_t* __restrict__ idx,
+                                             const __nv_bfloat16* __restrict__ w1,
+                                             const __nv_bfloat16* __restrict__ w2, int nu, float px, float py,
+                                             float pz, float r1, float r2, float inv_r1, float inv_r2,
+                                             __nv_bfloat16* stage, const __nv_bfloat16* s_w, const float* s_b,
+                                             float* __restrict__ out) {
+  const int lane = threadIdx.x & 31;
+  auto gather = [&](int w, float (&rx)[PL], float (&ry)[PL], float (&rz)[PL]) {
+#pragma unroll
+    for (int u = 0; u < PL; ++u) {
+      rx[u] = ry[u] = rz[u] = 0.0f;
+      if (w * PL + u < nu) {
+        int q = idx[(w * PL + u) * 32 + lane];
+        q = q < 0 ? 0 : (q >= n ? n - 1 : q);
+        rx[u] = s_planes[q] - px;
+        ry[u] = s_planes[n + q] - py;
+        rz[u] = s_planes[2 * n + q] - pz;
+      }
+    }
+  };
+  auto load = [&](const __nv_bfloat16* __restrict__ wm, int w, float (&rx)[PL], float (&ry)[PL], float (&rz)[PL],
+                  float (&m)[PL]) {
+    gather(w, rx, ry, rz);
+#pragma unroll
+    for (int u = 0; u < PL; ++u) m[u] = w * PL + u < nu ? __bfloat162float(wm[(w * PL + u) * 32 + lane]) : 0.0f;
+  };
+  const Frame f1 = windowed_frame<PL>([&](int w, auto& rx, auto& ry, auto& rz, auto& m) { load(w1, w, rx, ry, rz, m); },
+                                      nu, r1);
+  const Frame f2 = windowed_frame<PL>([&](int w, auto& rx, auto& ry, auto& rz, auto& m) { load(w2, w, rx, ry, rz, m); },
+                                      nu, r2);
+  float rx[PL], ry[PL], rz[PL], a0[PL], a1[PL], a2[PL], c0[PL], c1[PL], c2[PL];
+#pragma unroll 1
+  for (int w = 0; w * PL < nu; ++w) {
+    const int nw = min(PL, nu - w * PL);
+    gather(w, rx, ry, rz);
+    lrf_coords(f1, rx, ry, rz, nw, inv_r1, a0, a1, a2);
+    lrf_coords(f2, rx, ry, rz, nw, inv_r2, c0, c1, c2);
+#pragma unroll
+    for (int u = 0; u < PL; ++u) {
+      if (u < nw) {
+        uint2* o = reinterpret_cast<uint2*>(stage + (u * 32 + lane) * 12);
+        o[0] = make_uint2(pack2(rx[u], ry[u]), pack2(rz[u], a0[u]));
+        o[1] = make_uint2(pack2(a1[u], a2[u]), pack2(rx[u], ry[u]));
+        o[2] = make_uint2(pack2(rz[u], c0[u]), pack2(c1[u], c2[u]));
+      }
+    }
+    __syncwarp();
+    point_pool(stage, w1 + w * PL * 32, w2 + w * PL * 32, 2 * nw, s_w, s_b, out, w > 0);
+    __syncwarp();  // the buffer is rewritten by the next window
   }
 }
 
@@ -358,13 +510,14 @@ constexpr int kRow = 8;  // bf16 per staged row of staged_pool: rel xyz, LRF xyz
 // ranks (a masked slot's outputs are multiplied by 0 and a ReLU output never
 // lowers a max that starts at 0, so the max over the kept rows, in any
 // order, is the multiply-masked max), zero rows up to a whole tile, then the
-// MLP (W0 / B0: the scale's packed weights) on ceil(kept / 16) tiles and the
-// max, stored to out[0..127].
+// MLP (W0 / B0: the scale's packed weights) on ceil(kept / 16) tiles into
+// the running max mx (staged_pool_acc, once per window), stored to
+// out[0..127] (staged_pool).
 template <int PL>
-__device__ __forceinline__ void staged_pool(const float (&rx)[PL], const float (&ry)[PL], const float (&rz)[PL],
-                                            const float (&o0)[PL], const float (&o1)[PL], const float (&o2)[PL],
-                                            const bool (&keep)[PL], int nu, const __nv_bfloat16* W0,
-                                            const float* B0, __nv_bfloat16* stage, float* __restrict__ out) {
+__device__ __forceinline__ void staged_pool_acc(const float (&rx)[PL], const float (&ry)[PL], const float (&rz)[PL],
+                                                const float (&o0)[PL], const float (&o1)[PL], const float (&o2)[PL],
+                                                const bool (&keep)[PL], int nu, const __nv_bfloat16* W0,
+                                                const float* B0, __nv_bfloat16* stage, float (&mx)[16][2]) {
   const int lane = threadIdx.x & 31;
   int valid = 0;
 #pragma unroll
@@ -385,9 +538,6 @@ __device__ __forceinline__ void staged_pool(const float (&rx)[PL], const float (
 
   const int g = lane >> 2;  // row group of the mma fragments
   const int t = lane & 3;   // thread in group
-  float mx[16][2];
-#pragma unroll
-  for (int nt = 0; nt < 16; ++nt) mx[nt][0] = mx[nt][1] = 0.0f;  // ReLU outputs are >= 0
 #pragma unroll 1
   for (int mt = 0; mt < tiles; ++mt) {
     const int r0 = mt * 16 + g, r1 = r0 + 8;  // the two rows this lane holds
@@ -400,8 +550,48 @@ __device__ __forceinline__ void staged_pool(const float (&rx)[PL], const float (
     mlp_tile(a1, W0, B0, __bfloat162float(stage[r0 * kRow + 6]) > 0.0f,
              __bfloat162float(stage[r1 * kRow + 6]) > 0.0f, mx);
   }
-  store_max(mx, out);
   __syncwarp();  // the staging buffer is rewritten by the next call
+}
+
+__device__ __forceinline__ void zero_max(float (&mx)[16][2]) {
+#pragma unroll
+  for (int nt = 0; nt < 16; ++nt) mx[nt][0] = mx[nt][1] = 0.0f;  // ReLU outputs are >= 0
+}
+
+template <int PL>
+__device__ __forceinline__ void staged_pool(const float (&rx)[PL], const float (&ry)[PL], const float (&rz)[PL],
+                                            const float (&o0)[PL], const float (&o1)[PL], const float (&o2)[PL],
+                                            const bool (&keep)[PL], int nu, const __nv_bfloat16* W0,
+                                            const float* B0, __nv_bfloat16* stage, float* __restrict__ out) {
+  float mx[16][2];
+  zero_max(mx);
+  staged_pool_acc(rx, ry, rz, o0, o1, o2, keep, nu, W0, B0, stage, mx);
+  store_max(mx, out);
+}
+
+// One scale of one point past one window (K19, K22): the frame over the
+// lane's nu_lrf slots (windowed_frame), then window by window over its first
+// nu_pool slots the LRF coordinates and staged_pool_acc on the slots where
+// keep(m) holds, the max stored to out[0..127]. load as windowed_frame's.
+template <int PL, class Load, class Keep>
+__device__ void windowed_scale(Load&& load, Keep&& keep_of, int nu_lrf, int nu_pool, float r_lrf, float inv_r,
+                               const __nv_bfloat16* W0, const float* B0, __nv_bfloat16* stage,
+                               float* __restrict__ out) {
+  const Frame f = windowed_frame<PL>(load, nu_lrf, r_lrf);
+  float mx[16][2];
+  zero_max(mx);
+  float rx[PL], ry[PL], rz[PL], m[PL], o0[PL], o1[PL], o2[PL];
+  bool keep[PL];
+#pragma unroll 1
+  for (int w = 0; w * PL < nu_pool; ++w) {
+    load(w, rx, ry, rz, m);
+    const int nu = min(PL, nu_pool - w * PL);
+#pragma unroll
+    for (int u = 0; u < PL; ++u) keep[u] = keep_of(m[u]);
+    lrf_coords(f, rx, ry, rz, nu, inv_r, o0, o1, o2);
+    staged_pool_acc(rx, ry, rz, o0, o1, o2, keep, nu, W0, B0, stage, mx);
+  }
+  store_max(mx, out);
 }
 
 // The largest of n int32 values from p on, reduced over the warp (every lane gets it).

@@ -19,6 +19,10 @@
 // device memory. The tier, which this kernel follows, is 64, 128 or S2 slots
 // for every point of its 128-point block, the least that holds the block's
 // largest hit count; K5 and K6 take 64 * ceil(total2 / 64) slots per point.
+// A tier past one window of 512 slots (S2 > 512) is walked window by window
+// (pe_common.cuh's point_channels_pool_windowed): both frames first, the
+// LRF sums carried across windows in the lane's slot order, then each
+// window's channels and pool, the max carried in the output.
 // The slots between the two carry weight 0 in both scales: in the LRF sums
 // they add exact zeros, and in the max they are masked to 0, which never
 // raises it, so both give the same bits. A block stages its cloud's
@@ -70,11 +74,16 @@ pe_gather_fused_kernel(const float* __restrict__ xp, const float* __restrict__ y
   __syncthreads();
 
   const int warp = threadIdx.x >> 5;
-  __nv_bfloat16* stage = s_stage + warp * s2 * 12;
+  __nv_bfloat16* stage = s_stage + warp * min(s2, kWindow) * 12;
   const int bmax = warp_max_of(total2 + (size_t)b * np + p0, kBlock);
   const int tier = bmax <= 64 ? 64 : (bmax <= 128 ? 128 : s2);
   for (int p = p0 + warp; p < p0 + kBlock; p += kWarps) {
     const size_t pt = (size_t)b * np + p;
+    if (tier > kWindow) {
+      point_channels_pool_windowed<PL>(s_planes, n, idx + pt * s2, w1 + pt * s2, w2 + pt * s2, tier / 32, cx[pt],
+                                       cy[pt], cz[pt], r1, r2, inv_r1, inv_r2, stage, s_w, s_b, out + pt * 256);
+      continue;
+    }
     point_channels<PL>(s_planes, n, idx + pt * s2, w1 + pt * s2, w2 + pt * s2, tier / 32, cx[pt], cy[pt], cz[pt],
                        r1, r2, inv_r1, inv_r2, stage);
     __syncwarp();
@@ -89,7 +98,8 @@ int launch(const float* xp, const float* yp, const float* zp, const int16_t* idx
            const float* bpack, float* out, int batch, int n, int np, int s2, float r1, float r2, float inv_r1,
            float inv_r2, cudaStream_t stream) {
   const size_t smem = (size_t)2 * kWScale * sizeof(__nv_bfloat16) + (size_t)2 * kBScale * sizeof(float) +
-                      (size_t)planes_floats(n) * sizeof(float) + (size_t)kWarps * s2 * 12 * sizeof(__nv_bfloat16);
+                      (size_t)planes_floats(n) * sizeof(float) +
+                      (size_t)kWarps * min(s2, kWindow) * 12 * sizeof(__nv_bfloat16);
   cudaError_t err =
       cudaFuncSetAttribute(pe_gather_fused_kernel<PL>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -103,13 +113,14 @@ int launch(const float* xp, const float* yp, const float* zp, const int16_t* idx
 
 // permuted planes (B, N) float32, slot indices (B, P, S2) int16, weights
 // (B, P, S2) bf16, total2 (B, P) int32, centres (B, P); wpack / bpack: both
-// scales' weights as ops/pe_fused.py:pack_mlp lays them out
+// scales' weights as ops/pe_fused.py:pack_mlp lays them out. S2: a multiple
+// of 256 up to N (at most kMaxSlotsPacked).
 extern "C" int unopose_pe_gather_fused(const float* xp, const float* yp, const float* zp, const int16_t* idx,
                                        const void* w1, const void* w2, const int* total2, const float* cx,
                                        const float* cy, const float* cz, const void* wpack, const float* bpack,
                                        float* out, int batch, int n, int np, int s2, float r1, float r2,
                                        float inv_r1, float inv_r2, cudaStream_t stream) {
-  if (n <= 0 || n > kMaxN || s2 % 256 != 0 || s2 <= 0 || s2 > kMaxSlotsPacked || np % kBlock != 0) {
+  if (n <= 0 || n > kMaxN || s2 % 256 != 0 || s2 <= 0 || s2 > kMaxSlotsPacked || s2 > n || np % kBlock != 0) {
     return (int)cudaErrorInvalidValue;
   }
   if (batch == 0 || np == 0) return 0;

@@ -23,7 +23,9 @@
 // with the last layer left unrounded), into a running max; both scales'
 // weights in shared memory for a persistent grid. The chunks are read in
 // place with a row stride `ld` (w for four separate tensors, S2 for the
-// four views of one (B, 12, P, S2) tensor).
+// four views of one (B, 12, P, S2) tensor). A chunk wider than the warp's
+// buffer (w > 128, S2 > 512) is staged and run 128 slots at a time, the max
+// carried across them.
 //
 // Bound: operations. 2 x (6*32 + 32*64 + 64*128) = 20.9 kFLOP of bf16
 // products per slot and scale of the chunks a point runs, against 24 bytes
@@ -42,7 +44,7 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kBlock = 64;  // points per tier decision
-constexpr int kMaxW = kMaxSlotsPacked / 4;
+constexpr int kMaxW = 128;  // slots of a chunk staged at a time
 
 __global__ void __launch_bounds__(kThreads)
 pe_mlp_pool_packed_kernel(const __nv_bfloat16* __restrict__ c0, const __nv_bfloat16* __restrict__ c1,
@@ -76,23 +78,27 @@ pe_mlp_pool_packed_kernel(const __nv_bfloat16* __restrict__ c0, const __nv_bfloa
       for (int nt = 0; nt < 16; ++nt) mx[nt][0] = mx[nt][1] = 0.0f;  // ReLU outputs are >= 0
 #pragma unroll 1
       for (int c = 0; c < tier; ++c) {
-        const __nv_bfloat16* src = chunks[c] + (b * 12 + 6 * sc) * plane + p * ld;
-        for (int ch = 0; ch < 6; ++ch) {
-          for (int s = lane; s < w; s += 32) stage[s * kRow + ch] = src[ch * plane + s];
-        }
-        __syncwarp();
 #pragma unroll 1
-        for (int mt = 0; mt < w / 16; ++mt) {
-          const int r0 = mt * 16 + g, r1 = r0 + 8;  // the two slots (rows) this lane holds
-          // layer 1's A fragment: K = the scale's 6 channels, zero-padded to 16
-          uint32_t a1[4] = {0u, 0u, 0u, 0u};
-          if (t < 3) {
-            a1[0] = ld32(stage + r0 * kRow + 2 * t);
-            a1[1] = ld32(stage + r1 * kRow + 2 * t);
+        for (int s0 = 0; s0 < w; s0 += kMaxW) {
+          const int ws = min(kMaxW, w - s0);
+          const __nv_bfloat16* src = chunks[c] + (b * 12 + 6 * sc) * plane + p * ld + s0;
+          for (int ch = 0; ch < 6; ++ch) {
+            for (int s = lane; s < ws; s += 32) stage[s * kRow + ch] = src[ch * plane + s];
           }
-          mlp_tile<false>(a1, s_w + sc * kWScale, s_b + sc * kBScale, true, true, mx);
+          __syncwarp();
+#pragma unroll 1
+          for (int mt = 0; mt < ws / 16; ++mt) {
+            const int r0 = mt * 16 + g, r1 = r0 + 8;  // the two slots (rows) this lane holds
+            // layer 1's A fragment: K = the scale's 6 channels, zero-padded to 16
+            uint32_t a1[4] = {0u, 0u, 0u, 0u};
+            if (t < 3) {
+              a1[0] = ld32(stage + r0 * kRow + 2 * t);
+              a1[1] = ld32(stage + r1 * kRow + 2 * t);
+            }
+            mlp_tile<false>(a1, s_w + sc * kWScale, s_b + sc * kBScale, true, true, mx);
+          }
+          __syncwarp();  // the buffer is rewritten by the next window
         }
-        __syncwarp();  // the buffer is rewritten by the next chunk
       }
       store_max(mx, out + pt * 256 + sc * 128);
     }
@@ -107,7 +113,9 @@ pe_mlp_pool_packed_kernel(const __nv_bfloat16* __restrict__ c0, const __nv_bfloa
 extern "C" int unopose_pe_mlp_pool_packed(const void* c0, const void* c1, const void* c2, const void* c3,
                                           const int* total2, const void* wpack, const float* bpack, float* out,
                                           int batch, int np, int w, int ld, cudaStream_t stream) {
-  if (w <= 0 || w % 16 != 0 || w > kMaxW || ld < w || np % kBlock != 0) return (int)cudaErrorInvalidValue;
+  if (w <= 0 || w % 64 != 0 || 4 * w > kMaxSlotsPacked || 4 * w > np || ld < w || np % kBlock != 0) {
+    return (int)cudaErrorInvalidValue;
+  }
   const long long points = (long long)batch * np;
   if (points == 0) return 0;
   const size_t smem = (size_t)2 * kWScale * sizeof(__nv_bfloat16) + (size_t)2 * kBScale * sizeof(float) +

@@ -24,7 +24,10 @@
 // bf16 rows in the warp's shared buffer and run through the MLP on
 // mma.sync m16n8k16 tiles (staged_pool, as in pe_masked.cu), both scales'
 // weights in shared memory for a persistent grid. The fast flag is each
-// warp's own max over its point's 64-point block.
+// warp's own max over its point's 64-point block. Past one window of 512
+// slots (a full block at S2 > 512), a lane's slots are walked window by
+// window from device memory (pe_common.cuh's windowed_scale): the LRF sums
+// carried across windows in the lane's slot order, the max across them.
 //
 // Bound: operations. 2 x (6*32 + 32*64 + 64*128) = 20.9 kFLOP of bf16
 // products per slot and scale taking part in the max: on a fast block the
@@ -65,13 +68,32 @@ pe_packed_kernel(const float* __restrict__ gx, const float* __restrict__ gy, con
 
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  __nv_bfloat16* stage = s_stage + warp * s2 * kRow;
+  __nv_bfloat16* stage = s_stage + warp * min(s2, kWindow) * kRow;
   for (long long pt = (long long)blockIdx.x * kWarps + warp; pt < points; pt += (long long)gridDim.x * kWarps) {
     const long long blk = pt - (pt % np) % kBlock;  // first point of its 64-point block
     const bool fast = warp_max_of(total2 + blk, kBlock) <= s2 / 2;
     const int nu = (fast ? s2 / 2 : s2) / 32;  // slots per lane
     const float px = cx[pt], py = cy[pt], pz = cz[pt];
     const long long row = pt * s2;
+    if (nu > PL) {
+      auto load = [&](int sc, int w, float (&rx)[PL], float (&ry)[PL], float (&rz)[PL], float (&m)[PL]) {
+#pragma unroll
+        for (int u = 0; u < PL; ++u) {
+          const bool in = w * PL + u < nu;
+          const long long s = row + (w * PL + u) * 32 + lane;
+          rx[u] = in ? gx[s] - px : 0.0f;
+          ry[u] = in ? gy[s] - py : 0.0f;
+          rz[u] = in ? gz[s] - pz : 0.0f;
+          m[u] = in ? (sc == 0 ? __bfloat162float(w1[s]) : (fast ? __bfloat162float(w2[s]) : 1.0f)) : 0.0f;
+        }
+      };
+      windowed_scale<PL>([&](int w, auto& rx, auto& ry, auto& rz, auto& m) { load(0, w, rx, ry, rz, m); },
+                         [](float m) { return m > 0.0f; }, nu, nu, r1, inv_r1, s_w, s_b, stage, out + pt * 256);
+      windowed_scale<PL>([&](int w, auto& rx, auto& ry, auto& rz, auto& m) { load(1, w, rx, ry, rz, m); },
+                         [fast](float m) { return !fast || m > 0.0f; }, nu, nu, r2, inv_r2, s_w + kWScale,
+                         s_b + kBScale, stage, out + pt * 256 + 128);
+      continue;
+    }
     float rx[PL], ry[PL], rz[PL], m1[PL], m2[PL];
     bool k1[PL], k2[PL];
 #pragma unroll
@@ -99,7 +121,7 @@ int launch(const float* gx, const float* gy, const float* gz, const void* w1, co
            const float* cx, const float* cy, const float* cz, const void* wpack, const float* bpack, float* out,
            long long points, int np, int s2, float r1, float r2, float inv_r1, float inv_r2, cudaStream_t stream) {
   const size_t smem = (size_t)2 * kWScale * sizeof(__nv_bfloat16) + (size_t)2 * kBScale * sizeof(float) +
-                      (size_t)kWarps * s2 * kRow * sizeof(__nv_bfloat16);
+                      (size_t)kWarps * min(s2, kWindow) * kRow * sizeof(__nv_bfloat16);
   cudaError_t err = cudaFuncSetAttribute(pe_packed_kernel<PL>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   int dev = 0, sms = 0, per_sm = 0;
@@ -120,12 +142,15 @@ int launch(const float* gx, const float* gy, const float* gz, const void* w1, co
 
 // slot planes (B, P, S2) float32, weights (B, P, S2) bf16, total2 (B, P)
 // int32, centres (B, P); wpack / bpack: both scales' weights as
-// ops/pe_fused.py:pack_mlp lays them out (2 x kWScale bf16, 2 x kBScale float32)
+// ops/pe_fused.py:pack_mlp lays them out (2 x kWScale bf16, 2 x kBScale
+// float32). S2: a multiple of 256 up to P (at most kMaxSlotsPacked).
 extern "C" int unopose_pe_packed(const float* gx, const float* gy, const float* gz, const void* w1, const void* w2,
                                  const int* total2, const float* cx, const float* cy, const float* cz,
                                  const void* wpack, const float* bpack, float* out, int batch, int np, int s2,
                                  float r1, float r2, float inv_r1, float inv_r2, cudaStream_t stream) {
-  if (s2 % 256 != 0 || s2 <= 0 || s2 > kMaxSlotsPacked || np % kBlock != 0) return (int)cudaErrorInvalidValue;
+  if (s2 % 256 != 0 || s2 <= 0 || s2 > kMaxSlotsPacked || s2 > np || np % kBlock != 0) {
+    return (int)cudaErrorInvalidValue;
+  }
   const long long points = (long long)batch * np;
   if (points == 0) return 0;
   return s2 <= kMaxSlots ? launch<kPerLane>(gx, gy, gz, w1, w2, total2, cx, cy, cz, wpack, bpack, out, points, np,

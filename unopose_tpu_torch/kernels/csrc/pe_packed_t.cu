@@ -21,7 +21,12 @@
 // pe_common.cuh's masked_lrf over all S2 slots and staged_pool over the
 // tier (the kept slots staged as bf16 rows and run through the MLP on
 // mma.sync m16n8k16 tiles, as in pe_masked.cu); both scales' weights in
-// shared memory for a persistent grid.
+// shared memory for a persistent grid. Past one window (S2 > 512, whose
+// columns would not fit in shared memory), a warp reads its point's slot
+// column from device memory window by window, the 8 warps of a block
+// sharing each 32-byte sector through L1, and runs pe_common.cuh's
+// windowed_scale: the LRF sums carried across windows in the lane's slot
+// order, the max across them.
 //
 // Bound: operations. 2 x (6*32 + 32*64 + 64*128) = 20.9 kFLOP of bf16
 // products per slot and scale of weight > 0, against 16 bytes read per
@@ -62,11 +67,42 @@ pe_packed_t_kernel(const float* __restrict__ gx, const float* __restrict__ gy, c
 
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
+  const int nu = s2 / 32;  // slots per lane
+  const long long tiles = (long long)batch * (np / kTile);
+  if (nu > PL) {
+    __nv_bfloat16* stage = reinterpret_cast<__nv_bfloat16*>(s_cols) + warp * kWindow * kRow;
+    __syncthreads();  // the weights are in
+    for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+      const long long b = tile / (np / kTile);
+      const int p = (int)(tile % (np / kTile)) * kTile + warp;
+      const long long pt = b * np + p;
+      const int bmax = warp_max_of(total2 + b * np + (p - p % kBlock), kBlock);
+      const int tier = bmax <= 64 ? 64 : (bmax <= 128 ? 128 : s2);
+      const float px = cx[pt], py = cy[pt], pz = cz[pt];
+      auto load = [&](const __nv_bfloat16* __restrict__ wm, int w, float (&rx)[PL], float (&ry)[PL],
+                      float (&rz)[PL], float (&m)[PL]) {
+#pragma unroll
+        for (int u = 0; u < PL; ++u) {
+          const bool in = w * PL + u < nu;
+          const long long src = (b * s2 + (w * PL + u) * 32 + lane) * np + p;
+          rx[u] = in ? gx[src] - px : 0.0f;
+          ry[u] = in ? gy[src] - py : 0.0f;
+          rz[u] = in ? gz[src] - pz : 0.0f;
+          m[u] = in ? __bfloat162float(wm[src]) : 0.0f;
+        }
+      };
+      windowed_scale<PL>([&](int w, auto& rx, auto& ry, auto& rz, auto& m) { load(w1, w, rx, ry, rz, m); },
+                         [](float m) { return m > 0.0f; }, nu, tier / 32, r1, inv_r1, s_w, s_b, stage,
+                         out + pt * 256);
+      windowed_scale<PL>([&](int w, auto& rx, auto& ry, auto& rz, auto& m) { load(w2, w, rx, ry, rz, m); },
+                         [](float m) { return m > 0.0f; }, nu, tier / 32, r2, inv_r2, s_w + kWScale,
+                         s_b + kBScale, stage, out + pt * 256 + 128);
+    }
+    return;
+  }
   __nv_bfloat16* stage = s_stage + warp * s2 * kRow;
   const float* col = s_cols + warp;
   const int plane = s2 * kLd;
-  const int nu = s2 / 32;  // slots per lane
-  const long long tiles = (long long)batch * (np / kTile);
   for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
     const long long b = tile / (np / kTile);
     const int p0 = (int)(tile % (np / kTile)) * kTile;
@@ -115,8 +151,10 @@ template <int PL>
 int launch(const float* gx, const float* gy, const float* gz, const void* w1, const void* w2, const int* total2,
            const float* cx, const float* cy, const float* cz, const void* wpack, const float* bpack, float* out,
            int batch, int np, int s2, float r1, float r2, float inv_r1, float inv_r2, cudaStream_t stream) {
-  const size_t smem = (size_t)2 * kWScale * sizeof(__nv_bfloat16) + (size_t)2 * kBScale * sizeof(float) +
-                      (size_t)5 * s2 * kLd * sizeof(float) + (size_t)kWarps * s2 * kRow * sizeof(__nv_bfloat16);
+  // past one window only the warps' staging buffers (the columns are read from device memory)
+  const size_t cols = s2 > kWindow ? 0 : (size_t)5 * s2 * kLd * sizeof(float);
+  const size_t smem = (size_t)2 * kWScale * sizeof(__nv_bfloat16) + (size_t)2 * kBScale * sizeof(float) + cols +
+                      (size_t)kWarps * min(s2, kWindow) * kRow * sizeof(__nv_bfloat16);
   cudaError_t err = cudaFuncSetAttribute(pe_packed_t_kernel<PL>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   int dev = 0, sms = 0, per_sm = 0;
@@ -137,12 +175,15 @@ int launch(const float* gx, const float* gy, const float* gz, const void* w1, co
 
 // slot planes (B, S2, P) float32, weights (B, S2, P) bf16, total2 (B, P)
 // int32, centres (B, P); wpack / bpack: both scales' weights as
-// ops/pe_fused.py:pack_mlp lays them out
+// ops/pe_fused.py:pack_mlp lays them out. S2: a multiple of 256 up to P (at
+// most kMaxSlotsPacked).
 extern "C" int unopose_pe_packed_t(const float* gx, const float* gy, const float* gz, const void* w1, const void* w2,
                                    const int* total2, const float* cx, const float* cy, const float* cz,
                                    const void* wpack, const float* bpack, float* out, int batch, int np, int s2,
                                    float r1, float r2, float inv_r1, float inv_r2, cudaStream_t stream) {
-  if (s2 % 256 != 0 || s2 <= 0 || s2 > kMaxSlotsPacked || np % kBlock != 0) return (int)cudaErrorInvalidValue;
+  if (s2 % 256 != 0 || s2 <= 0 || s2 > kMaxSlotsPacked || s2 > np || np % kBlock != 0) {
+    return (int)cudaErrorInvalidValue;
+  }
   if (batch == 0 || np == 0) return 0;
   return s2 <= kMaxSlots ? launch<kPerLane>(gx, gy, gz, w1, w2, total2, cx, cy, cz, wpack, bpack, out, batch, np, s2,
                                             r1, r2, inv_r1, inv_r2, stream)

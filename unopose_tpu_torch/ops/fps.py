@@ -11,15 +11,13 @@ their indices are equal.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from unopose_tpu_torch.kernels import LAUNCHES
 from unopose_tpu_torch.kernels import build
 
 _BIG = 1e10
-_MAX_SMEM = 232448  # bytes of shared memory one block may use on Hopper
+MAX_N = 232448 // 16  # the largest cloud the kernel takes (its first version's shared-memory bound, kept)
 
 
 def fps_plain(pts: torch.Tensor, npoint: int) -> torch.Tensor:
@@ -42,7 +40,8 @@ def fps_plain(pts: torch.Tensor, npoint: int) -> torch.Tensor:
 
 
 def fps_cuda(pts: torch.Tensor, npoint: int) -> torch.Tensor:
-    """FPS on the card: one thread block per cloud (``csrc/fps.cu``)."""
+    """FPS on the card (``csrc/fps.cu``): one 1024-thread block per cloud,
+    the points in registers, one barrier a step. N <= ``MAX_N``."""
     if pts.device.type != "cuda":
         raise ValueError(f"fps_cuda needs a CUDA tensor, got {pts.device}")
     if pts.dim() != 3 or pts.shape[-1] != 3:
@@ -50,16 +49,13 @@ def fps_cuda(pts: torch.Tensor, npoint: int) -> torch.Tensor:
     B, N, _ = pts.shape
     if not 1 <= npoint <= N:
         raise ValueError(f"npoint {npoint} out of range for N={N}")
-    if 16 * N > _MAX_SMEM:
-        raise ValueError(f"fps_cuda keeps the cloud in shared memory: N={N} exceeds {_MAX_SMEM // 16}")
+    if N > MAX_N:
+        raise ValueError(f"fps_cuda takes clouds of at most {MAX_N} points, got N={N}")
     pts = pts.float().contiguous()
     out = torch.empty((B, npoint), dtype=torch.int32, device=pts.device)
     lib = build.load()
-    with torch.cuda.device(pts.device):
-        err = lib.unopose_fps(
-            ctypes.c_void_p(pts.data_ptr()), ctypes.c_void_p(out.data_ptr()), B, N, npoint,
-            ctypes.c_void_p(build.stream_of(pts)),
-        )
+    with build.on_device(pts.device):
+        err = lib.unopose_fps(pts.data_ptr(), out.data_ptr(), B, N, npoint, build.stream_of(pts))
     build.check(err, "fps")
     LAUNCHES["fps"] += 1
     return out

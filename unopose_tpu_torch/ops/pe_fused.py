@@ -54,8 +54,9 @@ switch its routing reads (``models/matching.py``), each dispatched by device:
   (64 / 128 / S2 per 128-point block) and the max masked by weight > 0.
   Kernel ``kernels/csrc/pe_packed_t.cu``.
 
-All four take S2 = 256 or 512 (a multiple of 256 up to ``MAX_SLOTS_PACKED``)
-and raise on more. The JAX kernels' block-diagonal scale packing adds exact
+All four take every S2 the JAX package's gates admit, a multiple of 256 up
+to the cloud's N (at most ``MAX_SLOTS_PACKED``), and raise on any other; past
+512 slots the kernels walk a point's slots in windows of 512. The JAX kernels' block-diagonal scale packing adds exact
 zeros on the TPU's matrix unit and is not reproduced: each scale runs its
 own MLP.
 """
@@ -72,7 +73,7 @@ from unopose_tpu_torch.ops.lrf import batch_lrf_planar
 
 CHUNK = 64  # slots per MLP chunk
 MAX_SLOTS = 256  # the PE-v5 kernels K5, K6 and the masked PE K16 (pe_common.cuh:kMaxSlots)
-MAX_SLOTS_PACKED = 512  # K19-K22 and the plain versions (pe_common.cuh:kMaxSlotsPacked)
+MAX_SLOTS_PACKED = 4096  # K19-K22 and the plain versions, S2 <= N <= 4096 (pe_common.cuh:kMaxSlotsPacked)
 _K_PAD = (16, 32, 64)  # the kernel's K of each layer (layer 1: 6 channels zero-padded)
 _ROW_PAD = 8  # bf16 per weight row of padding in the kernel's shared memory
 _MLP_DIMS = (32, 64, 128)
@@ -342,9 +343,10 @@ def pe_fused_masked(grouped1, mask1, grouped2, mask2, center, mlp1, mlp2, r1: fl
 
 
 # ------------------------------------------------------------------ the packed PE in the JAX package's other layouts
-def _check_packed_s2(S2: int):
-    if S2 % 256 or not 0 < S2 <= MAX_SLOTS_PACKED:
-        raise ValueError(f"the packed PE takes S2 = 256 or 512 (a multiple of 256 up to {MAX_SLOTS_PACKED}), got {S2}")
+def _check_packed_s2(S2: int, N: int):
+    if S2 % 256 or not 0 < S2 <= min(N, MAX_SLOTS_PACKED):
+        raise ValueError(f"the packed PE takes S2 a multiple of 256 up to the cloud's N = {N} (at most "
+                         f"{MAX_SLOTS_PACKED}), got {S2}")
 
 
 def block_max(total2: torch.Tensor, block: int) -> torch.Tensor:
@@ -361,7 +363,7 @@ def _check_grouped(grouped2, w1, w2, total2, center, block: int, slot_major: boo
     if any(tuple(t.shape) != shape for t in (*grouped2, w1, w2)) or any(c.shape != (B, P) for c in center):
         raise ValueError(f"the slots and weights must be {shape} with total2 and the centres (B, P) = {(B, P)}, got "
                          f"{[tuple(t.shape) for t in (*grouped2, w1, w2)]}")
-    _check_packed_s2(shape[1] if slot_major else shape[2])
+    _check_packed_s2(shape[1] if slot_major else shape[2], P)
     if P % block:
         raise ValueError(f"P must be a multiple of {block}, got {P}")
 
@@ -453,7 +455,7 @@ def _check_chunks(chunks, total2):
     if C != 12 or any(tuple(c.shape) != (B, 12, P, w) for c in chunks) or total2.shape != (B, P):
         raise ValueError(f"chunks must be four (B, 12, P, w) and total2 (B, P), got "
                          f"{[tuple(c.shape) for c in chunks]}, {tuple(total2.shape)}")
-    _check_packed_s2(4 * w)
+    _check_packed_s2(4 * w, P)
     if P % 64:
         raise ValueError(f"P must be a multiple of 64, got {P}")
 
@@ -516,7 +518,7 @@ def pe_fused_gather_t_cuda(planes, idx_p, w1, w2, total2, center, r1: float, r2:
     _check(planes, idx_p, w1, w2, total2, center)
     B, N = planes[0].shape
     _, P, S2 = idx_p.shape
-    _check_packed_s2(S2)
+    _check_packed_s2(S2, N)
     if P % 128 or N > 4096 or idx_p.dtype != torch.int16:
         raise ValueError(f"pe_fused_gather_t_cuda takes P % 128 == 0, N <= 4096 and int16 indices "
                          f"(P={P}, N={N}, {idx_p.dtype})")
@@ -533,8 +535,8 @@ def pe_fused_gather_t_cuda(planes, idx_p, w1, w2, total2, center, r1: float, r2:
 
 
 def pe_fused_gather_t_plain(planes, idx_p, w1, w2, total2, center, mlp1, mlp2, r1: float, r2: float) -> torch.Tensor:
-    """Plain twin of row 12: PE-v5's plain pair (the same function) at S2 256 or 512."""
-    _check_packed_s2(idx_p.shape[-1])
+    """Plain twin of row 12: PE-v5's plain pair (the same function) at any packed S2."""
+    _check_packed_s2(idx_p.shape[-1], planes[0].shape[-1])
     chans = pe_channels_plain(planes, idx_p, w1, w2, total2, center, r1, r2)
     return pe_mlp_pool_plain(chans, w1, w2, total2, mlp1, mlp2)
 

@@ -17,8 +17,6 @@ place from the (B, N, 3D) qkv output through its row stride.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from unopose_tpu_torch.kernels import LAUNCHES
@@ -52,36 +50,37 @@ def mha_fused_plain(q, k, v, num_heads: int) -> torch.Tensor:
 
 def mha_fused_cuda(q, k, v, num_heads: int) -> torch.Tensor:
     """The attention on the card (``csrc/vit_attn.cu``): one block per
-    (image, head, 64-row query tile). bf16 runs on the tensor cores; float32
+    (image, head), its K and V staged once, its warps walking 16-row query
+    tiles with the scores in registers (N <= 272; longer rows recompute
+    them per pass). bf16 runs on the tensor cores; float32
     (the tiny float32 configs) runs a scalar variant with the same rounding
     points. q, k, v may be column slices of one tensor: each needs a unit
     feature stride, and the three must share their batch and row strides. An
     N whose K and V slices do not fit in a block's shared memory raises the
     launcher's error."""
     hd = _check(q, k, v, num_heads)
-    if any(x.device.type != "cuda" or x.device != q.device for x in (k, v)) or q.device.type != "cuda":
+    dev = q.device
+    if dev.type != "cuda" or k.device != dev or v.device != dev:
         raise ValueError("mha_fused_cuda needs q, k, v on one CUDA device")
     if q.dtype not in (torch.bfloat16, torch.float32) or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"mha_fused_cuda takes bf16 or float32 q, k, v of one dtype, got {q.dtype}, {k.dtype}, "
                          f"{v.dtype}")
-    if q.stride(-1) != 1 or k.stride() != q.stride() or v.stride() != q.stride():
-        raise ValueError(f"q, k, v need a unit feature stride and equal strides, got {q.stride()}, {k.stride()}, "
+    st = q.stride()
+    if st[-1] != 1 or k.stride() != st or v.stride() != st:
+        raise ValueError(f"q, k, v need a unit feature stride and equal strides, got {st}, {k.stride()}, "
                          f"{v.stride()}")
-    aligned = all(x.data_ptr() % 16 == 0 for x in (q, k, v)) and q.stride(0) % 8 == 0 and q.stride(1) % 8 == 0
-    if q.dtype == torch.bfloat16 and not aligned:
+    bf16 = q.dtype == torch.bfloat16
+    if bf16 and ((q.data_ptr() | k.data_ptr() | v.data_ptr()) % 16 or st[0] % 8 or st[1] % 8):
         raise ValueError("mha_fused_cuda reads bf16 rows in 16-byte vectors: pointers 16-byte aligned, "
                          "batch and row strides multiples of 8")
     B, N, D = q.shape
     if hd % 16 or hd > 128:
         raise ValueError(f"mha_fused_cuda takes hd a multiple of 16 up to 128, got {hd}")
-    out = torch.empty((B, N, D), dtype=q.dtype, device=q.device)
+    out = torch.empty((B, N, D), dtype=q.dtype, device=dev)
     lib = build.load()
-    ptr = ctypes.c_void_p
-    with torch.cuda.device(q.device):
-        err = lib.unopose_mha_fused(
-            ptr(q.data_ptr()), ptr(k.data_ptr()), ptr(v.data_ptr()), ptr(out.data_ptr()), B, N, num_heads, hd,
-            q.stride(0), q.stride(1), int(q.dtype == torch.bfloat16), float(hd**-0.5), ptr(build.stream_of(q)),
-        )
+    with build.on_device(dev):
+        err = lib.unopose_mha_fused(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, N, num_heads, hd,
+                                    st[0], st[1], int(bf16), hd**-0.5, build.stream_of(q))
     build.check(err, "mha_fused")
     LAUNCHES["mha_fused"] += 1
     return out

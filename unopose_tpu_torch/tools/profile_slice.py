@@ -1,7 +1,8 @@
 """Where the time goes in a full-width configuration on one CUDA card.
 
     python -m unopose_tpu_torch.tools.profile_slice [--config slice|fused_matchers|production|subset|firstk_unpacked
-        |production_hypsel|production_pe_packed|production_pe_v3|production_pe_v4|production_pe_slot_major]
+        |production_hypsel|production_pe_packed|production_pe_v3|production_pe_v4|production_pe_slot_major
+        |production_s768]
         [--batches 8] [--warmup 2] [--seed 0] [--out FILE]
 
 Runs a configuration of ``configs.CONFIGS`` as ``chip_smoke.py`` does
@@ -13,7 +14,9 @@ the coarse selection through its kernel; ``production_pe_packed``,
 ``UNOPOSE_PE_V5=0`` alone or with ``UNOPOSE_PE_V3=1``, ``UNOPOSE_PE_V4=1``
 or ``UNOPOSE_PE_SLOT_MAJOR=1``, the fine PE through the packed PE's other
 layouts, kernels pe_packed, pe_mlp_pool_packed, pe_gather_fused and
-pe_packed_t; bf16, seeded random weights, synthetic batches of 16 pairs)
+pe_packed_t; ``production_s768`` is the production config at a scale-2
+budget of 768 slots (``configs.production_s768_config()``), the fine PE
+through pe_packed; bf16, seeded random weights, synthetic batches of 16 pairs)
 and reports:
 
 - per stage of ``UNOPose.forward``, the median time between CUDA events
@@ -82,7 +85,8 @@ PROFILES = {**{name: (config, PE_OFF) for name, config in configs.CONFIGS.items(
             "production_pe_packed": (configs.production_config, V5_OFF),
             "production_pe_v3": (configs.production_config, {**V5_OFF, "UNOPOSE_PE_V3": "1"}),
             "production_pe_v4": (configs.production_config, {**V5_OFF, "UNOPOSE_PE_V4": "1"}),
-            "production_pe_slot_major": (configs.production_config, {**V5_OFF, "UNOPOSE_PE_SLOT_MAJOR": "1"})}
+            "production_pe_slot_major": (configs.production_config, {**V5_OFF, "UNOPOSE_PE_SLOT_MAJOR": "1"}),
+            "production_s768": (configs.production_s768_config, PE_OFF)}
 
 
 def set_env(env: dict) -> dict:
