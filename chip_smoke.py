@@ -13,7 +13,9 @@ Phases, each fatal on failure:
    FPS and the gather equal indices / bitwise values (FPS also timed beside
    its dependent-step floor, ``FPS_FLOOR_SRC``), the first_k select
    every output equal; the int8 geometric embedding (32 x 197 x 197 x 256,
-   bf16 model dtype) at most one step off on at most 0.1% of entries; the PE
+   bf16 model dtype) at most one step off on at most 0.1% of entries, timed
+   beside its bound and, in the log only, the floors of its own arithmetic
+   and shared reads computed from ``LANE_RATE`` and ``SMEM_BPS``; the PE
    channels and MLP/pool (32 x 2048 x 256) on two kinds of cloud: the main
    path's uniform cubes, whose isotropic neighbourhoods nearly all fit one
    64-slot chunk and have ill-conditioned local frames (at most twice as
@@ -29,7 +31,9 @@ Phases, each fatal on failure:
    and the three sweeps of the fused assignment (16 pairs of 2049 x 2049,
    C 256), each sweep fed the plain twin's inputs, then the whole chain
    (labels equal on at least 99.9% of rows, weights and soft targets within
-   1e-4 of their max on the rows whose labels agree); the train path's PE
+   1e-4 of their max on the rows whose labels agree), and the labels sweep
+   run twice on the same inputs bitwise equal (its column keys are reduced
+   by atomics across blocks); the train path's PE
    kernels K11-K14 (B 8, P 2048, S 256 and 64), each fed its plain pass's
    statistics (and each backward its own side's forward maximum): batch
    means and variances within 1e-4 relative, the pooled output, the sums
@@ -128,6 +132,10 @@ HBM_BPS, F32_FLOPS, BF16_FLOPS = 3.35e12, 67e12, 989e12
 # exponentials per second: 16 special-function results per clock per SM (CUDA programming guide,
 # compute capability 9.0) x 132 SMs x the 1980 MHz boost clock
 SFU_RATE = 16 * 132 * 1.98e9
+# float32 instructions a second (128 lanes a clock an SM) and shared-memory bytes a second (128 a clock an
+# SM), at the same clock: the floors of a kernel's own instruction stream
+LANE_RATE = 128 * 132 * 1.98e9
+SMEM_BPS = 128 * 132 * 1.98e9
 # which TPU kernel each hand-written kernel replaces, and its source
 KERNELS = {
     "fps": ("unopose_tpu_torch/kernels/csrc/fps.cu", "unopose_tpu/ops/fps.py:80"),
@@ -442,15 +450,22 @@ def check_fused_kernels(log, dev, seed: int) -> dict:
         diff = (e8.int() - p8.int()).abs()
         share, worst = diff.gt(0).float().mean().item(), int(diff.max())
         ms, plain_ms = cuda_ms(lambda: geo_rpe_fused_cuda(*args)), cuda_ms(lambda: geo_rpe_fused_plain(*args), reps=3)
-    log(f"geo_rpe 32x197x197x256 int8 (bf16 tables): {100 * share:.4f}% of entries differ, max {worst} step, "
-        f"scale equal {torch.equal(sc, psc)}, kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
-    if worst > 1 or share > 1e-3 or not torch.equal(sc, psc):
-        raise AssertionError("geo_rpe kernel differs from the plain version beyond one step on 0.1% of entries")
     # writes the int8 embedding, reads the points, anchors and both (T, D) tables; per output entry
     # four 3-term stencils (5 operations each), the max over k, the sum and the quantisation
     geo_bytes = e8.numel() + points.numel() * 4 + ref_vec.numel() * 4 + 2 * T * D * 4 + D * 4
-    results["geo_rpe"] = dict(max_abs_err=float(worst), ms=ms, plain_ms=plain_ms, library_ms=None,
-                              **bound(geo_bytes, 25.0 * e8.numel(), F32_FLOPS))
+    geo_bound = bound(geo_bytes, 25.0 * e8.numel(), F32_FLOPS)
+    # the floors of the kernel's own arithmetic: ~27 separately rounded float32 operations per entry issued
+    # at 128 lanes a clock an SM, and 3 (1 + k) bf16 table values read from shared memory per entry at 128
+    # bytes a clock an SM
+    floor_ms = 27.0 * e8.numel() / LANE_RATE * 1e3
+    smem_floor_ms = 3 * (1 + k) * 2.0 * e8.numel() / SMEM_BPS * 1e3
+    log(f"geo_rpe 32x197x197x256 int8 (bf16 tables): {100 * share:.4f}% of entries differ, max {worst} step, "
+        f"scale equal {torch.equal(sc, psc)}, kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+        f"{geo_bound['bound_ms']:.4f} ms ({geo_bound['bound_by']}), arithmetic floor {floor_ms:.4f} ms, "
+        f"shared-read floor {smem_floor_ms:.4f} ms")
+    if worst > 1 or share > 1e-3 or not torch.equal(sc, psc):
+        raise AssertionError("geo_rpe kernel differs from the plain version beyond one step on 0.1% of entries")
+    results["geo_rpe"] = dict(max_abs_err=float(worst), ms=ms, plain_ms=plain_ms, library_ms=None, **geo_bound)
 
     # K5, K6 on the fine PE's input: both clouds, 32 x 2048, budgets 64/256
     pe = FinePositionalEncoding(256, fused=True).to(dev)
@@ -585,6 +600,8 @@ def check_production_kernels(log, dev, seed: int) -> dict:
         aargs = (f1n, f2n, cm, cs, s1, s2, rm, rs, l1, l2, pts2)
         g_cm, g_cs = af.colstats_cuda(f1n, f2n)
         g_rm, g_rs, g_l1, g_l2 = af.labels_cuda(*largs)
+        # the column keys are reduced by atomics across blocks: a second run must give the same bits
+        labels_twice = all(torch.equal(a, b) for a, b in zip((g_rm, g_rs, g_l1, g_l2), af.labels_cuda(*largs)))
         g_w, g_n = af.accum_cuda(*aargs)
         p_w, p_n = af.accum_plain(*aargs)
         torch.cuda.synchronize()
@@ -618,11 +635,14 @@ def check_production_kernels(log, dev, seed: int) -> dict:
         f"{100 * l1_eq:.4f}%, label2 equal {100 * l2_eq:.4f}%, weights {w_err:.2e}, numerators {n_err:.2e} of max; "
         f"chain: label1 equal {100 * chain_l1:.4f}%, weights {chain_w:.2e}, soft targets {chain_p:.2e} of max on "
         f"agreeing rows; foreground rows {100 * (pl > 0).float().mean().item():.1f}%")
+    log(f"fine_assign labels run twice bitwise equal {labels_twice}")
     log("fine_assign times (kernel, plain ms): " + ", ".join(f"{k} {a:.3f} / {b:.3f}" for k, (a, b) in times.items())
         + f"; fused solver {fused_ms:.3f} ms, materialised solver (similarity + dual softmax + WSVD) "
         f"{materialised_ms:.3f} ms")
     if max(stats.values()) > 1e-5 or min(l1_eq, l2_eq, chain_l1) < 0.999 or max(w_err, n_err, chain_w, chain_p) > 1e-4:
         raise AssertionError("fine_assign kernels differ from the plain versions beyond their gates")
+    if not labels_twice:
+        raise AssertionError("fine_assign labels differ between two runs on the same inputs")
     # operands read once (bf16), statistics and labels read or written once; each function needs the
     # logits once (K9's second sweep is its design's cost, not the function's): 2 B M^2 C bf16
     # tensor-core operations; K10 needs only the entries of live rows and columns
@@ -635,11 +655,13 @@ def check_production_kernels(log, dev, seed: int) -> dict:
         accum=bound(opnd + 8 * Bp * M * 4 + Bp * M * 3 * 4 + 4 * Bp * M * 4, 2.0 * C * live.sum().item(), BF16_FLOPS,
                     exps=2 * live.sum().item()),
     )
+    log("fine_assign kernel / bound ms (by): " + ", ".join(
+        f"{k} {times[k][0]:.3f} / {b['bound_ms']:.4f} ({b['bound_by']})" for k, b in bounds.items()))
     for name in ("colstats", "labels", "accum"):
         results[f"fine_assign_{name}"] = dict(
             max_abs_err=errs[name], ms=times[name][0], plain_ms=times[name][1], library_ms=None,
             materialised_solver_ms=materialised_ms, fused_solver_ms=fused_ms, **bounds[name])
-    results["fine_assign_labels"].update(label1_equal=l1_eq, label2_equal=l2_eq)
+    results["fine_assign_labels"].update(label1_equal=l1_eq, label2_equal=l2_eq, run_twice_bitwise=labels_twice)
     results["fine_assign_accum"].update(chain_label1_equal=chain_l1, chain_weights_rel=chain_w,
                                         chain_targets_rel=chain_p)
     return results

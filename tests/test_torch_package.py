@@ -366,21 +366,97 @@ def test_production_s768_config_is_production_at_nsample2_768(tiny):
 
 def test_kernel_variants_tool_follows_the_shipped_sources():
     """``tools/kernel_variants.py`` makes each variant by replacing text of
-    the shipped ``fps.cu`` and ``vit_attn.cu``: every replacement still finds
-    its text (it raises otherwise), each variant differs from the shipped
-    source, and the tool fails without a card."""
+    the shipped ``fps.cu``, ``vit_attn.cu``, ``fine_assign.cu`` and
+    ``geo_rpe.cu``: every replacement still finds its text (it raises
+    otherwise), each variant differs from the shipped source, and the tool
+    fails without a card."""
     from unopose_tpu_torch.tools import kernel_variants
 
     srcs = kernel_variants.sources(None)
     assert set(srcs) == {"fps", "fps_t1024", "fps_t512", "fps_cluster2", "fps_cluster4", "vit_attn",
-                         "vit_attn_ieee_division", "vit_attn_padded_two_blocks", "vit_attn_runtime_steps"}
+                         "vit_attn_ieee_division", "vit_attn_padded_two_blocks", "vit_attn_runtime_steps",
+                         "fine_assign", "fine_assign_cp_async", "fine_assign_no_ring", "fine_assign_ld32",
+                         "fine_assign_ieee_division", "fine_assign_128_rows", "geo_rpe", "geo_rpe_f32_tables",
+                         "geo_rpe_f32_8ch", "geo_rpe_f32_64", "geo_rpe_4ch", "geo_rpe_row_barrier", "geo_rpe_runtime_k"}
+    shipped = {"K1": "fps", "K7": "vit_attn", "K9": "fine_assign", "K4": "geo_rpe"}
     for name, (kernel, text) in srcs.items():
-        shipped = srcs["fps" if kernel == "K1" else "vit_attn"][1]
-        assert (text == shipped) == (name in ("fps", "vit_attn")), name
+        assert (text == srcs[shipped[kernel]][1]) == (name in shipped.values()), name
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     r = subprocess.run([sys.executable, "-m", "unopose_tpu_torch.tools.kernel_variants"], cwd=ROOT, env=env,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode != 0 and "no CUDA device" in r.stderr
+
+
+def _fma32(a, b, c):
+    """fmaf in numpy: a * b + c rounded once to float32. The product is exact
+    in float64 and the float64 sum rounds once more; where that sum lands
+    exactly halfway between two floats, the sum's error (TwoSum) says which
+    way the exact value lies."""
+    a, b, c = (np.asarray(x, np.float32).astype(np.float64) for x in (a, b, c))
+    p = a * b
+    s = p + c
+    v = s - p
+    err = (p - (s - v)) + (c - v)
+    r = s.astype(np.float32)
+    other = np.nextafter(r, np.where(r.astype(np.float64) < s, np.float32(np.inf), np.float32(-np.inf)))
+    half = (r.astype(np.float64) + other.astype(np.float64)) / 2 == s
+    up = np.maximum(r, other)
+    down = np.minimum(r, other)
+    return np.where(half & (err > 0), up, np.where(half & (err < 0), down, r))
+
+
+def _div_fast(e, l, y):
+    q = e * y
+    return _fma32(_fma32(-l, q, e), y, q)
+
+
+def _div_exact(e, l, y):
+    es = e * np.float32(2.0**64)
+    q = _div_fast(es, l, y)
+    r = _fma32(-l, q, es)
+    c = q * np.float32(2.0**-64)
+    exact = q.astype(np.float64) * 2.0**-64
+    down = exact.astype(np.float32)
+    down = np.where(np.abs(down.astype(np.float64)) > np.abs(exact), np.nextafter(down, np.float32(0)), down)
+    tiny = np.where(q - down * np.float32(2.0**64) != np.float32(2.0**-86), c,
+                    np.where(r > 0, down + np.float32(2.0**-149), np.where(r < 0, down, c)))
+    return np.where(e >= np.float32(2.0**-80), _div_fast(e, l, y), tiny)
+
+
+@pytest.mark.parametrize("helper", ["div_fast", "div_exact"])
+def test_fast_division_is_the_ieee_quotient(helper):
+    """``kernels/csrc/fast_div.cuh`` (K7's and K9's division without its slow
+    path), transcribed in numpy float32: the quotient of e >= 0 (div_exact;
+    div_fast from 2^-80 on) by a softmax sum 1 <= l < 2^12, from y = 1 / l
+    rounded to nearest, equals numpy's float32 division, over every exponent
+    of e from the subnormals up, and over quotients exactly halfway between
+    two subnormals or within a rounding of such a point (where the scaled
+    quotient's residual decides)."""
+    with open(PORT / "kernels" / "csrc" / "fast_div.cuh") as f:
+        src = f.read()
+    assert "fmaf(fmaf(-l, q, e), y, q)" in src and "down + 0x1p-149f" in src  # the lines transcribed here
+    rng = np.random.default_rng(0)
+    lo = -80 if helper == "div_fast" else -149
+    exps = np.repeat(np.arange(lo, 128), 2000)
+    e = np.ldexp(rng.uniform(1.0, 2.0, exps.size), exps).astype(np.float32)
+    l = rng.uniform(1.0, 4096.0, exps.size).astype(np.float32)
+    l[::7] = np.floor(l[::7])  # integer sums too
+    if helper == "div_exact":
+        # e / l exactly halfway between two subnormals (l = 2m, e = m (2k + 1) 2^-149), and e / l within a
+        # rounding of such a point (e = l (2k + 1) 2^-150 rounded: the scaled quotient may round onto it)
+        m = rng.integers(1, 2048, 200000)
+        k = rng.integers(0, 2**23 // m)
+        l_near = rng.uniform(1.0, 4096.0, 200000).astype(np.float32)
+        e_near = l_near * np.ldexp((2 * rng.integers(0, 2**22, 200000) + 1).astype(np.float64), -150)
+        e = np.concatenate([e, np.ldexp((m * (2 * k + 1)).astype(np.float64), -149).astype(np.float32),
+                            e_near.astype(np.float32), np.zeros(1, np.float32)])
+        l = np.concatenate([l, (2 * m).astype(np.float32), l_near, np.ones(1, np.float32)])
+    with np.errstate(over="ignore", under="ignore", invalid="ignore"):
+        y = np.float32(1.0) / l
+        got = (_div_fast if helper == "div_fast" else _div_exact)(e, l, y)
+        want = e / l
+    assert got.dtype == np.float32 and want.dtype == np.float32
+    assert np.array_equal(got.view(np.uint32), want.view(np.uint32))
 
 
 @pytest.mark.parametrize("alone", [False, True])
@@ -514,6 +590,44 @@ def test_geo_rpe_kernel_matches_plain(cuda):
             assert int(steps.max()) <= 1 and steps.gt(0).float().mean().item() <= 1e-3 and torch.equal(sc, psc)
         with pytest.raises(ValueError):
             geo_fused.geo_rpe_fused_cuda(*args)
+
+
+@pytest.mark.cuda
+def test_geo_rpe_kernel_edges(cuda):
+    """The layouts' edges at the gates above: one point (N 1), the main N 197
+    (a 5-column last unit of 32) and MAX_N 512, at D 32 (32-channel tiles)
+    and 256 (bf16 tables of 256 channels, float32 of 128), with both
+    contraction dtypes; and k 1 and 4 anchor angles at MAX_N, D 256."""
+    from unopose_tpu_torch.models.embedding import knn_anchor_vectors
+
+    rng = np.random.default_rng(5)
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    for N in (1, 197, geo_fused.MAX_N):
+        if N == 1:
+            pts = torch.ones(4, 1, 3, device=cuda)
+            ref_vec = torch.randn(4, 1, 3, 3, device=cuda, generator=gen)
+        else:
+            pts = torch.cat([torch.ones(4, 1, 3, device=cuda), _lrf_cloud(rng, 4, N - 1, cuda)], dim=1)
+            _, ref_vec = knn_anchor_vectors(pts, 3)
+        for D in (32, 256):
+            W = torch.randn(D, D, device=cuda, generator=gen) / D**0.5
+            b = torch.randn(D, device=cuda, generator=gen) * 0.1
+            tab_d, sd = geo_fused.build_taylor_table(W, b, 18.2, 128)
+            tab_a, sa = geo_fused.build_taylor_table(W.t().contiguous(), b, 12.0, 128)
+            args = (pts, ref_vec, tab_d, tab_a, sd, sa, 0.2, 3.8)
+            for dtype in (torch.bfloat16, torch.float32):
+                (e8, sc) = geo_fused.geo_rpe_fused_cuda(*args, dtype, True)
+                (p8, psc) = geo_fused.geo_rpe_fused_plain(*args, dtype, True)
+                steps = (e8.int() - p8.int()).abs()
+                assert int(steps.max()) <= 1 and steps.gt(0).float().mean().item() <= 1e-3, (N, D, dtype)
+                assert torch.equal(sc, psc)
+    # angle counts other than the model's 3 go through the build that reads k at run time
+    for k in (1, 4):
+        _, ref_vec = knn_anchor_vectors(pts, k)
+        (e8, sc) = geo_fused.geo_rpe_fused_cuda(pts, ref_vec, *args[2:], torch.bfloat16, True)
+        (p8, psc) = geo_fused.geo_rpe_fused_plain(pts, ref_vec, *args[2:], torch.bfloat16, True)
+        steps = (e8.int() - p8.int()).abs()
+        assert int(steps.max()) <= 1 and steps.gt(0).float().mean().item() <= 1e-3 and torch.equal(sc, psc), k
 
 
 @pytest.mark.cuda
@@ -659,6 +773,54 @@ def test_fine_assign_kernels_match_plain(cuda):
         args = (f1n, f2n, cm, cs, s1, s2, rm, rs, l1, l2, pts2)
         for a, b in zip(assignment_fused.accum_cuda(*args), assignment_fused.accum_plain(*args)):
             assert (a - b).abs().max() <= 1e-4 * b.abs().max()
+
+
+def _labels_case(gen, B, M, C, dev, q_scale=1.0):
+    """Operands of one labels case: three quarters of the rows match a
+    column; columns 1-8 duplicated at 9-16 and rows 1-8 at 9-16 (with their
+    scores), so pred has exact ties along rows and columns; column 17's
+    score 0, so its pred is 0 on every row; f1n scaled by q_scale."""
+    f1, f2 = (torch.randn(B, M, C, device=dev, generator=gen) for _ in range(2))
+    f1[:, : 3 * M // 4] = f2[:, : 3 * M // 4] + 0.5 * f1[:, : 3 * M // 4]
+    score = torch.rand(B, 2 * (M - 1), device=dev, generator=gen)
+    if M > 17:
+        f1[:, 9:17], f2[:, 9:17] = f1[:, 1:9], f2[:, 1:9]
+        score[:, 8:16] = score[:, :8]  # s1 of rows 9-16 (score row i - 1)
+        score[:, M - 1 + 8: M - 1 + 16] = score[:, M - 1: M - 1 + 8]  # s2 of columns 9-16
+        score[:, M - 1 + 16] = 0.0  # s2 of column 17
+    f1n, f2n, s1, s2 = assignment_fused.operands(f1, f2, score, 0.1)
+    return (f1n.float() * q_scale).to(torch.bfloat16), f2n, s1, s2
+
+
+@pytest.mark.cuda
+def test_fine_assign_labels_edges(cuda):
+    """K9 at the edges of its layout, against its plain twin at the gates
+    above: M 2049 (a one-row last tile), 65 and 300, C 32 and 256; exact ties
+    along rows and columns, where the first occurrence wins (label1 never a
+    later duplicate column, label2 never a later duplicate row); a column
+    whose pred is 0 on every row, whose label2 is row 0; and q scaled by 40,
+    where pred underflows (the division's exact path for tiny dividends).
+    Two launches on the same inputs give the same bits."""
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    for B, M, C, q_scale in ((2, 2049, 256, 1.0), (2, 65, 32, 1.0), (2, 300, 256, 1.0), (2, 300, 32, 1.0),
+                             (2, 2049, 256, 40.0)):
+        f1n, f2n, s1, s2 = _labels_case(gen, B, M, C, cuda, q_scale)
+        cm, cs = assignment_fused.colstats_plain(f1n, f2n)
+        rm, rs, l1, l2 = assignment_fused.labels_plain(f1n, f2n, cm, cs, s1, s2)
+        got = assignment_fused.labels_cuda(f1n, f2n, cm, cs, s1, s2)
+        # the logits' float32 sums differ by summation order in proportion to their size: the gate scales with q
+        for a, b in zip(got[:2], (rm, rs)):
+            assert ((a - b).abs() <= 1e-5 * q_scale * b.abs().clamp_min(1.0)).all(), (M, C, q_scale)
+        assert (got[2] == l1).float().mean() >= 0.999 and (got[3] == l2).float().mean() >= 0.999, (M, C, q_scale)
+        again = assignment_fused.labels_cuda(f1n, f2n, cm, cs, s1, s2)
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+        if M > 17:
+            assert not torch.isin(got[2], torch.arange(9, 17, device=cuda)).any()
+            assert not torch.isin(got[3], torch.arange(9, 17, device=cuda)).any()
+            assert (got[3][:, 17] == 0).all()
+        if q_scale > 1.0:
+            pred = assignment_fused._pred(assignment_fused._logits(f1n, f2n), cm, cs, s1, s2, rm, rs)
+            assert (pred == 0).float().mean() > 0.1  # the case reaches underflow
 
 
 @pytest.mark.cuda

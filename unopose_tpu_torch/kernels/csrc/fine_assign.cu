@@ -24,28 +24,34 @@
 //   twice: once for the row statistics, once for the labels. label1 is a
 //   per-row reduction inside the block. label2 needs all row tiles: each
 //   column's best (pred, row) is packed into one 64-bit key, the float bits
-//   of pred >= 0 above M1 - 1 - row, and reduced with atomicMax (first in
-//   shared memory per block, then once per column in device memory). The
-//   largest key is the largest pred and, among equals, the smallest row, as
-//   the TPU's in-order strict > gives; an all-zero column decodes to row 0.
+//   of pred >= 0 above M1 - 1 - row, reduced over each warp's rows by
+//   shuffles, over the block's warps through per-warp slots and once per
+//   column and block in device memory by atomicMax. The largest key is the
+//   largest pred and, among equals, the smallest row, as the TPU's in-order
+//   strict > gives; an all-zero column decodes to row 0.
 // - K10 takes one block per (pair, 64-row tile) and skips the exponentials of
 //   entries whose row or column mask is 0.
-// Every logit tile is a 64 x 64 block: both operand tiles staged in shared
-// memory (rows padded by 8 bf16, conflict-free fragment loads; 68 KB at
-// C = 256), each warp 16 rows on mma.sync m16n8k16. K9 and K10 build the
-// same tiles in the same order, so their logits agree to the bit.
+// K8 and K10 stage both 64 x 64 operand tiles in shared memory (rows padded
+// by 8 bf16, conflict-free fragment loads; 68 KB at C = 256) with a barrier
+// on either side; K9 holds its rows in registers and streams the column
+// tiles (below). Every logit is the same sequence of mma.sync m16n8k16
+// k-steps in all three, so their logits agree to the bit.
 //
 // Bound at the main shape (B = 16, M1 = M2 = 2049, C = 256): operations.
 // One logit rebuild is 16 x 2049^2 x 256 x 2 = 34.4 GFLOP (34.8 us at 989
-// TFLOP/s); K8 does one, K9 two, K10 one. The exponentials (67 M per
-// exponentiated matrix: 1 in K8, 3 in K9, at most 2 in K10) take less at the
-// 16 per clock per SM of the special function units. The operands are 33.6
-// MB. This first version uses mma.sync without wgmma, TMA or a pipeline, and
-// stages each tile with a barrier on either side.
+// TFLOP/s); K8 does one, K9 two, K10 one. The exponentials are 67 M per
+// exponentiated matrix (1 in K8, 3 in K9, at most 2 in K10) at the 16 per
+// clock per SM of the special function units: 48 us for K9's three, its
+// bound. The operands are 33.6 MB. K9's time goes to the float32 work of
+// its two sweeps (~15 and ~30 instructions per entry) and to streaming
+// 2 ceil(M2 / 64) column tiles per block; its design overlaps the two.
 
+#include <cuda.h>  // CUtensorMap; its encoder is taken from the driver at run time
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "fast_div.cuh"
 
 namespace {
 
@@ -171,124 +177,367 @@ __device__ __forceinline__ float pred_of(float x, float rm, float rs, float cmj,
   return p_row * p_col * s1 * s2;
 }
 
-__global__ void __launch_bounds__(kThreads)
-labels_kernel(const __nv_bfloat16* __restrict__ f1, const __nv_bfloat16* __restrict__ f2,
+// ---------------------------------------------------------------- K9 labels
+// One block per (pair, 16 kLabelWarps-row tile): kLabelWarps consumer warps
+// of 16 rows, whose rows of f1 sit in registers as mma A fragments for the
+// whole sweep, and one producer warp. The producer streams f2's 64-column
+// tiles through a ring of kStages shared-memory slots (pass 1 and pass 2 as
+// one sequence of 2 ceil(M2 / 64) tiles), each tile as c / 64 boxes that the
+// copy engine loads through a tensor map, 128-byte swizzled so that the
+// ldmatrix reads of B fragments are free of bank conflicts (32-byte boxes of
+// 16 channels where 64 does not divide c), with each pass-2 tile's column
+// scalars; a slot's full and empty mbarriers replace the block barrier, so
+// each consumer warp runs on as soon as its next tile has landed and the
+// warps' products, exponentials and loads overlap. The producer also
+// reduces each pass-2 tile's column keys over the consumer warps and writes
+// them to device memory once it finds the tile's slot released.
+// Per row, pred's two quotients are fast_div.cuh's (IEEE's to the bit, from
+// 1 / rs per row and 1 / cs per column) where M1, M2 < 4096, else the IEEE
+// division.
+constexpr int kLabelWarps = 4;
+constexpr int kLabelThreads = 32 * (kLabelWarps + 1);
+constexpr int kLabelBlocks = 2;  // blocks an SM: at most 168 registers a thread (3 warps of a quarter SM)
+constexpr int kStages = 3;
+constexpr int kMaxKs = kMaxC / 16;
+// quotients of pred: the IEEE division, or fast_div.cuh's helpers (div_fast
+// where every quotient's dividend is at least 2^-80, else div_exact)
+enum Div { kIeee, kFast, kExact };
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const __nv_bfloat16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+// one box of the (B, m2, c) tensor of f2 at (k0, row0, b) into shared memory by the copy engine (rows past m2
+// zero-filled), counted on bar's transactions
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, int k0, int row0, int b, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%2, %3, %4}], "
+      "[%5];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(k0), "r"(row0), "r"(b), "r"(smem_addr(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
+}
+
+// bytes more of copies that this phase of bar waits for
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, int bytes) {
+  asm volatile("mbarrier.expect_tx.relaxed.cta.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred done;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra WAIT;\n"
+      "}\n" ::"r"(smem_addr(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// The element offset of column n, channel k of a staged tile: the copy engine writes it as c / kKb boxes of
+// 64 rows of kKb channels, each row's 16-byte chunks XOR-swizzled by the row (its 128-byte swizzle for
+// kKb = 64, 32-byte for kKb = 16), so that the 8 rows an ldmatrix reads fall on 8 different bank groups.
+template <int kKb>
+__device__ __forceinline__ int tile_at(int n, int k) {
+  const int q = (k % kKb) >> 3, x = kKb == 64 ? (n & 7) : ((n >> 2) & 1);
+  return (k / kKb) * kTile * kKb + n * kKb + ((q ^ x) << 3) + (k & 7);
+}
+
+// B fragments of k-step ks for the n-tiles 2np and 2np + 1 (np = 0..3) of a staged column tile
+template <int kKb>
+__device__ __forceinline__ void b_frags(uint32_t (&b)[4][4], const __nv_bfloat16* sB, int ks) {
+  const int lane = threadIdx.x & 31, i = lane >> 3;
+  // matrix i of an ldmatrix.x4: n-tile 2np + (i >> 1), k half i & 1
+#pragma unroll
+  for (int np = 0; np < 4; ++np)
+    ldsm_x4(b[np], sB + tile_at<kKb>((2 * np + (i >> 1)) * 8 + (lane & 7), ks * 16 + (i & 1) * 8));
+}
+
+// the warp's logits against one staged column tile, the k-steps in logits()'s order; each k-step's B
+// fragments are read while the previous one's products run
+template <int kKb>
+__device__ __forceinline__ void logits_reg(float (&acc)[8][4], const uint32_t (&a)[kMaxKs][4],
+                                           const __nv_bfloat16* sB, int c) {
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.0f;
+  uint32_t b[2][4][4];
+  b_frags<kKb>(b[0], sB, 0);
+#pragma unroll
+  for (int ks = 0; ks < kMaxKs; ++ks) {
+    if (ks * 16 >= c) break;
+    if ((ks + 1) * 16 < c) b_frags<kKb>(b[(ks + 1) & 1], sB, ks + 1);
+#pragma unroll
+    for (int np = 0; np < 4; ++np) {
+      mma_bf16(acc[2 * np], a[ks], b[ks & 1][np][0], b[ks & 1][np][1]);
+      mma_bf16(acc[2 * np + 1], a[ks], b[ks & 1][np][2], b[ks & 1][np][3]);
+    }
+  }
+}
+
+template <int kDiv>
+__device__ __forceinline__ float quot(float e, float l, float y) {
+  if constexpr (kDiv == kIeee) return e / l;
+  else if constexpr (kDiv == kFast) return div_fast(e, l, y);
+  else return div_exact(e, l, y);
+}
+
+// pred_of with the quotients of kDiv; yr, yc = 1 / rs, 1 / csj rounded to nearest
+template <int kDiv>
+__device__ __forceinline__ float pred_q(float x, float rm, float rs, float yr, float cmj, float csj, float yc,
+                                        float s1, float s2) {
+  const float p_row = quot<kDiv>(expf(x - rm), rs, yr);
+  const float p_col = quot<kDiv>(expf(x - cmj), csj, yc);
+  return p_row * p_col * s1 * s2;
+}
+
+// Pass 1 on one tile: the lane's online row max m_ and sum of exp l_ over its 16 columns in order, and the
+// row's least logit lo. kFull: every column of the tile is below m2; else a column past m2 enters as kNeg to
+// the max and -kNeg to the min, its term as 0: no change.
+template <bool kFull>
+__device__ __forceinline__ void row_stats(const float (&acc)[8][4], int c0, int m2, float (&m_)[2], float (&l_)[2],
+                                          float (&lo)[2]) {
+  const int t = threadIdx.x & 3;
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    float tm = kNeg;
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const bool in = kFull || c0 + nt * 8 + 2 * t + e < m2;
+        tm = fmaxf(tm, in ? acc[nt][2 * rr + e] : kNeg);
+        lo[rr] = fminf(lo[rr], in ? acc[nt][2 * rr + e] : -kNeg);
+      }
+    }
+    const float nm = fmaxf(m_[rr], tm);
+    float ts = 0.0f;
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float x = expf(acc[nt][2 * rr + e] - nm);
+        ts = ts + (kFull || c0 + nt * 8 + 2 * t + e < m2 ? x : 0.0f);
+      }
+    }
+    l_[rr] = l_[rr] * expf(m_[rr] - nm) + ts;
+    m_[rr] = nm;
+  }
+}
+
+// one round of the key reduce-scatter among the 8 lanes of a column group (lane bit off): a lane keeps the
+// kHalf keys its bit selects and takes the max with its partner's
+template <int kHalf>
+__device__ __forceinline__ void key_round(unsigned long long (&key)[16], bool hi, int off) {
+#pragma unroll
+  for (int c = 0; c < kHalf; ++c) {
+    const unsigned long long send = hi ? key[c] : key[c + kHalf];
+    const unsigned long long keep = hi ? key[c + kHalf] : key[c];
+    key[c] = umax64(keep, __shfl_xor_sync(kFull, send, off));
+  }
+}
+
+// Pass 2 on one tile: pred, each row's first-occurrence best column, and each
+// column's best key over the warp's 16 rows into its slot of sKey. Without a
+// branch: a column past m2 has s2 = 0 and zero logits, so its pred is 0 (or
+// NaN), which never beats a row's best, and its key is never read; a row past
+// m1 keys as 0. rkey: m1 - 1 - row, or 0 past m1 (a lane's row g + 8 is past
+// m1 wherever its row g is).
+template <int kDiv>
+__device__ __forceinline__ void labels_tile(const float (&acc)[8][4], const float4* sCol, unsigned long long* sKey,
+                                            int c0, const unsigned (&rkey)[2], const bool (&valid)[2],
+                                            const float (&m_)[2], const float (&l_)[2], const float (&yr)[2],
+                                            const float (&s1v)[2], float (&best_v)[2], int (&best_j)[2]) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  unsigned long long key[16];  // column nt * 8 + 2t + e at 2 nt + e
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int col = nt * 8 + 2 * t + e, j = c0 + col;
+      const float4 cj = sCol[col];  // cm, cs, 1 / cs, s2
+      float p[2];
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        p[rr] = pred_q<kDiv>(acc[nt][2 * rr + e], m_[rr], l_[rr], yr[rr], cj.x, cj.y, cj.z, s1v[rr], cj.w);
+        if (p[rr] > best_v[rr]) best_v[rr] = p[rr], best_j[rr] = j;
+      }
+      // the column's key over the lane's two rows: the second (later) row only where it is valid and larger
+      const bool second = valid[1] && p[1] > p[0];
+      const float pb = valid[0] ? (second ? p[1] : p[0]) : 0.0f;
+      key[2 * nt + e] = ((unsigned long long)__float_as_uint(pb) << 32) | (second ? rkey[1] : rkey[0]);
+    }
+  }
+  // the max over the warp's 16 rows: lane g ends with the keys 2 nt + e = c + 2 (g >> 2 & 1) + 4 (g >> 1 & 1)
+  // + 8 (g & 1), c = 0, 1
+  key_round<8>(key, g & 1, 4);
+  key_round<4>(key, g & 2, 8);
+  key_round<2>(key, g & 4, 16);
+#pragma unroll
+  for (int c = 0; c < 2; ++c) {
+    const int i = c + 2 * ((g >> 2) & 1) + 4 * ((g >> 1) & 1) + 8 * (g & 1);
+    sKey[(i >> 1) * 8 + 2 * t + (i & 1)] = key[c];
+  }
+}
+
+template <bool kHelper, int kKb>
+__global__ void __launch_bounds__(kLabelThreads, kLabelBlocks)
+labels_kernel(const __nv_bfloat16* __restrict__ f1, const __grid_constant__ CUtensorMap f2_map,
               const float* __restrict__ cm, const float* __restrict__ cs, const float* __restrict__ s1,
               const float* __restrict__ s2, float* __restrict__ rm_out, float* __restrict__ rs_out,
               int* __restrict__ label1, unsigned long long* __restrict__ keys, int m1, int m2, int c) {
   extern __shared__ uint4 smem[];
-  __nv_bfloat16* sA = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* sB = sA + kTile * (c + 8);
-  unsigned long long* sKey = reinterpret_cast<unsigned long long*>(sB + kTile * (c + 8));
-  float* sCm = reinterpret_cast<float*>(sKey + kTile);
-  float* sCs = sCm + kTile;
-  float* sS2 = sCs + kTile;
-  const int b = blockIdx.y, r0 = blockIdx.x * kTile;
-  const __nv_bfloat16* Bm = f2 + (long long)b * m2 * c;
-  stage(sA, f1 + (long long)b * m1 * c, r0, m1, c);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int wr = r0 + warp * 16;
-  const bool live = wr < m1;
-  const int row[2] = {wr + g, wr + g + 8};
-  const bool valid[2] = {row[0] < m1, row[1] < m1};
-  const __nv_bfloat16* sAw = sA + warp * 16 * (c + 8);
-
-  // pass 1: row max and sum of exp, online over the column tiles
-  float m_[2] = {kNeg, kNeg}, l_[2] = {0.0f, 0.0f};
-  for (int c0 = 0; c0 < m2; c0 += kTile) {
-    __syncthreads();
-    stage(sB, Bm, c0, m2, c);
-    __syncthreads();
-    if (!live) continue;
-    float acc[8][4];
-    logits(acc, sAw, sB, c);
-#pragma unroll
-    for (int rr = 0; rr < 2; ++rr) {
-      float tm = kNeg;
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
-        const int j = c0 + nt * 8 + 2 * t;
-        if (j < m2) tm = fmaxf(tm, acc[nt][2 * rr]);
-        if (j + 1 < m2) tm = fmaxf(tm, acc[nt][2 * rr + 1]);
-      }
-      const float nm = fmaxf(m_[rr], tm);
-      float ts = 0.0f;
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
-        const int j = c0 + nt * 8 + 2 * t;
-        if (j < m2) ts = ts + expf(acc[nt][2 * rr] - nm);
-        if (j + 1 < m2) ts = ts + expf(acc[nt][2 * rr + 1] - nm);
-      }
-      l_[rr] = l_[rr] * expf(m_[rr] - nm) + ts;
-      m_[rr] = nm;
+  // [kStages][64 c] tiles at a 1024-byte boundary (the 128-byte swizzle's period)
+  __nv_bfloat16* sRing = reinterpret_cast<__nv_bfloat16*>(smem) + ((1024 - smem_addr(smem) % 1024) % 1024) / 2;
+  unsigned long long* sKey =  // [kStages][warp][64]
+      reinterpret_cast<unsigned long long*>(sRing + kStages * kTile * c);
+  uint64_t* full = reinterpret_cast<uint64_t*>(sKey + kStages * kLabelWarps * kTile);  // [kStages]
+  uint64_t* empty = full + kStages;                                                    // [kStages]
+  float4* sCol = reinterpret_cast<float4*>(full + 2 * kStages);  // [kStages][64] (cm, cs, 1 / cs, s2)
+  float* sMax = reinterpret_cast<float*>(sCol + kStages * kTile);  // [kLabelWarps + 1]
+  const int b = blockIdx.y, r0 = blockIdx.x * 16 * kLabelWarps;
+  // the warp index as the compiler can see it is uniform in the warp (the shuffles need no divergence guard)
+  const int warp = __shfl_sync(kFull, (int)threadIdx.x >> 5, 0), lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int warps = min(kLabelWarps, (m1 - r0 + 15) / 16);  // consumer warps with rows
+  cm += (long long)b * m2;
+  cs += (long long)b * m2;
+  s2 += (long long)b * m2;
+  keys += (long long)b * m2;
+  const int tiles = (m2 + kTile - 1) / kTile, sweep = 2 * tiles;
+  const int slot = kTile * c;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 32);                // the producer's lanes, once the tile's copies have landed
+      mbar_init(&empty[s], 32 * kLabelWarps);  // every consumer lane
     }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-#pragma unroll
-  for (int rr = 0; rr < 2; ++rr) {
-    for (int off = 1; off < 4; off <<= 1) {
-      const float om = __shfl_xor_sync(kFull, m_[rr], off), ol = __shfl_xor_sync(kFull, l_[rr], off);
-      const float nm = fmaxf(m_[rr], om);
-      l_[rr] = l_[rr] * expf(m_[rr] - nm) + ol * expf(om - nm);
-      m_[rr] = nm;
-    }
-    if (t == 0 && valid[rr]) {
-      rm_out[(long long)b * m1 + row[rr]] = m_[rr];
-      rs_out[(long long)b * m1 + row[rr]] = l_[rr];
-    }
-  }
+  // the largest column max, for the choice of division
+  float cmx = kNeg;
+  for (int j = threadIdx.x; j < m2; j += kLabelThreads) cmx = fmaxf(cmx, cm[j]);
+  for (int off = 16; off > 0; off >>= 1) cmx = fmaxf(cmx, __shfl_xor_sync(kFull, cmx, off));
+  if (lane == 0) sMax[warp] = cmx;
+  __syncthreads();
 
-  // pass 2: pred, label1 (first-occurrence row argmax), label2 keys
-  float s1v[2], best_v[2] = {-1.0f, -1.0f};
-  int best_j[2] = {0, 0};
-#pragma unroll
-  for (int rr = 0; rr < 2; ++rr) s1v[rr] = valid[rr] ? s1[(long long)b * m1 + row[rr]] : 0.0f;
-  for (int c0 = 0; c0 < m2; c0 += kTile) {
-    __syncthreads();
-    stage(sB, Bm, c0, m2, c);
-    if (threadIdx.x < kTile) {
-      const int j = c0 + threadIdx.x;
-      const bool in = j < m2;
-      sCm[threadIdx.x] = in ? cm[(long long)b * m2 + j] : 0.0f;
-      sCs[threadIdx.x] = in ? fmaxf(cs[(long long)b * m2 + j], 1e-30f) : 1.0f;
-      sS2[threadIdx.x] = in ? s2[(long long)b * m2 + j] : 0.0f;
-      sKey[threadIdx.x] = 0ull;
+  if (warp == kLabelWarps) {  // the producer
+    float4 col[2];  // the column scalars of the next pass-2 tile, (cm, cs, 1 / cs, s2), read a tile ahead
+    for (int u = 0; u < sweep + kStages; ++u) {
+      const int s = u % kStages;
+      if (u >= kStages) mbar_wait(&empty[s], (u / kStages - 1) & 1);  // tile u - kStages is consumed
+      if (u < sweep && lane == 0) {
+        mbar_expect(&full[s], kTile * c * 2);
+        for (int k0 = 0; k0 < c; k0 += kKb)
+          tma_load(sRing + s * slot + k0 * kTile, &f2_map, k0, (u % tiles) * kTile, b, &full[s]);
+      }
+      const int tp = u - kStages - tiles;  // the keys of tile u - kStages are final: reduce them over the warps
+      for (int cl = lane; tp >= 0 && cl < kTile; cl += 32) {
+        unsigned long long key = 0ull;
+        for (int w = 0; w < warps; ++w) key = umax64(key, sKey[(s * kLabelWarps + w) * kTile + cl]);
+        if (tp * kTile + cl < m2 && key) atomicMax(keys + tp * kTile + cl, key);
+      }
+      if (u >= sweep) continue;
+      for (int h = 0; h < 2 && u >= tiles; ++h) sCol[s * kTile + lane + 32 * h] = col[h];
+      const int cn = (u + 1 - tiles) * kTile;  // the next pass-2 tile's first column
+      for (int h = 0; h < 2 && u + 1 >= tiles && u + 1 < sweep; ++h) {
+        const int j = cn + lane + 32 * h;
+        const float l = j < m2 ? fmaxf(cs[j], 1e-30f) : 1.0f;
+        col[h] = make_float4(j < m2 ? cm[j] : 0.0f, l, __frcp_rn(l), j < m2 ? s2[j] : 0.0f);
+      }
+      mbar_arrive(&full[s]);
     }
-    __syncthreads();
-    if (live) {
-      float acc[8][4];
-      logits(acc, sAw, sB, c);
+  } else {  // a consumer: 16 rows
+    const int wr = r0 + warp * 16;
+    const bool live = wr < m1;
+    const int row[2] = {wr + g, wr + g + 8};
+    const bool valid[2] = {row[0] < m1, row[1] < m1};
+    const unsigned rkey[2] = {valid[0] ? (unsigned)(m1 - 1 - row[0]) : 0u, valid[1] ? (unsigned)(m1 - 1 - row[1]) : 0u};
+    // the warp's A fragments, zero past m1
+    uint32_t a[kMaxKs][4];
+    {
+      const __nv_bfloat16* a0 = f1 + ((long long)b * m1 + row[0]) * c + 2 * t;
 #pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
+      for (int ks = 0; ks < kMaxKs; ++ks) {
+        const bool in = ks * 16 < c;
+        a[ks][0] = in && valid[0] ? ld32(a0 + ks * 16) : 0u;
+        a[ks][1] = in && valid[1] ? ld32(a0 + 8 * c + ks * 16) : 0u;
+        a[ks][2] = in && valid[0] ? ld32(a0 + ks * 16 + 8) : 0u;
+        a[ks][3] = in && valid[1] ? ld32(a0 + 8 * c + ks * 16 + 8) : 0u;
+      }
+    }
+    float m_[2] = {kNeg, kNeg}, l_[2] = {0.0f, 0.0f}, lo[2] = {-kNeg, -kNeg}, yr[2] = {0.0f, 0.0f};
+    float s1v[2] = {0.0f, 0.0f}, best_v[2] = {-1.0f, -1.0f};
+    int best_j[2] = {0, 0};
+    bool fast = false;
+    for (int u = 0; u < sweep; ++u) {
+      const int s = u % kStages, tp = u - tiles;  // tp: the pass-2 tile
+      mbar_wait(&full[s], (u / kStages) & 1);
+      if (tp == 0) {  // pass 1 is done: merge the row statistics across the quad
 #pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int col = nt * 8 + 2 * t + e, j = c0 + col;
-          unsigned long long key = 0ull;
-          if (j < m2) {
-#pragma unroll
-            for (int rr = 0; rr < 2; ++rr) {
-              if (!valid[rr]) continue;
-              const float p = pred_of(acc[nt][2 * rr + e], m_[rr], l_[rr], sCm[col], sCs[col], s1v[rr], sS2[col]);
-              if (p > best_v[rr]) best_v[rr] = p, best_j[rr] = j;
-              key = umax64(key, ((unsigned long long)__float_as_uint(p) << 32) | (unsigned)(m1 - 1 - row[rr]));
-            }
+        for (int rr = 0; rr < 2; ++rr) {
+          for (int off = 1; off < 4; off <<= 1) {
+            const float om = __shfl_xor_sync(kFull, m_[rr], off), ol = __shfl_xor_sync(kFull, l_[rr], off);
+            const float nm = fmaxf(m_[rr], om);
+            l_[rr] = l_[rr] * expf(m_[rr] - nm) + ol * expf(om - nm);
+            m_[rr] = nm;
+            lo[rr] = fminf(lo[rr], __shfl_xor_sync(kFull, lo[rr], off));
           }
-          for (int off = 4; off < 32; off <<= 1) key = umax64(key, __shfl_xor_sync(kFull, key, off));
-          if (g == 0 && j < m2) atomicMax(&sKey[col], key);
+          if (t == 0 && valid[rr]) {
+            rm_out[(long long)b * m1 + row[rr]] = m_[rr];
+            rs_out[(long long)b * m1 + row[rr]] = l_[rr];
+          }
+          s1v[rr] = valid[rr] ? s1[(long long)b * m1 + row[rr]] : 0.0f;
+          yr[rr] = __frcp_rn(l_[rr]);
+        }
+        // expf(-55) > 2^-80: with no logit that far below its row's max or the largest column max, every
+        // dividend of the warp's quotients is in div_fast's range
+        float cmax = sMax[0];
+        for (int w = 1; w <= kLabelWarps; ++w) cmax = fmaxf(cmax, sMax[w]);
+        const float far = fmaxf(cmax, fmaxf(valid[0] ? m_[0] : kNeg, valid[1] ? m_[1] : kNeg));
+        fast = __all_sync(kFull, fminf(valid[0] ? lo[0] : -kNeg, valid[1] ? lo[1] : -kNeg) - far >= -55.0f);
+      }
+      if (live) {
+        float acc[8][4];
+        logits_reg<kKb>(acc, a, sRing + s * slot, c);
+        const int c0 = (u % tiles) * kTile;
+        if (tp < 0) {  // pass 1: row max and sum of exp, online over the column tiles
+          if (c0 + kTile <= m2) row_stats<true>(acc, c0, m2, m_, l_, lo);
+          else row_stats<false>(acc, c0, m2, m_, l_, lo);
+        } else {  // pass 2: pred, label1 (first-occurrence row argmax), label2 keys
+          const float4* col = sCol + s * kTile;
+          unsigned long long* key = sKey + (s * kLabelWarps + warp) * kTile;
+          if constexpr (kHelper) {
+            if (fast) labels_tile<kFast>(acc, col, key, c0, rkey, valid, m_, l_, yr, s1v, best_v, best_j);
+            else labels_tile<kExact>(acc, col, key, c0, rkey, valid, m_, l_, yr, s1v, best_v, best_j);
+          } else {
+            labels_tile<kIeee>(acc, col, key, c0, rkey, valid, m_, l_, yr, s1v, best_v, best_j);
+          }
         }
       }
+      mbar_arrive(&empty[s]);
     }
-    __syncthreads();
-    if (threadIdx.x < kTile && c0 + threadIdx.x < m2)
-      atomicMax(&keys[(long long)b * m2 + c0 + threadIdx.x], sKey[threadIdx.x]);
-  }
 #pragma unroll
-  for (int rr = 0; rr < 2; ++rr) {
-    for (int off = 1; off < 4; off <<= 1) {
-      const float ov = __shfl_xor_sync(kFull, best_v[rr], off);
-      const int oj = __shfl_xor_sync(kFull, best_j[rr], off);
-      if (ov > best_v[rr] || (ov == best_v[rr] && oj < best_j[rr])) best_v[rr] = ov, best_j[rr] = oj;
+    for (int rr = 0; rr < 2; ++rr) {
+      for (int off = 1; off < 4; off <<= 1) {
+        const float ov = __shfl_xor_sync(kFull, best_v[rr], off);
+        const int oj = __shfl_xor_sync(kFull, best_j[rr], off);
+        if (ov > best_v[rr] || (ov == best_v[rr] && oj < best_j[rr])) best_v[rr] = ov, best_j[rr] = oj;
+      }
+      if (t == 0 && valid[rr]) label1[(long long)b * m1 + row[rr]] = best_j[rr];
     }
-    if (t == 0 && valid[rr]) label1[(long long)b * m1 + row[rr]] = best_j[rr];
   }
 }
 
@@ -379,6 +628,11 @@ accum_kernel(const __nv_bfloat16* __restrict__ f1, const __nv_bfloat16* __restri
 
 size_t tiles_smem(int c) { return (size_t)2 * kTile * (c + 8) * sizeof(__nv_bfloat16); }
 
+// the driver's cuTensorMapEncodeTiled, found at run time (the library does not link the driver)
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                                const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
+                                CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
 bool bad_shape(int B, int m1, int m2, int c) {
   return B <= 0 || B > 65535 || m1 < 1 || m2 < 2 || c < 16 || c > kMaxC || c % 16 != 0;
 }
@@ -406,12 +660,40 @@ extern "C" int unopose_fine_labels(const void* f1, const void* f2, const float* 
                                    const float* s2, float* rm, float* rs, int* label1, unsigned long long* keys, int B,
                                    int m1, int m2, int c, cudaStream_t stream) {
   if (bad_shape(B, m1, m2, c)) return (int)cudaErrorInvalidValue;
-  const size_t smem = tiles_smem(c) + kTile * sizeof(unsigned long long) + 3 * kTile * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(labels_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  // f2 as the copy engine reads it: (B, m2, c) bf16, boxes of 64 rows and kKb channels, 128- or 32-byte swizzle
+  const int kb = c % 64 == 0 ? 64 : 16;
+  static EncodeTiled encode = nullptr;
+  if (encode == nullptr) {
+    cudaDriverEntryPointQueryResult found;
+    void* fn = nullptr;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &fn, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
+#endif
+    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess) return (int)cudaErrorNotSupported;
+    encode = reinterpret_cast<EncodeTiled>(fn);
+  }
+  CUtensorMap map;
+  const cuuint64_t dims[3] = {(cuuint64_t)c, (cuuint64_t)m2, (cuuint64_t)B};
+  const cuuint64_t strides[2] = {(cuuint64_t)c * 2, (cuuint64_t)m2 * c * 2};
+  const cuuint32_t box[3] = {(cuuint32_t)kb, (cuuint32_t)kTile, 1u}, unit[3] = {1u, 1u, 1u};
+  if (encode(&map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(f2), dims, strides, box, unit,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, kb == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_32B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = 1024 + (size_t)kStages * kTile * c * sizeof(__nv_bfloat16) +
+                      kStages * kLabelWarps * kTile * sizeof(unsigned long long) + 2 * kStages * sizeof(uint64_t) +
+                      kStages * kTile * sizeof(float4) + (kLabelWarps + 1) * sizeof(float);
+  // fast_div.cuh needs 1 <= l < 2^12: a row sum holds at most m2 terms of at most 1, a column sum m1
+  const bool helper = m1 < 4096 && m2 < 4096;
+  const auto kernel = helper ? (kb == 64 ? labels_kernel<true, 64> : labels_kernel<true, 16>)
+                             : (kb == 64 ? labels_kernel<false, 64> : labels_kernel<false, 16>);
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  labels_kernel<<<dim3((m1 + kTile - 1) / kTile, B), kThreads, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(f1), static_cast<const __nv_bfloat16*>(f2), cm, cs, s1, s2, rm, rs, label1,
-      keys, m1, m2, c);
+  const int rows = 16 * kLabelWarps;
+  kernel<<<dim3((m1 + rows - 1) / rows, B), kLabelThreads, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(f1), map, cm, cs, s1, s2, rm, rs, label1, keys, m1, m2, c);
   return (int)cudaGetLastError();
 }
 

@@ -36,7 +36,7 @@
 //    spills, where bounds of ceil(N / 16) spilled (3.3 times the time on
 //    one H100, tools/kernel_variants.py);
 //  - the division is IEEE's to the bit without its slow path (div_fast,
-//    div_exact below), whose call alone took 1.6 times the time;
+//    div_exact of fast_div.cuh), whose call alone took 1.6 times the time;
 //  - a row too long for the registers (N > 272) recomputes the scores per
 //    pass, once for the max, once for the sum, once for P, with V
 //    transposed into shared memory as the first version kept it (K's rows
@@ -54,6 +54,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "fast_div.cuh"
 
 namespace {
 
@@ -198,32 +200,6 @@ __device__ __forceinline__ void quad_sum(float& l0, float& l1) {
     l0 = l0 + __shfl_xor_sync(0xffffffffu, l0, off);
     l1 = l1 + __shfl_xor_sync(0xffffffffu, l1, off);
   }
-}
-
-// e / l rounded to nearest, as the IEEE division gives it, from y = 1 / l
-// (itself so rounded), without the division's slow path, whose call and its
-// register saves cost the kernel 1.6 times its time. For e >= 2^-80:
-// q = e * y is within an ulp of e / l, the residual e - l q is exact in one fma, and
-// one more fma rounds q + (e - l q) y to the nearest float (Markstein's
-// theorem); with 1 <= l < 2^12 (a row sum holds exp(0) = 1) the residual's
-// granularity ulp(l) ulp(q) is at least 2^-137, clear of the subnormals.
-__device__ __forceinline__ float div_fast(float e, float l, float y) {
-  const float q = e * y;  // a plain rounded multiply: the file is built with -fmad=false
-  return fmaf(fmaf(-l, q, e), y, q);
-}
-
-// The same for any e >= 0, without a branch: a smaller e is scaled by 2^64
-// (exactly), divided so and scaled back, which rounds once more where the
-// quotient is subnormal; only a quotient exactly halfway between two
-// subnormals can come out wrong there, and the residual's sign settles it.
-__device__ __forceinline__ float div_exact(float e, float l, float y) {
-  const float es = e * 0x1p64f;
-  const float q = div_fast(es, l, y);  // RN(es / l)
-  const float r = fmaf(-l, q, es);     // es - l q, exact
-  const float c = q * 0x1p-64f;        // RN(q 2^-64), ties to even
-  const float down = __fmul_rz(q, 0x1p-64f);
-  const float tiny = q - down * 0x1p64f != 0x1p-86f ? c : (r > 0.0f ? down + 0x1p-149f : (r < 0.0f ? down : c));
-  return e >= 0x1p-80f ? div_fast(e, l, y) : tiny;
 }
 
 // P = e / l of two score tiles, packed as the A fragment of one 16-key step

@@ -159,8 +159,9 @@ def colstats_cuda(f1n, f2n):
 
 
 def labels_cuda(f1n, f2n, cm, cs, s1, s2):
-    """K9 on the card: one block per (pair, 64-row tile); label2 is decoded
-    from the 64-bit keys the blocks reduce with atomicMax."""
+    """K9 on the card: one block per (pair, 64-row tile), four warps on its
+    rows and one streaming f2's column tiles to them; label2 is decoded from
+    the 64-bit keys the blocks reduce with atomicMax."""
     (B, M1, M2, C), f1n, f2n = _check_cuda("labels_cuda", f1n, f2n, cm, cs, s1, s2)
     if cm.shape != (B, M2) or cs.shape != (B, M2) or s1.shape != (B, M1) or s2.shape != (B, M2):
         raise ValueError("labels_cuda: cm, cs, s2 must be (B, M2) and s1 (B, M1)")

@@ -31,7 +31,7 @@ from unopose_tpu_torch.kernels import LAUNCHES
 from unopose_tpu_torch.kernels import build
 from unopose_tpu_torch.ops.geometry import no_tf32
 
-MAX_N = 512  # columns of one cloud the kernel keeps stencils of in shared memory
+MAX_N = 512  # the largest cloud the kernel takes (its first version's shared-memory bound, kept)
 MAX_K = 4
 MAX_T = 128
 
@@ -155,24 +155,14 @@ def geo_rpe_fused_plain(points, ref_vec, tab_d, tab_a, scale_d: float, scale_a: 
     return e8, scale
 
 
-def geo_rpe_fused_cuda(points, ref_vec, tab_d, tab_a, scale_d: float, scale_a: float, sigma_d: float,
-                       factor_a: float, out_dtype: torch.dtype = torch.float32, quantize: bool = False):
-    """The int8 embedding on the card (``csrc/geo_rpe.cu``): one block per
-    group of rows and 128-channel tile (32 where D is not a multiple of 128),
-    both tables' tile in shared memory. Returns (e8, scale); ``quantize``
-    must be set, ``out_dtype`` picks the contraction dtype."""
-    _check(points, ref_vec, tab_d, tab_a)
-    tensors = (points, ref_vec, tab_d, tab_a)
-    if any(x.device.type != "cuda" or x.device != points.device for x in tensors):
-        raise ValueError("geo_rpe_fused_cuda needs all tensors on one CUDA device")
+def kernel_args(points, ref_vec, tab_d, tab_a, scale_d: float, scale_a: float, sigma_d: float, factor_a: float,
+                out_dtype: torch.dtype):
+    """(args, scale): the arguments of ``unopose_geo_rpe`` before the stream,
+    tensors in place of their pointers (the int8 output allocated), and the
+    dequantisation scale."""
     B, N, _ = points.shape
     k = ref_vec.shape[2]
     T, D = tab_d.shape
-    if N > MAX_N or not 1 <= k <= MAX_K or T > MAX_T or D % 32:
-        raise ValueError(f"geo_rpe_fused_cuda supports N <= {MAX_N}, 1 <= k <= {MAX_K}, T <= {MAX_T}, "
-                         f"D % 32 == 0 (N={N}, k={k}, T={T}, D={D})")
-    if not quantize:
-        raise ValueError("geo_rpe_fused_cuda writes the int8 output only (quantize=True)")
     mm = _mm_dtype(out_dtype)
     points, ref_vec = points.float().contiguous(), ref_vec.float().contiguous()
     tab_d, tab_a = tab_d.float(), tab_a.float()
@@ -180,17 +170,37 @@ def geo_rpe_fused_cuda(points, ref_vec, tab_d, tab_a, scale_d: float, scale_a: f
     # the kernel reads float32 tables already rounded to the contraction dtype
     kd, ka = (t.to(mm).float().contiguous() for t in (tab_d, tab_a))
     out = torch.empty((B, N, N, D), dtype=torch.int8, device=points.device)
+    return (points, ref_vec, kd, ka, qscale, out, B, N, k, T, D, int(mm == torch.bfloat16),
+            float(1.0 / sigma_d * scale_d), float(scale_a), float(factor_a)), scale
+
+
+def geo_rpe_fused_cuda(points, ref_vec, tab_d, tab_a, scale_d: float, scale_a: float, sigma_d: float,
+                       factor_a: float, out_dtype: torch.dtype = torch.float32, quantize: bool = False):
+    """The int8 embedding on the card (``csrc/geo_rpe.cu``): resident blocks,
+    each with a channel tile of both tables in shared memory (bf16 tables of
+    256 channels for the bf16 contraction), whose warps walk units of one row
+    and 32 columns. Returns (e8, scale); ``quantize`` must be set,
+    ``out_dtype`` picks the contraction dtype."""
+    _check(points, ref_vec, tab_d, tab_a)
+    tensors = (points, ref_vec, tab_d, tab_a)
+    if any(x.device.type != "cuda" or x.device != points.device for x in tensors):
+        raise ValueError("geo_rpe_fused_cuda needs all tensors on one CUDA device")
+    _, N, _ = points.shape
+    k = ref_vec.shape[2]
+    T, D = tab_d.shape
+    if N > MAX_N or not 1 <= k <= MAX_K or T > MAX_T or D % 32:
+        raise ValueError(f"geo_rpe_fused_cuda supports N <= {MAX_N}, 1 <= k <= {MAX_K}, T <= {MAX_T}, "
+                         f"D % 32 == 0 (N={N}, k={k}, T={T}, D={D})")
+    if not quantize:
+        raise ValueError("geo_rpe_fused_cuda writes the int8 output only (quantize=True)")
+    args, scale = kernel_args(points, ref_vec, tab_d, tab_a, scale_d, scale_a, sigma_d, factor_a, out_dtype)
     lib = build.load()
-    ptr = ctypes.c_void_p
     with torch.cuda.device(points.device):
-        err = lib.unopose_geo_rpe(
-            ptr(points.data_ptr()), ptr(ref_vec.data_ptr()), ptr(kd.data_ptr()), ptr(ka.data_ptr()),
-            ptr(qscale.data_ptr()), ptr(out.data_ptr()), B, N, k, T, D, int(mm == torch.bfloat16),
-            float(1.0 / sigma_d * scale_d), float(scale_a), float(factor_a), ptr(build.stream_of(points)),
-        )
+        err = lib.unopose_geo_rpe(*(ctypes.c_void_p(a.data_ptr()) if torch.is_tensor(a) else a for a in args),
+                                  ctypes.c_void_p(build.stream_of(points)))
     build.check(err, "geo_rpe")
     LAUNCHES["geo_rpe"] += 1
-    return out, scale
+    return args[5], scale
 
 
 def geo_rpe_fused(points, ref_vec, tab_d, tab_a, scale_d: float, scale_a: float, sigma_d: float,
