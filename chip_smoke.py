@@ -23,7 +23,9 @@ Phases, each fatal on failure:
    ulp up), and sphere surfaces with over 1000 points in each of the four
    tiers (99.9% of entries within one bf16 ulp, none more than 2^-5 off);
    on both the rel xyz channels bitwise equal and the MLP/pool, fed the
-   plain channels, within 1e-2 of the output's max; the production path's
+   plain channels, within 1e-2 of the output's max, timed through its
+   wrapper and alone (``alone_ms``: its C entry point 20 times back to
+   back); the production path's
    fused attention (32 x 261 x 768 bf16, read in place from the qkv output;
    at least 99% of outputs bitwise equal, none more than one bf16 ulp of its
    row's largest output off; also the tiny hd 16, the float32 variant, N 257
@@ -31,9 +33,10 @@ Phases, each fatal on failure:
    and the three sweeps of the fused assignment (16 pairs of 2049 x 2049,
    C 256), each sweep fed the plain twin's inputs, then the whole chain
    (labels equal on at least 99.9% of rows, weights and soft targets within
-   1e-4 of their max on the rows whose labels agree), and the labels sweep
+   1e-4 of their max on the rows whose labels agree), the labels sweep
    run twice on the same inputs bitwise equal (its column keys are reduced
-   by atomics across blocks); the train path's PE
+   by atomics across blocks), and the accumulation sweep also timed alone;
+   the train path's PE
    kernels K11-K14 (B 8, P 2048, S 256 and 64), each fed its plain pass's
    statistics (and each backward its own side's forward maximum): batch
    means and variances within 1e-4 relative, the pooled output, the sums
@@ -339,6 +342,36 @@ def fps_floor_ms(pts, npoint: int) -> float:
     return cuda_ms(run)
 
 
+def alone_ms(entry: str, *args, reps: int = 20) -> float:
+    """CUDA-event time of one launch of a kernel's C entry point, ``reps``
+    launches back to back on prepared arguments (tensors passed as device
+    pointers): the kernel without its wrapper's checks, casts and
+    allocations. These launches bypass the wrapper and its count."""
+    import ctypes
+
+    import torch
+
+    from unopose_tpu_torch.kernels import build
+
+    fn = getattr(build.load(), entry)
+    argv = [ctypes.c_void_p(a.data_ptr()) if torch.is_tensor(a) else a for a in args]
+
+    def run():
+        err = fn(*argv, ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+        if err:
+            raise RuntimeError(f"{entry} failed to launch: cudaError_t {err}")
+
+    run()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        run()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 def check_kernels(log, dev, seed: int) -> dict:
     """Phase 3 for FPS, the first_k select and the gather. Returns {kernel name: measurements}."""
     import torch
@@ -475,13 +508,14 @@ def check_fused_kernels(log, dev, seed: int) -> dict:
     surf = pe_kernels(dev, torch.from_numpy(surface_clouds(rng, 2 * BATCH, perm.numpy())).to(dev), mlp1, mlp2, packed)
     for name, r in (("uniform cube", iso), ("sphere surfaces", surf)):
         log(f"PE on {name}: tiers (points needing 1/2/3/4 chunks of 64 slots) {r['hist']}, overflow {r['overflow']}, "
-            f"mean r2 hits {r['mean_hits']:.1f}")
+            f"mean r2 hits {r['mean_hits']:.1f}, kept slot-scales {r['kept'] / (2 * r['slots']):.3f} of the needed")
         log(f"pe_channels 32x2048x256 on {name}: {100 * r['equal']:.4f}% of needed bf16 entries equal, "
             f"{100 * r['within_ulp']:.4f}% within one bf16 ulp (plain vs itself one ulp up: {100 * r['spread']:.4f}% "
             f"equal), rel xyz bitwise {r['rel_bitwise']}, max |diff| {r['c_err']:.3e}, "
             f"kernel {r['c_ms']:.3f} ms, plain {r['c_plain']:.3f} ms")
         log(f"pe_mlp_pool 32x2048x256 on {name} (plain channels): max |diff| {r['m_err']:.3e} of max "
-            f"{r['m_ref']:.3e}, kernel {r['m_ms']:.3f} ms, plain {r['m_plain']:.3f} ms")
+            f"{r['m_ref']:.3e}, kernel {r['m_ms']:.3f} ms (alone, back to back: {r['m_alone']:.3f} ms), "
+            f"plain {r['m_plain']:.3f} ms")
         if r["overflow"] or not r["rel_bitwise"]:
             raise AssertionError(f"PE on {name}: grouping overflow or rel xyz channels not bitwise equal")
         if not r["m_err"] <= 1e-2 * r["m_ref"]:
@@ -497,17 +531,20 @@ def check_fused_kernels(log, dev, seed: int) -> dict:
                              "one bf16 ulp on more than 0.1%, or one more than 2^-5 off")
     # bounds: per needed slot, K5 reads 2 index + 2 x 2 weight bytes and writes 24 channel bytes (plus the
     # planes and centres) in ~160 float32 operations (both scales' moments, vote, x-axis sums, projections);
-    # K6, per needed slot and scale: 2 x (6*32 + 32*64 + 64*128) bf16 tensor-core operations
+    # K6 reads both scales' weights of the needed slots (which tell the kept ones), then per kept slot
+    # (weight > 0) and scale its 12 channel bytes and 2 x (6*32 + 32*64 + 64*128) bf16 tensor-core
+    # operations: a masked slot's channels and products decide nothing
     B2, N = 2 * BATCH, 2048
-    ch_bound = lambda slots: bound(slots * (2 + 4 + 24) + 6 * B2 * N * 4 + B2 * N * 4, 160.0 * slots, F32_FLOPS)
-    mlp_bound = lambda slots: bound(slots * (24 + 4) + B2 * N * (4 + 256 * 4),
-                                    slots * 2 * 2 * (6 * 32 + 32 * 64 + 64 * 128), BF16_FLOPS)
+    ch_bound = lambda r: bound(r["slots"] * (2 + 4 + 24) + 6 * B2 * N * 4 + B2 * N * 4, 160.0 * r["slots"], F32_FLOPS)
+    mlp_bound = lambda r: bound(r["slots"] * 4 + r["kept"] * 12 + B2 * N * (4 + 256 * 4),
+                                r["kept"] * 2 * (6 * 32 + 32 * 64 + 64 * 128), BF16_FLOPS)
     for name, err, ms, plain, bnd in (("pe_channels", "c_err", "c_ms", "c_plain", ch_bound),
                                       ("pe_mlp_pool", "m_err", "m_ms", "m_plain", mlp_bound)):
         # the main path's (cube) numbers, and beside them the surfaces'
         results[name] = dict(max_abs_err=iso[err], ms=iso[ms], plain_ms=iso[plain], library_ms=None,
-                             **bnd(iso["slots"]), surface_max_abs_err=surf[err], surface_ms=surf[ms],
-                             surface_plain_ms=surf[plain], surface_bound_ms=bnd(surf["slots"])["bound_ms"])
+                             **bnd(iso), surface_max_abs_err=surf[err], surface_ms=surf[ms],
+                             surface_plain_ms=surf[plain], surface_bound_ms=bnd(surf)["bound_ms"])
+    results["pe_mlp_pool"].update(alone_ms=iso["m_alone"], surface_alone_ms=surf["m_alone"])
     return results
 
 
@@ -628,6 +665,7 @@ def check_production_kernels(log, dev, seed: int) -> dict:
             labels=(cuda_ms(lambda: af.labels_cuda(*largs)), cuda_ms(lambda: af.labels_plain(*largs), reps=3)),
             accum=(cuda_ms(lambda: af.accum_cuda(*aargs)), cuda_ms(lambda: af.accum_plain(*aargs), reps=3)),
         )
+        accum_alone = alone_ms("unopose_fine_accum", *aargs, torch.empty_like(p_w), torch.empty_like(p_n), Bp, M, M, C)
         fused_ms = cuda_ms(lambda: af.compute_fine_Rt_overlap_fused(f1, f2, score, pts1, pts2))
         materialised_ms = cuda_ms(lambda: compute_fine_Rt_overlap(
             compute_feature_similarity(f1, f2, 0.1, True), score, pts1, pts2), reps=3)
@@ -637,8 +675,8 @@ def check_production_kernels(log, dev, seed: int) -> dict:
         f"agreeing rows; foreground rows {100 * (pl > 0).float().mean().item():.1f}%")
     log(f"fine_assign labels run twice bitwise equal {labels_twice}")
     log("fine_assign times (kernel, plain ms): " + ", ".join(f"{k} {a:.3f} / {b:.3f}" for k, (a, b) in times.items())
-        + f"; fused solver {fused_ms:.3f} ms, materialised solver (similarity + dual softmax + WSVD) "
-        f"{materialised_ms:.3f} ms")
+        + f"; accum alone, back to back {accum_alone:.3f} ms; fused solver {fused_ms:.3f} ms, materialised solver "
+        f"(similarity + dual softmax + WSVD) {materialised_ms:.3f} ms")
     if max(stats.values()) > 1e-5 or min(l1_eq, l2_eq, chain_l1) < 0.999 or max(w_err, n_err, chain_w, chain_p) > 1e-4:
         raise AssertionError("fine_assign kernels differ from the plain versions beyond their gates")
     if not labels_twice:
@@ -663,7 +701,7 @@ def check_production_kernels(log, dev, seed: int) -> dict:
             materialised_solver_ms=materialised_ms, fused_solver_ms=fused_ms, **bounds[name])
     results["fine_assign_labels"].update(label1_equal=l1_eq, label2_equal=l2_eq, run_twice_bitwise=labels_twice)
     results["fine_assign_accum"].update(chain_label1_equal=chain_l1, chain_weights_rel=chain_w,
-                                        chain_targets_rel=chain_p)
+                                        chain_targets_rel=chain_p, alone_ms=accum_alone)
     return results
 
 
@@ -699,6 +737,7 @@ def pe_kernels(dev, pts, mlp1, mlp2, packed) -> dict:
             spread=(n == b).float().mean().item(), c_err=float(diff.max()),
             rel_bitwise=torch.equal(a[:, [0, 1, 2, 6, 7, 8]], b[:, [0, 1, 2, 6, 7, 8]]),
             hist=torch.bincount(chunks.flatten(), minlength=5)[1:].tolist(), slots=int(chunks.sum()) * CHUNK,
+            kept=int(((w1.float() > 0) & needed).sum() + ((w2.float() > 0) & needed).sum()),
             overflow=bool(overflow), mean_hits=total2.float().mean().item(),
         )
         del nchans, a, b, n, diff, e, ulp
@@ -709,6 +748,10 @@ def pe_kernels(dev, pts, mlp1, mlp2, packed) -> dict:
         r["m_err"], r["m_ref"] = float((pooled - ppooled).abs().max()), float(ppooled.abs().max())
         r["m_ms"] = cuda_ms(lambda: pe_mlp_pool_cuda(*margs, packed))
         r["m_plain"] = cuda_ms(lambda: pe_mlp_pool_plain(*margs, mlp1, mlp2), reps=3)
+        w1b, w2b = (w.to(torch.bfloat16).contiguous() for w in (w1, w2))
+        B, P, S2, _ = pchans.shape
+        r["m_alone"] = alone_ms("unopose_pe_mlp_pool", pchans.contiguous(), w1b, w2b, total2.to(torch.int32).contiguous(),
+                                *packed, torch.empty_like(pooled), B * P, S2)
     return r
 
 

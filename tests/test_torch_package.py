@@ -364,12 +364,13 @@ def test_production_s768_config_is_production_at_nsample2_768(tiny):
     assert got == want
 
 
-def test_kernel_variants_tool_follows_the_shipped_sources():
+def test_kernel_variants_tool_follows_the_shipped_sources(tmp_path):
     """``tools/kernel_variants.py`` makes each variant by replacing text of
-    the shipped ``fps.cu``, ``vit_attn.cu``, ``fine_assign.cu`` and
-    ``geo_rpe.cu``: every replacement still finds its text (it raises
-    otherwise), each variant differs from the shipped source, and the tool
-    fails without a card."""
+    the shipped ``fps.cu``, ``vit_attn.cu``, ``fine_assign.cu`` (K9 and
+    K10), ``geo_rpe.cu`` and ``pe_mlp_pool.cu``: every replacement still
+    finds its text (it raises otherwise), each variant differs from the
+    shipped source, ``--parent``'s builds inline the headers of the other
+    checkout, and the tool fails without a card."""
     from unopose_tpu_torch.tools import kernel_variants
 
     srcs = kernel_variants.sources(None)
@@ -377,14 +378,89 @@ def test_kernel_variants_tool_follows_the_shipped_sources():
                          "vit_attn_ieee_division", "vit_attn_padded_two_blocks", "vit_attn_runtime_steps",
                          "fine_assign", "fine_assign_cp_async", "fine_assign_no_ring", "fine_assign_ld32",
                          "fine_assign_ieee_division", "fine_assign_128_rows", "geo_rpe", "geo_rpe_f32_tables",
-                         "geo_rpe_f32_8ch", "geo_rpe_f32_64", "geo_rpe_4ch", "geo_rpe_row_barrier", "geo_rpe_runtime_k"}
-    shipped = {"K1": "fps", "K7": "vit_attn", "K9": "fine_assign", "K4": "geo_rpe"}
+                         "geo_rpe_f32_8ch", "geo_rpe_f32_64", "geo_rpe_4ch", "geo_rpe_row_barrier", "geo_rpe_runtime_k",
+                         "fine_assign_accum", "fine_assign_accum_ieee_division", "fine_assign_accum_no_ring",
+                         "pe_mlp_pool", "pe_mlp_pool_b64", "pe_mlp_pool_registers", "pe_mlp_pool_no_packing",
+                         "pe_mlp_pool_epilogue_first", "pe_mlp_pool_atomic", "pe_mlp_pool_stride", "pe_mlp_pool_wgmma"}
+    shipped = kernel_variants.SHIPPED
+    assert shipped == {"K1": "fps", "K7": "vit_attn", "K9": "fine_assign", "K4": "geo_rpe", "K6": "pe_mlp_pool",
+                       "K10": "fine_assign_accum"}
     for name, (kernel, text) in srcs.items():
         assert (text == srcs[shipped[kernel]][1]) == (name in shipped.values()), name
+    assert set(kernel_variants.sources(None, ("K6", "K10"))) == {
+        "fine_assign_accum", "fine_assign_accum_ieee_division", "fine_assign_accum_no_ring", "pe_mlp_pool",
+        "pe_mlp_pool_b64", "pe_mlp_pool_registers", "pe_mlp_pool_no_packing", "pe_mlp_pool_epilogue_first",
+        "pe_mlp_pool_atomic", "pe_mlp_pool_stride", "pe_mlp_pool_wgmma"}
+    # another checkout's sources, their headers inlined from its own csrc/
+    csrc = tmp_path / "unopose_tpu_torch" / "kernels" / "csrc"
+    shutil.copytree(PORT / "kernels" / "csrc", csrc)
+    (csrc / "pe_common.cuh").write_text("// the other checkout's header\n")
+    parent = kernel_variants.sources(tmp_path, ("K6",))["pe_mlp_pool_parent"][1]
+    assert "// the other checkout's header" in parent and '#include "pe_common.cuh"' not in parent
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     r = subprocess.run([sys.executable, "-m", "unopose_tpu_torch.tools.kernel_variants"], cwd=ROOT, env=env,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode != 0 and "no CUDA device" in r.stderr
+
+
+def _literals(path: Path) -> dict:
+    """{name: the int constants a source binds to it}: plain and tuple assignments, and keyword arguments."""
+    import ast
+
+    found = {}
+    for node in ast.walk(ast.parse(path.read_text())):
+        pairs = []
+        if isinstance(node, ast.Assign):
+            for t in node.targets:
+                if isinstance(t, ast.Name):
+                    pairs.append((t, node.value))
+                elif isinstance(t, ast.Tuple) and isinstance(node.value, ast.Tuple):
+                    pairs += zip(t.elts, node.value.elts)
+            pairs = [(t.id, v) for t, v in pairs if isinstance(t, ast.Name)]
+        elif isinstance(node, ast.keyword) and node.arg:
+            pairs = [(node.arg, node.value)]
+        for name, v in pairs:
+            if isinstance(v, ast.Constant) and type(v.value) is int:
+                found.setdefault(name, set()).add(v.value)
+    return found
+
+
+def test_tpu_profile_bounds_tool_counts_each_kernel_once(capsys):
+    """``tools/tpu_profile_bounds.py`` bounds the five TPU profiling kernels of ``benchmarks/`` that the port
+    does not carry, one row each at the call sites the kernel table names, on the shapes those benchmarks
+    set (read from their sources): the fine-PE ablation's both scales' MLP on the first nsample2 / 2 slots
+    of each of 2 x B x P points, profile_r9's on all S2 slots of B x N points, the compaction kernels' bytes
+    from their (B, ROWS, C x W) words and (B, ROWS, K2) outputs; the integer-operation counts are marked as
+    estimates."""
+    import json
+
+    from unopose_tpu_torch.tools import tpu_profile_bounds as tb
+
+    for path, shapes in tb.SHAPES.items():
+        lits = _literals(ROOT / path)
+        for name, value in shapes.items():
+            assert lits.get(name) == {value}, (path, name, lits.get(name))
+    assert tb.main() == 0
+    rows = {r["kernel"]: r for r in json.loads(capsys.readouterr().out)["computed"]}
+    assert list(rows) == ["benchmarks/profile_pe_ablate.py:68", "benchmarks/profile_compact_micro.py:34",
+                          "benchmarks/profile_compact_micro.py:54", "benchmarks/profile_compact_micro.py:134",
+                          "benchmarks/profile_r9.py:100"]
+    for site, r in rows.items():
+        assert (ROOT / site.split(":")[0]).is_file()
+        assert r["operations_estimated"] == ("compact_micro" in site)
+    mlp = 2 * (6 * 32 + 32 * 64 + 64 * 128)
+    pe = _literals(ROOT / "benchmarks/profile_pe_ablate.py")
+    (B,), (P,), (s2,) = pe["B"], pe["P"], pe["nsample2"]
+    assert rows["benchmarks/profile_pe_ablate.py:68"]["operations"] == 2 * (2 * B * P) * (s2 // 2) * mlp
+    r9 = _literals(ROOT / "benchmarks/profile_r9.py")
+    (B,), (N,), (S2,) = r9["B"], r9["N"], r9["S2"]
+    assert rows["benchmarks/profile_r9.py:100"]["operations"] == 2 * B * N * S2 * mlp
+    cm = _literals(ROOT / "benchmarks/profile_compact_micro.py")
+    (B,), (R,), (C,), (W,), (K2,) = cm["B"], cm["ROWS"], cm["C"], cm["W"], cm["K2"]
+    words, outs = B * R * C * W * 4, B * R * K2 * 4
+    assert rows["benchmarks/profile_compact_micro.py:34"]["bytes"] == words + outs  # the words in, the outputs
+    assert rows["benchmarks/profile_compact_micro.py:54"]["bytes"] == words + 3 * outs  # and both index tensors
+    assert rows["benchmarks/profile_compact_micro.py:134"]["bytes"] == outs // 2 + outs  # half the indices read
 
 
 def _fma32(a, b, c):
@@ -821,6 +897,101 @@ def test_fine_assign_labels_edges(cuda):
         if q_scale > 1.0:
             pred = assignment_fused._pred(assignment_fused._logits(f1n, f2n), cm, cs, s1, s2, rm, rs)
             assert (pred == 0).float().mean() > 0.1  # the case reaches underflow
+
+
+def _pe_pool_case(gen, B, P, S2, total2, dev):
+    """One K6 case: random bf16 channels, multiset weights in {0, 1, 2} on each point's first total2 slots
+    (0 past them), the fine PE's MLP shapes with random weights."""
+    chans = (torch.randn(B, P, S2, 12, device=dev, generator=gen) * 0.5).to(torch.bfloat16)
+    t2 = torch.tensor(total2, dtype=torch.int32, device=dev).reshape(B, P)
+    inside = torch.arange(S2, device=dev)[None, None, :] < t2[..., None]
+    w1, w2 = ((torch.randint(0, 3, (B, P, S2), device=dev, generator=gen) * inside).to(torch.bfloat16)
+              for _ in range(2))
+    mlp = [([torch.randn(6, 32, device=dev, generator=gen) * 0.3, torch.randn(32, 64, device=dev, generator=gen) * 0.3,
+             torch.randn(64, 128, device=dev, generator=gen) * 0.3],
+            [torch.randn(d, device=dev, generator=gen) * 0.1 for d in (32, 64, 128)]) for _ in range(2)]
+    return chans, w1, w2, t2, mlp
+
+
+@pytest.mark.cuda
+def test_pe_mlp_pool_edges(cuda):
+    """K6 at the edges of its layout, against its plain twin at chip_smoke.py's gate (within 1e-2 of the
+    output's max): points with total2 0, 1, 64, 65 and 256 (1 to 4 chunks of 64 slots, each clipped to S2),
+    S2 64, 128 and 256, point counts that are not a multiple of a block's 8 warps (21 and 1), and a scale
+    whose weights are all 0 on a point, whose pooled features are exactly 0, as are both scales of a point
+    with total2 0. Then 2 x 2048 points, more than the resident grid's warps (396 blocks of 8 on an H100),
+    so that each warp walks several points: total2 cycling 0, 1, 65 and 256 in every block's share, so
+    the next point's rows load while a point of another chunk count runs and the running max starts again
+    at each point (every point with total2 0 exactly 0 after one with kept slots)."""
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    for S2 in (64, 128, 256):
+        for B, P in ((3, 7), (1, 1)):
+            total2 = [min(t, S2) for t in (0, 1, 64, 65, 256, 17, 200) * 3][: B * P] if P > 1 else [min(65, S2)]
+            chans, w1, w2, t2, mlp = _pe_pool_case(gen, B, P, S2, total2, cuda)
+            if P > 1:
+                w1[0, 1, 0], w2[0, 1] = 1, 0  # point 1 (total2 1): one kept slot in scale 1, none in scale 2
+                w1[1, 3], w2[1, 3, 0] = 0, 1  # point 10 (total2 65, or 64 at S2 64): none kept in scale 1
+            got = pe_fused.pe_mlp_pool_cuda(chans, w1, w2, t2, pe_fused.pack_mlp(*mlp))
+            want = pe_fused.pe_mlp_pool_plain(chans, w1, w2, t2, *mlp)
+            assert (got - want).abs().max().item() <= 1e-2 * want.abs().max().item(), (S2, B, P)
+            if P > 1:
+                assert (got[0, 0] == 0).all() and (got[0, 1, 128:] == 0).all() and (got[1, 3, :128] == 0).all()
+                assert (got[0, 1, :128] != 0).any() and (got[1, 3, 128:] != 0).any()
+    B, P, S2 = 2, 2048, 256
+    total2 = [(0, 1, 65, 256)[i % 4] for i in range(B * P)]
+    chans, w1, w2, t2, mlp = _pe_pool_case(gen, B, P, S2, total2, cuda)
+    w1[:, 1::8, 0] = 1  # every eighth point of total2 1: one kept slot in scale 1
+    got = pe_fused.pe_mlp_pool_cuda(chans, w1, w2, t2, pe_fused.pack_mlp(*mlp))
+    want = pe_fused.pe_mlp_pool_plain(chans, w1, w2, t2, *mlp)
+    assert (got - want).abs().max().item() <= 1e-2 * want.abs().max().item()
+    assert (got[t2 == 0] == 0).all() and (got[t2 == 256] != 0).any(-1).all()
+    assert (got[:, 1::8, :128] != 0).any(-1).all()
+
+
+def _accum_case(gen, B, M1, M2, C, dev):
+    """K10's inputs on the plain twins' statistics and labels: three quarters of the query rows match a
+    reference row (where M2 allows), scores uniform, pts2 in [-1, 1)^3."""
+    f1 = torch.randn(B, M1, C, device=dev, generator=gen)
+    f2 = torch.randn(B, M2, C, device=dev, generator=gen)
+    m = min(3 * M1 // 4, M2)
+    f1[:, :m] = f2[:, :m] + 0.5 * f1[:, :m]
+    score = torch.rand(B, M1 - 1 + M2 - 1, device=dev, generator=gen)
+    f1n, f2n, s1, s2 = assignment_fused.operands(f1, f2, score, 0.1)
+    cm, cs = assignment_fused.colstats_plain(f1n, f2n)
+    rm, rs, l1, l2 = assignment_fused.labels_plain(f1n, f2n, cm, cs, s1, s2)
+    pts2 = torch.rand(B, M2 - 1, 3, device=dev, generator=gen) * 2 - 1
+    return [f1n, f2n, cm, cs, s1, s2, rm, rs, l1, l2, pts2]
+
+
+@pytest.mark.cuda
+def test_fine_assign_accum_edges(cuda):
+    """K10 at the edges of its layout, against its plain twin at the gate above (sums within 1e-4 of their
+    max): M1, M2 of 65, 130 and 2049, C 16, 64 and 256 (the 32- and 128-byte swizzled tiles); every row
+    masked and no live column (wsum and num all 0); one live entry (its row's sums are that entry's terms);
+    the bg row 0 even where its label1 is set. Two launches on the same inputs give the same bits."""
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    for B, M1, M2, C in ((2, 65, 130, 16), (2, 130, 65, 64), (2, 2049, 2049, 256), (1, 2049, 65, 16),
+                         (1, 65, 2049, 256)):
+        a = _accum_case(gen, B, M1, M2, C, cuda)
+        l1, l2 = a[8].clone(), a[9].clone()
+        l1[:, 0] = 1  # the bg row's label is ignored
+        cases = {"as is": (l1, l2), "rows masked": (torch.zeros_like(l1), l2),
+                 "no live column": (l1, torch.zeros_like(l2))}
+        one1, one2 = torch.zeros_like(l1), torch.zeros_like(l2)
+        one1[:, M1 // 2], one2[:, M2 - 1] = 3, 5
+        cases["one entry"] = (one1, one2)
+        for name, (c1, c2) in cases.items():
+            args = (*a[:8], c1, c2, a[10])
+            got = assignment_fused.accum_cuda(*args)
+            want = assignment_fused.accum_plain(*args)
+            for g, w in zip(got, want):
+                assert (g - w).abs().max() <= 1e-4 * w.abs().max(), (M1, M2, C, name)
+            assert all(torch.equal(x, y) for x, y in zip(got, assignment_fused.accum_cuda(*args)))
+            assert (got[0][:, 0] == 0).all() and (got[1][:, 0] == 0).all()
+            if name in ("rows masked", "no live column"):
+                assert not got[0].any() and not got[1].any(), (M1, M2, C, name)
+            if name == "one entry":
+                assert torch.count_nonzero(got[0]) == B and (got[0][:, M1 // 2] > 0).all(), (M1, M2, C)
 
 
 @pytest.mark.cuda

@@ -29,12 +29,13 @@
 //   column and block in device memory by atomicMax. The largest key is the
 //   largest pred and, among equals, the smallest row, as the TPU's in-order
 //   strict > gives; an all-zero column decodes to row 0.
-// - K10 takes one block per (pair, 64-row tile) and skips the exponentials of
-//   entries whose row or column mask is 0.
-// K8 and K10 stage both 64 x 64 operand tiles in shared memory (rows padded
-// by 8 bf16, conflict-free fragment loads; 68 KB at C = 256) with a barrier
-// on either side; K9 holds its rows in registers and streams the column
-// tiles (below). Every logit is the same sequence of mma.sync m16n8k16
+// - K10 takes K9's block and ring for one sweep (below): a masked entry's
+//   terms are selected away, so its sums are the parent loop's that skipped
+//   them, bit for bit.
+// K8 stages both 64 x 64 operand tiles in shared memory (rows padded by 8
+// bf16, conflict-free fragment loads; 68 KB at C = 256) with a barrier on
+// either side; K9 and K10 hold their rows in registers and stream the
+// column tiles. Every logit is the same sequence of mma.sync m16n8k16
 // k-steps in all three, so their logits agree to the bit.
 //
 // Bound at the main shape (B = 16, M1 = M2 = 2049, C = 256): operations.
@@ -45,6 +46,7 @@
 // bound. The operands are 33.6 MB. K9's time goes to the float32 work of
 // its two sweeps (~15 and ~30 instructions per entry) and to streaming
 // 2 ceil(M2 / 64) column tiles per block; its design overlaps the two.
+// K10's one sweep is ~35 float32 instructions per entry of a live warp.
 
 #include <cuda.h>  // CUtensorMap; its encoder is taken from the driver at run time
 #include <cuda_bf16.h>
@@ -170,13 +172,6 @@ colstats_kernel(const __nv_bfloat16* __restrict__ f1, const __nv_bfloat16* __res
   }
 }
 
-// pred of one entry: ((p_row * p_col) * s1) * s2, as the TPU kernel orders it
-__device__ __forceinline__ float pred_of(float x, float rm, float rs, float cmj, float csj, float s1, float s2) {
-  const float p_row = expf(x - rm) / rs;
-  const float p_col = expf(x - cmj) / csj;
-  return p_row * p_col * s1 * s2;
-}
-
 // ---------------------------------------------------------------- K9 labels
 // One block per (pair, 16 kLabelWarps-row tile): kLabelWarps consumer warps
 // of 16 rows, whose rows of f1 sit in registers as mma A fragments for the
@@ -296,7 +291,8 @@ __device__ __forceinline__ float quot(float e, float l, float y) {
   else return div_exact(e, l, y);
 }
 
-// pred_of with the quotients of kDiv; yr, yc = 1 / rs, 1 / csj rounded to nearest
+// pred of one entry, ((p_row * p_col) * s1) * s2 as the TPU kernel orders it, with the quotients of kDiv;
+// yr, yc = 1 / rs, 1 / csj rounded to nearest
 template <int kDiv>
 __device__ __forceinline__ float pred_q(float x, float rm, float rs, float yr, float cmj, float csj, float yc,
                                         float s1, float s2) {
@@ -541,71 +537,202 @@ labels_kernel(const __nv_bfloat16* __restrict__ f1, const __grid_constant__ CUte
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-accum_kernel(const __nv_bfloat16* __restrict__ f1, const __nv_bfloat16* __restrict__ f2,
+// ---------------------------------------------------------------- K10 accum
+// K9's block and ring in one pass of ceil(M2 / 64) column tiles: kLabelWarps
+// consumer warps of 16 rows, their rows of f1 as A fragments in registers,
+// and one producer warp that streams f2's column tiles through the kStages
+// slots by the tensor map. The producer reads each tile's column scalars a
+// tile ahead, the column mask folded in as the plain twin folds it (cm 0, cs
+// 1, s2 0 and pts2 0 on a masked column, cs clamped at 1e-30 on a live one),
+// skips a tile with no live column, and ends the sweep with a slot whose
+// head says -1. Each consumer warp sums, per row, pred and pred * pts2 over
+// its 16 columns of each tile in the order of the loop that skipped masked
+// entries: a masked entry's pred is replaced by 0 with a select, never
+// multiplied by 0 (its exponentials may be inf, and inf x 0 is NaN), and
+// every sum starts at +0, so adding +0 (or -0) leaves its bits unchanged.
+// A warp with no live row does no products and a block with none returns
+// at once. Per tile, the warp takes fast_div.cuh's div_fast where no logit of
+// its kept rows lies 55 below its row's max or the tile's largest live
+// column max (every dividend of a live entry >= 2^-80), else div_exact; past
+// M 4096 the IEEE division.
+struct AccumHead {
+  int c0;      // the tile's first column, -1 past the last live tile
+  float cmax;  // the largest cm among its live columns
+};
+
+// column j's scalars as a consumer reads them: (cm, cs, 1 / cs, s2) and (x, y, z, 1) of pts2[j - 1], masked as
+// the plain twin masks them; pts2 is the pair's (m2 - 1, 3) rows
+__device__ __forceinline__ void accum_column(const float* __restrict__ cm, const float* __restrict__ cs,
+                                             const float* __restrict__ s2, const int* __restrict__ label2,
+                                             const float* __restrict__ pts2, int j, int m2, float4& col,
+                                             float4& pt) {
+  const bool on = j >= 1 && j < m2 && label2[j] > 0;
+  const float l = on ? fmaxf(cs[j], 1e-30f) : 1.0f;
+  col = make_float4(on ? cm[j] : 0.0f, l, __frcp_rn(l), on ? s2[j] : 0.0f);
+  const float* p = pts2 + (on ? (long long)(j - 1) * 3 : 0);
+  pt = on ? make_float4(p[0], p[1], p[2], 1.0f) : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+}
+
+// One tile's terms into the lane's sums, in the parent's order: n-tile, element, row.
+template <int kDiv>
+__device__ __forceinline__ void accum_tile(const float (&acc)[8][4], const float4* sCol, const float4* sPts,
+                                           const bool (&keep)[2], const float (&rmv)[2], const float (&rsv)[2],
+                                           const float (&yr)[2], const float (&s1v)[2], float (&w)[2],
+                                           float (&nx)[2], float (&ny)[2], float (&nz)[2]) {
+  const int t = threadIdx.x & 3;
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int col = nt * 8 + 2 * t + e;
+      const float4 cj = sCol[col], pj = sPts[col];
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        float p = pred_q<kDiv>(acc[nt][2 * rr + e], rmv[rr], rsv[rr], yr[rr], cj.x, cj.y, cj.z, s1v[rr], cj.w);
+        p = keep[rr] && pj.w != 0.0f ? p : 0.0f;
+        w[rr] = w[rr] + p;
+        nx[rr] = nx[rr] + p * pj.x;
+        ny[rr] = ny[rr] + p * pj.y;
+        nz[rr] = nz[rr] + p * pj.z;
+      }
+    }
+  }
+}
+
+template <bool kHelper, int kKb>
+__global__ void __launch_bounds__(kLabelThreads, kLabelBlocks)
+accum_kernel(const __nv_bfloat16* __restrict__ f1, const __grid_constant__ CUtensorMap f2_map,
              const float* __restrict__ cm, const float* __restrict__ cs, const float* __restrict__ s1,
              const float* __restrict__ s2, const float* __restrict__ rm, const float* __restrict__ rs,
              const int* __restrict__ label1, const int* __restrict__ label2, const float* __restrict__ pts2,
              float* __restrict__ wsum, float* __restrict__ num, int m1, int m2, int c) {
   extern __shared__ uint4 smem[];
-  __nv_bfloat16* sA = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* sB = sA + kTile * (c + 8);
-  float* sCol = reinterpret_cast<float*>(sB + kTile * (c + 8));  // cm, cs, s2, w2, x, y, z: [7][64]
-  const int b = blockIdx.y, r0 = blockIdx.x * kTile;
-  const __nv_bfloat16* Bm = f2 + (long long)b * m2 * c;
-  stage(sA, f1 + (long long)b * m1 * c, r0, m1, c);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  // [kStages][64 c] tiles at a 1024-byte boundary (the 128-byte swizzle's period)
+  __nv_bfloat16* sRing = reinterpret_cast<__nv_bfloat16*>(smem) + ((1024 - smem_addr(smem) % 1024) % 1024) / 2;
+  float4* sCol = reinterpret_cast<float4*>(sRing + kStages * kTile * c);  // [kStages][64] (cm, cs, 1 / cs, s2)
+  float4* sPts = sCol + kStages * kTile;                                  // [kStages][64] (x, y, z, live)
+  AccumHead* sHead = reinterpret_cast<AccumHead*>(sPts + kStages * kTile);  // [kStages]
+  uint64_t* full = reinterpret_cast<uint64_t*>(sHead + kStages);          // [kStages]
+  uint64_t* empty = full + kStages;                                       // [kStages]
+  const int b = blockIdx.y, r0 = blockIdx.x * 16 * kLabelWarps;
+  // the warp index as the compiler can see it is uniform in the warp (the shuffles need no divergence guard)
+  const int warp = __shfl_sync(kFull, (int)threadIdx.x >> 5, 0), lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int row[2] = {r0 + warp * 16 + g, r0 + warp * 16 + g + 8};
   bool keep[2];
   float rmv[2], rsv[2], s1v[2];
 #pragma unroll
   for (int rr = 0; rr < 2; ++rr) {
     const long long i = (long long)b * m1 + row[rr];
-    keep[rr] = row[rr] >= 1 && row[rr] < m1 && label1[i] > 0;
+    keep[rr] = warp < kLabelWarps && row[rr] >= 1 && row[rr] < m1 && label1[i] > 0;
     rmv[rr] = keep[rr] ? rm[i] : 0.0f;
     rsv[rr] = keep[rr] ? rs[i] : 1.0f;
     s1v[rr] = keep[rr] ? s1[i] : 0.0f;
   }
   const bool live = __any_sync(kFull, keep[0] || keep[1]);
-  const __nv_bfloat16* sAw = sA + warp * 16 * (c + 8);
-  float w[2] = {0.0f, 0.0f}, nx[2] = {0.0f, 0.0f}, ny[2] = {0.0f, 0.0f}, nz[2] = {0.0f, 0.0f};
-  for (int c0 = 0; c0 < m2; c0 += kTile) {
-    __syncthreads();
-    stage(sB, Bm, c0, m2, c);
-    if (threadIdx.x < kTile) {
-      const int j = c0 + threadIdx.x;
-      const long long jj = (long long)b * m2 + j;
-      const bool w2 = j >= 1 && j < m2 && label2[jj] > 0;
-      const long long p = w2 ? ((long long)b * (m2 - 1) + j - 1) * 3 : 0;  // pts2 row of column j
-      sCol[threadIdx.x] = w2 ? cm[jj] : 0.0f;
-      sCol[kTile + threadIdx.x] = w2 ? fmaxf(cs[jj], 1e-30f) : 1.0f;
-      sCol[2 * kTile + threadIdx.x] = w2 ? s2[jj] : 0.0f;
-      sCol[3 * kTile + threadIdx.x] = w2 ? 1.0f : 0.0f;
-      sCol[4 * kTile + threadIdx.x] = w2 ? pts2[p] : 0.0f;
-      sCol[5 * kTile + threadIdx.x] = w2 ? pts2[p + 1] : 0.0f;
-      sCol[6 * kTile + threadIdx.x] = w2 ? pts2[p + 2] : 0.0f;
+  const int lives = __syncthreads_count(lane == 0 && live);  // consumer warps with a live row
+  if (lives == 0) {
+    const int r = r0 + threadIdx.x;
+    if (threadIdx.x < 16 * kLabelWarps && r < m1) {
+      wsum[(long long)b * m1 + r] = 0.0f;
+      num[((long long)b * m1 + r) * 3] = num[((long long)b * m1 + r) * 3 + 1] =
+          num[((long long)b * m1 + r) * 3 + 2] = 0.0f;
     }
-    __syncthreads();
-    if (!live) continue;
-    float acc[8][4];
-    logits(acc, sAw, sB, c);
+    return;
+  }
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 32);             // the producer's lanes, once the tile's copies have landed
+      mbar_init(&empty[s], 32 * lives);    // every lane of the live consumer warps
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const int slot = kTile * c;
+
+  if (warp == kLabelWarps) {  // the producer
+    cm += (long long)b * m2;
+    cs += (long long)b * m2;
+    s2 += (long long)b * m2;
+    label2 += (long long)b * m2;
+    pts2 += (long long)b * (m2 - 1) * 3;
+    const int tiles = (m2 + kTile - 1) / kTile;
+    float4 col[2], pt[2];  // this tile's column scalars; the next tile's are read while it is issued
+    for (int h = 0; h < 2; ++h) accum_column(cm, cs, s2, label2, pts2, lane + 32 * h, m2, col[h], pt[h]);
+    int u = 0;  // slots filled
+    for (int ti = 0; ti < tiles; ++ti) {
+      float4 ncol[2], npt[2];
+      for (int h = 0; h < 2; ++h) {
+        ncol[h] = col[h], npt[h] = pt[h];
+        if (ti + 1 < tiles) accum_column(cm, cs, s2, label2, pts2, (ti + 1) * kTile + lane + 32 * h, m2, ncol[h], npt[h]);
+      }
+      if (__any_sync(kFull, pt[0].w != 0.0f || pt[1].w != 0.0f)) {
+        const int s = u % kStages;
+        if (u >= kStages) mbar_wait(&empty[s], (u / kStages - 1) & 1);  // tile u - kStages is consumed
+        if (lane == 0) {
+          mbar_expect(&full[s], kTile * c * 2);
+          for (int k0 = 0; k0 < c; k0 += kKb) tma_load(sRing + s * slot + k0 * kTile, &f2_map, k0, ti * kTile, b, &full[s]);
+        }
+        float cmax = fmaxf(pt[0].w != 0.0f ? col[0].x : kNeg, pt[1].w != 0.0f ? col[1].x : kNeg);
+        for (int off = 16; off > 0; off >>= 1) cmax = fmaxf(cmax, __shfl_xor_sync(kFull, cmax, off));
+        for (int h = 0; h < 2; ++h) {
+          sCol[s * kTile + lane + 32 * h] = col[h];
+          sPts[s * kTile + lane + 32 * h] = pt[h];
+        }
+        if (lane == 0) sHead[s] = AccumHead{ti * kTile, cmax};
+        mbar_arrive(&full[s]);
+        ++u;
+      }
+      for (int h = 0; h < 2; ++h) col[h] = ncol[h], pt[h] = npt[h];
+    }
+    const int s = u % kStages;  // the end of the sweep
+    if (u >= kStages) mbar_wait(&empty[s], (u / kStages - 1) & 1);
+    if (lane == 0) sHead[s] = AccumHead{-1, 0.0f};
+    mbar_arrive(&full[s]);
+    return;
+  }
+
+  float w[2] = {0.0f, 0.0f}, nx[2] = {0.0f, 0.0f}, ny[2] = {0.0f, 0.0f}, nz[2] = {0.0f, 0.0f};
+  if (live) {
+    // the warp's A fragments, zero past m1
+    uint32_t a[kMaxKs][4];
+    {
+      const bool valid[2] = {row[0] < m1, row[1] < m1};
+      const __nv_bfloat16* a0 = f1 + ((long long)b * m1 + row[0]) * c + 2 * t;
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int col = nt * 8 + 2 * t + e;
-        if (sCol[3 * kTile + col] == 0.0f) continue;
+      for (int ks = 0; ks < kMaxKs; ++ks) {
+        const bool in = ks * 16 < c;
+        a[ks][0] = in && valid[0] ? ld32(a0 + ks * 16) : 0u;
+        a[ks][1] = in && valid[1] ? ld32(a0 + 8 * c + ks * 16) : 0u;
+        a[ks][2] = in && valid[0] ? ld32(a0 + ks * 16 + 8) : 0u;
+        a[ks][3] = in && valid[1] ? ld32(a0 + 8 * c + ks * 16 + 8) : 0u;
+      }
+    }
+    const float yr[2] = {__frcp_rn(rsv[0]), __frcp_rn(rsv[1])};
+    for (int u = 0;; ++u) {
+      const int s = u % kStages;
+      mbar_wait(&full[s], (u / kStages) & 1);
+      const AccumHead head = sHead[s];
+      if (head.c0 < 0) break;
+      float acc[8][4];
+      logits_reg<kKb>(acc, a, sRing + s * slot, c);
+      const float4* col = sCol + s * kTile;
+      const float4* pts = sPts + s * kTile;
+      if constexpr (kHelper) {
+        // the least logit of each kept row against its row max and the tile's largest live column max
+        float lo = -kNeg;
 #pragma unroll
         for (int rr = 0; rr < 2; ++rr) {
-          if (!keep[rr]) continue;
-          const float p = pred_of(acc[nt][2 * rr + e], rmv[rr], rsv[rr], sCol[col], sCol[kTile + col], s1v[rr],
-                                  sCol[2 * kTile + col]);
-          w[rr] = w[rr] + p;
-          nx[rr] = nx[rr] + p * sCol[4 * kTile + col];
-          ny[rr] = ny[rr] + p * sCol[5 * kTile + col];
-          nz[rr] = nz[rr] + p * sCol[6 * kTile + col];
+          float x = acc[0][2 * rr];
+#pragma unroll
+          for (int nt = 0; nt < 8; ++nt) x = fminf(x, fminf(acc[nt][2 * rr], acc[nt][2 * rr + 1]));
+          lo = fminf(lo, keep[rr] ? x - fmaxf(rmv[rr], head.cmax) : -kNeg);
         }
+        if (__all_sync(kFull, lo >= -55.0f)) accum_tile<kFast>(acc, col, pts, keep, rmv, rsv, yr, s1v, w, nx, ny, nz);
+        else accum_tile<kExact>(acc, col, pts, keep, rmv, rsv, yr, s1v, w, nx, ny, nz);
+      } else {
+        accum_tile<kIeee>(acc, col, pts, keep, rmv, rsv, yr, s1v, w, nx, ny, nz);
       }
+      mbar_arrive(&empty[s]);
     }
   }
 #pragma unroll
@@ -626,8 +753,6 @@ accum_kernel(const __nv_bfloat16* __restrict__ f1, const __nv_bfloat16* __restri
   }
 }
 
-size_t tiles_smem(int c) { return (size_t)2 * kTile * (c + 8) * sizeof(__nv_bfloat16); }
-
 // the driver's cuTensorMapEncodeTiled, found at run time (the library does not link the driver)
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
                                 const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
@@ -637,6 +762,31 @@ bool bad_shape(int B, int m1, int m2, int c) {
   return B <= 0 || B > 65535 || m1 < 1 || m2 < 2 || c < 16 || c > kMaxC || c % 16 != 0;
 }
 
+// f2 as the copy engine reads it for K9 and K10: (B, m2, c) bf16, boxes of 64 rows and kb channels, 128-byte
+// swizzle (kb 64) or 32-byte (kb 16)
+cudaError_t f2_tensor_map(CUtensorMap* map, const void* f2, int B, int m2, int c, int kb) {
+  static EncodeTiled encode = nullptr;
+  if (encode == nullptr) {
+    cudaDriverEntryPointQueryResult found;
+    void* fn = nullptr;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &fn, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
+#endif
+    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess) return cudaErrorNotSupported;
+    encode = reinterpret_cast<EncodeTiled>(fn);
+  }
+  const cuuint64_t dims[3] = {(cuuint64_t)c, (cuuint64_t)m2, (cuuint64_t)B};
+  const cuuint64_t strides[2] = {(cuuint64_t)c * 2, (cuuint64_t)m2 * c * 2};
+  const cuuint32_t box[3] = {(cuuint32_t)kb, (cuuint32_t)kTile, 1u}, unit[3] = {1u, 1u, 1u};
+  if (encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(f2), dims, strides, box, unit,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, kb == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_32B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return cudaErrorInvalidValue;
+  return cudaSuccess;
+}
+
 }  // namespace
 
 // f1 (B, m1, c), f2 (B, m2, c) bf16 contiguous (16-byte aligned rows);
@@ -644,7 +794,7 @@ bool bad_shape(int B, int m1, int m2, int c) {
 extern "C" int unopose_fine_colstats(const void* f1, const void* f2, float* cm, float* cs, int B, int m1, int m2,
                                      int c, cudaStream_t stream) {
   if (bad_shape(B, m1, m2, c)) return (int)cudaErrorInvalidValue;
-  const size_t smem = tiles_smem(c) + 2 * 4 * kTile * sizeof(float);
+  const size_t smem = (size_t)2 * kTile * (c + 8) * sizeof(__nv_bfloat16) + 2 * 4 * kTile * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(colstats_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   colstats_kernel<<<dim3((m2 + kTile - 1) / kTile, B), kThreads, smem, stream>>>(
@@ -660,28 +810,10 @@ extern "C" int unopose_fine_labels(const void* f1, const void* f2, const float* 
                                    const float* s2, float* rm, float* rs, int* label1, unsigned long long* keys, int B,
                                    int m1, int m2, int c, cudaStream_t stream) {
   if (bad_shape(B, m1, m2, c)) return (int)cudaErrorInvalidValue;
-  // f2 as the copy engine reads it: (B, m2, c) bf16, boxes of 64 rows and kKb channels, 128- or 32-byte swizzle
   const int kb = c % 64 == 0 ? 64 : 16;
-  static EncodeTiled encode = nullptr;
-  if (encode == nullptr) {
-    cudaDriverEntryPointQueryResult found;
-    void* fn = nullptr;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &fn, 12000, cudaEnableDefault, &found);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
-#endif
-    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess) return (int)cudaErrorNotSupported;
-    encode = reinterpret_cast<EncodeTiled>(fn);
-  }
   CUtensorMap map;
-  const cuuint64_t dims[3] = {(cuuint64_t)c, (cuuint64_t)m2, (cuuint64_t)B};
-  const cuuint64_t strides[2] = {(cuuint64_t)c * 2, (cuuint64_t)m2 * c * 2};
-  const cuuint32_t box[3] = {(cuuint32_t)kb, (cuuint32_t)kTile, 1u}, unit[3] = {1u, 1u, 1u};
-  if (encode(&map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(f2), dims, strides, box, unit,
-             CU_TENSOR_MAP_INTERLEAVE_NONE, kb == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_32B,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
-    return (int)cudaErrorInvalidValue;
+  cudaError_t err = f2_tensor_map(&map, f2, B, m2, c, kb);
+  if (err != cudaSuccess) return (int)err;
   const size_t smem = 1024 + (size_t)kStages * kTile * c * sizeof(__nv_bfloat16) +
                       kStages * kLabelWarps * kTile * sizeof(unsigned long long) + 2 * kStages * sizeof(uint64_t) +
                       kStages * kTile * sizeof(float4) + (kLabelWarps + 1) * sizeof(float);
@@ -689,7 +821,7 @@ extern "C" int unopose_fine_labels(const void* f1, const void* f2, const float* 
   const bool helper = m1 < 4096 && m2 < 4096;
   const auto kernel = helper ? (kb == 64 ? labels_kernel<true, 64> : labels_kernel<true, 16>)
                              : (kb == 64 ? labels_kernel<false, 64> : labels_kernel<false, 16>);
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const int rows = 16 * kLabelWarps;
   kernel<<<dim3((m1 + rows - 1) / rows, B), kLabelThreads, smem, stream>>>(
@@ -705,11 +837,20 @@ extern "C" int unopose_fine_accum(const void* f1, const void* f2, const float* c
                                   const int* label2, const float* pts2, float* wsum, float* num, int B, int m1, int m2,
                                   int c, cudaStream_t stream) {
   if (bad_shape(B, m1, m2, c)) return (int)cudaErrorInvalidValue;
-  const size_t smem = tiles_smem(c) + 7 * kTile * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(accum_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const int kb = c % 64 == 0 ? 64 : 16;
+  CUtensorMap map;
+  cudaError_t err = f2_tensor_map(&map, f2, B, m2, c, kb);
   if (err != cudaSuccess) return (int)err;
-  accum_kernel<<<dim3((m1 + kTile - 1) / kTile, B), kThreads, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(f1), static_cast<const __nv_bfloat16*>(f2), cm, cs, s1, s2, rm, rs, label1,
-      label2, pts2, wsum, num, m1, m2, c);
+  const size_t smem = 1024 + (size_t)kStages * kTile * c * sizeof(__nv_bfloat16) + 2 * kStages * kTile * sizeof(float4) +
+                      kStages * sizeof(AccumHead) + 2 * kStages * sizeof(uint64_t);
+  // fast_div.cuh needs 1 <= l < 2^12: a row sum holds at most m2 terms of at most 1, a column sum m1
+  const bool helper = m1 < 4096 && m2 < 4096;
+  const auto kernel = helper ? (kb == 64 ? accum_kernel<true, 64> : accum_kernel<true, 16>)
+                             : (kb == 64 ? accum_kernel<false, 64> : accum_kernel<false, 16>);
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int rows = 16 * kLabelWarps;
+  kernel<<<dim3((m1 + rows - 1) / rows, B), kLabelThreads, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(f1), map, cm, cs, s1, s2, rm, rs, label1, label2, pts2, wsum, num, m1, m2, c);
   return (int)cudaGetLastError();
 }

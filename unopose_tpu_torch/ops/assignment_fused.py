@@ -176,7 +176,8 @@ def labels_cuda(f1n, f2n, cm, cs, s1, s2):
 
 
 def accum_cuda(f1n, f2n, cm, cs, s1, s2, rm, rs, label1, label2, pts2):
-    """K10 on the card: one block per (pair, 64-row tile)."""
+    """K10 on the card: one block per (pair, 64-row tile), four warps on its
+    rows and one streaming f2's live column tiles to them, as K9's."""
     (B, M1, M2, C), f1n, f2n = _check_cuda("accum_cuda", f1n, f2n, cm, cs, s1, s2, rm, rs, label1, label2, pts2)
     if (cm.shape != (B, M2) or cs.shape != (B, M2) or s1.shape != (B, M1) or s2.shape != (B, M2)
             or rm.shape != (B, M1) or rs.shape != (B, M1) or label1.shape != (B, M1) or label2.shape != (B, M2)

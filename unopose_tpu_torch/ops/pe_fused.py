@@ -229,8 +229,10 @@ def _check_packed(packed):
 
 
 def pe_mlp_pool_cuda(chans, w1, w2, total2, packed) -> torch.Tensor:
-    """The MLP and pool on the card (``csrc/pe_mlp_pool.cu``): one warp per
-    point, mma.sync bf16 tensor-core products chained in registers.
+    """The MLP and pool on the card (``csrc/pe_mlp_pool.cu``): a warp takes
+    a point's 64-slot chunks one at a time, packs each scale's kept slots
+    to the front and runs mma.sync bf16 tensor-core products on them only,
+    chained in registers, the max taken on the raw last-layer sums.
     ``packed`` is both scales' ``pack_mlp``."""
     _check_mlp(chans, w1, w2, total2, MAX_SLOTS)
     wpack, bpack = _check_packed(packed)
@@ -240,6 +242,8 @@ def pe_mlp_pool_cuda(chans, w1, w2, total2, packed) -> torch.Tensor:
         raise ValueError(f"pe_mlp_pool_cuda takes bf16 channels, got {chans.dtype}")
     chans, total2 = chans.contiguous(), total2.to(torch.int32).contiguous()
     w1, w2 = (w.to(torch.bfloat16).contiguous() for w in (w1, w2))
+    if chans.data_ptr() % 4:
+        raise ValueError("pe_mlp_pool_cuda reads the channels in 4-byte words: a 4-byte aligned tensor needed")
     out = torch.empty((B, P, 256), dtype=torch.float32, device=chans.device)
     lib = build.load()
     ptr = ctypes.c_void_p

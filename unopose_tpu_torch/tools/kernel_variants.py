@@ -1,18 +1,20 @@
-"""What each part of the K1 (FPS), K7 (ViT attention), K9 (the fused assignment's labels) and K4 (int8
-geometric embedding) designs buys, on one CUDA card.
+"""What each part of the K1 (FPS), K7 (ViT attention), K9 and K10 (the fused assignment's labels and
+accumulation), K4 (int8 geometric embedding) and K6 (the fine PE's MLP and pool) designs buys, on one CUDA card.
 
-    python -m unopose_tpu_torch.tools.kernel_variants [--parent DIR] [--only K9,K4] [--reps 20] [--out FILE]
+    python -m unopose_tpu_torch.tools.kernel_variants [--parent DIR] [--only K6,K10] [--reps 20] [--out FILE]
 
-Builds the shipped sources ``kernels/csrc/fps.cu``, ``vit_attn.cu``, ``fine_assign.cu`` and ``geo_rpe.cu`` and
-variants of each, every variant the shipped text with one design choice replaced, each into a library of its
-own (``nvcc`` with the package's flags, all builds started together), and times every build on the same
-inputs at the main path's shapes with CUDA events: K1 at 16 x 5000 -> 2048 and 16 x 2048 -> 196, K7 at
-32 x 261 x 768 bf16 with 12 heads read in place from the qkv output, K9 at 16 pairs of 2049 x 2049 rows, C
-256 (the shipped, parent and IEEE-division builds also with f1n scaled by 40, where pred underflows), K4 at
-32 clouds of 197 points, 256 channels, T 128, k 3, bf16 contraction (the shipped and parent builds also with
-the float32 contraction). The builds run in turns, forward then backward, and each reports
-the median of its two times. ``--parent DIR``: a checkout of another commit, whose four sources join as the
-builds ``*_parent``. ``--only``: the kernels to build and time.
+Builds the shipped sources ``kernels/csrc/fps.cu``, ``vit_attn.cu``, ``fine_assign.cu``, ``geo_rpe.cu`` and
+``pe_mlp_pool.cu`` and variants of each, every variant the shipped text with one design choice replaced, each
+into a library of its own (``nvcc`` with the package's flags, all builds started together, one build per
+distinct text), and times every build on the same inputs at the main path's shapes with CUDA events: K1 at
+16 x 5000 -> 2048 and 16 x 2048 -> 196, K7 at 32 x 261 x 768 bf16 with 12 heads read in place from the qkv
+output, K9 and K10 at 16 pairs of 2049 x 2049 rows, C 256 (the shipped, parent and IEEE-division builds also
+with f1n scaled by 40, where pred underflows), K4 at 32 clouds of 197 points, 256 channels, T 128, k 3, bf16
+contraction (the shipped and parent builds also with the float32 contraction), K6 at 32 x 2048 points, S2
+256, on the uniform cubes and on the sphere surfaces that fill every 64-slot tier, fed the plain twin's
+channels. The builds run in turns, forward then backward, and each reports the median of its two times.
+``--parent DIR``: a checkout of another commit, whose sources (with the headers they include from its
+``csrc/``) join as the builds ``*_parent``. ``--only``: the kernels to build and time.
 
 Variants of K1 (shipped: 256 threads a cloud up to 6144 points, the points in registers, a packed-key argmax,
 one barrier a step): ``t1024`` and ``t512``, that many threads a cloud; ``cluster2`` and ``cluster4``, a
@@ -30,17 +32,29 @@ fast_div.cuh's quotients): ``cp_async``, the ring filled by the producer warp's 
 ring of one slot, each tile loaded while none other is in flight;
 ``ld32``, the B fragments as scalar 32-bit shared loads; ``ieee_division``, the IEEE ``/`` in pred;
 ``128_rows``, 128-row tiles of 8 consumer warps sharing each staged tile.
-Variants of K4 (shipped: bf16 tables of 256 channels, 8 channels a lane, a warp's own stencils):
-``f32_tables``, float32 tables in 128-channel tiles, 4 channels a lane; ``f32_8ch``, the same with 8 channels
-a lane (two 16-byte reads a table row where bf16 takes one and widens); ``f32_64``, float32 tables in
-64-channel tiles; ``4ch``, bf16 tables in 128-channel tiles, 4 channels a lane; ``row_barrier``, the block's
-stencils of one row at a time in shared memory between two barriers; ``runtime_k``, the angle count read at run
-time (the kernel built for k up to kMaxK only, without its k = 3 build).
+Variants of K10 (shipped: K9's block and ring for one sweep over the live column tiles, the column scalars
+staged with each tile, masked entries selected away, fast_div.cuh's quotients): ``accum_ieee_division``, the
+IEEE ``/`` in pred; ``accum_no_ring``, a ring of one slot (the same texts as K9's two variants, timed on K10).
+Variants of K6 (shipped: 8 warps a block, 3 blocks an SM, each block's range of points taken by its warps from
+a counter in shared memory; each 64-slot chunk's kept slots packed to its front and only their m-tiles run,
+the last m-tile's spare rows repeating a kept slot; one ldmatrix B fragment per 16-slot m-tile; layers 1-2's
+biases in registers; the max on the raw layer-3 sums, bias, ReLU and rounding once per column; the next
+chunk's rows copied by cp.async into the warp's buffer in shared memory and the weights of the one after it
+loaded while a chunk's products run): ``registers``, the next chunk's rows loaded into registers instead;
+``b64``, each B
+fragment shared by the chunk's (up to 4) packed m-tiles; ``no_packing``, all 4 m-tiles of every chunk with a
+kept slot run, each masked slot's row repeating a kept one; ``epilogue_first``, bias, ReLU and rounding on
+every layer-3 output before the max (the first design's epilogue); ``atomic``, every warp of the persistent
+grid taking its points from one counter in device memory (zeroed by the launcher) in place of its block's
+range and counter; ``stride``, the first design's static stride over the points; ``wgmma``, the warpgroup
+products in place of mma.sync: a block of 4 warps per chunk (no packing), each warp's 16 rows as the A
+operand in registers, B read by descriptor from the weights laid out again in shared memory in the canonical
+K-major layout, the 4 warps' maxes merged in shared memory.
 
 Every build's output is checked: K1's indices equal to the plain loop's, K7's outputs, K9's rm, rs, label1 and
-column keys and K4's int8 codes bitwise equal to the shipped kernel's (for K7's ``parent``, the first
-version, the share of equal outputs is reported too). Prints the card's name and power limit, then one JSON
-line; ``--out`` writes the JSON there too.
+column keys, K10's wsum and num, K4's int8 codes and K6's pooled features bitwise equal to the shipped
+kernel's (for K7's ``parent``, the first version, the share of equal outputs is reported too). Prints the
+card's name and power limit, then one JSON line; ``--out`` writes the JSON there too.
 """
 
 from __future__ import annotations
@@ -48,6 +62,7 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
+import re
 import subprocess
 import sys
 from concurrent.futures import ThreadPoolExecutor
@@ -58,7 +73,7 @@ import torch
 
 from unopose_tpu_torch.kernels import build
 from unopose_tpu_torch.models.embedding import GeometricStructureEmbedding, knn_anchor_vectors
-from unopose_tpu_torch.ops import assignment_fused, geo_fused
+from unopose_tpu_torch.ops import assignment_fused, geo_fused, pe_fused
 from unopose_tpu_torch.ops.fps import fps_plain
 from unopose_tpu_torch.ops.lrf import global_lrf
 
@@ -209,6 +224,342 @@ K4_ROW_BARRIER = """  // one row i at a time: the block's stencils of all its co
 }
 
 """
+K6_RAW_MAX = """    mx[nt][0] = fmaxf(mx[nt][0], fmaxf(c[0], c[2]));
+    mx[nt][1] = fmaxf(mx[nt][1], fmaxf(c[1], c[3]));
+"""
+K6_EPILOGUE_FIRST = """    const int col = 96 + nt * 8 + 2 * (lane & 3);  // B0 + 96: the layer-3 biases
+    mx[nt][0] = fmaxf(mx[nt][0], fmaxf(relu_bf16(c[0] + B0[col]), relu_bf16(c[2] + B0[col])));
+    mx[nt][1] = fmaxf(mx[nt][1], fmaxf(relu_bf16(c[1] + B0[col + 1]), relu_bf16(c[3] + B0[col + 1])));
+"""
+K6_GLOBAL_COUNTER = """constexpr unsigned kAll = 0xffffffffu;
+__device__ unsigned long long g_next;  // the next point to take, zeroed before each launch
+"""
+K6_LOOP = """    const uint32_t* ab = abuf + b * kTiles * 2 * 32 + lane;
+    for (int q = 0; q < tiles; ++q) {  // the packed m-tiles one by one (none where no slot is kept)
+      const uint32_t aq[2] = {ab[2 * q * 32], ab[(2 * q + 1) * 32]};
+      mlp_mtile(aq, W0, B0, mx);
+    }
+"""
+# the b64 variant's own products: NT m-tiles through the three layers at once, each B fragment shared by them
+K6_MLP_TILES = """// m-tiles 0 .. NT - 1 of a through the scale's three layers (W0 / B0: its packed weights and
+// biases in shared memory; layers 1 and 2's biases are read into registers once for the NT m-tiles) into
+// the running max mx of this lane's columns of the raw layer-3 sums
+template <int NT>
+__device__ __forceinline__ void mlp_tiles(const uint32_t (&a)[kTiles][2], const __nv_bfloat16* W0,
+                                          const float* B0, float (&mx)[16][2]) {
+  const int lane = threadIdx.x & 31, i = lane >> 3, r = lane & 7;
+  const __nv_bfloat16* W1 = W0 + kW0;
+  const __nv_bfloat16* W2 = W1 + kW1;
+  float b0[8], b1[16];
+  load_bias(B0, b0, b1);
+  // layer 1: 6 -> 32, K zero-padded to 16; an ldmatrix.x4 gives n-tiles 2np and 2np + 1, both k halves
+  uint32_t a2[NT][2][4];
+#pragma unroll
+  for (int np = 0; np < 2; ++np) {
+    uint32_t bq[4];
+    ldsm_x4(bq, W0 + ((2 * np + (i >> 1)) * 8 + r) * kLd0 + (i & 1) * 8);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int nt = 2 * np + h;
+#pragma unroll
+      for (int mt = 0; mt < NT; ++mt) {
+        float c[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+        const uint32_t af[4] = {a[mt][0], a[mt][1], 0u, 0u};
+        mma16816(c, af, bq[2 * h], bq[2 * h + 1]);
+        a2[mt][nt >> 1][(nt & 1) * 2] = relu_pack(c[0] + b0[2 * nt], c[1] + b0[2 * nt + 1]);
+        a2[mt][nt >> 1][(nt & 1) * 2 + 1] = relu_pack(c[2] + b0[2 * nt], c[3] + b0[2 * nt + 1]);
+      }
+    }
+  }
+  // layer 2: 32 -> 64; an ldmatrix.x4 gives one n-tile's two k-steps, each k-step's products of the
+  // m-tiles issued together (they are independent; one m-tile's k-steps are not)
+  uint32_t a3[NT][4][4];
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt) {
+    uint32_t bq[4];
+    ldsm_x4(bq, W1 + (nt * 8 + r) * kLd1 + i * 8);
+    float c[NT][4];
+#pragma unroll
+    for (int mt = 0; mt < NT; ++mt) c[mt][0] = c[mt][1] = c[mt][2] = c[mt][3] = 0.0f;
+#pragma unroll
+    for (int kt = 0; kt < 2; ++kt)
+#pragma unroll
+      for (int mt = 0; mt < NT; ++mt) mma16816(c[mt], a2[mt][kt], bq[2 * kt], bq[2 * kt + 1]);
+#pragma unroll
+    for (int mt = 0; mt < NT; ++mt) {
+      a3[mt][nt >> 1][(nt & 1) * 2] = relu_pack(c[mt][0] + b1[2 * nt], c[mt][1] + b1[2 * nt + 1]);
+      a3[mt][nt >> 1][(nt & 1) * 2 + 1] = relu_pack(c[mt][2] + b1[2 * nt], c[mt][3] + b1[2 * nt + 1]);
+    }
+  }
+  // layer 3: 64 -> 128, n-tile by n-tile into the masked running max of the raw sums
+#pragma unroll
+  for (int nt = 0; nt < 16; ++nt) {
+    uint32_t bq[2][4];
+    ldsm_x4(bq[0], W2 + (nt * 8 + r) * kLd2 + i * 8);
+    ldsm_x4(bq[1], W2 + (nt * 8 + r) * kLd2 + 32 + i * 8);
+    float c[NT][4];
+#pragma unroll
+    for (int mt = 0; mt < NT; ++mt) c[mt][0] = c[mt][1] = c[mt][2] = c[mt][3] = 0.0f;
+#pragma unroll
+    for (int kt = 0; kt < 4; ++kt)
+#pragma unroll
+      for (int mt = 0; mt < NT; ++mt)
+        mma16816(c[mt], a3[mt][kt], bq[kt >> 1][(kt & 1) * 2], bq[kt >> 1][(kt & 1) * 2 + 1]);
+#pragma unroll
+    for (int mt = 0; mt < NT; ++mt) {
+      mx[nt][0] = fmaxf(mx[nt][0], fmaxf(c[mt][0], c[mt][2]));
+      mx[nt][1] = fmaxf(mx[nt][1], fmaxf(c[mt][1], c[mt][3]));
+    }
+  }
+}
+
+"""
+K6_SHARED_B = """    const uint32_t* ab = abuf + b * kTiles * 2 * 32 + lane;
+    uint32_t a[kTiles][2];
+#pragma unroll
+    for (int mt = 0; mt < kTiles; ++mt) a[mt][0] = ab[2 * mt * 32], a[mt][1] = ab[(2 * mt + 1) * 32];
+    switch (tiles) {
+      case 1: mlp_tiles<1>(a, W0, B0, mx); break;
+      case 2: mlp_tiles<2>(a, W0, B0, mx); break;
+      case 3: mlp_tiles<3>(a, W0, B0, mx); break;
+      case 4: mlp_tiles<4>(a, W0, B0, mx); break;
+      default: break;  // no kept slot in this chunk
+    }
+"""
+# the next item's A words loaded into registers a chunk early, in place of cp.async into the warp's buffers
+K6_REG_ROWS = """__device__ __forceinline__ void load_rows(const __nv_bfloat16* __restrict__ chans, const Item& it, int s2, int tiles,
+                                          int n, const unsigned char* sidx, uint32_t (&a)[kTiles][2]) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const __nv_bfloat16* c = chans + (it.pt * s2 + it.ch * kChunk) * 12 + 6 * it.sc + 2 * t;
+#pragma unroll
+  for (int mt = 0; mt < kTiles; ++mt) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int j = mt * 16 + g + 8 * h;
+      a[mt][h] = t < 3 && mt < tiles ? ld32(c + sidx[j < n ? j : 0] * 12) : 0u;
+    }
+  }
+}
+
+__device__ __forceinline__ uint32_t pick(const uint32_t (&a)[kTiles][2], int q, int h) {
+  return q == 0 ? a[0][h] : q == 1 ? a[1][h] : q == 2 ? a[2][h] : a[3][h];
+}
+
+"""
+K6_REG = (
+    ("  int tiles = compact(wlo, whi, sidx, n), b = 0;\n  load_rows(chans, cur, s2, tiles, n, sidx, abuf);",
+     "  int tiles = compact(wlo, whi, sidx, n);\n  uint32_t a[kTiles][2];\n  load_rows(chans, cur, s2, tiles, n, sidx, a);"),
+    ("    if (more) ntiles = compact(wlo, whi, sidx, n);\n"
+     "    load_rows(chans, nxt, s2, ntiles, n, sidx, abuf + (b ^ 1) * kTiles * 2 * 32);  // an empty group past the last\n"
+     "    asm volatile(\"cp.async.wait_group 1;\\n\" ::: \"memory\");  // this item's words have landed",
+     "    uint32_t na[kTiles][2];\n    if (more) ntiles = compact(wlo, whi, sidx, n);\n"
+     "    if (more) load_rows(chans, nxt, s2, ntiles, n, sidx, na);"),
+    ("      const uint32_t aq[2] = {ab[2 * q * 32], ab[(2 * q + 1) * 32]};",
+     "      const uint32_t aq[2] = {pick(a, q, 0), pick(a, q, 1)};"),
+    ("    const uint32_t* ab = abuf + b * kTiles * 2 * 32 + lane;\n", ""),
+    ("    b ^= 1;", "#pragma unroll\n    for (int mt = 0; mt < kTiles; ++mt) a[mt][0] = na[mt][0], a[mt][1] = na[mt][1];"),
+)
+K6_PACK = """  if (klo) sidx[__popc(lo & below)] = (unsigned char)lane;
+  if (khi) sidx[nlo + __popc(hi & below)] = (unsigned char)(32 + lane);
+  __syncwarp();
+  return (n + 15) >> 4;
+"""
+K6_NO_PACK = """  const int first = lo ? __ffs(lo) - 1 : 31 + __ffs(hi);  // a kept slot, where there is one
+  sidx[lane] = (unsigned char)(klo ? lane : first);
+  sidx[32 + lane] = (unsigned char)(khi ? 32 + lane : first);
+  __syncwarp();
+  const bool any = n > 0;
+  n = 64;
+  return any ? 4 : 0;
+"""
+K6_ZERO_NEXT = """  void* next = nullptr;
+  if ((err = cudaGetSymbolAddress(&next, g_next)) != cudaSuccess) return (int)err;
+  if ((err = cudaMemsetAsync(next, 0, sizeof(unsigned long long), stream)) != cudaSuccess) return (int)err;
+  pe_mlp_pool_kernel<<<"""
+
+K6_WGMMA = r"""
+// K6 on the warpgroup products: one block of 4 warps (a warpgroup) per 64-slot chunk, warp w holding its rows
+// 16 w .. 16 w + 15 as the A operand in registers, B read by descriptor from the weights in shared memory,
+// each layer's accumulators packed to bf16 as the next layer's A.
+#include "pe_common.cuh"
+
+namespace {
+
+constexpr int kThreads = 128;
+constexpr int kBlocks = 3;
+// one scale's weights in the canonical K-major layout without swizzle: per layer and 16-deep k-step, core
+// matrices of 8 outputs x 8 inputs (128 bytes), the two k halves 128 bytes apart, the 8-output groups 256
+constexpr int kC0 = 32 * 16, kC1 = 64 * 32, kC2 = 128 * 64;
+constexpr int kCScale = kC0 + kC1 + kC2;
+
+__device__ __forceinline__ int canon(int n, int k, int N) {
+  return (((k >> 4) * (N >> 3) + (n >> 3)) * 2 + ((k >> 3) & 1)) * 64 + (n & 7) * 8 + (k & 7);
+}
+
+__device__ __forceinline__ uint64_t desc(const __nv_bfloat16* p) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  return (uint64_t)((a & 0x3FFFF) >> 4) | ((uint64_t)(128 >> 4) << 16) | ((uint64_t)(256 >> 4) << 32);
+}
+
+WGMMA_FUNCTIONS
+
+__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wg_commit_wait() {
+  asm volatile("wgmma.commit_group.sync.aligned;\nwgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void hold(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+__device__ __forceinline__ float neg_inf() { return __int_as_float(0xff800000); }
+__device__ __forceinline__ int chunks_of(int total2, int s2) { return max(1, min((total2 + 63) >> 6, s2 >> 6)); }
+
+__global__ void __launch_bounds__(kThreads, kBlocks)
+pe_mlp_pool_kernel(const __nv_bfloat16* __restrict__ chans, const __nv_bfloat16* __restrict__ w1,
+                   const __nv_bfloat16* __restrict__ w2, const int* __restrict__ total2,
+                   const __nv_bfloat16* __restrict__ wpack, const float* __restrict__ bpack,
+                   float* __restrict__ out, long long points, int s2) {
+  extern __shared__ uint4 smem[];
+  __nv_bfloat16* s_w = reinterpret_cast<__nv_bfloat16*>(smem);  // [2][kCScale]
+  float* s_b = reinterpret_cast<float*>(s_w + 2 * kCScale);       // [2][kBScale]
+  float* s_red = s_b + 2 * kBScale;                               // [4 warps][128]
+  for (int e = threadIdx.x; e < 2 * kCScale; e += kThreads) {
+    const int sc = e / kCScale;
+    int r = e % kCScale, N = 32, K = 16, ld = kLd0, src = 0, dst = 0;
+    if (r >= kC0 + kC1) r -= kC0 + kC1, N = 128, K = 64, ld = kLd2, src = kW0 + kW1, dst = kC0 + kC1;
+    else if (r >= kC0) r -= kC0, N = 64, K = 32, ld = kLd1, src = kW0, dst = kC0;
+    const int n = r / K, k = r % K;
+    s_w[sc * kCScale + dst + canon(n, k, N)] = wpack[sc * kWScale + src + n * ld + k];
+  }
+  for (int i = threadIdx.x; i < 2 * kBScale; i += kThreads) s_b[i] = bpack[i];
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  __syncthreads();
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  for (long long pt = blockIdx.x; pt < points; pt += gridDim.x) {
+    const int chunks = chunks_of(total2[pt], s2);
+    for (int sc = 0; sc < 2; ++sc) {
+      const __nv_bfloat16* W = s_w + sc * kCScale;
+      const float* B = s_b + sc * kBScale;
+      const __nv_bfloat16* wm = (sc ? w2 : w1) + pt * s2;
+      const __nv_bfloat16* c = chans + pt * s2 * 12 + 6 * sc + 2 * t;
+      float mx[16][2];
+#pragma unroll
+      for (int nt = 0; nt < 16; ++nt) mx[nt][0] = mx[nt][1] = neg_inf();
+      for (int ch = 0; ch < chunks; ++ch) {
+        const int r0 = ch * 64 + warp * 16 + g, r1 = r0 + 8;
+        const uint32_t a1[4] = {t < 3 ? ld32(c + r0 * 12) : 0u, t < 3 ? ld32(c + r1 * 12) : 0u, 0u, 0u};
+        const bool k0 = __bfloat162float(wm[r0]) > 0.0f, k1 = __bfloat162float(wm[r1]) > 0.0f;
+        float d1[16];
+#pragma unroll
+        for (int i = 0; i < 16; ++i) d1[i] = 0.0f;
+        wg_fence();
+        wgmma_n32(d1, a1, desc(W));
+        wg_commit_wait();
+        hold(d1);
+        uint32_t a2[2][4];
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+          const int col = nt * 8 + 2 * t;
+          a2[nt >> 1][(nt & 1) * 2] = relu_pack(d1[4 * nt] + B[col], d1[4 * nt + 1] + B[col + 1]);
+          a2[nt >> 1][(nt & 1) * 2 + 1] = relu_pack(d1[4 * nt + 2] + B[col], d1[4 * nt + 3] + B[col + 1]);
+        }
+        float d2[32];
+#pragma unroll
+        for (int i = 0; i < 32; ++i) d2[i] = 0.0f;
+        wg_fence();
+        wgmma_n64(d2, a2[0], desc(W + kC0));
+        wgmma_n64(d2, a2[1], desc(W + kC0 + 64 * 16));
+        wg_commit_wait();
+        hold(d2);
+        uint32_t a3[4][4];
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt) {
+          const int col = 32 + nt * 8 + 2 * t;
+          a3[nt >> 1][(nt & 1) * 2] = relu_pack(d2[4 * nt] + B[col], d2[4 * nt + 1] + B[col + 1]);
+          a3[nt >> 1][(nt & 1) * 2 + 1] = relu_pack(d2[4 * nt + 2] + B[col], d2[4 * nt + 3] + B[col + 1]);
+        }
+        float d3[64];
+#pragma unroll
+        for (int i = 0; i < 64; ++i) d3[i] = 0.0f;
+        wg_fence();
+#pragma unroll
+        for (int ks = 0; ks < 4; ++ks) wgmma_n128(d3, a3[ks], desc(W + kC0 + kC1 + ks * 128 * 16));
+        wg_commit_wait();
+        hold(d3);
+#pragma unroll
+        for (int nt = 0; nt < 16; ++nt) {
+          mx[nt][0] = fmaxf(mx[nt][0], fmaxf(k0 ? d3[4 * nt] : neg_inf(), k1 ? d3[4 * nt + 2] : neg_inf()));
+          mx[nt][1] = fmaxf(mx[nt][1], fmaxf(k0 ? d3[4 * nt + 1] : neg_inf(), k1 ? d3[4 * nt + 3] : neg_inf()));
+        }
+      }
+#pragma unroll
+      for (int nt = 0; nt < 16; ++nt) {
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          float v = mx[nt][j];
+          v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 4));
+          v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 8));
+          v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 16));
+          if (g == 0) s_red[warp * 128 + nt * 8 + 2 * t + j] = v;
+        }
+      }
+      __syncthreads();
+      const int col = threadIdx.x;
+      const float v = fmaxf(fmaxf(s_red[col], s_red[128 + col]), fmaxf(s_red[256 + col], s_red[384 + col]));
+      out[pt * 256 + sc * 128 + col] = relu_bf16(v + B[96 + col]);
+      __syncthreads();
+    }
+  }
+}
+
+}  // namespace
+
+extern "C" int unopose_pe_mlp_pool(const void* chans, const void* w1, const void* w2, const int* total2,
+                                   const void* wpack, const float* bpack, float* out, long long points, int s2,
+                                   cudaStream_t stream) {
+  if (s2 > kMaxSlots || s2 % 64 != 0 || s2 == 0) return (int)cudaErrorInvalidValue;
+  if (points == 0) return 0;
+  const size_t smem = (size_t)2 * kCScale * sizeof(__nv_bfloat16) + (size_t)2 * kBScale * sizeof(float) +
+                      4 * 128 * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(pe_mlp_pool_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess) return (int)err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, pe_mlp_pool_kernel, kThreads, smem);
+  if (err != cudaSuccess) return (int)err;
+  long long blocks = points;
+  const long long resident = (long long)sms * (per_sm > 0 ? per_sm : 1);
+  if (blocks > resident) blocks = resident;
+  pe_mlp_pool_kernel<<<(unsigned)blocks, kThreads, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(chans), static_cast<const __nv_bfloat16*>(w1),
+      static_cast<const __nv_bfloat16*>(w2), total2, static_cast<const __nv_bfloat16*>(wpack), bpack, out, points,
+      s2);
+  return (int)cudaGetLastError();
+}
+"""
+
+
+def _wgmma_fn(n: int) -> str:
+    """wgmma_n<n>(d, a, b): d += a b for a 64 x 16 bf16 A held as mma fragments by the warpgroup's warps and a
+    16 x n B read by descriptor (K-major, no swizzle), float32 accumulators (n / 2 a thread)."""
+    r = n // 2
+    outs = ", ".join(f"%{i}" for i in range(r))
+    regs = ", ".join(f'"+f"(d[{i}])' for i in range(r))
+    return (f"__device__ __forceinline__ void wgmma_n{n}(float (&d)[{r}], const uint32_t (&a)[4], uint64_t b) {{\n"
+            f'  asm volatile("{{\\n.reg .pred p;\\nsetp.ne.b32 p, %{r + 5}, 0;\\n"\n'
+            f'               "wgmma.mma_async.sync.aligned.m64n{n}k16.f32.bf16.bf16 {{{outs}}}, '
+            f'{{%{r}, %{r + 1}, %{r + 2}, %{r + 3}}}, %{r + 4}, p, 1, 1, 0;\\n}}\\n"\n'
+            f"               : {regs}\n"
+            f'               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));\n}}\n')
+
+
+def _inline_headers(text: str, csrc: Path) -> str:
+    """text with each ``#include "x.cuh"`` replaced by that header of ``csrc`` (another checkout's)."""
+    return re.sub(r'#include "(\w+\.cuh)"', lambda m: (csrc / m.group(1)).read_text(), text)
 
 
 def _between(text: str, start: str, end: str, new: str) -> str:
@@ -221,16 +572,21 @@ def _between(text: str, start: str, end: str, new: str) -> str:
 
 # kernel: (source, entry point)
 KERNELS = {"K1": ("fps.cu", "unopose_fps"), "K7": ("vit_attn.cu", "unopose_mha_fused"),
-           "K9": ("fine_assign.cu", "unopose_fine_labels"), "K4": ("geo_rpe.cu", "unopose_geo_rpe")}
+           "K9": ("fine_assign.cu", "unopose_fine_labels"), "K4": ("geo_rpe.cu", "unopose_geo_rpe"),
+           "K6": ("pe_mlp_pool.cu", "unopose_pe_mlp_pool"), "K10": ("fine_assign.cu", "unopose_fine_accum")}
+SHIPPED = {"K1": "fps", "K7": "vit_attn", "K9": "fine_assign", "K4": "geo_rpe", "K6": "pe_mlp_pool",
+           "K10": "fine_assign_accum"}
 
 
-def sources(parent: Path | None, only=("K1", "K7", "K9", "K4")) -> dict:
+def sources(parent: Path | None, only=tuple(KERNELS)) -> dict:
     """{build name: (kernel, CUDA source text)} of the kernels in ``only``."""
     fps = (build.CSRC / "fps.cu").read_text()
     attn = (build.CSRC / "vit_attn.cu").read_text()
     fa = (build.CSRC / "fine_assign.cu").read_text()
     geo = (build.CSRC / "geo_rpe.cu").read_text()
-    out = {"fps": ("K1", fps), "vit_attn": ("K7", attn), "fine_assign": ("K9", fa), "geo_rpe": ("K4", geo)}
+    pe = (build.CSRC / "pe_mlp_pool.cu").read_text()
+    out = {"fps": ("K1", fps), "vit_attn": ("K7", attn), "fine_assign": ("K9", fa), "geo_rpe": ("K4", geo),
+           "pe_mlp_pool": ("K6", pe), "fine_assign_accum": ("K10", fa)}
     for threads, per in ((1024, 6), (512, 12)):
         text = _sub(fps, "constexpr int kSmallT = 256;", f"constexpr int kSmallT = {threads};")
         text = _sub(text, "constexpr int kSmallPer = 24;", f"constexpr int kSmallPer = {per};")
@@ -247,20 +603,26 @@ def sources(parent: Path | None, only=("K1", "K7", "K9", "K4")) -> dict:
     text = attn.replace("p < kSteps; ++p)", "p < kSteps && 16 * p < n; ++p)")
     text = text.replace("nt < 2 * kSteps; ++nt)", "nt < 2 * kSteps && 16 * (nt >> 1) < n; ++nt)")
     out["vit_attn_runtime_steps"] = ("K7", _sub(text, "kk < kSteps; ++kk)", "kk < kSteps && 16 * kk < n; ++kk)"))
-    text = _between(fa, "// one box of the (B, m2, c) tensor of f2", "__device__ __forceinline__ void mbar_init",
-                    K9_CP_ASYNC_COPY)
-    text = _sub(text, "const __grid_constant__ CUtensorMap f2_map", "const __nv_bfloat16* __restrict__ f2")
+    # K9 only: K10 keeps its tensor map
+    text = _sub(fa, "__device__ __forceinline__ void mbar_init",
+                K9_CP_ASYNC_COPY + "__device__ __forceinline__ void mbar_init")
+    text = _sub(text, "labels_kernel(const __nv_bfloat16* __restrict__ f1, const __grid_constant__ CUtensorMap f2_map",
+                "labels_kernel(const __nv_bfloat16* __restrict__ f1, const __nv_bfloat16* __restrict__ f2")
     text = _between(text, "      if (u < sweep && lane == 0) {\n        mbar_expect",
                     "      const int tp = u - kStages - tiles;", K9_CP_ASYNC_LOAD)
-    text = _between(text, "  static EncodeTiled encode = nullptr;", "  const size_t smem = 1024", "")
-    out["fine_assign_cp_async"] = ("K9", _sub(text, "static_cast<const __nv_bfloat16*>(f1), map, cm",
-                                              "static_cast<const __nv_bfloat16*>(f1), static_cast<const __nv_bfloat16*>(f2), cm"))
-    out["fine_assign_no_ring"] = ("K9", _sub(fa, "constexpr int kStages = 3;", "constexpr int kStages = 1;"))
+    out["fine_assign_cp_async"] = ("K9", _sub(text, "(f1), map, cm, cs, s1, s2, rm, rs, label1, keys",
+                                              "(f1), static_cast<const __nv_bfloat16*>(f2), cm, cs, s1, s2, rm, rs, "
+                                              "label1, keys"))
+    # a ring of one slot and the IEEE division apply to K9 and K10 alike: one text each, timed on both
+    no_ring = _sub(fa, "constexpr int kStages = 3;", "constexpr int kStages = 1;")
+    out["fine_assign_no_ring"] = ("K9", no_ring)
+    out["fine_assign_accum_no_ring"] = ("K10", no_ring)
     out["fine_assign_ld32"] = ("K9", _between(
         fa, "  const int lane = threadIdx.x & 31, i = lane >> 3;\n  // matrix i of an ldmatrix.x4",
         "\n// the warp's logits against one staged column tile", K9_LD32))
-    out["fine_assign_ieee_division"] = ("K9", _sub(fa, "const bool helper = m1 < 4096 && m2 < 4096;",
-                                                   "const bool helper = false;"))
+    ieee = _sub(fa, "const bool helper = m1 < 4096 && m2 < 4096;", "const bool helper = false;")
+    out["fine_assign_ieee_division"] = ("K9", ieee)
+    out["fine_assign_accum_ieee_division"] = ("K10", ieee)
     text = _sub(fa, "constexpr int kLabelWarps = 4;", "constexpr int kLabelWarps = 8;")
     out["fine_assign_128_rows"] = ("K9", _sub(text, "constexpr int kLabelBlocks = 2;",
                                               "constexpr int kLabelBlocks = 1;"))
@@ -272,19 +634,46 @@ def sources(parent: Path | None, only=("K1", "K7", "K9", "K4")) -> dict:
         "geo_rpe_kernel<Tab, kTile, kCh, kMaxK>"))
     out["geo_rpe_row_barrier"] = ("K4", _between(
         geo, "  // units of one row i and 32 columns j", "// one block an SM's worth of blocks", K4_ROW_BARRIER))
+    text = _between(pe, "// one m-tile of packed rows", "// The running max reduced", K6_MLP_TILES)
+    out["pe_mlp_pool_b64"] = ("K6", _sub(text, K6_LOOP, K6_SHARED_B))
+    text = _between(pe, "__device__ __forceinline__ void load_rows(", "// The next point of the block's range", K6_REG_ROWS)
+    for old, new in K6_REG:
+        text = _sub(text, old, new)
+    out["pe_mlp_pool_registers"] = ("K6", text)
+    out["pe_mlp_pool_no_packing"] = ("K6", _sub(pe, K6_PACK, K6_NO_PACK))
+    text = _sub(pe, K6_RAW_MAX, K6_EPILOGUE_FIRST)
+    text = _sub(text, "mx[nt][0] = mx[nt][1] = neg_inf();", "mx[nt][0] = mx[nt][1] = 0.0f;")
+    out["pe_mlp_pool_epilogue_first"] = ("K6", _sub(
+        text, "make_float2(relu_bf16(mx[nt][0] + B2[col]), relu_bf16(mx[nt][1] + B2[col + 1]))",
+        "make_float2(mx[nt][0], mx[nt][1])"))
+    # the points: every warp of the grid from one counter in device memory, or the first design's static stride
+    text = _sub(pe, "constexpr unsigned kAll = 0xffffffffu;\n", K6_GLOBAL_COUNTER)
+    text = _sub(text, "atomicAdd(s_next, 1ull)", "atomicAdd(&g_next, 1ull)")
+    text = _sub(text, "  const long long last = min(points, first + share);", "  const long long last = points;")
+    out["pe_mlp_pool_atomic"] = ("K6", _sub(text, "  pe_mlp_pool_kernel<<<", K6_ZERO_NEXT))
+    text = _sub(pe, "Item cur{take_point(s_next, last), 0, 0, 0};",
+                "Item cur{(long long)blockIdx.x * kWarps + (threadIdx.x >> 5), 0, 0, 0};")
+    text = _sub(text, "      n.pt = take_point(s_next, last);", "      n.pt = it.pt + (long long)gridDim.x * kWarps;")
+    out["pe_mlp_pool_stride"] = ("K6", _sub(text, "  const long long last = min(points, first + share);",
+                                            "  const long long last = points;"))
+    out["pe_mlp_pool_wgmma"] = ("K6", K6_WGMMA.replace("WGMMA_FUNCTIONS", "".join(_wgmma_fn(n) for n in (32, 64, 128))))
     if parent is not None:
         csrc = parent / "unopose_tpu_torch" / "kernels" / "csrc"
-        for name, (kernel, (src, _)) in zip(("fps", "vit_attn", "fine_assign", "geo_rpe"), KERNELS.items()):
-            out[f"{name}_parent"] = (kernel, (csrc / src).read_text())
+        for kernel, name in SHIPPED.items():
+            out[f"{name}_parent"] = (kernel, _inline_headers((csrc / KERNELS[kernel][0]).read_text(), csrc))
     return {name: v for name, v in out.items() if v[0] in only}
 
 
 def compile_all(srcs: dict, workdir: Path) -> dict:
-    """Build every source into workdir/<name>.so, all nvcc processes at once; {name: ctypes.CDLL}."""
+    """Build every distinct source text into workdir/<name>.so (named after its first build), all nvcc
+    processes at once; {name: ctypes.CDLL}."""
     workdir.mkdir(parents=True, exist_ok=True)
+    first = {}  # text: the first build of it
+    for name, (_, text) in srcs.items():
+        first.setdefault(text, name)
 
-    def one(item):
-        name, (_, text) = item
+    def one(name):
+        text = srcs[name][1]
         src, lib = workdir / f"{name}.cu", workdir / f"{name}.so"
         src.write_text(text)
         r = subprocess.run([build.find_nvcc(), *build.NVCC_FLAGS, "-I", str(build.CSRC), "-shared", "-o", str(lib),
@@ -293,8 +682,9 @@ def compile_all(srcs: dict, workdir: Path) -> dict:
             raise build.KernelBuildError(f"{name}: nvcc failed\n{r.stdout}{r.stderr}")
         return name, ctypes.CDLL(str(lib))
 
-    with ThreadPoolExecutor(len(srcs)) as ex:
-        return dict(ex.map(one, srcs.items()))
+    with ThreadPoolExecutor(len(first)) as ex:
+        libs = dict(ex.map(one, first.values()))
+    return {name: libs[first[text]] for name, (_, text) in srcs.items()}
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -323,6 +713,38 @@ def fine_inputs(dev, gen) -> tuple:
     return f1n, f2n, cm, cs, s1, s2
 
 
+def accum_inputs(fine, gen) -> tuple:
+    """K10's inputs on K9's: the plain twin's row statistics and labels, and pts2 uniform in [-1, 1)^3, as
+    chip_smoke.py makes them."""
+    f1n, f2n, cm, cs, s1, s2 = fine
+    Bp, M2 = cs.shape
+    pts2 = torch.rand(Bp, M2 - 1, 3, device=f1n.device, generator=gen) * 2 - 1
+    return (*fine, *assignment_fused.labels_plain(*fine), pts2)
+
+
+def pe_inputs(dev, rng, surfaces: bool) -> tuple:
+    """K6's arguments (before the point count) at the main shape as chip_smoke.py makes them: 32 clouds of
+    2048 points, uniform in a 0.2 m cube in their global LRF or on sphere surfaces that fill every 64-slot
+    tier, grouped at budgets 64 / 256; the plain twin's channels; the fine PE's folded weights at seed 0."""
+    from unopose_tpu_torch.configs import surface_clouds
+    from unopose_tpu_torch.models.matching import FinePositionalEncoding
+    from unopose_tpu_torch.ops.ball_query import permutation, two_scale_group_first_k_packed_idx
+
+    B2, N = 32, 2048
+    if surfaces:
+        perm, _ = permutation(N, "cpu")
+        pts = torch.from_numpy(surface_clouds(rng, B2, perm.numpy())).to(dev)
+    else:
+        pts = rng.uniform(-0.1, 0.1, size=(B2, N, 3)).astype(np.float32) + np.array([0, 0, 0.6], np.float32)
+        pts = global_lrf(torch.from_numpy(pts).to(dev))
+    planes, idx_p, w1, w2, total2, _ = two_scale_group_first_k_packed_idx(0.1, 64, 0.2, 256, pts)
+    chans = pe_fused.pe_channels_plain(planes, idx_p, w1, w2, total2, tuple(pts.unbind(-1)), 0.1, 0.2)
+    torch.manual_seed(0)
+    _, _, (wpack, bpack) = FinePositionalEncoding(256, fused=True).to(dev).folded_weights()
+    w1, w2 = (w.to(torch.bfloat16).contiguous() for w in (w1, w2))
+    return chans.contiguous(), w1, w2, total2.to(torch.int32).contiguous(), wpack, bpack
+
+
 def geo_inputs(dev, rng, dtype) -> tuple:
     """K4's arguments (before the stream) at the main shape as chip_smoke.py makes them: both clouds' 196
     FPS nodes in their LRF plus the (1, 1, 1) bg point, 256 channels, T 128, k 3."""
@@ -345,7 +767,7 @@ def geo_inputs(dev, rng, dtype) -> tuple:
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--parent", type=Path, default=None)
-    parser.add_argument("--only", default="K1,K7,K9,K4")
+    parser.add_argument("--only", default=",".join(KERNELS))
     parser.add_argument("--reps", type=int, default=20)
     parser.add_argument("--out", type=Path, default=None)
     args = parser.parse_args()
@@ -376,14 +798,20 @@ def main() -> int:
     qkv = torch.randn(B, N, 3 * H * hd, device=dev, generator=gen).to(torch.bfloat16)
     q, k, v = qkv.split(H * hd, dim=-1)
     shapes["K7"] = {"32x261x768": None}
-    if "K9" in args.only:
+    only = args.only.split(",")
+    if "K9" in only or "K10" in only:
         fine = fine_inputs(dev, gen)
         # and with f1n scaled by 40, where pred underflows: fast_div.cuh's exact path for tiny dividends
         f1x = (fine[0].float() * 40.0).to(torch.bfloat16)
         shapes["K9"] = {"16x2049x2049x256": fine,
                         "16x2049x2049x256 q x40": (f1x, fine[1], *assignment_fused.colstats_plain(f1x, fine[1]),
                                                    *fine[4:])}
-    if "K4" in args.only:
+        if "K10" in only:
+            shapes["K10"] = {key: accum_inputs(v, gen) for key, v in shapes["K9"].items()}
+    if "K6" in only:
+        shapes["K6"] = {"32x2048 S2 256 cubes": pe_inputs(dev, rng, False),
+                        "32x2048 S2 256 surfaces": pe_inputs(dev, rng, True)}
+    if "K4" in only:
         shapes["K4"] = {"32x197x197x256 bf16": geo_inputs(dev, rng, torch.bfloat16),
                         "32x197x197x256 f32": geo_inputs(dev, rng, torch.float32)}
 
@@ -414,6 +842,22 @@ def main() -> int:
                 keys.zero_()
                 return lib.unopose_fine_labels(*ptrs, Bp, M1, M2, C, stream())
             outs = (rm, rs, label1, keys)
+        elif kernel == "K10":
+            a = shapes["K10"][key]  # f1n, f2n, cm, cs, s1, s2, rm, rs, label1, label2, pts2
+            Bp, M1, C = a[0].shape
+            M2 = a[1].shape[1]
+            wsum = torch.empty((Bp, M1), device=dev)
+            num = torch.empty((Bp, M1, 3), device=dev)
+            ptrs = [_P(x.data_ptr()) for x in (*a, wsum, num)]
+            call = lambda: lib.unopose_fine_accum(*ptrs, Bp, M1, M2, C, stream())
+            outs = (wsum, num)
+        elif kernel == "K6":
+            a = shapes["K6"][key]  # chans, w1, w2, total2, wpack, bpack
+            Bc, P, S2, _ = a[0].shape
+            out = torch.empty((Bc, P, 256), device=dev)
+            ptrs = [_P(x.data_ptr()) for x in (*a, out)]
+            call = lambda: lib.unopose_pe_mlp_pool(*ptrs, Bc * P, S2, stream())
+            outs = (out,)
         else:
             a = shapes["K4"][key]
             out = torch.empty_like(a[5])
@@ -425,17 +869,18 @@ def main() -> int:
             raise RuntimeError(f"{name} failed to launch: cudaError_t {err}")
         return call, outs
 
-    shipped = {"K1": "fps", "K7": "vit_attn", "K9": "fine_assign", "K4": "geo_rpe"}
+    shipped = SHIPPED
     # K4's float32 contraction only for the shipped and parent builds (the variants are of the bf16 path), K9's
-    # scaled q for those and the IEEE division
-    extra = ("geo_rpe", "geo_rpe_parent", "fine_assign", "fine_assign_parent", "fine_assign_ieee_division")
+    # and K10's scaled q for those and the IEEE division
+    extra = ("geo_rpe", "geo_rpe_parent", "fine_assign", "fine_assign_parent", "fine_assign_ieee_division",
+             "fine_assign_accum", "fine_assign_accum_parent", "fine_assign_accum_ieee_division")
     cases = [(name, key) for name in srcs for key in shapes[srcs[name][0]]
              if not ((key.endswith("f32") or key.endswith("x40")) and name not in extra)]
     times = {c: [] for c in cases}
     heads = [x.reshape(B, N, H, hd).transpose(1, 2).contiguous() for x in (q, k, v)]
     sdpa = []
     for order in (cases, cases[::-1]):
-        if "K7" in args.only:
+        if "K7" in only:
             sdpa.append(cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(*heads), args.reps))
         for name, key in order:
             call, _ = run_case(name, key)
@@ -457,7 +902,7 @@ def main() -> int:
                 check["equal_share_shipped"] = (outs[0] == ref[0]).float().mean().item()
         results.append(dict(build=name, kernel=kernel, shape=key, ms=float(np.median(times[(name, key)])),
                             **check))
-    if "K7" in args.only:
+    if "K7" in only:
         results.append(dict(build="scaled_dot_product_attention", kernel="K7", shape="32x261x768",
                             ms=float(np.median(sdpa))))
     print(card)
