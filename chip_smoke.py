@@ -66,7 +66,14 @@ Phases, each fatal on failure:
    full blocks, K21's and K22's 768-slot tier, K20's 192-slot chunks; the
    cubes' gates), K19 also at S2 512 on the main cubes
    and at N 1984, K21 bitwise equal to K5 followed by K6, and K3 at N 1984
-   and 2000 equal to its plain version on every output;
+   and 2000 equal to its plain version on every output; and the TPU
+   profiling kernels of ``benchmarks/`` (K23-K27) on their scripts' inputs
+   at the scripts' shapes, as ``check_profile_kernels`` says: the three
+   compaction kernels every output equal, row 24 without frames by
+   ``profile_r9.bf16_agreement``'s rule (99.9% bitwise, at most one output
+   in 10^4 past one bf16 ulp of its own value, all within one ulp of their
+   row's largest output), with frames and row 20 at the
+   cubes' gate (row 20's sets that use no frame at the frameless gate);
 4. one forced grouping overflow, through the plain PE, PE-v5 and row 10
    (``UNOPOSE_PE_V5=0``): each must take the exact fallback (and with it
    the gather kernel), whose grouping equals the CPU plain version's;
@@ -105,7 +112,11 @@ Phases, each fatal on failure:
    and all six BatchNorm layers of the fine PE moved, and one profiled
    step's device time; and again under ``UNOPOSE_PE_TRAIN_FROZEN=1``
    (``train_frozen``), where the six layers' gammas and betas must move and
-   their running statistics stay bitwise unchanged. The launch counts are
+   their running statistics stay bitwise unchanged; the timing entry points:
+   the bench (``unopose_tpu_torch.bench.run()``, the production config at
+   16 pairs, its JSON line logged, its last batch's poses gated) and each
+   profiling script's ``main()`` (``SCRIPTS``) at ``SCRIPT_ITERS`` chained
+   calls a timing, its JSON of results logged. The launch counts are
    zeroed just before each path and read just after, every kernel of the
    path must have launched, and no path may launch the PE kernels of the
    other PE paths nor, with its switch off, a switched path's kernels.
@@ -164,6 +175,12 @@ KERNELS = {
     "pe_mlp_pool_packed": ("unopose_tpu_torch/kernels/csrc/pe_mlp_pool_packed.cu", "unopose_tpu/ops/pe_fused.py:1157"),
     "pe_gather_fused": ("unopose_tpu_torch/kernels/csrc/pe_gather_fused.cu", "unopose_tpu/ops/pe_fused.py:751"),
     "pe_packed_t": ("unopose_tpu_torch/kernels/csrc/pe_packed_t.cu", "unopose_tpu/ops/pe_fused.py:547"),
+    "profile_r9": ("unopose_tpu_torch/kernels/csrc/profile_r9.cu", "benchmarks/profile_r9.py:100"),
+    "pe_ablate": ("unopose_tpu_torch/kernels/csrc/pe_ablate.cu", "benchmarks/profile_pe_ablate.py:68"),
+    "compact_rounds": ("unopose_tpu_torch/kernels/csrc/compact_micro.cu", "benchmarks/profile_compact_micro.py:34"),
+    "compact_gather": ("unopose_tpu_torch/kernels/csrc/compact_micro.cu", "benchmarks/profile_compact_micro.py:54"),
+    "compact_wherechain": ("unopose_tpu_torch/kernels/csrc/compact_micro.cu",
+                           "benchmarks/profile_compact_micro.py:134"),
 }
 FUSED = ("fps", "first_k_select", "geo_rpe", "pe_channels", "pe_mlp_pool")
 PRODUCTION = ("fps", "geo_rpe", "mha_fused", "fine_assign_colstats", "fine_assign_labels", "fine_assign_accum")
@@ -206,6 +223,16 @@ PATH_NOT_LAUNCHED.update({
            "pe_train_frozen_bwd") + tuple(k for k in PE_VARIANTS if k != kernels[0])
     for name, kernels in PE_PATHS.items()})
 PATH_NOT_LAUNCHED["production_s768"] = PATH_NOT_LAUNCHED["production_pe_packed"]
+# the timing entry points: the bench on the production path, and the three profiling scripts of benchmarks/ with
+# their kernels (rows 20-24), each script's main() at fewer iterations
+PATH_KERNELS["bench"], PATH_NOT_LAUNCHED["bench"] = PATH_KERNELS["production"], PATH_NOT_LAUNCHED["production"]
+SCRIPTS = {
+    "profile_r9": ("profile_r9", "pe_packed"),
+    "profile_pe_ablate": ("pe_ablate",),
+    "profile_compact_micro": ("compact_rounds", "compact_gather", "compact_wherechain"),
+}
+PATH_KERNELS.update(SCRIPTS)
+SCRIPT_ITERS = 2
 INFER_PATHS = ("slice", "fused_matchers", "production", "subset", "firstk_unpacked")
 # the environment of the train path's switch (the inference paths take theirs from profile_slice.PROFILES)
 FROZEN = {"UNOPOSE_PE_TRAIN_FROZEN": "1"}
@@ -1328,6 +1355,179 @@ def check_packed_kernels(log, dev, seed: int) -> dict:
     return results
 
 
+def bf16_case(kernel, plain, reordered) -> dict:
+    """A kernel against its plain twin where no frame is involved, by ``profile_r9.bf16_agreement``'s rule
+    (the CPU tests' too): the share bitwise equal, the outputs past one bf16 ulp of their own value, whether
+    all lie within one ulp of their row's largest. Beside it the twin against itself in another float32 sum
+    order (``reordered``: the hidden units permuted, the same function), which shows what sum order alone
+    moves past one ulp of an output's own value; and both times."""
+    import torch
+
+    from unopose_tpu_torch.benchmarks.profile_r9 import bf16_agreement
+
+    with torch.no_grad():
+        want = plain()
+        r = bf16_agreement(kernel(), want)
+        order = bf16_agreement(reordered(), want)
+        del want
+        torch.cuda.synchronize()
+    r.update(order_equal=order["equal"], order_past_own=order["past_own"], order_within_row=order["within_row"])
+    r["ms"], r["plain_ms"] = cuda_ms(kernel), cuda_ms(plain, reps=2)
+    return r
+
+
+def bf16_line(r: dict) -> str:
+    return (f"{100 * r['equal']:.4f}% of {r['entries']} outputs bitwise equal, {r['past_own']} past one bf16 ulp "
+            f"of their own value, all within one ulp of the row's max {r['within_row']} (plain vs itself in another "
+            f"sum order: {100 * r['order_equal']:.4f}%, {r['order_past_own']}, {r['order_within_row']}), max |diff| "
+            f"{r['err']:.3e}, kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms")
+
+
+def permuted_mlp(Ws, bs, gen):
+    """The same MLP with its two hidden layers' units permuted: each layer's float32 sums in another order."""
+    import torch
+
+    p1, p2 = torch.randperm(Ws[0].shape[1], generator=gen), torch.randperm(Ws[1].shape[1], generator=gen)
+    p1, p2 = p1.to(Ws[0].device), p2.to(Ws[0].device)
+    return [Ws[0][:, p1], Ws[1][p1][:, p2], Ws[2][p2]], [bs[0][p1], bs[1][p2], bs[2]]
+
+
+def check_profile_kernels(log, dev, seed: int) -> dict:
+    """Phase 3, the TPU profiling kernels of ``benchmarks/`` (K23-K27), each on its script's inputs at the
+    script's shapes: the three compaction kernels (256 blocks of 256 rows) every output equal, rounds at 9
+    and 7; row 24 (32 x 2048, S2 256) ``matmul_only`` by ``profile_r9.bf16_agreement``'s rule (no frame:
+    ``bf16_case``; at least 99.9% of outputs bitwise equal, at most one in 10^4 past one bf16 ulp of its own
+    value, all within one ulp of their row's largest output), ``full_nobias`` at the
+    cubes' gate of K19 (``cube_gate``); row 20 (32 x 2048, the first 128 of 256 slots) in each of its seven
+    sets, at the cubes' gate where its output uses the frames and at ``matmul_only``'s where it uses none.
+    Each with kernel and plain ms, K26 with one ``torch.gather``'s, and its bound:
+    ``tools/tpu_profile_bounds.py``'s bytes and operations, the MLP's operations of rows 20 and 24 counted on
+    the slots this run's masks keep (a masked slot changes no max), the tool's shape-only bound beside them in
+    the log."""
+    import torch
+
+    from unopose_tpu_torch.benchmarks import profile_compact_micro as cm
+    from unopose_tpu_torch.benchmarks import profile_pe_ablate as pa
+    from unopose_tpu_torch.benchmarks import profile_r9 as r9
+    from unopose_tpu_torch.tools.tpu_profile_bounds import bounds as tool_bounds
+
+    tool = {site.split("/")[-1]: v for site, v in tool_bounds().items()}
+    up = lambda xs: tuple(torch.nextafter(x, torch.full_like(x, float("inf"))) for x in xs)
+    results, failed = {}, []
+
+    # K25-K27
+    d = {k: torch.from_numpy(v).to(dev) for k, v in cm.script_inputs(np.random.default_rng(seed)).items()}
+    rows = d["li"].numel() // cm.K2
+    compact = {
+        "compact_rounds": ("profile_compact_micro.py:34", lambda: cm.compact_rounds_cuda(d["x"], 9),
+                           lambda: cm.compact_rounds_plain(d["x"], 9)),
+        "compact_gather": ("profile_compact_micro.py:54", lambda: cm.compact_gather_cuda(d["x"], d["li"], d["bi"]),
+                           lambda: cm.compact_gather_plain(d["x"], d["li"], d["bi"])),
+        "compact_wherechain": ("profile_compact_micro.py:134", lambda: cm.compact_wherechain_cuda(d["li"]),
+                               lambda: cm.compact_wherechain_plain(d["li"])),
+    }
+    for name, (site, kern, plain) in compact.items():
+        with torch.no_grad():
+            got, want = kern(), plain()
+            err = (got.long() - want.long()).abs().max().item()
+        del got, want
+        r = dict(max_abs_err=float(err), ms=cuda_ms(kern), plain_ms=cuda_ms(plain, reps=2), library_ms=None,
+                 **bound(*tool[site]))
+        if name == "compact_gather":
+            flat = (d["bi"] * 128 + d["li"]).long().view(rows, cm.K2)
+            x2 = d["x"].view(rows, -1)
+            r["library_ms"] = cuda_ms(lambda: torch.gather(x2, 1, flat))
+            del flat
+        if name == "compact_rounds":
+            with torch.no_grad():
+                r["rounds7_equal"] = torch.equal(cm.compact_rounds_cuda(d["x"], 7), cm.compact_rounds_plain(d["x"], 7))
+            r["rounds7_ms"] = cuda_ms(lambda: cm.compact_rounds_cuda(d["x"], 7))
+            if not r["rounds7_equal"]:
+                failed.append("compact_rounds at 7 rounds differs from its plain twin")
+        results[name] = r
+        lib = f", torch.gather {r['library_ms']:.3f} ms" if r["library_ms"] is not None else ""
+        log(f"{name} {rows} rows: max |diff| {err}, kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms{lib}, "
+            f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+        if err:
+            failed.append(f"{name} differs from its plain twin")
+    del d
+    torch.cuda.empty_cache()
+
+    # K23
+    rin = r9.script_inputs(np.random.default_rng(seed))
+    g2 = tuple(torch.from_numpy(x).to(dev) for x in rin["g2"])
+    mask = torch.from_numpy(rin["w1"]).to(dev)
+    center = tuple(torch.from_numpy(np.ascontiguousarray(rin["pts"][..., i])).to(dev) for i in range(3))
+    Ws1, Ws2 = (list(W.to(dev) for W in Ws) for Ws in r9.script_weights(torch.Generator().manual_seed(seed)))
+    packed = r9.pack_nobias(Ws1, Ws2)
+    plain = lambda mode, g=g2, c=center, W1=Ws1, W2=Ws2: r9.r9_variant_plain(g, mask, c, W1, W2, mode)
+    kern = lambda mode: r9.r9_variant_cuda(g2, mask, center, packed, mode)
+    gen = torch.Generator().manual_seed(seed)
+    P1, P2 = (permuted_mlp(Ws, [torch.zeros(W.shape[1], device=dev) for W in Ws], gen)[0] for Ws in (Ws1, Ws2))
+    mm = bf16_case(lambda: kern("matmul_only"), lambda: plain("matmul_only"),
+                   lambda: plain("matmul_only", W1=P1, W2=P2))
+    fn = twin_case(lambda: kern("full_nobias"), lambda: plain("full_nobias"),
+                   lambda: plain("full_nobias", up(g2), up(center)))
+    points, S = mask.shape[0] * mask.shape[1], mask.shape[2]
+    nbytes, ops, rate = tool["profile_r9.py:100"]
+    r9_bound = bound(nbytes, SLOT_FLOPS * ((mask > 0).sum().item() + points * S), BF16_FLOPS)
+    log(f"profile_r9 32x2048 S2 256 matmul_only: {bf16_line(mm)}")
+    log(f"profile_r9 32x2048 S2 256 full_nobias: {fn['unequal']} of {fn['entries']} outputs unequal (plain vs itself "
+        f"one ulp up: {fn['spread']}), max |diff| {fn['err']:.3e} of max {fn['ref']:.3e}, kernel {fn['ms']:.3f} ms, "
+        f"plain {fn['plain_ms']:.3f} ms, bound {r9_bound['bound_ms']:.4f} ms ({r9_bound['bound_by']}; on every slot "
+        f"{bound(nbytes, ops, rate)['bound_ms']:.4f})")
+    if not mm["ok"]:
+        failed.append("profile_r9 matmul_only: beyond bf16_agreement's rule")
+    if not (fn["finite"] and cube_gate("profile_r9", fn)):
+        failed.append("profile_r9 full_nobias: beyond twice the twin's one-ulp spread, or not finite")
+    results["profile_r9"] = dict(max_abs_err=fn["err"], ms=fn["ms"], plain_ms=fn["plain_ms"], library_ms=None,
+                                 **r9_bound, unequal=fn["unequal"], spread=fn["spread"], matmul_only_ms=mm["ms"],
+                                 matmul_only_plain_ms=mm["plain_ms"], matmul_only_equal=mm["equal"],
+                                 matmul_only_max_abs_err=mm["err"], matmul_only_past_own=mm["past_own"])
+    del g2, mask, center
+    torch.cuda.empty_cache()
+
+    # K24
+    gd = pa.script_grouping(torch.from_numpy(pa.script_clouds(np.random.default_rng(seed))).to(dev))
+    if gd["overflow"]:
+        raise AssertionError("the ablation's grouping overflowed")
+    g2, w1, w2, center = gd["g2"], gd["w1"], gd["w2"], gd["center"]
+    h2 = w1.shape[-1] // 2
+    gen = torch.Generator().manual_seed(seed)
+    reordered = tuple(permuted_mlp(*mlp, gen) for mlp in (gd["mlp1"], gd["mlp2"]))
+    sets = {}
+    for drop in pa.ALL_DROPS:
+        name = pa.set_name(drop)
+        kern = lambda drop=drop: pa.pe_ablate_cuda(g2, w1, w2, center, gd["packed"], drop)
+        plain = lambda drop=drop, g=g2, c=center, mlps=(gd["mlp1"], gd["mlp2"]): pa.pe_ablate_plain(
+            g, w1, w2, c, *mlps, drop)
+        if not {"lrf", "stack", "mlp"} & set(drop):  # the output uses the frames
+            r = twin_case(kern, plain, lambda drop=drop: plain(drop, up(g2), up(center)))
+            ok = r["finite"] and cube_gate("pe_ablate", r)
+            log(f"pe_ablate {name}: {r['unequal']} of {r['entries']} outputs unequal (plain vs itself one ulp up: "
+                f"{r['spread']}), max |diff| {r['err']:.3e}, kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms")
+        else:
+            r = bf16_case(kern, plain, lambda drop=drop: plain(drop, mlps=reordered))
+            ok = r["ok"]
+            log(f"pe_ablate {name}: {bf16_line(r)}")
+        if not ok:
+            failed.append(f"pe_ablate {name}: beyond its gate")
+        sets[name] = dict(ms=r["ms"], plain_ms=r["plain_ms"], max_abs_err=r["err"])
+        torch.cuda.empty_cache()
+    kept = (w1[..., :h2] > 0).sum().item() + (w2[..., :h2] > 0).sum().item()
+    nbytes, ops, rate = tool["profile_pe_ablate.py:68"]
+    ab_bound = bound(nbytes, SLOT_FLOPS * kept, BF16_FLOPS)
+    log(f"pe_ablate 32x2048 (first 128 of 256 slots): kept slot-scales {kept} of {2 * w1[..., :h2].numel()}, bound "
+        f"{ab_bound['bound_ms']:.4f} ms ({ab_bound['bound_by']}; on every slot "
+        f"{bound(nbytes, ops, rate)['bound_ms']:.4f})")
+    none = sets["fast_drop_none"]
+    results["pe_ablate"] = dict(max_abs_err=none["max_abs_err"], ms=none["ms"], plain_ms=none["plain_ms"],
+                                library_ms=None, **ab_bound, sets=sets)
+    if failed:
+        raise AssertionError("; ".join(failed))
+    return results
+
+
 def random_rotations(gen, shape, dev):
     """Uniform random rotations of ``shape`` + (3, 3) float32 (QR of Gaussians, determinant +1)."""
     import torch
@@ -2148,23 +2348,15 @@ def _run_path(log, dev, seed: int, batches: int, name: str, config) -> dict:
         out = model(inputs, generator=gen)
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
-        R, t, score = out["pred_R"].double(), out["pred_t"], out["pred_pose_score"]
-        eye = torch.eye(3, dtype=torch.float64, device=dev).expand_as(R)
-        orth = (R @ R.transpose(1, 2) - eye).abs().max().item()
-        det = (torch.linalg.det(R) - 1).abs().max().item()
-        finite = bool(torch.isfinite(R).all() and torch.isfinite(t).all() and torch.isfinite(score).all())
+        R, t, score = out["pred_R"], out["pred_t"], out["pred_pose_score"]
+        orth, det, finite = pose_check(R, t, score)
         log(f"{name} batch {i}: {times[-1]:.1f} ms, PE branch {model.fine_matching.pe.last_branch}, "
             f"|RR^T - I| {orth:.2e}, |det - 1| {det:.2e}, finite {finite}, "
             f"pose score mean {score.mean().item():.3f}")
         if not finite or orth > 1e-3 or det > 1e-3 or tuple(R.shape) != (BATCH, 3, 3) or tuple(t.shape) != (BATCH, 3):
             raise AssertionError(f"{name} batch {i}: poses are not finite orthonormal (B, 3, 3) / (B, 3)")
     launches = dict(LAUNCHES)
-    missing = [k for k in PATH_KERNELS[name] if launches.get(k, 0) == 0]
-    if missing:
-        raise AssertionError(f"kernels never launched on the {name} path: {missing}")
-    stray = [k for k in PATH_NOT_LAUNCHED.get(name, ()) if launches.get(k, 0)]
-    if stray:
-        raise AssertionError(f"kernels of another PE path launched on the {name} path: {stray}")
+    check_launches(name, launches)
     peak = torch.cuda.max_memory_allocated(dev) / 2**30
     steady = float(np.median(times[1:])) if len(times) > 1 else times[0]
     log(f"{name}: ms per 16-pair batch {['%.1f' % x for x in times]} (first includes warm-up), "
@@ -2173,6 +2365,79 @@ def _run_path(log, dev, seed: int, batches: int, name: str, config) -> dict:
     del model, batch_inputs
     torch.cuda.empty_cache()
     return dict(launches=launches, steady_ms=steady, peak_gib=peak)
+
+
+def check_launches(name: str, launches: dict) -> None:
+    """Every kernel of the path launched, and none that the path must not launch."""
+    missing = [k for k in PATH_KERNELS[name] if launches.get(k, 0) == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the {name} path: {missing}")
+    stray = [k for k in PATH_NOT_LAUNCHED.get(name, ()) if launches.get(k, 0)]
+    if stray:
+        raise AssertionError(f"kernels of another PE path launched on the {name} path: {stray}")
+
+
+def pose_check(R, t, score) -> tuple:
+    """(|RR^T - I|, |det R - 1|, all finite) of a batch of poses."""
+    import torch
+
+    R = R.double()
+    eye = torch.eye(3, dtype=torch.float64, device=R.device).expand_as(R)
+    finite = bool(torch.isfinite(R).all() and torch.isfinite(t).all() and torch.isfinite(score).all())
+    return ((R @ R.transpose(1, 2) - eye).abs().max().item(), (torch.linalg.det(R) - 1).abs().max().item(), finite)
+
+
+def run_bench(log) -> dict:
+    """Phase 6, the bench: ``unopose_tpu_torch.bench.run()`` as ``python -m unopose_tpu_torch.bench`` runs it
+    (the production config, B 16, full depth), its JSON line logged, the last timed batch's poses gated."""
+    from unopose_tpu_torch import bench
+    from unopose_tpu_torch.kernels import LAUNCHES, reset_launch_counts
+    from unopose_tpu_torch.tools.profile_slice import PROFILES, env_switch
+
+    with env_switch(PROFILES["production"][1]):
+        reset_launch_counts()
+        r = bench.run(batch=BATCH)
+        launches = dict(LAUNCHES)
+    orth, det, finite = pose_check(r["pred_R"], r["pred_t"], r["pred_pose_score"])
+    prof = r["profiled"]
+    log(f"bench: {json.dumps(r['line'])}; {r['ms_per_batch']:.3f} ms per {BATCH}-pair batch (best of "
+        f"{bench.TRIALS} calls of {bench.ITERS}), init {r['init_s']:.1f} s, first run {r['first_s']:.1f} s; profiled "
+        f"batch {prof['kernels']} kernels, {prof['kernel_ms']:.3f} ms of kernels, idle share "
+        f"{100 * prof['idle_share']:.1f}%; |RR^T - I| {orth:.2e}, |det - 1| {det:.2e}, finite {finite}; "
+        f"launches {launches}")
+    if not finite or orth > 1e-3 or det > 1e-3 or tuple(r["pred_R"].shape) != (BATCH, 3, 3):
+        raise AssertionError("bench: poses are not finite orthonormal (B, 3, 3) / (B, 3)")
+    check_launches("bench", launches)
+    return dict(launches=launches, line=r["line"], ms_per_batch=r["ms_per_batch"], profiled=prof)
+
+
+def run_script(log, name: str) -> dict:
+    """Phase 6, a profiling script of ``unopose_tpu_torch/benchmarks/``: its ``main()`` at ``SCRIPT_ITERS``
+    chained calls a timing, its printed lines logged (its JSON of results last)."""
+    import contextlib
+    import importlib
+    import io
+
+    import torch
+
+    from unopose_tpu_torch.kernels import LAUNCHES, reset_launch_counts
+
+    module = importlib.import_module(f"unopose_tpu_torch.benchmarks.{name}")
+    out = io.StringIO()
+    reset_launch_counts()
+    with contextlib.redirect_stdout(out):
+        rc = module.main(["--iters", str(SCRIPT_ITERS)])
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+    lines = out.getvalue().strip().splitlines()
+    for line in lines:
+        log(f"{name}: {line}")
+    log(f"{name}: launches {launches}")
+    if rc != 0:
+        raise AssertionError(f"{name}.main() returned {rc}")
+    check_launches(name, launches)
+    torch.cuda.empty_cache()
+    return dict(launches=launches, results=json.loads(lines[-1]))
 
 
 def main() -> int:
@@ -2213,6 +2478,7 @@ def main() -> int:
     packed = check_packed_kernels(log, dev, args.seed)
     results["first_k_select"].update(packed.pop("first_k_select"))
     results.update(packed)
+    results.update(check_profile_kernels(log, dev, args.seed))
     check_overflow(log, dev, args.seed)
     for name in INFER_PATHS:
         check_tiny(log, dev, args.seed, name)
@@ -2230,6 +2496,8 @@ def main() -> int:
         "firstk_unpacked": run_path(log, dev, args.seed, 1, "firstk_unpacked"),
         **{name: run_path(log, dev, args.seed, 1, name) for name in PE_PATHS},
         "production_s768": run_path(log, dev, args.seed, 1, "production_s768"),
+        "bench": run_bench(log),
+        **{name: run_script(log, name) for name in SCRIPTS},
         "train": run_train(log, dev, args.seed, args.train_steps),
         "train_frozen": run_train(log, dev, args.seed, args.train_steps, frozen=True),
     }

@@ -188,6 +188,23 @@ def test_geometry_matches_jax(rng):
     )
 
 
+def test_sqrt_rn_is_correctly_rounded():
+    """``sqrt_rn``, the port's float32 root on the CPU, is the float32 nearest the true root: each root r lies
+    with x between the squares of the midpoints to r's neighbours, which float64 holds exactly (25-bit
+    midpoints). On 2^20 draws spread over the float32 binades, subnormals and zero included, where torch's
+    vectorised CPU ``sqrt`` has been seen one ulp off on 0.6% of inputs."""
+    rng = np.random.default_rng(0)
+    x = np.concatenate([rng.uniform(0, 4, 1 << 19), np.ldexp(rng.uniform(1, 2, 1 << 19), rng.integers(-149, 127,
+                                                                                                      1 << 19)),
+                        [0.0, np.finfo(np.float32).tiny, 2.0 ** -149]]).astype(np.float32)
+    r = tgeo.sqrt_rn(torch.from_numpy(x)).numpy()
+    assert r.dtype == np.float32 and np.isfinite(r).all()
+    lo = (r.astype(np.float64) + np.nextafter(r, np.float32(0)).astype(np.float64)) / 2
+    hi = (r.astype(np.float64) + np.nextafter(r, np.float32(np.inf)).astype(np.float64)) / 2
+    x64 = x.astype(np.float64)
+    assert ((lo * lo <= x64) & (x64 <= hi * hi)).all()
+
+
 def test_eig3_matches_jax(rng):
     """Symmetric matrices with separated eigenvalues: eigenvectors 1e-5."""
     Q = random_rotations(rng, 64)

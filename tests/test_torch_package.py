@@ -32,14 +32,19 @@ PORT = ROOT / "unopose_tpu_torch"
 
 
 def _run(code: str, cwd=ROOT, timeout=120):
+    """``code`` in a fresh interpreter. Its torch takes 2 threads unless ``OMP_NUM_THREADS`` says otherwise:
+    beside busy test workers, a child on every core ran 9x slower than alone and met its timeout."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env.setdefault("OMP_NUM_THREADS", "2")
     return subprocess.run([sys.executable, "-c", code], cwd=cwd, env=env, capture_output=True, text=True,
                           timeout=timeout)
 
 
 def test_port_runs_with_jax_unavailable():
-    """Importing and running the port (every tiny float32 config on the CPU)
-    with ``jax``, ``flax`` and the JAX package blocked in ``sys.modules``."""
+    """Importing and running the port (every tiny float32 config on the CPU
+    and a train step; the bench and the profiling scripts imported, one
+    kernel twin run) with ``jax``, ``flax`` and the JAX package blocked in
+    ``sys.modules``."""
     code = """
 import sys
 for name in ("jax", "flax", "unopose_tpu"):
@@ -67,6 +72,12 @@ trainer = Trainer(UNOPose.from_config(cfg.model, torch.float32, torch.float32), 
 batch = synthetic_train_inputs(np.random.default_rng(0), 2, tiny=True)
 metrics = trainer.step({k: torch.from_numpy(v) for k, v in batch.items()}, generator=torch.Generator().manual_seed(0))
 assert torch.isfinite(metrics["loss"]) and metrics["grad_norm"] > 0, metrics
+import unopose_tpu_torch.bench
+import unopose_tpu_torch.benchmarks.profile_compact_micro
+import unopose_tpu_torch.benchmarks.profile_pe_ablate
+import unopose_tpu_torch.benchmarks.profile_r9
+li = torch.arange(256, dtype=torch.int32)[None]
+assert unopose_tpu_torch.benchmarks.profile_compact_micro.compact_wherechain(li).shape == (1, 256)
 loaded = {m.split(".")[0] for m in sys.modules if sys.modules[m] is not None}
 assert not loaded & {"jax", "flax", "jaxlib", "unopose_tpu"}, loaded
 print("ok")
@@ -426,8 +437,9 @@ def _literals(path: Path) -> dict:
 
 
 def test_tpu_profile_bounds_tool_counts_each_kernel_once(capsys):
-    """``tools/tpu_profile_bounds.py`` bounds the five TPU profiling kernels of ``benchmarks/`` that the port
-    does not carry, one row each at the call sites the kernel table names, on the shapes those benchmarks
+    """``tools/tpu_profile_bounds.py`` bounds the five TPU profiling kernels of ``benchmarks/`` (the port
+    carries them in ``unopose_tpu_torch/benchmarks/``, K23-K27), one row each at the call sites the kernel
+    table names, on the shapes those benchmarks
     set (read from their sources): the fine-PE ablation's both scales' MLP on the first nsample2 / 2 slots
     of each of 2 x B x P points, profile_r9's on all S2 slots of B x N points, the compaction kernels' bytes
     from their (B, ROWS, C x W) words and (B, ROWS, K2) outputs; the integer-operation counts are marked as

@@ -17,8 +17,13 @@ coarse hypothesis selection's two modes in ``ops/hyp_select.py``
 package's other layouts in ``ops/pe_fused.py`` (``pe_fused_packed_cuda``,
 ``pe_mlp_pool_packed_cuda``, ``pe_fused_gather_t_cuda``,
 ``pe_fused_packed_t_cuda``: ``pe_packed``, ``pe_mlp_pool_packed``,
-``pe_gather_fused`` and ``pe_packed_t``). Each wrapper counts its launches
-in ``LAUNCHES`` under its kernel's name.
+``pe_gather_fused`` and ``pe_packed_t``), and the TPU profiling kernels of
+the JAX package's ``benchmarks/`` beside the scripts that time them in
+``benchmarks/`` (``profile_r9.py:r9_variant_cuda``,
+``profile_pe_ablate.py:pe_ablate_cuda``, ``profile_compact_micro.py``'s
+``compact_rounds_cuda``, ``compact_gather_cuda`` and
+``compact_wherechain_cuda``). Each wrapper counts its launches in
+``LAUNCHES`` under its kernel's name.
 """
 
 from __future__ import annotations

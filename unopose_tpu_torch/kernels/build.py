@@ -80,6 +80,16 @@ _SIGNATURES = {
     "unopose_pe_mlp_pool_packed": [_P] * 8 + [_I] * 4 + [_P],
     # xp, yp, zp, idx_p, w1, w2, total2, cx, cy, cz, wpack, bpack, out, B, N, P, S2, r1, r2, 1/r1, 1/r2, stream
     "unopose_pe_gather_fused": [_P] * 13 + [_I] * 4 + [_F] * 4 + [_P],
+    # gx, gy, gz, mask, cx, cy, cz, wpack, bpack, out, points, S2, mode, r1, r2, 1/r1, 1/r2, stream
+    "unopose_profile_r9": [_P] * 10 + [ctypes.c_longlong, _I, _I] + [_F] * 4 + [_P],
+    # gx, gy, gz, w1, w2, cx, cy, cz, wpack, bpack, out, B, P, S2, drop, r1, r2, 1/r1, 1/r2, stream
+    "unopose_pe_ablate": [_P] * 11 + [_I] * 4 + [_F] * 4 + [_P],
+    # x, out, rows, nrounds, stream
+    "unopose_compact_rounds": [_P, _P, _I, _I, _P],
+    # x, li, bi, out, rows, stream
+    "unopose_compact_gather": [_P] * 4 + [_I, _P],
+    # li, out, rows, stream
+    "unopose_compact_wherechain": [_P, _P, _I, _P],
 }
 
 _lock = threading.Lock()
@@ -171,6 +181,19 @@ def check(err: int, name: str) -> None:
     """Raise if a launcher returned a CUDA error code."""
     if err != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError_t {err}")
+
+
+def launch(name: str, entry: str, tensors, *scalars) -> None:
+    """Call the C entry point ``entry`` with the tensors' pointers, then the
+    scalars and the stream of the first tensor's device; raise on its error
+    code, else count the launch under ``name``."""
+    from unopose_tpu_torch.kernels import LAUNCHES
+
+    ptr = ctypes.c_void_p
+    with on_device(tensors[0].device):
+        err = getattr(load(), entry)(*(ptr(t.data_ptr()) for t in tensors), *scalars, ptr(stream_of(tensors[0])))
+    check(err, name)
+    LAUNCHES[name] += 1
 
 
 def stream_of(t) -> int:

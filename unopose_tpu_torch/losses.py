@@ -11,7 +11,7 @@ from typing import Dict, Sequence
 import torch
 
 from unopose_tpu_torch.ops.fps import gather_points
-from unopose_tpu_torch.ops.geometry import pairwise_sqdist
+from unopose_tpu_torch.ops.geometry import pairwise_sqdist, sqrt_rn
 
 
 def weighted_bce(prediction: torch.Tensor, gt: torch.Tensor, eps: float = 1e-7) -> torch.Tensor:
@@ -52,7 +52,7 @@ def compute_overlap_loss(
     out: Dict[str, torch.Tensor] = {}
     pts1, pts2 = pts1.float(), pts2.float()
     gt_pts = torch.matmul(pts1 - gt_t[:, None, :].float(), gt_r.float())
-    dis_mat = torch.sqrt(pairwise_sqdist(gt_pts, pts2))  # (B, n1, n2)
+    dis_mat = sqrt_rn(pairwise_sqdist(gt_pts, pts2))  # (B, n1, n2)
 
     ov1 = (dis_mat <= predator_thres).any(dim=2)
     ov2 = (dis_mat <= predator_thres).any(dim=1)

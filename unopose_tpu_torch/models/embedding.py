@@ -13,7 +13,7 @@ from torch import nn
 
 from unopose_tpu_torch.models.layers import Dense
 from unopose_tpu_torch.ops.geo_fused import build_taylor_table, geo_rpe_fused
-from unopose_tpu_torch.ops.geometry import pairwise_sqdist
+from unopose_tpu_torch.ops.geometry import pairwise_sqdist, sqrt_rn
 
 
 def bounded_sincos(om: torch.Tensor):
@@ -56,7 +56,7 @@ def sinusoidal_embedding(indices: torch.Tensor, d_model: int, poly_xmax: float |
 def knn_anchor_vectors(points: torch.Tensor, k: int):
     """(B, N, 3) -> (pairwise distances (B, N, N), vectors to each point's
     k nearest other points (B, N, k, 3))."""
-    dist = torch.sqrt(pairwise_sqdist(points, points))
+    dist = sqrt_rn(pairwise_sqdist(points, points))
     knn_idx = torch.topk(-dist, k + 1, dim=-1).indices[..., 1:]  # nearest k, self excluded
     knn_pts = torch.gather(
         points[:, None].expand(-1, points.shape[1], -1, -1), 2, knn_idx[..., None].expand(-1, -1, -1, 3)
@@ -117,7 +117,7 @@ class GeometricStructureEmbedding(nn.Module):
             cx = ry * az - rz * ay
             cy = rz * ax - rx * az
             cz = rx * ay - ry * ax
-            sin_v = torch.sqrt(cx * cx + cy * cy + cz * cz)
+            sin_v = sqrt_rn(cx * cx + cy * cy + cz * cz)
             cos_v = rx * ax + ry * ay + rz * az
             # a degenerate anchor gives angle 0, not atan2(0, -0.0) = pi
             cos_v = torch.where((sin_v == 0.0) & (cos_v == 0.0), torch.ones_like(cos_v), cos_v)

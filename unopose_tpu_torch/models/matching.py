@@ -43,7 +43,7 @@ from unopose_tpu_torch.ops.ball_query import (
     two_scale_group_first_k_packed,
     two_scale_group_first_k_packed_idx,
 )
-from unopose_tpu_torch.ops.geometry import compute_feature_similarity
+from unopose_tpu_torch.ops.geometry import compute_feature_similarity, sqrt_rn
 from unopose_tpu_torch.ops.lrf import batch_lrf_planar
 from unopose_tpu_torch.ops.pe_fused import (
     pack_mlp,
@@ -144,7 +144,7 @@ class BNVars(nn.Module):
 
 def fold_bn(W, scale, bias, mean, var, eps: float = 1e-5):
     """y = scale * (x W - mean) / sqrt(var + eps) + bias as one affine map."""
-    inv = scale / torch.sqrt(var + eps)
+    inv = scale / sqrt_rn(var + eps)
     return W * inv[None, :], bias - mean * inv
 
 

@@ -34,7 +34,7 @@ import torch
 
 from unopose_tpu_torch.kernels import LAUNCHES
 from unopose_tpu_torch.kernels import build
-from unopose_tpu_torch.ops.geometry import no_tf32, pairwise_sqdist
+from unopose_tpu_torch.ops.geometry import no_tf32, pairwise_sqdist, sqrt_rn
 from unopose_tpu_torch.ops.procrustes import weighted_procrustes
 
 MAX_C = 256
@@ -230,7 +230,7 @@ def compute_fine_Rt_overlap_fused(feat1, feat2, score, pts1, pts2, temp: float =
     pred_pts, weights, label1 = fine_assignment_fused(feat1, feat2, score, pts2, temp)
     R, t = weighted_procrustes(pred_pts, pts1, weights, weight_thresh=0.001)
     proj = torch.matmul(pts1 - t[:, None, :], R)
-    d = torch.sqrt(torch.clamp_min(pairwise_sqdist(proj, pts2).amin(dim=2), 0.0))
+    d = sqrt_rn(torch.clamp_min(pairwise_sqdist(proj, pts2).amin(dim=2), 0.0))
     mask = (label1 > 0).float()
     inlier = (d < dis_thres).float()
     pose_score = (inlier * mask).sum(dim=1) / (mask.sum(dim=1) + 1e-8)

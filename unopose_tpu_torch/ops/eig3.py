@@ -8,6 +8,8 @@ import math
 
 import torch
 
+from unopose_tpu_torch.ops.geometry import sqrt_rn
+
 
 def eigvals_sym3(A: torch.Tensor) -> torch.Tensor:
     """Eigenvalues of symmetric (..., 3, 3) matrices, descending."""
@@ -17,7 +19,7 @@ def eigvals_sym3(A: torch.Tensor) -> torch.Tensor:
     p1 = a01 * a01 + a02 * a02 + a12 * a12
     q = (a00 + a11 + a22) / 3.0
     p2 = (a00 - q) ** 2 + (a11 - q) ** 2 + (a22 - q) ** 2 + 2.0 * p1
-    p = torch.sqrt(torch.clamp_min(p2 / 6.0, 0.0))
+    p = sqrt_rn(torch.clamp_min(p2 / 6.0, 0.0))
     safe_p = torch.where(p > 0, p, torch.ones_like(p))
     eye = torch.eye(3, dtype=A.dtype, device=A.device)
     Bm = (A - q[..., None, None] * eye) / safe_p[..., None, None]
@@ -63,7 +65,7 @@ def _cos_acos_div3_newton(r: torch.Tensor, iters: int = 6) -> torch.Tensor:
     """cos(arccos(r) / 3) without acos: Newton on the triple-angle cubic
     4c^3 - 3c = r, whose root lies in [1/2, 1] for r in [-1, 1]."""
     r = torch.clamp(r, -1.0, 1.0)
-    c = 0.5 + 0.5 * torch.sqrt(torch.clamp_min((r + 1.0) * 0.5, 0.0))
+    c = 0.5 + 0.5 * sqrt_rn(torch.clamp_min((r + 1.0) * 0.5, 0.0))
     for _ in range(iters):
         f = 4.0 * c * c * c - 3.0 * c - r
         df = torch.clamp_min(12.0 * c * c - 3.0, 1e-3)
@@ -76,7 +78,7 @@ def cos_phi_pair(r: torch.Tensor, use_newton: bool = False):
     ``use_newton`` takes the acos-free trisection of the fused PE kernel."""
     if use_newton:
         c1 = _cos_acos_div3_newton(r)
-        s1 = torch.sqrt(torch.clamp_min(1.0 - c1 * c1, 0.0))  # sin(phi) >= 0 on [0, pi/3]
+        s1 = sqrt_rn(torch.clamp_min(1.0 - c1 * c1, 0.0))  # sin(phi) >= 0 on [0, pi/3]
         return c1, -0.5 * c1 - (math.sqrt(3.0) / 2.0) * s1
     phi = torch.arccos(torch.clamp(r, -1.0, 1.0)) / 3.0
     return torch.cos(phi), torch.cos(phi + 2.0 * math.pi / 3.0)
@@ -91,7 +93,7 @@ def smallest_eigvec_sym3_planar(a, b, c, d, e, f, use_newton: bool = False):
     p1 = b * b + c * c + e * e
     q = (a + d + f) / 3.0
     p2 = (a - q) ** 2 + (d - q) ** 2 + (f - q) ** 2 + 2.0 * p1
-    p = torch.sqrt(torch.clamp_min(p2 / 6.0, 0.0))
+    p = sqrt_rn(torch.clamp_min(p2 / 6.0, 0.0))
     sp = torch.where(p > 0, p, torch.ones_like(p))
     ba, bd, bf = (a - q) / sp, (d - q) / sp, (f - q) / sp
     bb, bc, be = b / sp, c / sp, e / sp
@@ -122,7 +124,7 @@ def smallest_eigvec_sym3_planar(a, b, c, d, e, f, use_newton: bool = False):
     v0 = torch.where(use2, m02, torch.where(best01, m00, m01))
     v1 = torch.where(use2, m12, torch.where(best01, m01, m11))
     v2 = torch.where(use2, m22, torch.where(best01, m02, m12))
-    nrm = torch.sqrt(v0 * v0 + v1 * v1 + v2 * v2)
+    nrm = sqrt_rn(v0 * v0 + v1 * v1 + v2 * v2)
     scale = torch.clamp_min(torch.maximum(torch.maximum(a.abs(), d.abs()), f.abs()), 1e-30)
     ok = nrm > 1e-20 * scale * scale
     inv = torch.where(ok, 1.0 / torch.clamp_min(nrm, 1e-30), torch.zeros_like(nrm))

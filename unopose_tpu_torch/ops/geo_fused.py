@@ -29,7 +29,7 @@ import torch
 
 from unopose_tpu_torch.kernels import LAUNCHES
 from unopose_tpu_torch.kernels import build
-from unopose_tpu_torch.ops.geometry import no_tf32
+from unopose_tpu_torch.ops.geometry import no_tf32, sqrt_rn
 
 MAX_N = 512  # the largest cloud the kernel takes (its first version's shared-memory bound, kept)
 MAX_K = 4
@@ -132,7 +132,7 @@ def geo_rpe_fused_plain(points, ref_vec, tab_d, tab_a, scale_d: float, scale_a: 
     ax = points[:, None, :, 0] - points[:, :, None, 0]  # (B, N, N): p_j - p_i
     ay = points[:, None, :, 1] - points[:, :, None, 1]
     az = points[:, None, :, 2] - points[:, :, None, 2]
-    d = torch.sqrt(ax * ax + ay * ay + az * az)
+    d = sqrt_rn(ax * ax + ay * ay + az * az)
     e = _taylor_eval(d * float(1.0 / sigma_d * scale_d), tab_d, mm)
     acc_a = None
     for kk in range(ref_vec.shape[2]):
@@ -140,7 +140,7 @@ def geo_rpe_fused_plain(points, ref_vec, tab_d, tab_a, scale_d: float, scale_a: 
         cxp = vy * az - vz * ay
         cyp = vz * ax - vx * az
         czp = vx * ay - vy * ax
-        sin_v = torch.sqrt(cxp * cxp + cyp * cyp + czp * czp)
+        sin_v = sqrt_rn(cxp * cxp + cyp * cyp + czp * czp)
         cos_v = vx * ax + vy * ay + vz * az
         cos_v = torch.where((sin_v == 0.0) & (cos_v == 0.0), torch.ones_like(cos_v), cos_v)
         a_idx = atan2_pos_sin(sin_v, cos_v) * float(factor_a)

@@ -35,7 +35,7 @@ import torch
 
 from unopose_tpu_torch.kernels import LAUNCHES
 from unopose_tpu_torch.kernels import build
-from unopose_tpu_torch.ops.geometry import no_tf32
+from unopose_tpu_torch.ops.geometry import no_tf32, sqrt_rn
 
 WARP = 32
 HYP_CHUNK = 25  # hypotheses per step of the plain twins: bounds their (B, chunk, N1, N2) temporaries
@@ -97,7 +97,7 @@ def dist_sums_plain(tp: torch.Tensor, model_pts: torch.Tensor, w1: torch.Tensor)
         dx, dy, dz = c[..., 0] - mx, c[..., 1] - my, c[..., 2] - mz
         d2 = (dx * dx + dy * dy) + dz * dz
         del dx, dy, dz
-        d = torch.sqrt(d2.amin(dim=-1))  # (B, p, N1)
+        d = sqrt_rn(d2.amin(dim=-1))  # (B, p, N1)
         del d2
         out.append(_lane_sum(d * w1[:, None, :]))
     return torch.cat(out, dim=1)

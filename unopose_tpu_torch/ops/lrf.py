@@ -6,6 +6,8 @@ from __future__ import annotations
 
 import torch
 
+from unopose_tpu_torch.ops.geometry import sqrt_rn
+
 from unopose_tpu_torch.ops.eig3 import smallest_eigvec_sym3, smallest_eigvec_sym3_planar
 
 
@@ -84,12 +86,12 @@ def batch_lrf_planar(center, grouped, r_lrf: float, mask=None, use_newton: bool 
     z0, z1, z2 = z0 * sgn, z1 * sgn, z2 * sgn
 
     norm = z0[..., None] * rx + z1[..., None] * ry + z2[..., None] * rz
-    x_l2 = torch.sqrt(rx * rx + ry * ry + rz * rz)
+    x_l2 = sqrt_rn(rx * rx + ry * ry + rz * rz)
     w = (r_lrf - x_l2) ** 2 * (norm * norm)
     vx = msum(w * (rx - norm * z0[..., None]))
     vy = msum(w * (ry - norm * z1[..., None]))
     vz = msum(w * (rz - norm * z2[..., None]))
-    vn = torch.sqrt(vx * vx + vy * vy + vz * vz) + 1e-10
+    vn = sqrt_rn(vx * vx + vy * vy + vz * vz) + 1e-10
     x0, x1, x2 = vx / vn, vy / vn, vz / vn
 
     y0 = x1 * z2 - x2 * z1

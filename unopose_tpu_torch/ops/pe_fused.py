@@ -372,18 +372,6 @@ def _check_grouped(grouped2, w1, w2, total2, center, block: int, slot_major: boo
         raise ValueError(f"P must be a multiple of {block}, got {P}")
 
 
-def _launch(name: str, entry: str, tensors, *scalars):
-    """Call the C entry point ``entry`` with the tensors' pointers, then the
-    scalars and the stream of the first tensor's device; count the launch."""
-    lib = build.load()
-    ptr = ctypes.c_void_p
-    with torch.cuda.device(tensors[0].device):
-        err = getattr(lib, entry)(*(ptr(t.data_ptr()) for t in tensors), *scalars,
-                                  ptr(build.stream_of(tensors[0])))
-    build.check(err, name)
-    LAUNCHES[name] += 1
-
-
 def _packed_weights(packed, name: str, tensors):
     wpack, bpack = _check_packed(packed)
     _check_cuda(name, (*tensors, wpack, bpack))
@@ -421,8 +409,9 @@ def pe_fused_packed_cuda(grouped2, w1, w2, total2, center, r1: float, r2: float,
     w1, w2 = (w.to(torch.bfloat16).contiguous() for w in (w1, w2))
     c = [x.float().contiguous() for x in center]
     out = torch.empty((B, P, 256), dtype=torch.float32, device=w1.device)
-    _launch("pe_packed", "unopose_pe_packed", (*g, w1, w2, total2.to(torch.int32).contiguous(), *c, wpack, bpack, out),
-            B, P, S2, float(r1), float(r2), float(1.0 / r1), float(1.0 / r2))
+    build.launch("pe_packed", "unopose_pe_packed",
+                 (*g, w1, w2, total2.to(torch.int32).contiguous(), *c, wpack, bpack, out), B, P, S2,
+                 float(r1), float(r2), float(1.0 / r1), float(1.0 / r2))
     return out
 
 
@@ -497,8 +486,8 @@ def pe_mlp_pool_packed_cuda(chunks, total2, packed) -> torch.Tensor:
     if any(c.stride() != (12 * P * ld, P * ld, ld, 1) for c in chunks):
         chunks, ld = [c.contiguous() for c in chunks], w
     out = torch.empty((B, P, 256), dtype=torch.float32, device=total2.device)
-    _launch("pe_mlp_pool_packed", "unopose_pe_mlp_pool_packed",
-            (*chunks, total2.to(torch.int32).contiguous(), wpack, bpack, out), B, P, w, ld)
+    build.launch("pe_mlp_pool_packed", "unopose_pe_mlp_pool_packed",
+                 (*chunks, total2.to(torch.int32).contiguous(), wpack, bpack, out), B, P, w, ld)
     return out
 
 
@@ -532,9 +521,9 @@ def pe_fused_gather_t_cuda(planes, idx_p, w1, w2, total2, center, r1: float, r2:
     c = [x.float().contiguous() for x in center]
     w1, w2 = (w.to(torch.bfloat16).contiguous() for w in (w1, w2))
     out = torch.empty((B, P, 256), dtype=torch.float32, device=xp.device)
-    _launch("pe_gather_fused", "unopose_pe_gather_fused",
-            (xp, yp, zp, idx_p.contiguous(), w1, w2, total2.to(torch.int32).contiguous(), *c, wpack, bpack, out),
-            B, N, P, S2, float(r1), float(r2), float(1.0 / r1), float(1.0 / r2))
+    build.launch("pe_gather_fused", "unopose_pe_gather_fused",
+                 (xp, yp, zp, idx_p.contiguous(), w1, w2, total2.to(torch.int32).contiguous(), *c, wpack, bpack, out),
+                 B, N, P, S2, float(r1), float(r2), float(1.0 / r1), float(1.0 / r2))
     return out
 
 
@@ -578,9 +567,9 @@ def pe_fused_packed_t_cuda(grouped2_t, w1_t, w2_t, total2, center, r1: float, r2
     w1_t, w2_t = (w.to(torch.bfloat16).contiguous() for w in (w1_t, w2_t))
     c = [x.float().contiguous() for x in center]
     out = torch.empty((B, P, 256), dtype=torch.float32, device=w1_t.device)
-    _launch("pe_packed_t", "unopose_pe_packed_t",
-            (*g, w1_t, w2_t, total2.to(torch.int32).contiguous(), *c, wpack, bpack, out),
-            B, P, S2, float(r1), float(r2), float(1.0 / r1), float(1.0 / r2))
+    build.launch("pe_packed_t", "unopose_pe_packed_t",
+                 (*g, w1_t, w2_t, total2.to(torch.int32).contiguous(), *c, wpack, bpack, out),
+                 B, P, S2, float(r1), float(r2), float(1.0 / r1), float(1.0 / r2))
     return out
 
 

@@ -46,7 +46,7 @@ import torch
 
 from unopose_tpu_torch.kernels import LAUNCHES
 from unopose_tpu_torch.kernels import build
-from unopose_tpu_torch.ops.geometry import no_tf32
+from unopose_tpu_torch.ops.geometry import no_tf32, sqrt_rn
 
 DIMS = (6, 32, 64, 128)
 MU, VAR, INV, A, B_, SG, SGZ = range(7)  # rows of the statistics buffer
@@ -108,7 +108,7 @@ def pe_mlp_bn_pool_train_plain(chans, Ws, gammas, betas, eps: float = 1e-5, mm_d
             z = _RoundCotangent.apply(h @ _RoundOperand.apply(W.float(), mm_dtype), mm_dtype)
             mu = z.sum(0) / n
             var = torch.clamp_min((z * z).sum(0) / n - mu * mu, 0.0)
-            inv = 1.0 / torch.sqrt(var + eps)
+            inv = 1.0 / sqrt_rn(var + eps)
             y = torch.clamp_min(gam * inv * z + (bet - gam * mu * inv), 0.0)
             h = _RoundOperand.apply(y, mm_dtype) if l < 2 else y
             mus.append(mu.detach())
@@ -147,7 +147,7 @@ def bn_from_stats(bn, layer: int, mu, var, gamma, beta, eps: float) -> None:
     """Fill layer ``layer``'s mu, var, inv, a, b of ``bn`` from its mean and variance."""
     d = DIMS[layer + 1]
     mu, var = mu.float(), var.float()
-    inv = 1.0 / torch.sqrt(var + eps)
+    inv = 1.0 / sqrt_rn(var + eps)
     gam, bet = gamma.float(), beta.float()
     for row, v in ((MU, mu), (VAR, var), (INV, inv), (A, gam * inv), (B_, bet - gam * mu * inv)):
         bn[layer, row, :d] = v
@@ -428,7 +428,7 @@ def pe_mlp_bn_pool_frozen_plain(chans, Ws, gammas, betas, means, vars_, eps: flo
         for l, (W, gam, bet, mu, var) in enumerate(zip(Ws, gammas, betas, means, vars_)):
             z = _RoundCotangent.apply(h @ _RoundOperand.apply(W.float(), mm_dtype), mm_dtype)
             mu, var = mu.detach().float(), var.detach().float()
-            inv = 1.0 / torch.sqrt(var + eps)
+            inv = 1.0 / sqrt_rn(var + eps)
             y = torch.clamp_min(gam * inv * z + (bet - gam * mu * inv), 0.0)
             h = _RoundOperand.apply(y, mm_dtype) if l < 2 else y
     return h.view(B, P, S, DIMS[-1]).amax(dim=2)

@@ -11,12 +11,14 @@ from __future__ import annotations
 
 import torch
 
+from unopose_tpu_torch.ops.geometry import sqrt_rn
+
 
 def _top_eigvec_sym4_planar(k_entries, n_squarings: int = 14) -> torch.Tensor:
     """k_entries: 10 arrays (k00, k01, k02, k03, k11, k12, k13, k22, k23, k33)
     -> (..., 4) unit top eigenvectors."""
     a, b, c, d, e, f, g, h, i, j = (x.float() for x in k_entries)
-    fro = torch.sqrt(a * a + e * e + h * h + j * j + 2 * (b * b + c * c + d * d + f * f + g * g + i * i)) + 1e-12
+    fro = sqrt_rn(a * a + e * e + h * h + j * j + 2 * (b * b + c * c + d * d + f * f + g * g + i * i)) + 1e-12
     a, b, c, d, e, f, g, h, i, j = (x / fro for x in (a, b, c, d, e, f, g, h, i, j))
     a, e, h, j = a + 1.2, e + 1.2, h + 1.2, j + 1.2
 
@@ -31,7 +33,7 @@ def _top_eigvec_sym4_planar(k_entries, n_squarings: int = 14) -> torch.Tensor:
         nh = c * c + f * f + h * h + i * i
         ni = c * d + f * g + h * i + i * j
         nj = d * d + g * g + i * i + j * j
-        fro = torch.sqrt(
+        fro = sqrt_rn(
             na * na + ne * ne + nh * nh + nj * nj + 2 * (nb * nb + nc * nc + nd * nd + nf * nf + ng * ng + ni * ni)
         ) + 1e-12
         a, b, c, d, e, f, g, h, i, j = (x / fro for x in (na, nb, nc, nd, ne, nf, ng, nh, ni, nj))

@@ -19,7 +19,7 @@ import os
 import torch
 
 from unopose_tpu_torch.ops.fps import gather_points
-from unopose_tpu_torch.ops.geometry import pairwise_sqdist
+from unopose_tpu_torch.ops.geometry import pairwise_sqdist, sqrt_rn
 from unopose_tpu_torch.ops.hyp_select import hypothesis_select_scores_v2
 from unopose_tpu_torch.ops.procrustes import kabsch_rotation_planar, weighted_procrustes
 
@@ -75,7 +75,7 @@ def select_scores_plain(pts1, model_pts, rs, ts, w1) -> torch.Tensor:
     rs (B, P2, 3, 3), ts (B, P2, 3), w1 (B, N1)."""
     tp = torch.matmul(pts1[:, None] - ts[:, :, None, :], rs)  # (B, P2, N1, 3)
     d2 = pairwise_sqdist(tp, model_pts[:, None])  # (B, P2, N1, M)
-    d = torch.sqrt(torch.clamp_min(d2.amin(dim=-1), 0.0))
+    d = sqrt_rn(torch.clamp_min(d2.amin(dim=-1), 0.0))
     return w1.sum(dim=1)[:, None] / ((d * w1[:, None]).sum(dim=2) + 1e-8)
 
 
@@ -145,7 +145,7 @@ def compute_coarse_Rt_overlap(
         ex = ux * r00 + uy * r10 + uz * r20 - s_m[m][0]
         ey = ux * r01 + uy * r11 + uz * r21 - s_m[m][1]
         ez = ux * r02 + uy * r12 + uz * r22 - s_m[m][2]
-        resid = resid + torch.sqrt(ex * ex + ey * ey + ez * ez)
+        resid = resid + sqrt_rn(ex * ex + ey * ey + ez * ez)
     resid = resid * third
 
     keep = torch.topk(-resid, n_proposal2, dim=1).indices  # lowest residual
@@ -201,7 +201,7 @@ def compute_fine_Rt_overlap(
     R, t = weighted_procrustes(pred_pts, pts1, weights, weight_thresh=0.001)
 
     proj = torch.matmul(pts1 - t[:, None, :], R)
-    d = torch.sqrt(torch.clamp_min(pairwise_sqdist(proj, pts2).amin(dim=2), 0.0))
+    d = sqrt_rn(torch.clamp_min(pairwise_sqdist(proj, pts2).amin(dim=2), 0.0))
     mask = (label1 > 0).float()
     inlier = (d < dis_thres).float()
     pose_score = (inlier * mask).sum(dim=1) / (mask.sum(dim=1) + 1e-8)

@@ -1,5 +1,5 @@
-"""The least time one H100 could take for the work of the TPU profiling kernels in ``benchmarks/`` that no
-path of the model reaches, and that the port therefore does not carry.
+"""The least time one H100 could take for the work of the TPU profiling kernels in ``benchmarks/``, which no
+path of the model reaches (the port carries them with their scripts in ``unopose_tpu_torch/benchmarks/``).
 
     python -m unopose_tpu_torch.tools.tpu_profile_bounds
 
