@@ -12,10 +12,13 @@ Phases, each fatal on failure:
    PyTorch call computes the same function, that call's time:
    FPS and the gather equal indices / bitwise values (FPS also timed beside
    its dependent-step floor, ``FPS_FLOOR_SRC``), the first_k select
-   every output equal; the int8 geometric embedding (32 x 197 x 197 x 256,
+   every output equal (timed alone too, and beside the floor of its own
+   arithmetic, ten float32 operations a candidate pair at 128 lanes a clock
+   on the card's SMs at their maximum clock, in the log); the int8 geometric embedding (32 x 197 x 197 x 256,
    bf16 model dtype) at most one step off on at most 0.1% of entries, timed
    beside its bound and, in the log only, the floors of its own arithmetic
-   and shared reads computed from ``LANE_RATE`` and ``SMEM_BPS``; the PE
+   and shared reads (128 lanes, or bytes, a clock on each SM of the card at
+   its maximum clock, ``card_lane_rate``); the PE
    channels and MLP/pool (32 x 2048 x 256) on two kinds of cloud: the main
    path's uniform cubes, whose isotropic neighbourhoods nearly all fit one
    64-slot chunk and have ill-conditioned local frames (at most twice as
@@ -35,7 +38,8 @@ Phases, each fatal on failure:
    (labels equal on at least 99.9% of rows, weights and soft targets within
    1e-4 of their max on the rows whose labels agree), the labels sweep
    run twice on the same inputs bitwise equal (its column keys are reduced
-   by atomics across blocks), and the accumulation sweep also timed alone;
+   by atomics across blocks), and the column statistics and accumulation
+   sweeps also timed alone;
    the train path's PE
    kernels K11-K14 (B 8, P 2048, S 256 and 64), each fed its plain pass's
    statistics (and each backward its own side's forward maximum): batch
@@ -146,10 +150,6 @@ HBM_BPS, F32_FLOPS, BF16_FLOPS = 3.35e12, 67e12, 989e12
 # exponentials per second: 16 special-function results per clock per SM (CUDA programming guide,
 # compute capability 9.0) x 132 SMs x the 1980 MHz boost clock
 SFU_RATE = 16 * 132 * 1.98e9
-# float32 instructions a second (128 lanes a clock an SM) and shared-memory bytes a second (128 a clock an
-# SM), at the same clock: the floors of a kernel's own instruction stream
-LANE_RATE = 128 * 132 * 1.98e9
-SMEM_BPS = 128 * 132 * 1.98e9
 # which TPU kernel each hand-written kernel replaces, and its source
 KERNELS = {
     "fps": ("unopose_tpu_torch/kernels/csrc/fps.cu", "unopose_tpu/ops/fps.py:80"),
@@ -236,6 +236,18 @@ SCRIPT_ITERS = 2
 INFER_PATHS = ("slice", "fused_matchers", "production", "subset", "firstk_unpacked")
 # the environment of the train path's switch (the inference paths take theirs from profile_slice.PROFILES)
 FROZEN = {"UNOPOSE_PE_TRAIN_FROZEN": "1"}
+
+
+def card_lane_rate() -> tuple:
+    """(float32 lanes a second, SMs, MHz): 128 lanes a clock on each SM of card 0 at its maximum SM clock
+    (``nvidia-smi``)."""
+    import torch
+
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True, timeout=60)
+    mhz = float(out.stdout.strip().splitlines()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return 128 * sms * mhz * 1e6, sms, mhz
 
 
 def card_info() -> str:
@@ -456,6 +468,17 @@ def check_kernels(log, dev, seed: int) -> dict:
     select_bytes = B2 * N * 24 + 2 * N * 4 + B2 * N * S * 4 + 4 * B2 * N * 4
     results["first_k_select"] = dict(max_abs_err=float(max(errs.values())), ms=ms, plain_ms=plain_ms,
                                      library_ms=None, **bound(select_bytes, 10.0 * B2 * N * N, F32_FLOPS))
+    # the kernel alone (its C entry point back to back on prepared outputs), beside the floor of its own
+    # arithmetic: the same ten float32 operations a pair at 128 lanes a clock on every SM
+    outs = [torch.empty_like(got[k]) for k in SELECT_KEYS[:-1]] + [torch.zeros(1, dtype=torch.int32, device=dev)]
+    select_alone = alone_ms("unopose_first_k_select", pts, pts_p, perm, inv_perm, B2, N, 64, S, 0.1 * 0.1, 0.2 * 0.2,
+                            *outs)
+    rate, sms, mhz = card_lane_rate()
+    floor_ms = 10.0 * B2 * N * N / rate * 1e3
+    log(f"first_k_select alone, back to back {select_alone:.3f} ms; bound {results['first_k_select']['bound_ms']:.4f} "
+        f"ms ({results['first_k_select']['bound_by']}); arithmetic floor, 10 float32 operations a pair x {B2}x{N}x{N} "
+        f"pairs at 128 lanes a clock on {sms} SMs at {mhz:.0f} MHz: {floor_ms:.4f} ms")
+    results["first_k_select"].update(alone_ms=select_alone)
 
     # K2 gather: the PE's scale-2 slots, planes (32, 2048), idx (32, 2048, 256) int16
     planes = tuple(t.contiguous() for t in pts_p.unbind(-1))
@@ -517,8 +540,9 @@ def check_fused_kernels(log, dev, seed: int) -> dict:
     # the floors of the kernel's own arithmetic: ~27 separately rounded float32 operations per entry issued
     # at 128 lanes a clock an SM, and 3 (1 + k) bf16 table values read from shared memory per entry at 128
     # bytes a clock an SM
-    floor_ms = 27.0 * e8.numel() / LANE_RATE * 1e3
-    smem_floor_ms = 3 * (1 + k) * 2.0 * e8.numel() / SMEM_BPS * 1e3
+    per_s, _, _ = card_lane_rate()  # lanes, or shared-memory bytes, a second: 128 a clock on each SM
+    floor_ms = 27.0 * e8.numel() / per_s * 1e3
+    smem_floor_ms = 3 * (1 + k) * 2.0 * e8.numel() / per_s * 1e3
     log(f"geo_rpe 32x197x197x256 int8 (bf16 tables): {100 * share:.4f}% of entries differ, max {worst} step, "
         f"scale equal {torch.equal(sc, psc)}, kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
         f"{geo_bound['bound_ms']:.4f} ms ({geo_bound['bound_by']}), arithmetic floor {floor_ms:.4f} ms, "
@@ -693,6 +717,8 @@ def check_production_kernels(log, dev, seed: int) -> dict:
             accum=(cuda_ms(lambda: af.accum_cuda(*aargs)), cuda_ms(lambda: af.accum_plain(*aargs), reps=3)),
         )
         accum_alone = alone_ms("unopose_fine_accum", *aargs, torch.empty_like(p_w), torch.empty_like(p_n), Bp, M, M, C)
+        colstats_alone = alone_ms("unopose_fine_colstats", f1n, f2n, torch.empty_like(cm), torch.empty_like(cs),
+                                  Bp, M, M, C)
         fused_ms = cuda_ms(lambda: af.compute_fine_Rt_overlap_fused(f1, f2, score, pts1, pts2))
         materialised_ms = cuda_ms(lambda: compute_fine_Rt_overlap(
             compute_feature_similarity(f1, f2, 0.1, True), score, pts1, pts2), reps=3)
@@ -702,7 +728,8 @@ def check_production_kernels(log, dev, seed: int) -> dict:
         f"agreeing rows; foreground rows {100 * (pl > 0).float().mean().item():.1f}%")
     log(f"fine_assign labels run twice bitwise equal {labels_twice}")
     log("fine_assign times (kernel, plain ms): " + ", ".join(f"{k} {a:.3f} / {b:.3f}" for k, (a, b) in times.items())
-        + f"; accum alone, back to back {accum_alone:.3f} ms; fused solver {fused_ms:.3f} ms, materialised solver "
+        + f"; alone, back to back: colstats {colstats_alone:.3f} ms, accum {accum_alone:.3f} ms; fused solver "
+        f"{fused_ms:.3f} ms, materialised solver "
         f"(similarity + dual softmax + WSVD) {materialised_ms:.3f} ms")
     if max(stats.values()) > 1e-5 or min(l1_eq, l2_eq, chain_l1) < 0.999 or max(w_err, n_err, chain_w, chain_p) > 1e-4:
         raise AssertionError("fine_assign kernels differ from the plain versions beyond their gates")
@@ -726,6 +753,7 @@ def check_production_kernels(log, dev, seed: int) -> dict:
         results[f"fine_assign_{name}"] = dict(
             max_abs_err=errs[name], ms=times[name][0], plain_ms=times[name][1], library_ms=None,
             materialised_solver_ms=materialised_ms, fused_solver_ms=fused_ms, **bounds[name])
+    results["fine_assign_colstats"].update(alone_ms=colstats_alone)
     results["fine_assign_labels"].update(label1_equal=l1_eq, label2_equal=l2_eq, run_twice_bitwise=labels_twice)
     results["fine_assign_accum"].update(chain_label1_equal=chain_l1, chain_weights_rel=chain_w,
                                         chain_targets_rel=chain_p, alone_ms=accum_alone)

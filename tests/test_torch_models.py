@@ -72,16 +72,17 @@ def perturb(variables, seed=1):
 
 
 @functools.lru_cache(maxsize=None)
-def tiny_models():
+def tiny_models(shift: int = 0):
     """(config, inputs, jax model, perturbed numpy variables, torch model with
-    them loaded), both models built from the port's tiny slice config. Built
-    once per process: this file and ``test_torch_slice.py`` share it."""
+    them loaded), both models built from the port's tiny slice config, every
+    seed (the inputs', the init keys', the perturbation's) moved by ``shift``.
+    Built once per process: this file and ``test_torch_slice.py`` share it."""
     cfg = slice_config(tiny=True)
-    inputs = slice_inputs()
+    inputs = slice_inputs(shift)
     jm = JaxUNOPose.from_config(cfg, dtype=jnp.float32, backbone_dtype=jnp.float32)
     ji = {k: jnp.asarray(v) for k, v in inputs.items()}
-    keys = {"params": jax.random.PRNGKey(0), "sample": jax.random.PRNGKey(1)}
-    variables = perturb(jax.jit(lambda i: jm.init(keys, i, train=False))(ji))
+    keys = {"params": jax.random.PRNGKey(0 + shift), "sample": jax.random.PRNGKey(1 + shift)}
+    variables = perturb(jax.jit(lambda i: jm.init(keys, i, train=False))(ji), seed=1 + shift)
     tm = UNOPose.from_config(cfg, dtype=torch.float32, backbone_dtype=torch.float32)
     load_flax_variables(tm, variables)
     return cfg, inputs, jm, variables, tm.eval()

@@ -375,10 +375,19 @@ def test_production_s768_config_is_production_at_nsample2_768(tiny):
     assert got == want
 
 
+K3_K8_BUILDS = {
+    "first_k_select", "first_k_select_global_scan", "first_k_select_c1", "first_k_select_c2", "first_k_select_c8",
+    "first_k_select_w16", "first_k_select_ordered_walk", "first_k_select_keys_only", "first_k_select_walk_at_4",
+    "first_k_select_walk_at_16", "first_k_select_walk_at_32", "first_k_select_scalar_stores", "first_k_select_word_walk",
+    "fine_assign_colstats", "fine_assign_colstats_sync", "fine_assign_colstats_4warps",
+    "fine_assign_colstats_16warps", "fine_assign_colstats_3stages"}
+
+
 def test_kernel_variants_tool_follows_the_shipped_sources(tmp_path):
     """``tools/kernel_variants.py`` makes each variant by replacing text of
-    the shipped ``fps.cu``, ``vit_attn.cu``, ``fine_assign.cu`` (K9 and
-    K10), ``geo_rpe.cu`` and ``pe_mlp_pool.cu``: every replacement still
+    the shipped ``fps.cu``, ``vit_attn.cu``, ``fine_assign.cu`` (K8, K9 and
+    K10), ``geo_rpe.cu``, ``pe_mlp_pool.cu`` and ``first_k_select.cu`` (K3):
+    every replacement still
     finds its text (it raises otherwise), each variant differs from the
     shipped source, ``--parent``'s builds inline the headers of the other
     checkout, and the tool fails without a card."""
@@ -392,22 +401,27 @@ def test_kernel_variants_tool_follows_the_shipped_sources(tmp_path):
                          "geo_rpe_f32_8ch", "geo_rpe_f32_64", "geo_rpe_4ch", "geo_rpe_row_barrier", "geo_rpe_runtime_k",
                          "fine_assign_accum", "fine_assign_accum_ieee_division", "fine_assign_accum_no_ring",
                          "pe_mlp_pool", "pe_mlp_pool_b64", "pe_mlp_pool_registers", "pe_mlp_pool_no_packing",
-                         "pe_mlp_pool_epilogue_first", "pe_mlp_pool_atomic", "pe_mlp_pool_stride", "pe_mlp_pool_wgmma"}
+                         "pe_mlp_pool_epilogue_first", "pe_mlp_pool_atomic", "pe_mlp_pool_stride", "pe_mlp_pool_wgmma",
+                         *K3_K8_BUILDS}
     shipped = kernel_variants.SHIPPED
     assert shipped == {"K1": "fps", "K7": "vit_attn", "K9": "fine_assign", "K4": "geo_rpe", "K6": "pe_mlp_pool",
-                       "K10": "fine_assign_accum"}
+                       "K10": "fine_assign_accum", "K3": "first_k_select", "K8": "fine_assign_colstats"}
     for name, (kernel, text) in srcs.items():
         assert (text == srcs[shipped[kernel]][1]) == (name in shipped.values()), name
     assert set(kernel_variants.sources(None, ("K6", "K10"))) == {
         "fine_assign_accum", "fine_assign_accum_ieee_division", "fine_assign_accum_no_ring", "pe_mlp_pool",
         "pe_mlp_pool_b64", "pe_mlp_pool_registers", "pe_mlp_pool_no_packing", "pe_mlp_pool_epilogue_first",
         "pe_mlp_pool_atomic", "pe_mlp_pool_stride", "pe_mlp_pool_wgmma"}
+    assert set(kernel_variants.sources(None, ("K3", "K8"))) == K3_K8_BUILDS
     # another checkout's sources, their headers inlined from its own csrc/
     csrc = tmp_path / "unopose_tpu_torch" / "kernels" / "csrc"
     shutil.copytree(PORT / "kernels" / "csrc", csrc)
     (csrc / "pe_common.cuh").write_text("// the other checkout's header\n")
     parent = kernel_variants.sources(tmp_path, ("K6",))["pe_mlp_pool_parent"][1]
     assert "// the other checkout's header" in parent and '#include "pe_common.cuh"' not in parent
+    parents = kernel_variants.sources(tmp_path, ("K3", "K8"))
+    assert set(parents) == K3_K8_BUILDS | {"first_k_select_parent", "fine_assign_colstats_parent"}
+    assert parents["first_k_select_parent"][1] == (csrc / "first_k_select.cu").read_text()
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     r = subprocess.run([sys.executable, "-m", "unopose_tpu_torch.tools.kernel_variants"], cwd=ROOT, env=env,
                        capture_output=True, text=True, timeout=120)
@@ -1004,6 +1018,53 @@ def test_fine_assign_accum_edges(cuda):
                 assert not got[0].any() and not got[1].any(), (M1, M2, C, name)
             if name == "one entry":
                 assert torch.count_nonzero(got[0]) == B and (got[0][:, M1 // 2] > 0).all(), (M1, M2, C)
+
+
+@pytest.mark.cuda
+def test_fine_colstats_edges(cuda):
+    """K8 at the edges of its layout, against its plain twin: M1, M2 of 1, 2, 65, 130 and 2049, C 16, 48,
+    64 and 256 (the 32- and 128-byte swizzled tiles, row tiles and column tiles cut by M), rows of a tile
+    past M1 never entering a column's statistics, and f1n scaled by 40. The column max within 1e-5
+    relative, the sum of exponentials within 1e-5 relative times the largest |logit| / 10: the tensor
+    cores and the twin's float32 product round a logit differently by a few of its ulps, and exp carries
+    that absolute difference into every term; unit rows over temperature 0.1 give logits of at most 10,
+    where this is the gate above, and f1n x 40 logits up to 400 (measured 1.3e-5 there, the kernel's first
+    design giving the same bits). Two launches on the same inputs give the same bits."""
+    gen = torch.Generator(device=cuda).manual_seed(12)
+    for B, M1, M2, C, q in ((2, 1, 2, 16, 1.0), (2, 65, 130, 48, 1.0), (2, 130, 65, 64, 1.0),
+                            (1, 2049, 2049, 256, 1.0), (1, 2049, 65, 16, 40.0), (1, 65, 2049, 256, 40.0)):
+        f1n, f2n, _, _ = _labels_case(gen, B, max(M1, M2), C, cuda, q)
+        f1n, f2n = f1n[:, :M1].contiguous(), f2n[:, :M2].contiguous()
+        got = assignment_fused.colstats_cuda(f1n, f2n)
+        cm, cs = assignment_fused.colstats_plain(f1n, f2n)
+        scale = max(1.0, torch.matmul(f1n.float(), f2n.float().transpose(1, 2)).abs().max().item() / 10.0)
+        assert ((got[0] - cm).abs() <= 1e-5 * cm.abs().clamp_min(1.0)).all(), (M1, M2, C, q)
+        assert ((got[1] - cs).abs() <= 1e-5 * scale * cs.abs().clamp_min(1.0)).all(), (M1, M2, C, q)
+        assert all(torch.equal(x, y) for x, y in zip(got, assignment_fused.colstats_cuda(f1n, f2n)))
+
+
+@pytest.mark.cuda
+def test_first_k_select_edges(cuda):
+    """K3 at the edges of its layout, every output equal to the plain select: budgets k2 of 4, 12 (rows
+    written 4 slots a step), 64 and 512; N of 4 and 36 (chunks narrower than a word), 272, 576 and 4096 with
+    k2 4096 (fewer warps a block, so that the cloud, masks and rows fit); a cloud whose every centre
+    overflows every way, one with a few isolated points among dense ones (the first hits found by a walk in
+    original order or by the least key, centre by centre), and the main cubes."""
+    rng = np.random.default_rng(13)
+    for N, k1, k2 in ((4, 4, 4), (36, 4, 12), (272, 16, 64), (576, 64, 512), (4096, 1024, 4096), (2048, 64, 256)):
+        clouds = {"cubes": _lrf_cloud(rng, 2, N, cuda),
+                  "dense": torch.from_numpy(rng.uniform(-0.05, 0.05, size=(2, N, 3)).astype(np.float32)).to(cuda)}
+        mixed = clouds["cubes"].clone()
+        mixed[:, : N // 2] *= 0.05  # half the points packed near the origin, the rest spread out
+        clouds["mixed"] = mixed
+        perm, inv = ball_query.permutation(N, cuda)
+        for name, pts in clouds.items():
+            args = (pts, pts.index_select(1, perm.long()), perm, inv, 0.1, k1, 0.2, k2)
+            got, want = ball_query.first_k_select_cuda(*args), ball_query.first_k_select_plain(*args)
+            for k in ball_query.SELECT_KEYS:
+                assert torch.equal(got[k], want[k]), (N, k2, name, k)
+            if name == "dense" and N > k2:
+                assert bool(want["overflow"]), (N, k2)
 
 
 @pytest.mark.cuda

@@ -245,14 +245,20 @@ def test_fine_assignment_stages_match_the_materialised_solver():
 # ------------------------------------------------------------------ the slice
 @pytest.fixture(scope="module")
 def production_slice():
+    return run_production_slice()
+
+
+def run_production_slice(shift: int = 0, port: bool = True):
     """The tiny production config in float32 in both packages on the tiny
     slice's perturbed weights (the production tree has the same leaves), the
     JAX model forced into its TPU-inference modes with every kernel in
     interpret mode; the JAX draws and the fused solver's inputs captured and
-    the draws injected into the port."""
+    the draws injected into the port. ``shift`` moves every seed (the
+    slice's and the sampling key's); with ``port=False`` only JAX runs (the
+    model and its outputs are then None)."""
     from unopose_tpu.models import UNOPose as JaxUNOPose
 
-    _, inputs, _, variables, _ = tiny_models()
+    _, inputs, _, variables, _ = tiny_models(shift)
     jcfg = production_config(tiny=True)
     jcfg.feature_extraction.fused_attn = True
     jcfg.fine_point_matching.pe_fused = True
@@ -279,12 +285,15 @@ def production_slice():
     mp.setattr(jva, "mha_fused", functools.partial(jva.mha_fused, interpret=True))
     try:
         out_j = jax.jit(
-            lambda v, i: jm.apply(v, i, train=False, rngs={"sample": jax.random.PRNGKey(5)}, return_intermediates=True)
+            lambda v, i: jm.apply(v, i, train=False, rngs={"sample": jax.random.PRNGKey(5 + shift)},
+                                  return_intermediates=True)
         )(variables, {k: jnp.asarray(v) for k, v in inputs.items()})
         out_j = jax.tree_util.tree_map(np.asarray, out_j)
     finally:
         mp.undo()
     assert len(drawn) == 1 and len(solver_in) == 1
+    if not port:
+        return variables, None, out_j, None, solver_in[0]
     load_flax_variables(tm, variables)
     out_t = tm({k: t(v) for k, v in inputs.items()}, uniforms=t(drawn[0]), return_intermediates=True)
     return variables, tm, out_j, out_t, solver_in[0]

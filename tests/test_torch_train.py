@@ -338,18 +338,27 @@ class _JitInit:
 
 @pytest.fixture(scope="module")
 def tiny_step():
+    return run_tiny_step()
+
+
+def run_tiny_step(shift: int = 0, spreads: bool = True):
     """One tiny float32 train step in both packages from the same perturbed
-    train state (``create_train_state``), batch and noise draws; JAX also on
-    the clouds one ulp up (its own spread)."""
+    train state (``create_train_state``), batch and noise draws, every seed
+    (the batch's, the state's, the perturbation's, the noise's and the
+    step's key) moved by ``shift``. ``spreads``: JAX also on either cloud one
+    ulp up and down (its own spread), and the port on its own fine-PE
+    channels; else JAX also on the query cloud one ulp up and down with its
+    fine PE fed the channels of its first run (its own spread with the
+    channels held)."""
     cfg_j = jax_train_config(tiny=True)
     jm = junopose.UNOPose.from_config(cfg_j.model, dtype=jnp.float32, backbone_dtype=jnp.float32)
-    batch = surface_batch()
+    batch = surface_batch(7 + shift)
     jb = {k: jnp.asarray(v) for k, v in batch.items()}
-    state = jtrain.create_train_state(_JitInit(jm), cfg_j, jb, seed=0)
-    variables = perturb({"params": state.params, "batch_stats": state.batch_stats}, seed=8)
+    state = jtrain.create_train_state(_JitInit(jm), cfg_j, jb, seed=0 + shift)
+    variables = perturb({"params": state.params, "batch_stats": state.batch_stats}, seed=8 + shift)
     state = state.replace(params=variables["params"], batch_stats=variables["batch_stats"],
                           opt_state=jtrain.build_optimizer(cfg_j, variables["params"]).init(variables["params"]))
-    noise_key = jax.random.PRNGKey(9)
+    noise_key = jax.random.PRNGKey(9 + shift)
     grads = []
     sanitize = jtrain.sanitize_grads
 
@@ -373,13 +382,26 @@ def tiny_step():
     mp.setattr(jpt, "pe_mlp_bn_pool_train", record)
     try:
         step = jax.jit(jtrain.make_train_step(jm, cfg_j))
-        runs = [jb] + [{**jb, k: jnp.nextafter(jb[k], d * jnp.inf)} for k in ("pts", "tem1_pts") for d in (1, -1)]
+        runs = [jb] + [{**jb, k: jnp.nextafter(jb[k], d * jnp.inf)} for k in ("pts", "tem1_pts") for d in (1, -1)
+                       if spreads]
         out = {"runs": []}
         for b in runs:
-            new_state, metrics = step(state, b, jax.random.PRNGKey(0))
+            new_state, metrics = step(state, b, jax.random.PRNGKey(0 + shift))
             out["runs"].append((jax.tree_util.tree_map(np.asarray, new_state), {k: float(v) for k, v in metrics.items()}))
             jax.effects_barrier()
             out.setdefault("chans", dict(chans_j))
+        if not spreads:
+            held = iter(range(len(out["chans"])))
+            mp.setattr(jpt, "pe_mlp_bn_pool_train",
+                       lambda chans, *args, **kw: pe_train_j(jnp.asarray(out["chans"][next(held)]), *args, **kw))
+            step = jax.jit(jtrain.make_train_step(jm, cfg_j))
+            for d in (1, -1):
+                new_state, metrics = step(state, {**jb, "pts": jnp.nextafter(jb["pts"], d * jnp.inf)},
+                                          jax.random.PRNGKey(0 + shift))
+                out["runs"].append((jax.tree_util.tree_map(np.asarray, new_state),
+                                    {k: float(v) for k, v in metrics.items()}))
+                jax.effects_barrier()
+            assert next(held, None) is None
     finally:
         mp.undo()
     # make_train_step differentiates the flattened trainable leaves
@@ -400,7 +422,8 @@ def tiny_step():
         return ({k: float(v) for k, v in metrics.items()}, {n: p.grad.clone() for n, p in trainer.params},
                 before, {k: v.clone() for k, v in tm.state_dict().items()})
 
-    out["port"] = port_step()
+    if spreads:
+        out["port"] = port_step()
     # again, with the fine PE fed JAX's channels in place of its own, once each call is known to see the
     # same neighbourhoods as JAX's: the rows' multisets of offsets (the first three channels) equal
     # within 1e-5 (the clouds reach the PE a few ulps apart) on at least 95% of the rows (a point on a

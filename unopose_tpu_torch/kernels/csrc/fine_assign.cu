@@ -17,9 +17,10 @@
 // TPU walks the row tiles in order and carries the column statistics and
 // the column argmax from one grid step to the next in its output block.
 // Blocks on the card run in no order, so:
-// - K8 takes one block per (pair, 64-column tile); the block loops over the
-//   64-row tiles and each warp keeps the online max and sum-of-exp of its
-//   16 rows per column in registers; the 4 warps merge at the end.
+// - K8 takes one block per (pair, 64-column tile), the tile resident in
+//   shared memory; the block loops over the 64-row tiles, and each row
+//   group of 16 rows keeps the online max and sum-of-exp of its rows per
+//   column in registers; the 4 row groups merge at the end (below).
 // - K9 takes one block per (pair, 64-row tile) and sweeps the column tiles
 //   twice: once for the row statistics, once for the labels. label1 is a
 //   per-row reduction inside the block. label2 needs all row tiles: each
@@ -32,11 +33,11 @@
 // - K10 takes K9's block and ring for one sweep (below): a masked entry's
 //   terms are selected away, so its sums are the parent loop's that skipped
 //   them, bit for bit.
-// K8 stages both 64 x 64 operand tiles in shared memory (rows padded by 8
-// bf16, conflict-free fragment loads; 68 KB at C = 256) with a barrier on
-// either side; K9 and K10 hold their rows in registers and stream the
-// column tiles. Every logit is the same sequence of mma.sync m16n8k16
-// k-steps in all three, so their logits agree to the bit.
+// K8 streams the row tiles of f1 past its resident column tile; K9 and K10
+// hold their rows in registers and stream the column tiles of f2. In all
+// three f1's rows are the A operand and f2's columns the B operand of the
+// same sequence of mma.sync m16n8k16 k-steps, so their logits agree to the
+// bit.
 //
 // Bound at the main shape (B = 16, M1 = M2 = 2049, C = 256): operations.
 // One logit rebuild is 16 x 2049^2 x 256 x 2 = 34.4 GFLOP (34.8 us at 989
@@ -57,7 +58,6 @@
 
 namespace {
 
-constexpr int kThreads = 128;  // 4 warps of 16 rows
 constexpr int kTile = 64;      // rows and columns of a logit tile
 constexpr int kMaxC = 256;
 constexpr float kNeg = -1e30f;
@@ -73,103 +73,8 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], 
 
 __device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) { return *reinterpret_cast<const uint32_t*>(p); }
 
-// rows [r0, r0 + 64) of a (m, c) bf16 matrix into shared memory at row
-// stride c + 8; rows past m are zero
-__device__ __forceinline__ void stage(__nv_bfloat16* dst, const __nv_bfloat16* src, int r0, int m, int c) {
-  const int vecs = c / 8;
-  for (int i = threadIdx.x; i < kTile * vecs; i += kThreads) {
-    const int r = i / vecs, col = (i % vecs) * 8;
-    uint4 x = make_uint4(0u, 0u, 0u, 0u);
-    if (r0 + r < m) x = *reinterpret_cast<const uint4*>(src + (long long)(r0 + r) * c + col);
-    *reinterpret_cast<uint4*>(dst + r * (c + 8) + col) = x;
-  }
-}
-
-// This warp's 16 rows (sA, already offset) against the 64 staged columns:
-// acc[nt][0..1] row g, columns nt*8 + 2t, +1; acc[nt][2..3] row g + 8.
-__device__ __forceinline__ void logits(float (&acc)[8][4], const __nv_bfloat16* sA, const __nv_bfloat16* sB,
-                                       int c) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3, ld = c + 8;
-#pragma unroll
-  for (int nt = 0; nt < 8; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.0f;
-  const __nv_bfloat16* a0 = sA + g * ld + 2 * t;
-  const __nv_bfloat16* b0 = sB + g * ld + 2 * t;
-  for (int ks = 0; ks < c / 16; ++ks) {
-    const uint32_t a[4] = {ld32(a0 + ks * 16), ld32(a0 + 8 * ld + ks * 16), ld32(a0 + ks * 16 + 8),
-                           ld32(a0 + 8 * ld + ks * 16 + 8)};
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      const __nv_bfloat16* br = b0 + nt * 8 * ld + ks * 16;
-      mma_bf16(acc[nt], a, ld32(br), ld32(br + 8));
-    }
-  }
-}
-
 __device__ __forceinline__ unsigned long long umax64(unsigned long long a, unsigned long long b) {
   return a > b ? a : b;
-}
-
-__global__ void __launch_bounds__(kThreads)
-colstats_kernel(const __nv_bfloat16* __restrict__ f1, const __nv_bfloat16* __restrict__ f2, float* __restrict__ cm,
-                float* __restrict__ cs, int m1, int m2, int c) {
-  extern __shared__ uint4 smem[];
-  __nv_bfloat16* sB = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* sA = sB + kTile * (c + 8);
-  float* sMax = reinterpret_cast<float*>(sA + kTile * (c + 8));  // [4][64]
-  float* sSum = sMax + 4 * kTile;
-  const int b = blockIdx.y, c0 = blockIdx.x * kTile;
-  const __nv_bfloat16* A = f1 + (long long)b * m1 * c;
-  stage(sB, f2 + (long long)b * m2 * c, c0, m2, c);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  float mx[8][2], sm[8][2];
-#pragma unroll
-  for (int nt = 0; nt < 8; ++nt) mx[nt][0] = mx[nt][1] = kNeg, sm[nt][0] = sm[nt][1] = 0.0f;
-
-  for (int r0 = 0; r0 < m1; r0 += kTile) {
-    __syncthreads();
-    stage(sA, A, r0, m1, c);
-    __syncthreads();
-    const int wr = r0 + warp * 16;
-    if (wr >= m1) continue;
-    float acc[8][4];
-    logits(acc, sA + warp * 16 * (c + 8), sB, c);
-    const bool v0 = wr + g < m1, v1 = wr + g + 8 < m1;
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const float x0 = v0 ? acc[nt][e] : kNeg, x1 = v1 ? acc[nt][2 + e] : kNeg;
-        float tm = fmaxf(x0, x1);
-        for (int off = 4; off < 32; off <<= 1) tm = fmaxf(tm, __shfl_xor_sync(kFull, tm, off));
-        const float nm = fmaxf(mx[nt][e], tm);
-        float ts = expf(x0 - nm);
-        ts = ts + expf(x1 - nm);
-        for (int off = 4; off < 32; off <<= 1) ts = ts + __shfl_xor_sync(kFull, ts, off);
-        sm[nt][e] = sm[nt][e] * expf(mx[nt][e] - nm) + ts;
-        mx[nt][e] = nm;
-      }
-    }
-  }
-  if (g == 0) {
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        sMax[warp * kTile + nt * 8 + 2 * t + e] = mx[nt][e];
-        sSum[warp * kTile + nt * 8 + 2 * t + e] = sm[nt][e];
-      }
-    }
-  }
-  __syncthreads();
-  const int j = c0 + threadIdx.x;
-  if (threadIdx.x < kTile && j < m2) {
-    float M = sMax[threadIdx.x];
-    for (int w = 1; w < 4; ++w) M = fmaxf(M, sMax[w * kTile + threadIdx.x]);
-    float S = 0.0f;
-    for (int w = 0; w < 4; ++w) S = S + sSum[w * kTile + threadIdx.x] * expf(sMax[w * kTile + threadIdx.x] - M);
-    cm[(long long)b * m2 + j] = M;
-    cs[(long long)b * m2 + j] = S;
-  }
 }
 
 // ---------------------------------------------------------------- K9 labels
@@ -263,7 +168,7 @@ __device__ __forceinline__ void b_frags(uint32_t (&b)[4][4], const __nv_bfloat16
     ldsm_x4(b[np], sB + tile_at<kKb>((2 * np + (i >> 1)) * 8 + (lane & 7), ks * 16 + (i & 1) * 8));
 }
 
-// the warp's logits against one staged column tile, the k-steps in logits()'s order; each k-step's B
+// the warp's logits against one staged column tile, the k-steps in ascending order; each k-step's B
 // fragments are read while the previous one's products run
 template <int kKb>
 __device__ __forceinline__ void logits_reg(float (&acc)[8][4], const uint32_t (&a)[kMaxKs][4],
@@ -753,6 +658,167 @@ accum_kernel(const __nv_bfloat16* __restrict__ f1, const __grid_constant__ CUten
   }
 }
 
+// ---------------------------------------------------------------- K8 colstats
+// One block per (pair, 64-column tile): kColWarps consumer warps and one
+// producer warp. The producer has the copy engine load the block's column
+// tile of f2 once (the resident B operand) and stream f1's 64-row tiles
+// through a ring of kColStages slots by the tensor map of f1, each slot's
+// full and empty mbarriers in place of a block barrier, so copies overlap
+// the products. Two slots, so that two blocks fit an SM's shared memory
+// (three 32 KB tiles each at C 256): 16 consumer warps an SM, which hide the
+// epilogue's shuffle and exponential latencies better than a deeper ring
+// with one block. A tile's rows fall in 4 row groups of 16 (rows 16 rg ..) and
+// its columns in 8 n-tiles; a consumer warp takes a row group against kColNt
+// n-tiles of every row tile, its A and B fragments read by ldmatrix. Per
+// column and row tile, a row
+// group's max and sum of exp over its 16 rows come from the same shuffle
+// trees, merged online in row-tile order; the 4 row groups merge at the end
+// in order. Each column's statistics are therefore those of one warp taking
+// all 64 columns of each row group (the first design), bit for bit.
+constexpr int kColNt = 4;                     // n-tiles a consumer warp takes
+constexpr int kColWarps = 4 * (8 / kColNt);   // consumer warps: 4 row groups x 8 / kColNt column groups
+constexpr int kColStages = 2;
+constexpr int kColBlocks = 2;                 // blocks an SM
+constexpr int kColThreads = 32 * (kColWarps + 1);
+
+// A fragments of k-step ks for the 16 rows r0 .. r0 + 15 of a staged row tile
+template <int kKb>
+__device__ __forceinline__ void a_frags(uint32_t (&a)[4], const __nv_bfloat16* sA, int r0, int ks) {
+  const int lane = threadIdx.x & 31, i = lane >> 3;  // matrix i: rows + 8 (i & 1), k half i >> 1
+  ldsm_x4(a, sA + tile_at<kKb>(r0 + (lane & 7) + 8 * (i & 1), ks * 16 + 8 * (i >> 1)));
+}
+
+// B fragments of k-step ks for the n-tiles nt0 + 2np, + 1 of the resident column tile
+template <int kKb>
+__device__ __forceinline__ void b_frags_of(uint32_t (&b)[kColNt / 2][4], const __nv_bfloat16* sB, int nt0, int ks) {
+  const int lane = threadIdx.x & 31, i = lane >> 3;
+#pragma unroll
+  for (int np = 0; np < kColNt / 2; ++np)
+    ldsm_x4(b[np], sB + tile_at<kKb>((nt0 + 2 * np + (i >> 1)) * 8 + (lane & 7), ks * 16 + (i & 1) * 8));
+}
+
+// rows r0 .. r0 + 15 of a staged row tile against the n-tiles nt0 .. of the resident column tile, the k-steps
+// in ascending order; the next k-step's fragments are read while one's products run
+template <int kKb>
+__device__ __forceinline__ void logits_cols(float (&acc)[kColNt][4], const __nv_bfloat16* sA, int r0,
+                                            const __nv_bfloat16* sB, int nt0, int c) {
+#pragma unroll
+  for (int nt = 0; nt < kColNt; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.0f;
+  uint32_t a[2][4], b[2][kColNt / 2][4];
+  a_frags<kKb>(a[0], sA, r0, 0);
+  b_frags_of<kKb>(b[0], sB, nt0, 0);
+#pragma unroll
+  for (int ks = 0; ks < kMaxKs; ++ks) {
+    if (ks * 16 >= c) break;
+    if ((ks + 1) * 16 < c) {
+      a_frags<kKb>(a[(ks + 1) & 1], sA, r0, ks + 1);
+      b_frags_of<kKb>(b[(ks + 1) & 1], sB, nt0, ks + 1);
+    }
+#pragma unroll
+    for (int np = 0; np < kColNt / 2; ++np) {
+      mma_bf16(acc[2 * np], a[ks & 1], b[ks & 1][np][0], b[ks & 1][np][1]);
+      mma_bf16(acc[2 * np + 1], a[ks & 1], b[ks & 1][np][2], b[ks & 1][np][3]);
+    }
+  }
+}
+
+template <int kKb>
+__global__ void __launch_bounds__(kColThreads, kColBlocks)
+colstats_kernel(const __grid_constant__ CUtensorMap f1_map, const __grid_constant__ CUtensorMap f2_map,
+                float* __restrict__ cm, float* __restrict__ cs, int m1, int m2, int c) {
+  extern __shared__ uint4 smem[];
+  // the resident column tile, then [kColStages] row tiles, each 64 c at a 1024-byte boundary
+  __nv_bfloat16* sB = reinterpret_cast<__nv_bfloat16*>(smem) + ((1024 - smem_addr(smem) % 1024) % 1024) / 2;
+  __nv_bfloat16* sRing = sB + kTile * c;
+  uint64_t* full = reinterpret_cast<uint64_t*>(sRing + kColStages * kTile * c);  // [kColStages]
+  uint64_t* empty = full + kColStages;                                           // [kColStages]
+  uint64_t* resident = empty + kColStages;
+  float* sMax = reinterpret_cast<float*>(resident + 1);  // [4 row groups][64]
+  float* sSum = sMax + 4 * kTile;
+  const int b = blockIdx.y, c0 = blockIdx.x * kTile;
+  // the warp index as the compiler can see it is uniform in the warp (the shuffles need no divergence guard)
+  const int warp = __shfl_sync(kFull, (int)threadIdx.x >> 5, 0), lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int tiles = (m1 + kTile - 1) / kTile, slot = kTile * c;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kColStages; ++s) {
+      mbar_init(&full[s], 1);                // the producer, once the tile's copies have landed
+      mbar_init(&empty[s], 32 * kColWarps);  // every consumer lane
+    }
+    mbar_init(resident, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == kColWarps) {  // the producer
+    if (lane == 0) {
+      mbar_expect(resident, kTile * c * 2);
+      for (int k0 = 0; k0 < c; k0 += kKb) tma_load(sB + k0 * kTile, &f2_map, k0, c0, b, resident);
+      mbar_arrive(resident);
+      for (int u = 0; u < tiles; ++u) {
+        const int s = u % kColStages;
+        if (u >= kColStages) mbar_wait(&empty[s], (u / kColStages - 1) & 1);  // tile u - kColStages is consumed
+        mbar_expect(&full[s], kTile * c * 2);
+        for (int k0 = 0; k0 < c; k0 += kKb) tma_load(sRing + s * slot + k0 * kTile, &f1_map, k0, u * kTile, b, &full[s]);
+        mbar_arrive(&full[s]);
+      }
+    }
+    __syncwarp();
+  } else {  // a consumer: row group rg, n-tiles nt0 ..
+    const int rg = warp % 4, nt0 = (warp / 4) * kColNt;
+    float mx[kColNt][2], sm[kColNt][2];
+#pragma unroll
+    for (int nt = 0; nt < kColNt; ++nt) mx[nt][0] = mx[nt][1] = kNeg, sm[nt][0] = sm[nt][1] = 0.0f;
+    mbar_wait(resident, 0);
+    for (int u = 0; u < tiles; ++u) {
+      const int s = u % kColStages, wr = u * kTile + rg * 16;
+      mbar_wait(&full[s], (u / kColStages) & 1);
+      float acc[kColNt][4];
+      if (wr < m1) logits_cols<kKb>(acc, sRing + s * slot, rg * 16, sB, nt0, c);
+      mbar_arrive(&empty[s]);
+      if (wr >= m1) continue;
+      const bool v0 = wr + g < m1, v1 = wr + g + 8 < m1;
+      float nm[kColNt][2], ts[kColNt][2];
+#pragma unroll
+      for (int nt = 0; nt < kColNt; ++nt) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float x0 = v0 ? acc[nt][e] : kNeg, x1 = v1 ? acc[nt][2 + e] : kNeg;
+          float tm = fmaxf(x0, x1);
+          for (int off = 4; off < 32; off <<= 1) tm = fmaxf(tm, __shfl_xor_sync(kFull, tm, off));
+          nm[nt][e] = fmaxf(mx[nt][e], tm);
+          float x = expf(x0 - nm[nt][e]);
+          x = x + expf(x1 - nm[nt][e]);
+          for (int off = 4; off < 32; off <<= 1) x = x + __shfl_xor_sync(kFull, x, off);
+          ts[nt][e] = x;
+        }
+      }
+#pragma unroll
+      for (int nt = 0; nt < kColNt; ++nt)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) sm[nt][e] = sm[nt][e] * expf(mx[nt][e] - nm[nt][e]) + ts[nt][e], mx[nt][e] = nm[nt][e];
+    }
+    if (g == 0) {
+#pragma unroll
+      for (int nt = 0; nt < kColNt; ++nt)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          sMax[rg * kTile + (nt0 + nt) * 8 + 2 * t + e] = mx[nt][e];
+          sSum[rg * kTile + (nt0 + nt) * 8 + 2 * t + e] = sm[nt][e];
+        }
+    }
+  }
+  __syncthreads();
+  const int j = c0 + threadIdx.x;
+  if (threadIdx.x < kTile && j < m2) {
+    float M = sMax[threadIdx.x];
+    for (int w = 1; w < 4; ++w) M = fmaxf(M, sMax[w * kTile + threadIdx.x]);
+    float S = 0.0f;
+    for (int w = 0; w < 4; ++w) S = S + sSum[w * kTile + threadIdx.x] * expf(sMax[w * kTile + threadIdx.x] - M);
+    cm[(long long)b * m2 + j] = M;
+    cs[(long long)b * m2 + j] = S;
+  }
+}
+
 // the driver's cuTensorMapEncodeTiled, found at run time (the library does not link the driver)
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
                                 const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
@@ -762,9 +828,9 @@ bool bad_shape(int B, int m1, int m2, int c) {
   return B <= 0 || B > 65535 || m1 < 1 || m2 < 2 || c < 16 || c > kMaxC || c % 16 != 0;
 }
 
-// f2 as the copy engine reads it for K9 and K10: (B, m2, c) bf16, boxes of 64 rows and kb channels, 128-byte
-// swizzle (kb 64) or 32-byte (kb 16)
-cudaError_t f2_tensor_map(CUtensorMap* map, const void* f2, int B, int m2, int c, int kb) {
+// an operand as the copy engine reads it for K8-K10, (B, m, c) bf16 (f1 in K8, f2 in all three): boxes of 64
+// rows and kb channels, 128-byte swizzle (kb 64) or 32-byte (kb 16)
+cudaError_t operand_tensor_map(CUtensorMap* map, const void* x, int B, int m, int c, int kb) {
   static EncodeTiled encode = nullptr;
   if (encode == nullptr) {
     cudaDriverEntryPointQueryResult found;
@@ -777,10 +843,10 @@ cudaError_t f2_tensor_map(CUtensorMap* map, const void* f2, int B, int m2, int c
     if (err != cudaSuccess || found != cudaDriverEntryPointSuccess) return cudaErrorNotSupported;
     encode = reinterpret_cast<EncodeTiled>(fn);
   }
-  const cuuint64_t dims[3] = {(cuuint64_t)c, (cuuint64_t)m2, (cuuint64_t)B};
-  const cuuint64_t strides[2] = {(cuuint64_t)c * 2, (cuuint64_t)m2 * c * 2};
+  const cuuint64_t dims[3] = {(cuuint64_t)c, (cuuint64_t)m, (cuuint64_t)B};
+  const cuuint64_t strides[2] = {(cuuint64_t)c * 2, (cuuint64_t)m * c * 2};
   const cuuint32_t box[3] = {(cuuint32_t)kb, (cuuint32_t)kTile, 1u}, unit[3] = {1u, 1u, 1u};
-  if (encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(f2), dims, strides, box, unit,
+  if (encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(x), dims, strides, box, unit,
              CU_TENSOR_MAP_INTERLEAVE_NONE, kb == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_32B,
              CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
     return cudaErrorInvalidValue;
@@ -794,11 +860,17 @@ cudaError_t f2_tensor_map(CUtensorMap* map, const void* f2, int B, int m2, int c
 extern "C" int unopose_fine_colstats(const void* f1, const void* f2, float* cm, float* cs, int B, int m1, int m2,
                                      int c, cudaStream_t stream) {
   if (bad_shape(B, m1, m2, c)) return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)2 * kTile * (c + 8) * sizeof(__nv_bfloat16) + 2 * 4 * kTile * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(colstats_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const int kb = c % 64 == 0 ? 64 : 16;
+  CUtensorMap map1, map2;
+  cudaError_t err = operand_tensor_map(&map1, f1, B, m1, c, kb);
+  if (err == cudaSuccess) err = operand_tensor_map(&map2, f2, B, m2, c, kb);
   if (err != cudaSuccess) return (int)err;
-  colstats_kernel<<<dim3((m2 + kTile - 1) / kTile, B), kThreads, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(f1), static_cast<const __nv_bfloat16*>(f2), cm, cs, m1, m2, c);
+  const size_t smem = 1024 + (size_t)(1 + kColStages) * kTile * c * sizeof(__nv_bfloat16) +
+                      (2 * kColStages + 1) * sizeof(uint64_t) + 2 * 4 * kTile * sizeof(float);
+  const auto kernel = kb == 64 ? colstats_kernel<64> : colstats_kernel<16>;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<dim3((m2 + kTile - 1) / kTile, B), kColThreads, smem, stream>>>(map1, map2, cm, cs, m1, m2, c);
   return (int)cudaGetLastError();
 }
 
@@ -812,7 +884,7 @@ extern "C" int unopose_fine_labels(const void* f1, const void* f2, const float* 
   if (bad_shape(B, m1, m2, c)) return (int)cudaErrorInvalidValue;
   const int kb = c % 64 == 0 ? 64 : 16;
   CUtensorMap map;
-  cudaError_t err = f2_tensor_map(&map, f2, B, m2, c, kb);
+  cudaError_t err = operand_tensor_map(&map, f2, B, m2, c, kb);
   if (err != cudaSuccess) return (int)err;
   const size_t smem = 1024 + (size_t)kStages * kTile * c * sizeof(__nv_bfloat16) +
                       kStages * kLabelWarps * kTile * sizeof(unsigned long long) + 2 * kStages * sizeof(uint64_t) +
@@ -839,7 +911,7 @@ extern "C" int unopose_fine_accum(const void* f1, const void* f2, const float* c
   if (bad_shape(B, m1, m2, c)) return (int)cudaErrorInvalidValue;
   const int kb = c % 64 == 0 ? 64 : 16;
   CUtensorMap map;
-  cudaError_t err = f2_tensor_map(&map, f2, B, m2, c, kb);
+  cudaError_t err = operand_tensor_map(&map, f2, B, m2, c, kb);
   if (err != cudaSuccess) return (int)err;
   const size_t smem = 1024 + (size_t)kStages * kTile * c * sizeof(__nv_bfloat16) + 2 * kStages * kTile * sizeof(float4) +
                       kStages * sizeof(AccumHead) + 2 * kStages * sizeof(uint64_t);

@@ -1,20 +1,26 @@
 """What each part of the K1 (FPS), K7 (ViT attention), K9 and K10 (the fused assignment's labels and
-accumulation), K4 (int8 geometric embedding) and K6 (the fine PE's MLP and pool) designs buys, on one CUDA card.
+accumulation), K4 (int8 geometric embedding), K6 (the fine PE's MLP and pool), K3 (the first_k select) and K8
+(the fused assignment's column statistics) designs buys, on one CUDA card.
 
-    python -m unopose_tpu_torch.tools.kernel_variants [--parent DIR] [--only K6,K10] [--reps 20] [--out FILE]
+    python -m unopose_tpu_torch.tools.kernel_variants [--parent DIR] [--only K3,K8] [--reps 20] [--out FILE]
 
-Builds the shipped sources ``kernels/csrc/fps.cu``, ``vit_attn.cu``, ``fine_assign.cu``, ``geo_rpe.cu`` and
-``pe_mlp_pool.cu`` and variants of each, every variant the shipped text with one design choice replaced, each
-into a library of its own (``nvcc`` with the package's flags, all builds started together, one build per
-distinct text), and times every build on the same inputs at the main path's shapes with CUDA events: K1 at
-16 x 5000 -> 2048 and 16 x 2048 -> 196, K7 at 32 x 261 x 768 bf16 with 12 heads read in place from the qkv
-output, K9 and K10 at 16 pairs of 2049 x 2049 rows, C 256 (the shipped, parent and IEEE-division builds also
-with f1n scaled by 40, where pred underflows), K4 at 32 clouds of 197 points, 256 channels, T 128, k 3, bf16
-contraction (the shipped and parent builds also with the float32 contraction), K6 at 32 x 2048 points, S2
-256, on the uniform cubes and on the sphere surfaces that fill every 64-slot tier, fed the plain twin's
-channels. The builds run in turns, forward then backward, and each reports the median of its two times.
-``--parent DIR``: a checkout of another commit, whose sources (with the headers they include from its
-``csrc/``) join as the builds ``*_parent``. ``--only``: the kernels to build and time.
+Builds the shipped sources ``kernels/csrc/fps.cu``, ``vit_attn.cu``, ``fine_assign.cu``, ``geo_rpe.cu``,
+``pe_mlp_pool.cu`` and ``first_k_select.cu`` and variants of each, every variant the shipped text with one design
+choice replaced, each into a library of its own (``nvcc`` with the package's flags, all builds started together,
+one build per distinct text), and times every build on the same inputs at the main path's shapes with CUDA
+events: K1 at 16 x 5000 -> 2048 and 16 x 2048 -> 196, K7 at 32 x 261 x 768 bf16 with 12 heads read in place from
+the qkv output, K9 and K10 at 16 pairs of 2049 x 2049 rows, C 256 (the shipped, parent and IEEE-division builds
+also with f1n scaled by 40, where pred underflows), K4 at 32 clouds of 197 points, 256 channels, T 128, k 3, bf16
+contraction (the shipped and parent builds also with the float32 contraction), K6 at 32 x 2048 points, S2 256, on
+the uniform cubes and on the sphere surfaces that fill every 64-slot tier, fed the plain twin's channels, K3 at
+32 clouds of 2048 points, budgets 64 / 256, on the uniform cubes and on the sphere surfaces (neither overflows;
+~33 r2 hits a centre on the cubes), on a 0.1 m cube not scaled by the LRF (every centre overflows every way: a
+chunk's budget, total2 > k2 and cnt1 > k1), and on cubes of 1984 and 2000 points (chunks ending inside a word),
+576 and 272, K8 at 16 pairs of 2049 x 2049 rows, C 256 (the shipped and parent builds also with f1n scaled by
+40), 4 pairs of 300 x 257 rows, C 48 (off the 64-row grid, 32-byte swizzle) and 2 of 65 x 130 rows, C 16. The
+builds run in turns, forward then backward, and each reports the median of its two times. ``--parent DIR``: a
+checkout of another commit, whose sources (with the headers they include from its ``csrc/``) join as the builds
+``*_parent``. ``--only``: the kernels to build and time.
 
 Variants of K1 (shipped: 256 threads a cloud up to 6144 points, the points in registers, a packed-key argmax,
 one barrier a step): ``t1024`` and ``t512``, that many threads a cloud; ``cluster2`` and ``cluster4``, a
@@ -51,10 +57,32 @@ products in place of mma.sync: a block of 4 warps per chunk (no packing), each w
 operand in registers, B read by descriptor from the weights laid out again in shared memory in the canonical
 K-major layout, the 4 warps' maxes merged in shared memory.
 
+Variants of K3 (shipped: a block of 8 warps takes 32 consecutive centres of one cloud, whose permuted points it
+stages once in shared memory as (x, y, z, |p|^2), with perm; each warp scans the candidates two words a step for
+its 4 centres at once into ballot words; per centre, a lane a word: the words' hit counts prefix-summed across the
+warp give each hit its rank in its chunk and the chunk counts, the first r2 and r1 hits by original index come from
+the least key over the hits or a walk in original order, the kept hits go into a staged row of slot words, and the
+row leaves as 16-byte vectors): ``global_scan``, each candidate read from device memory by three scalar loads and
+its |p|^2 recomputed for every centre (the first design's scan); ``c1``, ``c2`` and ``c8``, 1, 2 or 8 centres a
+warp; ``w16``, 16 warps a block; ``ordered_walk``, the first r2 and r1 hits by original index always from the walk
+in original order (shipped: only where the mask holds one hit in 64 or more, else the least key over the lanes'
+hits, perm staged beside the cloud); ``keys_only``, always the least key, never the walk; ``walk_at_4``,
+``walk_at_16`` and ``walk_at_32``, the walk where the mask holds one hit in 4, 16 or 32 candidates or more;
+``scalar_stores``, the row written slot by slot as 2- and 1-byte stores; ``word_walk``, the compaction of the first
+design (the chunk counts from the words, then each chunk's words walked one by one, a lane a bit, until its budget
+is full) in place of a lane a word with a warp prefix sum of the words' hit counts.
+Variants of K8 (shipped: one block per pair and 64-column tile, the tile of f2 resident in shared memory; a
+producer warp streaming f1's 64-row tiles through a 2-slot ring by the tensor map, 2 blocks an SM; 8 consumer
+warps, each a row group of 16 rows against 4 of the tile's 8 n-tiles, fragments by ldmatrix): ``sync``, a ring of
+one slot (each row tile loaded while none other is in flight, the copies never overlapping the products);
+``4warps``, 4 consumer warps, each a row group against all 8 n-tiles (the first design's split); ``16warps``, 16
+warps of a row group against 2 n-tiles, one block an SM; ``3stages``, a ring of 3 slots, one block an SM.
+
 Every build's output is checked: K1's indices equal to the plain loop's, K7's outputs, K9's rm, rs, label1 and
-column keys, K10's wsum and num, K4's int8 codes and K6's pooled features bitwise equal to the shipped
-kernel's (for K7's ``parent``, the first version, the share of equal outputs is reported too). Prints the
-card's name and power limit, then one JSON line; ``--out`` writes the JSON there too.
+column keys, K10's wsum and num, K4's int8 codes, K6's pooled features, K3's eight outputs (each also equal to
+the plain twin's) and K8's cm and cs bitwise equal to the shipped kernel's (for K7's ``parent``, the first
+version, the share of equal outputs is reported too). Prints the card's name and power limit, then one JSON line;
+``--out`` writes the JSON there too.
 """
 
 from __future__ import annotations
@@ -74,6 +102,7 @@ import torch
 from unopose_tpu_torch.kernels import build
 from unopose_tpu_torch.models.embedding import GeometricStructureEmbedding, knn_anchor_vectors
 from unopose_tpu_torch.ops import assignment_fused, geo_fused, pe_fused
+from unopose_tpu_torch.ops.ball_query import SELECT_KEYS
 from unopose_tpu_torch.ops.fps import fps_plain
 from unopose_tpu_torch.ops.lrf import global_lrf
 
@@ -570,12 +599,108 @@ def _between(text: str, start: str, end: str, new: str) -> str:
     return text[:i] + new + text[text.index(end, i):]
 
 
+K3_CAND_AT = """// a candidate read from device memory by three scalar loads, its |p|^2 computed again for every centre
+__device__ __forceinline__ float4 cand_at(const float* cand, int pos, int n) {
+  if (pos >= n) return make_float4(0.0f, 0.0f, 0.0f, __int_as_float(0x7f800000));
+  const float x = __ldg(cand + 3 * pos), y = __ldg(cand + 3 * pos + 1), z = __ldg(cand + 3 * pos + 2);
+  return make_float4(x, y, z, dot3(x, y, z, x, y, z));
+}
+
+"""
+K3_SPAN_BITS = """// the bits of word w that lie in the permuted positions [lo, hi)
+__device__ __forceinline__ uint32_t span_bits(int w, int lo, int hi) {
+  const int from = min(max(lo - (w << 5), 0), 32), to = min(max(hi - (w << 5), 0), 32);
+  const uint32_t below_to = to == 32 ? kFull : (1u << to) - 1u;
+  const uint32_t below_from = from == 32 ? kFull : (1u << from) - 1u;
+  return below_to & ~below_from;
+}
+
+"""
+K3_WORD_COUNTS = """    // each chunk's r2 and r1 hits, counted from the words
+    int ccnt[kChunks], c1cnt[kChunks];
+#pragma unroll
+    for (int ch = 0; ch < kChunks; ++ch) ccnt[ch] = c1cnt[ch] = 0;
+    for (int w = lane; w < words; w += 32) {
+      const uint32_t w2 = mm[2 * w], w1 = mm[2 * w + 1];
+#pragma unroll
+      for (int ch = 0; ch < kChunks; ++ch) {
+        const uint32_t in = span_bits(w, ch * width, (ch + 1) * width);
+        ccnt[ch] += __popc(w2 & in);
+        c1cnt[ch] += __popc(w1 & in);
+      }
+    }
+    int total2 = 0, cnt1 = 0;
+    bool over = false;
+#pragma unroll
+    for (int ch = 0; ch < kChunks; ++ch) {
+      ccnt[ch] = __reduce_add_sync(kFull, ccnt[ch]);
+      c1cnt[ch] = __reduce_add_sync(kFull, c1cnt[ch]);
+      total2 += ccnt[ch];
+      cnt1 += c1cnt[ch];
+      over |= ccnt[ch] > budget;
+    }
+    over |= total2 > k2 || cnt1 > k1;
+    // the r2 and r1 hits with the smallest original index: the first met in original order
+    int q_first = -1, enc1 = n * 4096;
+    for (int i0 = 0; i0 < n && ((total2 > 0 && q_first < 0) || (cnt1 > 0 && enc1 == n * 4096)); i0 += 32) {
+      const int i = i0 + lane;
+      const int pos = i < n ? __ldg(inv_perm + i) : 0;
+      const uint32_t f2 = __ballot_sync(kFull, i < n && ((mm[2 * (pos >> 5)] >> (pos & 31)) & 1u));
+      const uint32_t f1 = __ballot_sync(kFull, i < n && ((mm[2 * (pos >> 5) + 1] >> (pos & 31)) & 1u));
+      const int p2 = __shfl_sync(kFull, pos, f2 ? __ffs(f2) - 1 : 0);
+      const int p1 = __shfl_sync(kFull, pos, f1 ? __ffs(f1) - 1 : 0);
+      if (q_first < 0 && f2) q_first = p2;
+      if (enc1 == n * 4096 && f1) enc1 = (i0 + __ffs(f1) - 1) * 4096 + p1;
+    }
+    if (q_first < 0) q_first = __ldg(inv_perm);
+"""
+K3_WORD_WALK = """    // the kept hits to their compacted slots, a chunk's words one by one, each lane its bit of a word
+    const uint32_t below = (1u << lane) - 1u;
+    int kept = 0;
+#pragma unroll
+    for (int ch = 0; ch < kChunks; ++ch) {
+      const int c1 = c1cnt[ch], lo = ch * width, hi = lo + width;  // the chunk's permuted positions [lo, hi)
+      int r1rank = 0, r2rank = 0;
+      for (int g = lo >> 5; g <= (hi - 1) >> 5 && (r1rank < budget || c1 + r2rank < budget); ++g) {
+        const uint32_t in = span_bits(g, lo, hi);
+        const uint32_t b1 = mm[2 * g + 1] & in, b2only = mm[2 * g] & ~b1 & in;
+        const uint32_t pos = (uint32_t)((g << 5) + lane);
+        if ((b1 >> lane) & 1u) {
+          const int rank = r1rank + __popc(b1 & below);
+          if (rank < budget) srow[kept + rank] = pos | (1u << 16) | (1u << 24);
+        }
+        if ((b2only >> lane) & 1u) {
+          const int rank = c1 + r2rank + __popc(b2only & below);
+          if (rank < budget) srow[kept + rank] = pos | (1u << 16);
+        }
+        r1rank += __popc(b1);
+        r2rank += __popc(b2only);
+      }
+      kept += min(ccnt[ch], budget);
+    }
+"""
+K3_SCALAR_STORES = """// a staged row of k2 slot words to device memory, slot by slot
+template <int kVec>
+__device__ __forceinline__ void write_row(const uint32_t* srow, int base, int k2, uint32_t pad, int16_t* out_idx,
+                                          uint8_t* out_valid, uint8_t* out_m1) {
+  for (int s = threadIdx.x & 31; s < k2; s += 32) {
+    const uint32_t v = s < base ? srow[s] : pad;
+    out_idx[s] = (int16_t)(v & 0xffffu);
+    out_valid[s] = (uint8_t)((v >> 16) & 0xffu);
+    out_m1[s] = (uint8_t)(v >> 24);
+  }
+}
+
+"""
+
+
 # kernel: (source, entry point)
 KERNELS = {"K1": ("fps.cu", "unopose_fps"), "K7": ("vit_attn.cu", "unopose_mha_fused"),
            "K9": ("fine_assign.cu", "unopose_fine_labels"), "K4": ("geo_rpe.cu", "unopose_geo_rpe"),
-           "K6": ("pe_mlp_pool.cu", "unopose_pe_mlp_pool"), "K10": ("fine_assign.cu", "unopose_fine_accum")}
+           "K6": ("pe_mlp_pool.cu", "unopose_pe_mlp_pool"), "K10": ("fine_assign.cu", "unopose_fine_accum"),
+           "K3": ("first_k_select.cu", "unopose_first_k_select"), "K8": ("fine_assign.cu", "unopose_fine_colstats")}
 SHIPPED = {"K1": "fps", "K7": "vit_attn", "K9": "fine_assign", "K4": "geo_rpe", "K6": "pe_mlp_pool",
-           "K10": "fine_assign_accum"}
+           "K10": "fine_assign_accum", "K3": "first_k_select", "K8": "fine_assign_colstats"}
 
 
 def sources(parent: Path | None, only=tuple(KERNELS)) -> dict:
@@ -585,8 +710,10 @@ def sources(parent: Path | None, only=tuple(KERNELS)) -> dict:
     fa = (build.CSRC / "fine_assign.cu").read_text()
     geo = (build.CSRC / "geo_rpe.cu").read_text()
     pe = (build.CSRC / "pe_mlp_pool.cu").read_text()
+    fk = (build.CSRC / "first_k_select.cu").read_text()
     out = {"fps": ("K1", fps), "vit_attn": ("K7", attn), "fine_assign": ("K9", fa), "geo_rpe": ("K4", geo),
-           "pe_mlp_pool": ("K6", pe), "fine_assign_accum": ("K10", fa)}
+           "pe_mlp_pool": ("K6", pe), "fine_assign_accum": ("K10", fa), "first_k_select": ("K3", fk),
+           "fine_assign_colstats": ("K8", fa)}
     for threads, per in ((1024, 6), (512, 12)):
         text = _sub(fps, "constexpr int kSmallT = 256;", f"constexpr int kSmallT = {threads};")
         text = _sub(text, "constexpr int kSmallPer = 24;", f"constexpr int kSmallPer = {per};")
@@ -657,6 +784,39 @@ def sources(parent: Path | None, only=tuple(KERNELS)) -> dict:
     out["pe_mlp_pool_stride"] = ("K6", _sub(text, "  const long long last = min(points, first + share);",
                                             "  const long long last = points;"))
     out["pe_mlp_pool_wgmma"] = ("K6", K6_WGMMA.replace("WGMMA_FUNCTIONS", "".join(_wgmma_fn(n) for n in (32, 64, 128))))
+    kernel_head = "__global__ void __launch_bounds__(kWarps * 32)"
+    text = _sub(fk, kernel_head, K3_CAND_AT + kernel_head)
+    out["first_k_select_global_scan"] = ("K3", _sub(
+        text, "const float4 p0 = s_pts[(g << 5) + lane], p1 = s_pts[((g + 1) << 5) + lane];",
+        "const float4 p0 = cand_at(cand, (g << 5) + lane, n), p1 = cand_at(cand, ((g + 1) << 5) + lane, n);"))
+    for c in (1, 2, 8):
+        out[f"first_k_select_c{c}"] = ("K3", _sub(fk, "constexpr int kCentres = 4;", f"constexpr int kCentres = {c};"))
+    out["first_k_select_w16"] = ("K3", _sub(fk, "constexpr int kWarps = 8;", "constexpr int kWarps = 16;"))
+    out["first_k_select_ordered_walk"] = ("K3", _sub(fk, "const bool walk2 = 64 * total2 >= n, walk1 = 64 * cnt1 >= n;",
+                                                    "const bool walk2 = total2 > 0, walk1 = cnt1 > 0;"))
+    out["first_k_select_keys_only"] = ("K3", _sub(fk, "const bool walk2 = 64 * total2 >= n, walk1 = 64 * cnt1 >= n;",
+                                                 "const bool walk2 = false, walk1 = false;"))
+    for f in (4, 16, 32):
+        out[f"first_k_select_walk_at_{f}"] = ("K3", _sub(
+            fk, "const bool walk2 = 64 * total2 >= n, walk1 = 64 * cnt1 >= n;",
+            f"const bool walk2 = {f} * total2 >= n, walk1 = {f} * cnt1 >= n;"))
+    out["first_k_select_scalar_stores"] = ("K3", _between(
+        fk, "// a staged row of k2 slot words to device memory", kernel_head, K3_SCALAR_STORES))
+    # the first design's compaction: chunk counts from the words, then a chunk's words walked one by one
+    row_head = "// a staged row of k2 slot words to device memory"
+    text = _sub(fk, row_head, K3_SPAN_BITS + row_head)
+    text = _between(text, "    // the lane's words it * 32 + lane",
+                    "    const long long row = (long long)b * n + q0 + c;", K3_WORD_COUNTS)
+    out["first_k_select_word_walk"] = ("K3", _between(text, "    // the kept hits to their compacted slots, each lane",
+                                                      "    __syncwarp();\n    const uint32_t pad", K3_WORD_WALK))
+    out["fine_assign_colstats_sync"] = ("K8", _sub(fa, "constexpr int kColStages = 2;",
+                                                   "constexpr int kColStages = 1;"))
+    out["fine_assign_colstats_4warps"] = ("K8", _sub(fa, "constexpr int kColNt = 4; ", "constexpr int kColNt = 8; "))
+    text = _sub(fa, "constexpr int kColNt = 4; ", "constexpr int kColNt = 2; ")
+    one_block = ("constexpr int kColBlocks = 2; ", "constexpr int kColBlocks = 1; ")
+    out["fine_assign_colstats_16warps"] = ("K8", _sub(text, *one_block))
+    text = _sub(fa, "constexpr int kColStages = 2;", "constexpr int kColStages = 3;")
+    out["fine_assign_colstats_3stages"] = ("K8", _sub(text, *one_block))
     if parent is not None:
         csrc = parent / "unopose_tpu_torch" / "kernels" / "csrc"
         for kernel, name in SHIPPED.items():
@@ -720,6 +880,33 @@ def accum_inputs(fine, gen) -> tuple:
     Bp, M2 = cs.shape
     pts2 = torch.rand(Bp, M2 - 1, 3, device=f1n.device, generator=gen) * 2 - 1
     return (*fine, *assignment_fused.labels_plain(*fine), pts2)
+
+
+def select_inputs(dev, rng, n: int, cloud: str = "cubes") -> tuple:
+    """K3's arguments at budgets 64 / 256 on 32 clouds of n points: ``cubes``, uniform in a 0.2 m cube in
+    their global LRF, as chip_smoke.py makes them (the LRF scales a cloud to a radius of about 1); ``dense``,
+    uniform in a 0.1 m cube as it is (every point inside r2 of every other); ``surfaces``, (n 2048) on the
+    sphere surfaces. Then the plain twin's outputs and which budgets they overflow."""
+    from unopose_tpu_torch.configs import surface_clouds
+    from unopose_tpu_torch.ops.ball_query import first_k_select_plain, permutation
+
+    B2, k1, k2 = 32, 64, 256
+    perm, inv_perm = permutation(n, dev)
+    if cloud == "surfaces":
+        pts = torch.from_numpy(surface_clouds(rng, B2, perm.cpu().numpy())).to(dev)
+    elif cloud == "dense":
+        pts = torch.from_numpy(rng.uniform(-0.05, 0.05, size=(B2, n, 3)).astype(np.float32)).to(dev)
+    else:
+        pts = rng.uniform(-0.1, 0.1, size=(B2, n, 3)).astype(np.float32) + np.array([0, 0, 0.6], np.float32)
+        pts = global_lrf(torch.from_numpy(pts).to(dev))
+    pts = pts.float().contiguous()
+    args = (pts, pts.index_select(1, perm.long()).contiguous(), perm, inv_perm, 0.1, k1, 0.2, k2)
+    plain = first_k_select_plain(*args)
+    # a chunk over its budget keeps fewer slots than the centre has r2 hits
+    kept = plain["validslot"].sum(dim=-1)
+    over = dict(chunk=bool((kept < plain["total2"]).any()), total2=bool((plain["total2"] > k2).any()),
+                cnt1=bool((plain["cnt1"] > k1).any()))
+    return args, plain, over
 
 
 def pe_inputs(dev, rng, surfaces: bool) -> tuple:
@@ -811,6 +998,20 @@ def main() -> int:
     if "K6" in only:
         shapes["K6"] = {"32x2048 S2 256 cubes": pe_inputs(dev, rng, False),
                         "32x2048 S2 256 surfaces": pe_inputs(dev, rng, True)}
+    if "K3" in only:
+        shapes["K3"] = {"32x2048 cubes": select_inputs(dev, rng, 2048),
+                        "32x2048 surfaces": select_inputs(dev, rng, 2048, "surfaces"),
+                        "32x2048 dense": select_inputs(dev, rng, 2048, "dense"),
+                        **{f"32x{n} cubes": select_inputs(dev, rng, n) for n in (1984, 2000, 576, 272)}}
+    if "K8" in only:
+        f1n, f2n = (shapes["K9"]["16x2049x2049x256"] if "K9" in shapes else fine_inputs(dev, gen))[:2]
+        small = {}
+        for b, m1, m2, c in ((4, 300, 257, 48), (2, 65, 130, 16)):
+            f1s, f2s = (torch.nn.functional.normalize(torch.randn(b, m, c, device=dev, generator=gen), dim=-1)
+                        for m in (m1, m2))
+            small[f"{b}x{m1}x{m2}x{c}"] = ((f1s / 0.1).to(torch.bfloat16), f2s.to(torch.bfloat16))
+        shapes["K8"] = {"16x2049x2049x256": (f1n, f2n), "16x2049x2049x256 q x40": ((f1n.float() * 40.0).to(
+            torch.bfloat16), f2n), **small}
     if "K4" in only:
         shapes["K4"] = {"32x197x197x256 bf16": geo_inputs(dev, rng, torch.bfloat16),
                         "32x197x197x256 f32": geo_inputs(dev, rng, torch.float32)}
@@ -851,6 +1052,30 @@ def main() -> int:
             ptrs = [_P(x.data_ptr()) for x in (*a, wsum, num)]
             call = lambda: lib.unopose_fine_accum(*ptrs, Bp, M1, M2, C, stream())
             outs = (wsum, num)
+        elif kernel == "K3":
+            (pts, pts_p, perm, inv_perm, r1, k1, r2, k2), _, _ = shapes["K3"][key]
+            Bc, n, _ = pts.shape
+            sel = dict(idx_p=torch.empty((Bc, n, k2), dtype=torch.int16, device=dev),
+                       validslot=torch.empty((Bc, n, k2), dtype=torch.bool, device=dev),
+                       m1slot=torch.empty((Bc, n, k2), dtype=torch.bool, device=dev),
+                       **{k: torch.empty((Bc, n), dtype=torch.int32, device=dev)
+                          for k in ("cnt1", "enc1", "total2", "q_first")})
+            flag = torch.zeros(1, dtype=torch.int32, device=dev)
+            ptrs = [_P(x.data_ptr()) for x in (pts, pts_p, perm, inv_perm)]
+            optrs = [_P(x.data_ptr()) for x in (*sel.values(), flag)]
+
+            def call():  # the overflow flag is zeroed before each launch, as the wrapper allocates it
+                flag.zero_()
+                return lib.unopose_first_k_select(*ptrs, Bc, n, k1, k2, r1 * r1, r2 * r2, *optrs, stream())
+            outs = (*sel.values(), flag)
+        elif kernel == "K8":
+            f1n, f2n = shapes["K8"][key]
+            Bp, M1, C = f1n.shape
+            M2 = f2n.shape[1]
+            cm, cs = (torch.empty((Bp, M2), device=dev) for _ in range(2))
+            ptrs = [_P(x.data_ptr()) for x in (f1n, f2n, cm, cs)]
+            call = lambda: lib.unopose_fine_colstats(*ptrs, Bp, M1, M2, C, stream())
+            outs = (cm, cs)
         elif kernel == "K6":
             a = shapes["K6"][key]  # chans, w1, w2, total2, wpack, bpack
             Bc, P, S2, _ = a[0].shape
@@ -873,7 +1098,8 @@ def main() -> int:
     # K4's float32 contraction only for the shipped and parent builds (the variants are of the bf16 path), K9's
     # and K10's scaled q for those and the IEEE division
     extra = ("geo_rpe", "geo_rpe_parent", "fine_assign", "fine_assign_parent", "fine_assign_ieee_division",
-             "fine_assign_accum", "fine_assign_accum_parent", "fine_assign_accum_ieee_division")
+             "fine_assign_accum", "fine_assign_accum_parent", "fine_assign_accum_ieee_division",
+             "fine_assign_colstats", "fine_assign_colstats_parent")
     cases = [(name, key) for name in srcs for key in shapes[srcs[name][0]]
              if not ((key.endswith("f32") or key.endswith("x40")) and name not in extra)]
     times = {c: [] for c in cases}
@@ -900,6 +1126,11 @@ def main() -> int:
             check = dict(bitwise_equal_shipped=all(torch.equal(bits(o), bits(r)) for o, r in zip(outs, ref)))
             if kernel == "K7":
                 check["equal_share_shipped"] = (outs[0] == ref[0]).float().mean().item()
+            if kernel == "K3":
+                _, plain, over = shapes["K3"][key]
+                check["equal_plain"] = all(torch.equal(o.view(-1), plain[k].to(o.dtype).view(-1))
+                                           for o, k in zip(outs, SELECT_KEYS))
+                check["overflows"] = over
         results.append(dict(build=name, kernel=kernel, shape=key, ms=float(np.median(times[(name, key)])),
                             **check))
     if "K7" in only:
