@@ -26,9 +26,9 @@ Phases, each fatal on failure:
    ulp up), and sphere surfaces with over 1000 points in each of the four
    tiers (99.9% of entries within one bf16 ulp, none more than 2^-5 off);
    on both the rel xyz channels bitwise equal and the MLP/pool, fed the
-   plain channels, within 1e-2 of the output's max, timed through its
-   wrapper and alone (``alone_ms``: its C entry point 20 times back to
-   back); the production path's
+   plain channels, within 1e-2 of the output's max, both timed through
+   their wrappers and alone (``alone_ms``: the C entry point 20 times back
+   to back); the production path's
    fused attention (32 x 261 x 768 bf16, read in place from the qkv output;
    at least 99% of outputs bitwise equal, none more than one bf16 ulp of its
    row's largest output off; also the tiny hd 16, the float32 variant, N 257
@@ -73,7 +73,8 @@ Phases, each fatal on failure:
    and 2000 equal to its plain version on every output; and the TPU
    profiling kernels of ``benchmarks/`` (K23-K27) on their scripts' inputs
    at the scripts' shapes, as ``check_profile_kernels`` says: the three
-   compaction kernels every output equal, row 24 without frames by
+   compaction kernels every output equal (the gather also timed alone and
+   beside one ``torch.gather``), row 24 without frames by
    ``profile_r9.bf16_agreement``'s rule (99.9% bitwise, at most one output
    in 10^4 past one bf16 ulp of its own value, all within one ulp of their
    row's largest output), with frames and row 20 at the
@@ -563,7 +564,7 @@ def check_fused_kernels(log, dev, seed: int) -> dict:
         log(f"pe_channels 32x2048x256 on {name}: {100 * r['equal']:.4f}% of needed bf16 entries equal, "
             f"{100 * r['within_ulp']:.4f}% within one bf16 ulp (plain vs itself one ulp up: {100 * r['spread']:.4f}% "
             f"equal), rel xyz bitwise {r['rel_bitwise']}, max |diff| {r['c_err']:.3e}, "
-            f"kernel {r['c_ms']:.3f} ms, plain {r['c_plain']:.3f} ms")
+            f"kernel {r['c_ms']:.3f} ms (alone, back to back: {r['c_alone']:.3f} ms), plain {r['c_plain']:.3f} ms")
         log(f"pe_mlp_pool 32x2048x256 on {name} (plain channels): max |diff| {r['m_err']:.3e} of max "
             f"{r['m_ref']:.3e}, kernel {r['m_ms']:.3f} ms (alone, back to back: {r['m_alone']:.3f} ms), "
             f"plain {r['m_plain']:.3f} ms")
@@ -595,7 +596,8 @@ def check_fused_kernels(log, dev, seed: int) -> dict:
         results[name] = dict(max_abs_err=iso[err], ms=iso[ms], plain_ms=iso[plain], library_ms=None,
                              **bnd(iso), surface_max_abs_err=surf[err], surface_ms=surf[ms],
                              surface_plain_ms=surf[plain], surface_bound_ms=bnd(surf)["bound_ms"])
-    results["pe_mlp_pool"].update(alone_ms=iso["m_alone"], surface_alone_ms=surf["m_alone"])
+    for name, key in (("pe_channels", "c_alone"), ("pe_mlp_pool", "m_alone")):
+        results[name].update(alone_ms=iso[key], surface_alone_ms=surf[key])
     return results
 
 
@@ -797,6 +799,11 @@ def pe_kernels(dev, pts, mlp1, mlp2, packed) -> dict:
         )
         del nchans, a, b, n, diff, e, ulp
         r["c_ms"], r["c_plain"] = cuda_ms(lambda: pe_channels_cuda(*cargs)), cuda_ms(lambda: pe_channels_plain(*cargs), reps=3)
+        B, N = planes[0].shape
+        r["c_alone"] = alone_ms("unopose_pe_channels", *(p.float().contiguous() for p in planes), idx_p.contiguous(),
+                                *(w.to(torch.bfloat16).contiguous() for w in (w1, w2)),
+                                total2.to(torch.int32).contiguous(), *(c.float().contiguous() for c in center),
+                                torch.empty_like(chans), B, N, N, S, 0.1, 0.2, 1.0 / 0.1, 1.0 / 0.2)
         margs = (pchans, w1, w2, total2)
         pooled, ppooled = pe_mlp_pool_cuda(*margs, packed), pe_mlp_pool_plain(*margs, mlp1, mlp2)
         torch.cuda.synchronize()
@@ -1428,10 +1435,11 @@ def check_profile_kernels(log, dev, seed: int) -> dict:
     value, all within one ulp of their row's largest output), ``full_nobias`` at the
     cubes' gate of K19 (``cube_gate``); row 20 (32 x 2048, the first 128 of 256 slots) in each of its seven
     sets, at the cubes' gate where its output uses the frames and at ``matmul_only``'s where it uses none.
-    Each with kernel and plain ms, K26 with one ``torch.gather``'s, and its bound:
+    Each with kernel and plain ms, K26 with one ``torch.gather``'s and its time alone, and its bound:
     ``tools/tpu_profile_bounds.py``'s bytes and operations, the MLP's operations of rows 20 and 24 counted on
-    the slots this run's masks keep (a masked slot changes no max), the tool's shape-only bound beside them in
-    the log."""
+    the slots this run's masks keep (a masked slot changes no max) and K26's bytes on the 32-byte sectors of x
+    this run's draws touch (``profile_compact_micro.gather_sectors``), the tool's shape-only bound beside them
+    in the log."""
     import torch
 
     from unopose_tpu_torch.benchmarks import profile_compact_micro as cm
@@ -1461,11 +1469,15 @@ def check_profile_kernels(log, dev, seed: int) -> dict:
         del got, want
         r = dict(max_abs_err=float(err), ms=cuda_ms(kern), plain_ms=cuda_ms(plain, reps=2), library_ms=None,
                  **bound(*tool[site]))
-        if name == "compact_gather":
+        if name == "compact_gather":  # the sectors of x these draws touch, both index tensors, the output
+            sectors = cm.gather_sectors(d["li"], d["bi"])
+            tool_ms = r["bound_ms"]
+            r.update(bound(sectors * 32 + 3 * d["li"].numel() * 4, *tool[site][1:]))
             flat = (d["bi"] * 128 + d["li"]).long().view(rows, cm.K2)
             x2 = d["x"].view(rows, -1)
             r["library_ms"] = cuda_ms(lambda: torch.gather(x2, 1, flat))
             del flat
+            r["alone_ms"] = alone_ms("unopose_compact_gather", d["x"], d["li"], d["bi"], torch.empty_like(d["li"]), rows)
         if name == "compact_rounds":
             with torch.no_grad():
                 r["rounds7_equal"] = torch.equal(cm.compact_rounds_cuda(d["x"], 7), cm.compact_rounds_plain(d["x"], 7))
@@ -1473,9 +1485,16 @@ def check_profile_kernels(log, dev, seed: int) -> dict:
             if not r["rounds7_equal"]:
                 failed.append("compact_rounds at 7 rounds differs from its plain twin")
         results[name] = r
-        lib = f", torch.gather {r['library_ms']:.3f} ms" if r["library_ms"] is not None else ""
+        lib = ""
+        if r["library_ms"] is not None:
+            lib = (f" (alone, back to back: {r['alone_ms']:.3f} ms), torch.gather {r['library_ms']:.3f} ms "
+                   f"(kernel faster: {r['ms'] < r['library_ms']})")
+        how = r["bound_by"]
+        if name == "compact_gather":
+            how += (f"; {sectors} of x's {rows * cm.C * cm.W // 8} 32-byte sectors touched, the tool's expectation "
+                    f"{tool_ms:.4f} ms")
         log(f"{name} {rows} rows: max |diff| {err}, kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms{lib}, "
-            f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+            f"bound {r['bound_ms']:.4f} ms ({how})")
         if err:
             failed.append(f"{name} differs from its plain twin")
     del d

@@ -381,13 +381,18 @@ K3_K8_BUILDS = {
     "first_k_select_walk_at_16", "first_k_select_walk_at_32", "first_k_select_scalar_stores", "first_k_select_word_walk",
     "fine_assign_colstats", "fine_assign_colstats_sync", "fine_assign_colstats_4warps",
     "fine_assign_colstats_16warps", "fine_assign_colstats_3stages"}
+K5_K26_BUILDS = {
+    "pe_channels", "pe_channels_w4", "pe_channels_w16", "pe_channels_p32", "pe_channels_staged_stores",
+    "compact_gather", "compact_gather_quads2", "compact_gather_quads4",
+    "compact_gather_default_cache", "compact_gather_streamed", "compact_gather_ldcg"}
 
 
 def test_kernel_variants_tool_follows_the_shipped_sources(tmp_path):
     """``tools/kernel_variants.py`` makes each variant by replacing text of
     the shipped ``fps.cu``, ``vit_attn.cu``, ``fine_assign.cu`` (K8, K9 and
-    K10), ``geo_rpe.cu``, ``pe_mlp_pool.cu`` and ``first_k_select.cu`` (K3):
-    every replacement still
+    K10), ``geo_rpe.cu``, ``pe_mlp_pool.cu``, ``first_k_select.cu`` (K3),
+    ``pe_channels.cu`` (K5) and ``compact_micro.cu`` (K26): every
+    replacement still
     finds its text (it raises otherwise), each variant differs from the
     shipped source, ``--parent``'s builds inline the headers of the other
     checkout, and the tool fails without a card."""
@@ -402,10 +407,11 @@ def test_kernel_variants_tool_follows_the_shipped_sources(tmp_path):
                          "fine_assign_accum", "fine_assign_accum_ieee_division", "fine_assign_accum_no_ring",
                          "pe_mlp_pool", "pe_mlp_pool_b64", "pe_mlp_pool_registers", "pe_mlp_pool_no_packing",
                          "pe_mlp_pool_epilogue_first", "pe_mlp_pool_atomic", "pe_mlp_pool_stride", "pe_mlp_pool_wgmma",
-                         *K3_K8_BUILDS}
+                         *K3_K8_BUILDS, *K5_K26_BUILDS}
     shipped = kernel_variants.SHIPPED
     assert shipped == {"K1": "fps", "K7": "vit_attn", "K9": "fine_assign", "K4": "geo_rpe", "K6": "pe_mlp_pool",
-                       "K10": "fine_assign_accum", "K3": "first_k_select", "K8": "fine_assign_colstats"}
+                       "K10": "fine_assign_accum", "K3": "first_k_select", "K8": "fine_assign_colstats",
+                       "K5": "pe_channels", "K26": "compact_gather"}
     for name, (kernel, text) in srcs.items():
         assert (text == srcs[shipped[kernel]][1]) == (name in shipped.values()), name
     assert set(kernel_variants.sources(None, ("K6", "K10"))) == {
@@ -413,6 +419,7 @@ def test_kernel_variants_tool_follows_the_shipped_sources(tmp_path):
         "pe_mlp_pool_b64", "pe_mlp_pool_registers", "pe_mlp_pool_no_packing", "pe_mlp_pool_epilogue_first",
         "pe_mlp_pool_atomic", "pe_mlp_pool_stride", "pe_mlp_pool_wgmma"}
     assert set(kernel_variants.sources(None, ("K3", "K8"))) == K3_K8_BUILDS
+    assert set(kernel_variants.sources(None, ("K5", "K26"))) == K5_K26_BUILDS
     # another checkout's sources, their headers inlined from its own csrc/
     csrc = tmp_path / "unopose_tpu_torch" / "kernels" / "csrc"
     shutil.copytree(PORT / "kernels" / "csrc", csrc)
@@ -422,6 +429,24 @@ def test_kernel_variants_tool_follows_the_shipped_sources(tmp_path):
     parents = kernel_variants.sources(tmp_path, ("K3", "K8"))
     assert set(parents) == K3_K8_BUILDS | {"first_k_select_parent", "fine_assign_colstats_parent"}
     assert parents["first_k_select_parent"][1] == (csrc / "first_k_select.cu").read_text()
+    parents = kernel_variants.sources(tmp_path, ("K5", "K26"))
+    assert set(parents) == K5_K26_BUILDS | {"pe_channels_parent", "compact_gather_parent"}
+    assert "// the other checkout's header" in parents["pe_channels_parent"][1]
+    assert parents["compact_gather_parent"][1] == (csrc / "compact_micro.cu").read_text()
+    # -Xptxas -v's lines of the named kernel, and the warps an SM holds at that footprint
+    log = ("ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_122compact_rounds_kernelEPKiPiii' for 'sm_90a'\n"
+           "ptxas info    : Used 40 registers, used 1 barriers, 16384 bytes smem\n"
+           "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_118pe_channels_kernelEPKf' for 'sm_90a'\n"
+           "ptxas info    : Function properties for _ZN12_GLOBAL__N_118pe_channels_kernelEPKf\n"
+           "    0 bytes stack frame, 8 bytes spill stores, 4 bytes spill loads\n"
+           "ptxas info    : Used 124 registers, used 1 barriers, 6144 bytes smem, 448 bytes cmem[0]\n")
+    assert kernel_variants.ptxas_record(log, "pe_channels_kernel") == dict(registers=124, spill_stores=8,
+                                                                           spill_loads=4, smem=6144)
+    # the occupancy probe appended to each K5 build names the shipped launcher's shared memory, the first design's
+    # three planes for a source without smem_bytes
+    assert "smem_bytes(n)" in kernel_variants.with_occupancy(srcs["pe_channels"][1]).split("unopose_k5_resident")[1]
+    probe = kernel_variants.with_occupancy(parents["pe_channels_parent"][1].replace("smem_bytes", "planes"))
+    assert "(size_t)3 * n * sizeof(float)" in probe.split("unopose_k5_resident")[1]
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     r = subprocess.run([sys.executable, "-m", "unopose_tpu_torch.tools.kernel_variants"], cwd=ROOT, env=env,
                        capture_output=True, text=True, timeout=120)
@@ -456,8 +481,8 @@ def test_tpu_profile_bounds_tool_counts_each_kernel_once(capsys):
     table names, on the shapes those benchmarks
     set (read from their sources): the fine-PE ablation's both scales' MLP on the first nsample2 / 2 slots
     of each of 2 x B x P points, profile_r9's on all S2 slots of B x N points, the compaction kernels' bytes
-    from their (B, ROWS, C x W) words and (B, ROWS, K2) outputs; the integer-operation counts are marked as
-    estimates."""
+    from their (B, ROWS, C x W) words and (B, ROWS, K2) outputs, of the words only the sectors the gather's
+    draws touch; the integer-operation counts are marked as estimates."""
     import json
 
     from unopose_tpu_torch.tools import tpu_profile_bounds as tb
@@ -485,7 +510,9 @@ def test_tpu_profile_bounds_tool_counts_each_kernel_once(capsys):
     (B,), (R,), (C,), (W,), (K2,) = cm["B"], cm["ROWS"], cm["C"], cm["W"], cm["K2"]
     words, outs = B * R * C * W * 4, B * R * K2 * 4
     assert rows["benchmarks/profile_compact_micro.py:34"]["bytes"] == words + outs  # the words in, the outputs
-    assert rows["benchmarks/profile_compact_micro.py:54"]["bytes"] == words + 3 * outs  # and both index tensors
+    # the gather: the 32-byte sectors its K2 uniform draws a row touch, in expectation, and both index tensors
+    touched = B * R * (C * W // 8) * (1 - (1 - 8 / (C * W)) ** K2)
+    assert rows["benchmarks/profile_compact_micro.py:54"]["bytes"] == pytest.approx(touched * 32 + 3 * outs)
     assert rows["benchmarks/profile_compact_micro.py:134"]["bytes"] == outs // 2 + outs  # half the indices read
 
 
@@ -1065,6 +1092,98 @@ def test_first_k_select_edges(cuda):
                 assert torch.equal(got[k], want[k]), (N, k2, name, k)
             if name == "dense" and N > k2:
                 assert bool(want["overflow"]), (N, k2)
+
+
+def _pe_channels_filled(planes, idx, w1, w2, total2, center, r1=0.1, r2=0.2):
+    """K5 through its C entry into an output first filled with 0xffff (a bf16 NaN), so that a slot it leaves
+    unwritten shows."""
+    import ctypes
+
+    B, N = planes[0].shape
+    _, P, S2 = idx.shape
+    out = torch.full((B, P, S2, 12), -1, dtype=torch.int16, device=idx.device).view(torch.bfloat16)
+    args = (*(p.float().contiguous() for p in planes), idx.contiguous(),
+            *(w.to(torch.bfloat16).contiguous() for w in (w1, w2)), total2.to(torch.int32).contiguous(),
+            *(c.float().contiguous() for c in center), out)
+    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    build.check(build.load().unopose_pe_channels(*(ctypes.c_void_p(a.data_ptr()) for a in args), B, N, P, S2, r1,
+                                                 r2, 1.0 / r1, 1.0 / r2, stream), "pe_channels")
+    return out
+
+
+def _check_channels(got, planes, idx, w1, w2, total2, center, surfaces: bool):
+    """K5's output against its plain twin at chip_smoke.py's gates, over the slots each point needs: the rel xyz
+    channels bitwise equal; on the uniform cubes at most twice as many unequal entries as the twin shows against
+    itself one ulp up, on the sphere surfaces 99.9% within one bf16 ulp and none more than 2^-5 off; every slot
+    past a point's tier unwritten (0xffff)."""
+    S2 = idx.shape[-1]
+    need = torch.arange(S2, device=idx.device)[None, None, :] < (pe_fused.chunks_needed(total2, S2) * 64)[..., None]
+    assert (got.view(torch.int16)[~need] == -1).all()
+    want = pe_fused.pe_channels_plain(planes, idx, w1, w2, total2, center, 0.1, 0.2)
+    g, w = got[need].float(), want[need].float()
+    assert torch.equal(g[:, [0, 1, 2, 6, 7, 8]], w[:, [0, 1, 2, 6, 7, 8]])
+    if surfaces:
+        _, e = torch.frexp(torch.maximum(g.abs(), w.abs()))
+        diff = (g - w).abs()
+        assert (diff <= torch.ldexp(torch.ones_like(diff), e - 8)).float().mean().item() >= 0.999
+        assert diff.max().item() <= 2.0**-5
+    else:
+        up = lambda x: torch.nextafter(x, torch.full_like(x, float("inf")))
+        nudged = pe_fused.pe_channels_plain(tuple(map(up, planes)), idx, w1, w2, total2, tuple(map(up, center)), 0.1,
+                                            0.2)[need].float()
+        assert (g != w).sum() <= 2 * (nudged != w).sum()
+
+
+@pytest.mark.cuda
+def test_pe_channels_edges(cuda):
+    """K5 at the edges of its layout, at the gates its first design passed (``_check_channels``): N 4096 (the
+    largest cloud it stages); the sphere surfaces, every tier 1-4; every seventh point with total2 0 and no
+    weight (one 64-slot chunk of zero weights); S2 64 and 128 (tiers clipped to S2); and point counts that are no
+    multiple of a block's 128 points or a warp's 16 (300, 33 and 7 centres of a 2048-point cloud), whose rows
+    must equal those of the launch over every point bit for bit (each point's channels depend on it alone).
+    Slots past a point's tier stay unwritten, and two launches give the same bits."""
+    rng = np.random.default_rng(15)
+    perm, _ = ball_query.permutation(2048, "cpu")
+    cases = {"cubes N 4096": (_lrf_cloud(rng, 2, 4096, cuda), 256),
+             "surfaces": (torch.from_numpy(surface_clouds(rng, 4, perm.numpy())).to(cuda), 256),
+             **{f"cubes S2 {s2}": (_lrf_cloud(rng, 4, 2048, cuda), s2) for s2 in (64, 128, 256)}}
+    for name, (pts, s2) in cases.items():
+        planes, idx, w1, w2, total2, overflow = ball_query.two_scale_group_first_k_packed_idx(0.1, 64, 0.2, s2, pts)
+        center = tuple(pts.unbind(-1))
+        if name == "cubes S2 256":
+            total2, w1, w2 = total2.clone(), w1.clone(), w2.clone()
+            total2[:, ::7], w1[:, ::7], w2[:, ::7] = 0, 0, 0
+        got = _pe_channels_filled(planes, idx, w1, w2, total2, center)
+        _check_channels(got, planes, idx, w1, w2, total2, center, name == "surfaces")
+        assert torch.equal(got.view(torch.int16), _pe_channels_filled(planes, idx, w1, w2, total2, center).view(
+            torch.int16)), name
+        if name == "surfaces":
+            assert torch.bincount(pe_fused.chunks_needed(total2, s2).flatten(), minlength=5)[1:].min().item() > 0
+        if name == "cubes S2 256":
+            for P in (300, 33, 7):
+                part = _pe_channels_filled(planes, idx[:, :P], w1[:, :P], w2[:, :P], total2[:, :P],
+                                           tuple(c[:, :P] for c in center))
+                assert torch.equal(part.view(torch.int16), got[:, :P].view(torch.int16)), P
+
+
+@pytest.mark.cuda
+def test_compact_gather_edges(cuda):
+    """K26 equal to its plain twin at 0, 1 and 65536 rows (the compaction script's 256 blocks of 256 rows), and
+    on 1000 rows with bank indices outside [0, 16) (16, 17, -1 and the least int32), whose outputs are 0."""
+    from unopose_tpu_torch.benchmarks import profile_compact_micro as cm
+
+    d = {k: torch.from_numpy(v).to(cuda) for k, v in cm.script_inputs(np.random.default_rng(16)).items()}
+    x, li, bi = d["x"].view(-1, cm.C * cm.W), d["li"].view(-1, cm.K2), d["bi"].view(-1, cm.K2)
+    assert x.shape[0] == 65536
+    for rows in (0, 1, 65536):
+        got = cm.compact_gather_cuda(x[:rows], li[:rows], bi[:rows])
+        assert got.shape == (rows, cm.K2) and torch.equal(got, cm.compact_gather_plain(x[:rows], li[:rows], bi[:rows]))
+    bad = bi[:1000].clone()
+    flat = bad.view(-1)
+    flat[0::5], flat[1::5], flat[2::7], flat[3::11] = 16, -1, 17, -(2**31)
+    got = cm.compact_gather_cuda(x[:1000], li[:1000], bad)
+    assert torch.equal(got, cm.compact_gather_plain(x[:1000], li[:1000], bad))
+    assert not got[(bad < 0) | (bad >= cm.BANKS)].any()
 
 
 @pytest.mark.cuda

@@ -102,6 +102,16 @@ def test_compact_gather_matches_jax():
     assert (got.numpy()[0, :4, :5] == 0).all()
 
 
+def test_gather_sectors_counts_the_sectors_the_draws_touch():
+    """``gather_sectors`` (the bytes of row 22's bound on the card): per row the distinct 32-byte sectors
+    (bi * 128 + li) // 8 of the draws on a bank in [0, 16), counted here row by row with sets."""
+    d = compact_inputs()
+    li, bi = d["li"].reshape(-1, tcm.K2), d["bi"].reshape(-1, tcm.K2)
+    want = sum(len(set(((b * 128 + l) // 8)[(b >= 0) & (b < 16)].tolist())) for l, b in zip(li, bi))
+    assert tcm.gather_sectors(torch.from_numpy(d["li"]), torch.from_numpy(d["bi"])) == want
+    assert 0.6 * li.size < want < 0.66 * li.size  # ~63% of the rows' K2 sectors under the uniform draw
+
+
 def test_compact_wherechain_matches_jax():
     """The prefix search ``kern`` of ``wherechain`` (row 23), lifted from the script, in interpret mode:
     every output equal."""

@@ -88,15 +88,28 @@ def compact_gather_plain(x: torch.Tensor, li: torch.Tensor, bi: torch.Tensor) ->
     return torch.where(valid, vals, torch.zeros_like(vals))
 
 
+def gather_sectors(li: torch.Tensor, bi: torch.Tensor) -> int:
+    """The distinct 32-byte sectors of x (8 words each) that ``compact_gather`` reads for these draws: a row's
+    words bi * 128 + li where 0 <= bi < 16."""
+    rows = _rows(li, K2, "li")
+    li, bi = li.reshape(rows, K2), bi.reshape(rows, K2)
+    per_row = C * W // 8
+    sector = torch.arange(rows, device=li.device).unsqueeze(1) * per_row + (bi * 128 + li) // 8
+    touched = torch.zeros(rows * per_row, dtype=torch.bool, device=li.device)
+    touched[sector[(bi >= 0) & (bi < BANKS)]] = True
+    return int(touched.sum())
+
+
 def compact_gather_cuda(x: torch.Tensor, li: torch.Tensor, bi: torch.Tensor) -> torch.Tensor:
-    """The kernel: one thread per 4 outputs."""
+    """The kernel: a thread per 8 quads of outputs, every index load issued before the gathers."""
     rows = _rows(x, C * W, "x")
     if _rows(li, K2, "li") != rows or _rows(bi, K2, "bi") != rows:
         raise ValueError(f"li and bi must hold {rows} rows of {K2}")
-    if any(t.device != x.device or t.device.type != "cuda" for t in (li, bi)):
+    dev = x.device
+    if dev.type != "cuda" or li.device != dev or bi.device != dev:
         raise ValueError("compact_gather_cuda needs all tensors on one CUDA device")
     x, li, bi = x.contiguous(), li.contiguous(), bi.contiguous()
-    out = torch.empty(li.shape, dtype=torch.int32, device=x.device)
+    out = torch.empty_like(li)
     build.launch("compact_gather", "unopose_compact_gather", (x, li, bi, out), rows)
     return out
 

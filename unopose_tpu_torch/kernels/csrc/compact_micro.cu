@@ -18,8 +18,25 @@
 // compact_gather (K26) replaces _k_gather (:54, its pallas_call at :127):
 // out[r, j] = x[r, bi * 128 + li] where 0 <= bi < 16, else 0 (the select
 // chain over 16 banks of 128 words); li must lie in [0, 128), as the
-// script draws it: it is not checked. One thread per 4 outputs, 16-byte
-// loads of li and bi. Bound: bytes (the words, both indices, the output).
+// script draws it: it is not checked. Bound: bytes, the 32-byte sectors of
+// x that the draws touch (~63% of a row's), both indices and the output:
+// ~541 MB, 0.162 ms at 3.35 TB/s on the script's 65536 rows (every word of
+// x: 738 MB, 0.220 ms). The 256 draws of a row touch ~86% of its 64-byte
+// bursts, so at the DRAM's 64-byte access the gathers read ~665 MB
+// (0.198 ms), as scattered 32-byte requests into a 537 MB x that no L2
+// holds: the time goes to keeping enough of them in flight. The first design (a thread per 4 outputs over a grid capped at
+// residency, each step an index load then four dependent gathers) kept too
+// few. Here each thread takes kQuads quads of outputs, issues all their
+// index loads (16 bytes of li and of bi a quad) before any gather, then the
+// 4 * kQuads gathers, and stores 16 bytes a quad, with streaming cache hints
+// (every byte is used once), over a grid of every quad. What each part
+// bought (tools/kernel_variants.py --only K26, NVIDIA H100 80GB HBM3, 700
+// W, ms): the first design 0.256; this one, 8 quads a thread (101
+// registers), 0.223; 4 quads 0.226, 2 quads 0.238; the gathers cached in L2
+// only 0.232; no cache hints 0.229; the rows streamed in order through a
+// ring of 4 shared-memory stages of 4 rows by bulk copies on mbarriers
+// (every byte of x read once, the bound's own count) 0.242; one
+// torch.gather of the flat int64 indices beside them 0.248.
 //
 // compact_wherechain (K27) replaces the prefix search kern of wherechain
 // (:134, its pallas_call at :144): pref[k] = sum(li[r, :128] * (k + 1)) % 64
@@ -77,20 +94,34 @@ compact_rounds_kernel(const int* __restrict__ x, int* __restrict__ out, int rows
   }
 }
 
+constexpr int kQuads = 8;  // quads of outputs a thread of the gather
+
 __global__ void __launch_bounds__(kThreads)
 compact_gather_kernel(const int* __restrict__ x, const int* __restrict__ li, const int* __restrict__ bi,
-                      int* __restrict__ out, long long quads) {
-  for (long long q = (long long)blockIdx.x * kThreads + threadIdx.x; q < quads; q += (long long)gridDim.x * kThreads) {
-    const long long r = q / (kOut / 4);
-    const int4 l = reinterpret_cast<const int4*>(li)[q];
-    const int4 b = reinterpret_cast<const int4*>(bi)[q];
-    const int* row = x + r * kRowWords;
-    int4 o;
-    o.x = (unsigned)b.x < (unsigned)kBanks ? row[b.x * 128 + l.x] : 0;
-    o.y = (unsigned)b.y < (unsigned)kBanks ? row[b.y * 128 + l.y] : 0;
-    o.z = (unsigned)b.z < (unsigned)kBanks ? row[b.z * 128 + l.z] : 0;
-    o.w = (unsigned)b.w < (unsigned)kBanks ? row[b.w * 128 + l.w] : 0;
-    reinterpret_cast<int4*>(out)[q] = o;
+                      int* __restrict__ out, int rows) {
+  const long long quads = (long long)rows * (kOut / 4);
+  const long long q0 = (long long)blockIdx.x * kQuads * kThreads + threadIdx.x;
+  int4 l[kQuads], b[kQuads];
+#pragma unroll
+  for (int k = 0; k < kQuads; ++k) {  // every index load in flight before the first gather
+    const long long q = q0 + k * kThreads;
+    if (q < quads) {
+      l[k] = __ldcs(reinterpret_cast<const int4*>(li) + q);
+      b[k] = __ldcs(reinterpret_cast<const int4*>(bi) + q);
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < kQuads; ++k) {
+    const long long q = q0 + k * kThreads;
+    if (q < quads) {
+      const int* row = x + (q / (kOut / 4)) * kRowWords;
+      int4 o;
+      o.x = (unsigned)b[k].x < (unsigned)kBanks ? __ldcs(row + b[k].x * 128 + l[k].x) : 0;
+      o.y = (unsigned)b[k].y < (unsigned)kBanks ? __ldcs(row + b[k].y * 128 + l[k].y) : 0;
+      o.z = (unsigned)b[k].z < (unsigned)kBanks ? __ldcs(row + b[k].z * 128 + l[k].z) : 0;
+      o.w = (unsigned)b[k].w < (unsigned)kBanks ? __ldcs(row + b[k].w * 128 + l[k].w) : 0;
+      __stcs(reinterpret_cast<int4*>(out) + q, o);
+    }
   }
 }
 
@@ -145,15 +176,15 @@ extern "C" int unopose_compact_rounds(const int* x, int* out, int rows, int nrou
   return (int)cudaGetLastError();
 }
 
-// x (rows, 2048), li and bi (rows, 256) int32 -> out (rows, 256) int32
+// x (rows, 2048), li and bi (rows, 256) int32 -> out (rows, 256) int32; every pointer 16-byte aligned
 extern "C" int unopose_compact_gather(const int* x, const int* li, const int* bi, int* out, int rows,
                                       cudaStream_t stream) {
-  if (rows < 0) return (int)cudaErrorInvalidValue;
+  if (rows < 0 || ((uintptr_t)x | (uintptr_t)li | (uintptr_t)bi | (uintptr_t)out) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
   if (rows == 0) return 0;
   const long long quads = (long long)rows * (kOut / 4);
-  const int blocks = grid_for((const void*)compact_gather_kernel, quads);
-  if (blocks < 0) return (int)cudaGetLastError();
-  compact_gather_kernel<<<blocks, kThreads, 0, stream>>>(x, li, bi, out, quads);
+  const long long blocks = (quads + kQuads * kThreads - 1) / (kQuads * kThreads);
+  compact_gather_kernel<<<(unsigned)blocks, kThreads, 0, stream>>>(x, li, bi, out, rows);
   return (int)cudaGetLastError();
 }
 

@@ -1,17 +1,20 @@
 // Device code shared by the fine-PE inference kernels pe_channels.cu (K5),
 // pe_mlp_pool.cu (K6), pe_masked.cu (K16), pe_packed.cu (K19),
 // pe_mlp_pool_packed.cu (K20), pe_gather_fused.cu (K21) and pe_packed_t.cu
-// (K22): the warp-per-point local reference frame of a neighbourhood over
-// weighted slots (ops/lrf.py: batch_lrf_planar with use_newton), the
+// (K22): the local reference frame of a neighbourhood over weighted slots
+// (ops/lrf.py: batch_lrf_planar with use_newton), its steps split into the
+// warp's sums over a point's slots and the scalar work on them (K5 runs the
+// scalar work on one lane per point, the others on the whole warp), the
 // folded-BatchNorm MLP 6 -> 32 -> 64 -> 128 on mma.sync m16n8k16 bf16 tiles
 // of 16 slots with its running max, and three per-point routines built from
-// them: K5's channels (point_channels), K6's pool (point_pool) and K16's
+// them: K21's channels (point_channels), K6's pool (point_pool) and K16's
 // staged scale (staged_pool). A lane holds slots lane, lane + 32, ...: the
 // per-lane slot count is a template parameter, kPerLane (256 slots) for
-// K5, K6 and K16, up to kPerLaneMax (a window of 512 slots) for K19, K21
-// and K22. Those three take up to kMaxSlotsPacked slots: past one window a
-// point's slots are walked window by window (windowed_frame, the windowed
-// branches of the kernels), each lane's LRF sums carried across windows in
+// K16 and for K19, K21 and K22 up to 256 slots, up to kPerLaneMax (a window
+// of 512 slots) for those three. They take up to kMaxSlotsPacked slots:
+// past one window a point's slots are walked window by window
+// (windowed_frame, the windowed branches of the kernels), each lane's LRF
+// sums carried across windows in
 // the slot order one wider array would take and the pooled max carried
 // across them (a max is exact in any order), so that one window is the
 // single-array code bit for bit. Each kernel's source says how it uses them.
@@ -132,12 +135,26 @@ __device__ __forceinline__ void lrf_moments(const float (&rx)[PL], const float (
   }
 }
 
-// the frame's normal, its sign not yet fixed: the smallest eigenvector of the weighted moments
-__device__ __forceinline__ void lrf_normal(const LrfMoments& s, Frame& f) {
-  const float cnt = fmaxf(warp_sum(s.cnt), 1.0f);
-  smallest_eigvec(warp_sum(s.sa) / cnt, warp_sum(s.sb) / cnt, warp_sum(s.sc) / cnt, warp_sum(s.sd) / cnt,
-                  warp_sum(s.se) / cnt, warp_sum(s.sf) / cnt, f.z0, f.z1, f.z2);
+// each of a lane's moment sums summed over the warp (every lane ends with the same bits)
+__device__ __forceinline__ LrfMoments warp_moments(const LrfMoments& s) {
+  LrfMoments t;
+  t.cnt = warp_sum(s.cnt);
+  t.sa = warp_sum(s.sa);
+  t.sb = warp_sum(s.sb);
+  t.sc = warp_sum(s.sc);
+  t.sd = warp_sum(s.sd);
+  t.se = warp_sum(s.se);
+  t.sf = warp_sum(s.sf);
+  return t;
 }
+
+// the frame's normal, its sign not yet fixed, from the warp's moments t: their smallest eigenvector
+__device__ __forceinline__ void normal_of(const LrfMoments& t, Frame& f) {
+  const float cnt = fmaxf(t.cnt, 1.0f);
+  smallest_eigvec(t.sa / cnt, t.sb / cnt, t.sc / cnt, t.sd / cnt, t.se / cnt, t.sf / cnt, f.z0, f.z1, f.z2);
+}
+
+__device__ __forceinline__ void lrf_normal(const LrfMoments& s, Frame& f) { normal_of(warp_moments(s), f); }
 
 template <int PL>
 __device__ __forceinline__ void lrf_votes(const Frame& f, const float (&rx)[PL], const float (&ry)[PL],
@@ -153,11 +170,16 @@ __device__ __forceinline__ void lrf_votes(const Frame& f, const float (&rx)[PL],
   }
 }
 
-__device__ __forceinline__ void lrf_orient(float pos, float neg, Frame& f) {
-  const float sgn = warp_sum(pos) - warp_sum(neg) < 0.0f ? -1.0f : 1.0f;
+// the normal's sign from the votes summed over the warp
+__device__ __forceinline__ void orient_of(float pos, float neg, Frame& f) {
+  const float sgn = pos - neg < 0.0f ? -1.0f : 1.0f;
   f.z0 *= sgn;
   f.z1 *= sgn;
   f.z2 *= sgn;
+}
+
+__device__ __forceinline__ void lrf_orient(float pos, float neg, Frame& f) {
+  orient_of(warp_sum(pos), warp_sum(neg), f);
 }
 
 template <int PL>
@@ -178,10 +200,8 @@ __device__ __forceinline__ void lrf_tangent(const Frame& f, const float (&rx)[PL
   }
 }
 
-__device__ __forceinline__ void lrf_axes(float vx, float vy, float vz, Frame& f) {
-  vx = warp_sum(vx);
-  vy = warp_sum(vy);
-  vz = warp_sum(vz);
+// the x and y axes from the tangent sums over the warp
+__device__ __forceinline__ void axes_of(float vx, float vy, float vz, Frame& f) {
   const float vn = sqrtf((vx * vx + vy * vy) + vz * vz) + static_cast<float>(1e-10);
   f.x0 = vx / vn;
   f.x1 = vy / vn;
@@ -189,6 +209,10 @@ __device__ __forceinline__ void lrf_axes(float vx, float vy, float vz, Frame& f)
   f.y0 = f.x1 * f.z2 - f.x2 * f.z1;
   f.y1 = f.x2 * f.z0 - f.x0 * f.z2;
   f.y2 = f.x0 * f.z1 - f.x1 * f.z0;
+}
+
+__device__ __forceinline__ void lrf_axes(float vx, float vy, float vz, Frame& f) {
+  axes_of(warp_sum(vx), warp_sum(vy), warp_sum(vz), f);
 }
 
 template <int PL>
@@ -369,12 +393,14 @@ __device__ __forceinline__ void store_max(float (&mx)[16][2], float* out, bool a
   }
 }
 
-// K5's work on one point (pe_channels.cu): gather its first 32 * nu slots
-// from the cloud's permuted planes in shared memory (s_planes: x, y, z, n
-// each) through the int16 indices idx, both scales' LRFs over the slot
-// weights w1 / w2 (idx, w1, w2 point at the point's row), and the 12
-// channels (rel xyz, LRF-1, rel xyz, LRF-2) of each slot as bf16, 24 bytes a
-// slot from dst on (global memory for K5, the warp's shared buffer for K21).
+// K21's channels of one point (pe_gather_fused.cu), a warp per point as
+// K5's first design ran them (pe_channels.cu now batches a warp's 16 points
+// through the same steps, bit for bit): gather its first 32 * nu slots from
+// the cloud's permuted planes in shared memory (s_planes: x, y, z, n each)
+// through the int16 indices idx, both scales' LRFs over the slot weights
+// w1 / w2 (idx, w1, w2 point at the point's row), and the 12 channels (rel
+// xyz, LRF-1, rel xyz, LRF-2) of each slot as bf16, 24 bytes a slot from dst
+// on (the warp's shared buffer).
 template <int PL>
 __device__ __forceinline__ void point_channels(const float* s_planes, int n, const int16_t* __restrict__ idx,
                                                const __nv_bfloat16* __restrict__ w1,

@@ -121,7 +121,7 @@ def _check_cuda(name, tensors):
 
 
 def pe_channels_cuda(planes, idx_p, w1, w2, total2, center, r1: float, r2: float) -> torch.Tensor:
-    """The channels on the card (``csrc/pe_channels.cu``): one warp per point.
+    """The channels on the card (``csrc/pe_channels.cu``): a warp per 16 points.
     Slots past a point's 64 * ceil(total2 / 64) are left unwritten."""
     _check(planes, idx_p, w1, w2, total2, center, MAX_SLOTS)
     _check_cuda("pe_channels_cuda", (*planes, idx_p, w1, w2, total2, *center))

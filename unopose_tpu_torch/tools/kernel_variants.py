@@ -1,11 +1,12 @@
 """What each part of the K1 (FPS), K7 (ViT attention), K9 and K10 (the fused assignment's labels and
-accumulation), K4 (int8 geometric embedding), K6 (the fine PE's MLP and pool), K3 (the first_k select) and K8
-(the fused assignment's column statistics) designs buys, on one CUDA card.
+accumulation), K4 (int8 geometric embedding), K6 (the fine PE's MLP and pool), K3 (the first_k select), K8
+(the fused assignment's column statistics), K5 (the fine PE's channels) and K26 (the compaction script's banked
+gather) designs buys, on one CUDA card.
 
-    python -m unopose_tpu_torch.tools.kernel_variants [--parent DIR] [--only K3,K8] [--reps 20] [--out FILE]
+    python -m unopose_tpu_torch.tools.kernel_variants [--parent DIR] [--only K5,K26] [--reps 20] [--out FILE]
 
 Builds the shipped sources ``kernels/csrc/fps.cu``, ``vit_attn.cu``, ``fine_assign.cu``, ``geo_rpe.cu``,
-``pe_mlp_pool.cu`` and ``first_k_select.cu`` and variants of each, every variant the shipped text with one design
+``pe_mlp_pool.cu``, ``first_k_select.cu``, ``pe_channels.cu`` and ``compact_micro.cu`` and variants of each, every variant the shipped text with one design
 choice replaced, each into a library of its own (``nvcc`` with the package's flags, all builds started together,
 one build per distinct text), and times every build on the same inputs at the main path's shapes with CUDA
 events: K1 at 16 x 5000 -> 2048 and 16 x 2048 -> 196, K7 at 32 x 261 x 768 bf16 with 12 heads read in place from
@@ -17,7 +18,13 @@ the uniform cubes and on the sphere surfaces that fill every 64-slot tier, fed t
 ~33 r2 hits a centre on the cubes), on a 0.1 m cube not scaled by the LRF (every centre overflows every way: a
 chunk's budget, total2 > k2 and cnt1 > k1), and on cubes of 1984 and 2000 points (chunks ending inside a word),
 576 and 272, K8 at 16 pairs of 2049 x 2049 rows, C 256 (the shipped and parent builds also with f1n scaled by
-40), 4 pairs of 300 x 257 rows, C 48 (off the 64-row grid, 32-byte swizzle) and 2 of 65 x 130 rows, C 16. The
+40), 4 pairs of 300 x 257 rows, C 48 (off the 64-row grid, 32-byte swizzle) and 2 of 65 x 130 rows, C 16, K5 on
+the plain twin's inputs at 32 x 2048 points, S2 256, on the uniform cubes and on the sphere surfaces that fill
+every 64-slot tier, on the cubes with every seventh point's total2 set to 0, on 4 cubes of 4096 points and on 32
+cubes of 2000 points at S2 128 (a point count no multiple of a block's, tiers clipped to S2), every build's output
+buffer zeroed first, so that a slot written past a point's tier shows; K26 on
+``benchmarks/profile_compact_micro.py:script_inputs`` (65536 rows of 2048 words, 256 draws a row) and on those
+rows' first 1000 with every seventh bank index outside [0, 16). The
 builds run in turns, forward then backward, and each reports the median of its two times. ``--parent DIR``: a
 checkout of another commit, whose sources (with the headers they include from its ``csrc/``) join as the builds
 ``*_parent``. ``--only``: the kernels to build and time.
@@ -77,12 +84,30 @@ warps, each a row group of 16 rows against 4 of the tile's 8 n-tiles, fragments 
 one slot (each row tile loaded while none other is in flight, the copies never overlapping the products);
 ``4warps``, 4 consumer warps, each a row group against all 8 n-tiles (the first design's split); ``16warps``, 16
 warps of a row group against 2 n-tiles, one block an SM; ``3stages``, a ring of 3 slots, one block an SM.
+Variants of K5 (shipped: a block of 8 warps stages its cloud's planes once for 128 points, each warp 16 points in
+four passes, one point at a time, the sums of a point over its slots with the lanes over the slots (warp_sum's
+butterfly), the scalar steps of the frame once for the warp's points with lane p on point p, two slots a lane per
+loop step, each slot's row as three 8-byte stores): ``w4`` and ``w16``, 4 or 16 warps a block; ``p32``, 32 points
+a warp (every lane busy in the scalar steps, half the warps); ``staged_stores``, a warp's 32 slot rows written
+through a 768-byte buffer in shared memory as 16-byte vectors.
+Variants of K26 (shipped: each thread 8 quads of outputs, every index load of its quads issued before its gathers
+from device memory, streaming cache hints, a grid of every quad): ``quads2`` and ``quads4``, 2 or 4 quads a thread;
+``ldcg``, the gathers cached in L2 only (``__ldcg``) in place of the streaming hint; ``default_cache``, no cache
+hint on any load or store; ``streamed``, the rows streamed in order through a ring of 4 shared-memory stages of 4
+rows (words, li and bi by bulk copies on an mbarrier each stage), one persistent block an SM, the gathers from
+shared memory.
+Beside K26, one ``torch.gather`` of the flat indices bi * 128 + li (int64, made outside the timing) over x, the
+yardstick.
 
 Every build's output is checked: K1's indices equal to the plain loop's, K7's outputs, K9's rm, rs, label1 and
 column keys, K10's wsum and num, K4's int8 codes, K6's pooled features, K3's eight outputs (each also equal to
-the plain twin's) and K8's cm and cs bitwise equal to the shipped kernel's (for K7's ``parent``, the first
-version, the share of equal outputs is reported too). Prints the card's name and power limit, then one JSON line;
-``--out`` writes the JSON there too.
+the plain twin's), K8's cm and cs, K5's channels (every slot, the unwritten ones zero) and K26's outputs (also
+equal to the plain twin's) bitwise equal to the shipped kernel's (for K7's ``parent``, the first version, the share
+of equal outputs is reported too). K5's and K26's records also carry what ``-Xptxas -v`` says of the kernel
+(registers a thread, spill bytes, static shared memory), K5's the warps an SM holds of the kernel at N 2048 (the
+runtime's occupancy query, ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``, on a probe compiled into each build)
+and each shape's tier histogram (points needing 1-4 chunks of 64 slots). Prints the card's name and power
+limit, then one JSON line; ``--out`` writes the JSON there too.
 """
 
 from __future__ import annotations
@@ -591,6 +616,18 @@ def _inline_headers(text: str, csrc: Path) -> str:
     return re.sub(r'#include "(\w+\.cuh)"', lambda m: (csrc / m.group(1)).read_text(), text)
 
 
+def _lines(text: str, first: str, last: str, new: str) -> str:
+    """text with its lines from the one holding ``first`` to the next holding ``last`` replaced by ``new``,
+    indented as the first of them."""
+    if first not in text:
+        raise ValueError(f"the shipped source no longer holds {first[:60]!r}: update this variant")
+    at = text.index(first)
+    start = text.rindex("\n", 0, at) + 1
+    end = text.index("\n", text.index(last, at)) + 1
+    indent = text[start:at]
+    return text[:start] + "".join(indent + line + "\n" for line in new.strip("\n").split("\n")) + text[end:]
+
+
 def _between(text: str, start: str, end: str, new: str) -> str:
     """text with the span from ``start`` up to ``end`` (kept) replaced by ``new``."""
     if start not in text or end not in text:
@@ -692,15 +729,130 @@ __device__ __forceinline__ void write_row(const uint32_t* srow, int base, int k2
 }
 
 """
+# K26 streamed: the rows through a ring of shared-memory stages filled by bulk copies (kernel and launcher)
+K26_STREAMED = r"""constexpr int kGatherRows = 4;    // rows a stage: 4 x (8 KB of words + 1 KB of li + 1 KB of bi)
+constexpr int kGatherStages = 4;  // stages a block: 160 KB
+constexpr int kStageWords = kGatherRows * (kRowWords + 2 * kOut);
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count) : "memory");
+}
+
+// the barrier's arrival, which also makes its phase wait for bytes more of copies
+__device__ __forceinline__ void mbar_arrive_expect(uint64_t* bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred done;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra WAIT;\n"
+      "}\n" ::"r"(smem_addr(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// bytes (a multiple of 16) from src to dst by the copy engine, counted on bar's transactions
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, int bytes, uint64_t* bar) {
+  asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(bytes), "r"(smem_addr(bar))
+               : "memory");
+}
+
+// group g's rows (kGatherRows from g * kGatherRows on, fewer at the end) into a stage: words, then li, then bi
+__device__ __forceinline__ void load_group(int* stage, uint64_t* bar, const int* x, const int* li, const int* bi,
+                                           long long g, int rows) {
+  const long long r0 = g * kGatherRows;
+  const int nr = (int)min((long long)kGatherRows, rows - r0);
+  mbar_arrive_expect(bar, nr * (kRowWords + 2 * kOut) * 4);
+  bulk_load(stage, x + r0 * kRowWords, nr * kRowWords * 4, bar);
+  bulk_load(stage + kGatherRows * kRowWords, li + r0 * kOut, nr * kOut * 4, bar);
+  bulk_load(stage + kGatherRows * (kRowWords + kOut), bi + r0 * kOut, nr * kOut * 4, bar);
+}
+
+__global__ void __launch_bounds__(kThreads)
+compact_gather_kernel(const int* __restrict__ x, const int* __restrict__ li, const int* __restrict__ bi,
+                      int* __restrict__ out, int rows) {
+  extern __shared__ __align__(128) int s_ring[];  // kGatherStages x kStageWords
+  __shared__ __align__(8) uint64_t full[kGatherStages];
+  const long long groups = (rows + kGatherRows - 1) / kGatherRows;
+  const long long mine = (groups - blockIdx.x + gridDim.x - 1) / gridDim.x;  // groups blockIdx.x + i * gridDim.x
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kGatherStages; ++s) mbar_init(&full[s], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    for (int i = 0; i < kGatherStages && i < mine; ++i)
+      load_group(s_ring + i * kStageWords, &full[i], x, li, bi, blockIdx.x + (long long)i * gridDim.x, rows);
+  }
+  __syncthreads();
+  for (long long i = 0; i < mine; ++i) {
+    const int s = (int)(i % kGatherStages);
+    const long long g = blockIdx.x + i * gridDim.x;
+    const int nq = (int)min((long long)kGatherRows, rows - g * kGatherRows) * (kOut / 4);
+    const int* stage = s_ring + s * kStageWords;
+    mbar_wait(&full[s], (int)((i / kGatherStages) & 1));
+    for (int q = threadIdx.x; q < nq; q += kThreads) {
+      const int4 l = reinterpret_cast<const int4*>(stage + kGatherRows * kRowWords)[q];
+      const int4 b = reinterpret_cast<const int4*>(stage + kGatherRows * (kRowWords + kOut))[q];
+      const int* row = stage + (q / (kOut / 4)) * kRowWords;
+      int4 o;
+      o.x = (unsigned)b.x < (unsigned)kBanks ? row[b.x * 128 + l.x] : 0;
+      o.y = (unsigned)b.y < (unsigned)kBanks ? row[b.y * 128 + l.y] : 0;
+      o.z = (unsigned)b.z < (unsigned)kBanks ? row[b.z * 128 + l.z] : 0;
+      o.w = (unsigned)b.w < (unsigned)kBanks ? row[b.w * 128 + l.w] : 0;
+      reinterpret_cast<int4*>(out)[g * kGatherRows * (kOut / 4) + q] = o;
+    }
+    __syncthreads();  // every thread is done with the stage
+    if (threadIdx.x == 0 && i + kGatherStages < mine)
+      load_group(s_ring + s * kStageWords, &full[s], x, li, bi, g + (long long)kGatherStages * gridDim.x, rows);
+  }
+}
+
+"""
+K26_STREAMED_LAUNCH = r"""// x (rows, 2048), li and bi (rows, 256) int32 -> out (rows, 256) int32; every pointer 16-byte aligned
+extern "C" int unopose_compact_gather(const int* x, const int* li, const int* bi, int* out, int rows,
+                                      cudaStream_t stream) {
+  if (rows < 0 || ((uintptr_t)x | (uintptr_t)li | (uintptr_t)bi | (uintptr_t)out) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  if (rows == 0) return 0;
+  const size_t smem = (size_t)kGatherStages * kStageWords * sizeof(int);
+  cudaError_t err =
+      cudaFuncSetAttribute(compact_gather_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess) return (int)err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, compact_gather_kernel, kThreads, smem);
+  if (err != cudaSuccess) return (int)err;
+  const long long groups = ((long long)rows + kGatherRows - 1) / kGatherRows;
+  const long long resident = (long long)sms * (per_sm > 0 ? per_sm : 1);
+  const int blocks = (int)(groups < resident ? groups : resident);
+  compact_gather_kernel<<<blocks, kThreads, smem, stream>>>(x, li, bi, out, rows);
+  return (int)cudaGetLastError();
+}
+
+"""
 
 
 # kernel: (source, entry point)
 KERNELS = {"K1": ("fps.cu", "unopose_fps"), "K7": ("vit_attn.cu", "unopose_mha_fused"),
            "K9": ("fine_assign.cu", "unopose_fine_labels"), "K4": ("geo_rpe.cu", "unopose_geo_rpe"),
            "K6": ("pe_mlp_pool.cu", "unopose_pe_mlp_pool"), "K10": ("fine_assign.cu", "unopose_fine_accum"),
-           "K3": ("first_k_select.cu", "unopose_first_k_select"), "K8": ("fine_assign.cu", "unopose_fine_colstats")}
+           "K3": ("first_k_select.cu", "unopose_first_k_select"), "K8": ("fine_assign.cu", "unopose_fine_colstats"),
+           "K5": ("pe_channels.cu", "unopose_pe_channels"), "K26": ("compact_micro.cu", "unopose_compact_gather")}
 SHIPPED = {"K1": "fps", "K7": "vit_attn", "K9": "fine_assign", "K4": "geo_rpe", "K6": "pe_mlp_pool",
-           "K10": "fine_assign_accum", "K3": "first_k_select", "K8": "fine_assign_colstats"}
+           "K10": "fine_assign_accum", "K3": "first_k_select", "K8": "fine_assign_colstats", "K5": "pe_channels",
+           "K26": "compact_gather"}
+# the kernel function whose -Xptxas -v lines a build's record carries
+PTXAS_OF = {"K5": "pe_channels_kernel", "K26": "compact_gather_kernel"}
 
 
 def sources(parent: Path | None, only=tuple(KERNELS)) -> dict:
@@ -711,9 +863,11 @@ def sources(parent: Path | None, only=tuple(KERNELS)) -> dict:
     geo = (build.CSRC / "geo_rpe.cu").read_text()
     pe = (build.CSRC / "pe_mlp_pool.cu").read_text()
     fk = (build.CSRC / "first_k_select.cu").read_text()
+    ch = (build.CSRC / "pe_channels.cu").read_text()
+    cm = (build.CSRC / "compact_micro.cu").read_text()
     out = {"fps": ("K1", fps), "vit_attn": ("K7", attn), "fine_assign": ("K9", fa), "geo_rpe": ("K4", geo),
            "pe_mlp_pool": ("K6", pe), "fine_assign_accum": ("K10", fa), "first_k_select": ("K3", fk),
-           "fine_assign_colstats": ("K8", fa)}
+           "fine_assign_colstats": ("K8", fa), "pe_channels": ("K5", ch), "compact_gather": ("K26", cm)}
     for threads, per in ((1024, 6), (512, 12)):
         text = _sub(fps, "constexpr int kSmallT = 256;", f"constexpr int kSmallT = {threads};")
         text = _sub(text, "constexpr int kSmallPer = 24;", f"constexpr int kSmallPer = {per};")
@@ -817,6 +971,29 @@ def sources(parent: Path | None, only=tuple(KERNELS)) -> dict:
     out["fine_assign_colstats_16warps"] = ("K8", _sub(text, *one_block))
     text = _sub(fa, "constexpr int kColStages = 2;", "constexpr int kColStages = 3;")
     out["fine_assign_colstats_3stages"] = ("K8", _sub(text, *one_block))
+    for warps in (4, 16):
+        out[f"pe_channels_w{warps}"] = ("K5", _sub(ch, "constexpr int kWarps = 8;", f"constexpr int kWarps = {warps};"))
+    out["pe_channels_p32"] = ("K5", _sub(ch, "constexpr int kPointsPerWarp = 16;", "constexpr int kPointsPerWarp = 32;"))
+    out["pe_channels_staged_stores"] = ("K5", _lines(ch, "uint2* dst = reinterpret_cast<uint2*>(out",
+                                                     "dst[2] = make_uint2(", K5_STAGED))
+    for quads in (2, 4):
+        out[f"compact_gather_quads{quads}"] = ("K26", _sub(cm, "constexpr int kQuads = 8;",
+                                                           f"constexpr int kQuads = {quads};"))
+    text = cm
+    for c in "xyzw":
+        text = _sub(text, f"__ldcs(row + b[k].{c} * 128 + l[k].{c})", f"__ldcg(row + b[k].{c} * 128 + l[k].{c})")
+    out["compact_gather_ldcg"] = ("K26", text)
+    text = cm
+    for v in ("li", "bi"):
+        text = _sub(text, f"__ldcs(reinterpret_cast<const int4*>({v}) + q)", f"reinterpret_cast<const int4*>({v})[q]")
+    for c in "xyzw":
+        text = _sub(text, f"__ldcs(row + b[k].{c} * 128 + l[k].{c})", f"row[b[k].{c} * 128 + l[k].{c}]")
+    out["compact_gather_default_cache"] = ("K26", _sub(text, "__stcs(reinterpret_cast<int4*>(out) + q, o);",
+                                                       "reinterpret_cast<int4*>(out)[q] = o;"))
+    text = _between(cm, "constexpr int kQuads = 8;", "__global__ void __launch_bounds__(kThreads)\n"
+                    "compact_wherechain_kernel", K26_STREAMED)
+    out["compact_gather_streamed"] = ("K26", _between(text, "// x (rows, 2048), li and bi (rows, 256)",
+                                                      "// li (rows, 256) int32", K26_STREAMED_LAUNCH))
     if parent is not None:
         csrc = parent / "unopose_tpu_torch" / "kernels" / "csrc"
         for kernel, name in SHIPPED.items():
@@ -824,9 +1001,9 @@ def sources(parent: Path | None, only=tuple(KERNELS)) -> dict:
     return {name: v for name, v in out.items() if v[0] in only}
 
 
-def compile_all(srcs: dict, workdir: Path) -> dict:
+def compile_all(srcs: dict, workdir: Path) -> tuple:
     """Build every distinct source text into workdir/<name>.so (named after its first build), all nvcc
-    processes at once; {name: ctypes.CDLL}."""
+    processes at once; ({name: ctypes.CDLL}, {name: the compiler's output})."""
     workdir.mkdir(parents=True, exist_ok=True)
     first = {}  # text: the first build of it
     for name, (_, text) in srcs.items():
@@ -840,11 +1017,59 @@ def compile_all(srcs: dict, workdir: Path) -> dict:
                             str(src)], capture_output=True, text=True, timeout=900)
         if r.returncode:
             raise build.KernelBuildError(f"{name}: nvcc failed\n{r.stdout}{r.stderr}")
-        return name, ctypes.CDLL(str(lib))
+        return name, (ctypes.CDLL(str(lib)), r.stdout + r.stderr)
 
     with ThreadPoolExecutor(len(first)) as ex:
-        libs = dict(ex.map(one, first.values()))
-    return {name: libs[first[text]] for name, (_, text) in srcs.items()}
+        built = dict(ex.map(one, first.values()))
+    return ({name: built[first[text]][0] for name, (_, text) in srcs.items()},
+            {name: built[first[text]][1] for name, (_, text) in srcs.items()})
+
+
+def ptxas_record(log: str, fn: str) -> dict:
+    """What ``-Xptxas -v`` said of the kernel whose mangled name holds ``fn``: registers a thread, spill store
+    and load bytes, static shared memory bytes."""
+    for block in re.split(r"Compiling entry function", log)[1:]:
+        if fn not in block.splitlines()[0]:
+            continue
+        num = lambda pat: int(m.group(1)) if (m := re.search(pat, block)) else None
+        return dict(registers=num(r"Used (\d+) registers"), spill_stores=num(r"(\d+) bytes spill stores"),
+                    spill_loads=num(r"(\d+) bytes spill loads"), smem=num(r"(\d+) bytes smem") or 0)
+    return {}
+
+
+# K5's rows through a warp's 768-byte buffer in shared memory, written out as 16-byte vectors
+K5_STAGED = """__shared__ __align__(16) uint2 s_rows[kWarps][32 * 3];
+uint2* srow = s_rows[warp];
+uint4* dst = reinterpret_cast<uint4*>(out + pt.row * 12) + (u + h) * 48;
+srow[3 * lane] = make_uint2(pack2(rx[h], ry[h]), pack2(rz[h], a0[h]));
+srow[3 * lane + 1] = make_uint2(pack2(a1[h], a2[h]), pack2(rx[h], ry[h]));
+srow[3 * lane + 2] = make_uint2(pack2(rz[h], c0[h]), pack2(c1[h], c2[h]));
+__syncwarp();
+dst[lane] = reinterpret_cast<const uint4*>(srow)[lane];
+if (lane < 16) dst[32 + lane] = reinterpret_cast<const uint4*>(srow)[32 + lane];
+__syncwarp();  // the buffer is rewritten by the next 32 slots
+"""
+
+
+# appended to each K5 build: the warps an SM holds of its kernel at N 2048 (the runtime's occupancy query at the
+# launcher's shared memory; the first design's is the three planes)
+K5_OCCUPANCY = """
+extern "C" int unopose_k5_resident_warps(int n, int* warps) {
+  const size_t smem = SMEM;
+  cudaError_t err = cudaFuncSetAttribute(pe_channels_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, pe_channels_kernel, kThreads, smem);
+  *warps = blocks * kThreads / 32;
+  return (int)err;
+}
+"""
+
+
+def with_occupancy(text: str) -> str:
+    """A K5 source with ``unopose_k5_resident_warps`` appended."""
+    smem = "smem_bytes(n)" if "size_t smem_bytes(int n)" in text else "(size_t)3 * n * sizeof(float)"
+    return text + K5_OCCUPANCY.replace("SMEM", smem)
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -932,6 +1157,46 @@ def pe_inputs(dev, rng, surfaces: bool) -> tuple:
     return chans.contiguous(), w1, w2, total2.to(torch.int32).contiguous(), wpack, bpack
 
 
+def channel_inputs(dev, rng, cloud: str, B2: int = 32, N: int = 2048, S2: int = 256) -> dict:
+    """K5's arguments as ``pe_fused.pe_channels_cuda`` passes them: the plain twin's inputs on B2 clouds of N
+    points grouped at budgets 64 / S2: ``cubes``, uniform in a 0.2 m cube in their global LRF, as chip_smoke.py
+    makes them; ``surfaces`` (N 2048), the sphere surfaces that fill every 64-slot tier; ``cubes_total2_0``, the
+    cubes with every seventh point's total2 set to 0. With the tier histogram."""
+    from unopose_tpu_torch.configs import surface_clouds
+    from unopose_tpu_torch.ops.ball_query import permutation, two_scale_group_first_k_packed_idx
+
+    if cloud == "surfaces":
+        perm, _ = permutation(N, "cpu")
+        pts = torch.from_numpy(surface_clouds(rng, B2, perm.numpy())).to(dev)
+    else:
+        pts = rng.uniform(-0.1, 0.1, size=(B2, N, 3)).astype(np.float32) + np.array([0, 0, 0.6], np.float32)
+        pts = global_lrf(torch.from_numpy(pts).to(dev))
+    planes, idx_p, w1, w2, total2, _ = two_scale_group_first_k_packed_idx(0.1, 64, 0.2, S2, pts)
+    total2 = total2.to(torch.int32).contiguous()
+    if cloud == "cubes_total2_0":
+        total2[:, ::7] = 0
+    hist = torch.bincount(pe_fused.chunks_needed(total2, S2).flatten(), minlength=5)[1:].tolist()
+    args = (*(p.float().contiguous() for p in planes), idx_p.contiguous(),
+            *(w.to(torch.bfloat16).contiguous() for w in (w1, w2)), total2,
+            *(c.float().contiguous() for c in pts.unbind(-1)))
+    return dict(args=args, B=B2, N=N, P=N, S2=S2, hist=hist)
+
+
+def gather_inputs(dev) -> dict:
+    """K26's arguments: ``profile_compact_micro.script_inputs`` at seed 0 as (rows, ...) arrays, and those rows'
+    first 1000 with every seventh bank index outside [0, 16) (16 and -1 in turns); each with the plain twin's
+    output."""
+    from unopose_tpu_torch.benchmarks import profile_compact_micro as cm
+
+    d = {k: torch.from_numpy(v).to(dev) for k, v in cm.script_inputs(np.random.default_rng(0)).items()}
+    x, li, bi = d["x"].view(-1, cm.C * cm.W), d["li"].view(-1, cm.K2), d["bi"].view(-1, cm.K2)
+    bad = bi[:1000].clone()
+    flat = bad.view(-1)
+    flat[0::14], flat[7::14] = 16, -1
+    cases = {f"{x.shape[0]} rows": (x, li, bi), "1000 rows, banks outside": (x[:1000], li[:1000], bad)}
+    return {key: (*a, cm.compact_gather_plain(*a)) for key, a in cases.items()}
+
+
 def geo_inputs(dev, rng, dtype) -> tuple:
     """K4's arguments (before the stream) at the main shape as chip_smoke.py makes them: both clouds' 196
     FPS nodes in their LRF plus the (1, 1, 1) bg point, 256 channels, T 128, k 3."""
@@ -965,7 +1230,8 @@ def main() -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()[0]
     srcs = sources(args.parent, tuple(args.only.split(",")))
-    libs = compile_all(srcs, build.BUILD_DIR / "variants")
+    srcs = {name: (kernel, with_occupancy(text) if kernel == "K5" else text) for name, (kernel, text) in srcs.items()}
+    libs, logs = compile_all(srcs, build.BUILD_DIR / "variants")
     stream = lambda: _P(torch.cuda.current_stream().cuda_stream)
     for name, lib in libs.items():
         entry = KERNELS[srcs[name][0]][1]
@@ -1015,6 +1281,14 @@ def main() -> int:
     if "K4" in only:
         shapes["K4"] = {"32x197x197x256 bf16": geo_inputs(dev, rng, torch.bfloat16),
                         "32x197x197x256 f32": geo_inputs(dev, rng, torch.float32)}
+    if "K5" in only:
+        shapes["K5"] = {"32x2048 S2 256 cubes": channel_inputs(dev, rng, "cubes"),
+                        "32x2048 S2 256 surfaces": channel_inputs(dev, rng, "surfaces"),
+                        "32x2048 S2 256 cubes, total2 0": channel_inputs(dev, rng, "cubes_total2_0"),
+                        "8x4096 S2 256 cubes": channel_inputs(dev, rng, "cubes", 8, 4096),
+                        "32x2000 S2 128 cubes": channel_inputs(dev, rng, "cubes", 32, 2000, 128)}
+    if "K26" in only:
+        shapes["K26"] = gather_inputs(dev)
 
     def run_case(name: str, key: str):
         """(call, outputs) of one build at one shape; the call launches the kernel once."""
@@ -1076,6 +1350,19 @@ def main() -> int:
             ptrs = [_P(x.data_ptr()) for x in (f1n, f2n, cm, cs)]
             call = lambda: lib.unopose_fine_colstats(*ptrs, Bp, M1, M2, C, stream())
             outs = (cm, cs)
+        elif kernel == "K5":
+            d = shapes["K5"][key]
+            out = torch.zeros((d["B"], d["P"], d["S2"], 12), dtype=torch.bfloat16, device=dev)
+            ptrs = [_P(x.data_ptr()) for x in (*d["args"], out)]
+            call = lambda: lib.unopose_pe_channels(*ptrs, d["B"], d["N"], d["P"], d["S2"], 0.1, 0.2, 1.0 / 0.1,
+                                                   1.0 / 0.2, stream())
+            outs = (out,)
+        elif kernel == "K26":
+            x, li, bi, _ = shapes["K26"][key]
+            out = torch.zeros_like(li)
+            ptrs = [_P(a.data_ptr()) for a in (x, li, bi, out)]
+            call = lambda: lib.unopose_compact_gather(*ptrs, li.shape[0], stream())
+            outs = (out,)
         elif kernel == "K6":
             a = shapes["K6"][key]  # chans, w1, w2, total2, wpack, bpack
             Bc, P, S2, _ = a[0].shape
@@ -1104,10 +1391,15 @@ def main() -> int:
              if not ((key.endswith("f32") or key.endswith("x40")) and name not in extra)]
     times = {c: [] for c in cases}
     heads = [x.reshape(B, N, H, hd).transpose(1, 2).contiguous() for x in (q, k, v)]
-    sdpa = []
+    sdpa, gather = [], []
+    if "K26" in only:
+        x26, li26, bi26, _ = next(iter(shapes["K26"].values()))
+        flat26 = (bi26 * 128 + li26).long()
     for order in (cases, cases[::-1]):
         if "K7" in only:
             sdpa.append(cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(*heads), args.reps))
+        if "K26" in only:
+            gather.append(cuda_ms(lambda: torch.gather(x26, 1, flat26), args.reps))
         for name, key in order:
             call, _ = run_case(name, key)
             times[(name, key)].append(cuda_ms(call, args.reps))
@@ -1131,11 +1423,25 @@ def main() -> int:
                 check["equal_plain"] = all(torch.equal(o.view(-1), plain[k].to(o.dtype).view(-1))
                                            for o, k in zip(outs, SELECT_KEYS))
                 check["overflows"] = over
+            if kernel == "K26":
+                check["equal_plain"] = bool(torch.equal(outs[0], shapes["K26"][key][3]))
+            if kernel == "K5":
+                check["tiers"] = shapes["K5"][key]["hist"]
+        if kernel in PTXAS_OF:
+            check["ptxas"] = ptxas_record(logs[name], PTXAS_OF[kernel])
+            if kernel == "K5":
+                warps = ctypes.c_int(0)
+                if lib_err := libs[name].unopose_k5_resident_warps(2048, ctypes.byref(warps)):
+                    raise RuntimeError(f"{name}: occupancy query failed: cudaError_t {lib_err}")
+                check["resident_warps_per_sm"] = warps.value
         results.append(dict(build=name, kernel=kernel, shape=key, ms=float(np.median(times[(name, key)])),
                             **check))
     if "K7" in only:
         results.append(dict(build="scaled_dot_product_attention", kernel="K7", shape="32x261x768",
                             ms=float(np.median(sdpa))))
+    if "K26" in only:
+        results.append(dict(build="torch.gather", kernel="K26", shape=next(iter(shapes["K26"])),
+                            ms=float(np.median(gather))))
     print(card)
     line = json.dumps({"card": card, "variants": results})
     print(line)

@@ -9,8 +9,10 @@ the peak rate for their type; the bound is the larger. The products of the fine 
 32*64 + 64*128) bf16 operations a slot and scale (the block-diagonal packing's zero blocks decide nothing);
 32-bit integer operations go at 64 a clock an SM (CUDA programming guide, compute capability 9.0). The
 integer-operation counts of the three compaction kernels are estimates, a few operations for each line of
-their code, not a count of compiled instructions; their rows say so. The shapes are the benchmarks' own
-(``SHAPES``). Prints one JSON line: each kernel's call site, bytes, operations, bound in ms and what bounds it.
+their code, not a count of compiled instructions; their rows say so. The banked gather reads only the 32-byte
+sectors of its words that its draws touch: its row counts them in expectation under the script's uniform draw
+(``chip_smoke.py`` counts those of its own run's draws). The shapes are the benchmarks' own (``SHAPES``). Prints
+one JSON line: each kernel's call site, bytes, operations, bound in ms and what bounds it.
 """
 
 from __future__ import annotations
@@ -40,6 +42,8 @@ def bounds() -> dict:
     fast = pts * pe["nsample2"] // 2  # profile_pe_ablate: a point's first S2 / 2 slots on its fast 64-point block
     rows = cm["B"] * cm["ROWS"]  # profile_compact_micro: blocks of (ROWS rows, C x W words)
     words, outs = rows * cm["C"] * cm["W"], rows * cm["K2"]
+    sectors = cm["C"] * cm["W"] // 8  # a row's 32-byte sectors, each hit by a draw with chance 1 / sectors
+    touched = rows * sectors * (1 - (1 - 1 / sectors) ** cm["K2"])  # expected distinct sectors the gather reads
     prefix = rows * 16 * (2 * 128 + 1)  # 16 per-row sums of 128 products, and a remainder each
     pts9, s9 = r9["B"] * r9["N"], r9["S2"]
     return {
@@ -48,8 +52,8 @@ def bounds() -> dict:
                                                2 * fast * MLP_FLOP, BF16_FLOPS),
         # 9 shift rounds of ~8 operations (roll, two tests, a bound, two selects, a subtraction, an and) a word
         "benchmarks/profile_compact_micro.py:34": (words * 4 + outs * 4, 9 * 8 * words, INT32_RATE),
-        # 16 banks of a gather, a compare and a select per output; reads the words and both index tensors
-        "benchmarks/profile_compact_micro.py:54": (words * 4 + 3 * outs * 4, 16 * 3 * outs, INT32_RATE),
+        # 16 banks of a gather, a compare and a select per output; reads the touched sectors and both indices
+        "benchmarks/profile_compact_micro.py:54": (touched * 32 + 3 * outs * 4, 16 * 3 * outs, INT32_RATE),
         # 15 compares, converts and adds, then 15 compares and selects, and 3 more per output; half the indices
         "benchmarks/profile_compact_micro.py:134": (outs // 2 * 4 + outs * 4, 78 * outs + prefix, INT32_RATE),
         # both scales on all 256 slots: the planes (3 x f32), one f32 mask, the centres and the output
