@@ -1,7 +1,13 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch port (``unopose_tpu_torch``) on one CUDA card.
 
-    python3 chip_smoke.py [--seed N] [--batches 3] [--train-steps 3]
+    python3 chip_smoke.py [--seed N] [--batches 3] [--train-steps 3] [--train-only]
+
+``--train-only`` builds the kernels and runs only the two train paths of
+phase 6 (``train`` and ``train_frozen``, ``--train-steps`` steps each),
+printing as its last line their steady step time, the profiled step's
+kernel time and its PE train kernels' time (for timing two trees in turns:
+copy this script into the other tree's checkout and run it there).
 
 Phases, each fatal on failure:
 
@@ -45,8 +51,11 @@ Phases, each fatal on failure:
    statistics (and each backward its own side's forward maximum): batch
    means and variances within 1e-4 relative, the pooled output, the sums
    and the dW within 1e-2 of each tensor's max with the median under 1e-3,
-   the tie counts equal; then the whole autograd function against the plain
-   twin on autograd (2e-2, median 2e-3); the subset grouping (32 x 2048, S
+   the tie counts equal, each backward-sums pass run twice bitwise equal;
+   then the whole autograd function against the plain twin on autograd
+   (2e-2, median 2e-3), and, in the log, ptxas's registers and spills and the
+   warps an SM of the K13 and K18 instantiations of ``pe_train_kernel``
+   (``pe_train_occupancy``); the subset grouping (32 x 2048, S
    64 and 256) bitwise equal to its plain version on every output, miss
    slots included; the masked PE (S 64 + 256) on those groupings of the
    uniform cubes and on the unpacked first_k grouping with all-ones masks
@@ -817,27 +826,24 @@ def pe_kernels(dev, pts, mlp1, mlp2, packed) -> dict:
     return r
 
 
-def train_chans(rng, dev, b: int, p: int, s: int):
-    """(b, 6, p, s) float32 PE channels whose first third of slots per point
-    holds distinct values and the rest duplicate slot 0, as the grouping's
-    pads duplicate the first hit (so the max pool has ties to split)."""
-    import torch
+def pe_train_occupancy(log, instances) -> dict:
+    """ptxas's registers and spills (from this process's build, ``build.build_log``) and the warps an SM holds (the
+    runtime's occupancy query, ``unopose_pe_train_resident_warps``) of pe_train_kernel's instantiations, each
+    (label, kernel "K11"-"K18", depth), logged; {label: record}."""
+    import ctypes
 
-    chans = torch.from_numpy(rng.standard_normal((b, 6, p, s)).astype(np.float32) * 0.3).to(dev)
-    chans[..., s // 3:] = chans[..., :1]
-    return chans.contiguous()
+    from unopose_tpu_torch.kernels import build
+    from unopose_tpu_torch.tools.kernel_variants import ptxas_fn, ptxas_record
 
-
-def train_weights(dev, seed: int):
-    """He-normal Ws, gammas near 1 and betas near 0 of one PE scale, seeded."""
-    import torch
-
-    gen = torch.Generator(device="cpu").manual_seed(seed)
-    dims = (6, 32, 64, 128)
-    Ws = [(torch.randn(a, b, generator=gen) * (2.0 / a) ** 0.5).to(dev) for a, b in zip(dims[:-1], dims[1:])]
-    gammas = [(1.0 + 0.1 * torch.randn(d, generator=gen)).to(dev) for d in dims[1:]]
-    betas = [(0.1 * torch.randn(d, generator=gen)).to(dev) for d in dims[1:]]
-    return Ws, gammas, betas
+    out = {}
+    for label, kernel, depth in instances:
+        warps = ctypes.c_int(0)
+        if err := build.load().unopose_pe_train_resident_warps(int(kernel[1:]), depth, ctypes.byref(warps)):
+            raise AssertionError(f"pe_train occupancy query of {label} failed: cudaError_t {err}")
+        out[label] = dict(ptxas_record(build.build_log, ptxas_fn(kernel, f"depth {depth}")),
+                          resident_warps_per_sm=warps.value)
+        log(f"pe_train_kernel {label}: {out[label]} (ptxas, this process's build; warps an SM, occupancy query)")
+    return out
 
 
 def check_train_kernels(log, dev, seed: int) -> dict:
@@ -847,12 +853,14 @@ def check_train_kernels(log, dev, seed: int) -> dict:
     function against the plain twin on autograd."""
     import torch
 
+    from unopose_tpu_torch.configs import pe_train_chans, pe_train_weights
     from unopose_tpu_torch.ops import pe_train as pt
 
     rng = np.random.default_rng(seed + 7)
     Bt, P = 8, 2048
-    Ws, gammas, betas = train_weights(dev, seed)
+    Ws, gammas, betas = pe_train_weights(dev, seed)
     results, worst = {}, {}
+    occupancy = pe_train_occupancy(log, [(f"K13 layer {L}", "K13", L) for L in (3, 2, 1)])
 
     def rel(got, want):
         d = (got - want).abs()
@@ -860,7 +868,7 @@ def check_train_kernels(log, dev, seed: int) -> dict:
         return (d.max() / scale).item(), (d.median() / scale).item()
 
     for S in (256, 64):
-        chans = train_chans(rng, dev, Bt, P, S)
+        chans = pe_train_chans(rng, dev, Bt, P, S)
         n = Bt * P * S
         bn, gb = pt.stats_buffer(gammas, betas, dev)
         stats, absolute = {}, dict(stats=0.0, sums=0.0)  # max |kernel - plain| of each kernel's outputs
@@ -881,11 +889,13 @@ def check_train_kernels(log, dev, seed: int) -> dict:
         dpool = torch.from_numpy(rng.standard_normal((Bt, P, 128)).astype(np.float32)).to(dev)
         # the backward kernels find each point's max slots by comparing their recomputed y3 with the
         # forward's max, so each side is fed its own forward's max and tie count
-        sums = {}
+        sums, same = {}, {}
         for layer in (3, 2, 1):
-            got = bn.clone()
+            got, again = bn.clone(), bn.clone()
             pt.bwd_sums_plain(chans, Ws, bn, pooled, cnt, dpool, layer)
             pt.bwd_sums_cuda(chans, Ws, got, k_pooled, k_cnt, dpool, layer)
+            pt.bwd_sums_cuda(chans, Ws, again, k_pooled, k_cnt, dpool, layer)  # a second run, bitwise the first
+            same[layer] = bool(torch.equal(got, again))
             d = pt.DIMS[layer]
             sums[layer] = (rel(got[layer - 1, pt.SG, :d], bn[layer - 1, pt.SG, :d]),
                            rel(got[layer - 1, pt.SGZ, :d], bn[layer - 1, pt.SGZ, :d]))
@@ -908,7 +918,7 @@ def check_train_kernels(log, dev, seed: int) -> dict:
         )
         log(f"pe_train S={S} ({Bt}x{P}x{S}): stats (mean rel of max, var rel) by depth {stats}; "
             f"pooled (max, median of max) {fwd_err}, tie counts equal {100 * cnt_equal:.4f}%; "
-            f"sums (g, g zhat) by layer {sums}; dW {dw_err}")
+            f"sums (g, g zhat) by layer {sums}, two runs equal by layer {same}; dW {dw_err}")
         log(f"pe_train S={S} times (kernel, plain ms): stats {times['stats']}, fwd {times['fwd']}, "
             f"sums {times['sums']}, dw {times['dw']}")
         errs = [e for v in stats.values() for e in v]
@@ -917,6 +927,8 @@ def check_train_kernels(log, dev, seed: int) -> dict:
         tensor_errs = [fwd_err, *(e for v in sums.values() for e in v), *dw_err]
         if any(mx > 1e-2 or med > 1e-3 for mx, med in tensor_errs):
             raise AssertionError(f"pe_train S={S}: a kernel's output beyond 1e-2 of its max or median beyond 1e-3")
+        if not all(same.values()):
+            raise AssertionError(f"pe_train_bwd_sums S={S}: two runs differ: {same}")
 
         # the bounds of this run's shapes: float32 chans read once; MACs per slot of each pass
         chain = sum(a * b for a, b in zip(pt.DIMS[:-1], pt.DIMS[1:]))  # 10432
@@ -936,7 +948,7 @@ def check_train_kernels(log, dev, seed: int) -> dict:
         torch.cuda.empty_cache()
 
     # the whole function: kernels (autograd function) against the plain twin on autograd, scale 2's shape
-    chans = train_chans(rng, dev, Bt, P, 256)
+    chans = pe_train_chans(rng, dev, Bt, P, 256)
     R = torch.from_numpy(rng.standard_normal((Bt, P, 128)).astype(np.float32)).to(dev)
     grads = []
     for fn in (pt.pe_mlp_bn_pool_train, pt.pe_mlp_bn_pool_train_plain):
@@ -970,6 +982,7 @@ def check_train_kernels(log, dev, seed: int) -> dict:
     results["pe_train_stats"]["by_depth_ms"] = [m[0] for m in main["times"]["stats"]]
     results["pe_train_stats"]["by_depth_bound_ms"] = [b["bound_ms"] for b in main["bounds"]["stats"]]
     results["pe_train_bwd_sums"]["by_layer_ms"] = [m[0] for m in main["times"]["sums"]]
+    results["pe_train_bwd_sums"]["by_layer_occupancy"] = [occupancy[f"K13 layer {L}"] for L in (3, 2, 1)]
     results["pe_train_bwd_sums"]["by_layer_bound_ms"] = [b["bound_ms"] for b in main["bounds"]["sums"]]
     results["pe_train_fwd"]["tie_counts_equal"] = main["cnt_equal"]
     return results
@@ -1665,12 +1678,14 @@ def check_frozen_kernels(log, dev, seed: int) -> dict:
     autograd (2e-2, median 2e-3, the gates of the batch-statistics stack)."""
     import torch
 
+    from unopose_tpu_torch.configs import pe_train_chans, pe_train_weights
     from unopose_tpu_torch.ops import pe_train as pt
 
     rng = np.random.default_rng(seed + 19)
     gen = torch.Generator().manual_seed(seed + 19)
     Bt, P = 8, 2048
-    Ws, gammas, betas = train_weights(dev, seed)
+    Ws, gammas, betas = pe_train_weights(dev, seed)
+    occupancy = pe_train_occupancy(log, [("K18", "K18", 0)])["K18"]
     means = [(0.1 * torch.randn(d, generator=gen)).to(dev) for d in pt.DIMS[1:]]
     vars_ = [(0.5 + torch.rand(d, generator=gen)).to(dev) for d in pt.DIMS[1:]]
 
@@ -1681,7 +1696,7 @@ def check_frozen_kernels(log, dev, seed: int) -> dict:
 
     out = {}
     for S in (256, 64):
-        chans = train_chans(rng, dev, Bt, P, S)
+        chans = pe_train_chans(rng, dev, Bt, P, S)
         n = Bt * P * S
         bn = pt.frozen_buffer(gammas, betas, means, vars_, 1e-5, dev)
         pooled, cnt = pt.fwd_plain(chans, Ws, bn)
@@ -1719,7 +1734,7 @@ def check_frozen_kernels(log, dev, seed: int) -> dict:
         torch.cuda.empty_cache()
 
     # the whole function on the card against the frozen twin on autograd, scale 2's shape
-    chans = train_chans(rng, dev, Bt, P, 256)
+    chans = pe_train_chans(rng, dev, Bt, P, 256)
     R = torch.from_numpy(rng.standard_normal((Bt, P, 128)).astype(np.float32)).to(dev)
     grads = []
     for fn in (pt.pe_mlp_bn_pool_frozen, pt.pe_mlp_bn_pool_frozen_plain):
@@ -1738,7 +1753,7 @@ def check_frozen_kernels(log, dev, seed: int) -> dict:
     return {"pe_train_frozen_bwd": dict(
         max_abs_err=main["absolute"], max_rel_err=main["rel"], ms=main["ms"], plain_ms=main["plain_ms"],
         library_ms=None, bound_ms=main["bound_ms"], bound_by=main["bound_by"], frozen_fwd_ms=main["fwd_ms"],
-        s64_ms=small["ms"], s64_plain_ms=small["plain_ms"], s64_bound_ms=small["bound_ms"])}
+        s64_ms=small["ms"], s64_plain_ms=small["plain_ms"], s64_bound_ms=small["bound_ms"], occupancy=occupancy)}
 
 
 def check_subset_8192(log, dev, seed: int) -> dict:
@@ -2492,6 +2507,7 @@ def main() -> int:
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--batches", type=int, default=3, help="full-width batches of the production path")
     parser.add_argument("--train-steps", type=int, default=3, help="full-width steps of the train path")
+    parser.add_argument("--train-only", action="store_true", help="only the train and train_frozen paths")
     args = parser.parse_args()
 
     import torch
@@ -2514,6 +2530,12 @@ def main() -> int:
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             log(f"ptxas: {line.strip()}")
 
+    if args.train_only:
+        runs = {"train": run_train(log, dev, args.seed, args.train_steps),
+                "train_frozen": run_train(log, dev, args.seed, args.train_steps, frozen=True)}
+        print(json.dumps({name: dict(steady_ms=r["steady_ms"], kernel_ms=r["profiled"]["kernel_ms"],
+                                     pe_train_ms=r["pe_train_ms"]) for name, r in runs.items()}))
+        return 0
     results = check_kernels(log, dev, args.seed)
     results.update(check_fused_kernels(log, dev, args.seed))
     results.update(check_production_kernels(log, dev, args.seed))

@@ -385,6 +385,13 @@ K5_K26_BUILDS = {
     "pe_channels", "pe_channels_w4", "pe_channels_w16", "pe_channels_p32", "pe_channels_staged_stores",
     "compact_gather", "compact_gather_quads2", "compact_gather_quads4",
     "compact_gather_default_cache", "compact_gather_streamed", "compact_gather_ldcg"}
+# K13's and K18's builds: the shipped source, a variant per design choice, and the tie-count check
+TRAIN_VARIANTS = ("_volatile_mma", "_no_prefetch", "_group2", "_group8", "_fmax_relu", "_dz_registers")
+K13_K18_BUILDS = {
+    *(f"pe_train_bwd_sums{v}" for v in ("", *TRAIN_VARIANTS, "_single_tiles", "_three_blocks", "_ties")),
+    *(f"pe_train_frozen_bwd{v}" for v in ("", *TRAIN_VARIANTS, "_ties"))}
+TRAIN_BUILDS = K13_K18_BUILDS | {"pe_train_stats", "pe_train_stats_one_block", "pe_train_stats_pairs", "pe_train_fwd",
+                                 "pe_train_fwd_one_block", "pe_train_fwd_pairs", "pe_train_bwd_dw"}
 
 
 def test_kernel_variants_tool_follows_the_shipped_sources(tmp_path):
@@ -407,11 +414,12 @@ def test_kernel_variants_tool_follows_the_shipped_sources(tmp_path):
                          "fine_assign_accum", "fine_assign_accum_ieee_division", "fine_assign_accum_no_ring",
                          "pe_mlp_pool", "pe_mlp_pool_b64", "pe_mlp_pool_registers", "pe_mlp_pool_no_packing",
                          "pe_mlp_pool_epilogue_first", "pe_mlp_pool_atomic", "pe_mlp_pool_stride", "pe_mlp_pool_wgmma",
-                         *K3_K8_BUILDS, *K5_K26_BUILDS}
+                         *K3_K8_BUILDS, *K5_K26_BUILDS, *TRAIN_BUILDS}
     shipped = kernel_variants.SHIPPED
     assert shipped == {"K1": "fps", "K7": "vit_attn", "K9": "fine_assign", "K4": "geo_rpe", "K6": "pe_mlp_pool",
                        "K10": "fine_assign_accum", "K3": "first_k_select", "K8": "fine_assign_colstats",
-                       "K5": "pe_channels", "K26": "compact_gather"}
+                       "K5": "pe_channels", "K26": "compact_gather", "K11": "pe_train_stats", "K12": "pe_train_fwd",
+                       "K13": "pe_train_bwd_sums", "K14": "pe_train_bwd_dw", "K18": "pe_train_frozen_bwd"}
     for name, (kernel, text) in srcs.items():
         assert (text == srcs[shipped[kernel]][1]) == (name in shipped.values()), name
     assert set(kernel_variants.sources(None, ("K6", "K10"))) == {
@@ -420,6 +428,7 @@ def test_kernel_variants_tool_follows_the_shipped_sources(tmp_path):
         "pe_mlp_pool_atomic", "pe_mlp_pool_stride", "pe_mlp_pool_wgmma"}
     assert set(kernel_variants.sources(None, ("K3", "K8"))) == K3_K8_BUILDS
     assert set(kernel_variants.sources(None, ("K5", "K26"))) == K5_K26_BUILDS
+    assert set(kernel_variants.sources(None, ("K13", "K18"))) == K13_K18_BUILDS
     # another checkout's sources, their headers inlined from its own csrc/
     csrc = tmp_path / "unopose_tpu_torch" / "kernels" / "csrc"
     shutil.copytree(PORT / "kernels" / "csrc", csrc)
@@ -433,6 +442,12 @@ def test_kernel_variants_tool_follows_the_shipped_sources(tmp_path):
     assert set(parents) == K5_K26_BUILDS | {"pe_channels_parent", "compact_gather_parent"}
     assert "// the other checkout's header" in parents["pe_channels_parent"][1]
     assert parents["compact_gather_parent"][1] == (csrc / "compact_micro.cu").read_text()
+    # the train kernels' parents, and the parent's tie-count check (a source with its own occupancy entry is kept)
+    train = kernel_variants.sources(tmp_path, ("K13", "K18"))
+    assert set(train) == K13_K18_BUILDS | {"pe_train_bwd_sums_parent", "pe_train_frozen_bwd_parent",
+                                           "pe_train_bwd_sums_ties_parent", "pe_train_frozen_bwd_ties_parent"}
+    assert train["pe_train_bwd_sums_parent"][1] == (csrc / "pe_train.cu").read_text()
+    assert "atomicAdd(g_ties" in train["pe_train_frozen_bwd_ties_parent"][1]
     # -Xptxas -v's lines of the named kernel, and the warps an SM holds at that footprint
     log = ("ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_122compact_rounds_kernelEPKiPiii' for 'sm_90a'\n"
            "ptxas info    : Used 40 registers, used 1 barriers, 16384 bytes smem\n"
@@ -451,6 +466,38 @@ def test_kernel_variants_tool_follows_the_shipped_sources(tmp_path):
     r = subprocess.run([sys.executable, "-m", "unopose_tpu_torch.tools.kernel_variants"], cwd=ROOT, env=env,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode != 0 and "no CUDA device" in r.stderr
+
+
+def test_kernel_variants_train_builds():
+    """``tools/kernel_variants.py --only K13,K18``: the tie-count check
+    inserts its count after the pool backward's compare of either design
+    (and raises on a source with neither), a source without the occupancy
+    entry gets the first design's probe, and each shape's ptxas record names
+    its ``pe_train_kernel<mode, depth>`` instantiation."""
+    from unopose_tpu_torch.tools import kernel_variants as kv
+
+    first = "#include <stdint.h>\n  {\n      " + kv.TIE_ANCHORS[1][0] + "\n  }\n"
+    checked = kv.tie_check(first)
+    assert checked.index(kv.TIE_ANCHORS[1][0]) < checked.index(kv.TIE_ANCHORS[1][1])
+    assert "      " + kv.TIE_ANCHORS[1][1] in checked and kv.TIE_DECL in checked
+    with pytest.raises(ValueError):
+        kv.tie_check("#include <stdint.h>\n")
+    shipped = kv.sources(None, ("K13",))["pe_train_bwd_sums"][1]
+    assert kv.TIE_ANCHORS[0][0] in shipped and kv.with_train_probe(shipped) == shipped
+    assert kv.with_train_probe(first).endswith(kv.TRAIN_PROBE)
+    keys = {("K11", "8x2048x256 depth 2"): "ILi0ELi2E", ("K12", "8x2048x64"): "ILi1ELi3E",
+            ("K13", "8x2048x256 layer 1"): "ILi2ELi1E", ("K14", "8x2048x256"): "ILi3ELi0E",
+            ("K18", "8x2048x64"): "ILi4ELi0E"}
+    for (kernel, key), inst in keys.items():
+        assert kv.ptxas_fn(kernel, key) == "pe_train_kernel" + inst
+    log = ("ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_115pe_train_kernelILi2ELi2EEEvPKf' for 'sm_90a'\n"
+           "ptxas info    : Used 126 registers, used 1 barriers\n"
+           "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_115pe_train_kernelILi2ELi1EEEvPKf' for 'sm_90a'\n"
+           "    24 bytes stack frame, 24 bytes spill stores, 16 bytes spill loads\n"
+           "ptxas info    : Used 128 registers, used 1 barriers\n")
+    assert kv.ptxas_record(log, kv.ptxas_fn("K13", "8x2048x256 layer 1")) == dict(
+        registers=128, spill_stores=24, spill_loads=16, smem=0)
+    assert kv.ptxas_record(log, kv.ptxas_fn("K13", "8x2048x64 layer 2"))["registers"] == 126
 
 
 def _literals(path: Path) -> dict:
@@ -664,6 +711,46 @@ def test_pe_train_kernels_match_plain(cuda):
                                                           "pe_train_bwd_dw")}
     assert counts == dict(pe_train_stats=3, pe_train_fwd=1, pe_train_bwd_sums=3, pe_train_bwd_dw=1)
     assert all(torch.isfinite(p.grad).all() for p in params)
+
+
+@pytest.mark.cuda
+def test_pe_train_odd_tiles(cuda):
+    """The train passes at S 16 and 48 (an odd number of 16-slot tiles: the
+    second tile of K13's last layer-3 step runs idle) and P 37 against their
+    plain passes at the gates of test_pe_train_kernels_match_plain, K18
+    too; the tie counts equal."""
+    Ws, gammas, betas = _pe_train_params(cuda)
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    for S in (16, 48):
+        chans = torch.randn(3, 6, 37, S, device=cuda, generator=gen) * 0.3
+        chans[..., S // 3:] = chans[..., :1]
+        chans = chans.contiguous()
+        bn, gb = pe_train.stats_buffer(gammas, betas, cuda)
+        for depth in (1, 2, 3):
+            pe_train.stats_plain(chans, Ws, gb, bn, depth, 1e-5)
+        pooled, cnt = pe_train.fwd_plain(chans, Ws, bn)
+        k_pooled, k_cnt = pe_train.fwd_cuda(chans, Ws, bn)
+        assert torch.equal(k_cnt, cnt)
+        dpool = torch.randn(3, 37, 128, device=cuda, generator=gen)
+        for layer in (3, 2, 1):
+            got = bn.clone()
+            pe_train.bwd_sums_plain(chans, Ws, bn, pooled, cnt, dpool, layer)
+            pe_train.bwd_sums_cuda(chans, Ws, got, k_pooled, k_cnt, dpool, layer)
+            for row in (pe_train.SG, pe_train.SGZ):
+                want = bn[layer - 1, row, : pe_train.DIMS[layer]]
+                assert ((got[layer - 1, row, : pe_train.DIMS[layer]] - want).abs().max() / want.abs().max()).item() < 1e-2
+        frozen = pe_train.frozen_buffer(gammas, betas, [g * 0.1 for g in gammas], [g.abs() + 0.5 for g in gammas],
+                                        1e-5, cuda)
+        f_pooled, f_cnt = pe_train.fwd_plain(chans, Ws, frozen)
+        kf_pooled, kf_cnt = pe_train.fwd_cuda(chans, Ws, frozen)
+        assert torch.equal(kf_cnt, f_cnt)
+        want_bn, got_bn = frozen.clone(), frozen.clone()
+        want = pe_train.frozen_bwd_plain(chans, Ws, want_bn, f_pooled, f_cnt, dpool)
+        got = pe_train.frozen_bwd_cuda(chans, Ws, got_bn, kf_pooled, kf_cnt, dpool)
+        pairs = [*zip(got, want), *((got_bn[l, r, :d], want_bn[l, r, :d]) for l, d in enumerate(pe_train.DIMS[1:])
+                                    for r in (pe_train.SG, pe_train.SGZ))]
+        for a, b in pairs:
+            assert ((a - b).abs().max() / b.abs().max()).item() < 1e-2
 
 
 @pytest.mark.cuda

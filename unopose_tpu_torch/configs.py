@@ -281,3 +281,29 @@ def synthetic_train_inputs(rng: np.random.Generator, batch: int, tiny: bool = Fa
         rotation_label=R.astype(np.float32),
         translation_label=t,
     )
+
+
+def pe_train_chans(rng: np.random.Generator, dev, b: int, p: int, s: int):
+    """(b, 6, p, s) float32 PE channels on ``dev`` whose first third of
+    slots per point holds distinct values and the rest duplicate slot 0, as
+    the grouping's pads duplicate the first hit (so the max pool has ties to
+    split): the train PE kernels' inputs in ``chip_smoke.py`` and
+    ``tools/kernel_variants.py``."""
+    import torch
+
+    chans = torch.from_numpy(rng.standard_normal((b, 6, p, s)).astype(np.float32) * 0.3).to(dev)
+    chans[..., s // 3:] = chans[..., :1]
+    return chans.contiguous()
+
+
+def pe_train_weights(dev, seed: int):
+    """He-normal Ws, gammas near 1 and betas near 0 of one train PE scale
+    (6 -> 32 -> 64 -> 128), seeded, on ``dev``."""
+    import torch
+
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    dims = (6, 32, 64, 128)
+    Ws = [(torch.randn(a, b, generator=gen) * (2.0 / a) ** 0.5).to(dev) for a, b in zip(dims[:-1], dims[1:])]
+    gammas = [(1.0 + 0.1 * torch.randn(d, generator=gen)).to(dev) for d in dims[1:]]
+    betas = [(0.1 * torch.randn(d, generator=gen)).to(dev) for d in dims[1:]]
+    return Ws, gammas, betas

@@ -67,6 +67,8 @@ _SIGNATURES = {
     "unopose_pe_train_bwd_dw": [_P] * 9 + [_I, _P] + [_I] * 3 + [_P],
     # chans, w0, w1, w2, bn, pooled, cnt, dpool, partial, cap, dw, B, P, S, stream
     "unopose_pe_train_frozen_bwd": [_P] * 9 + [_I, _P] + [_I] * 3 + [_P],
+    # kernel (11, 12, 13, 14, 18), depth (K11, K13; K12 3, K14 and K18 0), warps an SM (out)
+    "unopose_pe_train_resident_warps": [_I, _I, _P],
     # pts, perm, gx, gy, gz, d2, valid, B, N, S, r2, stream
     "unopose_ball_group_subset": [_P] * 7 + [_I] * 3 + [_F, _P],
     # pts1, rs, ts, tp, model, w1, dsum, B, P2, N1, N2, mode, stream

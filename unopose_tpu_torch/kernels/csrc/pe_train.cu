@@ -28,39 +28,64 @@
 // product, products accumulate in float32 (mma.sync m16n8k16), and the
 // statistics, zhat and the affines are float32.
 //
-// What differs from the TPU kernels: no 128-lane padding of the widths (the
-// first layer's K of 6 is padded to the mma's 16, nothing else), and no
-// sequential grid carrying the sums. A persistent grid of blocks loops over
-// the points; each warp owns one point at a time and runs its S slots 16 at
-// a time through the three layers in registers (a layer's float32
-// accumulator fragment, affine'd, ReLU'd and packed to bf16 pairs, is the
-// next layer's A fragment, as in pe_mlp_pool.cu). Each block writes its
-// partial sums to a scratch row, and a second kernel of the same launch
-// adds the rows in block order (in double) and finishes the statistics, so
-// a run is deterministic. The tie count that the pool backward needs is
-// counted by the forward kernel (an online max with a count, merged across
-// the row groups by shuffles) and read back by the backward kernels, whose
-// recomputed y3 is bit for bit the forward's, so they need no extra pass
-// over a point's slots. The weight gradients contract over the slots: K14's
-// warps stage their 16-slot tiles of chans, y1, y2, dz1, dz2 and dz3 in
-// shared memory transposed (feature rows, slot columns), and after a block
-// barrier each warp multiplies its share of the dW tiles over the block's
-// 128 staged slots, accumulating in registers for the whole run.
+// A persistent grid of blocks loops over the points; each warp owns one point
+// at a time and runs its S slots 16 at a time (an m-tile) through the three
+// layers in registers: a layer's float32 accumulator fragment, affine'd and
+// packed to bf16 pairs with the ReLU in the conversion, is the next layer's A
+// fragment. Each block writes its partial sums to a scratch row and a second
+// kernel of the same launch adds the rows in block order (in double), so a
+// run is deterministic; the rows' rounding follows the block count, which
+// follows the occupancy.
+//
+// What holds the backward back on this card is the warps an SM, the
+// instructions beside the products and the shared-memory traffic of every
+// warp's fragments; the design:
+// - Warps. Nothing that can be recomputed or read back is held: the backward
+//   takes z1 and z2 for zhat from the bf16 A fragments again (the forward's
+//   products in the forward's k order, so the same bits), and dz3, dz2 and
+//   y2 (dy2's ReLU gates) from its staging in shared memory, in groups of 4
+//   n-tiles of dy (K13) or 8 (K14, K18). K11-K13 are held to 128 registers
+//   (two blocks of 8 warps an SM); K14 and K18 run one block of 16 warps an
+//   SM, the most whose staging fits.
+// - Fragments. Every B fragment is an ldmatrix.x4 from one copy of the
+//   weights, (out, in) rows padded by 8 bf16 (conflict-free rows): the
+//   forward's two n-tiles or k-steps a load, the backward's W^T the same rows
+//   read transposed. Per layer and column pair, the constants (a, b), (mu,
+//   1/sigma), (sum g, sum g zhat) / n and the point's pool row (its max and
+//   cotangent share) are one float4 each, one 128-bit load for a lane's two
+//   columns.
+// - Loads ahead. The next m-tile's chans (lane t < 3: planes 2t, 2t + 1 at
+//   rows g, g + 8) are loaded into registers while this one's products run,
+//   across the point boundary too.
+// - Two m-tiles a step where the pass stops at the pool (K13's layer 3): each
+//   B fragment serves both, whose product chains run side by side.
+// - The pool backward. A point's max and share are read once per point into
+//   the warp's pool row, the max replaced by NaN where it is 0 (no slot's y3
+//   is above 0 there, so no slot takes a share): a slot takes the share where
+//   its pre-activation equals the row's value, one compare for the forward's
+//   (y == max) && (pre > 0). The forward's max and tie count come from K12,
+//   whose y3 the recompute repeats bit for bit (-fmad=false for every source).
+// - Sums. The sums of g zhat are taken as 1/sigma sum g (z - mu), the
+//   product by fused multiply-adds and 1/sigma applied once per channel in
+//   the second pass (the per-element values that feed dz keep their
+//   roundings). Each step reduces an n-tile pair's 32 sums over the warp's
+//   row groups by a fixed shuffle tree (7 shuffles) into one register a lane
+//   for the whole run: 2-8 registers for K13's layer, 14 for K18's three.
+// - The dW passes (K14, K18). A block's 16 warps stage their 16-slot tiles of
+//   chans, y1, y2, dz1, dz2 and dz3 in shared memory transposed (feature rows,
+//   256 slot columns) by stmatrix.trans, one instruction per 16 x 16 tile;
+//   the warp reads its dz3 and dz2 back from there (ldmatrix.trans) for the
+//   layer below. After a block barrier each warp multiplies its share of the
+//   dW tiles over the block's 256 staged slots (ldmatrix fragments),
+//   accumulating in registers for the whole run: dW3 4 tiles, dW2 1, dW1 one
+//   n-tile over a quarter of the slots.
 //
 // Bound: operations. A chain is 10,432 MACs a slot: at B = 8, P = 2048,
 // S = 256 (4.19 M slots) 87.5 GFLOP, 0.088 ms at 989 TFLOP/s; K11 at depth
 // 1 and 2 is bound by reading the 100 MB of float32 chans (0.030 ms), K14
-// does 62,208 FLOP a slot (0.26 ms). This first version uses mma.sync from
-// registers without wgmma or TMA and reads chans in its (B, 6, P, S)
-// float32 layout in every pass; the bf16 rounding, affine and gating of
-// every element run on the CUDA cores beside the products.
-//
-// K18 is K14 plus the three layers' sums: per 16-slot tile and 8-channel
-// n-tile, each lane adds its two rows, the warp's eight row groups are
-// added by a fixed shuffle tree (a reduce-scatter over the row group's lane
-// bits), and the result goes to the warp's row of sums in shared memory;
-// the block adds its warps' rows in order, the second pass the blocks'.
-// Its bound is K14's, 0.26 ms at the shapes above.
+// and K18 do 62,208 FLOP a slot (0.26 ms). mma.sync from registers reaches
+// about half the tensor cores' wgmma rate; the bf16 rounding, affine and
+// gating of every element run on the CUDA cores beside the products.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -68,67 +93,134 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
 enum Mode { kStats = 0, kFwd = 1, kBwdSums = 2, kBwdDw = 3, kBwdFrozen = 4 };
 // rows of the per-layer statistics buffer bn (3, kBnRows, 128), ops/pe_train.py
 enum BnRow { kMu = 0, kVar = 1, kInv = 2, kA = 3, kB = 4, kSg = 5, kSgz = 6, kBnRows = 8 };
-// bf16 weights in shared memory: forward (out, in) rows with layer 1's K padded 6 -> 16, backward
-// (in, out) rows of W2 and W3; each row padded by 8 bf16 for conflict-free fragment loads
-constexpr int kLdF0 = 16 + 8, kLdF1 = 32 + 8, kLdF2 = 64 + 8, kLdB1 = 64 + 8, kLdB2 = 128 + 8;
-constexpr int kOffF1 = 32 * kLdF0;
-constexpr int kOffF2 = kOffF1 + 64 * kLdF1;
-constexpr int kOffB1 = kOffF2 + 128 * kLdF2;
-constexpr int kOffB2 = kOffB1 + 32 * kLdB1;
-constexpr int kWElems = kOffB2 + 64 * kLdB2;
-// float constants per layer and channel: a, b, mu, inv, sum g / n, sum g zhat / n
-enum CRow { cA = 0, cB = 1, cMu = 2, cInv = 3, cG = 4, cGz = 5, kCRows = 6 };
-constexpr int kConsts = 3 * kCRows * 128;
-// K14's staging: feature rows x (8 warps x 16 slots) bf16, transposed
-constexpr int kLdS = kWarps * 16 + 8;
-constexpr int kSChans = 0, kSY1 = 16, kSY2 = 48, kSD1 = 112, kSD2 = 144, kSD3 = 208, kSRows = 336;
+
+__host__ __device__ constexpr bool has_dw(int mode) { return mode == kBwdDw || mode == kBwdFrozen; }
+// warps a block: 16 for the passes that stage their slots for the dW products (one block an SM), else 8
+__host__ __device__ constexpr int warps_of(int mode) { return has_dw(mode) ? 16 : 8; }
+// blocks an SM a build is held to (at most 65536 / (threads x blocks) registers a thread): two blocks of 8 warps,
+// or one of 16
+__host__ __device__ constexpr int min_blocks_of(int mode) { return has_dw(mode) ? 1 : 2; }
+// whether a backward pass reads its dz3 and dz2 back from the staging for the layer below (else holds them)
+__host__ __device__ constexpr bool reads_dz_back(int mode) { return mode == kBwdSums || has_dw(mode); }
+// the n-tiles of a dy accumulated together (even): more read each staged dz k-step back fewer times, fewer hold
+// fewer accumulators
+__host__ __device__ constexpr int group_of(int mode, int depth) { return has_dw(mode) ? 8 : 4; }
+// whether a backward pass sums g and g zhat at a layer: K13 at its own, K18 at every layer
+__host__ __device__ constexpr bool sums_at(int mode, int depth, int layer) {
+  return mode == kBwdFrozen || (mode == kBwdSums && depth == layer);
+}
+// the m-tiles a warp takes through the forward at once, each B fragment serving all of them: K13's layer-3
+// pass, whose backward stops at the pool (more would not fit its 128 registers)
+__host__ __device__ constexpr int m_tiles_of(int mode, int depth) { return mode == kBwdSums && depth == 3 ? 2 : 1; }
+__host__ __device__ constexpr int width_of(int layer) { return layer == 1 ? 32 : layer == 2 ? 64 : 128; }
+
+// bf16 weights in shared memory: each layer's (out, in) rows, layer 1's K padded 6 -> 16, each row padded by
+// 8 bf16 for conflict-free ldmatrix rows
+constexpr int kLd0 = 16 + 8, kLd1 = 32 + 8, kLd2 = 64 + 8;
+constexpr int kOff1 = 32 * kLd0, kOff2 = kOff1 + 64 * kLd1, kWElems = kOff2 + 128 * kLd2;
+// per layer, kind and column pair (2p, 2p + 1) one float4: (a, a, b, b), (mu, mu, inv, inv),
+// (sum g / n, sum g / n, sum g zhat / n, sum g zhat / n)
+enum QKind { kQAb = 0, kQMuInv = 1, kQG = 2 };
+constexpr int kQuads = 3 * 3 * 64;
+// The staging: feature rows x (the block's warps x 16 slots) bf16, transposed, each row padded by 8 bf16. K14
+// and K18 stage chans (rows 6, 7 zero), y1, y2, dz1, dz2 and dz3; K13 dz3, y2 (the ReLU gates of dy2) and dz2, as
+// far as its pass reaches.
+constexpr int kSChans = 0, kSY1 = 8, kSD1 = 104, kSRows = 328;
+__host__ __device__ constexpr int st_ld(int mode) { return warps_of(mode) * 16 + 8; }
+__host__ __device__ constexpr int st_d3(int mode) { return has_dw(mode) ? 200 : 0; }
+__host__ __device__ constexpr int st_y2(int mode) { return has_dw(mode) ? 40 : 128; }
+__host__ __device__ constexpr int st_d2(int mode) { return has_dw(mode) ? 136 : 192; }
+__host__ __device__ constexpr int st_rows(int mode, int depth) {
+  if (has_dw(mode)) return kSRows;
+  return mode == kBwdSums && reads_dz_back(mode) ? (depth == 1 ? 256 : depth == 2 ? 192 : 0) : 0;
+}
 constexpr int kDW = 6 * 32 + 32 * 64 + 64 * 128;
 constexpr int kDW2 = 6 * 32, kDW3 = 6 * 32 + 32 * 64;  // offsets of dW2 and dW3 in a dW row
 // K18's sums of g and g zhat per layer (32, 64, 128 channels), each layer's g then its g zhat
 constexpr int kSums = 2 * (32 + 64 + 128);
 __host__ __device__ constexpr int sums_base(int layer) { return layer == 1 ? 0 : layer == 2 ? 64 : 192; }
+// the sum registers (one a lane an n-tile pair): K13's layer's (at most 8), K18's of layers 1, 2, 3 from pair_base
+constexpr int kPairRegs = 2 + 4 + 8;
+__host__ __device__ constexpr int pair_base(int mode, int layer) {
+  return mode == kBwdFrozen ? (layer == 1 ? 0 : layer == 2 ? 2 : 6) : 0;
+}
 
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+// dynamic shared memory of a pass: the weights, the constants, each warp's pool row, the staging
+__host__ __device__ constexpr size_t smem_bytes(int mode, int depth) {
+  return (size_t)kWElems * 2 + (size_t)kQuads * 16 + (size_t)warps_of(mode) * 64 * 16 +
+         (size_t)st_rows(mode, depth) * st_ld(mode) * 2;
+}
+
+__device__ __forceinline__ uint32_t saddr(const void* p) { return static_cast<uint32_t>(__cvta_generic_to_shared(p)); }
+
+// fragments of the weights (written once, before the first barrier)
+__device__ __forceinline__ void ldsm4(uint32_t (&r)[4], const __nv_bfloat16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(saddr(p)));
+}
+__device__ __forceinline__ void ldsm4t(uint32_t (&r)[4], const __nv_bfloat16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(saddr(p)));
+}
+// fragments of the staging, which the warps rewrite every m-tile: ordered with the stores
+__device__ __forceinline__ void ldst4(uint32_t (&r)[4], const __nv_bfloat16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(saddr(p))
+               : "memory");
+}
+__device__ __forceinline__ void ldst4t(uint32_t (&r)[4], const __nv_bfloat16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(saddr(p))
+               : "memory");
+}
+__device__ __forceinline__ void ldst2(uint32_t (&r)[2], const __nv_bfloat16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(saddr(p))
+               : "memory");
+}
+// an A fragment (16 slots x 16 features, or x 8 for x2) stored transposed: feature rows, slot columns
+__device__ __forceinline__ void stst4t(__nv_bfloat16* p, const uint32_t (&r)[4]) {
+  asm volatile("stmatrix.sync.aligned.m8n8.x4.trans.shared.b16 [%0], {%1, %2, %3, %4};\n" ::"r"(saddr(p)), "r"(r[0]),
+               "r"(r[1]), "r"(r[2]), "r"(r[3])
+               : "memory");
+}
+__device__ __forceinline__ void stst2t(__nv_bfloat16* p, uint32_t r0, uint32_t r1) {
+  asm volatile("stmatrix.sync.aligned.m8n8.x2.trans.shared.b16 [%0], {%1, %2};\n" ::"r"(saddr(p)), "r"(r0), "r"(r1)
+               : "memory");
+}
+
+// not volatile: the compiler may schedule the products like any arithmetic
+__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
       "{%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) { return *reinterpret_cast<const uint32_t*>(p); }
-
 // a bf16 pair, low half = lower column
-__device__ __forceinline__ uint32_t pack(float x, float y) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(x, y);
+__device__ __forceinline__ uint32_t pack(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// the ReLU and the bf16 pair in one conversion (a zero's sign aside, the bits of fmaxf(x, 0) rounded)
+__device__ __forceinline__ uint32_t relu_pack(float lo, float hi) {
+  uint32_t d;
+  asm("cvt.rn.relu.bf16x2.f32 %0, %1, %2;\n" : "=r"(d) : "f"(hi), "f"(lo));
+  return d;
 }
 
 // the ReLU gate of a packed post-ReLU activation (y > 0; -0 is not positive)
 __device__ __forceinline__ bool pos_lo(uint32_t v) { return (v & 0x7fffu) != 0u; }
 __device__ __forceinline__ bool pos_hi(uint32_t v) { return (v & 0x7fff0000u) != 0u; }
-
-// write a packed A fragment's bf16 pairs transposed into the staging rows: feature f, f + 1 at slot s
-__device__ __forceinline__ void put(uint16_t* st, int f, int s, uint32_t v) {
-  st[f * kLdS + s] = (uint16_t)(v & 0xffffu);
-  st[(f + 1) * kLdS + s] = (uint16_t)(v >> 16);
-}
-
-template <int kTiles>
-__device__ __forceinline__ void stage(uint16_t* st, int row0, const uint32_t (&a)[kTiles][4], int col, int g, int t) {
-#pragma unroll
-  for (int kt = 0; kt < kTiles; ++kt) {
-    put(st, row0 + kt * 16 + 2 * t, col + g, a[kt][0]);
-    put(st, row0 + kt * 16 + 2 * t, col + g + 8, a[kt][1]);
-    put(st, row0 + kt * 16 + 8 + 2 * t, col + g, a[kt][2]);
-    put(st, row0 + kt * 16 + 8 + 2 * t, col + g + 8, a[kt][3]);
-  }
-}
 
 // online max with a tie count
 __device__ __forceinline__ void max_count(float& m, float& c, float v) {
@@ -140,122 +232,206 @@ __device__ __forceinline__ void max_count(float& m, float& c, float v) {
   }
 }
 
-__host__ __device__ constexpr int width_of(int layer) { return layer == 1 ? 32 : layer == 2 ? 64 : 128; }
+// the chans of point pt: plane c at + c * P * S (the point's index fits 32 bits, as it does for any chans that
+// fit the card's memory: the division is the 32-bit one, not 64-bit code that costs registers)
+__device__ __forceinline__ const float* point_chans(const float* chans, long long pt, int P, int S) {
+  const unsigned b = (unsigned)pt / (unsigned)P, p = (unsigned)pt - b * (unsigned)P;
+  return chans + ((long long)b * 6 * P + p) * S;
+}
 
-// K18: one n-tile's column sums of g and g zhat (columns col and col + 1, rows g and g + 8 of each lane),
-// reduced over the warp's 8 row groups by a fixed tree (lane bits 4, 3, 2: each step keeps half the
-// values and hands the other half to the partner), then added to the warp's sums in shared memory
-__device__ __forceinline__ void frozen_col_sums(float* sums, int layer, int col, const float (&gv)[4],
-                                                const float (&zh)[4], int lane) {
-  const float v0 = gv[0] + gv[2], v1 = gv[1] + gv[3];
-  const float v2 = gv[0] * zh[0] + gv[2] * zh[2], v3 = gv[1] * zh[1] + gv[3] * zh[3];
-  const bool hi16 = (lane & 16) != 0, hi8 = (lane & 8) != 0;
-  float k0 = hi16 ? v2 : v0, k1 = hi16 ? v3 : v1;
-  k0 += __shfl_xor_sync(0xffffffffu, hi16 ? v0 : v2, 16);
-  k1 += __shfl_xor_sync(0xffffffffu, hi16 ? v1 : v3, 16);
-  float k = hi8 ? k1 : k0;
-  k += __shfl_xor_sync(0xffffffffu, hi8 ? k0 : k1, 8);
-  k += __shfl_xor_sync(0xffffffffu, k, 4);
-  if ((lane & 4) == 0) sums[sums_base(layer) + (hi16 ? width_of(layer) : 0) + col + (hi8 ? 1 : 0)] += k;
+// lane t < 3's chans of the m-tile at slot s0: planes 2t and 2t + 1 at rows g and g + 8
+__device__ __forceinline__ void load_tile(float (&v)[4], const float* cb, int s0, long long plane, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+  if (t < 3) {
+    const float* c = cb + 2 * t * plane + s0 + g;
+    v[0] = c[0];
+    v[1] = c[plane];
+    v[2] = c[8];
+    v[3] = c[plane + 8];
+  }
+}
+
+// layer 2's (32 -> 64) B fragments of n-tile nt, both k-steps
+__device__ __forceinline__ void b_layer2(uint32_t (&b)[4], const __nv_bfloat16* s_w, int nt, int lane) {
+  ldsm4(b, s_w + kOff1 + (nt * 8 + (lane & 7)) * kLd1 + (lane >> 3) * 8);
+}
+
+// z of an n-tile of layer 2 from the layer's A fragments, in the forward's k order
+__device__ __forceinline__ void z_layer2(float (&z)[4], const uint32_t (&a)[2][4], const uint32_t (&b)[4]) {
+  z[0] = z[1] = z[2] = z[3] = 0.0f;
+  mma(z, a[0], b[0], b[1]);
+  mma(z, a[1], b[2], b[3]);
+}
+
+// layer 3's (64 -> 128) B fragments of n-tile nt, four k-steps
+__device__ __forceinline__ void b_layer3(uint32_t (&b)[2][4], const __nv_bfloat16* s_w, int nt, int lane) {
+  const __nv_bfloat16* row = s_w + kOff2 + (nt * 8 + (lane & 7)) * kLd2 + (lane >> 3) * 8;
+  ldsm4(b[0], row);
+  ldsm4(b[1], row + 32);
+}
+
+__device__ __forceinline__ void z_layer3(float (&z)[4], const uint32_t (&a)[4][4], const uint32_t (&b)[2][4]) {
+  z[0] = z[1] = z[2] = z[3] = 0.0f;
+  mma(z, a[0], b[0][0], b[0][1]);
+  mma(z, a[1], b[0][2], b[0][3]);
+  mma(z, a[2], b[1][0], b[1][1]);
+  mma(z, a[3], b[1][2], b[1][3]);
+}
+
+// A lane's partials of one n-tile's sums over a step's m-tiles: g of its columns col, col + 1 over its rows
+// g, g + 8, then g (z - mu) of them (by fused multiply-adds; the second pass applies the layer's 1/sigma)
+template <int kM>
+__device__ __forceinline__ void lane_partials(float* v, const float (&gv)[kM][4], const float (&zc)[kM][4]) {
+  v[0] = v[1] = v[2] = v[3] = 0.0f;
+#pragma unroll
+  for (int m = 0; m < kM; ++m) {
+    v[0] += gv[m][0] + gv[m][2];
+    v[1] += gv[m][1] + gv[m][3];
+    v[2] = __fmaf_rn(gv[m][2], zc[m][2], __fmaf_rn(gv[m][0], zc[m][0], v[2]));
+    v[3] = __fmaf_rn(gv[m][3], zc[m][3], __fmaf_rn(gv[m][1], zc[m][1], v[3]));
+  }
+}
+
+// The 32 sums of an n-tile pair (g and g (z - mu) of its 16 columns) from each lane's partials vp (the even
+// n-tile's four, then the odd one's), reduced over the warp's 8 row groups by a fixed tree (lane bits 4, 3, 2:
+// each step keeps half the values and hands the other half to the partner): the lane ends with the sum of n-tile
+// (lane bit 4) of the pair, kind (bit 3: g, g (z - mu)) and column col + (bit 2)
+__device__ __forceinline__ float pair_sums(const float (&vp)[8], int lane) {
+  const bool b4 = (lane & 16) != 0, b3 = (lane & 8) != 0, b2 = (lane & 4) != 0;
+  float k[4], k2[2];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    k[i] = (b4 ? vp[4 + i] : vp[i]) + __shfl_xor_sync(0xffffffffu, b4 ? vp[i] : vp[4 + i], 16);
+#pragma unroll
+  for (int i = 0; i < 2; ++i) k2[i] = (b3 ? k[2 + i] : k[i]) + __shfl_xor_sync(0xffffffffu, b3 ? k[i] : k[2 + i], 8);
+  return (b2 ? k2[1] : k2[0]) + __shfl_xor_sync(0xffffffffu, b2 ? k2[0] : k2[1], 4);
+}
+
+// the channel of the sum pair_sums leaves on this lane, of pair p
+__device__ __forceinline__ int pair_col(int p, int lane) {
+  return (2 * p + ((lane >> 4) & 1)) * 8 + 2 * (lane & 3) + ((lane >> 2) & 1);
+}
+
+// One n-tile's dz of a layer from its g and centred z (z - mu), packed to bf16 pairs: a g (frozen BN) or
+// a ((g - sum g / n) - zhat sum g zhat / n), zhat = (z - mu) inv (Q: the layer's constants)
+template <int kMode>
+__device__ __forceinline__ void tile_dz(const float4* Q, int nt, int lane, const float (&gv)[4], const float (&zc)[4],
+                                        uint32_t (&dz)[2]) {
+  const int p = nt * 4 + (lane & 3);
+  const float4 ab = Q[kQAb * 64 + p];
+  float d[4];
+  if (kMode == kBwdFrozen) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) d[j] = (j & 1 ? ab.y : ab.x) * gv[j];
+  } else {
+    const float4 q = Q[kQG * 64 + p], mq = Q[kQMuInv * 64 + p];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float zh = zc[j] * (j & 1 ? mq.w : mq.z);
+      d[j] = (j & 1 ? ab.y : ab.x) * ((gv[j] - (j & 1 ? q.y : q.x)) - zh * (j & 1 ? q.w : q.z));
+    }
+  }
+  dz[0] = pack(d[0], d[1]);
+  dz[1] = pack(d[2], d[3]);
 }
 
 template <int kMode, int kDepth>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(warps_of(kMode) * 32, min_blocks_of(kMode))
 pe_train_kernel(const float* __restrict__ chans, const float* __restrict__ w0, const float* __restrict__ w1,
                 const float* __restrict__ w2, const float* __restrict__ bn, const float* __restrict__ pooled_in,
                 const float* __restrict__ cnt_in, const float* __restrict__ dpool, float* __restrict__ pooled_out,
                 float* __restrict__ cnt_out, float* __restrict__ partial, int B, int P, int S) {
+  constexpr int kWarps = warps_of(kMode), kThreads = kWarps * 32;
   // the layer whose per-channel sums K11 / K13 accumulate, and its n-tiles of 8 channels
   constexpr int kSumTiles = (kMode == kStats || kMode == kBwdSums) ? width_of(kDepth) / 8 : 1;
-  constexpr bool kBackward = kMode == kBwdSums || kMode == kBwdDw || kMode == kBwdFrozen;
-  constexpr bool kDw = kMode == kBwdDw || kMode == kBwdFrozen;  // the weight gradients, over staged tiles
+  constexpr bool kBackward = kMode == kBwdSums || has_dw(kMode);
+  constexpr bool kDw = has_dw(kMode);  // the weight gradients, over staged tiles
   constexpr bool kFrozen = kMode == kBwdFrozen;
   constexpr int kLowest = kDw ? 0 : kDepth;  // the lowest layer the backward reaches
+  constexpr bool kReadBack = reads_dz_back(kMode);
+  constexpr int kLdS = st_ld(kMode), kSD2 = st_d2(kMode), kSD3 = st_d3(kMode), kSY2 = st_y2(kMode);
+  constexpr int kGroup = group_of(kMode, kDepth);
+  constexpr int kM = m_tiles_of(kMode, kDepth);  // the m-tiles of a step
+  static_assert(kM == 1 || kLowest == 3, "a step of several m-tiles stops at the pool");
 
   extern __shared__ uint4 smem[];
   __nv_bfloat16* s_w = reinterpret_cast<__nv_bfloat16*>(smem);
-  float* s_c = reinterpret_cast<float*>(s_w + kWElems);
-  float* s_pool = s_c + kConsts;           // per warp: the point's max (128), then (1 / count) * dpool (128)
-  float* s_red = s_pool + kWarps * 256;    // per warp: two rows of 128 channel sums
-  float* s_sums = s_red + kWarps * 256;    // K18, per warp: the three layers' sums of g and g zhat
-  uint16_t* s_st = reinterpret_cast<uint16_t*>(s_sums + (kFrozen ? kWarps * kSums : 0));
+  float4* s_q = reinterpret_cast<float4*>(s_w + kWElems);  // [layer][kind][pair]
+  float4* s_pool = s_q + kQuads;                            // per warp: (max, max, share, share) per pair
+  __nv_bfloat16* s_st = reinterpret_cast<__nv_bfloat16*>(s_pool + kWarps * 64);
 
-  for (int i = threadIdx.x; i < 32 * kLdF0; i += kThreads) {
-    const int o = i / kLdF0, k = i % kLdF0;
+  for (int i = threadIdx.x; i < 32 * kLd0; i += kThreads) {
+    const int o = i / kLd0, k = i % kLd0;
     s_w[i] = __float2bfloat16_rn(k < 6 ? w0[k * 32 + o] : 0.0f);
   }
-  for (int i = threadIdx.x; i < 64 * kLdF1; i += kThreads) {
-    const int o = i / kLdF1, k = i % kLdF1;
-    s_w[kOffF1 + i] = __float2bfloat16_rn(k < 32 ? w1[k * 64 + o] : 0.0f);
+  for (int i = threadIdx.x; i < 64 * kLd1; i += kThreads) {
+    const int o = i / kLd1, k = i % kLd1;
+    s_w[kOff1 + i] = __float2bfloat16_rn(k < 32 ? w1[k * 64 + o] : 0.0f);
   }
-  for (int i = threadIdx.x; i < 128 * kLdF2; i += kThreads) {
-    const int o = i / kLdF2, k = i % kLdF2;
-    s_w[kOffF2 + i] = __float2bfloat16_rn(k < 64 ? w2[k * 128 + o] : 0.0f);
-  }
-  if (kBackward) {
-    for (int i = threadIdx.x; i < 32 * kLdB1; i += kThreads) {
-      const int r = i / kLdB1, o = i % kLdB1;
-      s_w[kOffB1 + i] = __float2bfloat16_rn(o < 64 ? w1[r * 64 + o] : 0.0f);
-    }
-    for (int i = threadIdx.x; i < 64 * kLdB2; i += kThreads) {
-      const int r = i / kLdB2, o = i % kLdB2;
-      s_w[kOffB2 + i] = __float2bfloat16_rn(o < 128 ? w2[r * 128 + o] : 0.0f);
-    }
+  for (int i = threadIdx.x; i < 128 * kLd2; i += kThreads) {
+    const int o = i / kLd2, k = i % kLd2;
+    s_w[kOff2 + i] = __float2bfloat16_rn(k < 64 ? w2[k * 128 + o] : 0.0f);
   }
   const float inv_n = (float)(1.0 / ((double)B * (double)P * (double)S));
-  for (int i = threadIdx.x; i < 3 * 128; i += kThreads) {
-    const int l = i / 128, c = i % 128;
-    const float* r = bn + l * kBnRows * 128 + c;
-    float* d = s_c + l * kCRows * 128 + c;
-    d[cA * 128] = r[kA * 128];
-    d[cB * 128] = r[kB * 128];
-    d[cMu * 128] = r[kMu * 128];
-    d[cInv * 128] = r[kInv * 128];
-    d[cG * 128] = r[kSg * 128] * inv_n;
-    d[cGz * 128] = r[kSgz * 128] * inv_n;
-  }
-  if (kDw) {
-    for (int i = threadIdx.x; i < kSRows * kLdS; i += kThreads) s_st[i] = 0;
-  }
-  if (kFrozen) {
-    for (int i = threadIdx.x; i < kWarps * kSums; i += kThreads) s_sums[i] = 0.0f;
+  for (int i = threadIdx.x; i < 3 * 64; i += kThreads) {
+    const int l = i >> 6, p = i & 63;
+    const float* r = bn + l * kBnRows * 128 + 2 * p;
+    float4* q = s_q + l * 3 * 64 + p;
+    q[kQAb * 64] = make_float4(r[kA * 128], r[kA * 128 + 1], r[kB * 128], r[kB * 128 + 1]);
+    q[kQMuInv * 64] = make_float4(r[kMu * 128], r[kMu * 128 + 1], r[kInv * 128], r[kInv * 128 + 1]);
+    q[kQG * 64] = make_float4(r[kSg * 128] * inv_n, r[kSg * 128 + 1] * inv_n, r[kSgz * 128] * inv_n,
+                              r[kSgz * 128 + 1] * inv_n);
   }
   __syncthreads();
 
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2;  // row group of the mma fragments
-  const int t = lane & 3;   // thread in group
+  const int g = lane >> 2;                   // row group of the mma fragments
+  const int t = lane & 3;                    // thread in group
+  const int mi = lane >> 3, mr = lane & 7;   // the ldmatrix / stmatrix matrix and row this lane addresses
   const long long points = (long long)B * P;
   const long long plane = (long long)P * S;  // one channel of one cloud
   const int mtiles = S >> 4;
-  const float* C1 = s_c;
-  const float* C2 = s_c + kCRows * 128;
-  const float* C3 = s_c + 2 * kCRows * 128;
-  float* pool = s_pool + warp * 256;
-  float* sums = s_sums + warp * kSums;
+  const float4* Q1 = s_q;
+  const float4* Q2 = s_q + 3 * 64;
+  const float4* Q3 = s_q + 6 * 64;
+  float4* pool = s_pool + warp * 64;
+  // this lane's row of a staged 16 x 16 tile (feature rows, the warp's 16 slot columns) in an x4 stmatrix or
+  // ldmatrix: add (first feature row) * kLdS
+  __nv_bfloat16* st_lane = s_st + ((mi >> 1) * 8 + mr) * kLdS + warp * 16 + (mi & 1) * 8;
 
-  float sum1[kSumTiles][2], sum2[kSumTiles][2];  // K11: z, z^2; K13: g, g zhat
+  float sum1[kSumTiles][2], sum2[kSumTiles][2];  // K11: z, z^2 per lane
 #pragma unroll
   for (int nt = 0; nt < kSumTiles; ++nt) sum1[nt][0] = sum1[nt][1] = sum2[nt][0] = sum2[nt][1] = 0.0f;
-  float dw3[8][4], dw2[2][4], dw1[4];  // K14's share of the dW tiles
+  float fs[kPairRegs];  // K13, K18: the sums of g and g (z - mu), one a lane an n-tile pair (pair_sums)
 #pragma unroll
-  for (int j = 0; j < 8; ++j) dw3[j][0] = dw3[j][1] = dw3[j][2] = dw3[j][3] = 0.0f;
+  for (int i = 0; i < kPairRegs; ++i) fs[i] = 0.0f;
+  float dw3[4][4], dw2[4], dw1[4];  // K14's and K18's share of the dW tiles
 #pragma unroll
-  for (int j = 0; j < 2; ++j) dw2[j][0] = dw2[j][1] = dw2[j][2] = dw2[j][3] = 0.0f;
-  dw1[0] = dw1[1] = dw1[2] = dw1[3] = 0.0f;
+  for (int j = 0; j < 4; ++j) dw3[j][0] = dw3[j][1] = dw3[j][2] = dw3[j][3] = dw2[j] = dw1[j] = 0.0f;
 
-  for (long long base = (long long)blockIdx.x * kWarps; base < points; base += (long long)gridDim.x * kWarps) {
-    const long long pt = base + warp;
+  const long long stride = (long long)gridDim.x * kWarps;
+  long long pt = (long long)blockIdx.x * kWarps + warp;
+  const float* cb = point_chans(chans, pt < points ? pt : 0, P, S);
+  float nx[kM][4];  // the next step's chans, in flight
+#pragma unroll
+  for (int m = 0; m < kM; ++m) {
+    nx[m][0] = nx[m][1] = nx[m][2] = nx[m][3] = 0.0f;
+    if (pt < points && m < mtiles) load_tile(nx[m], cb, m * 16, plane, lane);
+  }
+  for (long long base = (long long)blockIdx.x * kWarps; base < points; base += stride, pt += stride) {
     const bool active = pt < points;
     if (!kDw && !active) break;
-    const long long b = active ? pt / P : 0, p = active ? pt % P : 0;
-    const float* cb = chans + (b * 6 * P + p) * S;
+    const long long npt = pt + stride;
+    const float* nb = point_chans(chans, npt < points ? npt : 0, P, S);
     if (kBackward) {
       __syncwarp();
       if (active) {
-        for (int c = lane; c < 128; c += 32) {
-          pool[c] = pooled_in[pt * 128 + c];
-          pool[128 + c] = (1.0f / cnt_in[pt * 128 + c]) * dpool[pt * 128 + c];
+        const float nan = __int_as_float(0x7fffffff);
+        for (int p = lane; p < 64; p += 32) {
+          const float2 m = *reinterpret_cast<const float2*>(pooled_in + pt * 128 + 2 * p);
+          const float2 c = *reinterpret_cast<const float2*>(cnt_in + pt * 128 + 2 * p);
+          const float2 d = *reinterpret_cast<const float2*>(dpool + pt * 128 + 2 * p);
+          pool[p] = make_float4(m.x > 0.0f ? m.x : nan, m.y > 0.0f ? m.y : nan, (1.0f / c.x) * d.x, (1.0f / c.y) * d.y);
         }
       }
       __syncwarp();
@@ -270,237 +446,296 @@ pe_train_kernel(const float* __restrict__ chans, const float* __restrict__ w0, c
     }
 
 #pragma unroll 1
-    for (int mt = 0; mt < mtiles; ++mt) {
-      uint32_t a1[4] = {0u, 0u, 0u, 0u};  // chans (bf16), K 6 padded to 16
-      uint32_t a2[2][4], a3[4][4];         // y1, y2 (bf16)
-      uint32_t d1[2][4], d2[4][4], d3[8][4];  // dz1, dz2, dz3 (bf16)
-      if (kDw) {
+    for (int mt = 0; mt < mtiles; mt += kM) {
+      bool live[kM];  // a step's m-tiles inside the point (the last of an odd count runs idle)
+      uint32_t a1[kM][4];  // chans (bf16), K 6 padded to 16
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          a2[i >> 1][i & 1] = a2[i >> 1][(i & 1) + 2] = d1[i >> 1][i & 1] = d1[i >> 1][(i & 1) + 2] = 0u;
-          a3[i][0] = a3[i][1] = a3[i][2] = a3[i][3] = d2[i][0] = d2[i][1] = d2[i][2] = d2[i][3] = 0u;
+      for (int m = 0; m < kM; ++m) {
+        live[m] = mt + m < mtiles;
+        a1[m][0] = pack(nx[m][0], nx[m][1]);
+        a1[m][1] = pack(nx[m][2], nx[m][3]);
+        a1[m][2] = a1[m][3] = 0u;
+      }
+      // the next step's chans: this point's next m-tiles, else the warp's next point's first
+#pragma unroll
+      for (int m = 0; m < kM; ++m) {
+        if (mt + kM < mtiles) {
+          if (active && mt + kM + m < mtiles) load_tile(nx[m], cb, (mt + kM + m) * 16, plane, lane);
+        } else if (npt < points && m < mtiles) {
+          load_tile(nx[m], nb, m * 16, plane, lane);
         }
-#pragma unroll
-        for (int i = 0; i < 8; ++i) d3[i][0] = d3[i][1] = d3[i][2] = d3[i][3] = 0u;
       }
       if (active) {
-        const int s0 = mt * 16;
-        if (t < 3) {
-          const float* c0 = cb + (2 * t) * plane + s0;
-          const float* c1 = c0 + plane;
-          a1[0] = pack(c0[g], c1[g]);
-          a1[1] = pack(c0[g + 8], c1[g + 8]);
-        }
-        // layer 1: 6 -> 32
-        float z1[4][4];
+        // layer 1: 6 -> 32; an ldmatrix.x4 gives the 4 n-tiles' k 0..7 (k 8..15 are K's zero padding)
+        uint32_t bw1[4];
+        ldsm4(bw1, s_w + (mi * 8 + mr) * kLd0);
+        uint32_t a2[kM][2][4];  // y1 (bf16)
 #pragma unroll
         for (int nt = 0; nt < 4; ++nt) {
-          z1[nt][0] = z1[nt][1] = z1[nt][2] = z1[nt][3] = 0.0f;
-          const __nv_bfloat16* wr = s_w + (nt * 8 + g) * kLdF0 + 2 * t;
-          mma_bf16(z1[nt], a1, ld32(wr), ld32(wr + 8));
-        }
-        if (kMode == kStats && kDepth == 1) {
+          const float4 q = Q1[nt * 4 + t];
 #pragma unroll
-          for (int nt = 0; nt < kSumTiles; ++nt) {
+          for (int m = 0; m < kM; ++m) {
+            float z[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+            mma(z, a1[m], bw1[nt], 0u);
+            if (kMode == kStats && kDepth == 1) {
 #pragma unroll
-            for (int j = 0; j < 2; ++j) {
-              sum1[nt][j] += z1[nt][j] + z1[nt][j + 2];
-              sum2[nt][j] += z1[nt][j] * z1[nt][j] + z1[nt][j + 2] * z1[nt][j + 2];
+              for (int j = 0; j < 2; ++j) {
+                sum1[nt % kSumTiles][j] += z[j] + z[j + 2];
+                sum2[nt % kSumTiles][j] += z[j] * z[j] + z[j + 2] * z[j + 2];
+              }
+              continue;
             }
+            a2[m][nt >> 1][(nt & 1) * 2] = relu_pack(q.x * z[0] + q.z, q.y * z[1] + q.w);
+            a2[m][nt >> 1][(nt & 1) * 2 + 1] = relu_pack(q.x * z[2] + q.z, q.y * z[3] + q.w);
           }
-          continue;
         }
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt) {
-          const int col = nt * 8 + 2 * t;
-          const float A0 = C1[cA * 128 + col], A1 = C1[cA * 128 + col + 1];
-          const float B0 = C1[cB * 128 + col], B1 = C1[cB * 128 + col + 1];
-          a2[nt >> 1][(nt & 1) * 2] = pack(fmaxf(A0 * z1[nt][0] + B0, 0.0f), fmaxf(A1 * z1[nt][1] + B1, 0.0f));
-          a2[nt >> 1][(nt & 1) * 2 + 1] = pack(fmaxf(A0 * z1[nt][2] + B0, 0.0f), fmaxf(A1 * z1[nt][3] + B1, 0.0f));
+        if (kMode == kStats && kDepth == 1) continue;
+        if (kDw) {
+          stst2t(st_lane + kSChans * kLdS, a1[0][0], a1[0][1]);
+          stst4t(st_lane + kSY1 * kLdS, a2[0][0]);
+          stst4t(st_lane + (kSY1 + 16) * kLdS, a2[0][1]);
         }
         // layer 2: 32 -> 64
-        float z2[8][4];
+        uint32_t a3[kM][4][4];  // y2 (bf16)
 #pragma unroll
         for (int nt = 0; nt < 8; ++nt) {
-          z2[nt][0] = z2[nt][1] = z2[nt][2] = z2[nt][3] = 0.0f;
+          uint32_t b[4];
+          b_layer2(b, s_w, nt, lane);
+          const float4 q = Q2[nt * 4 + t];
 #pragma unroll
-          for (int kt = 0; kt < 2; ++kt) {
-            const __nv_bfloat16* wr = s_w + kOffF1 + (nt * 8 + g) * kLdF1 + kt * 16 + 2 * t;
-            mma_bf16(z2[nt], a2[kt], ld32(wr), ld32(wr + 8));
-          }
-        }
-        if (kMode == kStats && kDepth == 2) {
+          for (int m = 0; m < kM; ++m) {
+            float z[4];
+            z_layer2(z, a2[m], b);
+            if (kMode == kStats && kDepth == 2) {
 #pragma unroll
-          for (int nt = 0; nt < kSumTiles; ++nt) {
-#pragma unroll
-            for (int j = 0; j < 2; ++j) {
-              sum1[nt][j] += z2[nt][j] + z2[nt][j + 2];
-              sum2[nt][j] += z2[nt][j] * z2[nt][j] + z2[nt][j + 2] * z2[nt][j + 2];
+              for (int j = 0; j < 2; ++j) {
+                sum1[nt % kSumTiles][j] += z[j] + z[j + 2];
+                sum2[nt % kSumTiles][j] += z[j] * z[j] + z[j + 2] * z[j + 2];
+              }
+              continue;
             }
+            a3[m][nt >> 1][(nt & 1) * 2] = relu_pack(q.x * z[0] + q.z, q.y * z[1] + q.w);
+            a3[m][nt >> 1][(nt & 1) * 2 + 1] = relu_pack(q.x * z[2] + q.z, q.y * z[3] + q.w);
           }
-          continue;
         }
+        if (kMode == kStats && kDepth == 2) continue;
+        if (kReadBack && !kDw && kLowest < 3) __syncwarp();  // this warp's reads of the last m-tile's staging are done
+        if (kDw || (kReadBack && kLowest < 3)) {
 #pragma unroll
-        for (int nt = 0; nt < 8; ++nt) {
-          const int col = nt * 8 + 2 * t;
-          const float A0 = C2[cA * 128 + col], A1 = C2[cA * 128 + col + 1];
-          const float B0 = C2[cB * 128 + col], B1 = C2[cB * 128 + col + 1];
-          a3[nt >> 1][(nt & 1) * 2] = pack(fmaxf(A0 * z2[nt][0] + B0, 0.0f), fmaxf(A1 * z2[nt][1] + B1, 0.0f));
-          a3[nt >> 1][(nt & 1) * 2 + 1] = pack(fmaxf(A0 * z2[nt][2] + B0, 0.0f), fmaxf(A1 * z2[nt][3] + B1, 0.0f));
+          for (int kt = 0; kt < 4; ++kt) stst4t(st_lane + (kSY2 + kt * 16) * kLdS, a3[0][kt]);
         }
         // layer 3: 64 -> 128, one n-tile of 8 channels at a time
+        uint32_t d3[8][4];  // dz3 (bf16), staged or held
+        float vp[8];        // an n-tile pair's lane partials of the sums
 #pragma unroll
         for (int nt = 0; nt < 16; ++nt) {
-          float z[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+          uint32_t b[2][4];
+          b_layer3(b, s_w, nt, lane);
+          float z[kM][4];
 #pragma unroll
-          for (int kt = 0; kt < 4; ++kt) {
-            const __nv_bfloat16* wr = s_w + kOffF2 + (nt * 8 + g) * kLdF2 + kt * 16 + 2 * t;
-            mma_bf16(z, a3[kt], ld32(wr), ld32(wr + 8));
-          }
+          for (int m = 0; m < kM; ++m) z_layer3(z[m], a3[m], b);
           if (kMode == kStats) {
 #pragma unroll
-            for (int j = 0; j < 2; ++j) {
-              sum1[nt % kSumTiles][j] += z[j] + z[j + 2];
-              sum2[nt % kSumTiles][j] += z[j] * z[j] + z[j + 2] * z[j + 2];
+            for (int m = 0; m < kM; ++m) {
+#pragma unroll
+              for (int j = 0; j < 2; ++j) {
+                sum1[nt % kSumTiles][j] += live[m] ? z[m][j] + z[m][j + 2] : 0.0f;
+                sum2[nt % kSumTiles][j] += live[m] ? z[m][j] * z[m][j] + z[m][j + 2] * z[m][j + 2] : 0.0f;
+              }
             }
             continue;
           }
-          float dz[4], gvs[4], zhs[4];
+          const float4 ab = Q3[nt * 4 + t];
+          if (kMode == kFwd) {
 #pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const int col = nt * 8 + 2 * t + (j & 1);
-            const float pre = C3[cA * 128 + col] * z[j] + C3[cB * 128 + col];
-            const float y = fmaxf(pre, 0.0f);
-            if (kMode == kFwd) {
-              max_count(mx[nt][j & 1], ct[nt][j & 1], y);
-            } else {
-              float gv = y == pool[col] ? pool[128 + col] : 0.0f;  // the pool backward, ties split evenly
-              gv = pre > 0.0f ? gv : 0.0f;
-              const float zh = (z[j] - C3[cMu * 128 + col]) * C3[cInv * 128 + col];
-              if (kMode == kBwdSums && kDepth == 3) {
-                sum1[nt % kSumTiles][j & 1] += gv;
-                sum2[nt % kSumTiles][j & 1] += gv * zh;
+            for (int m = 0; m < kM; ++m) {
+#pragma unroll
+              for (int j = 0; j < 4; ++j) {
+                const float pre = (j & 1 ? ab.y : ab.x) * z[m][j] + (j & 1 ? ab.w : ab.z);
+                if (live[m]) max_count(mx[nt][j & 1], ct[nt][j & 1], fmaxf(pre, 0.0f));
               }
-              gvs[j] = gv;
-              zhs[j] = zh;
-              dz[j] = kFrozen ? C3[cA * 128 + col] * gv
-                              : C3[cA * 128 + col] * ((gv - C3[cG * 128 + col]) - zh * C3[cGz * 128 + col]);
             }
+            continue;
           }
-          if (kFrozen) frozen_col_sums(sums, 3, nt * 8 + 2 * t, gvs, zhs, lane);
-          if (kLowest < 3) {
-            d3[nt >> 1][(nt & 1) * 2] = pack(dz[0], dz[1]);
-            d3[nt >> 1][(nt & 1) * 2 + 1] = pack(dz[2], dz[3]);
-          }
-        }
-        if (kLowest < 3) {
-          // dy2 = dz3 W3^T, gated by y2 > 0
+          const float4 pq = pool[nt * 4 + t];
+          const float4 mq = Q3[kQMuInv * 64 + nt * 4 + t];
+          float gv[kM][4], zc[kM][4];  // g and the centred z, z - mu
 #pragma unroll
-          for (int nt = 0; nt < 8; ++nt) {
-            float dy[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-#pragma unroll
-            for (int kt = 0; kt < 8; ++kt) {
-              const __nv_bfloat16* wr = s_w + kOffB2 + (nt * 8 + g) * kLdB2 + kt * 16 + 2 * t;
-              mma_bf16(dy, d3[kt], ld32(wr), ld32(wr + 8));
-            }
-            const uint32_t y_g = a3[nt >> 1][(nt & 1) * 2], y_g8 = a3[nt >> 1][(nt & 1) * 2 + 1];
-            const bool on[4] = {pos_lo(y_g), pos_hi(y_g), pos_lo(y_g8), pos_hi(y_g8)};
-            float dz[4], gvs[4], zhs[4];
+          for (int m = 0; m < kM; ++m) {
 #pragma unroll
             for (int j = 0; j < 4; ++j) {
-              const int col = nt * 8 + 2 * t + (j & 1);
-              const float gv = on[j] ? dy[j] : 0.0f;
-              const float zh = (z2[nt][j] - C2[cMu * 128 + col]) * C2[cInv * 128 + col];
-              if (kMode == kBwdSums && kDepth == 2) {
-                sum1[nt % kSumTiles][j & 1] += gv;
-                sum2[nt % kSumTiles][j & 1] += gv * zh;
-              }
-              gvs[j] = gv;
-              zhs[j] = zh;
-              dz[j] = kFrozen ? C2[cA * 128 + col] * gv
-                              : C2[cA * 128 + col] * ((gv - C2[cG * 128 + col]) - zh * C2[cGz * 128 + col]);
+              const float pre = (j & 1 ? ab.y : ab.x) * z[m][j] + (j & 1 ? ab.w : ab.z);
+              gv[m][j] = pre == (j & 1 ? pq.y : pq.x) ? (j & 1 ? pq.w : pq.z) : 0.0f;  // the pool backward
+              gv[m][j] = live[m] ? gv[m][j] : 0.0f;
+              zc[m][j] = z[m][j] - (j & 1 ? mq.y : mq.x);
             }
-            if (kFrozen) frozen_col_sums(sums, 2, nt * 8 + 2 * t, gvs, zhs, lane);
-            if (kLowest < 2) {
-              d2[nt >> 1][(nt & 1) * 2] = pack(dz[0], dz[1]);
-              d2[nt >> 1][(nt & 1) * 2 + 1] = pack(dz[2], dz[3]);
+          }
+          if (sums_at(kMode, kDepth, 3)) {
+            lane_partials(vp + (nt & 1) * 4, gv, zc);
+            if (nt & 1) fs[pair_base(kMode, 3) + (nt >> 1)] += pair_sums(vp, lane);
+          }
+          if (kLowest < 3) {
+            uint32_t dz[2];
+            tile_dz<kMode>(Q3, nt, lane, gv[0], zc[0], dz);
+            d3[nt >> 1][(nt & 1) * 2] = dz[0];
+            d3[nt >> 1][(nt & 1) * 2 + 1] = dz[1];
+            if ((kDw || kReadBack) && (nt & 1)) stst4t(st_lane + (kSD3 + (nt >> 1) * 16) * kLdS, d3[nt >> 1]);
+          }
+        }
+        uint32_t d2[4][4];  // dz2 (bf16)
+        if (kLowest < 3) {
+          if (kReadBack) __syncwarp();  // dz3 is read back from the staging
+          // dy2 = dz3 W3^T (W3's rows read transposed), kGroup n-tiles at a time, gated by y2 > 0
+#pragma unroll
+          for (int n0 = 0; n0 < 8; n0 += kGroup) {
+            float dy[kGroup][4];
+#pragma unroll
+            for (int j = 0; j < kGroup; ++j) dy[j][0] = dy[j][1] = dy[j][2] = dy[j][3] = 0.0f;
+#pragma unroll
+            for (int kt = 0; kt < 8; ++kt) {
+              uint32_t a[4];
+              if (kReadBack) {
+                ldst4t(a, st_lane + (kSD3 + kt * 16) * kLdS);
+              } else {
+                a[0] = d3[kt][0], a[1] = d3[kt][1], a[2] = d3[kt][2], a[3] = d3[kt][3];
+              }
+#pragma unroll
+              for (int j = 0; j < kGroup; j += 2) {
+                uint32_t b[4];
+                ldsm4t(b, s_w + kOff2 + (kt * 16 + (mi & 1) * 8 + mr) * kLd2 + (n0 + j + (mi >> 1)) * 8);
+                mma(dy[j], a, b[0], b[1]);
+                mma(dy[j + 1], a, b[2], b[3]);
+              }
+            }
+            uint32_t y2[4];  // y2's k-tile of the n-tile pair: its ReLU gates
+            float vp[8];
+#pragma unroll
+            for (int j = 0; j < kGroup; ++j) {
+              const int nt = n0 + j;
+              uint32_t b[4];
+              float z[4];
+              b_layer2(b, s_w, nt, lane);
+              z_layer2(z, a2[0], b);  // z2 again, the forward's bits
+              if (!(nt & 1)) {
+                if (kReadBack) {
+                  ldst4t(y2, st_lane + (kSY2 + (nt >> 1) * 16) * kLdS);
+                } else {
+                  y2[0] = a3[0][nt >> 1][0], y2[1] = a3[0][nt >> 1][1], y2[2] = a3[0][nt >> 1][2];
+                  y2[3] = a3[0][nt >> 1][3];
+                }
+              }
+              const uint32_t y_g = y2[(nt & 1) * 2], y_g8 = y2[(nt & 1) * 2 + 1];
+              const bool on[4] = {pos_lo(y_g), pos_hi(y_g), pos_lo(y_g8), pos_hi(y_g8)};
+              const float4 mq = Q2[kQMuInv * 64 + nt * 4 + t];
+              float gv[1][4], zc[1][4];
+#pragma unroll
+              for (int k = 0; k < 4; ++k) {
+                gv[0][k] = on[k] ? dy[j][k] : 0.0f;
+                zc[0][k] = z[k] - (k & 1 ? mq.y : mq.x);
+              }
+              if (sums_at(kMode, kDepth, 2)) {
+                lane_partials(vp + (nt & 1) * 4, gv, zc);
+                if (nt & 1) fs[pair_base(kMode, 2) + (nt >> 1)] += pair_sums(vp, lane);
+              }
+              if (kLowest < 2) {
+                uint32_t dz[2];
+                tile_dz<kMode>(Q2, nt, lane, gv[0], zc[0], dz);
+                d2[nt >> 1][(nt & 1) * 2] = dz[0];
+                d2[nt >> 1][(nt & 1) * 2 + 1] = dz[1];
+                if ((kDw || kReadBack) && (nt & 1)) stst4t(st_lane + (kSD2 + (nt >> 1) * 16) * kLdS, d2[nt >> 1]);
+              }
             }
           }
         }
         if (kLowest < 2) {
-          // dy1 = dz2 W2^T, gated by y1 > 0
+          if (kReadBack) __syncwarp();  // dz2 is read back from the staging
+          // dy1 = dz2 W2^T, gated by y1 > 0; z1 again from the chans' fragment
+          ldsm4(bw1, s_w + (mi * 8 + mr) * kLd0);
+          uint32_t d1[2][4];  // dz1 (bf16), K14 / K18 only
+          constexpr int kGroup1 = kGroup < 4 ? kGroup : 4;
 #pragma unroll
-          for (int nt = 0; nt < 4; ++nt) {
-            float dy[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+          for (int n0 = 0; n0 < 4; n0 += kGroup1) {
+            float dy[kGroup1][4];
+#pragma unroll
+            for (int j = 0; j < kGroup1; ++j) dy[j][0] = dy[j][1] = dy[j][2] = dy[j][3] = 0.0f;
 #pragma unroll
             for (int kt = 0; kt < 4; ++kt) {
-              const __nv_bfloat16* wr = s_w + kOffB1 + (nt * 8 + g) * kLdB1 + kt * 16 + 2 * t;
-              mma_bf16(dy, d2[kt], ld32(wr), ld32(wr + 8));
-            }
-            const uint32_t y_g = a2[nt >> 1][(nt & 1) * 2], y_g8 = a2[nt >> 1][(nt & 1) * 2 + 1];
-            const bool on[4] = {pos_lo(y_g), pos_hi(y_g), pos_lo(y_g8), pos_hi(y_g8)};
-            float dz[4], gvs[4], zhs[4];
-#pragma unroll
-            for (int j = 0; j < 4; ++j) {
-              const int col = nt * 8 + 2 * t + (j & 1);
-              const float gv = on[j] ? dy[j] : 0.0f;
-              const float zh = (z1[nt][j] - C1[cMu * 128 + col]) * C1[cInv * 128 + col];
-              if (kMode == kBwdSums && kDepth == 1) {
-                sum1[nt % kSumTiles][j & 1] += gv;
-                sum2[nt % kSumTiles][j & 1] += gv * zh;
+              uint32_t a[4];
+              if (kReadBack) {
+                ldst4t(a, st_lane + (kSD2 + kt * 16) * kLdS);
+              } else {
+                a[0] = d2[kt][0], a[1] = d2[kt][1], a[2] = d2[kt][2], a[3] = d2[kt][3];
               }
-              gvs[j] = gv;
-              zhs[j] = zh;
-              dz[j] = kFrozen ? C1[cA * 128 + col] * gv
-                              : C1[cA * 128 + col] * ((gv - C1[cG * 128 + col]) - zh * C1[cGz * 128 + col]);
+#pragma unroll
+              for (int j = 0; j < kGroup1; j += 2) {
+                uint32_t b[4];
+                ldsm4t(b, s_w + kOff1 + (kt * 16 + (mi & 1) * 8 + mr) * kLd1 + (n0 + j + (mi >> 1)) * 8);
+                mma(dy[j], a, b[0], b[1]);
+                mma(dy[j + 1], a, b[2], b[3]);
+              }
             }
-            if (kFrozen) frozen_col_sums(sums, 1, nt * 8 + 2 * t, gvs, zhs, lane);
-            if (kLowest < 1) {
-              d1[nt >> 1][(nt & 1) * 2] = pack(dz[0], dz[1]);
-              d1[nt >> 1][(nt & 1) * 2 + 1] = pack(dz[2], dz[3]);
+            float vp[8];
+#pragma unroll
+            for (int j = 0; j < kGroup1; ++j) {
+              const int nt = n0 + j;
+              float z[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+              mma(z, a1[0], bw1[nt], 0u);  // z1 again, the forward's bits
+              const uint32_t y_g = a2[0][nt >> 1][(nt & 1) * 2], y_g8 = a2[0][nt >> 1][(nt & 1) * 2 + 1];
+              const bool on[4] = {pos_lo(y_g), pos_hi(y_g), pos_lo(y_g8), pos_hi(y_g8)};
+              const float4 mq = Q1[kQMuInv * 64 + nt * 4 + t];
+              float gv[1][4], zc[1][4];
+#pragma unroll
+              for (int k = 0; k < 4; ++k) {
+                gv[0][k] = on[k] ? dy[j][k] : 0.0f;
+                zc[0][k] = z[k] - (k & 1 ? mq.y : mq.x);
+              }
+              if (sums_at(kMode, kDepth, 1)) {
+                lane_partials(vp + (nt & 1) * 4, gv, zc);
+                if (nt & 1) fs[pair_base(kMode, 1) + (nt >> 1)] += pair_sums(vp, lane);
+              }
+              if (kDw) {
+                uint32_t dz[2];
+                tile_dz<kMode>(Q1, nt, lane, gv[0], zc[0], dz);
+                d1[nt >> 1][(nt & 1) * 2] = dz[0];
+                d1[nt >> 1][(nt & 1) * 2 + 1] = dz[1];
+                if (nt & 1) stst4t(st_lane + (kSD1 + (nt >> 1) * 16) * kLdS, d1[nt >> 1]);
+              }
             }
           }
         }
+      } else if (kDw) {  // a warp past the last point stages zeros
+        for (int i = lane; i < kSRows * 2; i += 32)
+          *reinterpret_cast<uint4*>(s_st + (i >> 1) * kLdS + warp * 16 + (i & 1) * 8) = make_uint4(0u, 0u, 0u, 0u);
       }
       if (kDw) {
-        // stage this warp's 16 slots, then every warp takes its dW tiles over the block's 128 slots
-        const int col = warp * 16;
-        put(s_st, kSChans + 2 * t, col + g, a1[0]);
-        put(s_st, kSChans + 2 * t, col + g + 8, a1[1]);
-        stage(s_st, kSY1, a2, col, g, t);
-        stage(s_st, kSY2, a3, col, g, t);
-        stage(s_st, kSD1, d1, col, g, t);
-        stage(s_st, kSD2, d2, col, g, t);
-        stage(s_st, kSD3, d3, col, g, t);
+        // every warp takes its dW tiles over the block's 256 staged slots
         __syncthreads();
-        const __nv_bfloat16* st = reinterpret_cast<const __nv_bfloat16*>(s_st);
+#pragma unroll 4
+        for (int ks = 0; ks < 16; ++ks) {
+          const int k0 = ks * 16;
+          uint32_t a[4], b[4], b2[2];
+          // dW3 (64 x 128): row tile warp % 4, n-tiles 4 (warp / 4) ..
+          ldst4(a, s_st + (kSY2 + (warp & 3) * 16 + (mi & 1) * 8 + mr) * kLdS + k0 + (mi >> 1) * 8);
 #pragma unroll
-        for (int ks = 0; ks < kWarps; ++ks) {
-          const int k0 = ks * 16 + 2 * t;
-          {  // dW3 (64 x 128): row tile warp % 4, column tiles 8 (warp / 4) ..
-            const __nv_bfloat16* ar = st + (kSY2 + (warp & 3) * 16 + g) * kLdS + k0;
-            const uint32_t a[4] = {ld32(ar), ld32(ar + 8 * kLdS), ld32(ar + 8), ld32(ar + 8 * kLdS + 8)};
+          for (int j = 0; j < 4; j += 2) {
+            ldst4(b, s_st + (kSD3 + ((warp >> 2) * 4 + j + (mi >> 1)) * 8 + mr) * kLdS + k0 + (mi & 1) * 8);
+            mma(dw3[j], a, b[0], b[1]);
+            mma(dw3[j + 1], a, b[2], b[3]);
+          }
+          // dW2 (32 x 64): row tile warp % 2, n-tile warp / 2
+          ldst4(a, s_st + (kSY1 + (warp & 1) * 16 + (mi & 1) * 8 + mr) * kLdS + k0 + (mi >> 1) * 8);
+          ldst2(b2, s_st + (kSD2 + (warp >> 1) * 8 + mr) * kLdS + k0 + (mi & 1) * 8);
+          mma(dw2, a, b2[0], b2[1]);
+        }
+        // dW1 (6 x 32, rows padded to 16): n-tile warp % 4 over the k-steps of quarter warp / 4
 #pragma unroll
-            for (int j = 0; j < 8; ++j) {
-              const __nv_bfloat16* br = st + (kSD3 + ((warp >> 2) * 8 + j) * 8 + g) * kLdS + k0;
-              mma_bf16(dw3[j], a, ld32(br), ld32(br + 8));
-            }
-          }
-          {  // dW2 (32 x 64): row tile warp % 2, column tiles 2 (warp / 2) ..
-            const __nv_bfloat16* ar = st + (kSY1 + (warp & 1) * 16 + g) * kLdS + k0;
-            const uint32_t a[4] = {ld32(ar), ld32(ar + 8 * kLdS), ld32(ar + 8), ld32(ar + 8 * kLdS + 8)};
-#pragma unroll
-            for (int j = 0; j < 2; ++j) {
-              const __nv_bfloat16* br = st + (kSD2 + ((warp >> 1) * 2 + j) * 8 + g) * kLdS + k0;
-              mma_bf16(dw2[j], a, ld32(br), ld32(br + 8));
-            }
-          }
-          if (warp < 4) {  // dW1 (6 x 32, rows padded to 16): column tile warp
-            const __nv_bfloat16* ar = st + (kSChans + g) * kLdS + k0;
-            const uint32_t a[4] = {ld32(ar), ld32(ar + 8 * kLdS), ld32(ar + 8), ld32(ar + 8 * kLdS + 8)};
-            const __nv_bfloat16* br = st + (kSD1 + warp * 8 + g) * kLdS + k0;
-            mma_bf16(dw1, a, ld32(br), ld32(br + 8));
-          }
+        for (int q = 0; q < 4; ++q) {
+          const int k0 = ((warp >> 2) * 4 + q) * 16;
+          uint32_t x[2], b2[2];
+          ldst2(x, s_st + (kSChans + mr) * kLdS + k0 + (mi & 1) * 8);
+          ldst2(b2, s_st + (kSD1 + (warp & 3) * 8 + mr) * kLdS + k0 + (mi & 1) * 8);
+          const uint32_t a[4] = {x[0], 0u, x[1], 0u};
+          mma(dw1, a, b2[0], b2[1]);
         }
         __syncthreads();
       }
@@ -530,13 +765,19 @@ pe_train_kernel(const float* __restrict__ chans, const float* __restrict__ w0, c
         }
       }
     }
+    cb = nb;
   }
 
   if (kMode == kStats || kMode == kBwdSums) {
-    // per block: the row groups by shuffles, the warps in order through shared memory
+    // per block: the row groups by shuffles, the warps in order through shared memory (each warp's pool row)
+    float* s_red = reinterpret_cast<float*>(s_pool);
     float* red = s_red + warp * 256;
+    if (kMode == kBwdSums) {  // pair_sums' lanes hold the warp's sums: g, then g (z - mu)
 #pragma unroll
-    for (int nt = 0; nt < kSumTiles; ++nt) {
+      for (int p = 0; p < kSumTiles / 2; ++p) red[(lane & 8 ? 128 : 0) + pair_col(p, lane)] = fs[p];
+    }
+#pragma unroll
+    for (int nt = 0; nt < (kMode == kStats ? kSumTiles : 0); ++nt) {
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
         float v1 = sum1[nt][j], v2 = sum2[nt][j];
@@ -561,46 +802,83 @@ pe_train_kernel(const float* __restrict__ chans, const float* __restrict__ w0, c
   if (kDw) {
     float* out = partial + (long long)blockIdx.x * (kFrozen ? kDW + kSums : kDW);
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int r = (warp & 3) * 16 + g, c = ((warp >> 2) * 8 + j) * 8 + 2 * t;
+    for (int j = 0; j < 4; ++j) {
+      const int r = (warp & 3) * 16 + g, c = ((warp >> 2) * 4 + j) * 8 + 2 * t;
       out[kDW3 + r * 128 + c] = dw3[j][0];
       out[kDW3 + r * 128 + c + 1] = dw3[j][1];
       out[kDW3 + (r + 8) * 128 + c] = dw3[j][2];
       out[kDW3 + (r + 8) * 128 + c + 1] = dw3[j][3];
     }
+    {
+      const int r = (warp & 1) * 16 + g, c = (warp >> 1) * 8 + 2 * t;
+      out[kDW2 + r * 64 + c] = dw2[0];
+      out[kDW2 + r * 64 + c + 1] = dw2[1];
+      out[kDW2 + (r + 8) * 64 + c] = dw2[2];
+      out[kDW2 + (r + 8) * 64 + c + 1] = dw2[3];
+    }
+    // the staging is free (every warp passed the last m-tile's barrier): the warps' dW1 quarters (6 rows x 8
+    // columns each) and K18's sums, added in warp order
+    float* s_d1 = reinterpret_cast<float*>(s_st);
+    float* s_fs = s_d1 + kWarps * 48;
+    if (g < 6) {
+      s_d1[warp * 48 + g * 8 + 2 * t] = dw1[0];
+      s_d1[warp * 48 + g * 8 + 2 * t + 1] = dw1[1];
+    }
+    if (kFrozen) {
 #pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int r = (warp & 1) * 16 + g, c = ((warp >> 1) * 2 + j) * 8 + 2 * t;
-      out[kDW2 + r * 64 + c] = dw2[j][0];
-      out[kDW2 + r * 64 + c + 1] = dw2[j][1];
-      out[kDW2 + (r + 8) * 64 + c] = dw2[j][2];
-      out[kDW2 + (r + 8) * 64 + c + 1] = dw2[j][3];
+      for (int i = 0; i < kPairRegs; ++i) {
+        const int layer = i < pair_base(kBwdFrozen, 2) ? 1 : i < pair_base(kBwdFrozen, 3) ? 2 : 3;
+        const int p = i - pair_base(kBwdFrozen, layer);
+        s_fs[warp * kSums + sums_base(layer) + (lane & 8 ? width_of(layer) : 0) + pair_col(p, lane)] = fs[i];
+      }
     }
-    if (warp < 4 && g < 6) {
-      out[g * 32 + warp * 8 + 2 * t] = dw1[0];
-      out[g * 32 + warp * 8 + 2 * t + 1] = dw1[1];
+    __syncthreads();
+    for (int i = threadIdx.x; i < 6 * 32; i += kThreads) {
+      const int row = i >> 5, c = i & 31;
+      float v = 0.0f;
+      for (int q = 0; q < 4; ++q) v += s_d1[(q * 4 + (c >> 3)) * 48 + row * 8 + (c & 7)];
+      out[i] = v;
     }
-    if (kFrozen) {  // the warps' sums, added in warp order, after the dW row
-      __syncthreads();
+    if (kFrozen) {
       for (int c = threadIdx.x; c < kSums; c += kThreads) {
         float v = 0.0f;
-        for (int w = 0; w < kWarps; ++w) v += s_sums[w * kSums + c];
+        for (int w = 0; w < kWarps; ++w) v += s_fs[w * kSums + c];
         out[kDW + c] = v;
       }
     }
   }
 }
 
-// second pass of K11: add the blocks' rows in order, then flax's batch statistics and the affine
+// The blocks' rows of K11's and K13's scratch added per channel (in double) by kFinRows threads a channel, each
+// taking every kFinRows-th row, their sums then added in thread order: a run is deterministic and the rows'
+// loads are in flight together. Thread k * 128 + c holds channel c's sums (s1, s2) where k == 0.
+constexpr int kFinRows = 8;
+__device__ __forceinline__ bool finish_rows(const float* __restrict__ partial, int blocks, double& s1, double& s2) {
+  __shared__ double s_part[kFinRows][256];
+  const int c = threadIdx.x & 127, k = threadIdx.x >> 7;
+  double a = 0.0, b = 0.0;
+  for (int i = k; i < blocks; i += kFinRows) {
+    a += partial[(long long)i * 256 + c];
+    b += partial[(long long)i * 256 + 128 + c];
+  }
+  s_part[k][c] = a;
+  s_part[k][128 + c] = b;
+  __syncthreads();
+  if (k != 0) return false;
+  s1 = s2 = 0.0;
+  for (int j = 0; j < kFinRows; ++j) {
+    s1 += s_part[j][c];
+    s2 += s_part[j][128 + c];
+  }
+  return true;
+}
+
+// second pass of K11: add the blocks' rows, then flax's batch statistics and the affine
 __global__ void stats_finish(const float* __restrict__ partial, int blocks, const float* __restrict__ gb,
                              float* __restrict__ bn, int width, float n, float eps) {
+  double s1, s2;
   const int c = threadIdx.x;
-  if (c >= width) return;
-  double s1 = 0.0, s2 = 0.0;
-  for (int i = 0; i < blocks; ++i) {
-    s1 += partial[(long long)i * 256 + c];
-    s2 += partial[(long long)i * 256 + 128 + c];
-  }
+  if (!finish_rows(partial, blocks, s1, s2) || c >= width) return;
   const float sz = (float)s1, sz2 = (float)s2;
   const float mu = sz / n;
   const float var = fmaxf(sz2 / n - mu * mu, 0.0f);
@@ -613,17 +891,13 @@ __global__ void stats_finish(const float* __restrict__ partial, int blocks, cons
   bn[kB * 128 + c] = bet - gam * mu * inv;
 }
 
-// second pass of K13: sum g (dbeta) and sum g zhat (dgamma) of the layer
+// second pass of K13: sum g (dbeta) and sum g zhat (dgamma) of the layer, the second as 1/sigma sum g (z - mu)
 __global__ void sums_finish(const float* __restrict__ partial, int blocks, float* __restrict__ bn, int width) {
+  double s1, s2;
   const int c = threadIdx.x;
-  if (c >= width) return;
-  double s1 = 0.0, s2 = 0.0;
-  for (int i = 0; i < blocks; ++i) {
-    s1 += partial[(long long)i * 256 + c];
-    s2 += partial[(long long)i * 256 + 128 + c];
-  }
+  if (!finish_rows(partial, blocks, s1, s2) || c >= width) return;
   bn[kSg * 128 + c] = (float)s1;
-  bn[kSgz * 128 + c] = (float)s2;
+  bn[kSgz * 128 + c] = (float)s2 * bn[kInv * 128 + c];
 }
 
 // second pass of K14: the three dW, in the (in, out) layout, one after the other
@@ -635,7 +909,8 @@ __global__ void dw_finish(const float* __restrict__ partial, int blocks, float* 
   dw[i] = (float)s;
 }
 
-// second pass of K18: K14's dW, then each layer's sum g (dbeta) and sum g zhat (dgamma) into bn
+// second pass of K18: K14's dW, then each layer's sum g (dbeta) and sum g zhat (dgamma, 1/sigma sum g (z - mu))
+// into bn
 __global__ void frozen_finish(const float* __restrict__ partial, int blocks, float* __restrict__ dw,
                               float* __restrict__ bn) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
@@ -649,7 +924,18 @@ __global__ void frozen_finish(const float* __restrict__ partial, int blocks, flo
   const int j = i - kDW;
   const int layer = j < sums_base(2) ? 1 : j < sums_base(3) ? 2 : 3;
   const int k = j - sums_base(layer), w = width_of(layer);
-  bn[((layer - 1) * kBnRows + (k < w ? kSg : kSgz)) * 128 + k % w] = (float)s;
+  float* r = bn + (layer - 1) * kBnRows * 128;
+  r[(k < w ? kSg : kSgz) * 128 + k % w] = k < w ? (float)s : (float)s * r[kInv * 128 + k % w];
+}
+
+// the kernel's shared memory set, and the blocks of it an SM holds
+template <int kMode, int kDepth>
+cudaError_t occupancy(int* per_sm) {
+  auto kernel = pe_train_kernel<kMode, kDepth>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_bytes(kMode, kDepth));
+  if (err != cudaSuccess) return err;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, kernel, warps_of(kMode) * 32, smem_bytes(kMode, kDepth));
 }
 
 template <int kMode, int kDepth>
@@ -657,25 +943,28 @@ cudaError_t launch(const float* chans, const float* w0, const float* w1, const f
                    const float* pooled_in, const float* cnt_in, const float* dpool, float* pooled_out,
                    float* cnt_out, float* partial, int cap, int B, int P, int S, int* blocks_out,
                    cudaStream_t stream) {
-  auto kernel = pe_train_kernel<kMode, kDepth>;
-  const size_t smem = (size_t)kWElems * 2 + (size_t)(kConsts + 2 * kWarps * 256) * 4 +
-                      (kMode == kBwdDw || kMode == kBwdFrozen ? (size_t)kSRows * kLdS * 2 : 0) +
-                      (kMode == kBwdFrozen ? (size_t)kWarps * kSums * 4 : 0);
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
   int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = occupancy<kMode, kDepth>(&per_sm);
+  if (err != cudaSuccess) return err;
   if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
   if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess) return err;
-  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem)) != cudaSuccess) return err;
   if (per_sm == 0) return cudaErrorInvalidConfiguration;
   const long long points = (long long)B * P;
-  long long blocks = (points + kWarps - 1) / kWarps;
+  long long blocks = (points + warps_of(kMode) - 1) / warps_of(kMode);
   if (blocks > (long long)sms * per_sm) blocks = (long long)sms * per_sm;
   if (cap > 0 && blocks > cap) blocks = cap;
-  kernel<<<(unsigned)blocks, kThreads, smem, stream>>>(chans, w0, w1, w2, bn, pooled_in, cnt_in, dpool, pooled_out,
-                                                        cnt_out, partial, B, P, S);
+  pe_train_kernel<kMode, kDepth><<<(unsigned)blocks, warps_of(kMode) * 32, smem_bytes(kMode, kDepth), stream>>>(
+      chans, w0, w1, w2, bn, pooled_in, cnt_in, dpool, pooled_out, cnt_out, partial, B, P, S);
   *blocks_out = (int)blocks;
   return cudaGetLastError();
+}
+
+template <int kMode, int kDepth>
+int resident(int* warps) {
+  int per_sm = 0;
+  const cudaError_t err = occupancy<kMode, kDepth>(&per_sm);
+  *warps = per_sm * warps_of(kMode);
+  return (int)err;
 }
 
 bool bad_shape(int B, int P, int S) { return B <= 0 || P <= 0 || S <= 0 || S % 16 != 0; }
@@ -703,8 +992,9 @@ extern "C" int unopose_pe_train_stats(const float* chans, const float* w0, const
   }
   if (err != cudaSuccess) return (int)err;
   const int width = depth == 1 ? 32 : depth == 2 ? 64 : 128;
-  stats_finish<<<1, 128, 0, stream>>>(partial, blocks, gb + (depth - 1) * 256, bn + (depth - 1) * kBnRows * 128,
-                                      width, (float)((double)B * P * S), eps);
+  stats_finish<<<1, 128 * kFinRows, 0, stream>>>(partial, blocks, gb + (depth - 1) * 256,
+                                                 bn + (depth - 1) * kBnRows * 128, width, (float)((double)B * P * S),
+                                                 eps);
   return (int)cudaGetLastError();
 }
 
@@ -740,7 +1030,7 @@ extern "C" int unopose_pe_train_bwd_sums(const float* chans, const float* w0, co
   }
   if (err != cudaSuccess) return (int)err;
   const int width = depth == 1 ? 32 : depth == 2 ? 64 : 128;
-  sums_finish<<<1, 128, 0, stream>>>(partial, blocks, bn + (depth - 1) * kBnRows * 128, width);
+  sums_finish<<<1, 128 * kFinRows, 0, stream>>>(partial, blocks, bn + (depth - 1) * kBnRows * 128, width);
   return (int)cudaGetLastError();
 }
 
@@ -772,4 +1062,21 @@ extern "C" int unopose_pe_train_frozen_bwd(const float* chans, const float* w0, 
   if (err != cudaSuccess) return (int)err;
   frozen_finish<<<(kDW + kSums + 255) / 256, 256, 0, stream>>>(partial, blocks, dw, bn);
   return (int)cudaGetLastError();
+}
+
+// The warps an SM holds of a pass's kernel (the runtime's occupancy query at its launch's shared memory):
+// kernel 11 (depth 1-3), 12, 13 (layer 1-3), 14 or 18.
+extern "C" int unopose_pe_train_resident_warps(int kernel, int depth, int* warps) {
+  switch (kernel * 4 + depth) {
+    case 11 * 4 + 1: return resident<kStats, 1>(warps);
+    case 11 * 4 + 2: return resident<kStats, 2>(warps);
+    case 11 * 4 + 3: return resident<kStats, 3>(warps);
+    case 12 * 4 + 3: return resident<kFwd, 3>(warps);
+    case 13 * 4 + 1: return resident<kBwdSums, 1>(warps);
+    case 13 * 4 + 2: return resident<kBwdSums, 2>(warps);
+    case 13 * 4 + 3: return resident<kBwdSums, 3>(warps);
+    case 14 * 4 + 0: return resident<kBwdDw, 0>(warps);
+    case 18 * 4 + 0: return resident<kBwdFrozen, 0>(warps);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

@@ -1,9 +1,9 @@
 """What each part of the K1 (FPS), K7 (ViT attention), K9 and K10 (the fused assignment's labels and
 accumulation), K4 (int8 geometric embedding), K6 (the fine PE's MLP and pool), K3 (the first_k select), K8
-(the fused assignment's column statistics), K5 (the fine PE's channels) and K26 (the compaction script's banked
-gather) designs buys, on one CUDA card.
+(the fused assignment's column statistics), K5 (the fine PE's channels), K26 (the compaction script's banked
+gather) and K11-K14 and K18 (the train PE's passes) designs buys, on one CUDA card.
 
-    python -m unopose_tpu_torch.tools.kernel_variants [--parent DIR] [--only K5,K26] [--reps 20] [--out FILE]
+    python -m unopose_tpu_torch.tools.kernel_variants [--parent DIR] [--only K13,K18] [--reps 20] [--out FILE]
 
 Builds the shipped sources ``kernels/csrc/fps.cu``, ``vit_attn.cu``, ``fine_assign.cu``, ``geo_rpe.cu``,
 ``pe_mlp_pool.cu``, ``first_k_select.cu``, ``pe_channels.cu`` and ``compact_micro.cu`` and variants of each, every variant the shipped text with one design
@@ -25,7 +25,8 @@ cubes of 2000 points at S2 128 (a point count no multiple of a block's, tiers cl
 buffer zeroed first, so that a slot written past a point's tier shows; K26 on
 ``benchmarks/profile_compact_micro.py:script_inputs`` (65536 rows of 2048 words, 256 draws a row) and on those
 rows' first 1000 with every seventh bank index outside [0, 16). The
-builds run in turns, forward then backward, and each reports the median of its two times. ``--parent DIR``: a
+builds run in turns, forward, backward and forward again, and each reports the median of its three times (two
+turns left a build's place in the run in its time: the same code read 7% apart). ``--parent DIR``: a
 checkout of another commit, whose sources (with the headers they include from its ``csrc/``) join as the builds
 ``*_parent``. ``--only``: the kernels to build and time.
 
@@ -98,15 +99,35 @@ rows (words, li and bi by bulk copies on an mbarrier each stage), one persistent
 shared memory.
 Beside K26, one ``torch.gather`` of the flat indices bi * 128 + li (int64, made outside the timing) over x, the
 yardstick.
+The train PE's passes (``pe_train.cu``: K11 statistics at depths 1-3, K12 forward, K13 backward sums at layers
+3-1, K14 weight gradients, K18 frozen-BN backward) at B 8 x P 2048 x S 256 and 64 on ``chip_smoke.py``'s phase-3
+inputs (``configs.pe_train_chans``: a third of each point's slots distinct, the rest pads that tie), each backward
+fed the shipped K12's max and tie counts and the plain passes' statistics and deeper sums. Variants of K13 and K18
+(shipped: z1 and z2 recomputed from the bf16 fragments, dz3, dz2 and y2's gates read back from shared memory for
+the layer below, ldmatrix fragments of one copy of the weights, packed constants, the next m-tile's chans in
+flight, two m-tiles a step at K13's layer 3, the sums reduced over n-tile pairs, 8-warp blocks two an SM for K13,
+one 16-warp block an SM staging by stmatrix for K14 and K18):
+``volatile_mma``, the products as volatile asm (kept in program order); ``no_prefetch``, each m-tile's chans loaded
+at its start; ``group2`` and ``group8``, two or eight n-tiles of dy accumulated together (shipped: eight for K14
+and K18, four for K13); ``fmax_relu``, the ReLU by fmaxf before the bf16 conversion;
+``dz_registers``, dz3 and dz2 held in registers and y2's gates too; ``single_tiles`` (K13), one m-tile a step at
+layer 3; ``three_blocks`` (K13), dz in registers, one m-tile a step and three blocks an SM;
+``one_block`` (K11, K12), their kernels not held to two blocks an SM; ``pairs`` (K11, K12), two m-tiles a step
+at depth 3. The tie-count checks
+``pe_train_bwd_sums_ties`` and ``pe_train_frozen_bwd_ties`` (and ``*_ties_parent``) count, per (point, channel),
+the slots whose recomputed y3 equals the forward's max (``TIE_ANCHORS``), against K12's tie count: not timed.
 
 Every build's output is checked: K1's indices equal to the plain loop's, K7's outputs, K9's rm, rs, label1 and
 column keys, K10's wsum and num, K4's int8 codes, K6's pooled features, K3's eight outputs (each also equal to
 the plain twin's), K8's cm and cs, K5's channels (every slot, the unwritten ones zero) and K26's outputs (also
 equal to the plain twin's) bitwise equal to the shipped kernel's (for K7's ``parent``, the first version, the share
-of equal outputs is reported too). K5's and K26's records also carry what ``-Xptxas -v`` says of the kernel
-(registers a thread, spill bytes, static shared memory), K5's the warps an SM holds of the kernel at N 2048 (the
-runtime's occupancy query, ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``, on a probe compiled into each build)
-and each shape's tier histogram (points needing 1-4 chunks of 64 slots). Prints the card's name and power
+of equal outputs is reported too); the train passes' outputs against the plain passes at phase 3's gates, two runs
+bitwise equal, and their largest difference from the shipped build's (the sums' rounding follows the block count,
+which follows the occupancy). K5's, K26's and the train passes' records also carry what ``-Xptxas -v`` says of the
+kernel (registers a thread, spill bytes, static shared memory; a train pass's ``pe_train_kernel`` instantiation),
+K5's and the train passes' the warps an SM holds of the kernel (the runtime's occupancy query,
+``cudaOccupancyMaxActiveBlocksPerMultiprocessor``, on a probe compiled into each build; K5 at N 2048) and K5's each
+shape's tier histogram (points needing 1-4 chunks of 64 slots). Prints the card's name and power
 limit, then one JSON line; ``--out`` writes the JSON there too.
 """
 
@@ -841,18 +862,145 @@ extern "C" int unopose_compact_gather(const int* x, const int* li, const int* bi
 
 """
 
+# the train PE's kernels (K11-K14, K18: one source, one template body) and the pe_train_kernel<mode, depth>
+# instantiation each runs
+TRAIN = ("K11", "K12", "K13", "K14", "K18")
+TRAIN_MODE = {"K11": 0, "K12": 1, "K13": 2, "K14": 3, "K18": 4}
+# the tie-count check: every slot whose recomputed y3 equals the forward's max adds one to its (point, channel)
+# in g_ties, set by unopose_pe_train_set_ties (null: no count); declared after the includes
+TIE_DECL = """__device__ unsigned* g_ties;
+extern "C" int unopose_pe_train_set_ties(unsigned* p) { return (int)cudaMemcpyToSymbol(g_ties, &p, sizeof(p)); }
+"""
+# the pool backward's compare, in the shipped source and in the first design's (a slot's y3 against the row's
+# max), and the count inserted after it
+TIE_ANCHORS = (
+    ("gv[m][j] = pre == (j & 1 ? pq.y : pq.x) ? (j & 1 ? pq.w : pq.z) : 0.0f;  // the pool backward",
+     "if (g_ties && live[m] && fmaxf(pre, 0.0f) == pooled_in[pt * 128 + nt * 8 + 2 * t + (j & 1)]) "
+     "atomicAdd(g_ties + pt * 128 + nt * 8 + 2 * t + (j & 1), 1u);"),
+    ("float gv = y == pool[col] ? pool[128 + col] : 0.0f;  // the pool backward, ties split evenly",
+     "if (g_ties && y == pool[col]) atomicAdd(g_ties + pt * 128 + col, 1u);"),
+)
+# the warps an SM holds of each instantiation, for a source without unopose_pe_train_resident_warps (the first
+# design: 8 warps a block, its launcher's shared memory)
+TRAIN_PROBE = """
+namespace {
+template <int kMode, int kDepth>
+int resident_probe(int* warps) {
+  auto kernel = pe_train_kernel<kMode, kDepth>;
+  const size_t smem = (size_t)kWElems * 2 + (size_t)(kConsts + 2 * kWarps * 256) * 4 +
+                      (kMode == kBwdDw || kMode == kBwdFrozen ? (size_t)kSRows * kLdS * 2 : 0) +
+                      (kMode == kBwdFrozen ? (size_t)kWarps * kSums * 4 : 0);
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, kThreads, smem);
+  *warps = blocks * kWarps;
+  return (int)err;
+}
+}  // namespace
+extern "C" int unopose_pe_train_resident_warps(int kernel, int depth, int* warps) {
+  switch (kernel * 4 + depth) {
+    case 11 * 4 + 1: return resident_probe<kStats, 1>(warps);
+    case 11 * 4 + 2: return resident_probe<kStats, 2>(warps);
+    case 11 * 4 + 3: return resident_probe<kStats, 3>(warps);
+    case 12 * 4 + 3: return resident_probe<kFwd, 3>(warps);
+    case 13 * 4 + 1: return resident_probe<kBwdSums, 1>(warps);
+    case 13 * 4 + 2: return resident_probe<kBwdSums, 2>(warps);
+    case 13 * 4 + 3: return resident_probe<kBwdSums, 3>(warps);
+    case 14 * 4 + 0: return resident_probe<kBwdDw, 0>(warps);
+    case 18 * 4 + 0: return resident_probe<kBwdFrozen, 0>(warps);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+"""
+TRAIN_PREFETCH = """      // the next step's chans: this point's next m-tiles, else the warp's next point's first
+#pragma unroll
+      for (int m = 0; m < kM; ++m) {
+        if (mt + kM < mtiles) {
+          if (active && mt + kM + m < mtiles) load_tile(nx[m], cb, (mt + kM + m) * 16, plane, lane);
+        } else if (npt < points && m < mtiles) {
+          load_tile(nx[m], nb, m * 16, plane, lane);
+        }
+      }
+"""
+TRAIN_STEP = "      bool live[kM];  // a step's m-tiles inside the point (the last of an odd count runs idle)\n"
+TRAIN_NO_PREFETCH = """#pragma unroll
+      for (int m = 0; m < kM; ++m) {
+        if (active && mt + m < mtiles) load_tile(nx[m], cb, (mt + m) * 16, plane, lane);
+      }
+"""
+TRAIN_CVT_RELU = """  uint32_t d;
+  asm("cvt.rn.relu.bf16x2.f32 %0, %1, %2;\\n" : "=r"(d) : "f"(hi), "f"(lo));
+  return d;
+"""
+TRAIN_BLOCKS = "return has_dw(mode) ? 1 : 2; }"
+TRAIN_READ_BACK = "return mode == kBwdSums || has_dw(mode); }"
+TRAIN_GROUP = "return has_dw(mode) ? 8 : 4; }"
+TRAIN_PAIRS = "return mode == kBwdSums && depth == 3 ? 2 : 1; }"
+
+
+def with_train_probe(text: str) -> str:
+    """A pe_train source with ``unopose_pe_train_resident_warps``: its own, or the first design's probe."""
+    return text if "unopose_pe_train_resident_warps" in text else text + TRAIN_PROBE
+
+
+def tie_check(text: str) -> str:
+    """A pe_train source whose pool backward also counts, per (point, channel), the slots whose recomputed y3
+    equals the forward's max (``g_ties``)."""
+    text = _sub(text, "#include <stdint.h>\n", "#include <stdint.h>\n" + TIE_DECL)
+    for anchor, count in TIE_ANCHORS:
+        if anchor in text:
+            return _lines(text, anchor, anchor, anchor + "\n" + count)
+    raise ValueError("the pe_train source holds none of the pool backward's known compares: update TIE_ANCHORS")
+
+
+def train_variants(text: str) -> dict:
+    """{variant: (kernels timed, text)}: the shipped pe_train source with one design choice of K13's and K18's
+    (or K11's and K12's) replaced."""
+    registers = _sub(text, TRAIN_READ_BACK, "return has_dw(mode); }")
+    no_prefetch = _sub(_sub(text, TRAIN_PREFETCH, ""), TRAIN_STEP, TRAIN_NO_PREFETCH + TRAIN_STEP)
+    return {
+        "volatile_mma": (("K13", "K18"), _sub(text, '  asm("mma.sync.aligned', '  asm volatile("mma.sync.aligned')),
+        "no_prefetch": (("K13", "K18"), no_prefetch),
+        "group2": (("K13", "K18"), _sub(text, TRAIN_GROUP, "return 2; }")),
+        "group8": (("K13", "K18"), _sub(text, TRAIN_GROUP, "return 8; }")),
+        "fmax_relu": (("K13", "K18"), _sub(text, TRAIN_CVT_RELU, "  return pack(fmaxf(lo, 0.0f), fmaxf(hi, 0.0f));\n")),
+        "dz_registers": (("K13", "K18"), registers),
+        "single_tiles": (("K13",), _sub(text, TRAIN_PAIRS, "return 1; }")),
+        "three_blocks": (("K13",), _sub(_sub(registers, TRAIN_PAIRS, "return 1; }"), TRAIN_BLOCKS,
+                                        "return has_dw(mode) ? 1 : mode == kBwdSums ? 3 : 2; }")),
+        "one_block": (("K11", "K12"), _sub(text, TRAIN_BLOCKS, "return has_dw(mode) || mode <= kFwd ? 1 : 2; }")),
+        "pairs": (("K11", "K12"), _sub(text, TRAIN_PAIRS,
+                                       "return (mode == kBwdSums || mode <= kFwd) && depth == 3 ? 2 : 1; }")),
+    }
+
 
 # kernel: (source, entry point)
 KERNELS = {"K1": ("fps.cu", "unopose_fps"), "K7": ("vit_attn.cu", "unopose_mha_fused"),
            "K9": ("fine_assign.cu", "unopose_fine_labels"), "K4": ("geo_rpe.cu", "unopose_geo_rpe"),
            "K6": ("pe_mlp_pool.cu", "unopose_pe_mlp_pool"), "K10": ("fine_assign.cu", "unopose_fine_accum"),
            "K3": ("first_k_select.cu", "unopose_first_k_select"), "K8": ("fine_assign.cu", "unopose_fine_colstats"),
-           "K5": ("pe_channels.cu", "unopose_pe_channels"), "K26": ("compact_micro.cu", "unopose_compact_gather")}
+           "K5": ("pe_channels.cu", "unopose_pe_channels"), "K26": ("compact_micro.cu", "unopose_compact_gather"),
+           "K11": ("pe_train.cu", "unopose_pe_train_stats"), "K12": ("pe_train.cu", "unopose_pe_train_fwd"),
+           "K13": ("pe_train.cu", "unopose_pe_train_bwd_sums"), "K14": ("pe_train.cu", "unopose_pe_train_bwd_dw"),
+           "K18": ("pe_train.cu", "unopose_pe_train_frozen_bwd")}
 SHIPPED = {"K1": "fps", "K7": "vit_attn", "K9": "fine_assign", "K4": "geo_rpe", "K6": "pe_mlp_pool",
            "K10": "fine_assign_accum", "K3": "first_k_select", "K8": "fine_assign_colstats", "K5": "pe_channels",
-           "K26": "compact_gather"}
-# the kernel function whose -Xptxas -v lines a build's record carries
-PTXAS_OF = {"K5": "pe_channels_kernel", "K26": "compact_gather_kernel"}
+           "K26": "compact_gather", "K11": "pe_train_stats", "K12": "pe_train_fwd", "K13": "pe_train_bwd_sums",
+           "K14": "pe_train_bwd_dw", "K18": "pe_train_frozen_bwd"}
+# the kernel function whose -Xptxas -v lines a build's record carries (a train kernel's: its instantiation of
+# pe_train_kernel<mode, depth>, the depth from the shape, ptxas_fn)
+PTXAS_OF = {"K5": "pe_channels_kernel", "K26": "compact_gather_kernel",
+            **{k: f"pe_train_kernelILi{TRAIN_MODE[k]}ELi" for k in TRAIN}}
+
+
+def train_depth(kernel: str, key: str) -> int:
+    """The depth (K11) or layer (K13) of a train kernel's shape key; K12 runs depth 3, K14 and K18 0."""
+    return int(key.split()[-1]) if kernel in ("K11", "K13") else 3 if kernel == "K12" else 0
+
+
+def ptxas_fn(kernel: str, key: str) -> str:
+    return PTXAS_OF[kernel] + (f"{train_depth(kernel, key)}E" if kernel in TRAIN else "")
 
 
 def sources(parent: Path | None, only=tuple(KERNELS)) -> dict:
@@ -865,9 +1013,11 @@ def sources(parent: Path | None, only=tuple(KERNELS)) -> dict:
     fk = (build.CSRC / "first_k_select.cu").read_text()
     ch = (build.CSRC / "pe_channels.cu").read_text()
     cm = (build.CSRC / "compact_micro.cu").read_text()
+    pt = (build.CSRC / "pe_train.cu").read_text()
     out = {"fps": ("K1", fps), "vit_attn": ("K7", attn), "fine_assign": ("K9", fa), "geo_rpe": ("K4", geo),
            "pe_mlp_pool": ("K6", pe), "fine_assign_accum": ("K10", fa), "first_k_select": ("K3", fk),
-           "fine_assign_colstats": ("K8", fa), "pe_channels": ("K5", ch), "compact_gather": ("K26", cm)}
+           "fine_assign_colstats": ("K8", fa), "pe_channels": ("K5", ch), "compact_gather": ("K26", cm),
+           **{SHIPPED[k]: (k, pt) for k in TRAIN}}
     for threads, per in ((1024, 6), (512, 12)):
         text = _sub(fps, "constexpr int kSmallT = 256;", f"constexpr int kSmallT = {threads};")
         text = _sub(text, "constexpr int kSmallPer = 24;", f"constexpr int kSmallPer = {per};")
@@ -994,10 +1144,17 @@ def sources(parent: Path | None, only=tuple(KERNELS)) -> dict:
                     "compact_wherechain_kernel", K26_STREAMED)
     out["compact_gather_streamed"] = ("K26", _between(text, "// x (rows, 2048), li and bi (rows, 256)",
                                                       "// li (rows, 256) int32", K26_STREAMED_LAUNCH))
+    for variant, (kernels, text) in train_variants(pt).items():
+        out.update({f"{SHIPPED[k]}_{variant}": (k, text) for k in kernels})
+    ties = tie_check(pt)
+    out["pe_train_bwd_sums_ties"], out["pe_train_frozen_bwd_ties"] = ("K13", ties), ("K18", ties)
     if parent is not None:
         csrc = parent / "unopose_tpu_torch" / "kernels" / "csrc"
         for kernel, name in SHIPPED.items():
             out[f"{name}_parent"] = (kernel, _inline_headers((csrc / KERNELS[kernel][0]).read_text(), csrc))
+        ties = tie_check(out["pe_train_bwd_sums_parent"][1])
+        out["pe_train_bwd_sums_ties_parent"], out["pe_train_frozen_bwd_ties_parent"] = ("K13", ties), ("K18", ties)
+    out = {name: (k, with_train_probe(text) if k in TRAIN else text) for name, (k, text) in out.items()}
     return {name: v for name, v in out.items() if v[0] in only}
 
 
@@ -1182,6 +1339,74 @@ def channel_inputs(dev, rng, cloud: str, B2: int = 32, N: int = 2048, S2: int = 
     return dict(args=args, B=B2, N=N, P=N, S2=S2, hist=hist)
 
 
+def train_inputs(dev, rng, S: int) -> dict:
+    """K11-K14's and K18's arguments at B 8 x P 2048 x S as chip_smoke.py's phase 3 makes them
+    (``configs.pe_train_chans``: a third of each point's slots distinct, the rest pads that tie;
+    ``pe_train_weights`` at seed 0), with the plain passes' outputs, the references: the batch statistics (``bn``),
+    the plain forward's max, the three layers' sums (``sums``, the buffer the backward passes read) and the dW; the
+    frozen variant's buffer (``fbn``, from seeded running statistics) with its plain max, sums and dW."""
+    from unopose_tpu_torch.configs import pe_train_chans, pe_train_weights
+    from unopose_tpu_torch.ops import pe_train as pt
+
+    B, P = 8, 2048
+    chans = pe_train_chans(rng, dev, B, P, S)
+    Ws, gammas, betas = pe_train_weights(dev, 0)
+    gen = torch.Generator().manual_seed(19)
+    means = [(0.1 * torch.randn(d, generator=gen)).to(dev) for d in pt.DIMS[1:]]
+    vars_ = [(0.5 + torch.rand(d, generator=gen)).to(dev) for d in pt.DIMS[1:]]
+    bn, gb = pt.stats_buffer(gammas, betas, dev)
+    for depth in (1, 2, 3):
+        pt.stats_plain(chans, Ws, gb, bn, depth, 1e-5)
+    pooled, cnt = pt.fwd_plain(chans, Ws, bn)
+    dpool = torch.from_numpy(rng.standard_normal((B, P, 128)).astype(np.float32)).to(dev)
+    sums = bn.clone()
+    for layer in (3, 2, 1):
+        pt.bwd_sums_plain(chans, Ws, sums, pooled, cnt, dpool, layer)
+    dws = pt.bwd_dw_plain(chans, Ws, sums, pooled, cnt, dpool)
+    fbn = pt.frozen_buffer(gammas, betas, means, vars_, 1e-5, dev)
+    fpooled, fcnt = pt.fwd_plain(chans, Ws, fbn)
+    fsums = fbn.clone()
+    fdws = pt.frozen_bwd_plain(chans, Ws, fsums, fpooled, fcnt, dpool)
+    return dict(B=B, P=P, S=S, chans=chans, ws=[W.float().contiguous() for W in Ws], gb=gb, bn=bn, sums=sums,
+                fbn=fbn, dpool=dpool, plain=dict(pooled=pooled, cnt=cnt, dws=dws, fsums=fsums, fdws=fdws))
+
+
+def rel_err(got, want) -> tuple:
+    """(max, median) of |got - want| over the largest |want|."""
+    d = (got.float() - want.float()).abs()
+    scale = want.float().abs().max().clamp_min(1e-30)
+    return (d.max() / scale).item(), (d.median() / scale).item()
+
+
+def train_check(kernel: str, key: str, outs, d: dict) -> dict:
+    """A train kernel's outputs against the plain passes at chip_smoke.py's phase-3 gates: K11's mean and variance
+    within 1e-4 of their max, the others' within 1e-2 of each tensor's max with the median under 1e-3 (K12 also
+    its tie counts equal to the plain forward's)."""
+    from unopose_tpu_torch.ops import pe_train as pt
+
+    plain, depth = d["plain"], train_depth(kernel, key)
+    if kernel == "K11":
+        w = pt.DIMS[depth]
+        errs = [rel_err(outs[0][row, :w], d["bn"][depth - 1, row, :w]) for row in (pt.MU, pt.VAR)]
+        return dict(rel_plain=errs, within_gates=all(mx <= 1e-4 for mx, _ in errs))
+    if kernel == "K12":
+        errs = [rel_err(outs[0], plain["pooled"])]
+        extra = dict(tie_counts_equal_plain=(outs[1] == plain["cnt"]).float().mean().item())
+    elif kernel == "K13":
+        w = pt.DIMS[depth]
+        errs = [rel_err(outs[0][i, :w], d["sums"][depth - 1, row, :w]) for i, row in enumerate((pt.SG, pt.SGZ))]
+        extra = {}
+    elif kernel == "K14":
+        errs = [rel_err(a, b) for a, b in zip(pt._split_dw(outs[0]), plain["dws"])]
+        extra = {}
+    else:
+        errs = [rel_err(a, b) for a, b in zip(pt._split_dw(outs[0]), plain["fdws"])]
+        errs += [rel_err(outs[1][l, i, :w], plain["fsums"][l, row, :w]) for l, w in enumerate(pt.DIMS[1:])
+                 for i, row in enumerate((pt.SG, pt.SGZ))]
+        extra = {}
+    return dict(rel_plain=errs, within_gates=all(mx <= 1e-2 and med <= 1e-3 for mx, med in errs), **extra)
+
+
 def gather_inputs(dev) -> dict:
     """K26's arguments: ``profile_compact_micro.script_inputs`` at seed 0 as (rows, ...) arrays, and those rows'
     first 1000 with every seventh bank index outside [0, 16) (16 and -1 in turns); each with the plain twin's
@@ -1236,6 +1461,11 @@ def main() -> int:
     for name, lib in libs.items():
         entry = KERNELS[srcs[name][0]][1]
         getattr(lib, entry).argtypes = build._SIGNATURES[entry]
+        if srcs[name][0] in TRAIN:
+            lib.unopose_pe_train_fwd.argtypes = build._SIGNATURES["unopose_pe_train_fwd"]
+            lib.unopose_pe_train_resident_warps.argtypes = [ctypes.c_int, ctypes.c_int, _P]
+            if "_ties" in name:
+                lib.unopose_pe_train_set_ties.argtypes = [_P]
 
     rng = np.random.default_rng(0)
     gen = torch.Generator(device=dev)
@@ -1289,6 +1519,27 @@ def main() -> int:
                         "32x2000 S2 128 cubes": channel_inputs(dev, rng, "cubes", 32, 2000, 128)}
     if "K26" in only:
         shapes["K26"] = gather_inputs(dev)
+    if any(k in only for k in TRAIN):
+        from unopose_tpu_torch.ops import pe_train as pt
+
+        train = {S: train_inputs(dev, rng, S) for S in (256, 64)}
+        # the kernel side's forward max and tie counts (each backward is fed its own side's): the shipped K12 on the
+        # plain statistics and on the frozen buffer
+        fwd = libs[SHIPPED[next(k for k in TRAIN if k in only)]].unopose_pe_train_fwd
+        for d in train.values():
+            for bn_key, out_key in (("bn", "k"), ("fbn", "kf")):
+                pooled = torch.empty((d["B"], d["P"], 128), device=dev)
+                cnt = torch.empty_like(pooled)
+                if err := fwd(*(_P(x.data_ptr()) for x in (d["chans"], *d["ws"], d[bn_key], pooled, cnt)), d["B"],
+                              d["P"], d["S"], stream()):
+                    raise RuntimeError(f"the shipped pe_train_fwd failed to launch: cudaError_t {err}")
+                d[out_key] = (pooled, cnt)
+        shapes["K11"] = {f"8x2048x{S} depth {depth}": train[S] for S in (256, 64) for depth in (1, 2, 3)}
+        shapes["K12"] = {f"8x2048x{S}": train[S] for S in (256, 64)}
+        shapes["K13"] = {f"8x2048x{S} layer {layer}": train[S] for S in (256, 64) for layer in (3, 2, 1)}
+        shapes["K14"] = dict(shapes["K12"])
+        shapes["K18"] = dict(shapes["K12"])
+        cap = 4 * torch.cuda.get_device_properties(dev).multi_processor_count
 
     def run_case(name: str, key: str):
         """(call, outputs) of one build at one shape; the call launches the kernel once."""
@@ -1363,6 +1614,34 @@ def main() -> int:
             ptrs = [_P(a.data_ptr()) for a in (x, li, bi, out)]
             call = lambda: lib.unopose_compact_gather(*ptrs, li.shape[0], stream())
             outs = (out,)
+        elif kernel in TRAIN:
+            d = shapes[kernel][key]
+            B, P, S, depth = d["B"], d["P"], d["S"], train_depth(kernel, key)
+            ptrs = lambda *xs: [_P(x.data_ptr()) for x in (d["chans"], *d["ws"], *xs)]
+            if kernel == "K11":
+                bn, partial = d["bn"].clone(), torch.empty(cap * 256, device=dev)
+                call = lambda: lib.unopose_pe_train_stats(*ptrs(d["gb"], bn, partial), cap, B, P, S, depth, 1e-5,
+                                                          stream())
+                outs = (bn[depth - 1],)
+            elif kernel == "K12":
+                pooled = torch.empty((B, P, 128), device=dev)
+                cnt = torch.empty_like(pooled)
+                call = lambda: lib.unopose_pe_train_fwd(*ptrs(d["bn"], pooled, cnt), B, P, S, stream())
+                outs = (pooled, cnt)
+            elif kernel == "K13":
+                bn, partial = d["sums"].clone(), torch.empty(cap * 256, device=dev)
+                call = lambda: lib.unopose_pe_train_bwd_sums(*ptrs(bn, *d["k"], d["dpool"], partial), cap, B, P, S,
+                                                             depth, stream())
+                outs = (bn[depth - 1, pt.SG:pt.SGZ + 1],)
+            else:  # K14, K18: the dW (K18 also every layer's sums)
+                frozen = kernel == "K18"
+                bn = (d["fbn"] if frozen else d["sums"]).clone()
+                partial = torch.empty(cap * (pt.DW_SIZE + (pt.FROZEN_SUMS if frozen else 0)), device=dev)
+                dw = torch.empty(pt.DW_SIZE, device=dev)
+                entry = lib.unopose_pe_train_frozen_bwd if frozen else lib.unopose_pe_train_bwd_dw
+                call = lambda: entry(*ptrs(bn, *d["kf" if frozen else "k"], d["dpool"], partial), cap,
+                                     _P(dw.data_ptr()), B, P, S, stream())
+                outs = (dw, bn[:, pt.SG:pt.SGZ + 1]) if frozen else (dw,)
         elif kernel == "K6":
             a = shapes["K6"][key]  # chans, w1, w2, total2, wpack, bpack
             Bc, P, S2, _ = a[0].shape
@@ -1387,7 +1666,8 @@ def main() -> int:
     extra = ("geo_rpe", "geo_rpe_parent", "fine_assign", "fine_assign_parent", "fine_assign_ieee_division",
              "fine_assign_accum", "fine_assign_accum_parent", "fine_assign_accum_ieee_division",
              "fine_assign_colstats", "fine_assign_colstats_parent")
-    cases = [(name, key) for name in srcs for key in shapes[srcs[name][0]]
+    ties_builds = [name for name in srcs if "_ties" in name]  # the train kernels' tie-count checks: not timed
+    cases = [(name, key) for name in srcs if name not in ties_builds for key in shapes[srcs[name][0]]
              if not ((key.endswith("f32") or key.endswith("x40")) and name not in extra)]
     times = {c: [] for c in cases}
     heads = [x.reshape(B, N, H, hd).transpose(1, 2).contiguous() for x in (q, k, v)]
@@ -1395,7 +1675,7 @@ def main() -> int:
     if "K26" in only:
         x26, li26, bi26, _ = next(iter(shapes["K26"].values()))
         flat26 = (bi26 * 128 + li26).long()
-    for order in (cases, cases[::-1]):
+    for order in (cases, cases[::-1], cases):
         if "K7" in only:
             sdpa.append(cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(*heads), args.reps))
         if "K26" in only:
@@ -1427,8 +1707,21 @@ def main() -> int:
                 check["equal_plain"] = bool(torch.equal(outs[0], shapes["K26"][key][3]))
             if kernel == "K5":
                 check["tiers"] = shapes["K5"][key]["hist"]
+            if kernel in TRAIN:
+                again = [o.clone() for o in outs]
+                _, outs = run_case(name, key)
+                torch.cuda.synchronize()
+                check["deterministic"] = all(torch.equal(a, b) for a, b in zip(outs, again))
+                check["max_abs_shipped"] = max((o.float() - r.float()).abs().max().item() for o, r in zip(outs, ref))
+                check.update(train_check(kernel, key, outs, shapes[kernel][key]))
         if kernel in PTXAS_OF:
-            check["ptxas"] = ptxas_record(logs[name], PTXAS_OF[kernel])
+            check["ptxas"] = ptxas_record(logs[name], ptxas_fn(kernel, key))
+            if kernel in TRAIN:
+                warps = ctypes.c_int(0)
+                if lib_err := libs[name].unopose_pe_train_resident_warps(int(kernel[1:]), train_depth(kernel, key),
+                                                                         ctypes.byref(warps)):
+                    raise RuntimeError(f"{name}: occupancy query failed: cudaError_t {lib_err}")
+                check["resident_warps_per_sm"] = warps.value
             if kernel == "K5":
                 warps = ctypes.c_int(0)
                 if lib_err := libs[name].unopose_k5_resident_warps(2048, ctypes.byref(warps)):
@@ -1442,6 +1735,23 @@ def main() -> int:
     if "K26" in only:
         results.append(dict(build="torch.gather", kernel="K26", shape=next(iter(shapes["K26"])),
                             ms=float(np.median(gather))))
+    # the tie-count checks: per (point, channel), the slots whose recomputed y3 equals the forward's max against
+    # K12's tie count, one launch a shape
+    for name in ties_builds:
+        kernel, lib = srcs[name][0], libs[name]
+        for key, d in shapes[kernel].items():
+            call, _ = run_case(name, key)
+            ties = torch.zeros((d["B"], d["P"], 128), dtype=torch.int32, device=dev)
+            torch.cuda.synchronize()
+            lib.unopose_pe_train_set_ties(_P(ties.data_ptr()))
+            err = call()
+            torch.cuda.synchronize()
+            lib.unopose_pe_train_set_ties(None)
+            if err:
+                raise RuntimeError(f"{name} failed to launch: cudaError_t {err}")
+            cnt = d["kf" if kernel == "K18" else "k"][1]
+            results.append(dict(build=name, kernel=kernel, shape=key, tie_mismatches=int((ties.float() != cnt).sum()),
+                                ties_counted=int(ties.sum()), ties_forward=int(cnt.sum())))
     print(card)
     line = json.dumps({"card": card, "variants": results})
     print(line)
