@@ -53,9 +53,10 @@ Phases, each fatal on failure:
    and the dW within 1e-2 of each tensor's max with the median under 1e-3,
    the tie counts equal, each backward-sums pass run twice bitwise equal;
    then the whole autograd function against the plain twin on autograd
-   (2e-2, median 2e-3), and, in the log, ptxas's registers and spills and the
-   warps an SM of the K13 and K18 instantiations of ``pe_train_kernel``
-   (``pe_train_occupancy``); the subset grouping (32 x 2048, S
+   (2e-2, median 2e-3), K12 and K14 also timed alone, and, in the log,
+   ptxas's registers and spills and the warps an SM of K12's and K14's
+   warpgroup kernels and of the K13 and K18 instantiations of
+   ``pe_train_kernel`` (``pe_train_occupancy``); the subset grouping (32 x 2048, S
    64 and 256) bitwise equal to its plain version on every output, miss
    slots included; the masked PE (S 64 + 256) on those groupings of the
    uniform cubes and on the unpacked first_k grouping with all-ones masks
@@ -828,8 +829,9 @@ def pe_kernels(dev, pts, mlp1, mlp2, packed) -> dict:
 
 def pe_train_occupancy(log, instances) -> dict:
     """ptxas's registers and spills (from this process's build, ``build.build_log``) and the warps an SM holds (the
-    runtime's occupancy query, ``unopose_pe_train_resident_warps``) of pe_train_kernel's instantiations, each
-    (label, kernel "K11"-"K18", depth), logged; {label: record}."""
+    runtime's occupancy query, ``unopose_pe_train_resident_warps``) of the train kernels' kernel functions (K12's
+    and K14's warpgroup kernels, pe_train_kernel's instantiations for the others), each (label, kernel
+    "K11"-"K18", depth), logged; {label: record}."""
     import ctypes
 
     from unopose_tpu_torch.kernels import build
@@ -860,7 +862,8 @@ def check_train_kernels(log, dev, seed: int) -> dict:
     Bt, P = 8, 2048
     Ws, gammas, betas = pe_train_weights(dev, seed)
     results, worst = {}, {}
-    occupancy = pe_train_occupancy(log, [(f"K13 layer {L}", "K13", L) for L in (3, 2, 1)])
+    occupancy = pe_train_occupancy(log, [("K12", "K12", 3), *((f"K13 layer {L}", "K13", L) for L in (3, 2, 1)),
+                                         ("K14", "K14", 0)])
 
     def rel(got, want):
         d = (got - want).abs()
@@ -916,11 +919,18 @@ def check_train_kernels(log, dev, seed: int) -> dict:
             dw=(cuda_ms(lambda: pt.bwd_dw_cuda(chans, Ws, bn, k_pooled, k_cnt, dpool)),
                 cuda_ms(lambda: pt.bwd_dw_plain(chans, Ws, bn, pooled, cnt, dpool), reps=2)),
         )
+        # K12 and K14 alone: their C entry points back to back on prepared arguments
+        ws, cap = [W.float().contiguous() for W in Ws], pt._cap(dev)
+        alone = dict(
+            fwd=alone_ms("unopose_pe_train_fwd", chans, *ws, bn, torch.empty_like(k_pooled), torch.empty_like(k_cnt),
+                         Bt, P, S),
+            dw=alone_ms("unopose_pe_train_bwd_dw", chans, *ws, bn, k_pooled, k_cnt, dpool,
+                        torch.empty(cap * pt.DW_SIZE, device=dev), cap, torch.empty(pt.DW_SIZE, device=dev), Bt, P, S))
         log(f"pe_train S={S} ({Bt}x{P}x{S}): stats (mean rel of max, var rel) by depth {stats}; "
             f"pooled (max, median of max) {fwd_err}, tie counts equal {100 * cnt_equal:.4f}%; "
             f"sums (g, g zhat) by layer {sums}, two runs equal by layer {same}; dW {dw_err}")
         log(f"pe_train S={S} times (kernel, plain ms): stats {times['stats']}, fwd {times['fwd']}, "
-            f"sums {times['sums']}, dw {times['dw']}")
+            f"sums {times['sums']}, dw {times['dw']}; alone: fwd {alone['fwd']:.4f}, dw {alone['dw']:.4f}")
         errs = [e for v in stats.values() for e in v]
         if max(errs) > 1e-4:
             raise AssertionError(f"pe_train_stats S={S}: batch mean or variance beyond 1e-4 relative: {stats}")
@@ -941,7 +951,7 @@ def check_train_kernels(log, dev, seed: int) -> dict:
                         BF16_FLOPS) for L in (3, 2, 1)],
             dw=bound(cbytes + 3 * pbytes + pt.DW_SIZE * 4, 2.0 * n * (2 * chain + 128 * 64 + 64 * 32), BF16_FLOPS),
         )
-        worst[S] = dict(times=times, bounds=bounds, absolute=absolute, cnt_equal=cnt_equal,
+        worst[S] = dict(times=times, alone=alone, bounds=bounds, absolute=absolute, cnt_equal=cnt_equal,
                         rel=dict(stats=max(e for v in stats.values() for e in v), fwd=fwd_err[0],
                                  sums=max(e[0] for v in sums.values() for e in v), dw=max(e[0] for e in dw_err)))
         del chans, bn, pooled, cnt, dpool, k_pooled, k_cnt
@@ -985,6 +995,9 @@ def check_train_kernels(log, dev, seed: int) -> dict:
     results["pe_train_bwd_sums"]["by_layer_occupancy"] = [occupancy[f"K13 layer {L}"] for L in (3, 2, 1)]
     results["pe_train_bwd_sums"]["by_layer_bound_ms"] = [b["bound_ms"] for b in main["bounds"]["sums"]]
     results["pe_train_fwd"]["tie_counts_equal"] = main["cnt_equal"]
+    for name, key, kernel in (("pe_train_fwd", "fwd", "K12"), ("pe_train_bwd_dw", "dw", "K14")):
+        results[name].update(alone_ms=main["alone"][key], s64_alone_ms=small["alone"][key],
+                             occupancy=occupancy[kernel])
     return results
 
 

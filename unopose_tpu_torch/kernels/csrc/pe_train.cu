@@ -1,18 +1,18 @@
 // Fine-PE train stack: per cloud and scale, the shared MLP 6 -> 32 -> 64 ->
 // 128 with batch-statistics BatchNorm (flax's: biased fast variance
 // E[z^2] - E[z]^2 clipped at 0, eps 1e-5) and ReLU after each layer, then
-// the max over each point's S slots, forward and backward. Five kernels,
-// one template body:
+// the max over each point's S slots, forward and backward. Five kernels:
 //
 //   K11 pe_train_stats (depth d = 1, 2, 3): recompute the chain to layer d
 //       with the affines of the layers above, sum z and z^2 per channel;
 //   K12 pe_train_fwd: the whole chain, the max over the slots and its tie
-//       count per (point, channel);
+//       count per (point, channel) (fwd_wg_kernel, warpgroup products);
 //   K13 pe_train_bwd_sums (layer L = 3, 2, 1): recompute the chain, the
 //       pool backward (ties split evenly) and the BN backward of the layers
 //       below L, then sum g and g * zhat of layer L (its dbeta and dgamma);
 //   K14 pe_train_bwd_dw: recompute everything, every layer's dz, and the
-//       weight gradients dW_l = y_{l-1}^T dz_l;
+//       weight gradients dW_l = y_{l-1}^T dz_l (dw_wg_kernel, warpgroup
+//       products);
 //   K18 pe_train_frozen_bwd: the backward of the frozen-BN variant, whose BN
 //       normalises with the running statistics (constants): one sweep that
 //       recomputes the chain, takes the pool backward and, per layer, g =
@@ -25,14 +25,46 @@
 // _kernel_bwdB) and pe_mlp_bn_pool_frozen (_kernel_fwd,
 // _kernel_bwd_frozen), with the same pass structure and rounding points: chans,
 // W, the post-ReLU activations and dz are rounded to bf16 before each
-// product, products accumulate in float32 (mma.sync m16n8k16), and the
-// statistics, zhat and the affines are float32.
+// product, products accumulate in float32 (mma.sync m16n8k16 or wgmma
+// m64nNk16, in the same k order: the same bits), and the statistics, zhat
+// and the affines are float32.
 //
-// A persistent grid of blocks loops over the points; each warp owns one point
-// at a time and runs its S slots 16 at a time (an m-tile) through the three
-// layers in registers: a layer's float32 accumulator fragment, affine'd and
-// packed to bf16 pairs with the ReLU in the conversion, is the next layer's A
-// fragment. Each block writes its partial sums to a scratch row and a second
+// K12 and K14 (fwd_wg_kernel, dw_wg_kernel) run the chain on warpgroup
+// products: a warpgroup takes a 64-slot tile of a point, its layers as
+// wgmma m64n32k16, m64n64k16 x 2 and m64n64k16 x 4 twice (layer 3 in two
+// halves, the second's products in flight during the first's epilogue), A
+// from registers (the previous layer's accumulators, affine'd and packed to
+// bf16 with the ReLU, are mma.sync's A fragments) and B by descriptor from
+// one copy of the weights in shared memory (8 x 8 core matrices, no
+// swizzle), which the backward reads again MN-major for W^T (dy2 = dz3 W3^T
+// m64n64k16 x 8, dy1 = dz2 W2^T m64n32k16 x 4). K12: four warpgroups a
+// block, 16 warps an SM; a thread's running max and tie count of its 32
+// channels sit in its row of shared memory (a row pair of a column is one
+// max and one compare: the ReLU comes after the max), merged per point in a
+// fixed order; pooled and cnt are the first design's bits. K14: two chain
+// warpgroups (K12's forward, then dz3, dy2, dz2, dy1 and dz1, each tile's
+// chans, y1, y2 and dz staged in its stage of a ring of two) and a dW
+// warpgroup that accumulates dW3 (M 64, N 128), dW2^T and dW1^T over the
+// staged tiles with A and B both by descriptor, and makes the chains' pool
+// rows; 12 warps an SM. What holds them back: K12 the compare-and-select
+// work of the max and tie count beside the products (more warps an SM did
+// not help), K14 the chains' CUDA-core epilogues (dz3's pool and BN
+// backward) and their five product waits a tile, with two chain
+// warpgroups an SM (registers); the dW warpgroup waits most of the time.
+// Both run the forward through one function (forward_tile). Their products
+// overlap other warpgroups' epilogues, not their own: two warpgroups taking
+// turns on named barriers (0.420 ms at S 256) and two tiles a warpgroup a
+// layer apart (0.485) lost to four independent warpgroups (0.398; PERF.md).
+// tools/kernel_variants.py builds other warpgroup counts, rings and chain
+// counts beside them.
+//
+// K11, K13 and K18 run one template body (pe_train_kernel), whose kFwd and
+// kBwdDw modes are K12's and K14's first designs (the mma_sync builds of
+// tools/kernel_variants.py). A persistent grid of blocks loops over the
+// points; each warp owns one point at a time and runs its S slots 16 at a
+// time (an m-tile) through the three layers in registers: a layer's float32
+// accumulator fragment, affine'd and packed to bf16 pairs with the ReLU in
+// the conversion, is the next layer's A fragment. Each block writes its partial sums to a scratch row and a second
 // kernel of the same launch adds the rows in block order (in double), so a
 // run is deterministic; the rows' rounding follows the block count, which
 // follows the occupancy.
@@ -85,11 +117,14 @@
 // 1 and 2 is bound by reading the 100 MB of float32 chans (0.030 ms), K14
 // and K18 do 62,208 FLOP a slot (0.26 ms). mma.sync from registers reaches
 // about half the tensor cores' wgmma rate; the bf16 rounding, affine and
-// gating of every element run on the CUDA cores beside the products.
+// gating of every element run on the CUDA cores beside the products, which
+// no product shape takes off them.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -335,6 +370,31 @@ __device__ __forceinline__ void tile_dz(const float4* Q, int nt, int lane, const
   dz[1] = pack(d[2], d[3]);
 }
 
+// The layers' constants into s_q ([layer][kind][pair], QKind), the sums of g and g zhat over the n slots
+__device__ void load_quads(float4* s_q, const float* bn, int B, int P, int S) {
+  const float inv_n = (float)(1.0 / ((double)B * (double)P * (double)S));
+  for (int i = threadIdx.x; i < 3 * 64; i += blockDim.x) {
+    const int l = i >> 6, p = i & 63;
+    const float* r = bn + l * kBnRows * 128 + 2 * p;
+    float4* q = s_q + l * 3 * 64 + p;
+    q[kQAb * 64] = make_float4(r[kA * 128], r[kA * 128 + 1], r[kB * 128], r[kB * 128 + 1]);
+    q[kQMuInv * 64] = make_float4(r[kMu * 128], r[kMu * 128 + 1], r[kInv * 128], r[kInv * 128 + 1]);
+    q[kQG * 64] = make_float4(r[kSg * 128] * inv_n, r[kSg * 128 + 1] * inv_n, r[kSgz * 128] * inv_n,
+                              r[kSgz * 128 + 1] * inv_n);
+  }
+}
+
+// Column pair p of a point's pool row from its max, tie count and cotangent rows: (max, max, share, share), the max
+// NaN where it is 0 (no slot's y3 is above 0 there, so no slot takes a share), the share the cotangent over the
+// tie count
+__device__ __forceinline__ void pool_row(float4* pool, const float* mrow, const float* crow, const float* drow, int p) {
+  const float nan = __int_as_float(0x7fffffff);
+  const float2 m = *reinterpret_cast<const float2*>(mrow + 2 * p);
+  const float2 c = *reinterpret_cast<const float2*>(crow + 2 * p);
+  const float2 d = *reinterpret_cast<const float2*>(drow + 2 * p);
+  pool[p] = make_float4(m.x > 0.0f ? m.x : nan, m.y > 0.0f ? m.y : nan, (1.0f / c.x) * d.x, (1.0f / c.y) * d.y);
+}
+
 template <int kMode, int kDepth>
 __global__ void __launch_bounds__(warps_of(kMode) * 32, min_blocks_of(kMode))
 pe_train_kernel(const float* __restrict__ chans, const float* __restrict__ w0, const float* __restrict__ w1,
@@ -372,16 +432,7 @@ pe_train_kernel(const float* __restrict__ chans, const float* __restrict__ w0, c
     const int o = i / kLd2, k = i % kLd2;
     s_w[kOff2 + i] = __float2bfloat16_rn(k < 64 ? w2[k * 128 + o] : 0.0f);
   }
-  const float inv_n = (float)(1.0 / ((double)B * (double)P * (double)S));
-  for (int i = threadIdx.x; i < 3 * 64; i += kThreads) {
-    const int l = i >> 6, p = i & 63;
-    const float* r = bn + l * kBnRows * 128 + 2 * p;
-    float4* q = s_q + l * 3 * 64 + p;
-    q[kQAb * 64] = make_float4(r[kA * 128], r[kA * 128 + 1], r[kB * 128], r[kB * 128 + 1]);
-    q[kQMuInv * 64] = make_float4(r[kMu * 128], r[kMu * 128 + 1], r[kInv * 128], r[kInv * 128 + 1]);
-    q[kQG * 64] = make_float4(r[kSg * 128] * inv_n, r[kSg * 128 + 1] * inv_n, r[kSgz * 128] * inv_n,
-                              r[kSgz * 128 + 1] * inv_n);
-  }
+  load_quads(s_q, bn, B, P, S);
   __syncthreads();
 
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -426,12 +477,8 @@ pe_train_kernel(const float* __restrict__ chans, const float* __restrict__ w0, c
     if (kBackward) {
       __syncwarp();
       if (active) {
-        const float nan = __int_as_float(0x7fffffff);
         for (int p = lane; p < 64; p += 32) {
-          const float2 m = *reinterpret_cast<const float2*>(pooled_in + pt * 128 + 2 * p);
-          const float2 c = *reinterpret_cast<const float2*>(cnt_in + pt * 128 + 2 * p);
-          const float2 d = *reinterpret_cast<const float2*>(dpool + pt * 128 + 2 * p);
-          pool[p] = make_float4(m.x > 0.0f ? m.x : nan, m.y > 0.0f ? m.y : nan, (1.0f / c.x) * d.x, (1.0f / c.y) * d.y);
+          pool_row(pool, pooled_in + pt * 128, cnt_in + pt * 128, dpool + pt * 128, p);
         }
       }
       __syncwarp();
@@ -928,6 +975,712 @@ __global__ void frozen_finish(const float* __restrict__ partial, int blocks, flo
   r[(k < w ? kSg : kSgz) * 128 + k % w] = k < w ? (float)s : (float)s * r[kInv * 128 + k % w];
 }
 
+// ---------------------------------------------------------------- K12 and K14: warpgroup products (wgmma)
+
+// The weights as wgmma reads them: each layer's (out, in) bf16 in core matrices of 8 outputs x 8 inputs (an
+// output's 8 inputs a 16-byte row, 128 bytes a matrix), matrix (output group og, input group ig) at
+// (og * in / 8 + ig) * 128 bytes, layer 1's inputs padded 6 -> 16. The forward reads a layer K-major (K = in:
+// the two k halves 128 bytes apart, the output groups in * 16), dy of the backward the same bytes MN-major with
+// the transpose bit (K = out: the k halves in * 16 bytes apart, the input groups 128).
+constexpr int kGw1 = 32 * 16, kGw2 = kGw1 + 64 * 32, kGwElems = kGw2 + 128 * 64;
+__device__ __forceinline__ int gw_at(int o, int i, int in) {
+  return ((o >> 3) * (in >> 3) + (i >> 3)) * 64 + (o & 7) * 8 + (i & 7);
+}
+
+__device__ void load_gw(__nv_bfloat16* s_w, const float* w0, const float* w1, const float* w2) {
+  for (int e = threadIdx.x; e < kGwElems; e += blockDim.x) {
+    if (e < kGw1) {
+      const int o = e >> 4, i = e & 15;
+      s_w[gw_at(o, i, 16)] = __float2bfloat16_rn(i < 6 ? w0[i * 32 + o] : 0.0f);
+    } else if (e < kGw2) {
+      const int o = (e - kGw1) >> 5, i = (e - kGw1) & 31;
+      s_w[kGw1 + gw_at(o, i, 32)] = __float2bfloat16_rn(w1[i * 64 + o]);
+    } else {
+      const int o = (e - kGw2) >> 6, i = (e - kGw2) & 63;
+      s_w[kGw2 + gw_at(o, i, 64)] = __float2bfloat16_rn(w2[i * 128 + o]);
+    }
+  }
+}
+
+// a shared-memory matrix descriptor, no swizzle: start address, leading and stride byte offsets
+__device__ __forceinline__ uint64_t gdesc(const void* p, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((saddr(p) & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) | ((uint64_t)(sbo >> 4) << 32);
+}
+// the forward's B of layer 1 (K 16), of layer 2's k-step ks, of layer 3's k-step ks for output half h
+__device__ __forceinline__ uint64_t b_l1(const __nv_bfloat16* s_w) { return gdesc(s_w, 128, 256); }
+__device__ __forceinline__ uint64_t b_l2(const __nv_bfloat16* s_w, int ks) {
+  return gdesc(s_w + kGw1 + ks * 128, 128, 512);
+}
+__device__ __forceinline__ uint64_t b_l3(const __nv_bfloat16* s_w, int h, int ks) {
+  return gdesc(s_w + kGw2 + h * 4096 + ks * 128, 128, 1024);
+}
+// the backward's W3^T (dy2 = dz3 W3^T) and W2^T of k-step kb (outputs 16 kb ..), read MN-major
+__device__ __forceinline__ uint64_t b_w3t(const __nv_bfloat16* s_w, int kb) {
+  return gdesc(s_w + kGw2 + kb * 1024, 1024, 128);
+}
+__device__ __forceinline__ uint64_t b_w2t(const __nv_bfloat16* s_w, int kb) {
+  return gdesc(s_w + kGw1 + kb * 512, 512, 128);
+}
+
+// d (+)= A B, m64nNk16, bf16 in, float32 accumulators (N / 2 a thread); scale_d 0 overwrites d. wgmma_rs: A
+// from the warpgroup's registers as mma.sync's A fragments (warp w rows 16 w ..), B K-major, or MN-major with
+// kTransB; wgmma_tt: A and B both MN-major in shared memory
+template <int kTransB>
+__device__ __forceinline__ void wgmma_rs32(float (&d)[16], const uint32_t (&a)[4], uint64_t b, int scale_d) {
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+               "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+               "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+               "}, {%16, %17, %18, %19}, %20, p, 1, 1, %22;\n}\n"
+               : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+                 "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d), "n"(kTransB));
+}
+
+template <int kTransB>
+__device__ __forceinline__ void wgmma_rs64(float (&d)[32], const uint32_t (&a)[4], uint64_t b, int scale_d) {
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+               "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+               "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+               "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+               "}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+               : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+                 "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+                 "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+                 "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d), "n"(kTransB));
+}
+
+__device__ __forceinline__ void wgmma_tt8(float (&d)[4], uint64_t a, uint64_t b, int scale_d) {
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+               "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 {"
+               "%0, %1, %2, %3"
+               "}, %4, %5, p, 1, 1, 1, 1;\n}\n"
+               : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+               : "l"(a), "l"(b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_tt32(float (&d)[16], uint64_t a, uint64_t b, int scale_d) {
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+               "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+               "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+               "}, %16, %17, p, 1, 1, 1, 1;\n}\n"
+               : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+                 "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+               : "l"(a), "l"(b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_tt128(float (&d)[64], uint64_t a, uint64_t b, int scale_d) {
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+               "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+               "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+               "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+               "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+               "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+               "}, %64, %65, p, 1, 1, 1, 1;\n}\n"
+               : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+                 "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+                 "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+                 "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+                 "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+                 "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+                 "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+                 "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+               : "l"(a), "l"(b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wg_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
+template <int kPending>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(kPending) : "memory");
+}
+// the accumulators are read after the wait: an empty asm the compiler keeps behind it
+template <int N>
+__device__ __forceinline__ void hold(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+__device__ __forceinline__ void bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(saddr(bar)), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(saddr(bar)) : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred done;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra WAIT;\n"
+      "}\n" ::"r"(saddr(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// The chans of the next tile in flight: lane t < 3 copies its 4 floats of the 16 rows at slot s0 (planes 2t,
+// 2t + 1 at rows g, g + 8, as load_tile) into its own 16 bytes of shared memory by cp.async, which passes the
+// registers (loads in flight into registers hold up the next wgmma.fence or wait), and reads them back after its
+// copies landed
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(saddr(dst)), "l"(src) : "memory");
+}
+__device__ __forceinline__ void copy_tile(float* dst, const float* cb, int s0, long long plane, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+  if (t < 3) {
+    const float* c = cb + 2 * t * plane + s0 + g;
+    cp_async4(dst, c);
+    cp_async4(dst + 1, c + plane);
+    cp_async4(dst + 2, c + 8);
+    cp_async4(dst + 3, c + plane + 8);
+  }
+}
+__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_all;\n" ::: "memory"); }
+// chans' A fragment (K 6 padded to 16) from a lane's copied floats; zeros for lane t = 3 and rows past S
+__device__ __forceinline__ void chans_frag(uint32_t (&a)[4], const float* src, bool copied) {
+  const float4 v = *reinterpret_cast<const float4*>(src);
+  a[0] = copied ? pack(v.x, v.y) : 0u;
+  a[1] = copied ? pack(v.z, v.w) : 0u;
+  a[2] = a[3] = 0u;
+}
+
+// A layer's epilogue (layer 1 or 2, kN outputs): the affine and the ReLU with the bf16 rounding in one conversion;
+// the accumulators of n-tile nt (rows g, g + 8, columns 2t, 2t + 1) are the next layer's A fragment, as mma.sync's
+template <int kN>
+__device__ __forceinline__ void relu_frags(uint32_t (&a)[kN / 16][4], const float (&d)[kN / 2], const float4* Q,
+                                           int t) {
+#pragma unroll
+  for (int nt = 0; nt < kN / 8; ++nt) {
+    const float4 q = Q[nt * 4 + t];
+    a[nt >> 1][(nt & 1) * 2] = relu_pack(q.x * d[4 * nt] + q.z, q.y * d[4 * nt + 1] + q.w);
+    a[nt >> 1][(nt & 1) * 2 + 1] = relu_pack(q.x * d[4 * nt + 2] + q.z, q.y * d[4 * nt + 3] + q.w);
+  }
+}
+
+// (m, c) merged with another running max and count (v, n)
+__device__ __forceinline__ void merge_tie(float& m, float& c, float v, float n) {
+  const float tie = v == m ? c + n : c;
+  c = v > m ? n : tie;
+  m = fmaxf(m, v);
+}
+
+// A column's max and tie count over two rows (pre-activations v0, v1) merged into the running (m, c) without a
+// branch: the ReLU comes after the max (K12's pool), so a row pair is one max and one compare
+__device__ __forceinline__ void max_tie(float& m, float& c, float v0, float v1) {
+  merge_tie(m, c, fmaxf(v0, v1), v0 == v1 ? 2.0f : 1.0f);
+}
+
+// layer 3's epilogue in K12 for n-tiles nt0 .. nt0 + 7 (d: their accumulators): the affine and the running max of
+// the pre-activations, rows g and g + 8 of each column together, into the thread's row of the point's (max, count)
+// state in shared memory (a float4 (m, c, m, c) a column pair; a point's first tile starts it)
+template <int kNt0>
+__device__ __forceinline__ void pool_tiles(float* row, const float (&d)[32], const float4* Q3, int t, bool first) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const float4 ab = Q3[(kNt0 + j) * 4 + t];
+    float4* at = reinterpret_cast<float4*>(row + (kNt0 + j) * 16 + 4 * t);
+    float4 mc = make_float4(__int_as_float(0xff800000), 0.0f, __int_as_float(0xff800000), 0.0f);
+    if (!first) mc = *at;
+    max_tie(mc.x, mc.y, ab.x * d[4 * j] + ab.z, ab.x * d[4 * j + 2] + ab.z);
+    max_tie(mc.z, mc.w, ab.y * d[4 * j + 1] + ab.w, ab.y * d[4 * j + 3] + ab.w);
+    *at = mc;
+  }
+}
+// a warp past S in a point's first tile: its rows of the state start empty
+__device__ __forceinline__ void pool_empty(float* row, int t) {
+#pragma unroll
+  for (int nt = 0; nt < 16; ++nt)
+    *reinterpret_cast<float4*>(row + nt * 16 + 4 * t) =
+        make_float4(__int_as_float(0xff800000), 0.0f, __int_as_float(0xff800000), 0.0f);
+}
+
+// The forward on a warpgroup's 64-slot tile (a1: the warp's A fragment of its 16 slots' chans), K12's and K14's:
+// layers 1 and 2 as wgmma with A from registers and their epilogues into y1 (a2) and y2 (a3), each handed to
+// staged() once made; layer 3 in two halves of 64 outputs, the second half's products in flight during the first's
+// epilogue, each half's accumulators handed to half(h, d) (h: std::integral_constant 0 or 1)
+template <typename Staged, typename Half>
+__device__ __forceinline__ void forward_tile(const uint32_t (&a1)[4], uint32_t (&a2)[2][4], uint32_t (&a3)[4][4],
+                                             const __nv_bfloat16* s_w, const float4* Q1, const float4* Q2, int t,
+                                             Staged staged, Half half) {
+  float d1[16], d2[32], d3[2][32];
+  wg_fence();
+  wgmma_rs32<0>(d1, a1, b_l1(s_w), 0);
+  wg_commit();
+  wg_wait<0>();
+  hold(d1);
+  relu_frags<32>(a2, d1, Q1, t);
+  staged(a2);
+  wg_fence();
+  wgmma_rs64<0>(d2, a2[0], b_l2(s_w, 0), 0);
+  wgmma_rs64<0>(d2, a2[1], b_l2(s_w, 1), 1);
+  wg_commit();
+  wg_wait<0>();
+  hold(d2);
+  relu_frags<64>(a3, d2, Q2, t);
+  staged(a3);
+  wg_fence();
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) wgmma_rs64<0>(d3[h], a3[ks], b_l3(s_w, h, ks), ks);
+    wg_commit();
+  }
+  wg_wait<1>();
+  hold(d3[0]);
+  half(std::integral_constant<int, 0>(), d3[0]);
+  wg_wait<0>();
+  hold(d3[1]);
+  half(std::integral_constant<int, 1>(), d3[1]);
+}
+
+// K12's launch: warpgroups a block, and blocks an SM the build is held to (its registers)
+constexpr int kFwdGroups = 4, kFwdBlocks = 1;
+// a warpgroup's point state: each thread's row (warp, row group) of (max, count) for its 32 channels, as 128
+// channel pairs, rows padded by 64 bytes (conflict-free float4 rows)
+constexpr int kRedLd = 2 * 128 + 16;
+__host__ __device__ constexpr size_t fwd_smem(int groups) {
+  return (size_t)kGwElems * 2 + (size_t)kQuads * 16 + (size_t)groups * 32 * kRedLd * 4;
+}
+
+// K12: each warpgroup walks its points (a static stride over the grid's warpgroups), a point's S slots in tiles
+// of 64 (warp w's 16 rows 16 w .. 16 w + 15, a ragged last tile's warps past S masked out of the max), the next
+// tile's chans in registers in flight, each tile through forward_tile; each thread's running max and tie count of
+// its 32 channels in its row of shared memory, the point's 32 rows merged at its end, one thread a channel.
+template <int kGroups, int kBlocks>
+__global__ void __launch_bounds__(kGroups * 128, kBlocks)
+fwd_wg_kernel(const float* __restrict__ chans, const float* __restrict__ w0, const float* __restrict__ w1,
+              const float* __restrict__ w2, const float* __restrict__ bn, float* __restrict__ pooled,
+              float* __restrict__ cnt, int B, int P, int S) {
+  extern __shared__ uint4 smem[];
+  __nv_bfloat16* s_w = reinterpret_cast<__nv_bfloat16*>(smem);
+  float4* s_q = reinterpret_cast<float4*>(s_w + kGwElems);  // [layer][kind][pair]
+  float* s_red = reinterpret_cast<float*>(s_q + kQuads);
+  load_gw(s_w, w0, w1, w2);
+  load_quads(s_q, bn, B, P, S);
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // the weights, stored by threads, read by wgmma
+  __syncthreads();
+
+  const int wg = threadIdx.x >> 7, warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const long long points = (long long)B * P, plane = (long long)P * S;
+  const int tiles = (S + 63) >> 6;
+  const float4 *Q1 = s_q, *Q2 = s_q + 3 * 64, *Q3 = s_q + 6 * 64;
+  float* red = s_red + wg * 32 * kRedLd;
+  float* row = red + (warp * 8 + g) * kRedLd;  // this thread's row of the point state
+  const long long stride = (long long)gridDim.x * kGroups, first = (long long)blockIdx.x * kGroups;
+  long long pt = first + wg;
+  // every warpgroup of the block walks as many points as the first, idle past the last point (its products only)
+  const long long rounds = first < points ? (points - 1 - first) / stride + 1 : 0;
+
+  const float* cb = point_chans(chans, pt < points ? pt : 0, P, S);
+  float nx[4] = {0.0f, 0.0f, 0.0f, 0.0f};  // the next tile's chans, in flight
+  if (pt < points && 16 * warp < S) load_tile(nx, cb, 16 * warp, plane, lane);
+  for (long long r = 0; r < rounds; ++r, pt += stride) {
+    const bool active = pt < points;
+    const long long npt = pt + stride;
+    const float* nb = point_chans(chans, npt < points ? npt : 0, P, S);
+#pragma unroll 1
+    for (int k = 0; k < tiles; ++k) {
+      const bool live = active && k * 64 + 16 * warp < S;
+      const uint32_t a1[4] = {pack(nx[0], nx[1]), pack(nx[2], nx[3]), 0u, 0u};
+      // the next tile's chans: this point's next, else the warpgroup's next point's first
+      if (k + 1 < tiles) {
+        const int s0 = (k + 1) * 64 + 16 * warp;
+        if (active && s0 < S) load_tile(nx, cb, s0, plane, lane);
+      } else if (npt < points && 16 * warp < S) {
+        load_tile(nx, nb, 16 * warp, plane, lane);
+      }
+      uint32_t a2[2][4], a3[4][4];
+      forward_tile(a1, a2, a3, s_w, Q1, Q2, t, [](const auto&) {}, [&](auto h, const float(&d)[32]) {
+        if (live) {
+          pool_tiles<decltype(h)::value * 8>(row, d, Q3, t, k == 0);
+        } else if (decltype(h)::value == 0 && k == 0) {
+          pool_empty(row, t);
+        }
+      });
+    }
+    if (active) {
+      // the point's (max, count) by channel: thread c merges channel c's 32 rows
+      bar_sync(1 + wg, 128);
+      const int c = threadIdx.x & 127;
+      float mq[4], nq[4];  // four independent merges of 8 rows each, then theirs
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        mq[j] = __int_as_float(0xff800000);
+        nq[j] = 0.0f;
+      }
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const float2 v = *reinterpret_cast<const float2*>(red + i * kRedLd + 2 * c);
+        merge_tie(mq[i & 3], nq[i & 3], v.x, v.y);
+      }
+      float m = mq[0], n = nq[0];
+#pragma unroll
+      for (int j = 1; j < 4; ++j) merge_tie(m, n, mq[j], nq[j]);
+      // after the ReLU: the max, and every slot ties at 0 where no pre-activation is above 0
+      pooled[pt * 128 + c] = fmaxf(m, 0.0f);
+      cnt[pt * 128 + c] = m > 0.0f ? n : (float)S;
+      bar_sync(1 + wg, 128);  // the rows are rewritten by the next point
+    }
+    cb = nb;
+  }
+}
+
+// K14's block: kDwChains chain warpgroups, then the dW warpgroup; a ring of kDwStages stages, which the chain
+// warpgroups' tiles take in turn (chain c the stages c, c + kDwChains, ..)
+constexpr int kDwChains = 2, kDwStages = 2;
+// A stage: 64 slot rows of chans (8 features, the last two zero), y1 (32), y2 (64), dz1 (32), dz2 (64) and dz3
+// (128) in bf16, each array's feature group of 8 a column of 8 core matrices (8 slots x 8 features, 128 bytes):
+// element (s, f) at ((f / 8) * 8 + s / 8) * 64 + (s % 8) * 8 + f % 8. The dW products read them MN-major (the
+// transpose bits): a 16-slot k-step's two slot groups 128 bytes apart, the feature groups 1024. dz1 comes just
+// before dz2, so that dW1's 64-row A (dz1^T: 32 rows, then dz2's first 32, output rows that are not kept) stays
+// inside the stage.
+constexpr int kStC = 0, kStY1 = 64 * 8, kStY2 = kStY1 + 64 * 32, kStD1 = kStY2 + 64 * 64, kStD2 = kStD1 + 64 * 32,
+              kStD3 = kStD2 + 64 * 64, kStElems = kStD3 + 64 * 128;
+__host__ __device__ constexpr size_t dw_smem(int chains, int stages) {
+  return (size_t)kGwElems * 2 + (size_t)kQuads * 16 + (size_t)chains * (2 * 64 * 16 + 2 * 128 * 16 + 16) +
+         (size_t)stages * (kStElems * 2 + 16);
+}
+// the descriptor of a staged array's k-step ks (slots 16 ks ..)
+__device__ __forceinline__ uint64_t st_desc(const __nv_bfloat16* x, int ks) { return gdesc(x + ks * 128, 128, 1024); }
+
+
+// an A fragment (the warp's 16 slots x features f0 .. f0 + 15) into a staged array: this lane's row address for
+// stmatrix (x4: matrix lane / 8, row lane % 8; x2: lanes 0-15, features f0 .. f0 + 7)
+__device__ __forceinline__ __nv_bfloat16* st_row(__nv_bfloat16* x, int warp, int lane, int f0) {
+  const int mi = lane >> 3, s = warp * 16 + (mi & 1) * 8 + (lane & 7), f = f0 + (mi >> 1) * 8;
+  return x + ((f >> 3) * 8 + (s >> 3)) * 64 + (s & 7) * 8;
+}
+__device__ __forceinline__ void stst4(__nv_bfloat16* p, const uint32_t (&r)[4]) {
+  asm volatile("stmatrix.sync.aligned.m8n8.x4.shared.b16 [%0], {%1, %2, %3, %4};\n" ::"r"(saddr(p)), "r"(r[0]),
+               "r"(r[1]), "r"(r[2]), "r"(r[3])
+               : "memory");
+}
+__device__ __forceinline__ void stst2(__nv_bfloat16* p, uint32_t r0, uint32_t r1) {
+  asm volatile("stmatrix.sync.aligned.m8n8.x2.shared.b16 [%0], {%1, %2};\n" ::"r"(saddr(p)), "r"(r0), "r"(r1)
+               : "memory");
+}
+
+// dz of a layer (kN outputs) from dy, the ReLU gates y (the layer's packed post-ReLU output, as A fragments) and
+// z: g = dy where y > 0, then the BN backward (tile_dz); zeros for a warp past S
+template <int kN>
+__device__ __forceinline__ void dz_frags(uint32_t (&dz)[kN / 16][4], const float (&dy)[kN / 2],
+                                         const float (&z)[kN / 2], const uint32_t (&y)[kN / 16][4], const float4* Q,
+                                         int lane, bool live) {
+#pragma unroll
+  for (int nt = 0; nt < kN / 8; ++nt) {
+    const uint32_t y_g = y[nt >> 1][(nt & 1) * 2], y_g8 = y[nt >> 1][(nt & 1) * 2 + 1];
+    const bool on[4] = {pos_lo(y_g), pos_hi(y_g), pos_lo(y_g8), pos_hi(y_g8)};
+    const float4 mq = Q[kQMuInv * 64 + nt * 4 + (lane & 3)];
+    float gv[4], zc[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      gv[k] = on[k] ? dy[4 * nt + k] : 0.0f;
+      zc[k] = z[4 * nt + k] - (k & 1 ? mq.y : mq.x);
+    }
+    uint32_t d[2];
+    tile_dz<kBwdDw>(Q, nt, lane, gv, zc, d);
+    dz[nt >> 1][(nt & 1) * 2] = live ? d[0] : 0u;
+    dz[nt >> 1][(nt & 1) * 2 + 1] = live ? d[1] : 0u;
+  }
+}
+
+// dz3 of n-tiles nt0 .. nt0 + 7 (d: their accumulators): the affine, the pool backward (a slot takes its point's
+// share where its pre-activation equals the row's max, NaN where the max is 0) and the BN backward
+template <int kNt0>
+__device__ __forceinline__ void dz3_tiles(uint32_t (&dz)[8][4], const float (&d)[32], const float4* Q3,
+                                          const float4* pool, int lane, bool live) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int nt = kNt0 + j, p = nt * 4 + (lane & 3);
+    const float4 ab = Q3[p], pq = pool[p], mq = Q3[kQMuInv * 64 + p];
+    float gv[4], zc[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const float pre = (k & 1 ? ab.y : ab.x) * d[4 * j + k] + (k & 1 ? ab.w : ab.z);
+      gv[k] = pre == (k & 1 ? pq.y : pq.x) ? (k & 1 ? pq.w : pq.z) : 0.0f;  // the pool backward, K14
+      zc[k] = d[4 * j + k] - (k & 1 ? mq.y : mq.x);
+    }
+    uint32_t z[2];
+    tile_dz<kBwdDw>(Q3, nt, lane, gv, zc, z);
+    dz[nt >> 1][(nt & 1) * 2] = live ? z[0] : 0u;
+    dz[nt >> 1][(nt & 1) * 2 + 1] = live ? z[1] : 0u;
+  }
+}
+
+// K14: warp-specialised. Each chain warpgroup walks its points (a static stride over the grid's chain
+// warpgroups) in tiles of 64 slots, the next tile's chans in flight by cp.async: K12's forward, dz3 in registers
+// (pool and BN backward), dy2 = dz3 W3^T and dy1 = dz2 W2^T as wgmma with A from registers and W^T read by the
+// transpose bit (z2 and z1 recomputed with the forward's bits in the same groups), staging chans, y1, y2 and every
+// dz in its stages of the ring. The dW warpgroup takes the chain warpgroups' tiles in turn (tile k of each, k = 0,
+// 1, ...) and accumulates dW3 = y2^T dz3 (M 64, N 128), dW2^T = dz2^T y1 (M 64, N 32) and dW1^T = dz1^T chans (M
+// 64 of which 32 kept, N 8) in registers for the whole run, A and B both read from the stage MN-major; between
+// stages it makes each chain's next pool rows; it writes the block's dW row at the end.
+template <int kChains, int kStages>
+__global__ void __launch_bounds__((kChains + 1) * 128, 1)
+dw_wg_kernel(const float* __restrict__ chans, const float* __restrict__ w0, const float* __restrict__ w1,
+             const float* __restrict__ w2, const float* __restrict__ bn, const float* __restrict__ pooled_in,
+             const float* __restrict__ cnt_in, const float* __restrict__ dpool, float* __restrict__ partial, int B,
+             int P, int S) {
+  static_assert(kStages % kChains == 0, "the chains share the ring's stages evenly");
+  constexpr int kPer = kStages / kChains;  // a chain's stages
+  extern __shared__ uint4 smem[];
+  __nv_bfloat16* s_w = reinterpret_cast<__nv_bfloat16*>(smem);
+  float4* s_q = reinterpret_cast<float4*>(s_w + kGwElems);  // [layer][kind][pair]
+  float4* s_pool = s_q + kQuads;  // per chain, 2 points: (max, max, share, share) per pair
+  float* s_cx = reinterpret_cast<float*>(s_pool + kChains * 2 * 64);  // per chain: 2 slots of each thread's 4 chans
+  __nv_bfloat16* s_st = reinterpret_cast<__nv_bfloat16*>(s_cx + kChains * 2 * 128 * 4);
+  uint64_t* full = reinterpret_cast<uint64_t*>(s_st + kStages * kStElems);
+  uint64_t* empty = full + kStages;
+  uint64_t* ready = empty + kStages;  // per chain, 2 points: its pool row is made
+  load_gw(s_w, w0, w1, w2);
+  load_quads(s_q, bn, B, P, S);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 4);   // lane 0 of each chain warp, once its stores are fenced
+      mbar_init(&empty[s], 4);  // lane 0 of each dW warp, once its products are done
+    }
+    for (int s = 0; s < kChains * 2; ++s) mbar_init(&ready[s], 4);  // lane 0 of each dW warp
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  __syncthreads();
+
+  const int wg = threadIdx.x >> 7, warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  const long long points = (long long)B * P, plane = (long long)P * S;
+  const int tiles = (S + 63) >> 6;
+  const long long stride = (long long)gridDim.x * kChains;
+
+  if (wg == kChains) {  // the dW warpgroup
+    int count[kChains];  // the tiles of each chain warpgroup
+#pragma unroll
+    for (int c = 0; c < kChains; ++c) {
+      const long long first = (long long)blockIdx.x * kChains + c;
+      count[c] = first < points ? (int)((points - 1 - first) / stride + 1) * tiles : 0;
+    }
+    float dw3[64], dw2[16], dw1[4];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) dw3[i] = 0.0f;
+#pragma unroll
+    for (int i = 0; i < 16; ++i) dw2[i] = 0.0f;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) dw1[i] = 0.0f;
+    // chain c's j-th point's pool row into its buffer j % 2 (the chain reads it once ready[] says so): the dW
+    // warpgroup, idle while it waits for the stages, takes the rows' loads and divisions off the chains
+    auto pool_for = [&](int c, int j) {
+      const long long pt = (long long)blockIdx.x * kChains + c + j * stride;
+      const int tid = threadIdx.x & 127;
+      if (tid < 64) {
+        pool_row(s_pool + (c * 2 + (j & 1)) * 64, pooled_in + pt * 128, cnt_in + pt * 128, dpool + pt * 128, tid);
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&ready[c * 2 + (j & 1)]);
+    };
+#pragma unroll
+    for (int c = 0; c < kChains; ++c) {
+      for (int j = 0; j < 2 && j * tiles < count[c]; ++j) pool_for(c, j);
+    }
+    for (int k = 0; k < count[0]; ++k) {
+#pragma unroll
+      for (int c = 0; c < kChains; ++c) {
+        if (k >= count[c]) continue;
+        const int s = (k % kPer) * kChains + c;
+        const __nv_bfloat16* st = s_st + s * kStElems;
+        mbar_wait(&full[s], (k / kPer) & 1);
+        wg_fence();
+#pragma unroll
+        for (int ks = 0; ks < 4; ++ks) wgmma_tt128(dw3, st_desc(st + kStY2, ks), st_desc(st + kStD3, ks), 1);
+#pragma unroll
+        for (int ks = 0; ks < 4; ++ks) wgmma_tt32(dw2, st_desc(st + kStD2, ks), st_desc(st + kStY1, ks), 1);
+#pragma unroll
+        for (int ks = 0; ks < 4; ++ks) wgmma_tt8(dw1, st_desc(st + kStD1, ks), st_desc(st + kStC, ks), 1);
+        wg_commit();
+        wg_wait<0>();
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&empty[s]);
+        // the last tile of the chain's point j: its buffer takes point j + 2
+        const int j = k / tiles;
+        if (k % tiles == tiles - 1 && (j + 2) * tiles < count[c]) pool_for(c, j + 2);
+      }
+    }
+    hold(dw3);
+    hold(dw2);
+    hold(dw1);
+    // the block's row: dW3 (rows y2's 64 features, columns 128 outputs), dW2 and dW1 from their transposes
+    float* out = partial + (long long)blockIdx.x * kDW;
+    const int g = lane >> 2, t = lane & 3, r = warp * 16 + g;
+#pragma unroll
+    for (int nt = 0; nt < 16; ++nt) {
+      const int c = nt * 8 + 2 * t;
+      out[kDW3 + r * 128 + c] = dw3[4 * nt];
+      out[kDW3 + r * 128 + c + 1] = dw3[4 * nt + 1];
+      out[kDW3 + (r + 8) * 128 + c] = dw3[4 * nt + 2];
+      out[kDW3 + (r + 8) * 128 + c + 1] = dw3[4 * nt + 3];
+    }
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+      const int c = nt * 8 + 2 * t;
+      out[kDW2 + c * 64 + r] = dw2[4 * nt];
+      out[kDW2 + (c + 1) * 64 + r] = dw2[4 * nt + 1];
+      out[kDW2 + c * 64 + r + 8] = dw2[4 * nt + 2];
+      out[kDW2 + (c + 1) * 64 + r + 8] = dw2[4 * nt + 3];
+    }
+    if (r < 32 && t < 3) {
+      out[2 * t * 32 + r] = dw1[0];
+      out[(2 * t + 1) * 32 + r] = dw1[1];
+      out[2 * t * 32 + r + 8] = dw1[2];
+      out[(2 * t + 1) * 32 + r + 8] = dw1[3];
+    }
+    return;
+  }
+
+  // a chain warpgroup
+  const int t = lane & 3;
+  const float4 *Q1 = s_q, *Q2 = s_q + 3 * 64, *Q3 = s_q + 6 * 64;
+  long long pt = (long long)blockIdx.x * kChains + wg;
+  const float* cb = point_chans(chans, pt < points ? pt : 0, P, S);
+  float* cx = s_cx + (wg * 2 * 128 + (threadIdx.x & 127)) * 4;  // tile q's chans at cx + (q & 1) * 512
+  if (pt < points && 16 * warp < S) copy_tile(cx, cb, 16 * warp, plane, lane);
+  int q = 0;  // this warpgroup's tiles so far
+  for (int j = 0; pt < points; pt += stride, ++j) {
+    const long long npt = pt + stride;
+    const float* nb = point_chans(chans, npt < points ? npt : 0, P, S);
+    const float4* pool = s_pool + (wg * 2 + (j & 1)) * 64;
+    mbar_wait(&ready[wg * 2 + (j & 1)], (j >> 1) & 1);
+#pragma unroll 1
+    for (int k = 0; k < tiles; ++k, ++q) {
+      const bool live = k * 64 + 16 * warp < S;
+      uint32_t a1[4];
+      cp_async_wait_all();
+      chans_frag(a1, cx + (q & 1) * 512, live && t < 3);
+      // the next tile's chans: this point's next, else the next point's first
+      float* nx = cx + (~q & 1) * 512;
+      if (k + 1 < tiles) {
+        if ((k + 1) * 64 + 16 * warp < S) copy_tile(nx, cb, (k + 1) * 64 + 16 * warp, plane, lane);
+      } else if (npt < points && 16 * warp < S) {
+        copy_tile(nx, nb, 16 * warp, plane, lane);
+      }
+      const int s = (q % kPer) * kChains + wg;
+      __nv_bfloat16* st = s_st + s * kStElems;
+      if (q >= kPer) mbar_wait(&empty[s], (q / kPer - 1) & 1);  // the stage's last tile is consumed
+      stst2(st_row(st + kStC, warp, lane, 0), a1[0], a1[1]);
+      // the forward, K12's products, y1 and y2 staged once made; layer 3's halves into dz3
+      uint32_t a2[2][4], a3[4][4], d3[8][4];
+      forward_tile(
+          a1, a2, a3, s_w, Q1, Q2, t,
+          [&](const auto& y) {  // y1 (2 k-tiles of 16 features) or y2 (4)
+            constexpr int kTiles = sizeof(y) / sizeof(y[0]);
+            __nv_bfloat16* x = st + (kTiles == 2 ? kStY1 : kStY2);
+#pragma unroll
+            for (int kt = 0; kt < kTiles; ++kt) stst4(st_row(x, warp, lane, 16 * kt), y[kt]);
+          },
+          [&](auto h, const float(&z)[32]) { dz3_tiles<decltype(h)::value * 8>(d3, z, Q3, pool, lane, live); });
+#pragma unroll
+      for (int kt = 0; kt < 8; ++kt) stst4(st_row(st + kStD3, warp, lane, 16 * kt), d3[kt]);
+      // dy2 = dz3 W3^T, and z2 again
+      uint32_t dz2[4][4];
+      {
+        float dy[32], z[32];
+        wg_fence();
+#pragma unroll
+        for (int kb = 0; kb < 8; ++kb) wgmma_rs64<1>(dy, d3[kb], b_w3t(s_w, kb), kb);
+        wgmma_rs64<0>(z, a2[0], b_l2(s_w, 0), 0);
+        wgmma_rs64<0>(z, a2[1], b_l2(s_w, 1), 1);
+        wg_commit();
+        wg_wait<0>();
+        hold(dy);
+        hold(z);
+        dz_frags<64>(dz2, dy, z, a3, Q2, lane, live);
+      }
+#pragma unroll
+      for (int kt = 0; kt < 4; ++kt) stst4(st_row(st + kStD2, warp, lane, 16 * kt), dz2[kt]);
+      // dy1 = dz2 W2^T, and z1 again
+      {
+        float dy[16], z[16];
+        uint32_t dz1[2][4];
+        wg_fence();
+#pragma unroll
+        for (int kb = 0; kb < 4; ++kb) wgmma_rs32<1>(dy, dz2[kb], b_w2t(s_w, kb), kb);
+        wgmma_rs32<0>(z, a1, b_l1(s_w), 0);
+        wg_commit();
+        wg_wait<0>();
+        hold(dy);
+        hold(z);
+        dz_frags<32>(dz1, dy, z, a2, Q1, lane, live);
+        stst4(st_row(st + kStD1, warp, lane, 0), dz1[0]);
+        stst4(st_row(st + kStD1, warp, lane, 16), dz1[1]);
+      }
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // the stage, read by the dW products
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&full[s]);
+    }
+    cb = nb;
+  }
+}
+
+// the launch of K12 (warpgroups) or K14 (chain warpgroups, stages) on at most cap blocks (0: no cap)
+template <typename Kernel>
+cudaError_t wg_blocks(Kernel kernel, int threads, size_t smem, long long want, int cap, int* blocks, int* per_sm) {
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, kernel, threads, smem)) != cudaSuccess) return err;
+  int dev = 0, sms = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess) return err;
+  if (*per_sm == 0) return cudaErrorInvalidConfiguration;
+  long long n = want < (long long)sms * *per_sm ? want : (long long)sms * *per_sm;
+  if (cap > 0 && n > cap) n = cap;
+  *blocks = (int)(n > 0 ? n : 1);
+  return cudaSuccess;
+}
+
+cudaError_t launch_fwd(const float* chans, const float* w0, const float* w1, const float* w2, const float* bn,
+                       float* pooled, float* cnt, int B, int P, int S, cudaStream_t stream) {
+  auto kernel = fwd_wg_kernel<kFwdGroups, kFwdBlocks>;
+  int blocks = 0, per_sm = 0;
+  const long long points = (long long)B * P;
+  cudaError_t err = wg_blocks(kernel, kFwdGroups * 128, fwd_smem(kFwdGroups), (points + kFwdGroups - 1) / kFwdGroups,
+                              0, &blocks, &per_sm);
+  if (err != cudaSuccess) return err;
+  kernel<<<blocks, kFwdGroups * 128, fwd_smem(kFwdGroups), stream>>>(chans, w0, w1, w2, bn, pooled, cnt, B, P, S);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_dw(const float* chans, const float* w0, const float* w1, const float* w2, const float* bn,
+                      const float* pooled, const float* cnt, const float* dpool, float* partial, int cap, int B, int P,
+                      int S, int* blocks, cudaStream_t stream) {
+  auto kernel = dw_wg_kernel<kDwChains, kDwStages>;
+  int per_sm = 0;
+  const long long points = (long long)B * P;
+  cudaError_t err = wg_blocks(kernel, (kDwChains + 1) * 128, dw_smem(kDwChains, kDwStages),
+                              (points + kDwChains - 1) / kDwChains, cap, blocks, &per_sm);
+  if (err != cudaSuccess) return err;
+  kernel<<<*blocks, (kDwChains + 1) * 128, dw_smem(kDwChains, kDwStages), stream>>>(
+      chans, w0, w1, w2, bn, pooled, cnt, dpool, partial, B, P, S);
+  return cudaGetLastError();
+}
+
+int resident_fwd(int* warps) {
+  int blocks = 0, per_sm = 0;
+  const cudaError_t err = wg_blocks(fwd_wg_kernel<kFwdGroups, kFwdBlocks>, kFwdGroups * 128,
+                                    fwd_smem(kFwdGroups), 1, 0, &blocks, &per_sm);
+  *warps = per_sm * kFwdGroups * 4;
+  return (int)err;
+}
+
+int resident_dw(int* warps) {
+  int blocks = 0, per_sm = 0;
+  const cudaError_t err = wg_blocks(dw_wg_kernel<kDwChains, kDwStages>, (kDwChains + 1) * 128,
+                                    dw_smem(kDwChains, kDwStages), 1, 0, &blocks, &per_sm);
+  *warps = per_sm * (kDwChains + 1) * 4;
+  return (int)err;
+}
+
 // the kernel's shared memory set, and the blocks of it an SM holds
 template <int kMode, int kDepth>
 cudaError_t occupancy(int* per_sm) {
@@ -1004,9 +1757,7 @@ extern "C" int unopose_pe_train_fwd(const float* chans, const float* w0, const f
                                     const float* bn, float* pooled, float* cnt, int B, int P, int S,
                                     cudaStream_t stream) {
   if (bad_shape(B, P, S)) return (int)cudaErrorInvalidValue;
-  int blocks = 0;
-  return (int)launch<kFwd, 3>(chans, w0, w1, w2, bn, nullptr, nullptr, nullptr, pooled, cnt, nullptr, 0, B, P, S,
-                              &blocks, stream);
+  return (int)launch_fwd(chans, w0, w1, w2, bn, pooled, cnt, B, P, S, stream);
 }
 
 // K13. dpool (B, P, 128) float32, the cotangent of pooled; bn: every layer's statistics and affine, and
@@ -1041,8 +1792,7 @@ extern "C" int unopose_pe_train_bwd_dw(const float* chans, const float* w0, cons
                                        float* partial, int cap, float* dw, int B, int P, int S, cudaStream_t stream) {
   if (bad_shape(B, P, S) || cap <= 0) return (int)cudaErrorInvalidValue;
   int blocks = 0;
-  cudaError_t err = launch<kBwdDw, 0>(chans, w0, w1, w2, bn, pooled, cnt, dpool, nullptr, nullptr, partial, cap, B,
-                                      P, S, &blocks, stream);
+  cudaError_t err = launch_dw(chans, w0, w1, w2, bn, pooled, cnt, dpool, partial, cap, B, P, S, &blocks, stream);
   if (err != cudaSuccess) return (int)err;
   dw_finish<<<(kDW + 255) / 256, 256, 0, stream>>>(partial, blocks, dw);
   return (int)cudaGetLastError();
@@ -1071,11 +1821,11 @@ extern "C" int unopose_pe_train_resident_warps(int kernel, int depth, int* warps
     case 11 * 4 + 1: return resident<kStats, 1>(warps);
     case 11 * 4 + 2: return resident<kStats, 2>(warps);
     case 11 * 4 + 3: return resident<kStats, 3>(warps);
-    case 12 * 4 + 3: return resident<kFwd, 3>(warps);
+    case 12 * 4 + 3: return resident_fwd(warps);
     case 13 * 4 + 1: return resident<kBwdSums, 1>(warps);
     case 13 * 4 + 2: return resident<kBwdSums, 2>(warps);
     case 13 * 4 + 3: return resident<kBwdSums, 3>(warps);
-    case 14 * 4 + 0: return resident<kBwdDw, 0>(warps);
+    case 14 * 4 + 0: return resident_dw(warps);
     case 18 * 4 + 0: return resident<kBwdFrozen, 0>(warps);
     default: return (int)cudaErrorInvalidValue;
   }

@@ -69,8 +69,9 @@ import torch
 from unopose_tpu_torch import configs
 
 BATCH = 16
-# the PE train kernels K11-K14 and K18 and the second passes of their launches
-PE_TRAIN = ("pe_train_kernel", "stats_finish", "sums_finish", "dw_finish", "frozen_finish")
+# the PE train kernels K11-K14 and K18 (K12 and K14 on warpgroup products) and the second passes of their launches
+PE_TRAIN = ("pe_train_kernel", "fwd_wg_kernel", "dw_wg_kernel", "stats_finish", "sums_finish", "dw_finish",
+            "frozen_finish")
 OURS = ("fps_kernel", "first_k_select_kernel", "gather_planar_kernel", "geo_rpe_kernel", "pe_channels_kernel",
         "pe_mlp_pool_kernel", "mha_bf16_kernel", "colstats_kernel", "labels_kernel", "accum_kernel",
         "ball_group_subset_kernel", "pe_masked_kernel", "hyp_select_kernel", "pe_packed_kernel",
