@@ -2,17 +2,25 @@
 """Smoke test of the PyTorch port (``unopose_tpu_torch``) on one CUDA card.
 
     python3 chip_smoke.py [--seed N] [--batches 3] [--train-steps 3] [--train-only]
+                          [--eval-only]
 
 ``--train-only`` builds the kernels and runs only the two train paths of
 phase 6 (``train`` and ``train_frozen``, ``--train-steps`` steps each),
 printing as its last line their steady step time, the profiled step's
 kernel time and its PE train kernels' time (for timing two trees in turns:
 copy this script into the other tree's checkout and run it there).
+``--eval-only`` builds them and runs only phase 6's ``eval`` path, with its
+gates, ``EVAL_MEASURED_RUNS`` times in one process on a tree of
+``EVAL_MEASURED_IMAGES`` query images, printing as its last line each
+run's images/s and chunk ms, whole and over its steady window
+(``eval_steady``).
 
 Phases, each fatal on failure:
 
 1. device check: a CUDA card must be present;
-2. build the hand-written kernels (``unopose_tpu_torch/kernels/csrc``);
+2. build the hand-written kernels (``unopose_tpu_torch/kernels/csrc``) and
+   the host library of the eval path's reader and evaluator
+   (``unopose_tpu_torch/native/hostops.cpp``, ``data/native.py:build``);
 3. each kernel against its plain PyTorch version on the card, at the shapes
    the main paths give it, with CUDA-event times, its bound and, where one
    PyTorch call computes the same function, that call's time:
@@ -131,7 +139,16 @@ Phases, each fatal on failure:
    the bench (``unopose_tpu_torch.bench.run()``, the production config at
    16 pairs, its JSON line logged, its last batch's poses gated) and each
    profiling script's ``main()`` (``SCRIPTS``) at ``SCRIPT_ITERS`` chained
-   calls a timing, its JSON of results logged. The launch counts are
+   calls a timing, its JSON of results logged; the evaluation entry point
+   (``eval``: ``main_unopose.main([..., "--eval-only"])`` on the production
+   model in bf16, 224 px, 2048 / 5000 points, chunks of 16, the template
+   cache on, over ``write_bop_tree``'s synthetic BOP tree: 3 query images of
+   20 detections on 2 references), gated on one seven-column CSV row per
+   detection, valid poses, a finite AR in the scores JSON and each
+   reference encoded once, its images/s, ms per chunk, reader wait and
+   cache hits logged; and on its first chunk the cached forward against
+   the uncached one at the same draws (radius bitwise, poses within
+   ``EVAL_CACHE_TOL``). The launch counts are
    zeroed just before each path and read just after, every kernel of the
    path must have launched, and no path may launch the PE kernels of the
    other PE paths nor, with its switch off, a switched path's kernels.
@@ -237,6 +254,8 @@ PATH_NOT_LAUNCHED["production_s768"] = PATH_NOT_LAUNCHED["production_pe_packed"]
 # the timing entry points: the bench on the production path, and the three profiling scripts of benchmarks/ with
 # their kernels (rows 20-24), each script's main() at fewer iterations
 PATH_KERNELS["bench"], PATH_NOT_LAUNCHED["bench"] = PATH_KERNELS["production"], PATH_NOT_LAUNCHED["production"]
+# the evaluation entry point (main_unopose --eval-only) runs the production model, its templates through the cache
+PATH_KERNELS["eval"], PATH_NOT_LAUNCHED["eval"] = PATH_KERNELS["production"], PATH_NOT_LAUNCHED["production"]
 SCRIPTS = {
     "profile_r9": ("profile_r9", "pe_packed"),
     "profile_pe_ablate": ("pe_ablate",),
@@ -2462,6 +2481,213 @@ def pose_check(R, t, score) -> tuple:
     return ((R @ R.transpose(1, 2) - eye).abs().max().item(), (torch.linalg.det(R) - 1).abs().max().item(), finite)
 
 
+# the eval path's synthetic BOP tree: 480 x 640 frames with the standard BOP camera, query images 1-n (n
+# EVAL_IMAGES, or EVAL_MEASURED_IMAGES under --eval-only) and the reference image n + 1 of scene 48, two cube objects, and EVAL_DETS
+# detections of each object in each query image (each its GT mask shifted a little): 2 x EVAL_DETS instances an
+# image, over one chunk of BATCH, all on the two references (48, n + 1, 5) and (48, n + 1, 6)
+EVAL_K = np.array([[572.4, 0.0, 320.0], [0.0, 573.6, 240.0], [0.0, 0.0, 1.0]])
+EVAL_IMAGES, EVAL_DETS = 3, 10
+# --eval-only: runs in one process (the first cold), query images a run (enough that the steady window, the
+# images but EVAL_EDGE_IMAGES at each end, holds most chunks), and those edges (the first: the cold first chunk
+# and the template encode; the last: the reader, reading 2 images ahead, has stopped)
+EVAL_MEASURED_RUNS, EVAL_MEASURED_IMAGES, EVAL_EDGE_IMAGES = 3, 40, 2
+# obj_id -> (rows, cols, depth mm, cube side mm)
+EVAL_OBJECTS = {5: ((150, 250), (200, 300), 900, 120.0), 6: ((210, 290), (380, 460), 800, 90.0)}
+# the cached forward's poses against the uncached forward's on one chunk at the same draws (bf16, full width):
+# bitwise equal on the card at seeds 0 and 1 (NVIDIA H100 80GB HBM3, 700.00 W), the query's ViT at batch 16
+# giving the bits of the 2B batch; the gate leaves float32 rounding room (rotation rad, translation m, score)
+EVAL_CACHE_TOL = dict(rot=1e-5, t=1e-5, score=1e-5)
+
+
+def write_bop_tree(root: str, seed: int, n_images: int = EVAL_IMAGES) -> tuple:
+    """The eval path's BOP tree of ``n_images`` query images under ``root`` (PNGs by the port's stdlib writer, as
+    the card has no imageio):
+    ``ycbv/test/000048`` (rgb, depth with a 1.5 m background, mask_visib, scene_gt / _info / camera), the
+    cross-scene reference map, the detections, the BOP19 targets and the two cubes' meshes and
+    ``models_info.json``. Returns (detection path, detections, distinct references)."""
+    from unopose_tpu_torch.data.png import write_png
+    from unopose_tpu_torch.data.preprocess import binary_mask_to_rle
+
+    rng = np.random.default_rng(seed)
+    H, W = 480, 640
+    images, ref_image = tuple(range(1, n_images + 1)), n_images + 1
+    ds = os.path.join(root, "ycbv")
+    scene = os.path.join(ds, "test", "000048")
+    for sub in ("depth", "rgb", "mask_visib"):
+        os.makedirs(os.path.join(scene, sub))
+    depth = np.full((H, W), 1500, np.uint16)
+    masks = {}
+    for obj, ((r0, r1), (c0, c1), z, _) in EVAL_OBJECTS.items():
+        depth[r0:r1, c0:c1] = z
+        masks[obj] = np.zeros((H, W), bool)
+        masks[obj][r0:r1, c0:c1] = True
+    gts, infos, cams = {}, {}, {}
+    for im in images + (ref_image,):
+        write_png(os.path.join(scene, "depth", f"{im:06d}.png"), depth)
+        write_png(os.path.join(scene, "rgb", f"{im:06d}.png"), rng.integers(0, 255, (H, W, 3)).astype(np.uint8))
+        gts[str(im)], infos[str(im)] = [], []
+        for i, (obj, (_, _, z, _)) in enumerate(EVAL_OBJECTS.items()):
+            write_png(os.path.join(scene, "mask_visib", f"{im:06d}_{i:06d}.png"), masks[obj].astype(np.uint8) * 255)
+            gts[str(im)].append(dict(obj_id=obj, cam_R_m2c=np.eye(3).reshape(-1).tolist(), cam_t_m2c=[0, 0, float(z)]))
+            infos[str(im)].append(dict(visib_fract=1.0))
+        cams[str(im)] = dict(cam_K=EVAL_K.reshape(-1).tolist(), depth_scale=1.0)
+    for name, d in (("scene_gt", gts), ("scene_gt_info", infos), ("scene_camera", cams)):
+        with open(os.path.join(scene, f"{name}.json"), "w") as f:
+            json.dump(d, f)
+    with open(os.path.join(ds, "test_ref_targets_crossscene_rot50.json"), "w") as f:
+        json.dump([dict(scene_id=48, im_id=im, obj_id=obj, ref_scene_id=48, ref_im_id=ref_image)
+                   for im in images for obj in EVAL_OBJECTS], f)
+    dets = []
+    for im in images:
+        for obj in EVAL_OBJECTS:
+            for k in range(EVAL_DETS):
+                m = np.roll(masks[obj], (k % 3 - 1, k // 3 - 1), axis=(0, 1))
+                dets.append(dict(scene_id=48, image_id=im, category_id=obj, score=float(0.3 + 0.06 * k), time=0.05,
+                                 segmentation=binary_mask_to_rle(m)))
+    det_path = os.path.join(root, "dets.json")
+    with open(det_path, "w") as f:
+        json.dump(dets, f)
+    with open(os.path.join(ds, "test_targets_bop19.json"), "w") as f:
+        json.dump([dict(scene_id=48, im_id=im, obj_id=obj, inst_count=1) for im in images for obj in EVAL_OBJECTS], f)
+    models = os.path.join(ds, "models_eval")
+    os.makedirs(models)
+    info = {}
+    faces = [[0, 1, 3], [0, 3, 2], [4, 6, 7], [4, 7, 5], [0, 4, 5], [0, 5, 1],
+             [2, 3, 7], [2, 7, 6], [0, 2, 6], [0, 6, 4], [1, 5, 7], [1, 7, 3]]
+    for obj, (_, _, _, side) in EVAL_OBJECTS.items():
+        h = side / 2
+        pts = [[x, y, z] for x in (-h, h) for y in (-h, h) for z in (-h, h)]
+        with open(os.path.join(models, f"obj_{obj:06d}.ply"), "w") as f:
+            f.write(f"ply\nformat ascii 1.0\nelement vertex 8\nproperty float x\nproperty float y\nproperty float z\n"
+                    f"element face 12\nproperty list uchar int vertex_indices\nend_header\n")
+            f.writelines(f"{x} {y} {z}\n" for x, y, z in pts)
+            f.writelines(f"3 {a} {b} {c}\n" for a, b, c in faces)
+        info[str(obj)] = {"diameter": float(side * np.sqrt(3.0))}
+    with open(os.path.join(models, "models_info.json"), "w") as f:
+        json.dump(info, f)
+    return det_path, dets, {(48, ref_image, obj) for obj in EVAL_OBJECTS}
+
+
+def run_eval(log, dev, seed: int, n_images: int = EVAL_IMAGES) -> dict:
+    """Phase 6, the evaluation entry point: ``main_unopose.main([... "--eval-only"])`` at full width
+    (``configs.eval_config()``: the production model, 224 px, 2048 observed and 5000 template points, chunks of 16,
+    the template cache on; bf16) on ``write_bop_tree``'s tree. Gates: one seven-column CSV row per kept detection,
+    every pose valid, the scores JSON's AR finite, each distinct reference encoded once; then, on the first
+    chunk, the cached forward against the uncached one at the same draws (``check_eval_cache``)."""
+    import tempfile
+
+    import torch
+
+    from unopose_tpu_torch import main_unopose
+    from unopose_tpu_torch.kernels import LAUNCHES, reset_launch_counts
+
+    with tempfile.TemporaryDirectory(prefix="unopose_eval_") as tmp:
+        det_path, dets, refs = write_bop_tree(tmp, seed, n_images)
+        out_dir = os.path.join(tmp, "out")
+        argv = ["--eval-only", "--device", str(dev), f"misc.output_dir={out_dir!r}", "misc.exp_name='smoke'",
+                f"dataloader.test.data_dir={tmp!r}", f"dataloader.test.detection_path={det_path!r}",
+                "train.matcher_dtype='bfloat16'"]
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        result = main_unopose.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(LAUNCHES)
+        check_launches("eval", launches)
+        stats = result["stats"]
+        rows = [line.split(",") for line in open(result["csv"]).read().splitlines() if line]
+        if len(rows) != len(dets) or any(len(r) != 7 for r in rows):
+            raise AssertionError(f"eval: {len(rows)} CSV rows (want {len(dets)}, one per detection, 7 columns each)")
+        R = torch.tensor(np.stack([np.array(r[4].split(), np.float64).reshape(3, 3) for r in rows]))
+        t = torch.tensor(np.stack([np.array(r[5].split(), np.float64) for r in rows]))
+        score = torch.tensor([float(r[3]) for r in rows])
+        orth, det, finite = pose_check(R, t, score)
+        ar = result["scores"]["AR"] if result["scores"] else float("nan")
+        with open(result["csv"].replace(".csv", "_scores.json")) as f:
+            ar_json = json.load(f)["AR"]
+        ms = stats["chunk_ms"]
+        from unopose_tpu_torch.data import preprocess
+
+        log(f"eval: read by {'imageio' if preprocess.imageio else 'data/png.py'}, resized by cv2")
+        log(f"eval: {stats['images']} images, {len(rows)} instances, {stats['chunks']} chunks of {BATCH} in "
+            f"{stats['seconds']:.2f} s = {stats['images'] / stats['seconds']:.2f} images/s (main() {wall:.1f} s with "
+            f"the model's build and the scoring), {stats['wait_s']:.2f} s of it waiting for the reader; ms per chunk {['%.1f' % x for x in ms]}, median {np.median(ms):.1f}; template cache: "
+            f"{stats['templates_encoded']} references encoded in {stats['template_calls']} calls, "
+            f"{stats['cache_hits']} hits; |RR^T - I| {orth:.2e}, |det - 1| {det:.2e}, finite {finite}; AR {ar:.4f}; "
+            f"launches {launches}")
+        if not finite or orth > 1e-3 or det > 1e-3:
+            raise AssertionError("eval: the CSV's poses are not finite orthonormal")
+        if not np.isfinite(ar_json) or ar_json != ar or result["scores"]["n_images"] != n_images:
+            raise AssertionError(f"eval: scores JSON AR {ar_json}, returned {ar}, images {result['scores']['n_images']}")
+        if stats["templates_encoded"] != len(refs) or stats["cache_hits"] != len(dets) - len(refs):
+            raise AssertionError(f"eval: {stats['templates_encoded']} references encoded and {stats['cache_hits']} "
+                                 f"cache hits (want {len(refs)} and {len(dets) - len(refs)})")
+        cache = check_eval_cache(log, dev, seed, tmp, det_path)
+    torch.cuda.empty_cache()
+    return dict(launches=launches, images_per_s=stats["images"] / stats["seconds"], chunk_ms=float(np.median(ms)),
+                wait_s=stats["wait_s"], cache_hits=stats["cache_hits"], cache=cache, stats=stats)
+
+
+def eval_steady(stats: dict) -> dict:
+    """One ``--eval-only`` run's figures: images/s over the whole run, and over its steady window (the images
+    after the first ``EVAL_EDGE_IMAGES`` and before the last ``EVAL_EDGE_IMAGES``, on the host clock of
+    ``run_inference``'s image ends); the first chunk's ms, and the median, lowest and highest chunk ms of the
+    window, of the images before it and of those after it."""
+    ends, ms, e = stats["image_end_s"], stats["chunk_ms"], EVAL_EDGE_IMAGES
+    per = stats["chunks"] // stats["images"]
+    n = stats["images"]
+
+    def spread(xs):
+        return dict(median=float(np.median(xs)), low=float(np.min(xs)), high=float(np.max(xs)))
+
+    return dict(images=n, chunks=stats["chunks"], seconds=stats["seconds"], wait_s=stats["wait_s"],
+                images_per_s=n / stats["seconds"], steady_images_per_s=(n - 2 * e) / (ends[n - e - 1] - ends[e - 1]),
+                first_chunk_ms=ms[0], head_chunk_ms=spread(ms[:e * per]), steady_chunk_ms=spread(ms[e * per:-e * per]),
+                tail_chunk_ms=spread(ms[-e * per:]))
+
+
+def check_eval_cache(log, dev, seed: int, root: str, det_path: str) -> dict:
+    """The eval path's first chunk through the launcher's model (seed 0, bf16) twice at the same uniforms: with
+    the template cache's inputs (``encode_template`` of the chunk's references) and with the crops (the uncached
+    forward, query and reference through the ViT as one 2B batch). The radius must be bitwise equal; the poses
+    within ``EVAL_CACHE_TOL`` (the ViT's other batch may move bf16 bits)."""
+    import torch
+
+    from unopose_tpu_torch import configs
+    from unopose_tpu_torch.data.dataset_test import BOPTestsetPoseFreeOneRef
+    from unopose_tpu_torch.engine.inference import pad_to
+    from unopose_tpu_torch.models import UNOPose
+
+    cfg = configs.eval_config()
+    test = cfg.dataloader.test
+    test.update(data_dir=root, detection_path=det_path)
+    data = BOPTestsetPoseFreeOneRef(test, eval_dataset_name="ycbv", detection_path=det_path)[0]
+    torch.manual_seed(0)
+    model = UNOPose.from_config(cfg.model, torch.bfloat16, torch.bfloat16).to(dev).eval()
+    keys = ("pts", "rgb", "rgb_choose", "tem1_rgb", "tem1_choose", "tem1_pts")
+    inputs = {k: torch.from_numpy(pad_to(data[k][:BATCH], BATCH)).to(dev) for k in keys}
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    uniforms = torch.rand((BATCH, 3 * cfg.model.coarse_point_matching.nproposal1), generator=gen, device=dev)
+    plain = model(inputs, uniforms=uniforms)
+    tem = model.encode_template(inputs["tem1_rgb"], inputs["tem1_choose"], inputs["tem1_pts"])
+    cached = model({**{k: inputs[k] for k in keys[:3]}, **tem}, uniforms=uniforms)
+    d = plain["pred_R"].double() - cached["pred_R"].double()
+    r = dict(radius_equal=bool(torch.equal(plain["radius"], cached["radius"])),
+             rot=float((torch.linalg.matrix_norm(d) / np.sqrt(2.0)).max()),
+             t=float((plain["pred_t"] - cached["pred_t"]).abs().max()),
+             score=float((plain["pred_pose_score"] - cached["pred_pose_score"]).abs().max()),
+             init_rot=float((plain["init_R"] - cached["init_R"]).abs().max()),
+             poses_bitwise=all(torch.equal(plain[k], cached[k]) for k in ("pred_R", "pred_t", "pred_pose_score")))
+    log(f"eval cache check (first chunk, cached vs uncached, same draws): radius bitwise {r['radius_equal']}, pose "
+        f"rotation {r['rot']:.3e} rad, translation {r['t']:.3e} m, pose score {r['score']:.3e}, init R "
+        f"{r['init_rot']:.3e}, poses bitwise {r['poses_bitwise']} (gates {EVAL_CACHE_TOL})")
+    if not r["radius_equal"] or any(r[k] > v for k, v in EVAL_CACHE_TOL.items()):
+        raise AssertionError(f"eval: cached and uncached forwards differ: {r}")
+    del model
+    return r
+
+
 def run_bench(log) -> dict:
     """Phase 6, the bench: ``unopose_tpu_torch.bench.run()`` as ``python -m unopose_tpu_torch.bench`` runs it
     (the production config, B 16, full depth), its JSON line logged, the last timed batch's poses gated."""
@@ -2521,6 +2747,8 @@ def main() -> int:
     parser.add_argument("--batches", type=int, default=3, help="full-width batches of the production path")
     parser.add_argument("--train-steps", type=int, default=3, help="full-width steps of the train path")
     parser.add_argument("--train-only", action="store_true", help="only the train and train_frozen paths")
+    parser.add_argument("--eval-only", action="store_true",
+                        help="only the eval path, timed over EVAL_MEASURED_RUNS runs of EVAL_MEASURED_IMAGES images")
     args = parser.parse_args()
 
     import torch
@@ -2539,6 +2767,13 @@ def main() -> int:
     t0 = time.perf_counter()
     build.load()
     log(f"kernels built and loaded in {time.perf_counter() - t0:.1f} s ({build.library_path().name})")
+    from unopose_tpu_torch.data import native
+
+    t0 = time.perf_counter()
+    lib = native.build()  # the host library of the eval path's reader and evaluator; a failed build raises
+    if not native.have_native():
+        raise AssertionError(f"host library {lib} built but does not load")
+    log(f"host library built and loaded in {time.perf_counter() - t0:.1f} s ({lib})")
     for line in build.build_log.splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             log(f"ptxas: {line.strip()}")
@@ -2548,6 +2783,13 @@ def main() -> int:
                 "train_frozen": run_train(log, dev, args.seed, args.train_steps, frozen=True)}
         print(json.dumps({name: dict(steady_ms=r["steady_ms"], kernel_ms=r["profiled"]["kernel_ms"],
                                      pe_train_ms=r["pe_train_ms"]) for name, r in runs.items()}))
+        return 0
+    if args.eval_only:
+        figures = []
+        for k in range(EVAL_MEASURED_RUNS):
+            figures.append(eval_steady(run_eval(log, dev, args.seed, EVAL_MEASURED_IMAGES)["stats"]))
+            log(f"eval run {k + 1} of {EVAL_MEASURED_RUNS}: {json.dumps(figures[-1])}")
+        print(json.dumps({"eval": figures}))
         return 0
     results = check_kernels(log, dev, args.seed)
     results.update(check_fused_kernels(log, dev, args.seed))
@@ -2579,6 +2821,7 @@ def main() -> int:
         **{name: run_path(log, dev, args.seed, 1, name) for name in PE_PATHS},
         "production_s768": run_path(log, dev, args.seed, 1, "production_s768"),
         "bench": run_bench(log),
+        "eval": run_eval(log, dev, args.seed),
         **{name: run_script(log, name) for name in SCRIPTS},
         "train": run_train(log, dev, args.seed, args.train_steps),
         "train_frozen": run_train(log, dev, args.seed, args.train_steps, frozen=True),

@@ -43,7 +43,9 @@ def _run(code: str, cwd=ROOT, timeout=120):
 def test_port_runs_with_jax_unavailable():
     """Importing and running the port (every tiny float32 config on the CPU
     and a train step; the bench and the profiling scripts imported, one
-    kernel twin run) with ``jax``, ``flax`` and the JAX package blocked in
+    kernel twin run; the launcher, the engine, the test reader and the
+    evaluator imported and the tiny ``--eval-only`` run on a synthetic BOP
+    tree) with ``jax``, ``flax`` and the JAX package blocked in
     ``sys.modules``."""
     code = """
 import sys
@@ -78,6 +80,15 @@ import unopose_tpu_torch.benchmarks.profile_pe_ablate
 import unopose_tpu_torch.benchmarks.profile_r9
 li = torch.arange(256, dtype=torch.int32)[None]
 assert unopose_tpu_torch.benchmarks.profile_compact_micro.compact_wherechain(li).shape == (1, 256)
+import pathlib, tempfile
+import unopose_tpu_torch.data.dataset_test, unopose_tpu_torch.engine.inference, unopose_tpu_torch.eval.bop_eval
+from unopose_tpu_torch import main_unopose
+sys.path.insert(0, "tests")
+from test_torch_eval_launcher import _argv, _tiny, write_tree
+with tempfile.TemporaryDirectory() as tmp:
+    root, det_path = write_tree(pathlib.Path(tmp))
+    out = main_unopose.main(_argv(root, det_path, tmp + "/out") + _tiny())
+    assert out["rows"] == 6 and out["stats"]["cache_hits"] == 5 and np.isfinite(out["scores"]["AR"]), out
 loaded = {m.split(".")[0] for m in sys.modules if sys.modules[m] is not None}
 assert not loaded & {"jax", "flax", "jaxlib", "unopose_tpu"}, loaded
 print("ok")
@@ -336,7 +347,6 @@ def test_unported_modes_are_refused():
         ("fine_point_matching.parity_gather", True),
         ("fine_point_matching.pe_dtype", "bf16"),
         ("coarse_point_matching.sim_type", "L2"),
-        ("test_coarse_only", True),
     ):
         cfg = slice_config(tiny=True)
         *parents, leaf = key.split(".")

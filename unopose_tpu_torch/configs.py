@@ -22,20 +22,30 @@ fine solver runs the three ``fine_assignment_fused`` sweeps.
 with one key of the fine PE switched: ``pe_neighbor_mode="subset"``, or
 ``pe_packed=False``.
 
+``eval_config()`` is the evaluation entry point's whole configuration
+(``main_unopose.py --eval-only``): ``production_config()`` as its model
+section, and ``get_cfg()``'s misc, test, test data loader and BOP
+evaluation sections.
+
 The values are written out here so that the port never imports the JAX
-package; ``tests/test_torch_package.py`` and ``tests/test_torch_fused.py``
-and ``tests/test_torch_production.py`` hold them equal to ``get_cfg()`` (and
-``get_tiny_cfg``) with the switches applied. Only the keys the model
-reads are kept: the data, training and checkpoint settings stay in the JAX
-package.
+package; ``tests/test_torch_package.py``, ``tests/test_torch_fused.py``,
+``tests/test_torch_production.py`` and ``tests/test_torch_eval_model.py``
+hold them equal to ``get_cfg()`` (and ``get_tiny_cfg``) with the switches
+applied. Only the keys the port reads are kept: the training data and
+checkpoint settings stay in the JAX package.
 """
 
 from __future__ import annotations
+
+import ast
+import os.path as osp
+from typing import Iterable
 
 import numpy as np
 
 from unopose_tpu_torch.ops.rotation import random_rotation_np
 
+PROJ_ROOT = osp.dirname(osp.dirname(osp.abspath(__file__)))
 # image side, query points, template points of one pair
 FULL_SIZES = dict(img=224, npts=2048, ntem=5000)
 # the tiny config of the CPU tests: the packed first_k PE still engages
@@ -61,6 +71,32 @@ class Config(dict):
 
     def __setattr__(self, k, v):
         self[k] = v
+
+    def apply_overrides(self, overrides: Iterable[str]) -> "Config":
+        """Dotted ``key=value`` overrides (the launcher's command line): the
+        value is read with ``ast.literal_eval`` where it parses, else kept as
+        a string; missing sections are created."""
+        for ov in overrides:
+            key, _, raw = ov.partition("=")
+            try:
+                val = ast.literal_eval(raw)
+            except (ValueError, SyntaxError):
+                val = raw
+            node = self
+            parts = key.strip().split(".")
+            for p in parts[:-1]:
+                if not isinstance(node.get(p), Config):
+                    node[p] = Config()
+                node = node[p]
+            node[parts[-1]] = Config(val) if isinstance(val, dict) else val
+        return self
+
+    def flatten(self, prefix: str = "") -> dict:
+        out = {}
+        for k, v in self.items():
+            kk = f"{prefix}.{k}" if prefix else str(k)
+            out.update(v.flatten(kk) if isinstance(v, Config) else {kk: v})
+        return out
 
 
 def slice_config(tiny: bool = False) -> Config:
@@ -188,6 +224,36 @@ def train_config(tiny: bool = False) -> Config:
         ),
         train=dict(max_iter=MAX_ITER, clip_grad=dict(enabled=False, params=dict(max_norm=35, norm_type=2)), seed=1),
         batch_size=TRAIN_BATCH,
+    )
+
+
+def eval_config(tiny: bool = False) -> Config:
+    """The evaluation entry point's configuration: ``model`` is
+    ``production_config(tiny)``, and ``misc``, ``test``, ``dataloader.test``
+    and ``bop_eval`` hold the keys of ``get_cfg()``'s that the launcher and
+    the test reader read, at its values (the template cache on, 16
+    instances a chunk, the YCB-V test set with the SAM detections and the
+    cross-scene rot50 references under ``datasets/``). With ``tiny`` the
+    test loader's crop side and point counts are the tiny model's, as
+    ``get_tiny_cfg`` sets the train loader's. The launcher reads the two
+    dtypes from a ``train`` section as the JAX launcher does (backbone
+    bfloat16, matchers float32 when it is absent)."""
+    sizes = TINY_SIZES if tiny else FULL_SIZES
+    return Config(
+        model=production_config(tiny),
+        misc=dict(output_dir=osp.join(PROJ_ROOT, "output/main_cfg"), load_from="", exp_name="Pfoneref50"),
+        test=dict(instance_batch_size=16, template_cache=True),
+        dataloader=dict(test=dict(
+            data_dir=osp.join(PROJ_ROOT, "datasets/BOP_DATASETS"),
+            ref_targets_name="test_ref_targets_crossscene_rot50.json",
+            img_size=sizes["img"], n_sample_observed_point=sizes["npts"], n_sample_template_point=sizes["ntem"],
+            minimum_n_point=8, rgb_mask_flag=True, seg_filter_score=0.25, rgb_to_bgr=False, eval_dataset_name="ycbv",
+            detection_path=osp.join(
+                PROJ_ROOT,
+                "datasets/segmentation/CustomSamAutomaticMaskGenerator_test_oneref_targets_crossscene_rot50_refvisib_ycbv.json",
+            ),
+        )),
+        bop_eval=dict(split="test"),
     )
 
 

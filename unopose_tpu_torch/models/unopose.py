@@ -7,6 +7,16 @@ tanh-GELU) -> global LRF of both clouds -> FPS to ``coarse_npoint`` nodes
 int8) -> coarse matching -> coarse hypothesis search -> fine matching
 (first_k packed, unpacked or fused PE, or the subset-mode PE) -> weighted-SVD
 fine pose, from the materialised similarity matrix or the fused assignment.
+``test_coarse_only`` stops after the coarse search and returns its pose;
+``fine_only`` (the reference's NetOneRef ablation) has no coarse stage and
+starts the fine stage at the identity pose, in inference and training.
+
+The template cache: ``encode_template`` computes once per reference what
+the forward derives from the reference crop alone (its FPS subsample in
+meters, the subsample's features, the full cloud's LRF rows below
+``fine_npoint`` and radius), and the forward takes those as ``dense_po``,
+``dense_fo``, ``dense_po_lrf`` and ``tem1_radius`` in place of the
+``tem1_*`` inputs, with the same result.
 
 Training: the frozen ViT (exact path, no autograd) -> both clouds' LRFs ->
 FPS -> the exact geometric embedding (differentiated) -> every coarse
@@ -41,7 +51,7 @@ from unopose_tpu_torch.models.embedding import GeometricStructureEmbedding
 from unopose_tpu_torch.models.feature_extraction import ViTEncoderOneRef
 from unopose_tpu_torch.models.matching import CoarsePointMatching, FinePointMatching
 from unopose_tpu_torch.ops.assignment_fused import compute_fine_Rt_overlap_fused
-from unopose_tpu_torch.ops.fps import sample_pts_feats_wlrf
+from unopose_tpu_torch.ops.fps import fps, gather_points, sample_pts_feats_wlrf
 from unopose_tpu_torch.ops.lrf import global_lrf
 from unopose_tpu_torch.ops.rotation import PoseNoiseDraws, aug_pose_noise
 from unopose_tpu_torch.ops.solver import compute_coarse_Rt_overlap, compute_fine_Rt_overlap
@@ -61,12 +71,13 @@ def _on(value, default: bool = True) -> bool:
 
 def _check_ported(cfg: Config) -> None:
     """The port runs the ported paths: a config that forces a mode whose
-    kernel is not ported yet, or another entry point, is refused. The fused
-    geo embedding (``fused_table`` with ``quant_int8``: its kernel writes
-    int8 only), the fused PE, both neighbour modes, the unpacked first_k PE
-    (``pe_packed=False``), the production ViT and the fused assignment are
-    ported; their keys select the kernel path directly. An unknown
-    ``pe_neighbor_mode`` raises ``ValueError``."""
+    kernel is not ported yet is refused. The fused geo embedding
+    (``fused_table`` with ``quant_int8``: its kernel writes int8 only), the
+    fused PE, both neighbour modes, the unpacked first_k PE
+    (``pe_packed=False``), the production ViT, the fused assignment, both
+    upscalers, ``test_coarse_only`` and ``fine_only`` are ported; their keys
+    select the path directly. An unknown ``pe_neighbor_mode``, and
+    ``test_coarse_only`` with ``fine_only``, raise ``ValueError``."""
     ge, fm = cfg.geo_embedding, cfg.fine_point_matching
     _require(not ge.get("fused_table", 0) or ge.get("quant_int8", False),
              "geo_embedding.fused_table with quant_int8=False (a float or bf16 fused embedding)")
@@ -76,8 +87,8 @@ def _check_ported(cfg: Config) -> None:
     _require(fm.get("use_lrf", True) and fm.get("use_xyz", True), "PE without LRF or xyz channels")
     for m in (cfg.coarse_point_matching, fm):
         _require(m.get("sim_type", "cosine") == "cosine", "sim_type other than cosine")
-    _require(not cfg.get("test_coarse_only", False), "test_coarse_only")
-    _require(not cfg.get("fine_only", False), "fine_only")
+    if cfg.get("test_coarse_only", False) and cfg.get("fine_only", False):
+        raise ValueError("test_coarse_only returns the coarse pose, which fine_only does not compute")
 
 
 class UNOPose(nn.Module):
@@ -87,6 +98,8 @@ class UNOPose(nn.Module):
         self.coarse_npoint = cfg.coarse_npoint
         self.fine_npoint = cfg.fine_npoint
         self.use_ref_rad = cfg.get("use_ref_rad", False)
+        self.test_coarse_only = bool(cfg.get("test_coarse_only", False))
+        self.fine_only = bool(cfg.get("fine_only", False))
         self.dtype = dtype
         fe, ge = cfg.feature_extraction, cfg.geo_embedding
         cm, fm = cfg.coarse_point_matching, cfg.fine_point_matching
@@ -121,7 +134,8 @@ class UNOPose(nn.Module):
             fused_table=ge.get("fused_table", 0),
             quant_int8=ge.get("quant_int8", False),
         )
-        self.coarse_matching = CoarsePointMatching(
+        # fine_only has no coarse stage, and its variables no coarse_matching
+        self.coarse_matching = None if self.fine_only else CoarsePointMatching(
             nblock=cm.get("nblock", 3),
             input_dim=cm.get("input_dim", 256),
             hidden_dim=cm.get("hidden_dim", 256),
@@ -158,6 +172,33 @@ class UNOPose(nn.Module):
             return global_lrf(pts, torch.ones(pts.shape[0], dtype=torch.float32, device=pts.device))
         return global_lrf(pts)
 
+    @torch.no_grad()
+    def encode_template(self, tem1_rgb: torch.Tensor, tem1_choose: torch.Tensor,
+                        tem1_pts: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """The template cache's entries for a batch of references: ``dense_po``
+        (B, fine_npoint, 3) in meters, ``dense_fo`` (B, fine_npoint, out_dim)
+        float32, ``dense_po_lrf`` (B, fine_npoint, 3) and ``tem1_radius`` (B,).
+
+        As in the forward without the cache, the FPS runs on the cloud divided
+        by the full cloud's radius (same indices). ``dense_po`` is gathered in
+        meters and divided by the same radius in the forward, and a gather
+        commutes with an elementwise division, so the values are bitwise those
+        of the uncached path. ``dense_po_lrf`` is rows ``[:fine_npoint]`` of
+        the full cloud's LRF, not the sampled rows: the uncached forward
+        gathers the sampled indices, all below ``fine_npoint``, from the full
+        cloud's LRF (the reference's own quirk)."""
+        mean = tem1_pts.mean(dim=1, keepdim=True)
+        radius = torch.linalg.vector_norm(tem1_pts - mean, dim=-1).amax(dim=-1)
+        r = radius[:, None, None] + 1e-6
+        tem_feat = self.encoder.get_img_feats(tem1_rgb, tem1_choose)
+        idx = fps((tem1_pts / r).float(), self.fine_npoint)
+        return dict(
+            dense_po=gather_points(tem1_pts, idx),
+            dense_fo=gather_points(tem_feat.float(), idx),
+            dense_po_lrf=self._lrf(tem1_pts)[:, : self.fine_npoint],
+            tem1_radius=radius,
+        )
+
     def forward(
         self,
         inputs: Dict[str, torch.Tensor],
@@ -168,8 +209,9 @@ class UNOPose(nn.Module):
         pose_noise: Optional[PoseNoiseDraws] = None,
     ) -> Dict[str, torch.Tensor]:
         """inputs: rgb (B, H, W, 3), rgb_choose (B, P1), pts (B, P1, 3),
-        tem1_rgb, tem1_choose (B, P2), tem1_pts (B, P2, 3); in training also
-        rotation_label (B, 3, 3) and translation_label (B, 3).
+        tem1_rgb, tem1_choose (B, P2), tem1_pts (B, P2, 3), or in their place
+        ``encode_template``'s four outputs; in training also rotation_label
+        (B, 3, 3) and translation_label (B, 3).
 
         Inference (no autograd): the coarse search draws (B, 3 * nproposal1)
         uniforms from ``generator``, or uses ``uniforms``. Returns the pose
@@ -185,14 +227,21 @@ class UNOPose(nn.Module):
         """Features, both clouds' FPS nodes and their geometric embeddings."""
         dense_pm, dense_fm, dense_po, dense_fo, radius = self.encoder(
             inputs["rgb"], inputs["rgb_choose"], inputs["pts"],
-            inputs["tem1_rgb"], inputs["tem1_choose"], inputs["tem1_pts"], train=train,
+            inputs.get("tem1_rgb"), inputs.get("tem1_choose"), inputs.get("tem1_pts"),
+            inputs.get("dense_po"), inputs.get("dense_fo"), inputs.get("tem1_radius"), train=train,
         )
         dense_fm = dense_fm.to(self.dtype)
         dense_fo = dense_fo.to(self.dtype)
         # LRFs of the raw clouds; the template's rows < fine_npoint are the
-        # ones the FPS indices reach (the reference's own quirk)
+        # ones the FPS indices reach (the reference's own quirk), which the
+        # template cache hands in as dense_po_lrf
         dense_pm_lrf = self._lrf(inputs["pts"])
-        dense_po_lrf = self._lrf(inputs["tem1_pts"])
+        if inputs.get("dense_po_lrf") is not None:
+            dense_po_lrf = inputs["dense_po_lrf"]
+        elif inputs.get("tem1_pts") is not None:
+            dense_po_lrf = self._lrf(inputs["tem1_pts"])
+        else:
+            dense_po_lrf = self._lrf(dense_po)
         B = dense_pm.shape[0]
         sparse_pm, sparse_pm_lrf, sparse_fm, fps_idx_m = sample_pts_feats_wlrf(
             dense_pm, dense_pm_lrf, dense_fm, self.coarse_npoint
@@ -217,27 +266,37 @@ class UNOPose(nn.Module):
         coarse and fine outputs (``coarse_attens``, ``coarse_scores``,
         ``coarse_saliencies``, likewise ``fine_*``), the clouds, the radius
         and the noisy initial pose. The noise's draws are ``pose_noise``, or
-        drawn from ``generator``."""
+        drawn from ``generator``. ``fine_only``: no coarse outputs, and the
+        fine stage starts at the identity pose."""
         e = self._encode(inputs, train=True)
         B = e["dense_pm"].shape[0]
         geo_m, geo_o = e["geo"][:B], e["geo"][B:]
-        c_attens, c_scores, c_sals = self.coarse_matching(e["sparse_fm"], geo_m, e["sparse_fo"], geo_o, all_blocks=True)
         radius = e["radius"]
-        gt_r = inputs["rotation_label"].float()
-        gt_t = inputs["translation_label"].float() / (radius[:, None] + 1e-6)
-        if pose_noise is None:
-            pose_noise = PoseNoiseDraws.draw(B, generator, device=gt_r.device)
-        init_R, init_t = aug_pose_noise(gt_r, gt_t, pose_noise)
+        out = dict(radius=radius, dense_pm=e["dense_pm"], dense_po=e["dense_po"], sparse_pm=e["sparse_pm"],
+                   sparse_po=e["sparse_po"])
+        if self.fine_only:
+            init_R, init_t = self._identity_pose(B, radius.device)
+        else:
+            c_attens, c_scores, c_sals = self.coarse_matching(e["sparse_fm"], geo_m, e["sparse_fo"], geo_o,
+                                                              all_blocks=True)
+            out.update(coarse_attens=c_attens, coarse_scores=c_scores, coarse_saliencies=c_sals)
+            gt_r = inputs["rotation_label"].float()
+            gt_t = inputs["translation_label"].float() / (radius[:, None] + 1e-6)
+            if pose_noise is None:
+                pose_noise = PoseNoiseDraws.draw(B, generator, device=gt_r.device)
+            init_R, init_t = aug_pose_noise(gt_r, gt_t, pose_noise)
         f_attens, f_scores, f_sals = self.fine_matching(
             e["dense_pm"], e["dense_fm"], geo_m, e["fps_idx_m"], e["dense_po"], e["dense_fo"], geo_o, e["fps_idx_o"],
             init_R, init_t, train=True,
         )
-        return dict(
-            radius=radius, dense_pm=e["dense_pm"], dense_po=e["dense_po"], sparse_pm=e["sparse_pm"],
-            sparse_po=e["sparse_po"], init_R=init_R, init_t=init_t,
-            coarse_attens=c_attens, coarse_scores=c_scores, coarse_saliencies=c_sals,
-            fine_attens=f_attens, fine_scores=f_scores, fine_saliencies=f_sals,
-        )
+        out.update(init_R=init_R, init_t=init_t, fine_attens=f_attens, fine_scores=f_scores, fine_saliencies=f_sals)
+        return out
+
+    @staticmethod
+    def _identity_pose(B: int, device) -> tuple:
+        """fine_only's initial pose: (B, 3, 3) identities and (B, 3) zeros."""
+        eye = torch.eye(3, dtype=torch.float32, device=device).expand(B, 3, 3).contiguous()
+        return eye, torch.zeros((B, 3), dtype=torch.float32, device=device)
 
     def _infer(self, inputs, generator, uniforms, return_intermediates: bool) -> Dict[str, torch.Tensor]:
         e = self._encode(inputs, train=False)
@@ -258,11 +317,23 @@ class UNOPose(nn.Module):
         else:
             geo_m, geo_o = geo_both[:B], geo_both[B:]
 
-        c_atten, c_score = self.coarse_matching(sparse_fm, geo_m, sparse_fo, geo_o)
-        init_R, init_t, init_score = compute_coarse_Rt_overlap(
-            c_atten, c_score, sparse_pm, sparse_po, self.nproposal1, self.nproposal2,
-            uniforms=uniforms, generator=generator,
-        )
+        out = dict(radius=radius)
+        inter = dict(dense_pm=dense_pm, dense_po=dense_po, dense_fm=dense_fm, dense_fo=dense_fo, sparse_pm=sparse_pm,
+                     sparse_po=sparse_po, fps_idx_m=fps_idx_m, fps_idx_o=fps_idx_o, geo=geo_both)
+        if self.fine_only:
+            init_R, init_t = self._identity_pose(B, radius.device)
+        else:
+            c_atten, c_score = self.coarse_matching(sparse_fm, geo_m, sparse_fo, geo_o)
+            init_R, init_t, init_score = compute_coarse_Rt_overlap(
+                c_atten, c_score, sparse_pm, sparse_po, self.nproposal1, self.nproposal2,
+                uniforms=uniforms, generator=generator,
+            )
+            out["init_pose_score"] = init_score
+            inter.update(coarse_atten=c_atten, coarse_score=c_score)
+        out.update(init_R=init_R, init_t=init_t)
+        if self.test_coarse_only:
+            out.update(pred_R=init_R, pred_t=init_t * (radius[:, None] + 1e-6), pred_pose_score=init_score)
+            return {**out, **inter} if return_intermediates else out
         f_atten, f_score = self.fine_matching(
             dense_pm, dense_fm, geo_m, fps_idx_m, dense_po, dense_fo, geo_o, fps_idx_o, init_R, init_t,
             return_proj=self.fused_assignment,
@@ -273,34 +344,23 @@ class UNOPose(nn.Module):
             )
         else:
             pred_R, pred_t, pred_score, max_w = compute_fine_Rt_overlap(f_atten, f_score, dense_pm, dense_po)
-        out = dict(
-            radius=radius,
-            init_R=init_R,
-            init_t=init_t,
-            init_pose_score=init_score,
-            pred_R=pred_R,
-            pred_t=pred_t * (radius[:, None] + 1e-6),
-            pred_pose_score=pred_score,
-            fine_wsvd_max_w=max_w,
-        )
+        out.update(pred_R=pred_R, pred_t=pred_t * (radius[:, None] + 1e-6), pred_pose_score=pred_score,
+                   fine_wsvd_max_w=max_w)
         if return_intermediates:
-            out.update(
-                dense_pm=dense_pm, dense_po=dense_po, dense_fm=dense_fm, dense_fo=dense_fo,
-                sparse_pm=sparse_pm, sparse_po=sparse_po, fps_idx_m=fps_idx_m, fps_idx_o=fps_idx_o, geo=geo_both,
-                coarse_atten=c_atten, coarse_score=c_score, fine_score=f_score,
-                **{"fine_proj" if self.fused_assignment else "fine_atten": f_atten},
-            )
+            out.update(inter, fine_score=f_score, **{"fine_proj" if self.fused_assignment else "fine_atten": f_atten})
         return out
 
 
 def compute_train_losses(outputs: Dict[str, torch.Tensor], inputs: Dict[str, torch.Tensor], cfg: Config) -> Dict[str, torch.Tensor]:
     """Per-sample loss terms of both stages from ``UNOPose.forward_train``'s
-    outputs; ``cfg`` is the model section of the configuration."""
+    outputs (the fine stage's alone where they hold no coarse outputs: the
+    ``fine_only`` model); ``cfg`` is the model section of the configuration."""
     radius = outputs["radius"]
     gt_r = inputs["rotation_label"].float()
     gt_t = inputs["translation_label"].float() / (radius[:, None] + 1e-6)
     terms = {}
-    for stage, pts in (("coarse", ("sparse_pm", "sparse_po")), ("fine", ("dense_pm", "dense_po"))):
+    stages = (("coarse", ("sparse_pm", "sparse_po")), ("fine", ("dense_pm", "dense_po")))
+    for stage, pts in stages[0 if "coarse_attens" in outputs else 1:]:
         m = cfg[f"{stage}_point_matching"]
         terms.update(compute_overlap_loss(
             outputs[f"{stage}_attens"], outputs[f"{stage}_scores"], outputs[f"{stage}_saliencies"],

@@ -221,16 +221,19 @@ def fine_assignment_fused(feat1, feat2, score, pts2, temp: float = 0.1):
     return fn(feat1, feat2, score, pts2, temp)
 
 
-def compute_fine_Rt_overlap_fused(feat1, feat2, score, pts1, pts2, temp: float = 0.1, dis_thres: float = 0.15):
+def compute_fine_Rt_overlap_fused(feat1, feat2, score, pts1, pts2, model_pts=None, temp: float = 0.1,
+                                  dis_thres: float = 0.15):
     """``ops/solver.py:compute_fine_Rt_overlap`` on the projected features
     instead of the similarity matrix: weighted Procrustes of the soft targets
-    (``weight_thresh=0.001``), the inlier pose score and the max row weight.
+    (``weight_thresh=0.001``), the inlier pose score against ``model_pts``
+    (default ``pts2``) and the max row weight.
     Returns R (B, 3, 3), t (B, 3), pose_score (B,), max_w (B,)."""
     pts1, pts2 = pts1.float(), pts2.float()
+    model_pts = pts2 if model_pts is None else model_pts.float()
     pred_pts, weights, label1 = fine_assignment_fused(feat1, feat2, score, pts2, temp)
     R, t = weighted_procrustes(pred_pts, pts1, weights, weight_thresh=0.001)
     proj = torch.matmul(pts1 - t[:, None, :], R)
-    d = sqrt_rn(torch.clamp_min(pairwise_sqdist(proj, pts2).amin(dim=2), 0.0))
+    d = sqrt_rn(torch.clamp_min(pairwise_sqdist(proj, model_pts).amin(dim=2), 0.0))
     mask = (label1 > 0).float()
     inlier = (d < dis_thres).float()
     pose_score = (inlier * mask).sum(dim=1) / (mask.sum(dim=1) + 1e-8)

@@ -62,3 +62,23 @@ def compute_feature_similarity(
         feat1 = normalize_vec(feat1)
         feat2 = normalize_vec(feat2)
     return torch.matmul(feat1.float(), feat2.float().transpose(-1, -2)) / temp
+
+
+def backproject(depth: torch.Tensor, K: torch.Tensor) -> torch.Tensor:
+    """(H, W) metric depth and (3, 3) intrinsics -> (H, W, 3) camera-frame
+    cloud, pixel (v, u) at ((u - cx) z / fx, (v - cy) z / fy, z)."""
+    H, W = depth.shape
+    xs = torch.arange(W, dtype=depth.dtype, device=depth.device) - K[0, 2]
+    ys = torch.arange(H, dtype=depth.dtype, device=depth.device) - K[1, 2]
+    Y, X = torch.meshgrid(ys, xs, indexing="ij")
+    return torch.stack((X * depth / K[0, 0], Y * depth / K[1, 1], depth), dim=2)
+
+
+def transform_pts(pts: torch.Tensor, R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """R p + t for batched clouds: pts (B, N, 3), R (B, 3, 3), t (B, 3)."""
+    return torch.einsum("bij,bnj->bni", R, pts) + t[:, None, :]
+
+
+def inverse_transform_pts(pts: torch.Tensor, R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """R^T (p - t), computed as (p - t) R: pts (B, N, 3), R (B, 3, 3), t (B, 3)."""
+    return torch.matmul(pts - t[:, None, :], R)

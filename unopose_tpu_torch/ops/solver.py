@@ -182,13 +182,17 @@ def compute_fine_Rt_overlap(
     score: torch.Tensor,
     pts1: torch.Tensor,
     pts2: torch.Tensor,
+    model_pts: torch.Tensor | None = None,
     dis_thres: float = 0.15,
 ):
     """Weighted-SVD fine pose from the mutually consistent soft assignment.
-    Returns R (B, 3, 3), t (B, 3), pose_score (B,) and the max WSVD row
-    weight (B,) (the JAX solver's ``return_aux=True`` outputs)."""
+    The pose score counts the foreground points within ``dis_thres`` of
+    ``model_pts`` (default ``pts2``). Returns R (B, 3, 3), t (B, 3),
+    pose_score (B,) and the max WSVD row weight (B,) (the JAX solver's
+    ``return_aux=True`` outputs)."""
     pts1 = pts1.float()
     pts2 = pts2.float()
+    model_pts = pts2 if model_pts is None else model_pts.float()
     B, N1, _ = pts1.shape
     N2 = pts2.shape[1]
 
@@ -201,7 +205,7 @@ def compute_fine_Rt_overlap(
     R, t = weighted_procrustes(pred_pts, pts1, weights, weight_thresh=0.001)
 
     proj = torch.matmul(pts1 - t[:, None, :], R)
-    d = sqrt_rn(torch.clamp_min(pairwise_sqdist(proj, pts2).amin(dim=2), 0.0))
+    d = sqrt_rn(torch.clamp_min(pairwise_sqdist(proj, model_pts).amin(dim=2), 0.0))
     mask = (label1 > 0).float()
     inlier = (d < dis_thres).float()
     pose_score = (inlier * mask).sum(dim=1) / (mask.sum(dim=1) + 1e-8)

@@ -11,6 +11,11 @@ is structural:
   the flax (in, out) kernel becomes the torch (out, in) ``weight``;
 - a module holding exactly ``scale`` and ``bias`` is a norm: ``scale``
   becomes ``weight``;
+- the upscaler's transposed convolutions (``deconv1``, ``deconv2``): flax's
+  ``ConvTranspose`` (``transpose_kernel=False``) correlates the
+  stride-dilated input with its (kh, kw, in, out) kernel, where torch's
+  ``ConvTranspose2d`` scatters each input pixel through its (in, out, kh,
+  kw) weight, so the kernel is flipped in both spatial axes and permuted;
 - every other leaf (embeddings, tokens, LayerScale, the PE's raw
   ``mlp*_fc*_kernel``, the linear attention ``scale``) keeps its name and
   layout;
@@ -31,6 +36,7 @@ import numpy as np
 import torch
 
 _STACK = re.compile(r"blocks\d*")
+_DECONV = re.compile(r"deconv\d+")
 
 
 def _flatten(tree: Mapping[str, Any], prefix=()) -> Dict[tuple, np.ndarray]:
@@ -75,6 +81,9 @@ def flax_to_torch(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
             if leaf == "kernel" and kind <= {"kernel", "bias"} and a.ndim == 2:
                 names.append("weight")  # Dense: (in, out) -> (out, in)
                 a = a.T
+            elif leaf == "kernel" and parent and _DECONV.fullmatch(parent[-1]) and a.ndim == 4:
+                names.append("weight")  # ConvTranspose: (kh, kw, in, out) -> (in, out, kh, kw), flipped
+                a = a[::-1, ::-1].transpose(2, 3, 0, 1)
             elif leaf == "scale" and kind == {"scale", "bias"}:
                 names.append("weight")  # LayerNorm / BatchNorm scale
             else:
