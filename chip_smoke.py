@@ -2,7 +2,7 @@
 """Smoke test of the PyTorch port (``unopose_tpu_torch``) on one CUDA card.
 
     python3 chip_smoke.py [--seed N] [--batches 3] [--train-steps 3] [--train-only]
-                          [--eval-only]
+                          [--eval-only] [--launcher-only]
 
 ``--train-only`` builds the kernels and runs only the two train paths of
 phase 6 (``train`` and ``train_frozen``, ``--train-steps`` steps each),
@@ -13,7 +13,9 @@ copy this script into the other tree's checkout and run it there).
 gates, ``EVAL_MEASURED_RUNS`` times in one process on a tree of
 ``EVAL_MEASURED_IMAGES`` query images, printing as its last line each
 run's images/s and chunk ms, whole and over its steady window
-(``eval_steady``).
+(``eval_steady``). ``--launcher-only`` builds them and runs only phase 6's
+``train_launcher`` path with its gates, printing its runs' figures as its
+last line.
 
 Phases, each fatal on failure:
 
@@ -148,7 +150,14 @@ Phases, each fatal on failure:
    reference encoded once, its images/s, ms per chunk, reader wait and
    cache hits logged; and on its first chunk the cached forward against
    the uncached one at the same draws (radius bitwise, poses within
-   ``EVAL_CACHE_TOL``). The launch counts are
+   ``EVAL_CACHE_TOL``); the train entry point (``train_launcher``:
+   ``main_unopose.main`` trains ``main_config()`` at 8 a step with the ViT
+   grafted from a seeded fake timm checkpoint, on synthetic batches with a
+   checkpoint and an evaluation every 2 iterations, resumes from its
+   checkpoint, reads a synthetic MegaPose tree through the threaded loader,
+   and evaluates ``--eval-only`` from the checkpoint, as
+   ``run_train_launcher`` says; then one step at the JAX launcher's global
+   batch of 32 as a finding). The launch counts are
    zeroed just before each path and read just after, every kernel of the
    path must have launched, and no path may launch the PE kernels of the
    other PE paths nor, with its switch off, a switched path's kernels.
@@ -256,6 +265,10 @@ PATH_NOT_LAUNCHED["production_s768"] = PATH_NOT_LAUNCHED["production_pe_packed"]
 PATH_KERNELS["bench"], PATH_NOT_LAUNCHED["bench"] = PATH_KERNELS["production"], PATH_NOT_LAUNCHED["production"]
 # the evaluation entry point (main_unopose --eval-only) runs the production model, its templates through the cache
 PATH_KERNELS["eval"], PATH_NOT_LAUNCHED["eval"] = PATH_KERNELS["production"], PATH_NOT_LAUNCHED["production"]
+# the train entry point (main_unopose's train branch): the train step's kernels and, through its periodic
+# evaluation, the production path's
+PATH_KERNELS["train_launcher"] = tuple(dict.fromkeys(PATH_KERNELS["train"] + PATH_KERNELS["production"]))
+PATH_NOT_LAUNCHED["train_launcher"] = SWITCHED
 SCRIPTS = {
     "profile_r9": ("profile_r9", "pe_packed"),
     "profile_pe_ablate": ("pe_ablate",),
@@ -2584,7 +2597,8 @@ def run_eval(log, dev, seed: int, n_images: int = EVAL_IMAGES) -> dict:
     with tempfile.TemporaryDirectory(prefix="unopose_eval_") as tmp:
         det_path, dets, refs = write_bop_tree(tmp, seed, n_images)
         out_dir = os.path.join(tmp, "out")
-        argv = ["--eval-only", "--device", str(dev), f"misc.output_dir={out_dir!r}", "misc.exp_name='smoke'",
+        argv = ["--eval-only", "--device", str(dev), "--config", "unopose_tpu_torch.configs:eval_config",
+                f"misc.output_dir={out_dir!r}", "misc.exp_name='smoke'",
                 f"dataloader.test.data_dir={tmp!r}", f"dataloader.test.detection_path={det_path!r}",
                 "train.matcher_dtype='bfloat16'"]
         torch.cuda.synchronize()
@@ -2688,6 +2702,299 @@ def check_eval_cache(log, dev, seed: int, root: str, det_path: str) -> dict:
     return r
 
 
+# the train_launcher path: main_unopose's train branch at main_config()'s full width, B 8 (the per-rank batch of the
+# published recipe): LAUNCHER_STEPS synthetic iterations (log every one, a checkpoint every 2 kept 2, an evaluation
+# every 2 on write_bop_tree's tree), a resume to LAUNCHER_RESUME_STEPS, LAUNCHER_READER_STEPS iterations of the
+# MegaPose reader on write_megapose_tree's tree through train_loader with its 8 workers, --eval-only from the
+# checkpoint; then one step at the JAX launcher's global batch (configs.GLOBAL_BATCH) as a finding
+LAUNCHER_BATCH, LAUNCHER_STEPS, LAUNCHER_RESUME_STEPS, LAUNCHER_READER_STEPS = 8, 4, 6, 3
+# the ViT-B/14-reg4 DINOv2 checkpoint's layout in timm's names: width, depth, MLP width, patch, register tokens,
+# and the 37 x 37 grid of its 518 px pretraining
+TIMM_VIT = dict(dim=768, depth=12, mlp=3072, patch=14, reg=4, grid=37)
+# the MegaPose tree: MEGAPOSE_KEYS 480 x 640 images in one GSO shard, two objects taking turns (obj_id -> rows,
+# cols, depth mm); each image's visible mask is its object's box, its reference list every image of the object
+MEGAPOSE_KEYS = 16
+MEGAPOSE_OBJECTS = {1: ((140, 260), (220, 340), 800), 2: ((200, 300), (360, 470), 900)}
+
+
+def write_fake_timm(path: str, seed: int) -> dict:
+    """Seeded random ViT-B/14-reg4 tensors in timm's names (``pos_embed`` on the 37 x 37 grid) saved to ``path``
+    as a ``.pth``; returns them (numpy)."""
+    import torch
+
+    v = TIMM_VIT
+    d, m, p = v["dim"], v["mlp"], v["patch"]
+    shapes = {"patch_embed.proj.weight": (d, 3, p, p), "patch_embed.proj.bias": (d,), "cls_token": (1, 1, d),
+              "reg_token": (1, v["reg"], d), "pos_embed": (1, v["grid"] ** 2, d), "norm.weight": (d,),
+              "norm.bias": (d,)}
+    for i in range(v["depth"]):
+        shapes.update({f"blocks.{i}.{k}": s for k, s in (
+            ("norm1.weight", (d,)), ("norm1.bias", (d,)), ("norm2.weight", (d,)), ("norm2.bias", (d,)),
+            ("attn.qkv.weight", (3 * d, d)), ("attn.qkv.bias", (3 * d,)), ("attn.proj.weight", (d, d)),
+            ("attn.proj.bias", (d,)), ("mlp.fc1.weight", (m, d)), ("mlp.fc1.bias", (m,)),
+            ("mlp.fc2.weight", (d, m)), ("mlp.fc2.bias", (d,)), ("ls1.gamma", (d,)), ("ls2.gamma", (d,)))})
+    gen = torch.Generator().manual_seed(seed)
+    sd = {k: torch.randn(s, generator=gen) * (0.02 if len(s) > 1 else 0.1) for k, s in shapes.items()}
+    for k in sd:
+        if k.endswith(("norm1.weight", "norm2.weight")) or k == "norm.weight":
+            sd[k] += 1.0
+        elif k.endswith("gamma"):
+            sd[k] = sd[k].abs() * 1e-3
+    torch.save(sd, path)
+    return {k: t.numpy() for k, t in sd.items()}
+
+
+def write_megapose_tree(root: str, seed: int) -> str:
+    """A ``MegaPose-Training-Data`` tree of ``MEGAPOSE_KEYS`` images (``.rgb.jpg`` by cv2, 16-bit depth by the port's
+    PNG writer, the card having no imageio): each its object's box at a depth with 5 mm of noise and a random pose,
+    the visible mask json, the gt, camera and valid-instance jsons, and each object's reference list. Returns the
+    tree's root."""
+    import cv2
+
+    from unopose_tpu_torch.data.png import write_png
+    from unopose_tpu_torch.data.preprocess import binary_mask_to_rle
+    from unopose_tpu_torch.ops.rotation import random_rotation_np
+
+    rng = np.random.default_rng(seed)
+    data = os.path.join(root, "MegaPose-Training-Data")
+    gso = os.path.join(data, "MegaPose-GSO", "train_pbr_web")
+    shard = os.path.join(gso, "000000")
+    os.makedirs(shard)
+    keys = [f"000000_{i:06d}" for i in range(MEGAPOSE_KEYS)]
+    objects = list(MEGAPOSE_OBJECTS)
+    refs = {str(o): [] for o in objects}
+    for i, key in enumerate(keys):
+        obj = objects[i % len(objects)]
+        (r0, r1), (c0, c1), z = MEGAPOSE_OBJECTS[obj]
+        head = os.path.join(shard, key)
+        depth = np.zeros((480, 640), np.uint16)
+        depth[r0:r1, c0:c1] = z + rng.integers(-5, 6, (r1 - r0, c1 - c0))
+        mask = np.zeros((480, 640), bool)
+        mask[r0:r1, c0:c1] = True
+        write_png(head + ".depth.png", depth)
+        if not cv2.imwrite(head + ".rgb.jpg", rng.integers(0, 255, (480, 640, 3)).astype(np.uint8)):
+            raise OSError(f"cv2 could not write {head}.rgb.jpg")
+        R = random_rotation_np(rng)
+        with open(head + ".gt.json", "w") as f:
+            json.dump([dict(obj_id=obj, cam_R_m2c=R.reshape(-1).tolist(), cam_t_m2c=[0.0, 0.0, float(z)])], f)
+        with open(head + ".camera.json", "w") as f:
+            json.dump(dict(cam_K=EVAL_K.reshape(-1).tolist(), depth_scale=1.0), f)
+        with open(head + ".mask_visib.json", "w") as f:
+            json.dump({"0": binary_mask_to_rle(mask)}, f)
+        refs[str(obj)].append([0, key, 0])
+    for name, d in (("MegaPose-GSO/train_pbr_web/key_to_shard.json", {k: 0 for k in keys}),
+                    ("megapose_gso_fixed_obj_id_to_visib0_8_scene_im_inst_ids.json", refs),
+                    ("megapose_gso_fixed_valid_inst_ids.json", {f"000000/{k}": [0] for k in keys})):
+        with open(os.path.join(data, name), "w") as f:
+            json.dump(d, f)
+    return data
+
+
+def tensors_equal(a, b) -> bool:
+    """Two nested states (dicts, lists, tensors, numbers) bitwise equal, tensors compared on the CPU."""
+    import torch
+
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(tensors_equal(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(tensors_equal(x, y) for x, y in zip(a, b))
+    if isinstance(a, torch.Tensor):
+        return a.dtype == b.dtype and torch.equal(a.cpu(), b.cpu())
+    return a == b
+
+
+def launcher_figures(stats: dict, batch: int) -> dict:
+    """A launcher run's figures from ``train_loop``'s stats: the steady ms an iteration (median of all but the
+    first, each ending in the logged step's sync), samples/s, the reader's median wait an iteration, the
+    checkpoints' save seconds and the restore's."""
+    steady = 1e3 * float(np.median(stats["step_s"][1:] if len(stats["step_s"]) > 1 else stats["step_s"]))
+    return dict(iterations=len(stats["step_s"]), step_ms=[1e3 * x for x in stats["step_s"]], steady_ms=steady,
+                samples_per_s=batch * 1e3 / steady, wait_ms=1e3 * float(np.median(stats["wait_s"])),
+                save_s=stats["save_s"], restore_s=stats["restore_s"])
+
+
+def csv_poses(path: str) -> tuple:
+    """(keys, R (n, 3, 3), t (n, 3) in meters, score (n,)) of a BOP19 CSV, float64 tensors."""
+    import torch
+
+    rows = [line.split(",") for line in open(path).read().splitlines() if line]
+    if not rows or any(len(r) != 7 for r in rows):
+        raise AssertionError(f"{path}: {len(rows)} rows, or rows without 7 columns")
+    R = torch.tensor(np.stack([np.array(r[4].split(), np.float64).reshape(3, 3) for r in rows]))
+    t = torch.tensor(np.stack([np.array(r[5].split(), np.float64) for r in rows])) / 1000.0
+    return [tuple(r[:3]) for r in rows], R, t, torch.tensor([float(r[3]) for r in rows], dtype=torch.float64)
+
+
+def run_train_launcher(log, dev, seed: int) -> dict:
+    """Phase 6, the train entry point: ``main_unopose.main`` trains ``configs.main_config()`` at full width (224 px,
+    2048 / 5000 points, matchers float32 and backbone bf16, the launcher's default dtypes) on the card at
+    ``misc.train_batch_size`` ``LAUNCHER_BATCH``, the ViT grafted from ``write_fake_timm``'s checkpoint. In order:
+    ``--synthetic-data`` for ``LAUNCHER_STEPS`` iterations, logged each, a checkpoint every 2 (2 kept) and an
+    evaluation every 2 on ``write_bop_tree``'s tree; the same call with ``max_iter`` ``LAUNCHER_RESUME_STEPS``,
+    which must resume at ``LAUNCHER_STEPS``; ``LAUNCHER_READER_STEPS`` iterations of the MegaPose reader
+    (``write_megapose_tree``) through ``train_loader`` with 8 workers; ``--eval-only misc.load_from=<out>/ckpt``.
+    Gates: every ViT tensor after training is its mapped source (``pos_embed`` ``interpolate_pos_embed_np``'s 16 x
+    16), so the graft took and the frozen ViT did not move; ``metrics.json`` has ``LAUNCHER_STEPS`` lines, all finite
+    with ``grad_norm`` > 0; ``ckpt/`` holds 2 and 4, then 4 and 6; both periodic CSVs have one row per detection
+    and valid poses; the resumed state (parameters, buffers, Adam state, count) is bitwise what step 4 saved; the
+    reader's iterations are finite; the eval-only poses are the ``_iter0000006`` CSV's within ``EVAL_CACHE_TOL``;
+    the path's launches. Then one step at ``configs.GLOBAL_BATCH``: its peak memory, or the out-of-memory error,
+    logged as a finding."""
+    import gc
+    import tempfile
+
+    import torch
+
+    from unopose_tpu_torch import main_unopose
+    from unopose_tpu_torch.kernels import LAUNCHES, reset_launch_counts
+    from unopose_tpu_torch.utils.checkpoint import (
+        VIT_PREFIX, Checkpointer, convert_timm_vit_to_flax, interpolate_pos_embed_np)
+    from unopose_tpu_torch.utils.convert import flax_to_torch
+
+    with tempfile.TemporaryDirectory(prefix="unopose_train_") as tmp:
+        det_path, dets, _ = write_bop_tree(os.path.join(tmp, "bop"), seed)
+        vit_ckpt = os.path.join(tmp, "vit.pth")
+        sd = write_fake_timm(vit_ckpt, seed)
+        out = os.path.join(tmp, "out")
+        base = ["--device", str(dev), "misc.exp_name='smoke'", f"misc.train_batch_size={LAUNCHER_BATCH}",
+                f"model.feature_extraction.vit_ckpt={vit_ckpt!r}", f"dataloader.test.data_dir={tmp + '/bop'!r}",
+                f"dataloader.test.detection_path={det_path!r}", "train.log_period=1", "train.checkpointer.period=2",
+                "train.checkpointer.max_to_keep=2", "train.eval_period=2"]
+        runs = {}
+
+        def launch(name, argv):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            t0 = time.perf_counter()
+            r = main_unopose.main(argv)
+            torch.cuda.synchronize()
+            runs[name] = dict(wall_s=time.perf_counter() - t0, peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30)
+            if "trainer" in r:
+                runs[name].update(launcher_figures(r["stats"], LAUNCHER_BATCH))
+            log(f"train_launcher {name}: {json.dumps(runs[name])}")
+            return r
+
+        reset_launch_counts()
+        r = launch("synthetic", ["--synthetic-data"] + base + [f"misc.output_dir={out!r}",
+                                                                f"train.max_iter={LAUNCHER_STEPS}"])
+        model = r["trainer"].model
+        pe = interpolate_pos_embed_np(sd["pos_embed"], model.encoder.rgb_net.vit.grid)
+        mapped = flax_to_torch({"params": convert_timm_vit_to_flax({**sd, "pos_embed": pe}, depth=TIMM_VIT["depth"])})
+        state = model.state_dict()
+        vit_keys = {k for k in state if k.startswith(VIT_PREFIX)}
+        grafted = vit_keys == {VIT_PREFIX + k for k in mapped} and all(
+            torch.equal(state[VIT_PREFIX + k].cpu(), v) for k, v in mapped.items())
+        pe_ok = np.array_equal(state[VIT_PREFIX + "pos_embed"].cpu().numpy(), pe)
+        lines = [json.loads(x) for x in open(os.path.join(out, "metrics.json")).read().splitlines()]
+        finite = all(np.isfinite(v) for x in lines for v in x.values()) and all(x["grad_norm"] > 0 for x in lines)
+        steps = Checkpointer(os.path.join(out, "ckpt")).steps()
+        log(f"train_launcher: {len(vit_keys)} ViT tensors, each its mapped timm source after {LAUNCHER_STEPS} "
+            f"iterations {grafted}, pos_embed the 37 -> 16 resample {pe_ok}; metrics.json {len(lines)} lines, finite "
+            f"with grad norm > 0 {finite} (losses {[round(x['loss'], 4) for x in lines]}); ckpt/ steps {steps}")
+        if not (grafted and pe_ok) or len(lines) != LAUNCHER_STEPS or not finite or steps != [2, 4]:
+            raise AssertionError("train_launcher: the graft, the frozen ViT, metrics.json or the checkpoints")
+        for step in (2, 4):
+            keys, R, t, score = csv_poses(os.path.join(out, f"result_smoke_iter{step:07d}_ycbv-test.csv"))
+            orth, det, ok = pose_check(R, t, score)
+            if len(keys) != len(dets) or not ok or orth > 1e-3 or det > 1e-3:
+                raise AssertionError(f"train_launcher: the iteration-{step} evaluation's CSV ({len(keys)} rows)")
+        del model, r, state
+
+        saved = Checkpointer(os.path.join(out, "ckpt")).load(LAUNCHER_STEPS)
+        restore, checked = Checkpointer.restore, []
+
+        def restore_and_check(self, trainer, step=None):
+            out_ = restore(self, trainer, step)
+            checked.append((step, tensors_equal(dict(model=trainer.model.state_dict(),
+                                                     optimizer=trainer.optimizer.state_dict(),
+                                                     iteration=trainer.iteration), saved)))
+            return out_
+
+        Checkpointer.restore = restore_and_check
+        try:
+            r = launch("resume", ["--synthetic-data"] + base + [f"misc.output_dir={out!r}",
+                                                                 f"train.max_iter={LAUNCHER_RESUME_STEPS}"])
+        finally:
+            Checkpointer.restore = restore
+        lines = [json.loads(x) for x in open(os.path.join(out, "metrics.json")).read().splitlines()]
+        steps = Checkpointer(os.path.join(out, "ckpt")).steps()
+        log(f"train_launcher resume: restored {checked} (step, state bitwise the saved one), started at "
+            f"{r['stats']['start_iter']}, logged {[x['iteration'] for x in lines[LAUNCHER_STEPS:]]}, ckpt/ steps "
+            f"{steps}")
+        if checked != [(LAUNCHER_STEPS, True)] or r["stats"]["start_iter"] != LAUNCHER_STEPS or steps != [
+                LAUNCHER_STEPS, LAUNCHER_RESUME_STEPS] or [x["iteration"] for x in lines] != list(
+                range(LAUNCHER_RESUME_STEPS)):
+            raise AssertionError("train_launcher: the resume")
+        del r, saved
+
+        data_dir = write_megapose_tree(os.path.join(tmp, "megapose"), seed)
+        r = launch("reader", base + [f"misc.output_dir={tmp + '/out_reader'!r}",
+                                     f"dataloader.train.data_dir={data_dir!r}",
+                                     f"train.max_iter={LAUNCHER_READER_STEPS}", "train.eval_period=0",
+                                     "dataloader.train.num_workers=8"])
+        lines = [json.loads(x) for x in open(os.path.join(tmp, "out_reader", "metrics.json")).read().splitlines()]
+        if len(lines) != LAUNCHER_READER_STEPS or not all(np.isfinite(v) for x in lines for v in x.values()):
+            raise AssertionError(f"train_launcher: the reader run's metrics {lines}")
+        del r
+
+        r = launch("eval_only", ["--eval-only"] + base + [f"misc.output_dir={tmp + '/out_eval'!r}",
+                                                           f"misc.load_from={out + '/ckpt'!r}"])
+        keys, R, t, score = csv_poses(r["csv"])
+        keys6, R6, t6, score6 = csv_poses(
+            os.path.join(out, f"result_smoke_iter{LAUNCHER_RESUME_STEPS:07d}_ycbv-test.csv"))
+        d = dict(rot=float((torch.linalg.matrix_norm(R - R6) / np.sqrt(2.0)).max()), t=float((t - t6).abs().max()),
+                 score=float((score - score6).abs().max()))
+        log(f"train_launcher eval_only from ckpt/{LAUNCHER_RESUME_STEPS}: poses against the iteration-"
+            f"{LAUNCHER_RESUME_STEPS} evaluation's {d} (gates {EVAL_CACHE_TOL}), rows in the same order "
+            f"{keys == keys6}")
+        if keys != keys6 or any(d[k] > v for k, v in EVAL_CACHE_TOL.items()):
+            raise AssertionError(f"train_launcher: --eval-only from the checkpoint differs: {d}")
+        torch.cuda.synchronize()
+        launches = dict(LAUNCHES)
+        check_launches("train_launcher", launches)
+        log(f"train_launcher: launches {launches}")
+        del r
+    gc.collect()  # the launcher's models, before the largest step of the script
+    torch.cuda.empty_cache()
+    runs["global_batch"] = global_batch_step(log, dev, seed)
+    return dict(launches=launches, runs=runs)
+
+
+def global_batch_step(log, dev, seed: int) -> dict:
+    """One training step of ``main_config()`` (the launcher's dtypes) at the JAX launcher's global batch,
+    ``configs.GLOBAL_BATCH``, on the one card: its ms and peak memory, or the out-of-memory error, as a finding."""
+    import torch
+
+    from unopose_tpu_torch import configs
+    from unopose_tpu_torch.engine.train import Trainer
+    from unopose_tpu_torch.models import UNOPose
+
+    cfg = configs.main_config()
+    B = configs.GLOBAL_BATCH
+    torch.manual_seed(seed)
+    model = UNOPose.from_config(cfg.model, torch.float32, torch.bfloat16).to(dev)
+    trainer = Trainer(model, cfg)
+    tr = cfg.dataloader.train
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in configs.synthetic_train_inputs(
+        np.random.default_rng(seed), B, img=tr.img_size, npts=tr.n_sample_observed_point,
+        ntem=tr.n_sample_template_point).items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    try:
+        metrics = trainer.step(batch, generator=torch.Generator(device=dev).manual_seed(seed))
+        loss = float(metrics["loss"])
+        r = dict(batch=B, fits=True, ms=(time.perf_counter() - t0) * 1e3, loss=loss,
+                 peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30)
+    except torch.cuda.OutOfMemoryError as e:
+        r = dict(batch=B, fits=False, error=str(e).splitlines()[0],
+                 peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30)
+    log(f"train_launcher: one step at the global batch {B} on one card (first step, warm-up included): {json.dumps(r)}")
+    del model, trainer, batch
+    torch.cuda.empty_cache()
+    return r
+
+
 def run_bench(log) -> dict:
     """Phase 6, the bench: ``unopose_tpu_torch.bench.run()`` as ``python -m unopose_tpu_torch.bench`` runs it
     (the production config, B 16, full depth), its JSON line logged, the last timed batch's poses gated."""
@@ -2749,6 +3056,7 @@ def main() -> int:
     parser.add_argument("--train-only", action="store_true", help="only the train and train_frozen paths")
     parser.add_argument("--eval-only", action="store_true",
                         help="only the eval path, timed over EVAL_MEASURED_RUNS runs of EVAL_MEASURED_IMAGES images")
+    parser.add_argument("--launcher-only", action="store_true", help="only the train_launcher path")
     args = parser.parse_args()
 
     import torch
@@ -2783,6 +3091,10 @@ def main() -> int:
                 "train_frozen": run_train(log, dev, args.seed, args.train_steps, frozen=True)}
         print(json.dumps({name: dict(steady_ms=r["steady_ms"], kernel_ms=r["profiled"]["kernel_ms"],
                                      pe_train_ms=r["pe_train_ms"]) for name, r in runs.items()}))
+        return 0
+    if args.launcher_only:
+        r = run_train_launcher(log, dev, args.seed)
+        print(json.dumps({"train_launcher": r["runs"]}))
         return 0
     if args.eval_only:
         figures = []
@@ -2825,6 +3137,7 @@ def main() -> int:
         **{name: run_script(log, name) for name in SCRIPTS},
         "train": run_train(log, dev, args.seed, args.train_steps),
         "train_frozen": run_train(log, dev, args.seed, args.train_steps, frozen=True),
+        "train_launcher": run_train_launcher(log, dev, args.seed),
     }
 
     kernels = []

@@ -133,17 +133,21 @@ def test_launcher_eval_only_end_to_end(bop_tree, tmp_path, capsys):
 
 
 def test_launcher_refusals(bop_tree, tmp_path):
-    """Training is not ported to the launcher, nor reading a checkpoint; the
-    card is the default device and its absence raises."""
+    """Training on several cards is not ported; an explicit ``misc.load_from``
+    that holds no checkpoint raises; the card is the default device and its
+    absence raises, for training and for ``--eval-only``."""
     import torch
 
     root, det_path = bop_tree
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        main_unopose.main(["--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        main_unopose.main(_argv(root, det_path, str(tmp_path / "o"), "misc.load_from='ckpt'") + _tiny())
+    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+        main_unopose.main(["--num-devices", "2", "--device", "cpu"])
+    os.makedirs(tmp_path / "ckpt")
+    with pytest.raises(FileNotFoundError, match="holds no restorable checkpoint"):
+        main_unopose.main(_argv(root, det_path, str(tmp_path / "o"), f"misc.load_from={str(tmp_path / 'ckpt')!r}")
+                          + _tiny())
     args = main_unopose.parse_args(["--eval-only"])
     assert args.device == "cuda" and args.config == main_unopose.DEFAULT_CONFIG
     if not torch.cuda.is_available():
-        with pytest.raises(RuntimeError, match="no CUDA device"):
-            main_unopose.main(["--eval-only"])
+        for argv in (["--eval-only"], ["--synthetic-data"]):
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                main_unopose.main(argv)

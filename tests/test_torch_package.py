@@ -45,8 +45,9 @@ def test_port_runs_with_jax_unavailable():
     and a train step; the bench and the profiling scripts imported, one
     kernel twin run; the launcher, the engine, the test reader and the
     evaluator imported and the tiny ``--eval-only`` run on a synthetic BOP
-    tree) with ``jax``, ``flax`` and the JAX package blocked in
-    ``sys.modules``."""
+    tree; the training reader, its colour augmentation, the loaders, the
+    checkpointer, the writers and the drawing helpers imported) with
+    ``jax``, ``flax`` and the JAX package blocked in ``sys.modules``."""
     code = """
 import sys
 for name in ("jax", "flax", "unopose_tpu"):
@@ -89,6 +90,8 @@ with tempfile.TemporaryDirectory() as tmp:
     root, det_path = write_tree(pathlib.Path(tmp))
     out = main_unopose.main(_argv(root, det_path, tmp + "/out") + _tiny())
     assert out["rows"] == 6 and out["stats"]["cache_hits"] == 5 and np.isfinite(out["scores"]["AR"]), out
+import unopose_tpu_torch.data.color_aug, unopose_tpu_torch.data.dataset_train, unopose_tpu_torch.data.loader
+import unopose_tpu_torch.utils.checkpoint, unopose_tpu_torch.utils.vis, unopose_tpu_torch.utils.writer
 loaded = {m.split(".")[0] for m in sys.modules if sys.modules[m] is not None}
 assert not loaded & {"jax", "flax", "jaxlib", "unopose_tpu"}, loaded
 print("ok")

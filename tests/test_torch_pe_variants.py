@@ -14,10 +14,10 @@ spread under a one-ulp input change, as ``test_torch_fused.py`` gates
 PE-v5: the median row error 1e-3, the 95th percentile 2e-2, and no more
 rows off by 0.05 than max(3, twice JAX's own count).
 
-``FinePositionalEncoding`` takes the branch JAX's module takes for every
-(N, nsample2, switch) of the routing table (JAX's branch is the fused PE
-function it calls, spied on while its module is traced), and matches the
-JAX module on converted weights under each switch.
+The routing of ``FinePositionalEncoding`` against JAX's module is in
+``test_torch_pe_routes.py``, the module against JAX's under each switch in
+``test_torch_pe_modules.py``: their own files, so that ``--dist loadfile``
+spreads the three over workers. Both take this file's clouds and switches.
 """
 
 import functools
@@ -26,16 +26,12 @@ import importlib
 import numpy as np
 import pytest
 
-import jax
 import jax.numpy as jnp
 import torch
 
 from test_torch_fused import R1, R2, _folded_mlps, as_np, mixed_tier_cloud
-from test_torch_models import perturb, t
-from unopose_tpu.models.matching import FinePositionalEncoding as JaxPE
-from unopose_tpu_torch.models.matching import FinePositionalEncoding
+from test_torch_models import t
 from unopose_tpu_torch.ops import pe_fused as tpf
-from unopose_tpu_torch.utils.convert import load_flax_variables
 
 jbq = importlib.import_module("unopose_tpu.ops.ball_query")
 jpf = importlib.import_module("unopose_tpu.ops.pe_fused")
@@ -244,129 +240,3 @@ def test_packed_pe_twins_refuse_larger_budgets():
         for call in calls:
             with pytest.raises(ValueError):
                 call()
-
-
-# ------------------------------------------------------------------ the routing
-def jax_branch(pts: np.ndarray, k2: int) -> str:
-    """The branch JAX's fused module takes on ``pts``: the fused PE function
-    it calls while its init is traced (``jax.eval_shape``: nothing runs),
-    each replaced by a stub returning zeros; "unpacked_plain" when none."""
-    calls = []
-
-    def stub(name, shape_of):
-        def fn(*args, **kwargs):
-            calls.append(name)
-            B, P = shape_of(args)
-            return jnp.zeros((B, P, 256), jnp.float32)
-        return fn
-
-    stubs = {
-        "pe_fused_v5": stub("v5", lambda a: a[1].shape[:2]),
-        "pe_fused_gather_t": stub("gather_t", lambda a: a[1].shape[:2]),
-        "pe_fused_packed": stub("packed", lambda a: a[0][0].shape[:2]),
-        "pe_fused_packed_t": stub("packed_t", lambda a: a[3].shape),
-        "pe_mlp_pool_packed": stub("v3", lambda a: a[1].shape),
-        "pe_fused": stub("unpacked", lambda a: a[4][0].shape),
-    }
-    mp = pytest.MonkeyPatch()
-    for name, fn in stubs.items():
-        mp.setattr(jpf, name, fn)
-    try:
-        jpe = JaxPE(neighbor_mode="first_k", fused=True, out_dim=32, r1=R1, r2=R2, nsample1=64, nsample2=k2)
-        jax.eval_shape(lambda x: jpe.init(jax.random.PRNGKey(0), x, train=False), jnp.asarray(pts))
-    finally:
-        mp.undo()
-    assert len(calls) <= 1, calls
-    return calls[0] if calls else "unpacked_plain"
-
-
-ROUTES = [(n, k2, sw) for n in (512, 576, 272) for k2 in (256, 512) if k2 <= n for sw in SWITCHES]
-ROUTES += [(768, 768, sw) for sw in SWITCHES]  # nsample2 768: JAX's gates admit any multiple of 256 up to N
-
-
-@pytest.mark.parametrize("n, k2, switch", ROUTES)
-def test_fine_pe_routing_follows_jax(n, k2, switch, monkeypatch):
-    """``FinePositionalEncoding(fused=True)`` takes JAX's branch for every
-    cloud size (N % 128 == 0, N % 128 == 64, N % 64 != 0), scale-2 budget
-    (256, 512, and 768 at N 768) and switch, and its features are finite."""
-    for name in ALL_SWITCHES:
-        monkeypatch.delenv(name, raising=False)
-    for name, value in SWITCHES[switch].items():
-        monkeypatch.setenv(name, value)
-    pts = cloud(n)
-    want = jax_branch(pts, k2)
-    torch.manual_seed(0)
-    tpe = FinePositionalEncoding(32, R1, R2, 64, k2, fused=True)
-    with torch.no_grad():
-        out = tpe(t(pts))
-    assert tpe.last_branch == want, (tpe.last_branch, want)
-    assert out.shape == (1, n, 32) and torch.isfinite(out).all()
-
-
-# ------------------------------------------------------------------ the module
-@functools.lru_cache(maxsize=None)
-def jax_module(n: int, switch: str):
-    """The JAX fused module under ``switch`` on ``cloud(n)``: its perturbed
-    variables, its output and its output on the cloud one ulp up."""
-    pts = cloud(n)
-    mp = pytest.MonkeyPatch()
-    for name in ALL_SWITCHES:
-        mp.delenv(name, raising=False)
-    for name, value in SWITCHES[switch].items():
-        mp.setenv(name, value)
-    try:
-        jpe = JaxPE(neighbor_mode="first_k", fused=True, out_dim=32, r1=R1, r2=R2, nsample1=64, nsample2=256)
-        variables = perturb(jpe.init(jax.random.PRNGKey(0), jnp.asarray(pts), train=False))
-        apply = jax.jit(jpe.apply)
-        want = np.asarray(apply(variables, jnp.asarray(pts)))
-        nudged = np.asarray(apply(variables, jnp.asarray(np.nextafter(pts, np.float32(np.inf)))))
-    finally:
-        mp.undo()
-    return variables, want, nudged
-
-
-@pytest.mark.parametrize("n, switch, branch", [(576, "none", "packed"), (512, "v5_off", "packed"), (512, "v3", "v3"),
-                                               (512, "v4", "gather_t"), (512, "slot_major", "packed_t")])
-def test_fine_positional_encoding_variants_match_jax(n, switch, branch, monkeypatch):
-    """``FinePositionalEncoding(fused=True)`` on weights converted from the
-    JAX module, against it under each switch, and at N 576 with none (row
-    10, which PE-v5 cannot take): the module gates of
-    ``test_fine_positional_encoding_fused_matches_jax``, median row error
-    1e-3 and no more rows off by 0.05 than max(3, twice JAX's own count)."""
-    for name in ALL_SWITCHES:
-        monkeypatch.delenv(name, raising=False)
-    for name, value in SWITCHES[switch].items():
-        monkeypatch.setenv(name, value)
-    variables, want, nudged = jax_module(n, switch)
-    tpe = FinePositionalEncoding(32, R1, R2, 64, 256, fused=True)
-    load_flax_variables(tpe, variables)
-    with torch.no_grad():
-        got = tpe(t(cloud(n))).numpy()
-    assert tpe.last_branch == branch
-    err = np.abs(got - want).max(-1)
-    ulp = np.abs(nudged - want).max(-1)
-    assert np.median(err) <= 1e-3, np.median(err)
-    assert (err > 0.05).sum() <= max(3, 2 * (ulp > 0.05).sum()), ((err > 0.05).sum(), (ulp > 0.05).sum())
-
-
-def test_fine_positional_encoding_n272_matches_jax_xla_path(monkeypatch):
-    """At N 272 (N % 64 and N % 32 nonzero) both fused modules run the
-    unpacked grouping through the plain float32 MLP: the unfused PE's gates
-    of ``test_torch_subset.py``, the median row error within 1e-4 and no
-    more rows off by 1e-3 than max(3, twice JAX's own count)."""
-    for name in ALL_SWITCHES:
-        monkeypatch.delenv(name, raising=False)
-    pts = cloud(272)
-    jpe = JaxPE(neighbor_mode="first_k", fused=True, out_dim=32, r1=R1, r2=R2, nsample1=64, nsample2=256)
-    variables = perturb(jpe.init(jax.random.PRNGKey(0), jnp.asarray(pts), train=False))
-    apply = jax.jit(jpe.apply)
-    want = np.asarray(apply(variables, jnp.asarray(pts)))
-    ulp = np.abs(np.asarray(apply(variables, jnp.asarray(np.nextafter(pts, np.float32(np.inf))))) - want).max(-1)
-    tpe = FinePositionalEncoding(32, R1, R2, 64, 256, fused=True)
-    load_flax_variables(tpe, variables)
-    with torch.no_grad():
-        got = tpe(t(pts)).numpy()
-    assert tpe.last_branch == "unpacked_plain"
-    err = np.abs(got - want).max(-1)
-    assert np.median(err) < 1e-4, np.median(err)
-    assert (err > 1e-3).sum() <= max(3, 2 * (ulp > 1e-3).sum()), ((err > 1e-3).sum(), (ulp > 1e-3).sum())

@@ -27,12 +27,18 @@ with one key of the fine PE switched: ``pe_neighbor_mode="subset"``, or
 section, and ``get_cfg()``'s misc, test, test data loader and BOP
 evaluation sections.
 
+``main_config()`` is the launcher's whole configuration
+(``main_unopose.py``, training and ``--eval-only``), the counterpart of
+``get_cfg()``: ``train_config()``'s model with the pretrained backbone,
+its optimizer and schedule, and the misc, train, train and test data
+loader, test and BOP evaluation sections.
+
 The values are written out here so that the port never imports the JAX
 package; ``tests/test_torch_package.py``, ``tests/test_torch_fused.py``,
-``tests/test_torch_production.py`` and ``tests/test_torch_eval_model.py``
-hold them equal to ``get_cfg()`` (and ``get_tiny_cfg``) with the switches
-applied. Only the keys the port reads are kept: the training data and
-checkpoint settings stay in the JAX package.
+``tests/test_torch_production.py``, ``tests/test_torch_eval_modes.py`` and
+``tests/test_torch_train_data.py`` hold them equal to ``get_cfg()`` (and
+``get_tiny_cfg``) with the switches applied. Only the keys the port reads
+are kept, and the train data loader's whole section.
 """
 
 from __future__ import annotations
@@ -257,6 +263,46 @@ def eval_config(tiny: bool = False) -> Config:
     )
 
 
+# configs/main_cfg.py's data and schedule: the training set's images, the launcher's global batch (8 a rank on 4
+# ranks), one resample of the epoch list; the pretrained backbone's file
+DATASET_LEN = 2008971
+WORLD_SIZE = 4
+GLOBAL_BATCH = TRAIN_BATCH * WORLD_SIZE
+VIT_CKPT = osp.join(PROJ_ROOT, "checkpoints/timm_vit_base_patch14_reg4_dinov2_lvd142m.pth")
+
+
+def main_config(tiny: bool = False) -> Config:
+    """The launcher's configuration (``main_unopose.py``, counterpart of
+    ``get_cfg()``): ``train_config(tiny)``'s model, optimizer and schedule
+    with the pretrained DINOv2 backbone (``feature_extraction.pretrained``,
+    ``vit_ckpt``); ``misc`` with the global batch of 32 and the world size
+    4; ``train`` with the period of the checkpoints (5000, keep 2) and of the
+    evaluation (once, at the end), the seed, the log period, the crop images
+    off and the two dtypes; ``dataloader.train`` with every key of
+    ``get_cfg()``'s; ``test``, ``dataloader.test`` and ``bop_eval`` as in
+    ``eval_config(tiny)``. With ``tiny``: the tiny model and loader sizes and
+    no pretrained backbone, as ``get_tiny_cfg`` sets them."""
+    cfg = train_config(tiny)
+    del cfg["batch_size"]
+    cfg.model.feature_extraction.update(pretrained=not tiny, vit_ckpt=VIT_CKPT)
+    cfg.misc = Config(eval_config(tiny).misc, train_batch_size=GLOBAL_BATCH, world_size=WORLD_SIZE)
+    cfg.train.update(eval_period=MAX_ITER, checkpointer=Config(period=5000, max_to_keep=2), log_period=50,
+                     vis_img_tbx=False, backbone_dtype="bfloat16", matcher_dtype="float32")
+    ev = eval_config(tiny)
+    sizes = TINY_SIZES if tiny else FULL_SIZES
+    cfg.update(test=ev.test, bop_eval=ev.bop_eval, dataloader=Config(
+        train=dict(
+            data_dir=osp.join(PROJ_ROOT, "datasets/MegaPose-Training-Data"), img_size=sizes["img"],
+            n_sample_observed_point=sizes["npts"], n_sample_model_point=2048, n_sample_template_point=sizes["ntem"],
+            min_visib_fract=0.1, min_px_count_visib=512, shift_range=0.01, rgb_mask_flag=True, dilate_mask=True,
+            rgb_to_bgr=False, num_img_per_epoch=MAX_ITER * GLOBAL_BATCH, total_batch_size=GLOBAL_BATCH,
+            num_workers=8,
+        ),
+        test=ev.dataloader.test,
+    ))
+    return cfg
+
+
 # the configurations by the name chip_smoke.py and tools/profile_slice.py give them
 CONFIGS = {"slice": slice_config, "fused_matchers": fused_matcher_config, "production": production_config,
            "subset": subset_config, "firstk_unpacked": firstk_unpacked_config}
@@ -317,15 +363,20 @@ def synthetic_inputs(rng: np.random.Generator, batch: int, tiny: bool = False, n
     )
 
 
-def synthetic_train_inputs(rng: np.random.Generator, batch: int, tiny: bool = False) -> dict:
-    """A training batch built like the JAX package's ``synthetic_train_iter``
+def synthetic_train_inputs(rng: np.random.Generator, batch: int, tiny: bool = False, img: int | None = None,
+                           npts: int | None = None, ntem: int | None = None) -> dict:
+    """A training batch of the JAX package's ``synthetic_train_iter``
     (``data/loader.py``), draw for draw: random crops in [-1, 1], a template
     cloud uniform in a 0.16 m cube 0.6 m away, and the observed cloud the
     template's points under a random rotation and a translation near
     (0, 0, 0.55) m, plus 2 mm of noise; ``rotation_label`` (B, 3, 3) and
-    ``translation_label`` (B, 3) are that pose. numpy arrays."""
+    ``translation_label`` (B, 3) are that pose, ``K`` (B, 3, 3) a fixed
+    camera. The sizes are the tiny or full ones unless ``img``, ``npts`` or
+    ``ntem`` is given. numpy arrays."""
     sizes = TINY_SIZES if tiny else FULL_SIZES
-    img, npts, ntem = sizes["img"], sizes["npts"], sizes["ntem"]
+    img = sizes["img"] if img is None else img
+    npts = sizes["npts"] if npts is None else npts
+    ntem = sizes["ntem"] if ntem is None else ntem
     B = batch
     rgb = rng.uniform(-1, 1, size=(B, img, img, 3)).astype(np.float32)
     tem_rgb = rng.uniform(-1, 1, size=(B, img, img, 3)).astype(np.float32)
@@ -346,6 +397,7 @@ def synthetic_train_inputs(rng: np.random.Generator, batch: int, tiny: bool = Fa
         tem1_pts=tem_pts,
         rotation_label=R.astype(np.float32),
         translation_label=t,
+        K=np.tile(np.asarray([[572.4, 0, 320], [0, 573.6, 240], [0, 0, 1]], np.float32), (B, 1, 1)),
     )
 
 

@@ -1,20 +1,25 @@
-"""Host-side (numpy) preprocessing of the BOP test reader (counterpart of
-``unopose_tpu/data/preprocess.py``): image and json IO, uncompressed-RLE
-masks, the square bbox of a mask, depth backprojection, the crop-resize
-index remap, the bilinear crop resize and ImageNet normalisation.
-Everything returns channels-last arrays, as the model takes (H, W, C).
+"""Host-side (numpy) preprocessing of the BOP test reader and the MegaPose
+training reader (counterpart of ``unopose_tpu/data/preprocess.py``): image
+and json IO, uncompressed-RLE masks and the per-instance gt and mask files,
+the square bbox of a mask, the cross dilation of a mask, depth
+backprojection, the crop-resize index remap, the bilinear crop resize and
+ImageNet normalisation. Everything returns channels-last arrays, as the
+model takes (H, W, C).
 
 ``imageio`` reads the images where it is importable, as the JAX package
 reads them; where it is not (the card's machine has ``cv2`` but no
-``imageio``), ``load_im`` reads PNG files with ``data/png.py``. The crop
-resize is ``cv2.resize(..., INTER_LINEAR)``, the JAX package's on every
-machine that has ``cv2``.
+``imageio``), ``load_im`` reads PNG files with ``data/png.py`` and every
+other image (the training shards' ``.rgb.jpg``) with ``cv2.imread``, its
+colour planes turned from BGR to RGB. The crop resize is
+``cv2.resize(..., INTER_LINEAR)`` and the dilation ``cv2.dilate``, the JAX
+package's on every machine that has ``cv2``.
 """
 
 from __future__ import annotations
 
 import json as _json
 from pathlib import Path
+from typing import Optional, Sequence
 
 import numpy as np
 
@@ -40,7 +45,10 @@ def load_im(path) -> np.ndarray:
         from unopose_tpu_torch.data.png import read_png
 
         return read_png(path)
-    raise RuntimeError(f"reading {path} needs imageio; without it only PNG files are read")
+    im = cv2.imread(str(path), cv2.IMREAD_UNCHANGED)
+    if im is None:
+        raise FileNotFoundError(f"cv2 cannot read {path}")
+    return im[..., ::-1].copy() if im.ndim == 3 and im.shape[2] == 3 else im
 
 
 def rle_to_binary_mask(rle: dict) -> np.ndarray:
@@ -61,6 +69,23 @@ def binary_mask_to_rle(mask: np.ndarray) -> dict:
     if flat.size and flat[0]:
         counts = [0] + counts
     return {"size": list(mask.shape), "counts": counts}
+
+
+def io_load_gt(gt_file, instance_ids: Optional[Sequence[int]] = None):
+    """The per-instance gt list of a training image, or the entries at ``instance_ids``."""
+    gt = load_json(gt_file)
+    if instance_ids is not None:
+        gt = [g for n, g in enumerate(gt) if n in instance_ids]
+    return gt
+
+
+def io_load_masks(mask_file, instance_ids: Optional[Sequence[int]] = None) -> np.ndarray:
+    """(n, H, W) bool masks of a training image's ``{instance: rle}`` json, every
+    instance in order or those at ``instance_ids``."""
+    rles = {int(k): v for k, v in load_json(mask_file).items()}
+    if instance_ids is None:
+        instance_ids = sorted(rles.keys())
+    return np.stack([rle_to_binary_mask(rles[i]) for i in instance_ids])
 
 
 def backproject_np(depth: np.ndarray, K: np.ndarray, bbox=None) -> np.ndarray:
@@ -118,6 +143,12 @@ def get_resize_rgb_choose(choose: np.ndarray, bbox, img_size: int) -> np.ndarray
 def normalize_rgb(rgb_uint8: np.ndarray) -> np.ndarray:
     """uint8 (H, W, 3) -> ImageNet-normalised float32 (H, W, 3), channels last."""
     return ((rgb_uint8.astype(np.float32) / 255.0) - IMAGENET_MEAN) / IMAGENET_STD
+
+
+def dilate_mask(mask: np.ndarray, iterations: int = 4) -> np.ndarray:
+    """uint8 mask dilated ``iterations`` times by the 3 x 3 cross."""
+    m = (mask > 0).astype(np.uint8)
+    return cv2.dilate(m, cv2.getStructuringElement(cv2.MORPH_CROSS, (3, 3)), iterations=iterations)
 
 
 def resize_linear(img: np.ndarray, size: int) -> np.ndarray:

@@ -1,5 +1,6 @@
-"""The training step (counterpart of ``unopose_tpu/engine/train.py``:
-``build_optimizer``, ``make_train_step``, ``train_loop``).
+"""Training (counterpart of ``unopose_tpu/engine/train.py``:
+``build_optimizer``, ``create_train_state``, ``make_train_step``,
+``train_loop``).
 
 - Adam (betas 0.5 / 0.999, eps 1e-6 added after the square root and the
   bias correction, as optax's) on the flat-and-anneal schedule: the
@@ -14,16 +15,22 @@
   ``UNOPOSE_PE_TRAIN_FROZEN=1`` the fine PE normalises with them instead
   and leaves them unchanged (its gammas and betas still train).
 
+``create_trainer`` grafts the pretrained ViT before freezing it;
+``train_loop`` runs the iterations with resume, the metric writers, the
+checkpoints and the periodic evaluation.
+
 Not ported: training the ViT, gradient clipping (off in the
-configuration), the model EMA, the checkpointer, the metrics writer and the
-data-parallel mesh.
+configuration), the model EMA and the data-parallel mesh.
 """
 
 from __future__ import annotations
 
+import logging
 import math
+import time
 from typing import Callable, Dict, Iterator, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from unopose_tpu_torch.configs import Config
@@ -33,6 +40,7 @@ from unopose_tpu_torch.models.unopose import UNOPose, compute_train_losses
 from unopose_tpu_torch.ops.rotation import PoseNoiseDraws
 
 FROZEN = "vit"  # the frozen backbone: every parameter path containing it
+logger = logging.getLogger(__name__)
 
 
 def trainable_parameters(model: torch.nn.Module, cfg: Config) -> List[Tuple[str, torch.nn.Parameter]]:
@@ -94,15 +102,102 @@ class Trainer:
         return metrics
 
 
-def train_loop(trainer: Trainer, data_iter: Iterator[Dict[str, torch.Tensor]], steps: int,
-               generator: Optional[torch.Generator] = None) -> List[Dict[str, float]]:
-    """``steps`` steps; halts with ``FloatingPointError`` on a non-finite loss
-    (the gradients are sanitised every step, but a non-finite loss means the
-    model state is already broken). Returns each step's metrics as floats."""
-    history = []
-    for _ in range(steps):
-        metrics = {k: float(v) for k, v in trainer.step(next(data_iter), generator=generator).items()}
-        if not math.isfinite(metrics["loss"]):
-            raise FloatingPointError(f"non-finite loss at iteration {trainer.iteration - 1}: {metrics}")
-        history.append(metrics)
-    return history
+def create_trainer(model: UNOPose, cfg: Config) -> Trainer:
+    """The train state: the pretrained DINOv2 weights grafted into the ViT
+    where the config asks for them (``utils/checkpoint.py:maybe_load_pretrained_vit``),
+    then the ViT frozen and the optimizer built."""
+    from unopose_tpu_torch.utils.checkpoint import maybe_load_pretrained_vit
+
+    maybe_load_pretrained_vit(model, cfg.model.feature_extraction)
+    return Trainer(model, cfg)
+
+
+def to_device(batch: Dict[str, np.ndarray], device: torch.device) -> Dict[str, torch.Tensor]:
+    """A host batch as tensors on ``device``. To the card each array goes
+    through a fresh pinned copy and an asynchronous copy: the pinned block
+    is not handed out again before the copy that reads it has ended."""
+    if device.type != "cuda":
+        return {k: torch.as_tensor(v) for k, v in batch.items()}
+    return {k: torch.as_tensor(v).pin_memory().to(device, non_blocking=True) for k, v in batch.items()}
+
+
+def train_loop(model: UNOPose, cfg: Config, data_iter: Iterator[Dict[str, np.ndarray]],
+               trainer: Optional[Trainer] = None, start_iter: int = 0, max_iter: Optional[int] = None, writer=None,
+               checkpointer=None, seed: int = 1, eval_fn: Optional[Callable] = None,
+               stats: Optional[dict] = None) -> Trainer:
+    """Iterations ``start_iter`` .. ``max_iter`` (``train.max_iter``) of
+    ``trainer`` (``create_trainer(model, cfg)`` by default) on the host
+    batches of ``data_iter``, moved to the model's device. Returns the trainer.
+
+    - resume: where ``checkpointer.latest_step()`` is past ``start_iter``, that
+      step is restored and the loop starts there;
+    - the pose noise is drawn from one generator seeded ``train.seed``
+      (``seed`` without it); the stream starts again from the seed on resume,
+      as the JAX package's key does;
+    - at ``it % train.log_period == 0`` and at the last iteration, and only
+      there, the metrics come back to the host: a non-finite loss raises
+      ``FloatingPointError``; else ``writer.write(it, metrics)`` with
+      ``iter_time``, the seconds an iteration since the last logged one, and
+      with ``train.vis_img_tbx`` the first input crop as an image;
+    - ``checkpointer.save(it + 1, trainer)`` at ``(it + 1) %
+      train.checkpointer.period == 0`` and at the last iteration;
+    - ``eval_fn(trainer, it + 1)`` at ``(it + 1) % train.eval_period == 0``.
+
+    ``stats`` (a dict), where given, gets each iteration's host seconds up to
+    its checkpoint (``step_s``: the batch's wait and copy, the step's
+    launches and, at logged iterations, its end on the device), the seconds
+    waiting on ``data_iter`` (``wait_s``), the checkpoints' save seconds
+    (``save_s``), the restore's (``restore_s``) and the first iteration
+    (``start_iter``)."""
+    device = next(model.parameters()).device
+    max_iter = max_iter or cfg.train.max_iter
+    if trainer is None:
+        trainer = create_trainer(model, cfg)
+    stats = {} if stats is None else stats
+    stats.update(step_s=[], wait_s=[], save_s=[], restore_s=None)
+    if checkpointer is not None:
+        latest = checkpointer.latest_step()
+        if latest is not None and latest > start_iter:
+            t0 = time.perf_counter()
+            checkpointer.restore(trainer, latest)
+            stats["restore_s"] = time.perf_counter() - t0
+            start_iter = latest
+            logger.info("resumed from checkpoint step %d of %s", latest, checkpointer.directory)
+    stats["start_iter"] = start_iter
+    train = cfg.train
+    generator = torch.Generator(device=device).manual_seed(train.get("seed", seed))
+    log_period = train.get("log_period", 50)
+    ckpt_period = train.get("checkpointer", {}).get("period", 5000)
+    eval_period = train.get("eval_period", 0)
+
+    t_last = time.perf_counter()
+    last_logged = start_iter - 1
+    for it in range(start_iter, max_iter):
+        t0 = time.perf_counter()
+        host = next(data_iter)
+        stats["wait_s"].append(time.perf_counter() - t0)
+        batch = to_device(host, device)
+        metrics = trainer.step(batch, generator=generator)
+        if writer is not None and (it % log_period == 0 or it == max_iter - 1):
+            m = {k: float(v) for k, v in metrics.items()}
+            # the gradients are sanitised every step, but a non-finite loss means the state is already broken
+            if not math.isfinite(m.get("loss", 0.0)):
+                raise FloatingPointError(f"non-finite loss at iteration {it}: {m}")
+            m["iter_time"] = (time.perf_counter() - t_last) / (it - last_logged)
+            writer.write(it, m)
+            if train.get("vis_img_tbx", False) and hasattr(writer, "write_image"):
+                from unopose_tpu_torch.data.preprocess import IMAGENET_MEAN, IMAGENET_STD
+
+                img = np.asarray(host["rgb"][0], np.float32)
+                writer.write_image(it, "input_image",
+                                   np.clip((img * IMAGENET_STD + IMAGENET_MEAN) * 255.0, 0, 255).astype(np.uint8))
+            t_last = time.perf_counter()
+            last_logged = it
+        stats["step_s"].append(time.perf_counter() - t0)
+        if checkpointer is not None and ((it + 1) % ckpt_period == 0 or it == max_iter - 1):
+            t1 = time.perf_counter()
+            checkpointer.save(it + 1, trainer)
+            stats["save_s"].append(time.perf_counter() - t1)
+        if eval_fn is not None and eval_period and (it + 1) % eval_period == 0:
+            eval_fn(trainer, it + 1)
+    return trainer
