@@ -2,7 +2,7 @@
 """Smoke test of the PyTorch port (``unopose_tpu_torch``) on one CUDA card.
 
     python3 chip_smoke.py [--seed N] [--batches 3] [--train-steps 3] [--train-only]
-                          [--eval-only] [--launcher-only]
+                          [--eval-only] [--launcher-only] [--ddp-only] [--ddp-ranks 2]
 
 ``--train-only`` builds the kernels and runs only the two train paths of
 phase 6 (``train`` and ``train_frozen``, ``--train-steps`` steps each),
@@ -15,7 +15,9 @@ gates, ``EVAL_MEASURED_RUNS`` times in one process on a tree of
 run's images/s and chunk ms, whole and over its steady window
 (``eval_steady``). ``--launcher-only`` builds them and runs only phase 6's
 ``train_launcher`` path with its gates, printing its runs' figures as its
-last line.
+last line. ``--ddp-only`` builds them and runs only phase 6's ``ddp`` path
+with its gates, printing its figures as its last line; ``--ddp-ranks N``
+runs that path on N ranks (2 by default; NCCL a card with N cards).
 
 Phases, each fatal on failure:
 
@@ -157,7 +159,18 @@ Phases, each fatal on failure:
    checkpoint, reads a synthetic MegaPose tree through the threaded loader,
    and evaluates ``--eval-only`` from the checkpoint, as
    ``run_train_launcher`` says; then one step at the JAX launcher's global
-   batch of 32 as a finding). The launch counts are
+   batch of 32 as a finding); the data-parallel entry point (``ddp``:
+   K11's split entry points on the card bitwise the one-call one at one
+   rank's count, and the spare row's count read by K13 and K14;
+   ``main_unopose.main`` on 2 ranks, NCCL a card each with two cards or
+   more, else 2 gloo ranks sharing card 0, ``main_config()`` at 8 a rank
+   for 3 synthetic iterations with a checkpoint at the last, against one
+   process on the global batch of 16 within 3 times that run's own one-ulp
+   spread and, for the first step's averaged gradients, within a quarter
+   of each tensor's largest, which two deliberate faults must fail; the
+   ranks bitwise equal to each other; ``--eval-only``
+   from the checkpoint on 2 ranks against one process's shards; one NCCL
+   rank at world size 1; as ``run_ddp`` says). The launch counts are
    zeroed just before each path and read just after, every kernel of the
    path must have launched, and no path may launch the PE kernels of the
    other PE paths nor, with its switch off, a switched path's kernels.
@@ -171,6 +184,7 @@ last line come one JSON line with the kernels' results and the raw
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import subprocess
@@ -269,6 +283,8 @@ PATH_KERNELS["eval"], PATH_NOT_LAUNCHED["eval"] = PATH_KERNELS["production"], PA
 # evaluation, the production path's
 PATH_KERNELS["train_launcher"] = tuple(dict.fromkeys(PATH_KERNELS["train"] + PATH_KERNELS["production"]))
 PATH_NOT_LAUNCHED["train_launcher"] = SWITCHED
+# the data-parallel train entry point and its sharded evaluation (run_ddp): the same kernels on every rank
+PATH_KERNELS["ddp"], PATH_NOT_LAUNCHED["ddp"] = PATH_KERNELS["train_launcher"], SWITCHED
 SCRIPTS = {
     "profile_r9": ("profile_r9", "pe_packed"),
     "profile_pe_ablate": ("pe_ablate",),
@@ -2805,11 +2821,13 @@ def tensors_equal(a, b) -> bool:
 
 def launcher_figures(stats: dict, batch: int) -> dict:
     """A launcher run's figures from ``train_loop``'s stats: the steady ms an iteration (median of all but the
-    first, each ending in the logged step's sync), samples/s, the reader's median wait an iteration, the
-    checkpoints' save seconds and the restore's."""
+    first, each ending in the logged step's sync), samples/s, the reader's median wait an iteration, the steady
+    ms an iteration less its wait, the checkpoints' save seconds and the restore's."""
     steady = 1e3 * float(np.median(stats["step_s"][1:] if len(stats["step_s"]) > 1 else stats["step_s"]))
+    less_wait = [x - w for x, w in zip(stats["step_s"], stats["wait_s"])]
     return dict(iterations=len(stats["step_s"]), step_ms=[1e3 * x for x in stats["step_s"]], steady_ms=steady,
                 samples_per_s=batch * 1e3 / steady, wait_ms=1e3 * float(np.median(stats["wait_s"])),
+                steady_less_wait_ms=1e3 * float(np.median(less_wait[1:] if len(less_wait) > 1 else less_wait)),
                 save_s=stats["save_s"], restore_s=stats["restore_s"])
 
 
@@ -2995,6 +3013,449 @@ def global_batch_step(log, dev, seed: int) -> dict:
     return r
 
 
+# the ddp path: main_unopose's train branch on DDP_RANKS ranks at main_config()'s full width, LAUNCHER_BATCH a rank
+# (the published per-rank batch), DDP_STEPS synthetic iterations with a checkpoint at the last, the ViT grafted from
+# write_fake_timm's file; against one process on the same global batch, whose own spread under a one-ulp nudge of
+# its input clouds (up, and down) sets the gates of the losses, parameters and running statistics (DDP_GATE times it,
+# the losses plus DDP_LOSS_RTOL of their value); the first step's averaged gradients, each tensor within DDP_GRAD_RTOL
+# of its largest |gradient| (plus DDP_GRAD_FLOOR of the largest over all tensors), and DDP_CONTROLS, each a fault of
+# the data-parallel path in the ranks' processes alone, which must fail that gate; then --eval-only from the checkpoint on DDP_RANKS ranks over write_bop_tree's tree, each rank's shard against one
+# process's run_inference of that shard at the same draws; and one NCCL rank at world size 1 for DDP_STEPS iterations
+DDP_RANKS, DDP_STEPS, DDP_GATE, DDP_LOSS_RTOL = 2, 3, 3.0, 1e-5
+# The parameters after DDP_STEPS warm-up steps (learning rates near 1e-7) cannot show a wrong gradient, and a one-ulp
+# nudge of the clouds moves the first step's gradients by about their own size (it flips the pipeline's discrete
+# selections), so that gate is set apart: the ranks differ from one process by rounding, which their other batch
+# size's products amplify through those selections, the faults by the tensor's own size or more (the controls:
+# gamma and beta gradients from the reduced sums, R times theirs; K13 and K14 centering over one rank's count)
+DDP_GRAD_RTOL, DDP_GRAD_FLOOR = 0.25, 1e-6
+DDP_CONTROLS = ("reduced_dgamma", "local_count")
+DDP_TIMEOUT = 420  # seconds for the ranks of one launch
+DDP_CONFIG = "unopose_tpu_torch.configs:main_config"
+
+
+def check_split_passes(log, dev, seed: int) -> dict:
+    """The ddp path's K11 entry points on the card at one rank's shapes (B 8, P 2048, S 256): the block pass and
+    the finish from its sums, at one rank's count, fill the statistics buffer bitwise as the one-call entry point
+    does (so world size 1, which keeps the one-call point, and a reduction of one rank's sums agree); K13 and K14
+    with the spare row's 1/n at one rank's count bitwise as with 0 (the local count), and at twice the count equal
+    to the plain passes given the same row within the phase-3 gate (1e-2 of each tensor's max). Returns the split
+    K11's ms (block passes and finishes of the three depths, no reduction) beside the one-call passes'."""
+    import torch
+
+    from unopose_tpu_torch.configs import pe_train_chans, pe_train_weights
+    from unopose_tpu_torch.ops import pe_train as pt
+
+    rng = np.random.default_rng(seed + 7)
+    Bt, P, S = LAUNCHER_BATCH, 2048, 256
+    n = Bt * P * S
+    Ws, gammas, betas = pe_train_weights(dev, seed)
+    chans = pe_train_chans(rng, dev, Bt, P, S)
+    bn, gb = pt.stats_buffer(gammas, betas, dev)
+    split = bn.clone()
+    for depth in (1, 2, 3):
+        pt.stats_cuda(chans, Ws, gb, bn, depth, 1e-5)
+        pt.stats_finish_cuda(pt.stats_partial_cuda(chans, Ws, split, depth), gb, split, depth, n, 1e-5)
+    stats_equal = bool(torch.equal(bn, split))
+    pooled, cnt = pt.fwd_cuda(chans, Ws, bn)
+    dpool = torch.from_numpy(rng.standard_normal((Bt, P, 128)).astype(np.float32)).to(dev)
+    for layer in (3, 2, 1):
+        pt.bwd_sums_cuda(chans, Ws, bn, pooled, cnt, dpool, layer)
+    dw = pt.bwd_dw_cuda(chans, Ws, bn, pooled, cnt, dpool)
+    local = bn.clone()
+    local[0, pt.INV_N, 0] = 1.0 / n
+    again, local_sums = bn.clone(), local.clone()
+    pt.bwd_sums_cuda(chans, Ws, again, pooled, cnt, dpool, 2)
+    pt.bwd_sums_cuda(chans, Ws, local_sums, pooled, cnt, dpool, 2)
+    row_local = bool(torch.equal(again[1, pt.SG:pt.SGZ + 1], local_sums[1, pt.SG:pt.SGZ + 1])) and all(
+        torch.equal(a, b) for a, b in zip(dw, pt.bwd_dw_cuda(chans, Ws, local, pooled, cnt, dpool)))
+    doubled = bn.clone()
+    doubled[0, pt.INV_N, 0] = 1.0 / (2 * n)
+    # each side fed its own forward's max and tie count (the backward finds its max slots by an exact compare)
+    plain_dw = pt.bwd_dw_plain(chans, Ws, doubled, *pt.fwd_plain(chans, Ws, bn), dpool)
+    k_dw = pt.bwd_dw_cuda(chans, Ws, doubled, pooled, cnt, dpool)
+    doubled_err = max(((a - b).abs().max() / b.abs().max()).item() for a, b in zip(k_dw, plain_dw))
+    moved = any(not torch.equal(a, b) for a, b in zip(k_dw, dw))
+
+    def split_stats():
+        for depth in (1, 2, 3):
+            pt.stats_finish_cuda(pt.stats_partial_cuda(chans, Ws, split, depth), gb, split, depth, n, 1e-5)
+
+    def fused_stats():
+        for depth in (1, 2, 3):
+            pt.stats_cuda(chans, Ws, gb, bn, depth, 1e-5)
+
+    ms = dict(stats_split=cuda_ms(split_stats), stats_one_call=cuda_ms(fused_stats))
+    log(f"ddp: K11 split (block pass, finish from its sums) bitwise the one-call entry point {stats_equal}; K13 and "
+        f"K14 with the spare row at one rank's 1/n bitwise as with 0 {row_local}; at twice the count K14 moved "
+        f"{moved}, against the plain passes {doubled_err:.2e} (gate 1e-2); ms of the three depths, split against one "
+        f"call: {json.dumps(ms)}")
+    if not (stats_equal and row_local and moved) or doubled_err > 1e-2:
+        raise AssertionError("ddp: K11's split entry points or the spare row's count")
+    return ms
+
+
+@contextlib.contextmanager
+def first_step_grads(into: dict):
+    """Within it, ``Trainer.step`` puts into ``into`` (where empty) the trainable parameters' gradients after its
+    step, averaged over the ranks, on the host."""
+    from unopose_tpu_torch.engine.train import Trainer
+
+    plain = Trainer.step
+
+    def step(self, *args, **kwargs):
+        metrics = plain(self, *args, **kwargs)
+        if not into:  # the next step zeroes them
+            into.update({name: p.grad.detach().cpu().clone() for name, p in self.params})
+        return metrics
+
+    Trainer.step = step
+    try:
+        yield into
+    finally:
+        Trainer.step = plain
+
+
+def install_control(name: str) -> None:
+    """One of ``DDP_CONTROLS``, a deliberate fault of the data-parallel train PE, patched into this process (a
+    rank's own): ``reduced_dgamma`` returns the gamma and beta gradients from the sums reduced across the ranks
+    (R times a rank's, before the gradient average); ``local_count`` clears the forward's 1/n of the global count,
+    so that K13 and K14 centre over this rank's B P S."""
+    from unopose_tpu_torch.ops import pe_train as pt
+
+    if name == "reduced_dgamma":
+        backward = pt.train_backward
+
+        def faulty_backward(chans, Ws, bn, pooled, cnt, dpool):
+            dws, _, _ = backward(chans, Ws, bn, pooled, cnt, dpool)
+            return (dws, tuple(bn[l, pt.SGZ, :pt.DIMS[l + 1]].clone() for l in range(3)),
+                    tuple(bn[l, pt.SG, :pt.DIMS[l + 1]].clone() for l in range(3)))
+
+        pt.train_backward = faulty_backward
+    elif name == "local_count":
+        forward = pt.train_forward
+
+        def faulty_forward(*args, **kwargs):
+            pooled, cnt, bn = forward(*args, **kwargs)
+            bn[0, pt.INV_N, 0] = 0.0
+            return pooled, cnt, bn
+
+        pt.train_forward = faulty_forward
+    else:
+        raise ValueError(f"no control {name!r}")
+
+
+def ddp_rank(index: int, ranks: int, port: int, backend: str, device: str, argv: list, out: str,
+             control: str = "") -> None:
+    """One rank of the ddp path, in a process of its own (start method spawn): under ``nccl``, torchrun's
+    environment, from which ``main`` starts the group on card ``index``; under ``gloo``, a group this function
+    starts over ``tcp://localhost:port`` with every rank on ``device`` (card 0), which ``main`` uses as it is;
+    ``control``, where given, patched in first (``install_control``). The launch counts and the collectives are
+    zeroed just before ``main_unopose.main(argv)`` and read just after; they, the loop's stats, the first step's
+    gradients and the model's state (training) or the CSV (evaluation) go to ``out.rank<index>``."""
+    import torch
+
+    sys.path.insert(0, ROOT)
+    from unopose_tpu_torch import main_unopose
+    from unopose_tpu_torch.kernels import LAUNCHES, reset_launch_counts
+    from unopose_tpu_torch.parallel import mesh
+
+    if backend == "gloo":
+        if device.startswith("cuda"):
+            torch.cuda.set_device(device)
+        torch.distributed.init_process_group("gloo", init_method=f"tcp://localhost:{port}", rank=index,
+                                             world_size=ranks)
+    else:
+        os.environ.update(RANK=str(index), LOCAL_RANK=str(index), WORLD_SIZE=str(ranks), MASTER_ADDR="localhost",
+                          MASTER_PORT=str(port))
+        device = "cuda"
+    try:
+        if control:
+            install_control(control)
+        grads: dict = {}
+        reset_launch_counts()
+        mesh.REDUCTIONS.clear()
+        with first_step_grads(grads):
+            r = main_unopose.main(["--device", device] + argv)
+        on_card = device.startswith("cuda")
+        if on_card:
+            torch.cuda.synchronize()
+        result = dict(launches=dict(LAUNCHES), reductions=dict(mesh.REDUCTIONS),
+                      peak_gib=torch.cuda.max_memory_allocated() / 2**30 if on_card else 0.0)
+        if "trainer" in r:
+            result.update(stats=r["stats"], trainable=[name for name, _ in r["trainer"].params], grads=grads,
+                          state={k: v.detach().cpu() for k, v in r["trainer"].model.state_dict().items()})
+        else:
+            result.update(csv=r["csv"], rows=r["rows"])
+        torch.save(result, f"{out}.rank{index}")
+    finally:
+        if backend == "gloo":
+            torch.distributed.destroy_process_group()
+
+
+def launch_ranks(ranks: int, backend: str, device: str, argv: list, out: str, control: str = "") -> list:
+    """``ddp_rank`` in ``ranks`` spawned processes (``control`` patched into each); all must end within ``DDP_TIMEOUT`` seconds with exit code 0
+    (a failure or the time limit ends them all). Returns each rank's results."""
+    import torch
+    import torch.multiprocessing as mp
+
+    from unopose_tpu_torch.parallel import mesh
+
+    ctx = mp.start_processes(ddp_rank, args=(ranks, mesh.free_port(), backend, device, argv, out, control),
+                             nprocs=ranks, join=False, start_method="spawn")
+    deadline = time.perf_counter() + DDP_TIMEOUT
+    try:
+        while not ctx.join(timeout=2):
+            if time.perf_counter() > deadline:
+                raise AssertionError(f"ddp: {ranks} {backend} ranks still running after {DDP_TIMEOUT} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+                p.join(10)
+    return [torch.load(f"{out}.rank{r}", weights_only=False) for r in range(ranks)]
+
+
+def ulp_nudged(direction: int):
+    """``synthetic_train_iter`` with both clouds of every batch moved one float32 ulp (``direction`` +1 or -1)."""
+    from unopose_tpu_torch.data import loader
+
+    plain = loader.synthetic_train_iter
+
+    def nudged(*args, **kwargs):
+        for batch in plain(*args, **kwargs):
+            yield {k: np.nextafter(v, np.float32(direction * np.inf)).astype(np.float32)
+                   if k in ("pts", "tem1_pts") else v for k, v in batch.items()}
+
+    return nudged
+
+
+def ddp_reference(log, dev, argv: list, out: str, direction: int = 0) -> dict:
+    """The one-process run of the ddp path's global batch on card 0 (``direction``: its clouds one ulp up or down):
+    the logged losses, the first step's gradients, the trainable parameters and the fine PE's BatchNorm running
+    statistics after it."""
+    import torch
+
+    from unopose_tpu_torch import main_unopose
+    from unopose_tpu_torch.data import loader
+
+    plain = loader.synthetic_train_iter
+    if direction:
+        loader.synthetic_train_iter = ulp_nudged(direction)
+    grads: dict = {}
+    try:
+        with first_step_grads(grads):
+            r = main_unopose.main(["--device", str(dev)] + argv + [f"misc.output_dir={out!r}"])
+    finally:
+        loader.synthetic_train_iter = plain
+    torch.cuda.synchronize()
+    state = {k: v.detach().cpu() for k, v in r["trainer"].model.state_dict().items()}
+    trainable = [name for name, _ in r["trainer"].params]
+    lines = [json.loads(x) for x in open(os.path.join(out, "metrics.json")).read().splitlines()]
+    del r
+    torch.cuda.empty_cache()
+    return ddp_summary(state, trainable, lines, grads)
+
+
+def ddp_summary(state: dict, trainable: list, lines: list, grads: dict) -> dict:
+    bn = [k for k in state if ".pe." in k and k.endswith((".mean", ".var"))]
+    if len(bn) != 12:
+        raise AssertionError(f"ddp: {len(bn)} running-statistics buffers of the fine PE (want 6 layers x 2)")
+    if sorted(grads) != sorted(trainable):
+        raise AssertionError(f"ddp: first-step gradients of {len(grads)} tensors, {len(trainable)} trainable")
+    return dict(losses=[x["loss"] for x in lines], params={k: state[k] for k in trainable},
+                stats={k: state[k] for k in bn}, grads=grads)
+
+
+def ddp_gaps(a: dict, b: dict) -> dict:
+    """The largest |a - b| of the losses (each step), the trainable parameters and the running statistics; of the
+    first step's gradients, the largest over the tensors of |a - b| over the tensor's largest |b| (plus
+    ``DDP_GRAD_FLOOR`` of the largest |b| over all tensors), and that tensor."""
+    def gap(x, y):
+        return max((x[k].double() - y[k].double()).abs().max().item() for k in x)
+
+    floor = DDP_GRAD_FLOOR * max(g.abs().max().item() for g in b["grads"].values())
+    rel = {k: (a["grads"][k].double() - g.double()).abs().max().item() / (g.abs().max().item() + floor)
+           for k, g in b["grads"].items()}
+    worst = max(rel, key=rel.get)
+    return dict(losses=[abs(x - y) for x, y in zip(a["losses"], b["losses"])], params=gap(a["params"], b["params"]),
+                stats=gap(a["stats"], b["stats"]), grads=rel[worst], grads_worst=worst)
+
+
+def run_ddp(log, dev, seed: int, ranks: int = DDP_RANKS) -> dict:
+    """Phase 6, the ddp path (see above ``DDP_RANKS``) on ``ranks`` ranks. With as many cards, NCCL ranks a card
+    each (``main`` starts the group from torchrun's environment); with fewer, NCCL refuses two ranks on one card, so
+    gloo ranks share card 0. Gates: the ranks' parameters and buffers bitwise equal to each other;
+    against the one-process run of the global batch, each step's loss within ``DDP_GATE`` times its largest one-ulp
+    spread plus ``DDP_LOSS_RTOL`` of its value, the trainable parameters and the running statistics each within
+    ``DDP_GATE`` times theirs (largest |difference| over the tensors); the first step's averaged gradients, each
+    tensor within ``DDP_GRAD_RTOL`` of its largest |gradient| (``ddp_gaps``); one ``ckpt/`` with the one step and
+    one ``metrics.json``, a log a rank; K11 and K13 launched with their reductions on every rank (3 depths / layers
+    x 2 scales x 2 clouds a step). Each of ``DDP_CONTROLS`` (one iteration on ``ranks`` ranks, that fault patched
+    into them) must fail the gradients' gate; their launches are not counted. Then ``--eval-only`` from the checkpoint on ``ranks`` ranks: every detection of
+    ``write_bop_tree``'s tree in the merged CSV once, valid poses, each shard's rows those of one process's
+    ``run_inference`` of that shard (the checkpoint's weights, the same draws) within ``EVAL_CACHE_TOL``; then one
+    NCCL rank at world size 1 for ``DDP_STEPS`` iterations. The launches of the ranks' runs are summed. (Each
+    rank reads its shard with a reader of its own, whose point sampling starts from its seed at the shard's first
+    image, as in the JAX package's processes: the merged CSV is not one process's CSV of every image.)"""
+    import gc
+    import tempfile
+
+    import torch
+
+    from unopose_tpu_torch import main_unopose
+    from unopose_tpu_torch.data.dataset_test import BOPTestsetPoseFreeOneRef
+    from unopose_tpu_torch.engine.inference import make_infer_fn, make_template_fn, run_inference
+    from unopose_tpu_torch.models import UNOPose
+
+    split_ms = check_split_passes(log, dev, seed)
+    cards = torch.cuda.device_count()
+    backend = "nccl" if cards >= ranks else "gloo"
+    log(f"ddp: {cards} card(s): {ranks} {backend} ranks" + ("" if backend == "nccl" else
+        " sharing card 0 (NCCL refuses two ranks on one card; the ranks' collectives go through the host)"))
+    with tempfile.TemporaryDirectory(prefix="unopose_ddp_") as tmp:
+        det_path, dets, _ = write_bop_tree(os.path.join(tmp, "bop"), seed, max(EVAL_IMAGES, ranks))
+        vit_ckpt = os.path.join(tmp, "vit.pth")
+        write_fake_timm(vit_ckpt, seed)
+        base = ["--config", DDP_CONFIG, "misc.exp_name='smoke'", f"model.feature_extraction.vit_ckpt={vit_ckpt!r}",
+                f"dataloader.test.data_dir={tmp + '/bop'!r}", f"dataloader.test.detection_path={det_path!r}"]
+        train = ["--synthetic-data"] + base + [f"misc.train_batch_size={ranks * LAUNCHER_BATCH}",
+                                               f"train.max_iter={DDP_STEPS}", "train.log_period=1",
+                                               f"train.checkpointer.period={DDP_STEPS}", "train.eval_period=0"]
+        ref = ddp_reference(log, dev, train, os.path.join(tmp, "ref"))
+        nudges = [ddp_reference(log, dev, train, os.path.join(tmp, f"ref{d}"), d) for d in (1, -1)]
+        spreads = [ddp_gaps(n, ref) for n in nudges]
+        spread = dict(losses=max(max(s["losses"]) for s in spreads), params=max(s["params"] for s in spreads),
+                      stats=max(s["stats"] for s in spreads), grads=max(s["grads"] for s in spreads))
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        out = os.path.join(tmp, "out")
+        t0 = time.perf_counter()
+        runs = launch_ranks(ranks, backend, str(dev), train + [f"misc.output_dir={out!r}"],
+                             os.path.join(tmp, "train"))
+        wall = time.perf_counter() - t0
+        lines = [json.loads(x) for x in open(os.path.join(out, "metrics.json")).read().splitlines()]
+        got = ddp_summary(runs[0]["state"], runs[0]["trainable"], lines, runs[0]["grads"])
+        gaps = ddp_gaps(got, ref)
+        same = all(tensors_equal(runs[0]["state"][k], r["state"][k]) for r in runs[1:] for k in runs[0]["state"])
+        loss_gates = [DDP_GATE * spread["losses"] + DDP_LOSS_RTOL * abs(x) for x in ref["losses"]]
+        listing = sorted(os.listdir(out))
+        steps = sorted(os.listdir(os.path.join(out, "ckpt")))
+        per_run = 3 * 2 * 2 * DDP_STEPS
+        reduced = [(r["reductions"].get("pe_train_stats", 0), r["reductions"].get("pe_train_bwd_sums", 0),
+                    r["reductions"].get("gradients", 0)) for r in runs]
+        figures = [launcher_figures(r["stats"], LAUNCHER_BATCH) for r in runs]
+        log(f"ddp train: {ranks} {backend} ranks x B {LAUNCHER_BATCH}, {DDP_STEPS} iterations in {wall:.1f} s of "
+            f"spawn and run; steady ms an iteration by rank {[round(f['steady_ms'], 3) for f in figures]} (step ms "
+            f"{[[round(x, 3) for x in f['step_ms']] for f in figures]}; the synthetic feeder's median wait, every "
+            f"rank drawing the global batch, {[round(f['wait_ms'], 3) for f in figures]}; steady less the wait "
+            f"{[round(f['steady_less_wait_ms'], 3) for f in figures]}), peak GiB by rank "
+            f"{[round(r['peak_gib'], 2) for r in runs]}; ranks' state bitwise equal {same}; against one process at "
+            f"B {ranks * LAUNCHER_BATCH}: losses {ref['losses']} vs {got['losses']}, gaps {json.dumps(gaps)}, "
+            f"one-ulp spread {json.dumps(spread)}, gates: losses {loss_gates}, params "
+            f"{DDP_GATE * spread['params']:.3e}, running statistics {DDP_GATE * spread['stats']:.3e}, first-step "
+            f"gradients {DDP_GRAD_RTOL} of each tensor's largest (not the spread); out/ {listing}, "
+            f"ckpt/ {steps}; (K11, K13, gradient) reductions by rank {reduced}")
+        if not same:
+            raise AssertionError("ddp: the ranks' parameters or buffers differ")
+        if len(got["losses"]) != DDP_STEPS or any(g > gate for g, gate in zip(gaps["losses"], loss_gates)) \
+                or gaps["params"] > DDP_GATE * spread["params"] or gaps["stats"] > DDP_GATE * spread["stats"] \
+                or gaps["grads"] > DDP_GRAD_RTOL:
+            raise AssertionError(f"ddp: {ranks} ranks against one process past the gates: {gaps} vs {spread}")
+        if steps != [str(DDP_STEPS)] or listing.count("metrics.json") != 1 or not {"log.txt", "log.rank1.txt"} <= set(
+                listing) or any(name.startswith("metrics") and name != "metrics.json" for name in listing):
+            raise AssertionError(f"ddp: out/ {listing}, ckpt/ {steps}")
+        if any(r != (per_run, per_run, DDP_STEPS) for r in reduced) or any(
+                r["launches"].get("pe_train_stats", 0) < per_run or r["launches"].get("pe_train_bwd_sums", 0)
+                < per_run for r in runs):
+            raise AssertionError(f"ddp: K11 / K13 not launched with their reductions on every rank: {reduced}")
+        launches = {}
+        for r in runs:
+            for k, v in r["launches"].items():
+                launches[k] = launches.get(k, 0) + v
+        del runs, got
+
+        controls = {}
+        for name in DDP_CONTROLS:
+            cout = os.path.join(tmp, f"control_{name}")
+            faulty = launch_ranks(ranks, backend, str(dev), train + [f"misc.output_dir={cout!r}", "train.max_iter=1"],
+                                  os.path.join(tmp, f"control_{name}"), control=name)[0]
+            lines = [json.loads(x) for x in open(os.path.join(cout, "metrics.json")).read().splitlines()]
+            c = ddp_gaps(ddp_summary(faulty["state"], faulty["trainable"], lines, faulty["grads"]), ref)
+            controls[name] = dict(grads=c["grads"], grads_worst=c["grads_worst"], loss=c["losses"][0])
+        log(f"ddp controls (one iteration, {ranks} {backend} ranks, each fault patched into the ranks): first-step "
+            f"gradients' largest gap over each tensor's largest |gradient| {json.dumps(controls)}; gate "
+            f"{DDP_GRAD_RTOL}, each must fail it (the honest ranks: {gaps['grads']:.3e}, {gaps['grads_worst']})")
+        if any(c["grads"] <= DDP_GRAD_RTOL for c in controls.values()):
+            raise AssertionError(f"ddp: a control passed the gradients' gate: {controls}")
+        del ref, nudges, faulty
+
+        ev = os.path.join(tmp, "eval")
+        eval_argv = ["--eval-only"] + base + [f"misc.output_dir={ev!r}", f"misc.load_from={out + '/ckpt'!r}"]
+        t0 = time.perf_counter()
+        runs = launch_ranks(ranks, backend, str(dev), eval_argv, os.path.join(tmp, "eval"))
+        eval_wall = time.perf_counter() - t0
+        merged = runs[0]["csv"]
+        keys, R, t, score = csv_poses(merged)
+        orth, det, finite = pose_check(R, t, score)
+        cfg = main_unopose.load_cfg(DDP_CONFIG).apply_overrides(eval_argv[3:])
+        torch.manual_seed(0)
+        model = UNOPose.from_config(cfg.model, main_unopose.DTYPES[cfg.train.matcher_dtype],
+                                    main_unopose.DTYPES[cfg.train.backbone_dtype])
+        main_unopose.restore_eval_variables(model, cfg)
+        model = model.to(dev).eval()
+        test = cfg.dataloader.test
+        shards = []
+        for r in range(ranks):
+            # a reader of its own for each shard, as each rank has: its point sampling draws from a generator
+            # seeded 0 that advances image by image
+            dataset = BOPTestsetPoseFreeOneRef(test, eval_dataset_name=test.eval_dataset_name,
+                                               detection_path=test.detection_path)
+            path = os.path.join(tmp, f"shard{r}.csv")
+            run_inference(make_infer_fn(model, dev), dataset, path, instance_batch_size=cfg.test.instance_batch_size,
+                          template_fn=make_template_fn(model, dev), num_shards=ranks, shard_index=r)
+            shards.append(path if r == 0 else f"{path}.rank{r}")
+        want = [csv_poses(p) for p in shards]
+        wkeys = [k for w in want for k in w[0]]
+        wR, wt, wscore = (torch.cat([w[i] for w in want]) for i in (1, 2, 3))
+        d = dict(rot=float((torch.linalg.matrix_norm(R - wR) / np.sqrt(2.0)).max()), t=float((t - wt).abs().max()),
+                 score=float((score - wscore).abs().max()))
+        log(f"ddp eval-only: {ranks} {backend} ranks in {eval_wall:.1f} s of spawn and run, merged CSV "
+            f"{len(keys)} rows for {len(dets)} detections, shard rows {[r['rows'] for r in runs[1:]]} past rank 0; "
+            f"|RR^T - I| {orth:.2e}, |det - 1| {det:.2e}, finite {finite}; against one process's shards {d} (gates "
+            f"{EVAL_CACHE_TOL}), rows in the same order {keys == wkeys}")
+        if len(keys) != len(dets) or keys != wkeys or not finite or orth > 1e-3 or det > 1e-3 or any(
+                d[k] > v for k, v in EVAL_CACHE_TOL.items()):
+            raise AssertionError(f"ddp: --eval-only on {ranks} ranks: {len(keys)} rows, {d}")
+        for r in runs:
+            for k, v in r["launches"].items():
+                launches[k] = launches.get(k, 0) + v
+        del model, runs
+
+        one = launch_ranks(1, "nccl", str(dev), train + [f"misc.output_dir={tmp + '/one'!r}",
+                                                          f"misc.train_batch_size={LAUNCHER_BATCH}"],
+                           os.path.join(tmp, "one"))[0]
+        one_fig = launcher_figures(one["stats"], LAUNCHER_BATCH)
+        log(f"ddp one NCCL rank at world size 1, B {LAUNCHER_BATCH}: steady {one_fig['steady_ms']:.3f} ms an "
+            f"iteration (step ms {[round(x, 3) for x in one_fig['step_ms']]}; the feeder's median wait, drawing "
+            f"{LAUNCHER_BATCH}, {one_fig['wait_ms']:.3f}; steady less the wait {one_fig['steady_less_wait_ms']:.3f}), "
+            f"collectives {one['reductions']}; {ranks} {backend} ranks at B {LAUNCHER_BATCH} each: "
+            f"{[round(f['steady_ms'], 3) for f in figures]}, less the wait "
+            f"{[round(f['steady_less_wait_ms'], 3) for f in figures]}")
+        if one["reductions"]:
+            raise AssertionError(f"ddp: world size 1 launched collectives {one['reductions']}")
+        for k, v in one["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    check_launches("ddp", launches)
+    log(f"ddp: launches {launches}")
+    torch.cuda.empty_cache()
+    return dict(launches=launches, split_ms=split_ms, gaps=gaps, spread=spread, controls=controls,
+                steady_ms=[f["steady_ms"] for f in figures], wait_ms=[f["wait_ms"] for f in figures],
+                steady_less_wait_ms=[f["steady_less_wait_ms"] for f in figures],
+                one_rank_steady_ms=one_fig["steady_ms"], one_rank_wait_ms=one_fig["wait_ms"],
+                one_rank_steady_less_wait_ms=one_fig["steady_less_wait_ms"], eval=d)
+
+
 def run_bench(log) -> dict:
     """Phase 6, the bench: ``unopose_tpu_torch.bench.run()`` as ``python -m unopose_tpu_torch.bench`` runs it
     (the production config, B 16, full depth), its JSON line logged, the last timed batch's poses gated."""
@@ -3057,6 +3518,8 @@ def main() -> int:
     parser.add_argument("--eval-only", action="store_true",
                         help="only the eval path, timed over EVAL_MEASURED_RUNS runs of EVAL_MEASURED_IMAGES images")
     parser.add_argument("--launcher-only", action="store_true", help="only the train_launcher path")
+    parser.add_argument("--ddp-only", action="store_true", help="only the ddp path")
+    parser.add_argument("--ddp-ranks", type=int, default=DDP_RANKS, help="ranks of the ddp path")
     args = parser.parse_args()
 
     import torch
@@ -3095,6 +3558,10 @@ def main() -> int:
     if args.launcher_only:
         r = run_train_launcher(log, dev, args.seed)
         print(json.dumps({"train_launcher": r["runs"]}))
+        return 0
+    if args.ddp_only:
+        r = run_ddp(log, dev, args.seed, args.ddp_ranks)
+        print(json.dumps({"ddp": {k: v for k, v in r.items() if k != "launches"}}))
         return 0
     if args.eval_only:
         figures = []
@@ -3138,7 +3605,10 @@ def main() -> int:
         "train": run_train(log, dev, args.seed, args.train_steps),
         "train_frozen": run_train(log, dev, args.seed, args.train_steps, frozen=True),
         "train_launcher": run_train_launcher(log, dev, args.seed),
+        "ddp": run_ddp(log, dev, args.seed, args.ddp_ranks),
     }
+    split = runs["ddp"]["split_ms"]
+    results["pe_train_stats"].update(ddp_split_ms=split["stats_split"], ddp_one_call_ms=split["stats_one_call"])
 
     kernels = []
     for name, (src, rep) in KERNELS.items():

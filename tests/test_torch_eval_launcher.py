@@ -132,15 +132,20 @@ def test_launcher_eval_only_end_to_end(bop_tree, tmp_path, capsys):
                 1000.0 if col == 5 else 1.0)
 
 
-def test_launcher_refusals(bop_tree, tmp_path):
-    """Training on several cards is not ported; an explicit ``misc.load_from``
-    that holds no checkpoint raises; the card is the default device and its
-    absence raises, for training and for ``--eval-only``."""
+def test_launcher_refusals(bop_tree, tmp_path, monkeypatch):
+    """More ranks than cards raise before any rank is spawned; an explicit
+    ``misc.load_from`` that holds no checkpoint raises; the card is the
+    default device and its absence raises, for training and for
+    ``--eval-only``."""
     import torch
 
     root, det_path = bop_tree
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        main_unopose.main(["--num-devices", "2", "--device", "cpu"])
+    with monkeypatch.context() as m:
+        m.setattr(torch.cuda, "is_available", lambda: True)
+        m.setattr(torch.cuda, "device_count", lambda: 1)
+        m.setattr(main_unopose.mesh, "free_port", lambda: pytest.fail("a rank was to be spawned"))
+        with pytest.raises(RuntimeError, match="fewer cards than ranks"):
+            main_unopose.main(["--num-devices", "2", "--synthetic-data"])
     os.makedirs(tmp_path / "ckpt")
     with pytest.raises(FileNotFoundError, match="holds no restorable checkpoint"):
         main_unopose.main(_argv(root, det_path, str(tmp_path / "o"), f"misc.load_from={str(tmp_path / 'ckpt')!r}")

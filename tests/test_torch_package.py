@@ -46,7 +46,8 @@ def test_port_runs_with_jax_unavailable():
     kernel twin run; the launcher, the engine, the test reader and the
     evaluator imported and the tiny ``--eval-only`` run on a synthetic BOP
     tree; the training reader, its colour augmentation, the loaders, the
-    checkpointer, the writers and the drawing helpers imported) with
+    checkpointer, the writers, the drawing helpers and the data-parallel
+    layer imported) with
     ``jax``, ``flax`` and the JAX package blocked in ``sys.modules``."""
     code = """
 import sys
@@ -92,6 +93,7 @@ with tempfile.TemporaryDirectory() as tmp:
     assert out["rows"] == 6 and out["stats"]["cache_hits"] == 5 and np.isfinite(out["scores"]["AR"]), out
 import unopose_tpu_torch.data.color_aug, unopose_tpu_torch.data.dataset_train, unopose_tpu_torch.data.loader
 import unopose_tpu_torch.utils.checkpoint, unopose_tpu_torch.utils.vis, unopose_tpu_torch.utils.writer
+import unopose_tpu_torch.parallel.mesh
 loaded = {m.split(".")[0] for m in sys.modules if sys.modules[m] is not None}
 assert not loaded & {"jax", "flax", "jaxlib", "unopose_tpu"}, loaded
 print("ok")
@@ -745,6 +747,49 @@ def test_pe_train_kernels_match_plain(cuda):
                                                           "pe_train_bwd_dw")}
     assert counts == dict(pe_train_stats=3, pe_train_fwd=1, pe_train_bwd_sums=3, pe_train_bwd_dw=1)
     assert all(torch.isfinite(p.grad).all() for p in params)
+
+
+@pytest.mark.cuda
+def test_pe_train_split_entry_points(cuda):
+    """K11's data-parallel entry points (block pass, then the finish from its
+    float64 sums) at one rank's count fill the statistics buffer bitwise as
+    the one-call entry point does, at S 64 and 256; K13 and K14 read the
+    spare row's 1/n (at one rank's count bitwise as with 0; at
+    twice the count K14 against the plain pass given the same row, within
+    1e-2 of each tensor's max, each side fed its own forward)."""
+    Ws, gammas, betas = _pe_train_params(cuda)
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    for S in (64, 256):
+        chans = torch.randn(2, 6, 256, S, device=cuda, generator=gen) * 0.3
+        chans[..., S // 3:] = chans[..., :1]
+        chans = chans.contiguous()
+        n = 2 * 256 * S
+        bn, gb = pe_train.stats_buffer(gammas, betas, cuda)
+        split = bn.clone()
+        for depth in (1, 2, 3):
+            pe_train.stats_cuda(chans, Ws, gb, bn, depth, 1e-5)
+            sums = pe_train.stats_partial_cuda(chans, Ws, split, depth)
+            assert sums.dtype == torch.float64 and tuple(sums.shape) == (2, 128)
+            pe_train.stats_finish_cuda(sums, gb, split, depth, n, 1e-5)
+            assert torch.equal(bn, split), (S, depth)
+        pooled, cnt = pe_train.fwd_cuda(chans, Ws, bn)
+        dpool = torch.randn(2, 256, 128, device=cuda, generator=gen)
+        split[0, pe_train.INV_N, 0] = 1.0 / n
+        for layer in (3, 2, 1):
+            pe_train.bwd_sums_cuda(chans, Ws, bn, pooled, cnt, dpool, layer)
+            pe_train.bwd_sums_cuda(chans, Ws, split, pooled, cnt, dpool, layer)
+            assert torch.equal(bn[:, :pe_train.INV_N], split[:, :pe_train.INV_N]), (S, layer)
+        local = bn.clone()
+        local[0, pe_train.INV_N, 0] = 1.0 / n
+        dw = pe_train.bwd_dw_cuda(chans, Ws, bn, pooled, cnt, dpool)
+        assert all(torch.equal(a, b) for a, b in zip(dw, pe_train.bwd_dw_cuda(chans, Ws, local, pooled, cnt, dpool)))
+        doubled = bn.clone()
+        doubled[0, pe_train.INV_N, 0] = 1.0 / (2 * n)
+        got = pe_train.bwd_dw_cuda(chans, Ws, doubled, pooled, cnt, dpool)
+        want = pe_train.bwd_dw_plain(chans, Ws, doubled, *pe_train.fwd_plain(chans, Ws, bn), dpool)
+        assert any(not torch.equal(a, b) for a, b in zip(got, dw))
+        for a, b in zip(got, want):
+            assert ((a - b).abs().max() / b.abs().max()).item() < 1e-2
 
 
 @pytest.mark.cuda

@@ -3,7 +3,7 @@ against the JAX package (CPU): ``train_config`` against ``get_cfg()``, the
 schedule, the refused settings, ``train_loop``'s guard, the initial-pose
 noise, the gather's backward, and one tiny step of ``Trainer`` against
 JAX's ``make_train_step`` (its Pallas train kernels in interpret mode) with
-the state after it. Split from ``test_torch_train.py`` (its helpers and the
+the state after it, and again on two gloo ranks. Split from ``test_torch_train.py`` (its helpers and the
 ``tiny_step`` fixture stay there) so that ``--dist loadfile`` spreads the
 two files; each test states its tolerance and why.
 """
@@ -15,9 +15,10 @@ import jax
 import jax.numpy as jnp
 import torch
 
+from test_torch_distributed import RANKS, run_ranks
 from test_torch_package import _assert_subset
 from test_torch_train import (  # noqa: F401  (tiny_step: the module fixture)
-    MODULES, jax_draws, jax_train_config, jrot, jsched, module_cosines, rel_max, t, tiny_step,
+    MODULES, TB, jax_draws, jax_train_config, jrot, jsched, module_cosines, rel_max, t, tiny_step,
 )
 from unopose_tpu_torch import configs
 from unopose_tpu_torch.configs import train_config
@@ -257,3 +258,30 @@ def test_tiny_train_step_on_jax_pe_channels_matches_jax(tiny_step):
     assert len(bn_keys) == 12
     for k in bn_keys:
         assert (after[k] - new_j[k]).abs().max().item() <= 1e-5 * new_j[k].abs().max().item(), k
+
+
+def test_two_rank_tiny_train_step_matches_jax(tiny_step, tmp_path):
+    """The tiny step on 2 gloo ranks (``tests/torch_dist_train_worker.py``,
+    one sample each of the global batch of 2, the fine PE's BatchNorm
+    statistics and sums reduced across the ranks, the gradients averaged),
+    from the fixture's state, batch and noise draws: the ranks' mean of
+    every ``process_loss`` metric and the gradient norm against JAX's
+    ``make_train_step`` on the whole batch within the gates of
+    ``test_tiny_train_step_matches_jax`` (three times JAX's own one-ulp
+    spread, plus 1e-5 relative, plus 1% of the rows for the accuracies and
+    foreground counts); both ranks' states after the step bitwise equal."""
+    tm = UNOPose.from_config(tiny_step["cfg"].model, dtype=torch.float32, backbone_dtype=torch.float32)
+    load_flax_variables(tm, jax.tree_util.tree_map(np.asarray, tiny_step["variables"]))
+    inputs = tmp_path / "inputs.pt"
+    torch.save(dict(state=tm.state_dict(), batch={k: t(v) for k, v in tiny_step["batch"].items()},
+                    draws=tuple(jax_draws(jax.random.PRNGKey(9), TB))), inputs)
+    run_ranks("torch_dist_train_worker.py", "--mode", "step", "--inputs", inputs, "--out", tmp_path / "out")
+    ranks = [torch.load(tmp_path / f"out.rank{r}", weights_only=False) for r in range(RANKS)]
+    assert all(torch.equal(ranks[0]["state"][k], ranks[1]["state"][k]) for k in ranks[0]["state"])
+    (_, jm), *nudged = tiny_step["runs"]
+    pm = ranks[0]["metrics"]
+    assert sorted(pm) == sorted(jm) and pm == ranks[1]["metrics"]
+    for k in jm:
+        spread = max(abs(m[k] - jm[k]) for _, m in nudged)
+        rows = 0.01 * (1.0 if k.endswith("_acc") else max(abs(jm[k]), 1.0) if k.endswith("_fg_num") else 0.0)
+        assert abs(pm[k] - jm[k]) <= 3 * spread + 1e-5 * max(abs(jm[k]), 1.0) + rows, (k, pm[k], jm[k], spread)

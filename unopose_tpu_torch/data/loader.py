@@ -86,10 +86,14 @@ def train_loader(dataset, batch_size: int, num_workers: int = 4, seed: int = 0,
 
 
 def synthetic_train_iter(batch_size: int, img_size: int = 224, n_pts: int = 2048, n_tem: int = 5000,
-                         seed: int = 0) -> Iterator[Dict[str, np.ndarray]]:
+                         seed: int = 0, rows: slice = slice(None)) -> Iterator[Dict[str, np.ndarray]]:
     """Endless ``configs.synthetic_train_inputs`` batches from one generator
     seeded ``seed``: the observed cloud an SE(3) transform of a subset of the
-    template cloud plus noise, with its pose as the labels."""
+    template cloud plus noise, with its pose as the labels. ``rows``: the
+    rows of each batch kept (a rank's ``local_batch_slice`` of the global
+    batch, which every rank draws whole, as the JAX launcher shards one host
+    batch)."""
     rng = np.random.default_rng(seed)
     while True:
-        yield synthetic_train_inputs(rng, batch_size, img=img_size, npts=n_pts, ntem=n_tem)
+        batch = synthetic_train_inputs(rng, batch_size, img=img_size, npts=n_pts, ntem=n_tem)
+        yield {k: v[rows] for k, v in batch.items()}

@@ -19,8 +19,17 @@
 ``train_loop`` runs the iterations with resume, the metric writers, the
 checkpoints and the periodic evaluation.
 
+On several ranks (``parallel/mesh.py``; the JAX package's sharded step)
+each rank steps on its rows of the global batch: the fine PE's BatchNorm
+statistics span the global batch (``ops/pe_train.py``), the gradients are
+averaged across the ranks before they are sanitised and their norm taken,
+the pose noise is drawn for the global batch and each rank keeps its rows,
+the logged metrics are the ranks' mean, rank 0 alone saves the
+checkpoints (every rank restores them), and rank 0's state is broadcast
+after the graft or the restore.
+
 Not ported: training the ViT, gradient clipping (off in the
-configuration), the model EMA and the data-parallel mesh.
+configuration) and the model EMA.
 """
 
 from __future__ import annotations
@@ -38,6 +47,7 @@ from unopose_tpu_torch.engine.schedule import build_schedule_from_cfg
 from unopose_tpu_torch.losses import process_loss
 from unopose_tpu_torch.models.unopose import UNOPose, compute_train_losses
 from unopose_tpu_torch.ops.rotation import PoseNoiseDraws
+from unopose_tpu_torch.parallel import mesh
 
 FROZEN = "vit"  # the frozen backbone: every parameter path containing it
 logger = logging.getLogger(__name__)
@@ -73,7 +83,10 @@ def build_optimizer(cfg: Config, params) -> Tuple[torch.optim.Adam, Callable[[in
 
 class Trainer:
     """A model, its optimizer and the step count: ``step(batch)`` runs one
-    training step and returns its metrics (0-d tensors, not synchronised)."""
+    training step on this rank's rows of the global batch and returns its
+    metrics over those rows (0-d tensors, not synchronised). ``pose_noise``
+    holds the global batch's draws (else they are drawn from ``generator``
+    for the global batch); each rank takes its rows."""
 
     def __init__(self, model: UNOPose, cfg: Config):
         self.model, self.cfg = model, cfg
@@ -83,14 +96,23 @@ class Trainer:
 
     def step(self, batch: Dict[str, torch.Tensor], pose_noise: Optional[PoseNoiseDraws] = None,
              generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+        if not self.model.fine_only:  # fine_only starts from the identity pose: no noise
+            B = batch["rotation_label"].shape[0] * mesh.world_size()
+            if pose_noise is None:
+                dev = generator.device if generator is not None else batch["rotation_label"].device
+                pose_noise = PoseNoiseDraws.draw(B, generator, device=dev)
+            rows = mesh.local_batch_slice(B)
+            pose_noise = pose_noise._replace(angles=pose_noise.angles[rows], trans=pose_noise.trans[rows])
         outputs = self.model(batch, train=True, pose_noise=pose_noise, generator=generator)
         loss_dict = process_loss(compute_train_losses(outputs, batch, self.cfg.model))
         self.optimizer.zero_grad(set_to_none=True)
         loss_dict["loss"].backward()
-        grads = []
         for _, p in self.params:
             if p.grad is None:  # optax updates every trainable leaf, with a zero gradient if unused
                 p.grad = torch.zeros_like(p)
+        mesh.average_gradients(p for _, p in self.params)
+        grads = []
+        for _, p in self.params:  # JAX sanitises the global gradient
             torch.nan_to_num_(p.grad, nan=0.0, posinf=0.0, neginf=0.0)
             grads.append(p.grad)
         metrics = {k: v.detach() for k, v in loss_dict.items()}
@@ -130,17 +152,21 @@ def train_loop(model: UNOPose, cfg: Config, data_iter: Iterator[Dict[str, np.nda
     batches of ``data_iter``, moved to the model's device. Returns the trainer.
 
     - resume: where ``checkpointer.latest_step()`` is past ``start_iter``, that
-      step is restored and the loop starts there;
+      step is restored (on every rank) and the loop starts there; on several
+      ranks rank 0's model state is then broadcast;
     - the pose noise is drawn from one generator seeded ``train.seed``
       (``seed`` without it); the stream starts again from the seed on resume,
       as the JAX package's key does;
     - at ``it % train.log_period == 0`` and at the last iteration, and only
-      there, the metrics come back to the host: a non-finite loss raises
-      ``FloatingPointError``; else ``writer.write(it, metrics)`` with
+      there, the metrics come back to the host (on several ranks, their mean
+      over the ranks: every rank takes part, so every rank passes a writer or
+      none): a non-finite loss raises ``FloatingPointError``; else
+      ``writer.write(it, metrics)`` with
       ``iter_time``, the seconds an iteration since the last logged one, and
       with ``train.vis_img_tbx`` the first input crop as an image;
     - ``checkpointer.save(it + 1, trainer)`` at ``(it + 1) %
-      train.checkpointer.period == 0`` and at the last iteration;
+      train.checkpointer.period == 0`` and at the last iteration, on rank 0,
+      then a barrier of the ranks;
     - ``eval_fn(trainer, it + 1)`` at ``(it + 1) % train.eval_period == 0``.
 
     ``stats`` (a dict), where given, gets each iteration's host seconds up to
@@ -163,6 +189,7 @@ def train_loop(model: UNOPose, cfg: Config, data_iter: Iterator[Dict[str, np.nda
             stats["restore_s"] = time.perf_counter() - t0
             start_iter = latest
             logger.info("resumed from checkpoint step %d of %s", latest, checkpointer.directory)
+    mesh.broadcast_state(model)
     stats["start_iter"] = start_iter
     train = cfg.train
     generator = torch.Generator(device=device).manual_seed(train.get("seed", seed))
@@ -179,7 +206,7 @@ def train_loop(model: UNOPose, cfg: Config, data_iter: Iterator[Dict[str, np.nda
         batch = to_device(host, device)
         metrics = trainer.step(batch, generator=generator)
         if writer is not None and (it % log_period == 0 or it == max_iter - 1):
-            m = {k: float(v) for k, v in metrics.items()}
+            m = {k: float(v) for k, v in mesh.mean_across_ranks(metrics).items()}
             # the gradients are sanitised every step, but a non-finite loss means the state is already broken
             if not math.isfinite(m.get("loss", 0.0)):
                 raise FloatingPointError(f"non-finite loss at iteration {it}: {m}")
@@ -196,7 +223,9 @@ def train_loop(model: UNOPose, cfg: Config, data_iter: Iterator[Dict[str, np.nda
         stats["step_s"].append(time.perf_counter() - t0)
         if checkpointer is not None and ((it + 1) % ckpt_period == 0 or it == max_iter - 1):
             t1 = time.perf_counter()
-            checkpointer.save(it + 1, trainer)
+            if mesh.is_main_process():
+                checkpointer.save(it + 1, trainer)
+            mesh.sync_processes("checkpoint")
             stats["save_s"].append(time.perf_counter() - t1)
         if eval_fn is not None and eval_period and (it + 1) % eval_period == 0:
             eval_fn(trainer, it + 1)

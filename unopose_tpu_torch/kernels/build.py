@@ -59,6 +59,10 @@ _SIGNATURES = {
     "unopose_fine_accum": [_P] * 13 + [_I] * 4 + [_P],
     # chans, w0, w1, w2, gb, bn, partial, cap, B, P, S, depth, eps, stream
     "unopose_pe_train_stats": [_P] * 7 + [_I] * 5 + [_F, _P],
+    # chans, w0, w1, w2, bn, partial, cap, B, P, S, depth, sums, stream
+    "unopose_pe_train_stats_partial": [_P] * 6 + [_I] * 5 + [_P, _P],
+    # sums, gb, bn, depth, n, eps, stream
+    "unopose_pe_train_stats_finish": [_P] * 3 + [_I, ctypes.c_double, _F, _P],
     # chans, w0, w1, w2, bn, pooled, cnt, B, P, S, stream
     "unopose_pe_train_fwd": [_P] * 7 + [_I] * 3 + [_P],
     # chans, w0, w1, w2, bn, pooled, cnt, dpool, partial, cap, B, P, S, depth, stream

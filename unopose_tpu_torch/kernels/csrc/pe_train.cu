@@ -112,6 +112,21 @@
 //   accumulating in registers for the whole run: dW3 4 tiles, dW2 1, dW1 one
 //   n-tile over a quarter of the slots.
 //
+// Several ranks (parallel/mesh.py). Under data parallelism the statistics
+// and the backward's centering terms span the global batch, as GSPMD's
+// BatchNorm does in the JAX package. K11 then runs as two entry points: the
+// block pass with the blocks' rows added per channel in double into the
+// host's sums (unopose_pe_train_stats_partial), which the host all-reduces
+// across the ranks, and the finish from the reduced sums
+// (unopose_pe_train_stats_finish, over the global count R B P S): the same
+// sums and the same float32 arithmetic as unopose_pe_train_stats, which
+// world size 1 keeps. K13's outputs are linear in its sums once the forward's
+// 1/sigma is global, so it keeps its one call and the host all-reduces the
+// layer's sum g and sum g zhat rows of bn in place. load_quads divides those
+// sums by the count that the host writes as 1/n into the buffer's spare row
+// (kInvN, layer 0, column 0; 0 there means the local count B P S): K13's and
+// K14's centering terms take the global count, their signatures unchanged.
+//
 // Bound: operations. A chain is 10,432 MACs a slot: at B = 8, P = 2048,
 // S = 256 (4.19 M slots) 87.5 GFLOP, 0.088 ms at 989 TFLOP/s; K11 at depth
 // 1 and 2 is bound by reading the 100 MB of float32 chans (0.030 ms), K14
@@ -130,7 +145,8 @@ namespace {
 
 enum Mode { kStats = 0, kFwd = 1, kBwdSums = 2, kBwdDw = 3, kBwdFrozen = 4 };
 // rows of the per-layer statistics buffer bn (3, kBnRows, 128), ops/pe_train.py
-enum BnRow { kMu = 0, kVar = 1, kInv = 2, kA = 3, kB = 4, kSg = 5, kSgz = 6, kBnRows = 8 };
+// (kInvN: 1/n of the count the sums of g and g zhat are divided by, layer 0 column 0; 0 for the local B P S)
+enum BnRow { kMu = 0, kVar = 1, kInv = 2, kA = 3, kB = 4, kSg = 5, kSgz = 6, kInvN = 7, kBnRows = 8 };
 
 __host__ __device__ constexpr bool has_dw(int mode) { return mode == kBwdDw || mode == kBwdFrozen; }
 // warps a block: 16 for the passes that stage their slots for the dW products (one block an SM), else 8
@@ -370,9 +386,11 @@ __device__ __forceinline__ void tile_dz(const float4* Q, int nt, int lane, const
   dz[1] = pack(d[2], d[3]);
 }
 
-// The layers' constants into s_q ([layer][kind][pair], QKind), the sums of g and g zhat over the n slots
+// The layers' constants into s_q ([layer][kind][pair], QKind), the sums of g and g zhat over the n slots (the
+// host's count where it gave one, kInvN)
 __device__ void load_quads(float4* s_q, const float* bn, int B, int P, int S) {
-  const float inv_n = (float)(1.0 / ((double)B * (double)P * (double)S));
+  const float host_inv_n = bn[kInvN * 128];
+  const float inv_n = host_inv_n > 0.0f ? host_inv_n : (float)(1.0 / ((double)B * (double)P * (double)S));
   for (int i = threadIdx.x; i < 3 * 64; i += blockDim.x) {
     const int l = i >> 6, p = i & 63;
     const float* r = bn + l * kBnRows * 128 + 2 * p;
@@ -920,12 +938,9 @@ __device__ __forceinline__ bool finish_rows(const float* __restrict__ partial, i
   return true;
 }
 
-// second pass of K11: add the blocks' rows, then flax's batch statistics and the affine
-__global__ void stats_finish(const float* __restrict__ partial, int blocks, const float* __restrict__ gb,
-                             float* __restrict__ bn, int width, float n, float eps) {
-  double s1, s2;
-  const int c = threadIdx.x;
-  if (!finish_rows(partial, blocks, s1, s2) || c >= width) return;
+// Channel c's flax batch statistics and affine from its sums of z and z^2 over n slots
+__device__ __forceinline__ void stats_from_sums(double s1, double s2, const float* __restrict__ gb,
+                                                float* __restrict__ bn, int c, float n, float eps) {
   const float sz = (float)s1, sz2 = (float)s2;
   const float mu = sz / n;
   const float var = fmaxf(sz2 / n - mu * mu, 0.0f);
@@ -938,6 +953,15 @@ __global__ void stats_finish(const float* __restrict__ partial, int blocks, cons
   bn[kB * 128 + c] = bet - gam * mu * inv;
 }
 
+// second pass of K11: add the blocks' rows, then flax's batch statistics and the affine
+__global__ void stats_finish(const float* __restrict__ partial, int blocks, const float* __restrict__ gb,
+                             float* __restrict__ bn, int width, float n, float eps) {
+  double s1, s2;
+  const int c = threadIdx.x;
+  if (!finish_rows(partial, blocks, s1, s2) || c >= width) return;
+  stats_from_sums(s1, s2, gb, bn, c, n, eps);
+}
+
 // second pass of K13: sum g (dbeta) and sum g zhat (dgamma) of the layer, the second as 1/sigma sum g (z - mu)
 __global__ void sums_finish(const float* __restrict__ partial, int blocks, float* __restrict__ bn, int width) {
   double s1, s2;
@@ -945,6 +969,23 @@ __global__ void sums_finish(const float* __restrict__ partial, int blocks, float
   if (!finish_rows(partial, blocks, s1, s2) || c >= width) return;
   bn[kSg * 128 + c] = (float)s1;
   bn[kSgz * 128 + c] = (float)s2 * bn[kInv * 128 + c];
+}
+
+// second pass of K11 on several ranks: the blocks' rows added as above, into sums (2 x 128 doubles: the sums of z,
+// then of z^2) for the host's reduction across the ranks
+__global__ void rows_to_sums(const float* __restrict__ partial, int blocks, double* __restrict__ sums, int width) {
+  double s1, s2;
+  const int c = threadIdx.x;
+  if (!finish_rows(partial, blocks, s1, s2) || c >= width) return;
+  sums[c] = s1;
+  sums[128 + c] = s2;
+}
+
+// K11's finish from the ranks' reduced sums
+__global__ void stats_from_reduced(const double* __restrict__ sums, const float* __restrict__ gb,
+                                   float* __restrict__ bn, int width, float n, float eps) {
+  const int c = threadIdx.x;
+  if (c < width) stats_from_sums(sums[c], sums[128 + c], gb, bn, c, n, eps);
 }
 
 // second pass of K14: the three dW, in the (in, out) layout, one after the other
@@ -1748,6 +1789,40 @@ extern "C" int unopose_pe_train_stats(const float* chans, const float* w0, const
   stats_finish<<<1, 128 * kFinRows, 0, stream>>>(partial, blocks, gb + (depth - 1) * 256,
                                                  bn + (depth - 1) * kBnRows * 128, width, (float)((double)B * P * S),
                                                  eps);
+  return (int)cudaGetLastError();
+}
+
+// K11 on several ranks, its block pass: layer depth's sums of z and z^2 over this rank's B P S slots, added over
+// the blocks in double as unopose_pe_train_stats adds them, into sums (2 x 128 doubles; the host zeroes it and
+// all-reduces it across the ranks). Arguments as unopose_pe_train_stats'.
+extern "C" int unopose_pe_train_stats_partial(const float* chans, const float* w0, const float* w1, const float* w2,
+                                              const float* bn, float* partial, int cap, int B, int P, int S,
+                                              int depth, double* sums, cudaStream_t stream) {
+  if (bad_shape(B, P, S) || depth < 1 || depth > 3 || cap <= 0) return (int)cudaErrorInvalidValue;
+  int blocks = 0;
+  cudaError_t err;
+  if (depth == 1) {
+    err = launch<kStats, 1>(chans, w0, w1, w2, bn, nullptr, nullptr, nullptr, nullptr, nullptr, partial, cap, B, P, S,
+                            &blocks, stream);
+  } else if (depth == 2) {
+    err = launch<kStats, 2>(chans, w0, w1, w2, bn, nullptr, nullptr, nullptr, nullptr, nullptr, partial, cap, B, P, S,
+                            &blocks, stream);
+  } else {
+    err = launch<kStats, 3>(chans, w0, w1, w2, bn, nullptr, nullptr, nullptr, nullptr, nullptr, partial, cap, B, P, S,
+                            &blocks, stream);
+  }
+  if (err != cudaSuccess) return (int)err;
+  rows_to_sums<<<1, 128 * kFinRows, 0, stream>>>(partial, blocks, sums, depth == 1 ? 32 : depth == 2 ? 64 : 128);
+  return (int)cudaGetLastError();
+}
+
+// K11 on several ranks, its finish: layer depth's mu, var, inv, a, b of bn from the ranks' reduced sums over n
+// slots (R B P S).
+extern "C" int unopose_pe_train_stats_finish(const double* sums, const float* gb, float* bn, int depth, double n,
+                                             float eps, cudaStream_t stream) {
+  if (depth < 1 || depth > 3 || !(n > 0.0)) return (int)cudaErrorInvalidValue;
+  stats_from_reduced<<<1, 128, 0, stream>>>(sums, gb + (depth - 1) * 256, bn + (depth - 1) * kBnRows * 128,
+                                            depth == 1 ? 32 : depth == 2 ? 64 : 128, (float)n, eps);
   return (int)cudaGetLastError();
 }
 

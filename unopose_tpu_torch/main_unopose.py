@@ -1,25 +1,36 @@
 """Launcher (counterpart of ``unopose_tpu/main_unopose.py``)::
 
     python -m unopose_tpu_torch.main_unopose [--eval-only] [--synthetic-data]
-        [--config unopose_tpu_torch.configs:main_config] [--device cuda] [key=value ...]
+        [--config unopose_tpu_torch.configs:main_config] [--device cuda] [--num-devices N] [key=value ...]
+    torchrun --nproc_per_node N -m unopose_tpu_torch.main_unopose [...]
 
 Loads the config, applies the dotted overrides and builds the model on the
-card (``--device cpu`` for the plain versions). Training (the default):
-the MegaPose reader through the threaded loader (or, with
-``--synthetic-data``, in-memory synthetic batches) at the global batch
-``misc.train_batch_size`` on the one card, the pretrained ViT grafted
-before it is frozen, resume from the latest checkpoint under
+card (``--device cpu`` for the plain versions). Several ranks
+(``parallel/mesh.py``), one process each: under torchrun's environment
+each rank joins an NCCL group on card ``LOCAL_RANK`` (gloo with ``--device
+cpu``); with ``--num-devices N > 1`` and no such environment the launcher
+spawns N ranks on cards 0..N-1 (N gloo ranks on the CPU with ``--device
+cpu``) and returns None; a process group the caller initialised is used
+as it is. Training (the default): the MegaPose reader through the threaded
+loader (each rank ``misc.train_batch_size // R`` samples a step from a
+dataset seeded ``train.seed + rank``) or, with ``--synthetic-data``,
+in-memory synthetic batches (every rank draws the global batch and keeps
+its rows) at the global batch ``misc.train_batch_size``, the pretrained ViT
+grafted before it is frozen, resume from the latest checkpoint under
 ``output_dir/ckpt``, a checkpoint every ``train.checkpointer.period``
 iterations (the last ``max_to_keep`` kept), the metric writers (console,
 ``metrics.json``, TensorBoard) and, where the test set and its detections
 are on disk, an evaluation every ``train.eval_period`` iterations on the
-current weights. ``--eval-only``: the weights of a checkpoint
-(``restore_eval_variables``), then the BOP test reader ->
+current weights. Rank 0 alone saves the checkpoints and writes the metrics
+(``metrics.json``, TensorBoard, the console); every rank logs to
+``log.txt`` / ``log.rank<N>.txt``. ``--eval-only``: the weights of a
+checkpoint (``restore_eval_variables``), then the BOP test reader ->
 ``engine/inference.py:run_inference`` (through the template cache when
-``test.template_cache`` is set) -> the BOP19 CSV and the detections JSON ->
-``eval/bop_eval.py:evaluate_bop`` when the dataset holds
-``test_targets_bop19.json`` -> the scores JSON, a stdout line with AR and
-the image count, and the per-object tables.
+``test.template_cache`` is set; rank r of R takes shard r of the images)
+-> the BOP19 CSV and the detections JSON (rank 0 merges the shards after a
+barrier) -> ``eval/bop_eval.py:evaluate_bop`` on rank 0 when the dataset
+holds ``test_targets_bop19.json`` -> the scores JSON, a stdout line with AR
+and the image count, and the per-object tables.
 """
 
 from __future__ import annotations
@@ -30,9 +41,12 @@ import json
 import logging
 import os
 import os.path as osp
+import sys
 from typing import Optional
 
 import torch
+
+from unopose_tpu_torch.parallel import mesh
 
 logger = logging.getLogger("unopose_tpu_torch")
 
@@ -47,7 +61,8 @@ def parse_args(argv=None):
     p.add_argument("--synthetic-data", action="store_true", help="train on the synthetic in-memory batches")
     p.add_argument("--resume", action="store_true",
                    help="accepted for the JAX launcher's command line: training resumes whenever a checkpoint exists")
-    p.add_argument("--num-devices", type=int, default=None, help="cards to train on (one is ported)")
+    p.add_argument("--num-devices", type=int, default=None,
+                   help="ranks to spawn, one a card (or gloo ranks on the CPU), where torchrun started none")
     p.add_argument("--device", default="cuda", help="the model's device (cpu for the plain versions)")
     p.add_argument("opts", nargs="*", help="dotted config overrides key=value")
     return p.parse_args(argv)
@@ -60,20 +75,34 @@ def load_cfg(spec: str):
 
 def main(argv=None) -> Optional[dict]:
     """Run the launcher. Returns ``run_eval``'s result with ``--eval-only``,
-    else the trainer and the loop's ``stats`` (``engine/train.py:train_loop``)."""
+    else the trainer and the loop's ``stats`` (``engine/train.py:train_loop``);
+    None where it spawned the ranks."""
     args = parse_args(argv)
     cfg = load_cfg(args.config).apply_overrides(args.opts)
-    if args.num_devices is not None and args.num_devices > 1:
-        raise NotImplementedError("training on several cards is not ported yet (ROADMAP Queue 1 item 6)")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: the launcher runs on the card (--device cpu for the plain versions)")
+    ranks = args.num_devices or 1
+    if ranks > 1 and not mesh.initialized() and "RANK" not in os.environ:
+        spawn_ranks(sys.argv[1:] if argv is None else list(argv), ranks, device)
+        return None
+    owned = not mesh.initialized()
+    device = mesh.init_distributed(device)
+    try:
+        if args.num_devices is not None and mesh.world_size() != args.num_devices:
+            raise ValueError(f"--num-devices {args.num_devices} in a group of {mesh.world_size()} ranks")
+        return _run(args, cfg, device)
+    finally:
+        if owned and mesh.initialized():
+            torch.distributed.destroy_process_group()
 
+
+def _run(args, cfg, device) -> dict:
     from unopose_tpu_torch.models import UNOPose
     from unopose_tpu_torch.utils.writer import setup_logger
 
     out_dir = cfg.misc.output_dir
-    setup_logger(out_dir)
+    setup_logger(out_dir, mesh.rank())
     logger.info("config: %s", cfg.flatten())
     train = cfg.get("train", {})
     torch.manual_seed(0)  # the random weights' seed where no checkpoint or pretrained file is read
@@ -81,33 +110,57 @@ def main(argv=None) -> Optional[dict]:
                                 backbone_dtype=DTYPES[train.get("backbone_dtype", "bfloat16")])
     if args.eval_only:
         restore_eval_variables(model, cfg)
-        return run_eval(model.to(device).eval(), cfg, out_dir, device)
+        model = model.to(device).eval()
+        mesh.broadcast_state(model)
+        return run_eval(model, cfg, out_dir, device)
     return run_train(model.to(device).train(), cfg, out_dir, device, synthetic=args.synthetic_data)
 
 
+def spawn_ranks(argv, ranks: int, device: torch.device) -> None:
+    """``ranks`` processes (start method ``spawn``), each ``main(argv)`` under
+    torchrun's environment on this host: rank r on card r, or a gloo rank on
+    the CPU. Raises with fewer cards than ranks, and where a rank fails."""
+    if device.type == "cuda" and torch.cuda.device_count() < ranks:
+        raise RuntimeError(f"{ranks} ranks and {torch.cuda.device_count()} cards: fewer cards than ranks")
+    import torch.multiprocessing as mp
+
+    mp.spawn(_rank_main, args=(argv, ranks, mesh.free_port()), nprocs=ranks, join=True)
+
+
+def _rank_main(index: int, argv, ranks: int, port: int) -> None:
+    os.environ.update(RANK=str(index), LOCAL_RANK=str(index), WORLD_SIZE=str(ranks), MASTER_ADDR="localhost",
+                      MASTER_PORT=str(port))
+    main(argv)
+
+
 def run_train(model, cfg, out_dir: str, device, synthetic: bool = False) -> dict:
-    """The train branch of ``main``: the data iterator, the checkpointer,
-    the writers and the periodic evaluation around ``train_loop``."""
+    """The train branch of ``main``: the data iterator (this rank's rows of
+    the global batch), the checkpointer, the writers (rank 0's) and the
+    periodic evaluation around ``train_loop``."""
     from unopose_tpu_torch.data.loader import synthetic_train_iter, train_loader
     from unopose_tpu_torch.engine.train import train_loop
     from unopose_tpu_torch.utils.checkpoint import Checkpointer
     from unopose_tpu_torch.utils.writer import ConsolePrinter, JSONWriter, MultiWriter, TensorboardWriter
 
     data = cfg.dataloader.train
+    batch, ranks = cfg.misc.train_batch_size, mesh.world_size()
+    if batch % ranks:
+        raise ValueError(f"misc.train_batch_size {batch} does not split over {ranks} ranks")
     if synthetic:
-        data_iter = synthetic_train_iter(cfg.misc.train_batch_size, img_size=data.img_size,
-                                         n_pts=data.n_sample_observed_point, n_tem=data.n_sample_template_point)
+        data_iter = synthetic_train_iter(batch, img_size=data.img_size, n_pts=data.n_sample_observed_point,
+                                         n_tem=data.n_sample_template_point, rows=mesh.local_batch_slice(batch))
     else:
         from unopose_tpu_torch.data.dataset_train import DatasetPoseFreeOneRef
 
         dataset = DatasetPoseFreeOneRef(data, num_img_per_epoch=data.get("num_img_per_epoch", -1),
-                                        seed=cfg.train.seed)
-        data_iter = train_loader(dataset, cfg.misc.train_batch_size, num_workers=data.get("num_workers", 8),
+                                        seed=cfg.train.seed + mesh.rank())
+        data_iter = train_loader(dataset, batch // ranks, num_workers=data.get("num_workers", 8),
                                  seed=cfg.train.seed)
     ckpt = Checkpointer(osp.join(out_dir, "ckpt"), max_to_keep=cfg.train.checkpointer.max_to_keep,
                         period=cfg.train.checkpointer.period)
+    # every rank passes a writer, so that every rank takes part in the logged metrics' mean
     writer = MultiWriter(ConsolePrinter(cfg.train.max_iter), JSONWriter(osp.join(out_dir, "metrics.json")),
-                         TensorboardWriter(osp.join(out_dir, "tb")))
+                         TensorboardWriter(osp.join(out_dir, "tb"))) if mesh.is_main_process() else MultiWriter()
 
     eval_fn = None
     test = cfg.dataloader.test
@@ -162,9 +215,12 @@ def restore_eval_variables(model, cfg) -> None:
 def run_eval(model, cfg, out_dir: str, device, tag: str = "") -> dict:
     """Inference over the test set, the CSV and JSON, and the BOP19 scores
     where the targets are on disk. Returns the CSV's path and line count,
-    ``run_inference``'s stats and the scores (None without targets)."""
+    ``run_inference``'s stats and the scores (None without targets). On R
+    ranks rank r writes shard r of the images (``.rank<r>`` past 0); after a
+    barrier rank 0 merges the shards and scores the merged CSV, the others
+    return their shard's."""
     from unopose_tpu_torch.data.dataset_test import BOPTestsetPoseFreeOneRef
-    from unopose_tpu_torch.engine.inference import make_infer_fn, make_template_fn, run_inference
+    from unopose_tpu_torch.engine.inference import make_infer_fn, make_template_fn, merge_csv_shards, run_inference
 
     test = cfg.dataloader.test
     dataset = BOPTestsetPoseFreeOneRef(test, eval_dataset_name=test.eval_dataset_name,
@@ -175,9 +231,18 @@ def run_eval(model, cfg, out_dir: str, device, tag: str = "") -> dict:
     save_path = osp.join(out_dir, f"result_{cfg.misc.exp_name}{tag}_{name}-test.csv")
     os.makedirs(out_dir, exist_ok=True)
     stats: dict = {}
+    ranks, rank = mesh.world_size(), mesh.rank()
     lines = run_inference(infer_fn, dataset, save_path, instance_batch_size=cfg.test.instance_batch_size,
-                          template_fn=template_fn, stats=stats)
+                          template_fn=template_fn, stats=stats, num_shards=ranks, shard_index=rank)
     result = dict(csv=save_path, rows=len(lines), stats=stats, scores=None)
+    if ranks > 1:
+        mesh.sync_processes("eval")
+        if rank != 0:
+            result["csv"] = f"{save_path}.rank{rank}"
+            return result
+        merge_csv_shards(save_path, ranks)
+        with open(save_path) as f:
+            result["rows"] = sum(1 for line in f if line.strip())
 
     from unopose_tpu_torch.eval.bop_eval import evaluate_bop, format_per_object_tables, write_per_object_tables
 

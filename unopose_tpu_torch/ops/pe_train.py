@@ -24,8 +24,26 @@ weights, gammas and betas only.
 The passes share one (3, 8, 128) float32 buffer of per-layer statistics,
 rows ``MU`` .. ``SGZ``: the batch mean, variance and 1/sigma, the affine
 a = gamma / sigma and b = beta - gamma mu / sigma, and the backward's sums
-of g and g * zhat (the layer's dbeta and dgamma). The passes' products
-round their operands to bf16 (``MM_DTYPE``), as the kernels do.
+of g and g * zhat (the layer's dbeta and dgamma); the spare row ``INV_N``
+holds, at layer 0 column 0, 1/n of the count the backward's centering
+terms divide those sums by (0: the local count B P S). The passes'
+products round their operands to bf16 (``MM_DTYPE``), as the kernels do.
+
+On several ranks (``parallel/mesh.py``) the statistics and the centering
+terms span the global batch, as GSPMD's BatchNorm does in the JAX package:
+K11 then runs as a block pass (``stats_partial``: this rank's per-channel
+sums, float64) and a finish (``stats_finish`` over the global count R B P
+S) with an all-reduce of the sums between them, one a depth; the forward
+writes the global count's 1/n into ``INV_N`` for K13 and K14. K13's sums
+are linear in g once 1/sigma is global, so it keeps its one call and each
+layer's ``SG`` and ``SGZ`` rows are all-reduced in place after it. The
+gamma and beta gradients are this rank's own sums, so that the gradient
+average makes them the global ones (the reduced sums would count every
+rank's cotangent, each the gradient of its own local-mean loss). The
+autograd formulation reduces its sums through ``_SumAcrossRanks``, whose
+backward reduces the cotangents, as ``torch.nn.SyncBatchNorm`` does. At
+world size 1 every function runs its one-call passes as before and launches
+no collective.
 
 The frozen-BN variant normalises with the running statistics, as flax's
 ``BatchNorm(use_running_average=True)``, in training (an opt-in deviation
@@ -41,15 +59,17 @@ running statistics and nothing updates them.
 from __future__ import annotations
 
 import ctypes
+from typing import Callable, NamedTuple
 
 import torch
 
 from unopose_tpu_torch.kernels import LAUNCHES
 from unopose_tpu_torch.kernels import build
 from unopose_tpu_torch.ops.geometry import no_tf32, sqrt_rn
+from unopose_tpu_torch.parallel import mesh
 
 DIMS = (6, 32, 64, 128)
-MU, VAR, INV, A, B_, SG, SGZ = range(7)  # rows of the statistics buffer
+MU, VAR, INV, A, B_, SG, SGZ, INV_N = range(8)  # rows of the statistics buffer
 MM_DTYPE = torch.bfloat16
 DW_SIZE = sum(DIMS[i] * DIMS[i + 1] for i in range(3))
 FROZEN_SUMS = 2 * sum(DIMS[1:])  # K18's per-block sums of g and g zhat, every layer
@@ -69,6 +89,20 @@ class _RoundOperand(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return g, None
+
+
+class _SumAcrossRanks(torch.autograd.Function):
+    """The sum of a tensor over the ranks; its gradient the sum over the
+    ranks of the cotangents (each rank's loss reaches the others' rows
+    through the global statistics)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return mesh.all_reduce_sum(x.clone(), "pe_train_stats")
+
+    @staticmethod
+    def backward(ctx, g):
+        return mesh.all_reduce_sum(g.contiguous().clone(), "pe_train_stats_grad")
 
 
 class _RoundCotangent(torch.autograd.Function):
@@ -97,17 +131,22 @@ def _check(chans, Ws, gammas=None, betas=None):
 def pe_mlp_bn_pool_train_plain(chans, Ws, gammas, betas, eps: float = 1e-5, mm_dtype=MM_DTYPE):
     """chans (B, 6, P, S) float32 (no gradient), Ws (6, 32), (32, 64), (64,
     128), gammas and betas (32,), (64,), (128,). Returns pooled (B, P, 128)
-    float32 and the per-layer batch (means, variances), on autograd."""
+    float32 and the per-layer batch (means, variances), on autograd. On
+    several ranks the statistics are the global batch's."""
     _check(chans, Ws, gammas, betas)
     B, C, P, S = chans.shape
     n = B * P * S
+    ranks = mesh.world_size()
     h = _round(chans.detach().float().permute(0, 2, 3, 1).reshape(n, C), mm_dtype)
     mus, vars_ = [], []
     with no_tf32():
         for l, (W, gam, bet) in enumerate(zip(Ws, gammas, betas)):
             z = _RoundCotangent.apply(h @ _RoundOperand.apply(W.float(), mm_dtype), mm_dtype)
-            mu = z.sum(0) / n
-            var = torch.clamp_min((z * z).sum(0) / n - mu * mu, 0.0)
+            s1, s2 = z.sum(0), (z * z).sum(0)
+            if ranks > 1:
+                s1, s2 = _SumAcrossRanks.apply(torch.stack([s1, s2])).unbind(0)
+            mu = s1 / (n * ranks)
+            var = torch.clamp_min(s2 / (n * ranks) - mu * mu, 0.0)
             inv = 1.0 / sqrt_rn(var + eps)
             y = torch.clamp_min(gam * inv * z + (bet - gam * mu * inv), 0.0)
             h = _RoundOperand.apply(y, mm_dtype) if l < 2 else y
@@ -163,6 +202,23 @@ def stats_plain(chans, Ws, gb, bn, depth: int, eps: float) -> None:
                  z.shape[0], eps)
 
 
+def stats_partial_plain(chans, Ws, bn, depth: int) -> torch.Tensor:
+    """K11's block pass, plain: layer ``depth``'s sums of z and z^2 over these rows, (2, 128) float64 (0 past the
+    layer's width)."""
+    with no_tf32():
+        z = _chain(chans, Ws, bn, depth)[0][-1]
+    sums = torch.zeros((2, DIMS[-1]), dtype=torch.float64, device=z.device)
+    sums[:, : z.shape[1]] = torch.stack([z.sum(0), (z * z).sum(0)])
+    return sums
+
+
+def stats_finish_plain(sums, gb, bn, depth: int, n: int, eps: float) -> None:
+    """K11's finish, plain: layer ``depth``'s statistics and affine into ``bn`` from ``sums`` over ``n`` slots."""
+    d = DIMS[depth]
+    bn_from_sums(bn, depth - 1, sums[0, :d].float(), sums[1, :d].float(), gb[depth - 1, 0, :d],
+                 gb[depth - 1, 1, :d], n, eps)
+
+
 def fwd_plain(chans, Ws, bn):
     """K12's plain twin: pooled (B, P, 128), the max over the slots of the
     last ReLU output, and cnt (B, P, 128) float32, how many slots reach it."""
@@ -180,7 +236,7 @@ def _backward(chans, Ws, bn, pooled, cnt, dpool, lowest: int):
     {layer: zhat}, {layer: rounded dz}, the rounded post-ReLU ys)."""
     B, _, P, S = chans.shape
     n = B * P * S
-    inv_n = torch.tensor(1.0 / n, dtype=torch.float32).item()
+    inv_n = bn[0, INV_N, 0].item() or torch.tensor(1.0 / n, dtype=torch.float32).item()
     zs, ys = _chain(chans, Ws, bn, 3)
     pre = bn[2, A] * zs[2] + bn[2, B_]
     y3 = torch.clamp_min(pre, 0.0).view(B, P, S, -1)
@@ -284,6 +340,30 @@ def stats_cuda(chans, Ws, gb, bn, depth: int, eps: float) -> None:
     LAUNCHES["pe_train_stats"] += 1
 
 
+def stats_partial_cuda(chans, Ws, bn, depth: int) -> torch.Tensor:
+    """K11's block pass on the card: layer ``depth``'s sums of z and z^2 over these rows, (2, 128) float64."""
+    ws, (B, P, S) = _cuda_args(chans, Ws, bn)
+    cap = _cap(chans.device)
+    partial = torch.empty(cap * 256, dtype=torch.float32, device=chans.device)
+    sums = torch.zeros((2, DIMS[-1]), dtype=torch.float64, device=chans.device)
+    lib = build.load()
+    with torch.cuda.device(chans.device):
+        err = lib.unopose_pe_train_stats_partial(*map(_p, (chans, *ws, bn, partial)), cap, B, P, S, depth, _p(sums),
+                                                 ctypes.c_void_p(build.stream_of(chans)))
+    build.check(err, "pe_train_stats_partial")
+    LAUNCHES["pe_train_stats"] += 1
+    return sums
+
+
+def stats_finish_cuda(sums, gb, bn, depth: int, n: int, eps: float) -> None:
+    """K11's finish on the card: layer ``depth``'s statistics and affine into ``bn`` from ``sums`` over ``n`` slots."""
+    lib = build.load()
+    with torch.cuda.device(bn.device):
+        err = lib.unopose_pe_train_stats_finish(_p(sums), _p(gb), _p(bn), depth, float(n), float(eps),
+                                                ctypes.c_void_p(build.stream_of(bn)))
+    build.check(err, "pe_train_stats_finish")
+
+
 def fwd_cuda(chans, Ws, bn):
     """K12 on the card: (pooled, cnt), each (B, P, 128) float32."""
     ws, (B, P, S) = _cuda_args(chans, Ws, bn)
@@ -357,34 +437,63 @@ def stats_buffer(gammas, betas, device):
     return bn, gb
 
 
-# each pass in order (statistics, forward, backward sums, weight gradients): plain, and on the card
-PLAIN_PASSES = (stats_plain, fwd_plain, bwd_sums_plain, bwd_dw_plain)
-CUDA_PASSES = (stats_cuda, fwd_cuda, bwd_sums_cuda, bwd_dw_cuda)
+class Passes(NamedTuple):
+    """The passes in order (statistics, forward, backward sums, weight
+    gradients), and K11's block pass and finish for several ranks."""
+
+    stats: Callable
+    fwd: Callable
+    bwd_sums: Callable
+    bwd_dw: Callable
+    stats_partial: Callable
+    stats_finish: Callable
 
 
-def _passes(chans):
+PLAIN_PASSES = Passes(stats_plain, fwd_plain, bwd_sums_plain, bwd_dw_plain, stats_partial_plain, stats_finish_plain)
+CUDA_PASSES = Passes(stats_cuda, fwd_cuda, bwd_sums_cuda, bwd_dw_cuda, stats_partial_cuda, stats_finish_cuda)
+
+
+def _passes(chans) -> Passes:
     return PLAIN_PASSES if chans.device.type == "cpu" else CUDA_PASSES
 
 
 def train_forward(chans, Ws, gammas, betas, eps: float = 1e-5):
-    """The three statistics passes and the forward: (pooled, cnt, bn)."""
-    stats, fwd, _, _ = _passes(chans)
+    """The three statistics passes and the forward: (pooled, cnt, bn). On
+    several ranks each depth's sums are reduced across them before its
+    finish, over the global count, whose 1/n goes into ``bn``'s ``INV_N``."""
+    passes = _passes(chans)
     bn, gb = stats_buffer(gammas, betas, chans.device)
+    ranks = mesh.world_size()
+    B, _, P, S = chans.shape
     for depth in (1, 2, 3):
-        stats(chans, Ws, gb, bn, depth, eps)
-    pooled, cnt = fwd(chans, Ws, bn)
+        if ranks == 1:
+            passes.stats(chans, Ws, gb, bn, depth, eps)
+        else:
+            sums = mesh.all_reduce_sum(passes.stats_partial(chans, Ws, bn, depth), "pe_train_stats")
+            passes.stats_finish(sums, gb, bn, depth, ranks * B * P * S, eps)
+    if ranks > 1:
+        bn[0, INV_N, 0] = 1.0 / (ranks * B * P * S)
+    pooled, cnt = passes.fwd(chans, Ws, bn)
     return pooled, cnt, bn
 
 
 def train_backward(chans, Ws, bn, pooled, cnt, dpool):
     """The three backward-sum passes and the weight gradients: (dWs, dgammas,
-    dbetas). ``bn`` gets the sums of each layer."""
-    _, _, bwd_sums, bwd_dw = _passes(chans)
+    dbetas). ``bn`` gets the sums of each layer: on several ranks the sums
+    reduced across them (the centering terms of the layers below and of
+    K14), while dgammas and dbetas are this rank's own sums."""
+    passes = _passes(chans)
+    ranks = mesh.world_size()
+    local = bn.clone() if ranks > 1 else bn
     for layer in (3, 2, 1):
-        bwd_sums(chans, Ws, bn, pooled, cnt, dpool, layer)
-    dws = bwd_dw(chans, Ws, bn, pooled, cnt, dpool)
-    dgammas = tuple(bn[l, SGZ, : DIMS[l + 1]].clone() for l in range(3))
-    dbetas = tuple(bn[l, SG, : DIMS[l + 1]].clone() for l in range(3))
+        passes.bwd_sums(chans, Ws, bn, pooled, cnt, dpool, layer)
+        if ranks > 1:
+            rows = bn[layer - 1, SG:SGZ + 1]
+            local[layer - 1, SG:SGZ + 1] = rows
+            mesh.all_reduce_sum(rows, "pe_train_bwd_sums")
+    dws = passes.bwd_dw(chans, Ws, bn, pooled, cnt, dpool)
+    dgammas = tuple(local[l, SGZ, : DIMS[l + 1]].clone() for l in range(3))
+    dbetas = tuple(local[l, SG, : DIMS[l + 1]].clone() for l in range(3))
     return dws, dgammas, dbetas
 
 
@@ -447,7 +556,7 @@ def frozen_buffer(gammas, betas, means, vars_, eps: float, device):
 class _PEFrozen(torch.autograd.Function):
     @staticmethod
     def forward(ctx, chans, bn, w0, w1, w2, g0, g1, g2, b0, b1, b2):
-        pooled, cnt = _passes(chans)[1](chans, (w0, w1, w2), bn)
+        pooled, cnt = _passes(chans).fwd(chans, (w0, w1, w2), bn)
         ctx.save_for_backward(chans, w0, w1, w2, bn, pooled, cnt)
         return pooled
 
