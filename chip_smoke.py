@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py [--seed N] [--batches 3] [--train-steps 3] [--train-only]
                           [--eval-only] [--launcher-only] [--ddp-only] [--ddp-ranks 2]
+                          [--precision-only]
 
 ``--train-only`` builds the kernels and runs only the two train paths of
 phase 6 (``train`` and ``train_frozen``, ``--train-steps`` steps each),
@@ -18,6 +19,9 @@ run's images/s and chunk ms, whole and over its steady window
 last line. ``--ddp-only`` builds them and runs only phase 6's ``ddp`` path
 with its gates, printing its figures as its last line; ``--ddp-ranks N``
 runs that path on N ranks (2 by default; NCCL a card with N cards).
+``--precision-only`` builds them and runs only phase 6's ``precision`` and
+``pose_recovery`` paths with their gates, printing their figures as its
+last line.
 
 Phases, each fatal on failure:
 
@@ -36,7 +40,11 @@ Phases, each fatal on failure:
    bf16 model dtype) at most one step off on at most 0.1% of entries, timed
    beside its bound and, in the log only, the floors of its own arithmetic
    and shared reads (128 lanes, or bytes, a clock on each SM of the card at
-   its maximum clock, ``card_lane_rate``); the PE
+   its maximum clock, ``card_lane_rate``); its float32 and bf16 value stores
+   (``quant_int8`` off) at D 256 and 32, the float32 store within 1e-5 of
+   each channel's bound 1.25 (max|T_d| + max|T_a|), the bf16 store equal but
+   for one bf16 ulp on at most 0.1% of entries, each timed beside its bound
+   (``geo_value_store``); the PE
    channels and MLP/pool (32 x 2048 x 256) on two kinds of cloud: the main
    path's uniform cubes, whose isotropic neighbourhoods nearly all fit one
    64-slot chunk and have ill-conditioned local frames (at most twice as
@@ -133,7 +141,15 @@ Phases, each fatal on failure:
    ``production_pe_v4``: and ``UNOPOSE_PE_V4=1``, K21;
    ``production_pe_slot_major``: and ``UNOPOSE_PE_SLOT_MAJOR=1``, K22), and
    ``production_s768`` (nsample2 768, K19) for 1;
-   finite, orthonormal poses and the peak memory; then ``train_config()`` (B 8, bf16) for
+   finite, orthonormal poses and the peak memory; the ``precision`` path
+   (``run_precision``: the faithful, bf16-embedding production and
+   production configs on one full-width fake reference checkpoint with
+   ``parity_gather=True``, 16 ``tools/scenes.py`` scenes, the same
+   coarse-solver uniforms; each production config against faithful at the
+   JAX production gate's limits, ``PRECISION_LIMITS``, every delta and the
+   pose differences logged); the ``pose_recovery`` path (the port's
+   pose-recovery example at B 4, N 2048: both stages within 1 degree and
+   0.02, the all-zero probe finite); then ``train_config()`` (B 8, bf16) for
    ``--train-steps`` training steps: finite loss terms, a finite positive
    gradient norm, the frozen ViT bitwise unchanged, every trainable module
    and all six BatchNorm layers of the fine PE moved, and one profiled
@@ -285,6 +301,13 @@ PATH_KERNELS["train_launcher"] = tuple(dict.fromkeys(PATH_KERNELS["train"] + PAT
 PATH_NOT_LAUNCHED["train_launcher"] = SWITCHED
 # the data-parallel train entry point and its sharded evaluation (run_ddp): the same kernels on every rank
 PATH_KERNELS["ddp"], PATH_NOT_LAUNCHED["ddp"] = PATH_KERNELS["train_launcher"], SWITCHED
+# the precision gate (run_precision): the faithful config (no fused kernel but the grouping's) and both production
+# configs, whose geometric embedding is K4's bf16 store or its int8 one; the scenes' dense tripods overflow the
+# packed grouping's budgets at full width, so both production configs' fine PE take the exact fallback (K3, K2 and
+# the plain MLP), as the JAX package's would; and the pose-recovery example (FPS, K1)
+PATH_KERNELS["precision"] = ("fps", "first_k_select", "gather_planar", "geo_rpe") + PRODUCTION[2:]
+PATH_NOT_LAUNCHED["precision"] = ("ball_group_subset", "pe_masked") + SWITCHED
+PATH_KERNELS["pose_recovery"], PATH_NOT_LAUNCHED["pose_recovery"] = ("fps",), SWITCHED
 SCRIPTS = {
     "profile_r9": ("profile_r9", "pe_packed"),
     "profile_pe_ablate": ("pe_ablate",),
@@ -609,6 +632,23 @@ def check_fused_kernels(log, dev, seed: int) -> dict:
     if worst > 1 or share > 1e-3 or not torch.equal(sc, psc):
         raise AssertionError("geo_rpe kernel differs from the plain version beyond one step on 0.1% of entries")
     results["geo_rpe"] = dict(max_abs_err=float(worst), ms=ms, plain_ms=plain_ms, library_ms=None, **geo_bound)
+    # the value stores (quant_int8 off): float32 (float32 contraction) and bf16, at D 256 and at D 32
+    gen = torch.Generator(device=dev).manual_seed(seed + 4)
+    W32 = [torch.randn(32, 32, device=dev, generator=gen) / 32**0.5 for _ in range(2)]
+    b32 = [torch.randn(32, device=dev, generator=gen) * 0.1 for _ in range(2)]
+    narrow = (build_taylor_table(W32[0], b32[0], ge.d_index_max, T)[0],
+              build_taylor_table(W32[1], b32[1], float(np.pi * factor_a), T)[0])
+    consts = (scale_d, scale_a, ge.sigma_d, factor_a)
+    for width, tabs in ((D, (tab_d.detach(), tab_a.detach())), (32, narrow)):
+        for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            r = geo_value_store(points, ref_vec, *tabs, consts, dtype)
+            key = f"{name}_store" + ("" if width == D else f"_d{width}")
+            results["geo_rpe"][key] = r
+            log(f"geo_rpe 32x197x197x{width} {name} store: {100 * r['unequal_share']:.4f}% of entries unequal, max "
+                f"|diff| {r['max_abs_err']:.3e} ({r['gate']}), kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, "
+                f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+            if not r["ok"]:
+                raise AssertionError(f"geo_rpe {name} store at D {width} differs from the plain version: {r['gate']}")
 
     # K5, K6 on the fine PE's input: both clouds, 32 x 2048, budgets 64/256
     pe = FinePositionalEncoding(256, fused=True).to(dev)
@@ -657,6 +697,41 @@ def check_fused_kernels(log, dev, seed: int) -> dict:
     for name, key in (("pe_channels", "c_alone"), ("pe_mlp_pool", "m_alone")):
         results[name].update(alone_ms=iso[key], surface_alone_ms=surf[key])
     return results
+
+
+def geo_value_store(points, ref_vec, tab_d, tab_a, consts, dtype) -> dict:
+    """K4's value store in ``dtype`` against the plain version on the same
+    inputs: float32 within 1e-5 of each channel's bound 1.25 (max|T_d| +
+    max|T_a|); bf16 equal but for one bf16 ulp on at most 0.1% of entries
+    (the share the int8 check admits). Times and the bound (the output
+    written once, the points, anchors and tables read once, 25 float32
+    operations an entry)."""
+    import torch
+
+    from unopose_tpu_torch.ops.geo_fused import geo_rpe_fused_cuda, geo_rpe_fused_plain
+
+    args = (points, ref_vec, tab_d, tab_a, *consts, dtype, False)
+    with torch.no_grad():
+        e, p = geo_rpe_fused_cuda(*args), geo_rpe_fused_plain(*args)
+        torch.cuda.synchronize()
+        if e.dtype != dtype or e.shape != p.shape:
+            raise AssertionError(f"geo_rpe value store: {e.dtype} {tuple(e.shape)}, plain {p.dtype} {tuple(p.shape)}")
+        diff = (e.float() - p.float()).abs()
+        share = diff.gt(0).float().mean().item()
+        if dtype == torch.float32:
+            chan = 1.25 * (tab_d.abs().amax(0) + tab_a.abs().amax(0))
+            rel = (diff / chan).amax().item()
+            ok, gate = rel <= 1e-5, f"max |diff| / channel bound {rel:.3e}, limit 1e-5"
+        else:
+            past = diff.gt(ulp_bf16(p.float())).sum().item()
+            ok, gate = past == 0 and share <= 1e-3, f"{past} entries past one bf16 ulp, unequal share limit 0.1%"
+        worst = diff.max().item()
+        del diff
+        ms, plain_ms = cuda_ms(lambda: geo_rpe_fused_cuda(*args)), cuda_ms(lambda: geo_rpe_fused_plain(*args), reps=3)
+    T, D = tab_d.shape
+    nbytes = e.numel() * e.element_size() + points.numel() * 4 + ref_vec.numel() * 4 + 2 * T * D * 4
+    return dict(ok=ok, gate=gate, unequal_share=share, max_abs_err=worst, ms=ms, plain_ms=plain_ms, library_ms=None,
+                **bound(nbytes, 25.0 * e.numel(), F32_FLOPS))
 
 
 def ulp_bf16(x):
@@ -3456,6 +3531,159 @@ def run_ddp(log, dev, seed: int, ranks: int = DDP_RANKS) -> dict:
                 one_rank_steady_less_wait_ms=one_fig["steady_less_wait_ms"], eval=d)
 
 
+# the precision path: the production configs against the reference-faithful one on the same weights and scenes
+PRECISION_CONFIGS = (("faithful", "faithful_config", "float32"),
+                     ("production_bf16_geo", "production_bf16_geo_config", "bfloat16"),
+                     ("production", "production_config", "bfloat16"))
+# the JAX production gate's limits (tests/test_production_gate.py), applied to each group of its 4 pairs
+PRECISION_LIMITS = dict(coarse_atten_rel=0.03, coarse_scores=0.05, fine_scores_median=0.05, fine_scores_p95=0.2,
+                        pose_score=0.05)
+PRECISION_GROUP = 4
+PRECISION_TAPS = ("coarse_atten", "coarse_score", "fine_score", "pred_pose_score", "init_R", "pred_R")
+
+
+def rotation_deltas_deg(Ra, Rb) -> np.ndarray:
+    """Geodesic angles (degrees) between two batches of rotations (numpy)."""
+    cos = (np.einsum("bij,bij->b", np.asarray(Ra, np.float64), np.asarray(Rb, np.float64)) - 1.0) / 2.0
+    return np.degrees(np.arccos(np.clip(cos, -1.0, 1.0)))
+
+
+def precision_deltas(ref: dict, got: dict) -> dict:
+    """The JAX gate's deltas of ``got`` against ``ref`` (numpy taps of
+    BATCH pairs), the worst over the groups of ``PRECISION_GROUP`` pairs, and
+    each limit's verdict; plus the coarse and fine pose differences in
+    degrees (ungated)."""
+    d = {k: 0.0 for k in PRECISION_LIMITS}
+    for g in range(0, len(ref["pred_pose_score"]), PRECISION_GROUP):
+        sl = slice(g, g + PRECISION_GROUP)
+        fa, pa = ref["coarse_atten"][sl], got["coarse_atten"][sl]
+        dfs = np.abs(got["fine_score"][sl] - ref["fine_score"][sl])
+        d["coarse_atten_rel"] = max(d["coarse_atten_rel"], float(np.abs(pa - fa).max() / (np.abs(fa).max() + 1e-9)))
+        d["coarse_scores"] = max(d["coarse_scores"], float(np.abs(got["coarse_score"][sl] - ref["coarse_score"][sl]).max()))
+        d["fine_scores_median"] = max(d["fine_scores_median"], float(np.median(dfs)))
+        d["fine_scores_p95"] = max(d["fine_scores_p95"], float(np.percentile(dfs, 95)))
+        d["pose_score"] = max(d["pose_score"], float(np.abs(got["pred_pose_score"][sl] - ref["pred_pose_score"][sl]).max()))
+    coarse = rotation_deltas_deg(got["init_R"], ref["init_R"])
+    fine = rotation_deltas_deg(got["pred_R"], ref["pred_R"])
+    return dict(deltas=d, passed={k: d[k] < lim for k, lim in PRECISION_LIMITS.items()},
+                coarse_rot_delta_deg=dict(median=float(np.median(coarse)), max=float(coarse.max())),
+                fine_rot_delta_deg=dict(median=float(np.median(fine)), max=float(fine.max())))
+
+
+def run_precision(log, dev, seed: int) -> dict:
+    """Phase 6, the ``precision`` path: the faithful config (float32 model
+    and backbone), production with the bf16 fused embedding and production
+    (both bf16) at full width, one batch of ``BATCH`` pairs of
+    ``tools/scenes.py:scene_batch`` scenes (224 px, 2048 query and 5000
+    template points), every config on the same weights: a full-width fake
+    reference checkpoint of the faithful model's seeded init, loaded through
+    ``utils/ref_convert.py`` with ``parity_gather=True``; the same
+    coarse-solver uniforms in every config. Each production config against
+    faithful at the JAX gate's limits (``PRECISION_LIMITS``); every delta
+    and the pose differences are logged. The launch counts are zeroed
+    before the three configs and read after them."""
+    import tempfile
+
+    import torch
+
+    from unopose_tpu_torch import configs
+    from unopose_tpu_torch.kernels import LAUNCHES, reset_launch_counts
+    from unopose_tpu_torch.models import UNOPose
+    from unopose_tpu_torch.tools.fake_reference import write_fake_reference
+    from unopose_tpu_torch.tools.scenes import scene_batch
+    from unopose_tpu_torch.utils.ref_convert import load_reference_into
+
+    def config(fn_name: str):
+        cfg = getattr(configs, fn_name)()
+        cfg.fine_point_matching.parity_gather = True
+        return cfg
+
+    rng = np.random.default_rng(seed + 19)
+    inputs, R_gt, _ = scene_batch(rng, BATCH, img=configs.FULL_SIZES["img"], nq=configs.FULL_SIZES["npts"],
+                                  nt=configs.FULL_SIZES["ntem"])
+    inputs = {k: torch.from_numpy(v).to(dev) for k, v in inputs.items()}
+    gen = torch.Generator(device=dev).manual_seed(seed + 19)
+    taps, times = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "reference.pth")
+        t0 = time.perf_counter()
+        torch.manual_seed(seed)
+        write_fake_reference(path, UNOPose.from_config(config("faithful_config")))
+        log(f"precision: full-width fake reference checkpoint written in {time.perf_counter() - t0:.1f} s "
+            f"({os.path.getsize(path) / 2**20:.0f} MiB)")
+        models = {}
+        for name, fn_name, dtype in PRECISION_CONFIGS:
+            dt = getattr(torch, dtype)
+            models[name] = load_reference_into(UNOPose.from_config(config(fn_name), dt, dt), path).to(dev).eval()
+    uniforms = torch.rand((BATCH, 3 * models["faithful"].nproposal1), generator=gen, device=dev)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    for name, model in models.items():
+        t0 = time.perf_counter()
+        out = model(inputs, uniforms=uniforms, return_intermediates=True)
+        torch.cuda.synchronize()
+        times[name] = (time.perf_counter() - t0) * 1e3
+        geo = out["geo"]
+        kind = "int8 codes" if isinstance(geo, tuple) else str(geo.dtype)
+        want = {"faithful": "torch.float32", "production_bf16_geo": "torch.bfloat16", "production": "int8 codes"}
+        if kind != want[name]:
+            raise AssertionError(f"precision {name}: geometric embedding {kind}, expected {want[name]}")
+        taps[name] = {k: out[k].float().cpu().numpy() for k in PRECISION_TAPS}
+        orth, det, finite = pose_check(out["pred_R"], out["pred_t"], out["pred_pose_score"])
+        log(f"precision {name}: {times[name]:.1f} ms, embedding {kind}, PE branch {model.fine_matching.pe.last_branch}, "
+            f"fused assignment {model.fused_assignment}, |RR^T - I| {orth:.2e}, finite {finite}")
+        if not finite or orth > 1e-3 or det > 1e-3:
+            raise AssertionError(f"precision {name}: poses are not finite orthonormal")
+    launches = dict(LAUNCHES)
+    check_launches("precision", launches)
+    del models
+    torch.cuda.empty_cache()
+    gt = rotation_deltas_deg(taps["faithful"]["init_R"], R_gt)
+    log(f"precision faithful: coarse pose against the scenes' ground truth, median {np.median(gt):.3f} deg, "
+        f"max {gt.max():.3f} deg")
+    result = dict(launches=launches, ms=times, configs={})
+    failed = []
+    for name, _, _ in PRECISION_CONFIGS[1:]:
+        r = precision_deltas(taps["faithful"], taps[name])
+        result["configs"][name] = r
+        for k, v in r["deltas"].items():
+            log(f"precision {name} vs faithful: {k} {v:.6g} (limit {PRECISION_LIMITS[k]})"
+                f"{'' if r['passed'][k] else ' FAILED'}")
+            if not r["passed"][k]:
+                failed.append(f"{name} {k}")
+        for k in ("coarse_rot_delta_deg", "fine_rot_delta_deg"):
+            log(f"precision {name} vs faithful: {k} median {r[k]['median']:.4f}, max {r[k]['max']:.4f} (ungated)")
+    if failed:
+        raise AssertionError(f"precision gate failed: {failed}")
+    return result
+
+
+def run_pose_recovery(log, dev) -> dict:
+    """Phase 6, the ``pose_recovery`` path: ``examples/
+    pose_recovery_synthetic_torch.py:run`` on the card at B 4, N 2048: FPS
+    196 (the fps kernel), the grouping, the coarse (6000 / 300) and fine
+    solvers on the oracle attention within 1 degree and 0.02 for both
+    stages, and a finite pose on the all-zero probe. Its launch counts are
+    zeroed before and read after."""
+    import importlib.util
+
+    import torch
+
+    from unopose_tpu_torch.kernels import LAUNCHES, reset_launch_counts
+
+    spec = importlib.util.spec_from_file_location(
+        "pose_recovery_synthetic_torch", os.path.join(ROOT, "examples", "pose_recovery_synthetic_torch.py"))
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    out = example.run(str(dev), batch=4, npts=2048, npoint=196, n_proposal1=6000, n_proposal2=300,
+                      log=lambda m: log(f"pose_recovery: {m}"))
+    launches = dict(LAUNCHES)
+    check_launches("pose_recovery", launches)
+    return dict(launches=launches, **out)
+
+
 def run_bench(log) -> dict:
     """Phase 6, the bench: ``unopose_tpu_torch.bench.run()`` as ``python -m unopose_tpu_torch.bench`` runs it
     (the production config, B 16, full depth), its JSON line logged, the last timed batch's poses gated."""
@@ -3520,6 +3748,7 @@ def main() -> int:
     parser.add_argument("--launcher-only", action="store_true", help="only the train_launcher path")
     parser.add_argument("--ddp-only", action="store_true", help="only the ddp path")
     parser.add_argument("--ddp-ranks", type=int, default=DDP_RANKS, help="ranks of the ddp path")
+    parser.add_argument("--precision-only", action="store_true", help="only the precision and pose_recovery paths")
     args = parser.parse_args()
 
     import torch
@@ -3563,6 +3792,12 @@ def main() -> int:
         r = run_ddp(log, dev, args.seed, args.ddp_ranks)
         print(json.dumps({"ddp": {k: v for k, v in r.items() if k != "launches"}}))
         return 0
+    if args.precision_only:
+        r = run_precision(log, dev, args.seed)
+        pose = run_pose_recovery(log, dev)
+        print(json.dumps({"precision": {k: v for k, v in r.items() if k != "launches"},
+                          "pose_recovery": {k: v for k, v in pose.items() if k != "launches"}}))
+        return 0
     if args.eval_only:
         figures = []
         for k in range(EVAL_MEASURED_RUNS):
@@ -3599,6 +3834,8 @@ def main() -> int:
         "firstk_unpacked": run_path(log, dev, args.seed, 1, "firstk_unpacked"),
         **{name: run_path(log, dev, args.seed, 1, name) for name in PE_PATHS},
         "production_s768": run_path(log, dev, args.seed, 1, "production_s768"),
+        "precision": run_precision(log, dev, args.seed),
+        "pose_recovery": run_pose_recovery(log, dev),
         "bench": run_bench(log),
         "eval": run_eval(log, dev, args.seed),
         **{name: run_script(log, name) for name in SCRIPTS},

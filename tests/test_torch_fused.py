@@ -30,13 +30,13 @@ from unopose_tpu_torch.models import UNOPose
 from unopose_tpu_torch.models.attention import RPEMultiHeadAttention
 from unopose_tpu_torch.models.embedding import knn_anchor_vectors
 from unopose_tpu_torch.models.matching import FinePositionalEncoding
-from unopose_tpu_torch.ops import ball_query as tbq
 from unopose_tpu_torch.ops import eig3 as teig
 from unopose_tpu_torch.ops import geo_fused as tgf
 from unopose_tpu_torch.ops import pe_fused as tpf
 from unopose_tpu_torch.utils.convert import flax_to_torch, load_flax_variables
 
 jbq = importlib.import_module("unopose_tpu.ops.ball_query")
+tbq = importlib.import_module("unopose_tpu_torch.ops.ball_query")  # the package exports ball_query, the function
 jeig = importlib.import_module("unopose_tpu.ops.eig3")
 jgf = importlib.import_module("unopose_tpu.ops.geo_fused")
 jpf = importlib.import_module("unopose_tpu.ops.pe_fused")

@@ -24,7 +24,6 @@ import jax
 import jax.numpy as jnp
 import torch
 
-from unopose_tpu_torch.ops import ball_query as tbq
 from unopose_tpu_torch.ops import eig3 as teig
 from unopose_tpu_torch.ops import geometry as tgeo
 from unopose_tpu_torch.ops import lrf as tlrf
@@ -34,6 +33,7 @@ from unopose_tpu_torch.ops.fps import fps, fps_plain, gather_points
 from unopose_tpu_torch.ops.gather import gather_planar
 
 jbq = importlib.import_module("unopose_tpu.ops.ball_query")
+tbq = importlib.import_module("unopose_tpu_torch.ops.ball_query")  # the package exports ball_query, the function
 jfps = importlib.import_module("unopose_tpu.ops.fps")
 jgather = importlib.import_module("unopose_tpu.ops.gather_pallas")
 jeig = importlib.import_module("unopose_tpu.ops.eig3")

@@ -10,6 +10,7 @@ without a card. The tests marked ``cuda`` compare each kernel with its plain
 version on the card and skip here.
 """
 
+import importlib
 import os
 import re
 import shutil
@@ -21,11 +22,15 @@ import numpy as np
 import pytest
 import torch
 
-from unopose_tpu_torch.configs import TINY_SIZES, fused_matcher_config, slice_config, surface_clouds
+from unopose_tpu_torch.configs import TINY_SIZES, slice_config, surface_clouds
 from unopose_tpu_torch.kernels import LAUNCHES, build
 from unopose_tpu_torch.ops import (
-    assignment_fused, ball_query, fps as fps_mod, gather, geo_fused, pe_fused, pe_train, vit_attn,
+    assignment_fused, gather, geo_fused, pe_fused, pe_train, vit_attn,
 )
+
+# the ops package exports fps and ball_query, the functions, under their modules' names
+fps_mod = importlib.import_module("unopose_tpu_torch.ops.fps")
+ball_query = importlib.import_module("unopose_tpu_torch.ops.ball_query")
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "unopose_tpu_torch"
@@ -47,7 +52,8 @@ def test_port_runs_with_jax_unavailable():
     evaluator imported and the tiny ``--eval-only`` run on a synthetic BOP
     tree; the training reader, its colour augmentation, the loaders, the
     checkpointer, the writers, the drawing helpers and the data-parallel
-    layer imported) with
+    layer imported; the public ops, the scenes, the fake reference and the
+    reference loader run, and the pose-recovery example imported) with
     ``jax``, ``flax`` and the JAX package blocked in ``sys.modules``."""
     code = """
 import sys
@@ -94,6 +100,18 @@ with tempfile.TemporaryDirectory() as tmp:
 import unopose_tpu_torch.data.color_aug, unopose_tpu_torch.data.dataset_train, unopose_tpu_torch.data.loader
 import unopose_tpu_torch.utils.checkpoint, unopose_tpu_torch.utils.vis, unopose_tpu_torch.utils.writer
 import unopose_tpu_torch.parallel.mesh
+import unopose_tpu_torch.ops
+from unopose_tpu_torch.configs import faithful_config
+from unopose_tpu_torch.tools.fake_reference import reference_state_dict
+from unopose_tpu_torch.tools.scenes import scene_batch
+from unopose_tpu_torch.utils.ref_convert import reference_to_state_dict
+assert scene_batch(np.random.default_rng(0), 1, img=28, nq=64, nt=96)[0]["pts"].shape == (1, 64, 3)
+faithful = UNOPose.from_config(faithful_config(tiny=True))
+state = reference_to_state_dict(reference_state_dict(faithful), depth=4)
+assert all(torch.equal(state[k], v) for k, v in faithful.state_dict().items())
+import importlib.util
+spec = importlib.util.spec_from_file_location("example", "examples/pose_recovery_synthetic_torch.py")
+spec.loader.exec_module(importlib.util.module_from_spec(spec))
 loaded = {m.split(".")[0] for m in sys.modules if sys.modules[m] is not None}
 assert not loaded & {"jax", "flax", "jaxlib", "unopose_tpu"}, loaded
 print("ok")
@@ -103,9 +121,10 @@ print("ok")
 
 
 def test_port_sources_import_no_jax():
-    """Neither the port nor ``chip_smoke.py`` imports JAX or the JAX package."""
+    """Neither the port, ``chip_smoke.py`` nor the port's example imports JAX
+    or the JAX package."""
     pattern = re.compile(r"^\s*(import|from)\s+(jax|flax|jaxlib|unopose_tpu)\b", re.M)
-    for path in [*PORT.rglob("*.py"), ROOT / "chip_smoke.py"]:
+    for path in [*PORT.rglob("*.py"), ROOT / "chip_smoke.py", ROOT / "examples" / "pose_recovery_synthetic_torch.py"]:
         assert not pattern.search(path.read_text()), path
 
 
@@ -343,28 +362,6 @@ def test_pe_weights_are_folded_once_per_weight_set():
     assert not torch.equal(second[1][0][1], first[1][0][1])
     pe.to(torch.float64)
     assert pe.folded_weights()[0][0][0].dtype == torch.float64
-
-
-def test_unported_modes_are_refused():
-    from unopose_tpu_torch.models import UNOPose
-
-    for key, value in (
-        ("fine_point_matching.parity_gather", True),
-        ("fine_point_matching.pe_dtype", "bf16"),
-        ("coarse_point_matching.sim_type", "L2"),
-    ):
-        cfg = slice_config(tiny=True)
-        *parents, leaf = key.split(".")
-        node = cfg
-        for p in parents:
-            node = node[p]
-        node[leaf] = value
-        with pytest.raises(NotImplementedError):
-            UNOPose.from_config(cfg)
-    cfg = fused_matcher_config(tiny=True)
-    cfg.geo_embedding.quant_int8 = False
-    with pytest.raises(NotImplementedError):
-        UNOPose.from_config(cfg)
 
 
 @pytest.mark.parametrize("config", ["slice", "fused_matchers", "production", "subset", "firstk_unpacked",
@@ -891,7 +888,9 @@ def test_first_k_select_and_gather_kernels_match_plain(cuda):
 @pytest.mark.cuda
 def test_geo_rpe_kernel_matches_plain(cuda):
     """int8 codes equal but for one step on at most 0.1% of entries, with
-    bf16 (bf16 model) and float32 (float32 model) contraction."""
+    bf16 (bf16 model) and float32 (float32 model) contraction; the float32
+    store within 1e-5 of the channel bound 1.25 (max|T_d| + max|T_a|), the
+    bf16 store equal but for one bf16 ulp on at most 0.1% of entries."""
     from unopose_tpu_torch.models.embedding import knn_anchor_vectors
 
     rng = np.random.default_rng(2)
@@ -907,8 +906,15 @@ def test_geo_rpe_kernel_matches_plain(cuda):
             (p8, psc) = geo_fused.geo_rpe_fused_plain(*args, dtype, True)
             steps = (e8.int() - p8.int()).abs()
             assert int(steps.max()) <= 1 and steps.gt(0).float().mean().item() <= 1e-3 and torch.equal(sc, psc)
-        with pytest.raises(ValueError):
-            geo_fused.geo_rpe_fused_cuda(*args)
+        bound = 1.25 * (tab_d.abs().amax(0) + tab_a.abs().amax(0))
+        e, p = geo_fused.geo_rpe_fused_cuda(*args), geo_fused.geo_rpe_fused_plain(*args)
+        assert e.dtype == torch.float32 and e.shape == p.shape
+        assert bool(((e - p).abs() <= 1e-5 * bound).all())
+        e, p = (f(*args, torch.bfloat16) for f in (geo_fused.geo_rpe_fused_cuda, geo_fused.geo_rpe_fused_plain))
+        assert e.dtype == torch.bfloat16 and e.shape == p.shape
+        diff = (e.float() - p.float()).abs()
+        one_ulp = diff <= 2.0 ** (torch.frexp(p.float().abs())[1] - 8).float()
+        assert bool(one_ulp.all()) and diff.gt(0).float().mean().item() <= 1e-3
 
 
 @pytest.mark.cuda

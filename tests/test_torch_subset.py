@@ -30,11 +30,11 @@ from unopose_tpu_torch.configs import (
     SUBSET_TINY_NPTS, TINY_SIZES, subset_config, surface_clouds,
 )
 from unopose_tpu_torch.models import UNOPose
-from unopose_tpu_torch.ops import ball_query as tbq
 from unopose_tpu_torch.ops import pe_fused as tpf
 from unopose_tpu_torch.utils.convert import flax_to_torch, load_flax_variables
 
 jpf = importlib.import_module("unopose_tpu.ops.pe_fused")
+tbq = importlib.import_module("unopose_tpu_torch.ops.ball_query")  # the package exports ball_query, the function
 jeig = importlib.import_module("unopose_tpu.ops.eig3")
 jva = importlib.import_module("unopose_tpu.ops.vit_attn")
 

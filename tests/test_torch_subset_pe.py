@@ -25,10 +25,10 @@ from unopose_tpu.models.matching import FinePositionalEncoding as JaxPE
 from unopose_tpu_torch.configs import SUBSET_TINY_NPTS, TINY_SIZES, firstk_unpacked_config, subset_config
 from unopose_tpu_torch.models import UNOPose
 from unopose_tpu_torch.models.matching import FinePositionalEncoding
-from unopose_tpu_torch.ops import ball_query as tbq
 from unopose_tpu_torch.utils.convert import flax_to_torch, load_flax_variables
 
 jbq = importlib.import_module("unopose_tpu.ops.ball_query")
+tbq = importlib.import_module("unopose_tpu_torch.ops.ball_query")  # the package exports ball_query, the function
 
 
 def bits(x):

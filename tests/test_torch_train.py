@@ -31,12 +31,13 @@ from unopose_tpu_torch.configs import TINY_SIZES, train_config
 from unopose_tpu_torch.engine.train import Trainer
 from unopose_tpu_torch.losses import compute_overlap_loss, process_loss
 from unopose_tpu_torch.models import UNOPose
-from unopose_tpu_torch.ops import ball_query, pe_train
+from unopose_tpu_torch.ops import pe_train
 from unopose_tpu_torch.ops.rotation import PoseNoiseDraws
 from unopose_tpu_torch.utils.convert import load_flax_variables
 
 jpt = importlib.import_module("unopose_tpu.ops.pe_train")
 jbq = importlib.import_module("unopose_tpu.ops.ball_query")
+ball_query = importlib.import_module("unopose_tpu_torch.ops.ball_query")  # the package exports the function
 jrot = importlib.import_module("unopose_tpu.ops.rotation")
 jloss = importlib.import_module("unopose_tpu.losses")
 jtrain = importlib.import_module("unopose_tpu.engine.train")

@@ -200,6 +200,35 @@ def production_s768_config(tiny: bool = False) -> Config:
     return cfg
 
 
+def faithful_config(tiny: bool = False) -> Config:
+    """The reference-faithful model of the JAX package's production study
+    (``benchmarks/study_production_path.py:build_model("faithful")``),
+    which the precision gate holds the production configs against:
+    ``production_config(tiny)`` with the exact sinusoid embedding
+    (``fused_table=0``, ``quant_int8=False``), the materialised unpacked
+    first_k PE (``pe_packed=False``) with the plain float32 MLP
+    (``pe_fused=False``: the study ran this model on the CPU, where the JAX
+    package's auto switch is off, and the JAX gate sets it so), the exact ViT
+    (``fused_attn=False``) and the materialised fine solver
+    (``fused_assignment=False``). It runs as a float32 model with a float32
+    backbone, the production configs in bf16 with a bf16 backbone."""
+    cfg = production_config(tiny)
+    cfg.geo_embedding.update(fused_table=0, quant_int8=False)
+    cfg.fine_point_matching.update(pe_packed=False, pe_fused=False)
+    cfg.feature_extraction.fused_attn = False
+    cfg.fused_assignment = False
+    return cfg
+
+
+def production_bf16_geo_config(tiny: bool = False) -> Config:
+    """``production_config(tiny)`` with ``geo_embedding.quant_int8=False``:
+    the fused embedding written as bf16 values in a bf16 model (kernel
+    ``geo_rpe``'s bf16 store), production before its int8 storage."""
+    cfg = production_config(tiny)
+    cfg.geo_embedding.quant_int8 = False
+    return cfg
+
+
 # configs/main_cfg.py's schedule length: 3 epochs of the 2,008,971 training images at 8 per rank on 4 ranks
 TRAIN_BATCH = 8
 MAX_ITER = (2008971 // (TRAIN_BATCH * 4)) * 3

@@ -45,6 +45,8 @@ _SIGNATURES = {
     + [_P],
     # pts, ref_vec, tab_d, tab_a, qscale, out, B, N, k, T, D, bf16_weights, sd, sa, factor_a, stream
     "unopose_geo_rpe": [_P] * 6 + [_I] * 6 + [_F] * 3 + [_P],
+    # pts, ref_vec, tab_d, tab_a, out, B, N, k, T, D, out_bf16, sd, sa, factor_a, stream
+    "unopose_geo_rpe_values": [_P] * 5 + [_I] * 6 + [_F] * 3 + [_P],
     # xp, yp, zp, idx_p, w1, w2, total2, cx, cy, cz, out, B, N, P, S2, r1, r2, 1/r1, 1/r2, stream
     "unopose_pe_channels": [_P] * 11 + [_I] * 4 + [_F] * 4 + [_P],
     # chans, w1, w2, total2, wpack, bpack, out, points, S2, stream

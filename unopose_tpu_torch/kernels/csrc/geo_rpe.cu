@@ -1,7 +1,8 @@
 // Fused geometric structure embedding: for every pair (i, j) of a cloud's
 // points, the distance term plus the max over the k anchor angles, each read
 // from a pre-projected table by a 3-point quadratic Lagrange stencil, written
-// as symmetric per-channel int8 (the production embedding, quant_int8).
+// as symmetric per-channel int8 (the production embedding, quant_int8), or
+// as float32 or bf16 values (quant_int8 off, in a float32 or bf16 model).
 //
 // Replaces the TPU kernel unopose_tpu/ops/geo_fused.py:geo_rpe_fused
 // (_geo_kernel). The TPU has no fast gather, so it evaluates each stencil as
@@ -34,12 +35,25 @@
 //    those columns reading the stencils back as broadcasts; the blocks stay
 //    resident and walk the units (one wave, the tables loaded once a block).
 //
+// The float32 and bf16 stores (the JAX kernel's quantize=False output,
+// e.astype(out_dtype)) share everything up to the store: one kernel,
+// templated on the output type. A lane writes its kCh channels of an entry
+// in 16-byte stores (float32: 4 channels a store; bf16: 8, or 4 as one
+// 8-byte store in 32-channel tiles), so the lanes of a column write its
+// tile's channels contiguously: 512 bytes a warp and column in the float32
+// and bf16 layouts, 128 in 32-channel tiles. The output is then 4x (float32)
+// or 2x (bf16) the int8 bytes: at 32 x 197 x 197 x 256 1.27 GB and 0.64 GB,
+// 0.380 ms and 0.190 ms at 3.35 TB/s, past the int8 store's bound by
+// operations; the float32 output takes the float32 contraction (float32
+// tables of 128 channels), as the JAX kernel does.
+//
 // Rounding follows the plain version (ops/geo_fused.py:geo_rpe_fused_plain)
 // step by step: the stencil weights are rounded to bf16 when the contraction
 // dtype is bf16 (the wrapper passes tables already rounded), the products
 // are exact in float32, the three terms are summed left to right with every
-// operation rounded on its own (the library is built with -fmad=false), and
-// the int8 code is round-half-to-even (__float2int_rn, as jnp.round).
+// operation rounded on its own (the library is built with -fmad=false), the
+// int8 code is round-half-to-even (__float2int_rn, as jnp.round), and the
+// bf16 value is the float32 sum rounded to nearest even.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -113,6 +127,42 @@ __device__ __forceinline__ int quant(float e, float qs) {
   return v < -127 ? -127 : (v > 127 ? 127 : v);
 }
 
+// the kCh channels of one entry: int8 codes round(v * qs), four to a 32-bit word
+template <int kCh>
+__device__ __forceinline__ void store(int8_t* dst, const float (&v)[kCh], const float (&qs)[kCh]) {
+  uint32_t w[kCh / 4];
+#pragma unroll
+  for (int h = 0; h < kCh / 4; ++h) {
+    uint32_t x = 0u;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) x |= (uint32_t)(quant(v[4 * h + c], qs[4 * h + c]) & 0xff) << (8 * c);
+    w[h] = x;
+  }
+  if constexpr (kCh == 8) *reinterpret_cast<uint2*>(dst) = make_uint2(w[0], w[1]);
+  else *reinterpret_cast<uint32_t*>(dst) = w[0];
+}
+
+// float32 values as they are, 16 bytes a store
+template <int kCh>
+__device__ __forceinline__ void store(float* dst, const float (&v)[kCh], const float (&)[kCh]) {
+#pragma unroll
+  for (int h = 0; h < kCh / 4; ++h)
+    reinterpret_cast<float4*>(dst)[h] = make_float4(v[4 * h], v[4 * h + 1], v[4 * h + 2], v[4 * h + 3]);
+}
+
+// bf16 values rounded to nearest even, two to a 32-bit word, 8 or 16 bytes a store
+template <int kCh>
+__device__ __forceinline__ void store(__nv_bfloat16* dst, const float (&v)[kCh], const float (&)[kCh]) {
+  uint32_t w[kCh / 2];
+#pragma unroll
+  for (int h = 0; h < kCh / 2; ++h) {
+    const __nv_bfloat162 x = __floats2bfloat162_rn(v[2 * h], v[2 * h + 1]);
+    w[h] = *reinterpret_cast<const uint32_t*>(&x);
+  }
+  if constexpr (kCh == 8) *reinterpret_cast<uint4*>(dst) = make_uint4(w[0], w[1], w[2], w[3]);
+  else *reinterpret_cast<uint2*>(dst) = make_uint2(w[0], w[1]);
+}
+
 // kCh channels of a table row, widened to float32: float32 rows as they are, bf16 rows by a shift (exact)
 template <typename Tab, int kCh>
 __device__ __forceinline__ void load_row(float (&v)[kCh], const Tab* p) {
@@ -165,19 +215,22 @@ __device__ __forceinline__ void eval(float (&out)[kCh], const Tab* tab, float4 s
   for (int c = 0; c < kCh; ++c) out[c] = lagrange(st.x, st.y, st.z, tm[c], t0[c], tp[c]);
 }
 
+// Out: int8_t (codes), float or __nv_bfloat16 (values)
+template <typename Out>
 struct Args {
   const float* pts;      // (batch, n, 3)
   const float* ref_vec;  // (batch, n, k, 3)
   const float* tab_d;    // (T, D), rounded to the contraction dtype
   const float* tab_a;
-  const float* qscale;   // (D)
-  int8_t* out;           // (batch, n, n, D)
+  const float* qscale;   // (D), read by the int8 store alone
+  Out* out;              // (batch, n, n, D)
   int batch, n, k, T, D, bf16_weights;
   float sd, sa, factor_a;
 };
 
 // the 1 + k stencils of the pair (i, j) of cloud b (distance, then the angle of each anchor), at st[s * stride]
-__device__ __forceinline__ void stencils(float4* st, int stride, const Args& p, int b, int i, int j) {
+template <typename Out>
+__device__ __forceinline__ void stencils(float4* st, int stride, const Args<Out>& p, int b, int i, int j) {
   const float* cloud = p.pts + (size_t)b * p.n * 3;
   const float* anchors = p.ref_vec + ((size_t)b * p.n + i) * p.k * 3;
   const float tmax = static_cast<float>(p.T - 1), qmax = static_cast<float>(p.T - 2);
@@ -199,10 +252,10 @@ __device__ __forceinline__ void stencils(float4* st, int stride, const Args& p, 
   }
 }
 
-// one entry (i, j) at the lane's kCh channels: the distance term plus the max over the k angles, as int8
-// codes; st holds its stencils at st[s * stride]
-template <typename Tab, int kTile, int kCh>
-__device__ __forceinline__ void entry(int8_t* dst, const Tab* tab_d, const Tab* tab_a, const float4* st, int stride,
+// one entry (i, j) at the lane's kCh channels: the distance term plus the max over the k angles, stored as
+// Out; st holds its stencils at st[s * stride]
+template <typename Tab, int kTile, int kCh, typename Out>
+__device__ __forceinline__ void entry(Out* dst, const Tab* tab_d, const Tab* tab_a, const float4* st, int stride,
                                       int k, const float (&qs)[kCh]) {
   float e[kCh], ea[kCh];
   eval<Tab, kTile, kCh>(e, tab_d, st[0]);
@@ -215,22 +268,15 @@ __device__ __forceinline__ void entry(int8_t* dst, const Tab* tab_d, const Tab* 
 #pragma unroll
     for (int c = 0; c < kCh; ++c) ea[c] = fmaxf(ea[c], ek[c]);
   }
-  uint32_t w[kCh / 4];
 #pragma unroll
-  for (int h = 0; h < kCh / 4; ++h) {
-    uint32_t x = 0u;
-#pragma unroll
-    for (int c = 0; c < 4; ++c) x |= (uint32_t)(quant(e[4 * h + c] + ea[4 * h + c], qs[4 * h + c]) & 0xff) << (8 * c);
-    w[h] = x;
-  }
-  if constexpr (kCh == 8) *reinterpret_cast<uint2*>(dst) = make_uint2(w[0], w[1]);
-  else *reinterpret_cast<uint32_t*>(dst) = w[0];
+  for (int c = 0; c < kCh; ++c) e[c] = e[c] + ea[c];
+  store<kCh>(dst, e, qs);
 }
 
 // kTile channels per block, kCh per lane: a warp covers 32 kCh / kTile columns j at a time; kK: the
 // angle count where it is fixed at compile time (3, the model's), or kMaxK for any k read from p
-template <typename Tab, int kTile, int kCh, int kK>
-__global__ void __launch_bounds__(kThreads) geo_rpe_kernel(const Args p) {
+template <typename Tab, int kTile, int kCh, int kK, typename Out>
+__global__ void __launch_bounds__(kThreads) geo_rpe_kernel(const Args<Out> p) {
   constexpr int kLanesPerCol = kTile / kCh;
   constexpr int kColsPerStep = 32 / kLanesPerCol;
   static_assert(kLanesPerCol <= 32 && 32 % kLanesPerCol == 0, "a column's channels within one warp");
@@ -246,9 +292,9 @@ __global__ void __launch_bounds__(kThreads) geo_rpe_kernel(const Args p) {
     store4(s_tab_d + 4 * idx, *reinterpret_cast<const float4*>(p.tab_d + src));
     store4(s_tab_a + 4 * idx, *reinterpret_cast<const float4*>(p.tab_a + src));
   }
-  float qs[kCh];
+  float qs[kCh];  // the int8 store's scales (0 for the value stores, which do not read them)
 #pragma unroll
-  for (int c = 0; c < kCh; ++c) qs[c] = p.qscale[c0 + cl * kCh + c];
+  for (int c = 0; c < kCh; ++c) qs[c] = std::is_same_v<Out, int8_t> ? p.qscale[c0 + cl * kCh + c] : 0.0f;
   const Tab* tab_d = s_tab_d + cl * kCh;
   const Tab* tab_a = s_tab_a + cl * kCh;
   __syncthreads();
@@ -263,17 +309,17 @@ __global__ void __launch_bounds__(kThreads) geo_rpe_kernel(const Args p) {
     __syncwarp();  // the previous unit's stencils are read
     if (lane < cols) stencils(st + lane, 32, p, (int)(bi / n), (int)(bi % n), j0 + lane);
     __syncwarp();
-    int8_t* row = p.out + ((size_t)bi * n + j0) * p.D + c0 + cl * kCh;
+    Out* row = p.out + ((size_t)bi * n + j0) * p.D + c0 + cl * kCh;
     for (int jj = lane / kLanesPerCol; jj < cols; jj += kColsPerStep)
       entry<Tab, kTile, kCh>(row + (size_t)jj * p.D, tab_d, tab_a, st + jj, 32, k, qs);
   }
 }
 
 // one block an SM's worth of blocks (each loads its tables once), no more than the units need
-template <typename Tab, int kTile, int kCh>
-int launch(const Args& p, cudaStream_t stream) {
+template <typename Tab, int kTile, int kCh, typename Out>
+int launch(const Args<Out>& p, cudaStream_t stream) {
   const size_t smem = (size_t)2 * p.T * kTile * sizeof(Tab) + (size_t)kWarps * (1 + p.k) * 32 * sizeof(float4);
-  const auto kernel = p.k == 3 ? geo_rpe_kernel<Tab, kTile, kCh, 3> : geo_rpe_kernel<Tab, kTile, kCh, kMaxK>;
+  const auto kernel = p.k == 3 ? geo_rpe_kernel<Tab, kTile, kCh, 3, Out> : geo_rpe_kernel<Tab, kTile, kCh, kMaxK, Out>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   int dev = 0, sms = 0, per_sm = 0;
   if (err == cudaSuccess) err = cudaGetDevice(&dev);
@@ -287,6 +333,19 @@ int launch(const Args& p, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+// the tile layout by width and contraction dtype, whatever the store
+template <typename Out>
+int dispatch(const Args<Out>& p, cudaStream_t stream) {
+  if (p.n > kMaxN || p.k < 1 || p.k > kMaxK || p.T < 3 || p.T > kMaxT || p.D % 32 != 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (p.batch == 0 || p.n == 0) return 0;
+  const int D = p.D, bf16_weights = p.bf16_weights;
+  if (D % 128 != 0) return launch<float, 32, 4>(p, stream);  // narrow test widths
+  if (bf16_weights && D % 256 == 0) return launch<__nv_bfloat16, 256, 8>(p, stream);
+  return launch<float, 128, 4>(p, stream);
+}
+
 }  // namespace
 
 // out: (batch, n, n, D) int8 codes round(e * qscale); bf16_weights: round the
@@ -296,12 +355,21 @@ extern "C" int unopose_geo_rpe(const float* pts, const float* ref_vec, const flo
                                const float* tab_a, const float* qscale, int8_t* out, int batch, int n,
                                int k, int T, int D, int bf16_weights, float sd, float sa, float factor_a,
                                cudaStream_t stream) {
-  if (n > kMaxN || k < 1 || k > kMaxK || T < 3 || T > kMaxT || D % 32 != 0 || qscale == nullptr) {
-    return (int)cudaErrorInvalidValue;
+  if (qscale == nullptr) return (int)cudaErrorInvalidValue;
+  return dispatch(Args<int8_t>{pts, ref_vec, tab_d, tab_a, qscale, out, batch, n, k, T, D, bf16_weights, sd, sa,
+                               factor_a}, stream);
+}
+
+// out: (batch, n, n, D) values: bf16 with out_bf16, and then the bf16
+// contraction (the tables hold bf16 values), else float32 with the float32
+// contraction, as the JAX kernel picks the contraction dtype by the output's
+extern "C" int unopose_geo_rpe_values(const float* pts, const float* ref_vec, const float* tab_d,
+                                      const float* tab_a, void* out, int batch, int n, int k, int T, int D,
+                                      int out_bf16, float sd, float sa, float factor_a, cudaStream_t stream) {
+  if (out_bf16) {
+    return dispatch(Args<__nv_bfloat16>{pts, ref_vec, tab_d, tab_a, nullptr, static_cast<__nv_bfloat16*>(out),
+                                        batch, n, k, T, D, 1, sd, sa, factor_a}, stream);
   }
-  if (batch == 0 || n == 0) return 0;
-  const Args p{pts, ref_vec, tab_d, tab_a, qscale, out, batch, n, k, T, D, bf16_weights, sd, sa, factor_a};
-  if (D % 128 != 0) return launch<float, 32, 4>(p, stream);  // narrow test widths
-  if (bf16_weights && D % 256 == 0) return launch<__nv_bfloat16, 256, 8>(p, stream);
-  return launch<float, 128, 4>(p, stream);
+  return dispatch(Args<float>{pts, ref_vec, tab_d, tab_a, nullptr, static_cast<float*>(out), batch, n, k, T, D, 0,
+                              sd, sa, factor_a}, stream);
 }

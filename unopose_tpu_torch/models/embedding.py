@@ -69,8 +69,11 @@ class GeometricStructureEmbedding(nn.Module):
 
     ``fused_table`` > 0 (with ``d_index_max`` set and ``reduction_a="max"``,
     the JAX package's conditions) takes the fused path of ``ops/geo_fused.py``
-    (the ``geo_rpe`` kernel on the card) on T-point pre-projected tables;
-    with ``quant_int8`` it returns (e8 (B, N, N, D) int8, scale (D,) float32).
+    (the ``geo_rpe`` kernel on the card) on T-point pre-projected tables:
+    with ``quant_int8`` it returns (e8 (B, N, N, D) int8, scale (D,) float32),
+    else the embedding in ``dtype`` (float32 with the float32 contraction, or
+    bf16 with the bf16 one), which the RPE layers read as they read the exact
+    path's.
     """
 
     def __init__(self, hidden_dim: int = 256, sigma_d: float = 0.2, sigma_a: float = 15.0, angle_k: int = 3,

@@ -23,6 +23,12 @@ their plain passes on the CPU). Both matchers then return every block's
 similarity, overlap scores and saliencies for the loss. ``lax.cond`` on the
 grouping's overflow flag becomes a host branch: one device-to-host sync per
 grouping.
+
+A PE without its LRF channels (``use_lrf=False``: the relative xyz twice)
+or without its xyz channels (``use_xyz=False``: the LRF coordinates alone,
+3 inputs to the first layer) takes, as in the JAX package, no fused or
+packed path: the plain MLP on the unpacked first_k grouping, or on the
+subset groupings. ``pe_dtype`` sets the plain MLP's activation storage.
 """
 
 from __future__ import annotations
@@ -43,7 +49,7 @@ from unopose_tpu_torch.ops.ball_query import (
     two_scale_group_first_k_packed,
     two_scale_group_first_k_packed_idx,
 )
-from unopose_tpu_torch.ops.geometry import compute_feature_similarity, sqrt_rn
+from unopose_tpu_torch.ops.geometry import check_sim_type, compute_feature_similarity, sqrt_rn
 from unopose_tpu_torch.ops.lrf import batch_lrf_planar
 from unopose_tpu_torch.ops.pe_fused import (
     pack_mlp,
@@ -88,9 +94,10 @@ class _CoarseBlock(nn.Module):
 class CoarsePointMatching(nn.Module):
     def __init__(self, nblock: int = 3, input_dim: int = 256, hidden_dim: int = 256, out_dim: int = 256,
                  num_heads: int = 4, temp: float = 0.1, normalize_feat: bool = True,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, sim_type: str = "cosine"):
         super().__init__()
         self.temp, self.normalize_feat, self.dtype = temp, normalize_feat, dtype
+        self.sim_type = check_sim_type(sim_type)
         self.in_proj = Dense(input_dim, hidden_dim, dtype)
         self.out_proj = Dense(hidden_dim, out_dim, dtype)
         self.bg_token = nn.Parameter(torch.randn(1, 1, hidden_dim) * 0.02)
@@ -111,7 +118,7 @@ class CoarsePointMatching(nn.Module):
             outs.append((f1, f2, scores))
         if not all_blocks:
             atten = compute_feature_similarity(
-                self.out_proj(f1).float(), self.out_proj(f2).float(), self.temp, self.normalize_feat
+                self.out_proj(f1).float(), self.out_proj(f2).float(), self.temp, self.normalize_feat, self.sim_type
             )
             return atten, block_outputs(atten, scores, n1)[0]
         return _all_block_outputs(self, outs, n1)
@@ -121,7 +128,8 @@ def _all_block_outputs(m, outs, n1: int):
     """(attens, scores, saliencies) of every block, for the training loss."""
     attens, scores_l, sals = [], [], []
     for f1, f2, scores in outs:
-        atten = compute_feature_similarity(m.out_proj(f1).float(), m.out_proj(f2).float(), m.temp, m.normalize_feat)
+        atten = compute_feature_similarity(m.out_proj(f1).float(), m.out_proj(f2).float(), m.temp, m.normalize_feat,
+                                           m.sim_type)
         score, sal = block_outputs(atten, scores, n1, need_saliency=True)
         attens.append(atten)
         scores_l.append(score)
@@ -148,16 +156,27 @@ def fold_bn(W, scale, bias, mean, var, eps: float = 1e-5):
     return W * inv[None, :], bias - mean * inv
 
 
-def folded_scale_planar(center, grouped, r: float, Ws, bs, lrf_w=None, pool_mask=None,
-                        dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """One PE scale: relative xyz + LRF coordinates through the folded MLP,
-    max over the slots. ``lrf_w`` weights the LRF sums by multiplicity,
-    ``pool_mask`` restricts the max; ``dtype`` stores the channels and each
-    layer's activations (the JAX package's ``compute_dtype``: bf16 in subset
-    mode), the products run in float32. Returns (B, P, d_last) float32."""
+def pe_channels(center, grouped, r: float, lrf_w=None, use_lrf: bool = True, use_xyz: bool = True) -> list:
+    """One scale's MLP input planes, as the JAX package's ``_scale`` stacks
+    them: the relative xyz (``use_xyz``), then the LRF coordinates
+    (``use_lrf``, their sums weighted by ``lrf_w``) or, without them, the
+    relative xyz again."""
     rel = [g - c[..., None] for g, c in zip(grouped, center)]
-    lrf = batch_lrf_planar(center, grouped, r, mask=lrf_w)
-    h = torch.stack([*rel, *lrf], dim=-1).to(dtype)  # (B, P, S, 6), channels last
+    chans = list(rel) if use_xyz else []
+    return chans + (list(batch_lrf_planar(center, grouped, r, mask=lrf_w)) if use_lrf else rel)
+
+
+def folded_scale_planar(center, grouped, r: float, Ws, bs, lrf_w=None, pool_mask=None,
+                        dtype: torch.dtype = torch.float32, use_lrf: bool = True,
+                        use_xyz: bool = True) -> torch.Tensor:
+    """One PE scale: its channels (``pe_channels``; by default relative xyz +
+    LRF coordinates) through the folded MLP, max over the slots. ``lrf_w``
+    weights the LRF sums by multiplicity, ``pool_mask`` restricts the max;
+    ``dtype`` stores the channels and each layer's activations (the JAX
+    package's ``compute_dtype``: bf16 in subset mode), the products run in
+    float32. Returns (B, P, d_last) float32."""
+    chans = pe_channels(center, grouped, r, lrf_w, use_lrf, use_xyz)
+    h = torch.stack(chans, dim=-1).to(dtype)  # (B, P, S, C), channels last
     for W, b in zip(Ws, bs):
         h = torch.matmul(h.float(), W).add_(b).relu_().to(dtype)
     h = h.float()
@@ -193,21 +212,34 @@ class FinePositionalEncoding(nn.Module):
     grouping), "unpacked", "unpacked_plain" (``fused`` on an unpacked cloud
     the masked PE does not take), "subset", or "exact" after a grouping
     overflow.
+
+    ``use_lrf=False`` or ``use_xyz=False`` (see ``pe_channels``) sends every
+    inference forward to the plain MLP: the unpacked first_k grouping
+    ("unpacked"), or the subset groupings ("subset"), whatever ``fused``
+    and ``packed`` say; ``compute_dtype`` (the config's ``pe_dtype``) sets
+    that MLP's activation storage, by default float32 in first_k mode and
+    bf16 in subset mode.
     """
 
     MLP_DIMS = (32, 64, 128)
 
     def __init__(self, out_dim: int = 256, r1: float = 0.1, r2: float = 0.2, nsample1: int = 64,
-                 nsample2: int = 256, fused: bool = False, neighbor_mode: str = "first_k", packed=None):
+                 nsample2: int = 256, fused: bool = False, neighbor_mode: str = "first_k", packed=None,
+                 use_lrf: bool = True, use_xyz: bool = True, compute_dtype: torch.dtype | None = None):
         super().__init__()
         if neighbor_mode not in NEIGHBOR_MODES:
             raise ValueError(f"unknown neighbour mode {neighbor_mode!r}; one of {NEIGHBOR_MODES}")
         self.r1, self.r2, self.nsample1, self.nsample2, self.fused = r1, r2, nsample1, nsample2, fused
         self.neighbor_mode, self.packed = neighbor_mode, packed
+        self.use_lrf, self.use_xyz = use_lrf, use_xyz
+        # the fused and packed paths compute the six channels of relative xyz and LRF coordinates
+        self.six_channels = use_lrf and use_xyz
         # the plain MLP's activation storage: the JAX package's default compute_dtype
-        self.compute_dtype = torch.float32 if neighbor_mode == "first_k" else torch.bfloat16
+        if compute_dtype is None:
+            compute_dtype = torch.float32 if neighbor_mode == "first_k" else torch.bfloat16
+        self.compute_dtype = compute_dtype
         for name in ("mlp1", "mlp2"):
-            cin = 6
+            cin = 6 if use_xyz else 3
             for i, d in enumerate(self.MLP_DIMS):
                 kernel = torch.randn(cin, d) * (2.0 / cin) ** 0.5  # (in, out), He normal
                 setattr(self, f"{name}_fc{i}_kernel", nn.Parameter(kernel))
@@ -237,7 +269,7 @@ class FinePositionalEncoding(nn.Module):
         if self._weights is None or self._weights[0] != key:
             with torch.no_grad():
                 mlp1, mlp2 = self.folded("mlp1"), self.folded("mlp2")
-                packed = pack_mlp(mlp1, mlp2) if self.fused and tensors[0].is_cuda else None
+                packed = pack_mlp(mlp1, mlp2) if self.fused and self.six_channels and tensors[0].is_cuda else None
             self._weights = (key, (mlp1, mlp2, packed))
         return self._weights[1]
 
@@ -292,6 +324,9 @@ class FinePositionalEncoding(nn.Module):
         """One cloud in training: pts (B, N, 3) -> (B, N, out_dim)."""
         if self.neighbor_mode != "first_k":
             raise NotImplementedError("not ported: the subset-mode train step")
+        if not self.six_channels or self.compute_dtype != torch.float32:
+            raise NotImplementedError("not ported: the train step's PE without LRF or xyz channels, or with "
+                                      "pe_dtype='bf16'")
         pts = pts.float().detach()
         center = tuple(pts.unbind(-1))
         g1, g2 = self._first_k_groups(pts)
@@ -301,13 +336,18 @@ class FinePositionalEncoding(nn.Module):
 
     def _masked(self, center, g1, valid1, g2, valid2) -> torch.Tensor:
         """(B, P, 256) features of two masked groupings: the masked PE with
-        ``fused``, else the plain MLP in ``compute_dtype``."""
+        ``fused`` (and the six channels), else the plain MLP in
+        ``compute_dtype``."""
         mlp1, mlp2, packed = self.folded_weights()
-        if self.fused:
+        if self.fused and self.six_channels:
             return pe_fused_masked(g1, valid1, g2, valid2, center, mlp1, mlp2, self.r1, self.r2, packed)
-        f1 = folded_scale_planar(center, g1, self.r1, *mlp1, lrf_w=valid1, pool_mask=valid1, dtype=self.compute_dtype)
-        f2 = folded_scale_planar(center, g2, self.r2, *mlp2, lrf_w=valid2, pool_mask=valid2, dtype=self.compute_dtype)
-        return torch.cat([f1, f2], dim=-1)
+        return torch.cat([self._plain_scale(center, g1, self.r1, mlp1, valid1, valid1),
+                          self._plain_scale(center, g2, self.r2, mlp2, valid2, valid2)], dim=-1)
+
+    def _plain_scale(self, center, grouped, r: float, mlp, lrf_w=None, pool_mask=None) -> torch.Tensor:
+        """One scale through the plain MLP on the module's channels, in ``compute_dtype``."""
+        return folded_scale_planar(center, grouped, r, *mlp, lrf_w=lrf_w, pool_mask=pool_mask,
+                                   dtype=self.compute_dtype, use_lrf=self.use_lrf, use_xyz=self.use_xyz)
 
     def _subset_groups(self, pts: torch.Tensor):
         """Both scales' subset groupings with their validity: the grouping
@@ -327,15 +367,15 @@ class FinePositionalEncoding(nn.Module):
         through the masked PE with all-ones masks (``fused``, where 32 | N as
         in the JAX package) or the plain MLP in ``compute_dtype``."""
         g1, g2 = self._first_k_groups(pts)
-        if self.fused and pts.shape[1] % 32 == 0:
+        fused = self.fused and self.six_channels
+        if fused and pts.shape[1] % 32 == 0:
             self.last_branch = "unpacked"
             ones1, ones2 = (torch.ones(g[0].shape, dtype=torch.bool, device=pts.device) for g in (g1, g2))
             return self.mlp3(self._masked(center, g1, ones1, g2, ones2))
-        self.last_branch = "unpacked_plain" if self.fused else "unpacked"
+        self.last_branch = "unpacked_plain" if fused else "unpacked"
         mlp1, mlp2, _ = self.folded_weights()
-        f1 = folded_scale_planar(center, g1, self.r1, *mlp1, dtype=self.compute_dtype)
-        f2 = folded_scale_planar(center, g2, self.r2, *mlp2, dtype=self.compute_dtype)
-        return self.mlp3(torch.cat([f1, f2], dim=-1))
+        return self.mlp3(torch.cat([self._plain_scale(center, g1, self.r1, mlp1),
+                                    self._plain_scale(center, g2, self.r2, mlp2)], dim=-1))
 
     def _packed_pe(self, center, g2, w1, w2, total2, tiled: bool) -> torch.Tensor:
         """(B, P, 256) features on the materialised packed grouping: the plain
@@ -374,7 +414,7 @@ class FinePositionalEncoding(nn.Module):
         if self.neighbor_mode == "subset":
             self.last_branch = "subset"
             return self.mlp3(self._masked(center, *self._subset_groups(pts)))
-        if self.packed is False or not self.packed_ok(N):
+        if self.packed is False or not self.six_channels or not self.packed_ok(N):
             return self._unpacked(pts, center)
         mlp1, mlp2, packed = self.folded_weights()
         args = (self.r1, self.nsample1, self.r2, self.nsample2, pts)
@@ -402,9 +442,11 @@ class FinePositionalEncoding(nn.Module):
 
 
 class _FineBlock(nn.Module):
-    def __init__(self, hidden_dim: int, num_heads: int, focusing_factor: float, dtype: torch.dtype):
+    def __init__(self, hidden_dim: int, num_heads: int, focusing_factor: float, dtype: torch.dtype,
+                 parity_gather: bool = False):
         super().__init__()
-        self.transformer = SparseToDenseTransformer(hidden_dim, ("self", "cross"), num_heads, focusing_factor, dtype)
+        self.transformer = SparseToDenseTransformer(hidden_dim, ("self", "cross"), num_heads, focusing_factor, dtype,
+                                                    parity_gather)
         self.score_head = Dense(hidden_dim, 1, dtype)
 
     def forward(self, f1, geo1, fps_idx1, f2, geo2, fps_idx2):
@@ -413,20 +455,28 @@ class _FineBlock(nn.Module):
 
 
 class FinePointMatching(nn.Module):
+    """``parity_gather``: each block's sparse tokens gathered as the
+    reference does (``models/transformer.py``); ``use_lrf``, ``use_xyz``
+    and ``pe_dtype`` (a dtype, or None for the neighbour mode's default) go
+    to the PE."""
+
     def __init__(self, nblock: int = 3, input_dim: int = 256, hidden_dim: int = 256, out_dim: int = 256,
                  num_heads: int = 4, temp: float = 0.1, normalize_feat: bool = True,
                  focusing_factor: float = 3.0, pe_radius1: float = 0.1, pe_radius2: float = 0.2,
                  nsample1: int = 64, nsample2: int = 256, pe_fused: bool = False, pe_neighbor_mode: str = "first_k",
-                 pe_packed=None, dtype: torch.dtype = torch.float32):
+                 pe_packed=None, dtype: torch.dtype = torch.float32, sim_type: str = "cosine",
+                 use_lrf: bool = True, use_xyz: bool = True, parity_gather: bool = False,
+                 pe_dtype: torch.dtype | None = None):
         super().__init__()
         self.temp, self.normalize_feat, self.dtype = temp, normalize_feat, dtype
+        self.sim_type = check_sim_type(sim_type)
         self.pe = FinePositionalEncoding(hidden_dim, pe_radius1, pe_radius2, nsample1, nsample2, pe_fused,
-                                         pe_neighbor_mode, pe_packed)
+                                         pe_neighbor_mode, pe_packed, use_lrf, use_xyz, pe_dtype)
         self.in_proj = Dense(input_dim, hidden_dim, dtype)
         self.out_proj = Dense(hidden_dim, out_dim, dtype)
         self.bg_token = nn.Parameter(torch.randn(1, 1, hidden_dim) * 0.02)
         self.blocks = nn.ModuleList(
-            _FineBlock(hidden_dim, num_heads, focusing_factor, dtype) for _ in range(nblock)
+            _FineBlock(hidden_dim, num_heads, focusing_factor, dtype, parity_gather) for _ in range(nblock)
         )
 
     def forward(self, p1, f1, geo1, fps_idx1, p2, f2, geo2, fps_idx2, init_R, init_t, return_proj: bool = False,
@@ -458,4 +508,4 @@ class FinePointMatching(nn.Module):
         score = block_outputs(None, scores, n1)[0]
         if return_proj:
             return proj, score
-        return compute_feature_similarity(*proj, self.temp, self.normalize_feat), score
+        return compute_feature_similarity(*proj, self.temp, self.normalize_feat, self.sim_type), score

@@ -55,18 +55,26 @@ class GeometricTransformer(nn.Module):
 
 class SparseToDenseTransformer(nn.Module):
     """Fine-stage block: gather the FPS subset of the dense tokens (bg token
-    kept at 0, un-shifted gather), geometric transformer on it, then a
-    linear-attention update of all dense tokens from the sparse set."""
+    kept at 0), geometric transformer on it, then a linear-attention update
+    of all dense tokens from the sparse set.
+
+    The gather indexes the dense tokens past the bg token, so that sparse
+    token j carries the features of the point whose geometry made embedding
+    j. ``parity_gather`` reproduces the reference's quirk instead: it gathers
+    ``fps_idx`` on the bg-augmented array, one dense slot off, as weights
+    trained by the reference expect (a converted checkpoint,
+    ``utils/ref_convert.py``)."""
 
     def __init__(self, d_model: int, sparse_blocks: Sequence[str], num_heads: int, focusing_factor: float,
-                 dtype: torch.dtype):
+                 dtype: torch.dtype, parity_gather: bool = False):
         super().__init__()
+        self.parity_gather = parity_gather
         self.sparse_layer = GeometricTransformer(sparse_blocks, d_model, num_heads, dtype)
         self.dense_layer = LinearTransformerLayer(d_model, num_heads, focusing_factor, dtype)
 
-    @staticmethod
-    def _sample_feats(dense_feats, fps_idx):
-        return torch.cat([dense_feats[:, :1], gather_points(dense_feats[:, 1:], fps_idx)], dim=1)
+    def _sample_feats(self, dense_feats, fps_idx):
+        src = dense_feats if self.parity_gather else dense_feats[:, 1:]
+        return torch.cat([dense_feats[:, :1], gather_points(src, fps_idx)], dim=1)
 
     def forward(self, dense_feats0, emb0, fps_idx0, dense_feats1, emb1, fps_idx1):
         feats0 = self._sample_feats(dense_feats0, fps_idx0)

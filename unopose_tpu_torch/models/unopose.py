@@ -30,7 +30,16 @@ The JAX package's three auto switches (``feature_extraction.fused_attn``,
 ``fine_point_matching.pe_fused``, ``fused_assignment``) default to None,
 "on for TPU inference". The port runs on one production device, so None
 means on; the fused assignment, like the JAX package's auto gate, also
-needs ``normalize_feat``. In training the JAX package's gates turn off the
+needs the fine stage's ``sim_type="cosine"`` and ``normalize_feat``, so the
+assignment kernels never see the L2 logits.
+
+Every inference key of the JAX package's ``UNOPose.from_config`` is taken:
+the fused embedding with ``quant_int8=False`` writes the float embedding in
+the model dtype, ``parity_gather`` reproduces the reference's shifted
+gather (a converted reference checkpoint needs it,
+``utils/ref_convert.py``), ``pe_dtype`` sets the plain PE MLP's
+activation storage, ``use_lrf`` / ``use_xyz`` choose the PE's channels,
+and ``sim_type="L2"`` the similarity. In training the JAX package's gates turn off the
 ViT's production mode, the fused embedding and the fused assignment, and
 the port follows them; ``pe_fused`` (None or True) selects the PE train
 kernels (``ops/pe_train.py``), where the JAX package's None selects its XLA
@@ -59,34 +68,27 @@ from unopose_tpu_torch.ops.solver import compute_coarse_Rt_overlap, compute_fine
 POSE_KEYS = ("radius", "init_R", "init_t", "init_pose_score", "pred_R", "pred_t", "pred_pose_score", "fine_wsvd_max_w")
 
 
-def _require(cond: bool, what: str) -> None:
-    if not cond:
-        raise NotImplementedError(f"not ported: {what}")
-
-
 def _on(value, default: bool = True) -> bool:
     """An auto switch: None takes ``default``."""
     return default if value is None else bool(value)
 
 
-def _check_ported(cfg: Config) -> None:
-    """The port runs the ported paths: a config that forces a mode whose
-    kernel is not ported yet is refused. The fused geo embedding
-    (``fused_table`` with ``quant_int8``: its kernel writes int8 only), the
-    fused PE, both neighbour modes, the unpacked first_k PE
-    (``pe_packed=False``), the production ViT, the fused assignment, both
-    upscalers, ``test_coarse_only`` and ``fine_only`` are ported; their keys
-    select the path directly. An unknown ``pe_neighbor_mode``, and
-    ``test_coarse_only`` with ``fine_only``, raise ``ValueError``."""
-    ge, fm = cfg.geo_embedding, cfg.fine_point_matching
-    _require(not ge.get("fused_table", 0) or ge.get("quant_int8", False),
-             "geo_embedding.fused_table with quant_int8=False (a float or bf16 fused embedding)")
-    _require(ge.get("reduction_a", "max") in ("max", "mean"), "geo_embedding.reduction_a")
-    _require(not fm.get("parity_gather", False), "fine_point_matching.parity_gather")
-    _require(fm.get("pe_dtype") is None, "fine_point_matching.pe_dtype (the PE's storage follows the neighbour mode)")
-    _require(fm.get("use_lrf", True) and fm.get("use_xyz", True), "PE without LRF or xyz channels")
-    for m in (cfg.coarse_point_matching, fm):
-        _require(m.get("sim_type", "cosine") == "cosine", "sim_type other than cosine")
+PE_DTYPES = {"bf16": torch.bfloat16, "fp32": torch.float32, None: None}
+
+
+def resolve_pe_dtype(value) -> Optional[torch.dtype]:
+    """``fine_point_matching.pe_dtype``: "bf16", "fp32" or None (the
+    neighbour mode's default), as the JAX package resolves it."""
+    if value not in PE_DTYPES:
+        raise ValueError(f"pe_dtype must be 'bf16', 'fp32', or None, got {value!r}")
+    return PE_DTYPES[value]
+
+
+def _check_config(cfg: Config) -> None:
+    """The ``ValueError``s of a config no model runs: ``test_coarse_only``
+    with ``fine_only`` (the matchers raise theirs on an unknown
+    ``sim_type`` or ``pe_neighbor_mode``, the embedding on an unknown
+    ``reduction_a``)."""
     if cfg.get("test_coarse_only", False) and cfg.get("fine_only", False):
         raise ValueError("test_coarse_only returns the coarse pose, which fine_only does not compute")
 
@@ -94,7 +96,7 @@ def _check_ported(cfg: Config) -> None:
 class UNOPose(nn.Module):
     def __init__(self, cfg: Config, dtype: torch.dtype = torch.float32, backbone_dtype: torch.dtype = torch.bfloat16):
         super().__init__()
-        _check_ported(cfg)
+        _check_config(cfg)
         self.coarse_npoint = cfg.coarse_npoint
         self.fine_npoint = cfg.fine_npoint
         self.use_ref_rad = cfg.get("use_ref_rad", False)
@@ -106,7 +108,9 @@ class UNOPose(nn.Module):
         self.nproposal1 = cm.get("nproposal1", 6000)
         self.nproposal2 = cm.get("nproposal2", 300)
         fused_attn = _on(fe.get("fused_attn"))
-        self.fused_assignment = _on(cfg.get("fused_assignment"), fm.get("normalize_feat", True))
+        # the auto gate of the JAX package: the fused solver rebuilds the cosine logits of normalised features
+        self.fused_assignment = _on(cfg.get("fused_assignment"),
+                                    fm.get("sim_type", "cosine") == "cosine" and fm.get("normalize_feat", True))
         self.fine_temp = fm.get("temp", 0.1)
         self.encoder = ViTEncoderOneRef(
             npoint=self.fine_npoint,
@@ -141,6 +145,7 @@ class UNOPose(nn.Module):
             hidden_dim=cm.get("hidden_dim", 256),
             out_dim=cm.get("out_dim", 256),
             temp=cm.get("temp", 0.1),
+            sim_type=cm.get("sim_type", "cosine"),
             normalize_feat=cm.get("normalize_feat", True),
             dtype=dtype,
         )
@@ -150,6 +155,7 @@ class UNOPose(nn.Module):
             hidden_dim=fm.get("hidden_dim", 256),
             out_dim=fm.get("out_dim", 256),
             temp=fm.get("temp", 0.1),
+            sim_type=fm.get("sim_type", "cosine"),
             normalize_feat=fm.get("normalize_feat", True),
             focusing_factor=fm.get("focusing_factor", 3),
             pe_radius1=fm.get("pe_radius1", 0.1),
@@ -159,6 +165,10 @@ class UNOPose(nn.Module):
             pe_fused=_on(fm.get("pe_fused")),
             pe_neighbor_mode=fm.get("pe_neighbor_mode", "first_k"),
             pe_packed=fm.get("pe_packed", None),
+            use_lrf=fm.get("use_lrf", True),
+            use_xyz=fm.get("use_xyz", True),
+            parity_gather=fm.get("parity_gather", False),
+            pe_dtype=resolve_pe_dtype(fm.get("pe_dtype", None)),
             dtype=dtype,
         )
 

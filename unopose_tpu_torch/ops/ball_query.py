@@ -79,6 +79,38 @@ def first_k_in_radius(mask: torch.Tensor, nsample: int) -> torch.Tensor:
     return torch.where(slot < cnt, idx, first).to(torch.int32)
 
 
+def ball_query(radius: float, nsample: int, xyz: torch.Tensor, new_xyz: torch.Tensor) -> torch.Tensor:
+    """(B, P, nsample) int32 indices into xyz (B, N, 3) of the first
+    ``nsample`` points within ``radius`` of each centre of new_xyz (B, P, 3),
+    in index order, padded with the first (the reference's CUDA ball query;
+    counterpart of ``unopose_tpu/ops/ball_query.py:ball_query``)."""
+    d2 = pairwise_sqdist(new_xyz.float(), xyz.float())
+    return first_k_in_radius(d2 < radius * radius, nsample)
+
+
+def group_points(features: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """(B, N, C) features at (B, P, S) indices -> (B, P, S, C)."""
+    from unopose_tpu_torch.ops.fps import gather_points
+
+    return gather_points(features, idx)
+
+
+def query_and_group(radius: float, nsample: int, xyz: torch.Tensor, new_xyz: torch.Tensor,
+                    features: torch.Tensor | None = None, use_xyz: bool = True, normalize_xyz: bool = False):
+    """The reference's QueryAndGroup, channels last: ((B, P, S, C') grouped,
+    (B, P, S) indices), C' the 3 offsets from the centre (divided by
+    ``radius`` with ``normalize_xyz``), then the C features where given
+    (the features alone without ``use_xyz``)."""
+    idx = ball_query(radius, nsample, xyz, new_xyz)
+    grouped_xyz = group_points(xyz, idx) - new_xyz[..., None, :]
+    if normalize_xyz:
+        grouped_xyz = grouped_xyz / radius
+    if features is None:
+        return grouped_xyz, idx
+    grouped_feats = group_points(features, idx)
+    return (torch.cat([grouped_xyz, grouped_feats], dim=-1) if use_xyz else grouped_feats), idx
+
+
 def _check_select(pts, pts_p, r1, k1, r2, k2):
     B, N, _ = pts.shape
     if pts_p.shape != pts.shape:

@@ -61,6 +61,13 @@ def smallest_eigvec_sym3(A: torch.Tensor) -> torch.Tensor:
     return _eigvec_for(A, lams[..., 0], lams[..., 1])
 
 
+def largest_eigvec_sym3(A: torch.Tensor) -> torch.Tensor:
+    """Unit eigenvector for the largest eigenvalue of symmetric (..., 3, 3) A."""
+    A = A.float()
+    lams = eigvals_sym3(A)
+    return _eigvec_for(A, lams[..., 1], lams[..., 2])
+
+
 def _cos_acos_div3_newton(r: torch.Tensor, iters: int = 6) -> torch.Tensor:
     """cos(arccos(r) / 3) without acos: Newton on the triple-angle cubic
     4c^3 - 3c = r, whose root lies in [1/2, 1] for r in [-1, 1]."""

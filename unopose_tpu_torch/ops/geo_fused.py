@@ -10,10 +10,10 @@ branchless polynomial atan, ``atan2_pos_sin``, as the JAX package does.
 ``geo_rpe_fused`` dispatches on device: CPU tensors take the plain
 ``geo_rpe_fused_plain``; CUDA tensors the kernel ``kernels/csrc/geo_rpe.cu``
 through ``geo_rpe_fused_cuda``, which replaces the TPU kernel
-``unopose_tpu/ops/geo_fused.py:geo_rpe_fused``. The kernel writes the
-production int8 output (``quantize``) only; the plain version also gives
-the float32 and bf16 outputs, against which the CPU tests hold the JAX
-package's. Both round at the same
+``unopose_tpu/ops/geo_fused.py:geo_rpe_fused``. Both write either output
+of the JAX kernel: the production int8 codes (``quantize``) or the
+embedding in ``out_dtype``, float32 or bf16; the CPU tests hold the plain
+version's outputs against the JAX package's. Both round at the same
 points: the stencil weights and the tables are cast to the contraction
 dtype (bf16 unless the output is float32), each product is exact in float32,
 and the three terms are summed left to right. The int8 output rounds half
@@ -155,32 +155,41 @@ def geo_rpe_fused_plain(points, ref_vec, tab_d, tab_a, scale_d: float, scale_a: 
     return e8, scale
 
 
+VALUE_DTYPES = (torch.float32, torch.bfloat16)  # the value stores of the kernel
+
+
 def kernel_args(points, ref_vec, tab_d, tab_a, scale_d: float, scale_a: float, sigma_d: float, factor_a: float,
-                out_dtype: torch.dtype):
-    """(args, scale): the arguments of ``unopose_geo_rpe`` before the stream,
-    tensors in place of their pointers (the int8 output allocated), and the
-    dequantisation scale."""
+                out_dtype: torch.dtype, quantize: bool = True):
+    """(args, scale): the arguments before the stream, tensors in place of
+    their pointers (the output allocated), of ``unopose_geo_rpe`` (the int8
+    codes; ``scale`` the dequantisation scale) or, without ``quantize``, of
+    ``unopose_geo_rpe_values`` (the embedding in ``out_dtype``; ``scale``
+    None)."""
     B, N, _ = points.shape
     k = ref_vec.shape[2]
     T, D = tab_d.shape
     mm = _mm_dtype(out_dtype)
     points, ref_vec = points.float().contiguous(), ref_vec.float().contiguous()
     tab_d, tab_a = tab_d.float(), tab_a.float()
-    qscale, scale = quant_scales(tab_d, tab_a)
     # the kernel reads float32 tables already rounded to the contraction dtype
     kd, ka = (t.to(mm).float().contiguous() for t in (tab_d, tab_a))
+    consts = (float(1.0 / sigma_d * scale_d), float(scale_a), float(factor_a))
+    if not quantize:
+        out = torch.empty((B, N, N, D), dtype=out_dtype, device=points.device)
+        return (points, ref_vec, kd, ka, out, B, N, k, T, D, int(out_dtype == torch.bfloat16), *consts), None
+    qscale, scale = quant_scales(tab_d, tab_a)
     out = torch.empty((B, N, N, D), dtype=torch.int8, device=points.device)
-    return (points, ref_vec, kd, ka, qscale, out, B, N, k, T, D, int(mm == torch.bfloat16),
-            float(1.0 / sigma_d * scale_d), float(scale_a), float(factor_a)), scale
+    return (points, ref_vec, kd, ka, qscale, out, B, N, k, T, D, int(mm == torch.bfloat16), *consts), scale
 
 
 def geo_rpe_fused_cuda(points, ref_vec, tab_d, tab_a, scale_d: float, scale_a: float, sigma_d: float,
                        factor_a: float, out_dtype: torch.dtype = torch.float32, quantize: bool = False):
-    """The int8 embedding on the card (``csrc/geo_rpe.cu``): resident blocks,
+    """The embedding on the card (``csrc/geo_rpe.cu``): resident blocks,
     each with a channel tile of both tables in shared memory (bf16 tables of
     256 channels for the bf16 contraction), whose warps walk units of one row
-    and 32 columns. Returns (e8, scale); ``quantize`` must be set,
-    ``out_dtype`` picks the contraction dtype."""
+    and 32 columns. With ``quantize`` returns (e8, scale) and ``out_dtype``
+    picks the contraction dtype; without, the (B, N, N, D) embedding in
+    ``out_dtype``, float32 or bf16, as the plain version gives it."""
     _check(points, ref_vec, tab_d, tab_a)
     tensors = (points, ref_vec, tab_d, tab_a)
     if any(x.device.type != "cuda" or x.device != points.device for x in tensors):
@@ -191,16 +200,19 @@ def geo_rpe_fused_cuda(points, ref_vec, tab_d, tab_a, scale_d: float, scale_a: f
     if N > MAX_N or not 1 <= k <= MAX_K or T > MAX_T or D % 32:
         raise ValueError(f"geo_rpe_fused_cuda supports N <= {MAX_N}, 1 <= k <= {MAX_K}, T <= {MAX_T}, "
                          f"D % 32 == 0 (N={N}, k={k}, T={T}, D={D})")
-    if not quantize:
-        raise ValueError("geo_rpe_fused_cuda writes the int8 output only (quantize=True)")
-    args, scale = kernel_args(points, ref_vec, tab_d, tab_a, scale_d, scale_a, sigma_d, factor_a, out_dtype)
+    if not quantize and out_dtype not in VALUE_DTYPES:
+        raise ValueError(f"geo_rpe_fused_cuda writes int8 codes or float32 / bf16 values, not {out_dtype}")
+    args, scale = kernel_args(points, ref_vec, tab_d, tab_a, scale_d, scale_a, sigma_d, factor_a, out_dtype,
+                              quantize)
     lib = build.load()
+    entry = lib.unopose_geo_rpe if quantize else lib.unopose_geo_rpe_values
     with torch.cuda.device(points.device):
-        err = lib.unopose_geo_rpe(*(ctypes.c_void_p(a.data_ptr()) if torch.is_tensor(a) else a for a in args),
-                                  ctypes.c_void_p(build.stream_of(points)))
+        err = entry(*(ctypes.c_void_p(a.data_ptr()) if torch.is_tensor(a) else a for a in args),
+                    ctypes.c_void_p(build.stream_of(points)))
     build.check(err, "geo_rpe")
     LAUNCHES["geo_rpe"] += 1
-    return args[5], scale
+    out = args[5] if quantize else args[4]
+    return (out, scale) if quantize else out
 
 
 def geo_rpe_fused(points, ref_vec, tab_d, tab_a, scale_d: float, scale_a: float, sigma_d: float,

@@ -31,23 +31,39 @@ def sqrt_rn(x: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(x)
 
 
-def pairwise_sqdist(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+def pairwise_sqdist(x: torch.Tensor, y: torch.Tensor, normalized: bool = False) -> torch.Tensor:
     """Squared distances (*, N, M) between (*, N, C) and (*, M, C), clamped at 0.
 
-    Expansion form x2 - 2 x.y + y2 in float32; the package keeps TF32 off,
-    since a truncated cross term cancels catastrophically on clouds far from
-    the origin.
+    Expansion form x2 - 2 x.y + y2 in float32, or 2 - 2 x.y for unit-norm
+    inputs (``normalized``); the package keeps TF32 off, since a truncated
+    cross term cancels catastrophically on clouds far from the origin.
     """
     x = x.float()
     y = y.float()
     xy = torch.matmul(x, y.transpose(-1, -2))
+    if normalized:
+        return (2.0 - 2.0 * xy).clamp_min(0.0)
     x2 = (x * x).sum(-1)[..., :, None]
     y2 = (y * y).sum(-1)[..., None, :]
     return (x2 - 2.0 * xy + y2).clamp_min(0.0)
 
 
+def pairwise_dist(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Euclidean distances (*, N, M), each float32 root correctly rounded."""
+    return sqrt_rn(pairwise_sqdist(x, y))
+
+
 def normalize_vec(v: torch.Tensor, dim: int = -1, eps: float = 1e-12) -> torch.Tensor:
     return v / (torch.linalg.vector_norm(v, dim=dim, keepdim=True) + eps)
+
+
+SIM_TYPES = ("cosine", "L2")
+
+
+def check_sim_type(sim_type: str) -> str:
+    if sim_type not in SIM_TYPES:
+        raise ValueError(f"unknown sim_type: {sim_type!r}; one of {SIM_TYPES}")
+    return sim_type
 
 
 def compute_feature_similarity(
@@ -55,12 +71,18 @@ def compute_feature_similarity(
     feat2: torch.Tensor,
     temp: float = 1.0,
     normalize_feat: bool = True,
+    sim_type: str = "cosine",
 ) -> torch.Tensor:
-    """(B, N, C) x (B, M, C) -> (B, N, M) temperature-scaled cosine similarity,
-    float32 (the model's ``sim_type="cosine"``; the port refuses other types)."""
+    """(B, N, C) x (B, M, C) -> (B, N, M) temperature-scaled similarity,
+    float32: the cosine (the dot product of the features, normalised with
+    ``normalize_feat``) or, with ``sim_type="L2"``, the Euclidean distance of
+    unit vectors, sqrt(2 - 2 x.y), as the JAX package computes it."""
+    check_sim_type(sim_type)
     if normalize_feat:
         feat1 = normalize_vec(feat1)
         feat2 = normalize_vec(feat2)
+    if sim_type == "L2":
+        return sqrt_rn(pairwise_sqdist(feat1, feat2, normalized=True)) / temp
     return torch.matmul(feat1.float(), feat2.float().transpose(-1, -2)) / temp
 
 

@@ -45,6 +45,14 @@ def global_lrf(pts: torch.Tensor, r_lrf: torch.Tensor | None = None) -> torch.Te
     return torch.einsum("...ij,...mj->...mi", lrf, rel) / r_lrf[..., None, None]
 
 
+def batch_lrf(centers: torch.Tensor, grouped_pts: torch.Tensor, r_lrf: float) -> torch.Tensor:
+    """(B, P, M, 3) neighbour coordinates in each group's LRF, divided by
+    r_lrf: centers (B, P, 3), grouped_pts (B, P, M, 3) absolute."""
+    rel = grouped_pts.float() - centers.float()[..., None, :]
+    r = torch.full(rel.shape[:-2], r_lrf, dtype=torch.float32, device=rel.device)
+    return torch.einsum("...ij,...mj->...mi", _lrf_axes(rel, r), rel) / r_lrf
+
+
 def batch_lrf_planar(center, grouped, r_lrf: float, mask=None, use_newton: bool = False):
     """Per-neighbourhood LRF coordinates in planar form.
 

@@ -14,6 +14,15 @@ import torch
 from unopose_tpu_torch.ops.geometry import sqrt_rn
 
 
+def quat_to_rotmat(q: torch.Tensor) -> torch.Tensor:
+    """Unit quaternion (w, x, y, z) (..., 4) -> rotation matrix (..., 3, 3)."""
+    w, x, y, z = q.unbind(-1)
+    rows = [[1 - 2 * (y * y + z * z), 2 * (x * y - z * w), 2 * (x * z + y * w)],
+            [2 * (x * y + z * w), 1 - 2 * (x * x + z * z), 2 * (y * z - x * w)],
+            [2 * (x * z - y * w), 2 * (y * z + x * w), 1 - 2 * (x * x + y * y)]]
+    return torch.stack([torch.stack(r, dim=-1) for r in rows], dim=-2)
+
+
 def _top_eigvec_sym4_planar(k_entries, n_squarings: int = 14) -> torch.Tensor:
     """k_entries: 10 arrays (k00, k01, k02, k03, k11, k12, k13, k22, k23, k33)
     -> (..., 4) unit top eigenvectors."""

@@ -308,7 +308,7 @@ K4_ROW_BARRIER = """  // one row i at a time: the block's stencils of all its co
     __syncthreads();
     for (int j = threadIdx.x; j < n; j += kThreads) stencils(s_st + j, n, p, (int)(bi / n), (int)(bi % n), j);
     __syncthreads();
-    int8_t* row = p.out + (size_t)bi * n * p.D + c0 + cl * kCh;
+    Out* row = p.out + (size_t)bi * n * p.D + c0 + cl * kCh;
     for (int jj = warp * kColsPerStep + lane / kLanesPerCol; jj < n; jj += kWarps * kColsPerStep)
       entry<Tab, kTile, kCh>(row + (size_t)jj * p.D, tab_d, tab_a, s_st + jj, n, k, qs);
   }
@@ -1114,8 +1114,8 @@ def sources(parent: Path | None, only=tuple(KERNELS)) -> dict:
                        ("4ch", "__nv_bfloat16, 128, 4")):
         out[f"geo_rpe_{name}"] = ("K4", _sub(geo, K4_BF16, K4_BF16.replace("__nv_bfloat16, 256, 8", kind)))
     out["geo_rpe_runtime_k"] = ("K4", _sub(
-        geo, "p.k == 3 ? geo_rpe_kernel<Tab, kTile, kCh, 3> : geo_rpe_kernel<Tab, kTile, kCh, kMaxK>",
-        "geo_rpe_kernel<Tab, kTile, kCh, kMaxK>"))
+        geo, "p.k == 3 ? geo_rpe_kernel<Tab, kTile, kCh, 3, Out> : geo_rpe_kernel<Tab, kTile, kCh, kMaxK, Out>",
+        "geo_rpe_kernel<Tab, kTile, kCh, kMaxK, Out>"))
     out["geo_rpe_row_barrier"] = ("K4", _between(
         geo, "  // units of one row i and 32 columns j", "// one block an SM's worth of blocks", K4_ROW_BARRIER))
     text = _between(pe, "// one m-tile of packed rows", "// The running max reduced", K6_MLP_TILES)
