@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--seed N] [--batches 3] [--train-steps 3] [--train-only]
                           [--eval-only] [--launcher-only] [--ddp-only] [--ddp-ranks 2]
-                          [--precision-only]
+                          [--precision-only] [--variants-only]
 
 ``--train-only`` builds the kernels and runs only the two train paths of
 phase 6 (``train`` and ``train_frozen``, ``--train-steps`` steps each),
@@ -21,7 +21,10 @@ with its gates, printing its figures as its last line; ``--ddp-ranks N``
 runs that path on N ranks (2 by default; NCCL a card with N cards).
 ``--precision-only`` builds them and runs only phase 6's ``precision`` and
 ``pose_recovery`` paths with their gates, printing their figures as its
-last line.
+last line. ``--variants-only`` builds them and runs only phase 3's K7 and
+K8-K10 checks, phase 5's tiny subset train step and phase 6's train
+configurations and backbones (``variant_runs``), printing their figures
+as its last line.
 
 Phases, each fatal on failure:
 
@@ -58,7 +61,9 @@ Phases, each fatal on failure:
    fused attention (32 x 261 x 768 bf16, read in place from the qkv output;
    at least 99% of outputs bitwise equal, none more than one bf16 ulp of its
    row's largest output off; also the tiny hd 16, the float32 variant, N 257
-   and 289 and q scaled by 40, at the same gates)
+   and 289 and q scaled by 40, at the same gates; and at the backbones
+   without registers, 32 images of 197 and 257 tokens at 12 and 16 heads,
+   each timed beside its bound and SDPA)
    and the three sweeps of the fused assignment (16 pairs of 2049 x 2049,
    C 256), each sweep fed the plain twin's inputs, then the whole chain
    (labels equal on at least 99.9% of rows, weights and soft targets within
@@ -127,7 +132,8 @@ Phases, each fatal on failure:
    against CPU, as ``check_pe_routes`` says; and one tiny float32 train step
    (``train_config(tiny=True)`` on surface clouds), card against CPU, with
    the gates of ``check_tiny_train``, again under
-   ``UNOPOSE_PE_TRAIN_FROZEN=1``;
+   ``UNOPOSE_PE_TRAIN_FROZEN=1``, and in the subset mode
+   (``subset_config(tiny=True)``, K15);
 6. the main paths at full width (ViT-B/14-reg4 at 224 px, 2048-point
    clouds, a 5000-point template, 6000/300 hypotheses, bf16, seeded random
    weights, batches of 16 pairs): ``slice_config()`` and
@@ -155,7 +161,17 @@ Phases, each fatal on failure:
    and all six BatchNorm layers of the fine PE moved, and one profiled
    step's device time; and again under ``UNOPOSE_PE_TRAIN_FROZEN=1``
    (``train_frozen``), where the six layers' gammas and betas must move and
-   their running statistics stay bitwise unchanged; the timing entry points:
+   their running statistics stay bitwise unchanged; the train
+   configurations past that recipe (``TRAIN_VARIANTS``, the same gates and
+   their peak memory): ``train_subset`` (the subset mode, K15, the plain
+   masked MLP recomputed in the backward), ``train_full`` (the ViT trained,
+   the clip at ``TRAIN_FULL_MAX_NORM``, the EMA: the clip binding and the
+   applied norm at it, the EMA against the host's recomputation, a
+   checkpoint restored bitwise, as ``check_train_full`` says) and one step
+   each of ``train_pe_bf16``, ``train_pe_no_lrf`` and ``train_pe_no_xyz``;
+   the production forward on each ViT backbone without registers
+   (``BACKBONES``: K7 at 257 and 197 tokens, 12 and 16 heads), two
+   batches, the pose gates; the timing entry points:
    the bench (``unopose_tpu_torch.bench.run()``, the production config at
    16 pairs, its JSON line logged, its last batch's poses gated) and each
    profiling script's ``main()`` (``SCRIPTS``) at ``SCRIPT_ITERS`` chained
@@ -308,6 +324,28 @@ PATH_KERNELS["ddp"], PATH_NOT_LAUNCHED["ddp"] = PATH_KERNELS["train_launcher"], 
 PATH_KERNELS["precision"] = ("fps", "first_k_select", "gather_planar", "geo_rpe") + PRODUCTION[2:]
 PATH_NOT_LAUNCHED["precision"] = ("ball_group_subset", "pe_masked") + SWITCHED
 PATH_KERNELS["pose_recovery"], PATH_NOT_LAUNCHED["pose_recovery"] = ("fps",), SWITCHED
+# the train configurations past the six-channel float32 recipe (run_train): the subset-mode step (K15's groupings,
+# the plain masked MLP), every parameter trained with the clip and the EMA (the train path's kernels; the ViT's
+# exact path, K7 has no backward), and the PE in bf16, without LRF or without xyz (the first_k grouping, the plain
+# MLP)
+PE_TRAIN_KERNELS = ("pe_train_stats", "pe_train_fwd", "pe_train_bwd_sums", "pe_train_bwd_dw")
+INFER_PE = ("pe_channels", "pe_mlp_pool", "pe_masked", "mha_fused")
+TRAIN_PE_VARIANTS = {"train_pe_bf16": dict(pe_dtype="bf16"), "train_pe_no_lrf": dict(use_lrf=False),
+                     "train_pe_no_xyz": dict(use_xyz=False)}
+TRAIN_VARIANTS = ("train_subset", "train_full") + tuple(TRAIN_PE_VARIANTS)
+PATH_KERNELS["train_subset"] = ("fps", "ball_group_subset")
+PATH_NOT_LAUNCHED["train_subset"] = ("first_k_select", "gather_planar") + PE_TRAIN_KERNELS + INFER_PE + SWITCHED
+PATH_KERNELS["train_full"], PATH_NOT_LAUNCHED["train_full"] = PATH_KERNELS["train"], SWITCHED + INFER_PE
+for _name in TRAIN_PE_VARIANTS:
+    PATH_KERNELS[_name] = ("fps", "first_k_select", "gather_planar")
+    PATH_NOT_LAUNCHED[_name] = ("ball_group_subset",) + PE_TRAIN_KERNELS + INFER_PE + SWITCHED
+TRAIN_FULL_MAX_NORM = 1.0  # below every step's gradient norm at full width, so that the clip binds
+# the production inference forward with the ViT backbones without registers (K7 at 257 and 197 tokens, 12 and 16
+# heads)
+BACKBONES = ("vit_base_patch14_dinov2", "vit_base", "vit_large_patch14_dinov2", "vit_large")
+for _name in BACKBONES:
+    PATH_KERNELS[f"backbone_{_name}"] = PATH_KERNELS["production"]
+    PATH_NOT_LAUNCHED[f"backbone_{_name}"] = PATH_NOT_LAUNCHED["production"]
 SCRIPTS = {
     "profile_r9": ("profile_r9", "pe_packed"),
     "profile_pe_ablate": ("pe_ablate",),
@@ -792,17 +830,36 @@ def check_production_kernels(log, dev, seed: int) -> dict:
             ragged[f"{nr}" + ("" if q_scale == 1.0 else f", q x{q_scale:g}")] = (
                 (r_got == r_want).float().mean().item(),
                 ((r_got - r_want).abs() / ulp_bf16(r_want.abs().amax(dim=-1, keepdim=True))).max().item())
+        # the backbones without registers (BACKBONES): 197 tokens at patch 16, 257 at patch 14, a 16-pair batch
+        # at ViT-B's width (12 heads) and ViT-L's (16 heads); each timed beside its bound and SDPA
+        backbones = {}
+        for nb, heads in ((197, 12), (257, 12), (197, 16), (257, 16)):
+            Db = heads * hd
+            bq = torch.randn(B2, nb, 3 * Db, device=dev, generator=gen).to(torch.bfloat16).split(Db, dim=-1)
+            b_got, b_want = mha_fused_cuda(*bq, heads).float(), mha_fused_plain(*bq, heads).float()
+            bh = [x.reshape(B2, nb, heads, hd).transpose(1, 2).contiguous() for x in bq]
+            backbones[f"{B2}x{nb}x{Db}"] = dict(
+                equal_share=(b_got == b_want).float().mean().item(),
+                max_row_ulps=((b_got - b_want).abs() / ulp_bf16(b_want.abs().amax(dim=-1, keepdim=True))).max().item(),
+                max_abs_err=(b_got - b_want).abs().max().item(), ms=cuda_ms(lambda: mha_fused_cuda(*bq, heads)),
+                plain_ms=cuda_ms(lambda: mha_fused_plain(*bq, heads), reps=3),
+                library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(*bh)),
+                **bound(4 * B2 * nb * Db * 2, 2 * 2 * B2 * heads * nb * nb * hd, BF16_FLOPS))
     log(f"mha_fused 32x261x768 bf16 (12 heads, in place from qkv): {100 * equal:.4f}% of outputs bitwise equal, "
         f"max diff {ulps:.0f} bf16 ulps of the output ({row_ulps:.3f} of its row's largest), max |diff| {err:.3e}; "
         f"hd 16 within a row ulp {s_ok}; float32 variant rel {f_err:.2e}; ragged 8xNx768 (bitwise share, row ulps) "
         f"{ragged}; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, SDPA {library_ms:.3f} ms")
+    log("mha_fused at the backbones' shapes (bitwise share, row ulps, kernel / plain / SDPA / bound ms): " + ", ".join(
+        f"{k} {r['equal_share']:.4f} {r['max_row_ulps']:.3f} {r['ms']:.4f} / {r['plain_ms']:.4f} / "
+        f"{r['library_ms']:.4f} / {r['bound_ms']:.4f}" for k, r in backbones.items()))
     if (equal < 0.99 or row_ulps > 1.0 or not s_ok or f_err > 1e-5
-            or any(eq < 0.99 or ru > 1.0 for eq, ru in ragged.values())):
+            or any(eq < 0.99 or ru > 1.0 for eq, ru in ragged.values())
+            or any(r["equal_share"] < 0.99 or r["max_row_ulps"] > 1.0 for r in backbones.values())):
         raise AssertionError("mha_fused kernel differs from the plain version beyond its gates")
     # reads q, k, v and writes o once; QK^T and PV on the tensor cores
     results["mha_fused"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                                 equal_share=equal, max_ulps=ulps, max_row_ulps=row_ulps,
-                                ragged=ragged,
+                                ragged=ragged, backbones=backbones,
                                 **bound(4 * B2 * N * D * 2, 2 * 2 * B2 * H * N * N * hd, BF16_FLOPS))
     del qkv, q, k, v, got, want, diff, qh, kh, vh, q32, k32, v32
 
@@ -2192,8 +2249,9 @@ def check_tiny_hypsel(log, dev, seed: int) -> None:
         raise AssertionError("the selection kernel on the tiny production config disagrees with the plain selection")
 
 
-def surface_train_inputs(rng, batch: int) -> dict:
-    """A tiny training batch (``configs.synthetic_train_inputs(tiny=True)``)
+def surface_train_inputs(rng, batch: int, npts: int | None = None, ntem: int | None = None) -> dict:
+    """A tiny training batch (``configs.synthetic_train_inputs(tiny=True)``,
+    at ``npts`` query and ``ntem`` template points where given)
     whose template lies on a bumpy closed surface with every 16th point 0.1 m
     out (they set the radius, so the surface stays dense after the
     normalisation), the observed cloud its points under the label pose: the
@@ -2202,7 +2260,7 @@ def surface_train_inputs(rng, batch: int) -> dict:
     whole fine stage."""
     from unopose_tpu_torch.configs import synthetic_train_inputs
 
-    b = synthetic_train_inputs(rng, batch, tiny=True)
+    b = synthetic_train_inputs(rng, batch, tiny=True, npts=npts, ntem=ntem)
     R, t, tem = b["rotation_label"], b["translation_label"], b["tem1_pts"]
     B, n = tem.shape[:2]
     dirs = rng.normal(size=(B, n, 3))
@@ -2249,13 +2307,23 @@ def check_train_grouping(log, dev, seed: int) -> None:
         raise AssertionError("the train grouping on the card differs from the CPU's")
 
 
-def check_tiny_train(log, dev, seed: int, frozen: bool = False) -> None:
+def check_tiny_train(log, dev, seed: int, frozen: bool = False, subset: bool = False) -> None:
     """Phase 5, the train step: the float32 tiny ``train_config`` on surface
     clouds, one step from the same weights, batch and noise draws on the card
     (the PE train kernels) and on the CPU (their plain passes); with
     ``frozen``, under ``UNOPOSE_PE_TRAIN_FROZEN=1`` (K12 and K18 on the card,
     which must launch, and every run's fine-PE BatchNorm running statistics
-    bitwise unchanged). The PE's
+    bitwise unchanged); with ``subset``, the subset-mode step of the tiny
+    subset config (``subset_config(tiny=True)``, 512-point clouds, its ViT
+    frozen): K15's groupings on the card (which must launch) and its
+    plain version on the CPU, the masked channels and the plain MLP on both,
+    gated as below with the groupings of the subset mode, and the card step
+    fed the CPU step's channels also fed its PE features (the values; the
+    card's PE keeps its own gradient), as the tiny subset inference check
+    is: its bf16 activations, products rounded on each device, round a few
+    entries the other way, and its few-point neighbourhoods carry that to
+    the fine losses (measured 1.2e-3 of a fine score loss on the channels
+    alone). The PE's
     local frames are ill conditioned on some neighbourhoods of these
     256-point clouds (ROADMAP Queue 3): their float32 sums and arccos run
     differently on each device, a frame that flips moves the fine stage, and
@@ -2290,27 +2358,46 @@ def check_tiny_train(log, dev, seed: int, frozen: bool = False) -> None:
     from unopose_tpu_torch.ops.rotation import PoseNoiseDraws
     from unopose_tpu_torch.tools.profile_slice import env_switch
 
-    title = "tiny fp32 train step" + (" (frozen BN)" if frozen else "")
+    from unopose_tpu_torch.configs import SUBSET_TINY_NPTS, TINY_SIZES, subset_config
+    from unopose_tpu_torch.ops.ball_query import ball_group_subset
+
+    title = "tiny fp32 train step" + (" (frozen BN)" if frozen else "") + (" (subset)" if subset else "")
     cfg = train_config(tiny=True)
     rng = np.random.default_rng(seed + 9)
-    batch = surface_train_inputs(rng, 2)
+    if subset:
+        cfg.model = subset_config(tiny=True)
+        batch = surface_train_inputs(rng, 2, SUBSET_TINY_NPTS, TINY_SIZES["ntem"] * 2)
+    else:
+        batch = surface_train_inputs(rng, 2)
     draws = PoseNoiseDraws.draw(2, torch.Generator().manual_seed(seed))
     torch.manual_seed(seed)
     state = copy.deepcopy(UNOPose.from_config(cfg.model, torch.float32, torch.float32).state_dict())
 
-    def step(where, batch=batch, channels=None):
+    def step(where, batch=batch, channels=None, features=None):
         """One step: (loss terms, module gradients, BN buffers) and each fine
-        PE call's (cloud, grouping, channels) on the CPU; ``channels(i)``,
-        if given, replaces the channels of call i."""
+        PE call's (cloud, grouping, channels, extra arguments, PE features)
+        on the CPU; ``channels(i)``, if given, replaces the channels of
+        call i, and ``features(c)`` the values of cloud c's PE features (its
+        own PE's gradient kept)."""
         model = UNOPose.from_config(cfg.model, torch.float32, torch.float32)
         model.load_state_dict(state)
         model.to(where)
-        pe, seen = model.fine_matching.pe, []
-        own = pe.train_channels
+        pe, seen, outs = model.fine_matching.pe, [], []
+        own, own_train = pe.train_channels, pe.forward_train
 
-        def record(center, grouped, r):
-            chans = own(center, grouped, r) if channels is None else channels(len(seen)).to(where)
-            seen.append((tuple(c.cpu() for c in center), tuple(g.cpu() for g in grouped), r, chans.cpu()))
+        def forward_train(pts):
+            out = own_train(pts)
+            if features is not None:
+                out = out + (features(len(outs)).to(where) - out).detach()
+            outs.append(out.detach().cpu())
+            return out
+
+        pe.forward_train = forward_train
+
+        def record(center, grouped, r, *extra):
+            chans = own(center, grouped, r, *extra) if channels is None else channels(len(seen)).to(where)
+            seen.append((tuple(c.cpu() for c in center), tuple(g.cpu() for g in grouped), r, chans.cpu(),
+                         tuple(x.cpu() if isinstance(x, torch.Tensor) else x for x in extra)))
             return chans
 
         pe.train_channels = record
@@ -2320,6 +2407,7 @@ def check_tiny_train(log, dev, seed: int, frozen: bool = False) -> None:
                                    pose_noise=PoseNoiseDraws(draws.std_index, draws.angles.to(where),
                                                              draws.trans.to(where)))
         bns = {k: v.detach().cpu().double() for k, v in pe.named_buffers()}
+        seen = [(*x, outs[i // 2]) for i, x in enumerate(seen)]
         return ({k: float(v) for k, v in metrics.items() if "loss" in k}, module_grads(trainer), bns), seen
 
     cos = lambda a, b: float(a @ b / (a.norm() * b.norm()))
@@ -2334,10 +2422,13 @@ def check_tiny_train(log, dev, seed: int, frozen: bool = False) -> None:
         return diffs, gates
 
     cpu, cpu_seen = step("cpu")
-    before = LAUNCHES["pe_train_frozen_bwd"]
+    before, subset_before = LAUNCHES["pe_train_frozen_bwd"], LAUNCHES["ball_group_subset"]
     card, card_seen = step(dev)
-    replayed, _ = step(dev, channels=lambda i: cpu_seen[i][3])
+    # subset: the card's PE also takes the CPU's features, as the tiny subset inference check does
+    replayed, _ = step(dev, channels=lambda i: cpu_seen[i][3],
+                       features=(lambda c: cpu_seen[2 * c][5]) if subset else None)
     frozen_launches = LAUNCHES["pe_train_frozen_bwd"] - before
+    subset_launches = LAUNCHES["ball_group_subset"] - subset_before
     spread = [compare(step("cpu", {**batch, k: np.nextafter(batch[k], d * np.inf).astype(np.float32)})[0], cpu)[0]
               for k in ("pts", "tem1_pts") for d in (1, -1)]
     spread = tuple({k: max(s[i][k] for s in spread) for k in spread[0][i]} for i in range(3))
@@ -2347,8 +2438,13 @@ def check_tiny_train(log, dev, seed: int, frozen: bool = False) -> None:
     args = (fm.pe_radius1, fm.nsample1, fm.pe_radius2, fm.nsample2)
     grouping_equal = True
     for c in range(len(cpu_seen) // 2):
-        groups = two_scale_group_first_k_fast(*args, torch.stack(cpu_seen[2 * c][0], dim=-1).to(dev))
-        for g, (_, want, _, _) in zip(groups, cpu_seen[2 * c: 2 * c + 2]):
+        pts = torch.stack(cpu_seen[2 * c][0], dim=-1).to(dev)
+        if subset:  # each scale's planes and validity
+            groups = [(*g, valid) for g, _, valid in (ball_group_subset(r, k, pts) for r, k in zip(args[::2], args[1::2]))]
+            wants = [(*want, extra[0]) for _, want, _, _, extra, _ in cpu_seen[2 * c: 2 * c + 2]]
+        else:
+            groups, wants = two_scale_group_first_k_fast(*args, pts), [x[1] for x in cpu_seen[2 * c: 2 * c + 2]]
+        for g, want in zip(groups, wants):
             grouping_equal &= all(torch.equal(a.cpu(), b) for a, b in zip(g, want))
     # the channels alone, from the CPU step's clouds and groupings: the offsets bitwise equal, and every
     # row (point, scale) whose local-frame coordinates differ by over 1e-3 one that moves that far on the
@@ -2357,12 +2453,14 @@ def check_tiny_train(log, dev, seed: int, frozen: bool = False) -> None:
     up = lambda xs, d: tuple(torch.nextafter(x, torch.full_like(x, d * np.inf)) for x in xs)
     moved = lambda a, b: (a[:, 3:] - b[:, 3:]).abs().amax(dim=(1, 3)) > 1e-3  # (B, P)
     lrf_rows, offsets_equal = [], True
-    for center, grouped, r, want in cpu_seen:
-        got = channels(tuple(x.to(dev) for x in center), tuple(x.to(dev) for x in grouped), r).cpu()
+    for center, grouped, r, want, extra, _ in cpu_seen:
+        on_card = tuple(x.to(dev) if isinstance(x, torch.Tensor) else x for x in extra)
+        got = channels(tuple(x.to(dev) for x in center), tuple(x.to(dev) for x in grouped), r, *on_card).cpu()
         offsets_equal &= torch.equal(got[:, :3], want[:, :3])
         spread_rows = torch.zeros(want.shape[0], want.shape[2], dtype=torch.bool)
         for d in (1, -1):
-            spread_rows |= moved(channels(up(center, d), grouped, r), want) | moved(channels(center, up(grouped, d), r), want)
+            spread_rows |= (moved(channels(up(center, d), grouped, r, *extra), want)
+                            | moved(channels(center, up(grouped, d), r, *extra), want))
         card_rows = moved(got, want)
         lrf_rows.append((int(card_rows.sum()), int(spread_rows.sum()), int((card_rows & spread_rows).sum())))
     lrf_ok = offsets_equal and all(c == both for c, _, both in lrf_rows)
@@ -2379,7 +2477,8 @@ def check_tiny_train(log, dev, seed: int, frozen: bool = False) -> None:
     worst = lambda d, g: max((v / max(g[k], 1e-30) for k, v in d.items()), default=0.0)
     failed = ([] if grouping_equal else ["grouping"]) + ([] if lrf_ok else ["channels"])
     coarse = lambda k: k.startswith("coarse")
-    for name, run, held in (("card on the CPU's PE channels vs CPU", replayed, lambda k: True),
+    fed = "PE channels and features" if subset else "PE channels"
+    for name, run, held in ((f"card on the CPU's {fed} vs CPU", replayed, lambda k: True),
                             ("card vs CPU, where the fine PE does not reach", card, coarse)):
         diffs, gates = (tuple({k: v for k, v in x.items() if held(k)} for x in y) for y in compare(run, cpu))
         ratios = [worst(d, g) for d, g in zip(diffs, gates)]
@@ -2397,6 +2496,10 @@ def check_tiny_train(log, dev, seed: int, frozen: bool = False) -> None:
         f"{max(v for k, v in spread[0].items() if not coarse(k)):.2e}, 1 - cos {({k: round(v, 9) for k, v in reached[1].items()})} "
         f"vs {({k: round(v, 9) for k, v in spread[1].items() if not coarse(k)})}, BN {max(reached[2].values()):.2e} "
         f"vs {max(spread[2].values()):.2e}")
+    if subset:
+        log(f"{title}: K15 launched {subset_launches}x in the two card steps")
+        if subset_launches != 8:
+            failed.append("K15 launches")
     if frozen:
         start = {k[len("fine_matching.pe."):]: v.double() for k, v in state.items() if k.startswith("fine_matching.pe.")
                  and (k.endswith(".mean") or k.endswith(".var"))}
@@ -2409,7 +2512,7 @@ def check_tiny_train(log, dev, seed: int, frozen: bool = False) -> None:
         raise AssertionError(f"the {title} disagrees: {failed}")
 
 
-def run_train(log, dev, seed: int, steps: int, frozen: bool = False) -> dict:
+def run_train(log, dev, seed: int, steps: int, frozen: bool = False, name: str = "train") -> dict:
     """The train path at full width: ``train_config()``, B = 8, bf16, seeded
     random weights, ``steps`` steps on synthetic batches. Checks the loss
     terms and the gradient norm, the frozen ViT, that every trainable module
@@ -2418,11 +2521,98 @@ def run_train(log, dev, seed: int, steps: int, frozen: bool = False) -> dict:
     time and the PE train kernels' share of it. With ``frozen`` the
     ``train_frozen`` path, under ``UNOPOSE_PE_TRAIN_FROZEN=1``: there the six
     BatchNorm layers' gammas and betas must move and their running
-    statistics stay bitwise unchanged."""
+    statistics stay bitwise unchanged. ``name`` one of ``TRAIN_VARIANTS``
+    runs that configuration instead (``train_variant_config``), at the same
+    gates, and ``train_full`` adds its own (``check_train_full``)."""
     from unopose_tpu_torch.tools.profile_slice import env_switch
 
     with env_switch(FROZEN if frozen else {}):
-        return _run_train(log, dev, seed, steps, "train_frozen" if frozen else "train")
+        return _run_train(log, dev, seed, steps, "train_frozen" if frozen else name)
+
+
+def train_variant_config(name: str):
+    """The train configuration of a path: ``train_config()``, with for
+    ``train_subset`` the subset mode, for ``train_full`` every parameter
+    trained, the clip at ``TRAIN_FULL_MAX_NORM`` and the EMA (decay 0.999)
+    on a flat learning rate of 1e-4 (the warmup factor 1: the EMA moves by a
+    thousandth of each parameter's move, which must stay above float32's
+    resolution), and for ``train_pe_*`` the PE key of ``TRAIN_PE_VARIANTS``."""
+    from unopose_tpu_torch import configs
+
+    cfg = configs.train_config()
+    if name == "train_subset":
+        cfg.model.fine_point_matching.pe_neighbor_mode = "subset"
+    elif name == "train_full":
+        cfg.model.feature_extraction.freeze_vit = False
+        cfg.train.clip_grad.update(enabled=True, params=configs.Config(max_norm=TRAIN_FULL_MAX_NORM, norm_type=2))
+        cfg.train.model_ema = configs.Config(enabled=True, decay=0.999)
+        cfg.lr_multiplier.warmup_factor = 1.0
+    elif name in TRAIN_PE_VARIANTS:
+        cfg.model.fine_point_matching.update(TRAIN_PE_VARIANTS[name])
+    return cfg
+
+
+def check_train_full(log, trainer, cfg, step_fn) -> dict:
+    """The ``train_full`` gates around one more step (``step_fn()``): the
+    gradient norm past ``TRAIN_FULL_MAX_NORM`` and the applied (clipped)
+    gradients' global norm equal to it within float32 rounding (1e-5
+    relative); the EMA equal, within one float32 ulp of each entry, to the
+    host's ``decay * ema + (1 - decay) * new`` from the EMA and parameters
+    copied before and after the step; then a checkpoint of the trainer
+    saved and restored into a fresh model and trainer: the parameters and
+    buffers, the EMA, the Adam state and the step count bitwise equal."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from unopose_tpu_torch.engine.train import Trainer
+    from unopose_tpu_torch.models import UNOPose
+    from unopose_tpu_torch.utils.checkpoint import Checkpointer
+
+    ema_before = {n: e.to("cpu", copy=True) for n, e in trainer.ema.items()}
+    p_before = {n: p.detach().to("cpu", copy=True) for n, p in trainer.params}
+    metrics = step_fn()
+    torch.cuda.synchronize()
+    norm = float(metrics["grad_norm"])
+    applied = float(torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(p.grad) for _, p in trainer.params])))
+    decay = trainer.ema_decay
+    worst, bitwise, n_moved = 0.0, True, 0
+    for n, p in trainer.params:
+        want = decay * ema_before[n] + (1.0 - decay) * p.detach().cpu()
+        got = trainer.ema[n].cpu()
+        worst = max(worst, ((got - want).abs() / torch.from_numpy(np.spacing(want.abs().numpy()))).max().item())
+        bitwise &= torch.equal(got, want)
+        n_moved += not torch.equal(got, ema_before[n])
+    vit_moved = all(not torch.equal(p.detach().cpu(), p_before[n]) for n, p in trainer.params if ".vit.blocks" in n)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        ckpt = Checkpointer(tmp)
+        t0 = time.perf_counter()
+        ckpt.save(trainer.iteration, trainer)
+        save_s = time.perf_counter() - t0
+        device = next(trainer.model.parameters()).device
+        fresh = Trainer(UNOPose.from_config(cfg.model, torch.bfloat16, torch.bfloat16).to(device), cfg)
+        t0 = time.perf_counter()
+        ckpt.restore(fresh)
+        restore_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    state, restored = trainer.model.state_dict(), fresh.model.state_dict()
+    same_model = all(torch.equal(v, restored[k]) for k, v in state.items())
+    same_ema = all(torch.equal(v, fresh.ema[k]) for k, v in trainer.ema.items())
+    sa, sb = trainer.optimizer.state_dict()["state"], fresh.optimizer.state_dict()["state"]
+    same_adam = sa.keys() == sb.keys() and all(torch.equal(v, sb[i][k]) for i in sa for k, v in sa[i].items())
+    figures = dict(grad_norm=norm, applied_norm=applied, ema_worst_ulps=worst, ema_bitwise=bitwise,
+                   ema_entries_moved=n_moved, vit_moved=vit_moved, checkpoint_save_s=save_s,
+                   checkpoint_restore_s=restore_s, restored_bitwise=dict(model=same_model, ema=same_ema, adam=same_adam,
+                                                                         iteration=fresh.iteration == trainer.iteration))
+    log(f"train_full gates: {json.dumps(figures)}")
+    if not (norm > TRAIN_FULL_MAX_NORM and abs(applied - TRAIN_FULL_MAX_NORM) <= 1e-5 * TRAIN_FULL_MAX_NORM
+            and worst <= 1.0 and n_moved and vit_moved and all(figures["restored_bitwise"].values())):
+        raise AssertionError(f"train_full: the clip, the EMA, the ViT's update or the checkpoint's restore: {figures}")
+    del fresh
+    return figures
 
 
 def _run_train(log, dev, seed: int, steps: int, name: str) -> dict:
@@ -2433,16 +2623,18 @@ def _run_train(log, dev, seed: int, steps: int, name: str) -> dict:
     from unopose_tpu_torch.kernels import LAUNCHES, reset_launch_counts
     from unopose_tpu_torch.models import UNOPose
 
-    cfg = configs.train_config()
+    cfg = train_variant_config(name)
+    freeze = cfg.model.feature_extraction.get("freeze_vit", False)
     torch.manual_seed(seed)
     model = UNOPose.from_config(cfg.model, torch.bfloat16, torch.bfloat16).to(dev)
     trainer = Trainer(model, cfg)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     rng = np.random.default_rng(seed + 11)
+    extra = 2 if name == "train_full" else 1  # the profiled step, and train_full's gated one
     batches = [{k: torch.from_numpy(v).to(dev) for k, v in configs.synthetic_train_inputs(rng, cfg.batch_size).items()}
-               for _ in range(steps + 1)]
-    frozen = {n: p.detach().clone() for n, p in model.named_parameters() if "vit" in n}
+               for _ in range(steps + extra)]
+    frozen = {n: p.detach().clone() for n, p in model.named_parameters() if "vit" in n and freeze}
     before = {n: p.detach().clone() for n, p in trainer.params}
     bn_before = {n: b.clone() for n, b in model.fine_matching.pe.named_buffers()}
     torch.cuda.synchronize()
@@ -2466,11 +2658,12 @@ def _run_train(log, dev, seed: int, steps: int, name: str) -> dict:
     stray = [k for k in PATH_NOT_LAUNCHED[name] if launches.get(k, 0)]
     if missing or stray:
         raise AssertionError(f"the {name} path: kernels never launched {missing}, kernels of another path {stray}")
-    if not all(torch.equal(p.detach(), frozen[n]) for n, p in model.named_parameters() if "vit" in n):
+    if not all(torch.equal(p.detach(), frozen[n]) for n, p in model.named_parameters() if n in frozen):
         raise AssertionError("a frozen ViT parameter moved")
     moved = {}
     for n, p in trainer.params:
-        moved[n.split(".")[0]] = moved.get(n.split(".")[0], False) or not torch.equal(p.detach(), before[n])
+        part = "vit" if ".vit." in n else n.split(".")[0]  # the trained ViT counts as its own module
+        moved[part] = moved.get(part, False) or not torch.equal(p.detach(), before[n])
     bns = dict(model.fine_matching.pe.named_buffers())
     bn_moved = {n: not torch.equal(bns[n], bn_before[n]) for n in bn_before}
     if name == "train_frozen":
@@ -2484,7 +2677,11 @@ def _run_train(log, dev, seed: int, steps: int, name: str) -> dict:
                                  f"moved: {moved}, {affine}, {bn_moved}")
     elif not all(moved.values()) or len(bn_moved) != 12 or not all(bn_moved.values()):
         raise AssertionError(f"a trainable module or a BatchNorm buffer of the fine PE did not move: {moved}, {bn_moved}")
+    log(f"{name}: trainable modules moved {moved}, the fine PE's 12 running statistics moved "
+        f"{sum(bn_moved.values())}/{len(bn_moved)}")
     steady = float(np.median(times[1:])) if len(times) > 1 else times[0]
+    gates = check_train_full(log, trainer, cfg, lambda: trainer.step(batches[-1], generator=gen)) \
+        if name == "train_full" else None
 
     # one more step under the profiler: the kernels' time, the device's busy share, the PE train kernels' part
     from unopose_tpu_torch.tools.profile_slice import PE_TRAIN, kernel_summary
@@ -2506,7 +2703,8 @@ def _run_train(log, dev, seed: int, steps: int, name: str) -> dict:
         + ", ".join(f"{k['name'][:60]} {k['ms']:.2f} ms x{k['count']}" for k in prof_sum["top"][:8]))
     del model, trainer, batches
     torch.cuda.empty_cache()
-    return dict(launches=launches, steady_ms=steady, peak_gib=peak, profiled=prof_sum, pe_train_ms=pe_ms)
+    out = dict(launches=launches, steady_ms=steady, peak_gib=peak, profiled=prof_sum, pe_train_ms=pe_ms)
+    return out if gates is None else dict(out, gates=gates)
 
 
 def run_path(log, dev, seed: int, batches: int, name: str) -> dict:
@@ -2519,6 +2717,24 @@ def run_path(log, dev, seed: int, batches: int, name: str) -> dict:
     config, env = PROFILES[name]
     with env_switch(env):
         return _run_path(log, dev, seed, batches, name, config)
+
+
+def run_backbone(log, dev, seed: int, vit_type: str) -> dict:
+    """Phase 6: the production inference forward with the ViT backbone
+    ``vit_type`` (its width in ``embed_dim``), two 16-pair batches (the
+    second steady): the pose gates and launches of the production path (``backbone_<vit_type>``), K7
+    at the variant's token count and heads."""
+    from unopose_tpu_torch import configs
+    from unopose_tpu_torch.models.vit import VIT_VARIANTS
+    from unopose_tpu_torch.tools.profile_slice import PE_OFF, env_switch
+
+    def config():
+        cfg = configs.production_config()
+        cfg.feature_extraction.update(vit_type=vit_type, embed_dim=VIT_VARIANTS[vit_type]["embed_dim"])
+        return cfg
+
+    with env_switch(PE_OFF):
+        return _run_path(log, dev, seed, 2, f"backbone_{vit_type}", config)
 
 
 def _run_path(log, dev, seed: int, batches: int, name: str, config) -> dict:
@@ -3737,6 +3953,17 @@ def run_script(log, name: str) -> dict:
     return dict(launches=launches, results=json.loads(lines[-1]))
 
 
+def variant_runs(log, dev, args) -> dict:
+    """The train configurations past the six-channel float32 recipe
+    (``TRAIN_VARIANTS``: the subset mode and ``train_full`` at
+    ``--train-steps``, each PE variant for one step) and the production
+    forward on each backbone of ``BACKBONES``."""
+    runs = {name: run_train(log, dev, args.seed, args.train_steps if name in ("train_subset", "train_full") else 1,
+                            name=name) for name in TRAIN_VARIANTS}
+    runs.update({f"backbone_{v}": run_backbone(log, dev, args.seed, v) for v in BACKBONES})
+    return runs
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -3749,6 +3976,9 @@ def main() -> int:
     parser.add_argument("--ddp-only", action="store_true", help="only the ddp path")
     parser.add_argument("--ddp-ranks", type=int, default=DDP_RANKS, help="ranks of the ddp path")
     parser.add_argument("--precision-only", action="store_true", help="only the precision and pose_recovery paths")
+    parser.add_argument("--variants-only", action="store_true",
+                        help="only K7 and K8-K10's checks, the tiny subset train step and the train variant and "
+                             "backbone paths")
     args = parser.parse_args()
 
     import torch
@@ -3798,6 +4028,13 @@ def main() -> int:
         print(json.dumps({"precision": {k: v for k, v in r.items() if k != "launches"},
                           "pose_recovery": {k: v for k, v in pose.items() if k != "launches"}}))
         return 0
+    if args.variants_only:
+        results = check_production_kernels(log, dev, args.seed)
+        check_tiny_train(log, dev, args.seed, subset=True)
+        runs = variant_runs(log, dev, args)
+        print(json.dumps({"mha_fused": results["mha_fused"], **{name: {k: v for k, v in r.items() if k != "profiled"}
+                                                                for name, r in runs.items()}}))
+        return 0
     if args.eval_only:
         figures = []
         for k in range(EVAL_MEASURED_RUNS):
@@ -3825,6 +4062,7 @@ def main() -> int:
     check_train_grouping(log, dev, args.seed)
     check_tiny_train(log, dev, args.seed)
     check_tiny_train(log, dev, args.seed, frozen=True)
+    check_tiny_train(log, dev, args.seed, subset=True)
     runs = {
         "slice": run_path(log, dev, args.seed, EARLY_BATCHES, "slice"),
         "fused_matchers": run_path(log, dev, args.seed, EARLY_BATCHES, "fused_matchers"),
@@ -3841,6 +4079,7 @@ def main() -> int:
         **{name: run_script(log, name) for name in SCRIPTS},
         "train": run_train(log, dev, args.seed, args.train_steps),
         "train_frozen": run_train(log, dev, args.seed, args.train_steps, frozen=True),
+        **variant_runs(log, dev, args),
         "train_launcher": run_train_launcher(log, dev, args.seed),
         "ddp": run_ddp(log, dev, args.seed, args.ddp_ranks),
     }

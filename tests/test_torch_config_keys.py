@@ -1,4 +1,4 @@
-"""The inference keys the port took last, against the JAX package (CPU).
+"""The config keys the port took last, against the JAX package (CPU).
 
 One parametrised test, a case for each key: the fused geometric embedding
 written as float32 or bf16 values (``quant_int8=False``), the reference's
@@ -9,6 +9,10 @@ from a config through ``UNOPose.from_config`` and compares it with the JAX
 package's counterpart on the same converted weights and numpy inputs; the
 JAX fused embedding runs with ``fused_interpret=True``. The tolerances are
 those of the existing tests of the same stage, restated in each branch.
+A second parametrised test takes the train keys and the backbones: each ViT
+variant without registers, the clip, the EMA, ``freeze_vit`` and the
+subset mode in training, read as ``configs/main_cfg.py`` and the JAX
+package read them.
 """
 
 import numpy as np
@@ -210,3 +214,74 @@ def test_config_key_matches_jax(case, monkeypatch):
         assert not UNOPose.from_config(cfg).fused_assignment
         with pytest.raises(ValueError):
             UNOPose.from_config(set_key(slice_config(tiny=True), "fine_point_matching.sim_type", "dot"))
+
+
+# ------------------------------------------------------------------ the train keys and the backbones
+TRAIN_CASES = ["vit_base", "vit_large", "vit_small_patch14_dinov2", "vit_base_patch14_dinov2",
+               "vit_large_patch14_dinov2", "clip_grad", "model_ema", "freeze_vit", "subset_train"]
+
+
+@pytest.mark.parametrize("case", TRAIN_CASES)
+def test_train_key_matches_main_cfg(case):
+    """The keys of ``configs/main_cfg.py`` this port took last, each read as
+    the JAX package reads it: ``feature_extraction.vit_type`` for each
+    variant without registers (the port's hyperparameters are JAX's
+    ``VIT_VARIANTS`` entry, and a ViT built from it at a 224-px image has
+    JAX's parameter tree, names and shapes, with the narrow width both
+    packages' ``make_vit`` overrides take); ``train.clip_grad`` (get_cfg's
+    section, off at max_norm 35; on, the port clips at that max_norm, as
+    JAX's optimizer chain does); ``train.model_ema`` (absent from get_cfg:
+    off; on, decay 0.999 by default in both); ``freeze_vit`` (get_cfg's
+    True in the port's train config; off, every parameter trains, as JAX's
+    train step differentiates every leaf); ``pe_neighbor_mode="subset"``
+    in training (the fine PE's train forward takes the subset groupings)."""
+    from unopose_tpu.configs.main_cfg import get_cfg
+    from unopose_tpu.engine import train as jtrain
+    from unopose_tpu.models import vit as jvit
+    from unopose_tpu_torch import configs
+    from unopose_tpu_torch.engine.train import Trainer, clip_max_norm, ema_decay
+    from unopose_tpu_torch.models.vit import VIT_VARIANTS, make_vit
+
+    ref = get_cfg()
+    ours = configs.main_config()
+    if case.startswith("vit_"):
+        assert VIT_VARIANTS[case] == jvit.VIT_VARIANTS[case]
+        narrow = dict(embed_dim=32, num_heads=2)
+        jv = jvit.make_vit(case, img_size=224, **narrow)
+        shapes = jax.eval_shape(lambda: jv.init(jax.random.PRNGKey(0), jnp.zeros((1, 224, 224, 3), jnp.float32)))
+        want = {k: tuple(v.shape) for k, v in flax_to_torch(jax.tree_util.tree_map(
+            lambda s: np.zeros(s.shape, np.float32), shapes)).items()}
+        tv = make_vit(case, img_size=224, **narrow)
+        assert want == {k: tuple(v.shape) for k, v in tv.state_dict().items()}
+        assert tv.grid * tv.grid + tv.num_prefix_tokens == (257 if VIT_VARIANTS[case]["patch_size"] == 14 else 197)
+        cfg = set_key(production_config(tiny=True), "feature_extraction.vit_type", case)
+        assert UNOPose.from_config(set_key(cfg, "feature_extraction.embed_dim", VIT_VARIANTS[case]["embed_dim"])
+                                   ).encoder.rgb_net.vit.num_prefix_tokens == 1
+    elif case == "clip_grad":
+        assert dict(ours.train.clip_grad) == dict(ref.train.clip_grad) and clip_max_norm(ours) is None
+        ours.train.clip_grad.enabled = ref.train.clip_grad.enabled = True
+        assert clip_max_norm(ours) == 35.0
+        chain = jtrain.build_optimizer(ref, {"w": jnp.zeros(3)})
+        g = {"w": jnp.asarray([300.0, 400.0, 0.0])}  # norm 500, clipped to 35
+        u, _ = chain.update(g, chain.init({"w": jnp.zeros(3)}), {"w": jnp.zeros(3)})
+        assert np.all(np.isfinite(np.asarray(u["w"])))
+    elif case == "model_ema":
+        assert "model_ema" not in ref.train and ema_decay(ours) is None
+        ours.train.model_ema = configs.Config(enabled=True)
+        assert ema_decay(ours) == 0.999
+    elif case == "freeze_vit":
+        assert ours.model.feature_extraction.freeze_vit is ref.model.feature_extraction.freeze_vit is True
+        cfg = configs.main_config(tiny=True)
+        cfg.model.feature_extraction.freeze_vit = False
+        model = UNOPose.from_config(cfg.model)
+        assert len(Trainer(model, cfg).params) == len(list(model.parameters()))
+        assert not model.encoder.rgb_net.freeze_vit
+    else:
+        assert ref.model.fine_point_matching.get("pe_neighbor_mode", "first_k") == "first_k"
+        cfg = configs.main_config(tiny=True)
+        cfg.model.fine_point_matching.update(pe_neighbor_mode="subset", nsample1=8, nsample2=16)
+        pe = UNOPose.from_config(cfg.model).fine_matching.pe
+        assert pe.neighbor_mode == "subset" and pe.compute_dtype == torch.bfloat16
+        pts = torch.from_numpy(np.random.default_rng(0).uniform(-1, 1, size=(2, 64, 3)).astype(np.float32))
+        out = pe.forward_train(pts)
+        assert tuple(out.shape) == (2, 64, pe.mlp3.out_features) and torch.isfinite(out).all()

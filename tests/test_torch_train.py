@@ -332,8 +332,8 @@ def run_tiny_step(shift: int = 0, spreads: bool = True):
     calls = iter(range(len(out["chans"])))
     out["rows_alike"] = []
 
-    def jax_channels(own, center, grouped, r):
-        mine, theirs = own(center, grouped, r).numpy(), out["chans"][next(calls)]
+    def jax_channels(own, center, grouped, r, *extra):
+        mine, theirs = own(center, grouped, r, *extra).numpy(), out["chans"][next(calls)]
         assert mine.shape == theirs.shape
         alike = np.abs(sorted_offsets(mine) - sorted_offsets(theirs)).max(axis=(2, 3)) <= 1e-5
         out["rows_alike"].append(float(alike.mean()))

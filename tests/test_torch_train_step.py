@@ -1,6 +1,7 @@
 """The training step's settings and the tiny train step of the PyTorch port
 against the JAX package (CPU): ``train_config`` against ``get_cfg()``, the
-schedule, the refused settings, ``train_loop``'s guard, the initial-pose
+schedule, the train settings past the frozen-backbone recipe (each builds
+and steps), ``train_loop``'s guard, the initial-pose
 noise, the gather's backward, and one tiny step of ``Trainer`` against
 JAX's ``make_train_step`` (its Pallas train kernels in interpret mode) with
 the state after it, and again on two gloo ranks. Split from ``test_torch_train.py`` (its helpers and the
@@ -104,18 +105,46 @@ def test_schedule_matches_jax(method):
         assert abs(got(step) - float(want(step))) <= 1e-7 * 1e-4, step
 
 
-def test_unported_train_settings_are_refused():
-    """Training the ViT, gradient clipping and the model EMA are not ported:
-    a config asking for one is refused, not run as something else."""
-    for key in ("model.feature_extraction.freeze_vit", "train.clip_grad.enabled", "train.model_ema.enabled"):
-        cfg = train_config(tiny=True)
-        *parents, leaf = key.split(".")
-        node = cfg
-        for p in parents:
-            node = node.setdefault(p, configs.Config())
-        node[leaf] = leaf != "freeze_vit"
-        with pytest.raises(NotImplementedError):
-            Trainer(UNOPose.from_config(cfg.model), cfg)
+@pytest.mark.parametrize("key", ["model.feature_extraction.freeze_vit", "train.clip_grad.enabled",
+                                 "train.model_ema.enabled"])
+def test_train_settings_build_and_step(key):
+    """Training the ViT, gradient clipping and the model EMA, each switched
+    from ``main_config(tiny=True)``'s value, build a ``Trainer`` that takes a
+    finite step doing what the key says: with ``freeze_vit`` off every
+    parameter is trainable and the ViT's moved; with the clip (max_norm
+    1e-3, below any step's norm here) the applied gradients' global norm is
+    max_norm within float32 rounding (1e-5 relative) and the logged norm the
+    one before; with the EMA it starts at the parameters and moves by
+    (1 - 0.999) of each parameter's move in the step, bitwise as the host
+    recomputes it from the parameters before and after."""
+    cfg = configs.main_config(tiny=True)
+    *parents, leaf = key.split(".")
+    node = cfg
+    for p in parents:
+        node = node.setdefault(p, configs.Config())
+    node[leaf] = leaf != "freeze_vit"
+    if leaf == "enabled" and parents[-1] == "clip_grad":
+        cfg.train.clip_grad.params.max_norm = 1e-3
+    torch.manual_seed(0)
+    model = UNOPose.from_config(cfg.model, torch.float32, torch.float32)
+    trainer = Trainer(model, cfg)
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    rng = np.random.default_rng(0)
+    batch = {k: torch.from_numpy(v) for k, v in configs.synthetic_train_inputs(
+        rng, 2, img=cfg.model.feature_extraction.img_size, npts=cfg.model.fine_npoint, ntem=96).items()}
+    metrics = trainer.step(batch, generator=torch.Generator().manual_seed(0))
+    assert all(np.isfinite(float(v)) for v in metrics.values())
+    if leaf == "freeze_vit":
+        assert len(trainer.params) == len(before)
+        assert all(not torch.equal(p.detach(), before[n]) for n, p in model.named_parameters() if ".vit.blocks" in n)
+    elif parents[-1] == "clip_grad":
+        applied = torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(p.grad) for _, p in trainer.params]))
+        assert float(metrics["grad_norm"]) > 1e-3 and abs(float(applied) - 1e-3) <= 1e-5 * 1e-3
+    else:
+        assert trainer.ema is not None and sorted(trainer.ema) == sorted(before)
+        for n, p in model.named_parameters():
+            want = 0.999 * before[n] + (1.0 - 0.999) * p.detach()
+            assert torch.equal(trainer.ema[n], want if n in dict(trainer.params) else before[n]), n
 
 
 def test_train_loop_halts_on_a_non_finite_loss():

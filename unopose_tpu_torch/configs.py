@@ -119,6 +119,7 @@ def slice_config(tiny: bool = False) -> Config:
             vit_type="vit_base_patch14_reg4_dinov2", up_type="linear", embed_dim=768, out_dim=256,
             use_pyramid_feat=True, img_size=FULL_SIZES["img"], fused_attn=False,
             int8_gemm=True,  # get_cfg()'s value; read only with fused_attn
+            freeze_vit=True,  # get_cfg()'s value; read only in training
         ),
         geo_embedding=dict(
             sigma_d=0.2, sigma_a=15, angle_k=3, reduction_a="max", hidden_dim=256, fused_table=0,
@@ -236,7 +237,7 @@ MAX_ITER = (2008971 // (TRAIN_BATCH * 4)) * 3
 
 def train_config(tiny: bool = False) -> Config:
     """The training step's configuration: the model section is
-    ``production_config(tiny)`` with ``freeze_vit``, and the train settings
+    ``production_config(tiny)`` (with ``get_cfg()``'s ``freeze_vit``), and the train settings
     the step reads are ``get_cfg()``'s: Adam lr 1e-4, betas (0.5, 0.999),
     eps 1e-6, no weight decay, the flat-and-anneal schedule (linear warmup
     from 0.001 over 1000 iterations, cosine anneal to 0 from there), no
@@ -248,10 +249,8 @@ def train_config(tiny: bool = False) -> Config:
     formulation in training. Both compute the same function. The other
     auto switches follow the JAX package's train gates (see
     ``models/unopose.py``)."""
-    model = production_config(tiny)
-    model.feature_extraction.freeze_vit = True
     return Config(
-        model=model,
+        model=production_config(tiny),
         optimizer=dict(type="adam", lr=1e-4, betas=(0.5, 0.999), weight_decay=0.0, eps=1e-6),
         lr_multiplier=dict(
             warmup_method="linear", warmup_factor=0.001, warmup_iters=1000, total_iters=MAX_ITER,

@@ -5,12 +5,23 @@
 - Adam (betas 0.5 / 0.999, eps 1e-6 added after the square root and the
   bias correction, as optax's) on the flat-and-anneal schedule: the
   learning rate of update ``i`` is the schedule at count ``i``;
-- ``freeze_vit`` (required): every parameter whose name contains "vit" is
-  frozen (``requires_grad`` off, left out of the optimizer), and autograd
-  stops at the ViT's output; ``output_upscaling`` trains;
+- ``freeze_vit``: every parameter whose name contains "vit" is frozen
+  (``requires_grad`` off, left out of the optimizer), and autograd stops at
+  the ViT's output; ``output_upscaling`` trains. Without it every
+  parameter trains, the ViT on its exact path with autograd;
+- ``train.clip_grad``: optax's ``clip_by_global_norm(max_norm)`` on the
+  sanitised gradients, before the weight decay and Adam: with a global norm
+  at or past ``max_norm`` each gradient becomes ``g / norm * max_norm``;
+- ``train.model_ema``: an exponential moving average of the parameters
+  (``Trainer.ema``), from the parameters after the graft, made after each
+  update as ``decay * ema + (1 - decay) * new`` on the trainable ones (the
+  frozen ones and the BatchNorm running statistics keep their value); the
+  checkpoints carry it, and evaluation uses the raw parameters, as the JAX
+  launcher does;
 - the step: the train forward with the initial-pose noise, the loss terms
   and ``process_loss``, backward, non-finite gradients zeroed, the global
-  gradient norm of the trainable parameters, the update. The BatchNorm
+  gradient norm of the trainable parameters (logged before the clip), the
+  clip, the update, the EMA. The BatchNorm
   running statistics are updated inside the forward; under
   ``UNOPOSE_PE_TRAIN_FROZEN=1`` the fine PE normalises with them instead
   and leaves them unchanged (its gammas and betas still train).
@@ -26,10 +37,9 @@ averaged across the ranks before they are sanitised and their norm taken,
 the pose noise is drawn for the global batch and each rank keeps its rows,
 the logged metrics are the ranks' mean, rank 0 alone saves the
 checkpoints (every rank restores them), and rank 0's state is broadcast
-after the graft or the restore.
-
-Not ported: training the ViT, gradient clipping (off in the
-configuration) and the model EMA.
+after the graft or the restore (the EMA then restarts from it where no
+checkpoint was restored). The clip acts on the averaged gradients, so the
+ranks stay equal.
 """
 
 from __future__ import annotations
@@ -54,26 +64,20 @@ logger = logging.getLogger(__name__)
 
 
 def trainable_parameters(model: torch.nn.Module, cfg: Config) -> List[Tuple[str, torch.nn.Parameter]]:
-    """The parameters the optimizer updates; the frozen ones get
-    ``requires_grad`` off. The model's train forward runs the ViT without
-    autograd, so a config that trains it is refused."""
-    if not cfg.model.feature_extraction.get("freeze_vit", False):
-        raise NotImplementedError("not ported: training the ViT (feature_extraction.freeze_vit=False)")
+    """The parameters the optimizer updates: all of them, or with
+    ``freeze_vit`` all but the ViT's, which get ``requires_grad`` off."""
+    freeze = cfg.model.feature_extraction.get("freeze_vit", False)
     out = []
     for name, p in model.named_parameters():
-        if FROZEN in name:
-            p.requires_grad_(False)
-        else:
+        frozen = freeze and FROZEN in name
+        p.requires_grad_(not frozen)
+        if not frozen:
             out.append((name, p))
     return out
 
 
 def build_optimizer(cfg: Config, params) -> Tuple[torch.optim.Adam, Callable[[int], float]]:
     """(Adam over ``params``, the learning-rate schedule)."""
-    if cfg.train.get("clip_grad", {}).get("enabled", False):
-        raise NotImplementedError("not ported: gradient clipping (train.clip_grad.enabled)")
-    if cfg.train.get("model_ema", {}).get("enabled", False):
-        raise NotImplementedError("not ported: the model EMA (train.model_ema.enabled)")
     opt = cfg.optimizer
     sched = build_schedule_from_cfg(cfg.lr_multiplier, base_lr=opt.lr)
     adam = torch.optim.Adam(params, lr=sched(0), betas=tuple(opt.betas), eps=opt.eps,
@@ -81,18 +85,40 @@ def build_optimizer(cfg: Config, params) -> Tuple[torch.optim.Adam, Callable[[in
     return adam, sched
 
 
+def clip_max_norm(cfg: Config) -> Optional[float]:
+    """``train.clip_grad.params.max_norm`` where the clip is enabled, else None."""
+    clip = cfg.train.get("clip_grad", {})
+    return float(clip["params"]["max_norm"]) if clip.get("enabled", False) else None
+
+
+def ema_decay(cfg: Config) -> Optional[float]:
+    """``train.model_ema.decay`` (0.999 by default) where the EMA is enabled, else None."""
+    ema = cfg.train.get("model_ema", {})
+    return float(ema.get("decay", 0.999)) if ema.get("enabled", False) else None
+
+
 class Trainer:
     """A model, its optimizer and the step count: ``step(batch)`` runs one
     training step on this rank's rows of the global batch and returns its
     metrics over those rows (0-d tensors, not synchronised). ``pose_noise``
     holds the global batch's draws (else they are drawn from ``generator``
-    for the global batch); each rank takes its rows."""
+    for the global batch); each rank takes its rows. ``ema`` maps every
+    parameter's name to its moving average where the config enables it,
+    else it is None."""
 
     def __init__(self, model: UNOPose, cfg: Config):
         self.model, self.cfg = model, cfg
         self.params = trainable_parameters(model, cfg)
         self.optimizer, self.schedule = build_optimizer(cfg, [p for _, p in self.params])
+        self.max_norm, self.ema_decay = clip_max_norm(cfg), ema_decay(cfg)
+        self.ema = None
+        if self.ema_decay is not None:
+            self.reset_ema()
         self.iteration = 0
+
+    def reset_ema(self) -> None:
+        """The EMA set to the model's parameters as they are."""
+        self.ema = {n: p.detach().clone() for n, p in self.model.named_parameters()}
 
     def step(self, batch: Dict[str, torch.Tensor], pose_noise: Optional[PoseNoiseDraws] = None,
              generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
@@ -107,6 +133,15 @@ class Trainer:
         loss_dict = process_loss(compute_train_losses(outputs, batch, self.cfg.model))
         self.optimizer.zero_grad(set_to_none=True)
         loss_dict["loss"].backward()
+        metrics = {k: v.detach() for k, v in loss_dict.items()}
+        metrics["grad_norm"] = self.apply_gradients()
+        return metrics
+
+    def apply_gradients(self) -> torch.Tensor:
+        """The update from the trainable parameters' ``.grad`` (None: zero):
+        averaged over the ranks, sanitised, clipped, Adam at this
+        iteration's learning rate, then the EMA. Returns the global gradient
+        norm before the clip."""
         for _, p in self.params:
             if p.grad is None:  # optax updates every trainable leaf, with a zero gradient if unused
                 p.grad = torch.zeros_like(p)
@@ -115,19 +150,28 @@ class Trainer:
         for _, p in self.params:  # JAX sanitises the global gradient
             torch.nan_to_num_(p.grad, nan=0.0, posinf=0.0, neginf=0.0)
             grads.append(p.grad)
-        metrics = {k: v.detach() for k, v in loss_dict.items()}
-        metrics["grad_norm"] = torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g) for g in grads]))
+        norm = torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g) for g in grads]))
+        if self.max_norm is not None:  # optax's clip_by_global_norm, without a sync to the host
+            keep = norm < self.max_norm
+            for g in grads:
+                g.copy_(torch.where(keep, g, g / norm * self.max_norm))
         for group in self.optimizer.param_groups:
             group["lr"] = self.schedule(self.iteration)
         self.optimizer.step()
+        if self.ema is not None:
+            with torch.no_grad():
+                for name, p in self.params:
+                    e = self.ema[name]
+                    e.copy_(self.ema_decay * e + (1.0 - self.ema_decay) * p)
         self.iteration += 1
-        return metrics
+        return norm
 
 
 def create_trainer(model: UNOPose, cfg: Config) -> Trainer:
     """The train state: the pretrained DINOv2 weights grafted into the ViT
     where the config asks for them (``utils/checkpoint.py:maybe_load_pretrained_vit``),
-    then the ViT frozen and the optimizer built."""
+    then the ViT frozen (with ``freeze_vit``), the optimizer built and the
+    EMA started."""
     from unopose_tpu_torch.utils.checkpoint import maybe_load_pretrained_vit
 
     maybe_load_pretrained_vit(model, cfg.model.feature_extraction)
@@ -153,7 +197,8 @@ def train_loop(model: UNOPose, cfg: Config, data_iter: Iterator[Dict[str, np.nda
 
     - resume: where ``checkpointer.latest_step()`` is past ``start_iter``, that
       step is restored (on every rank) and the loop starts there; on several
-      ranks rank 0's model state is then broadcast;
+      ranks rank 0's model state is then broadcast, and without a restore the
+      EMA restarts from it;
     - the pose noise is drawn from one generator seeded ``train.seed``
       (``seed`` without it); the stream starts again from the seed on resume,
       as the JAX package's key does;
@@ -181,15 +226,18 @@ def train_loop(model: UNOPose, cfg: Config, data_iter: Iterator[Dict[str, np.nda
         trainer = create_trainer(model, cfg)
     stats = {} if stats is None else stats
     stats.update(step_s=[], wait_s=[], save_s=[], restore_s=None)
+    restored = False
     if checkpointer is not None:
         latest = checkpointer.latest_step()
         if latest is not None and latest > start_iter:
             t0 = time.perf_counter()
             checkpointer.restore(trainer, latest)
             stats["restore_s"] = time.perf_counter() - t0
-            start_iter = latest
+            start_iter, restored = latest, True
             logger.info("resumed from checkpoint step %d of %s", latest, checkpointer.directory)
     mesh.broadcast_state(model)
+    if getattr(trainer, "ema", None) is not None and not restored and mesh.world_size() > 1:
+        trainer.reset_ema()
     stats["start_iter"] = start_iter
     train = cfg.train
     generator = torch.Generator(device=device).manual_seed(train.get("seed", seed))

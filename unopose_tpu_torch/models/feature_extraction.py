@@ -74,12 +74,14 @@ class ViTAE(nn.Module):
     Dense to 4 x 4 patches (``up_type="linear"``), or two 2x2 stride-2
     transposed convolutions with a float32 LayerNorm and exact GELU between
     them (``"deconv"``). ``fused_attn`` and ``int8_gemm`` select the ViT's
-    production mode (``models/vit.py``)."""
+    production mode (``models/vit.py``); ``freeze_vit`` (the config's) keeps
+    autograd out of the ViT in training."""
 
     def __init__(self, vit_type: str, up_type: str = "linear", embed_dim: int = 768, out_dim: int = 256,
                  use_pyramid_feat: bool = True, img_size: int = 224, dtype: torch.dtype = torch.float32,
-                 fused_attn: bool = False, int8_gemm: bool = False):
+                 fused_attn: bool = False, int8_gemm: bool = False, freeze_vit: bool = False):
         super().__init__()
+        self.freeze_vit = freeze_vit
         if up_type not in ("linear", "deconv"):
             raise ValueError(up_type)
         self.vit = make_vit(vit_type, img_size=img_size, dtype=dtype, fused_attn=fused_attn, int8_gemm=int8_gemm)
@@ -96,11 +98,12 @@ class ViTAE(nn.Module):
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         """(B, H, W, 3) -> (B, 4g, 4g, out_dim) low-resolution feature map.
-        In training the ViT is frozen: it runs its exact path without
-        autograd (the JAX package cuts the gradient at its output), and only
-        the upscaler is differentiated."""
+        In training the ViT runs its exact path; frozen (``freeze_vit``), it
+        runs without autograd (the JAX package cuts the gradient at its
+        output) and only the upscaler is differentiated, else it is
+        differentiated with the rest."""
         B = x.shape[0]
-        with torch.set_grad_enabled(torch.is_grad_enabled() and not train):
+        with torch.set_grad_enabled(torch.is_grad_enabled() and not (train and self.freeze_vit)):
             outs, _ = self.vit(x, train=train)
         npfx = self.vit.num_prefix_tokens
         outs = [o[:, npfx:, :] for o in outs]
@@ -118,11 +121,12 @@ class ViTEncoderOneRef(nn.Module):
 
     def __init__(self, npoint: int = 2048, vit_type: str = "vit_base_patch14_reg4_dinov2", up_type: str = "linear",
                  embed_dim: int = 768, out_dim: int = 256, use_pyramid_feat: bool = True, img_size: int = 224,
-                 dtype: torch.dtype = torch.float32, fused_attn: bool = False, int8_gemm: bool = False):
+                 dtype: torch.dtype = torch.float32, fused_attn: bool = False, int8_gemm: bool = False,
+                 freeze_vit: bool = False):
         super().__init__()
         self.npoint = npoint
         self.rgb_net = ViTAE(vit_type, up_type, embed_dim, out_dim, use_pyramid_feat, img_size, dtype, fused_attn,
-                             int8_gemm)
+                             int8_gemm, freeze_vit)
 
     def get_img_feats(self, img: torch.Tensor, choose: torch.Tensor, train: bool = False) -> torch.Tensor:
         """Features (B, P, out_dim) of one crop's map at flat pixel indices."""

@@ -11,13 +11,20 @@ grouping; in ``subset`` mode two subset groupings. The last two run the
 masked PE (``ops/pe_fused.py:pe_fused_masked``) with ``pe_fused``, else the
 plain MLP. Training (``train=True``):
 each cloud separately (batch statistics are per cloud), the first_k
-grouping of ``two_scale_group_first_k_fast``, and per scale the MLP with
-batch-statistics BatchNorm: the kernels' pass structure of
-``ops/pe_train.py:pe_mlp_bn_pool_train`` with ``pe_fused`` (K11-K14 on the
-card), the plain float32 formulation without; the BatchNorm running
-statistics take flax's update. With ``UNOPOSE_PE_TRAIN_FROZEN=1``, as in
-the JAX package, a scale whose shapes the frozen kernels take (P % 32 ==
-0) runs the frozen-BN variant instead (``pe_mlp_bn_pool_frozen``: BN with
+grouping of ``two_scale_group_first_k_fast`` or, in ``subset`` mode, the
+two subset groupings with the Pallas kernel's miss-slot fill (K15 on the
+card), and per scale the MLP with batch-statistics BatchNorm: the kernels'
+pass structure of ``ops/pe_train.py:pe_mlp_bn_pool_train`` with
+``pe_fused`` where the JAX package's gate admits its train kernels (no
+mask, six channels, P % 32 == 0) and the compute dtype is float32 (K11-K14
+on the card), else the JAX package's XLA formulation
+(``pe_mlp_bn_pool_train_plain``: float32 products, activations stored in
+the compute dtype, the subset mode's mask on the max, 3 input channels
+without the LRF or xyz ones) recomputed in the backward
+(``torch.utils.checkpoint``, JAX's ``nn.remat``); the BatchNorm running
+statistics take flax's update once a step. With ``UNOPOSE_PE_TRAIN_FROZEN=1``, as in
+the JAX package, a scale its train kernels take runs the frozen-BN
+variant instead (``pe_mlp_bn_pool_frozen``: BN with
 the running statistics, which stay unchanged; K12 and K18 on the card,
 their plain passes on the CPU). Both matchers then return every block's
 similarity, overlap scores and saliencies for the loss. ``lax.cond`` on the
@@ -37,6 +44,7 @@ import os
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from unopose_tpu_torch.models.layers import Dense
 from unopose_tpu_torch.models.transformer import GeometricTransformer, SparseToDenseTransformer
@@ -185,6 +193,13 @@ def folded_scale_planar(center, grouped, r: float, Ws, bs, lrf_w=None, pool_mask
     return h.amax(dim=2)
 
 
+def _plain_train_scale(chans, mask, store_dtype, Ws, gammas, betas):
+    """The checkpointed body of a plain train scale: (pooled, means, variances)."""
+    pooled, (mus, vars_) = pe_mlp_bn_pool_train_plain(chans, Ws, gammas, betas, mm_dtype=torch.float32,
+                                                      store_dtype=store_dtype, mask=mask)
+    return pooled, mus, vars_
+
+
 NEIGHBOR_MODES = ("first_k", "subset")
 
 
@@ -282,29 +297,44 @@ class FinePositionalEncoding(nn.Module):
         return N % 64 == 0 and N <= 4096 and N >= k2 and k2 % 256 == 0
 
     @staticmethod
-    def train_channels(center, grouped, r: float) -> torch.Tensor:
-        """One scale's MLP input in training: (B, 6, P, S) float32, each
-        slot's offset from its centre and its local-frame coordinates, with
+    def train_channels(center, grouped, r: float, mask=None, use_lrf: bool = True,
+                       use_xyz: bool = True) -> torch.Tensor:
+        """One scale's MLP input in training: (B, C, P, S) float32, the planes
+        of ``pe_channels`` (by default each slot's offset from its centre and
+        its local-frame coordinates; ``mask`` weights the frame's sums), with
         no gradient (the clouds are data)."""
-        rel = [g - c[..., None] for g, c in zip(grouped, center)]
-        return torch.stack([*rel, *batch_lrf_planar(center, grouped, r)], dim=1).float().detach()
+        return torch.stack(pe_channels(center, grouped, r, mask, use_lrf, use_xyz), dim=1).float().detach()
 
-    def _scale_train(self, center, grouped, r: float, name: str) -> torch.Tensor:
+    def _scale_train(self, center, grouped, r: float, name: str, mask=None) -> torch.Tensor:
         """One scale in training: (B, P, 128) pooled features, and flax's
         running update of the scale's BatchNorm statistics (momentum 0.9,
-        biased batch variance); under ``UNOPOSE_PE_TRAIN_FROZEN=1`` with P %
-        32 == 0 (the JAX package's gate), the frozen-BN stack, which leaves
-        the statistics as they are."""
-        chans = self.train_channels(center, grouped, r)
+        biased batch variance), applied once a step.
+
+        The JAX package's gate of its train kernels (no mask, six channels,
+        P % 32 == 0): under ``UNOPOSE_PE_TRAIN_FROZEN=1`` the frozen-BN
+        stack, which leaves the statistics as they are; else with ``fused``
+        and the float32 compute dtype the kernels' pass structure
+        (``pe_mlp_bn_pool_train``: K11-K14 on the card), which recomputes
+        the chain in its passes. Everything else (the subset mode's mask,
+        ``pe_dtype="bf16"``, three channels, ``fused`` off) runs the JAX
+        package's XLA formulation (``pe_mlp_bn_pool_train_plain`` in float32
+        products, activations stored in the compute dtype) under
+        ``torch.utils.checkpoint``, as JAX's ``nn.remat`` saves only the
+        groupings: the forward is recomputed in the backward, and the
+        statistics it returns there are dropped, so the running update is
+        made from the first forward's alone."""
+        chans = self.train_channels(center, grouped, r, mask, self.use_lrf, self.use_xyz)
         Ws = [getattr(self, f"{name}_fc{i}_kernel") for i in range(len(self.MLP_DIMS))]
         bns = [getattr(self, f"{name}_bn{i}") for i in range(len(self.MLP_DIMS))]
         args = (chans, Ws, [bn.weight for bn in bns], [bn.bias for bn in bns])
-        if os.environ.get("UNOPOSE_PE_TRAIN_FROZEN") == "1" and chans.shape[2] % 32 == 0:
+        kernel_shapes = mask is None and self.six_channels and chans.shape[2] % 32 == 0
+        if os.environ.get("UNOPOSE_PE_TRAIN_FROZEN") == "1" and kernel_shapes:
             return pe_mlp_bn_pool_frozen(*args, [bn.mean for bn in bns], [bn.var for bn in bns])
-        if self.fused:
+        if self.fused and kernel_shapes and self.compute_dtype == torch.float32:
             pooled, (mus, vars_) = pe_mlp_bn_pool_train(*args)
         else:
-            pooled, (mus, vars_) = pe_mlp_bn_pool_train_plain(*args, mm_dtype=torch.float32)
+            pooled, mus, vars_ = checkpoint(_plain_train_scale, chans, mask, self.compute_dtype, *args[1:],
+                                            use_reentrant=False)
         with torch.no_grad():
             for bn, mu, var in zip(bns, mus, vars_):
                 bn.mean.copy_(0.9 * bn.mean + 0.1 * mu)
@@ -321,17 +351,23 @@ class FinePositionalEncoding(nn.Module):
         return two_scale_group_exact_planar(*args)
 
     def forward_train(self, pts: torch.Tensor) -> torch.Tensor:
-        """One cloud in training: pts (B, N, 3) -> (B, N, out_dim)."""
-        if self.neighbor_mode != "first_k":
-            raise NotImplementedError("not ported: the subset-mode train step")
-        if not self.six_channels or self.compute_dtype != torch.float32:
-            raise NotImplementedError("not ported: the train step's PE without LRF or xyz channels, or with "
-                                      "pe_dtype='bf16'")
+        """One cloud in training: pts (B, N, 3) -> (B, N, out_dim). first_k:
+        both scales of ``two_scale_group_first_k_fast``; subset: two subset
+        groupings by ``ball_group_subset`` (K15 on the card, its plain
+        version on the CPU), whose miss slots hold candidate 0 as the JAX
+        package's Pallas grouping fills them (each budget must divide N),
+        through the masked channels and max."""
         pts = pts.float().detach()
         center = tuple(pts.unbind(-1))
-        g1, g2 = self._first_k_groups(pts)
-        f1 = self._scale_train(center, g1, self.r1, "mlp1")
-        f2 = self._scale_train(center, g2, self.r2, "mlp2")
+        if self.neighbor_mode == "subset":
+            g1, _, valid1 = ball_group_subset(self.r1, self.nsample1, pts)
+            g2, _, valid2 = ball_group_subset(self.r2, self.nsample2, pts)
+            f1 = self._scale_train(center, g1, self.r1, "mlp1", valid1)
+            f2 = self._scale_train(center, g2, self.r2, "mlp2", valid2)
+        else:
+            g1, g2 = self._first_k_groups(pts)
+            f1 = self._scale_train(center, g1, self.r1, "mlp1")
+            f2 = self._scale_train(center, g2, self.r2, "mlp2")
         return self.mlp3(torch.cat([f1, f2], dim=-1))
 
     def _masked(self, center, g1, valid1, g2, valid2) -> torch.Tensor:

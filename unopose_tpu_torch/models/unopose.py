@@ -18,12 +18,14 @@ meters, the subsample's features, the full cloud's LRF rows below
 ``dense_fo``, ``dense_po_lrf`` and ``tem1_radius`` in place of the
 ``tem1_*`` inputs, with the same result.
 
-Training: the frozen ViT (exact path, no autograd) -> both clouds' LRFs ->
+Training: the ViT on its exact path (frozen with ``freeze_vit``: no
+autograd; else differentiated) -> both clouds' LRFs ->
 FPS -> the exact geometric embedding (differentiated) -> every coarse
 block's similarity, scores and saliencies -> the ground-truth pose with
 ``aug_pose_noise`` as the fine initial pose -> every fine block's outputs,
 the fine PE per cloud with batch-statistics BatchNorm (or, under
-``UNOPOSE_PE_TRAIN_FROZEN=1``, the running statistics, frozen). ``compute_train_losses``
+``UNOPOSE_PE_TRAIN_FROZEN=1``, the running statistics, frozen), in either
+neighbour mode. ``compute_train_losses``
 turns them into the per-sample loss terms.
 
 The JAX package's three auto switches (``feature_extraction.fused_attn``,
@@ -123,6 +125,7 @@ class UNOPose(nn.Module):
             dtype=backbone_dtype,
             fused_attn=fused_attn,
             int8_gemm=bool(fe.get("int8_gemm", False)),
+            freeze_vit=bool(fe.get("freeze_vit", False)),
         )
         sigma_d = ge.get("sigma_d", 0.2)
         self.geo_embed = GeometricStructureEmbedding(

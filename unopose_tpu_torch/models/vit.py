@@ -9,6 +9,13 @@ W8A8 ``DenseQ`` GEMMs of every block. ``forward(x, train=True)`` runs the
 exact path whatever the module was built with: the JAX package's auto gate
 turns the production mode on for inference only.
 
+The variants are the JAX package's: the DINOv2 ones with four register
+tokens (``no_embed_class``: the position embeddings cover the patch tokens
+alone), and the ones without (``vit_base`` and ``vit_large`` at patch 16
+without LayerScale, ``vit_*_patch14_dinov2``), whose position embeddings
+cover the class token too (``pos_embed_prefix``, added after the
+concatenation).
+
 The 12 blocks of ViT-B are four segments ``blocks0..3`` (``nn.ModuleList``
 each, the flax scanned segments); the final LayerNorm of each segment's
 output is one pyramid tap.
@@ -160,16 +167,17 @@ class ViTPyramid(nn.Module):
         int8_gemm: bool = False,
     ):
         super().__init__()
-        if not no_embed_class:
-            raise NotImplementedError("only the no_embed_class (reg4) ViT variants are ported")
         self.img_size, self.patch_size, self.embed_dim = img_size, patch_size, embed_dim
-        self.reg_tokens = reg_tokens
+        self.reg_tokens, self.no_embed_class = reg_tokens, no_embed_class
         self.dtype = dtype
         g = img_size // patch_size
         self.patch_embed = Dense(patch_size * patch_size * 3, embed_dim, dtype)
         self.pos_embed = nn.Parameter(torch.randn(1, g * g, embed_dim) * 0.02)
         self.cls_token = nn.Parameter(torch.randn(1, 1, embed_dim) * 0.02)
         self.reg_token = nn.Parameter(torch.randn(1, reg_tokens, embed_dim) * 0.02) if reg_tokens else None
+        # the prefix tokens' position embeddings of the variants whose pos embed covers them (timm's first rows)
+        self.pos_embed_prefix = None if no_embed_class else nn.Parameter(
+            torch.randn(1, 1 + reg_tokens, embed_dim) * 0.02)
         self.norm = LayerNorm(embed_dim, dtype)
         n = depth // 4
         for si, seg_len in enumerate([depth - 3 * n] + [n] * 3):
@@ -193,11 +201,15 @@ class ViTPyramid(nn.Module):
         if H != self.img_size or W != self.img_size:
             raise ValueError(f"expected {self.img_size}px images, got {H}x{W}")
         patches = x.reshape(B, g, P, g, P, 3).permute(0, 1, 3, 2, 4, 5).reshape(B, g * g, P * P * 3)
-        tokens = self.patch_embed(patches) + self.pos_embed.to(self.dtype)
+        tokens = self.patch_embed(patches)
         prefix = [self.cls_token.to(self.dtype).expand(B, 1, D)]
         if self.reg_token is not None:
             prefix.append(self.reg_token.to(self.dtype).expand(B, self.reg_tokens, D))
-        tokens = torch.cat(prefix + [tokens], dim=1)
+        if self.pos_embed_prefix is None:
+            tokens = torch.cat(prefix + [tokens + self.pos_embed.to(self.dtype)], dim=1)
+        else:  # the position embeddings cover the prefix tokens too, added after the concatenation
+            tokens = torch.cat(prefix + [tokens], dim=1) + torch.cat([self.pos_embed_prefix, self.pos_embed],
+                                                                      dim=1).to(self.dtype)
         outs = []
         for si in range(4):
             for blk in getattr(self, f"blocks{si}"):
@@ -207,16 +219,34 @@ class ViTPyramid(nn.Module):
 
 
 VIT_VARIANTS = {
-    "vit_small_patch14_reg4_dinov2": dict(embed_dim=384, depth=12, num_heads=6, init_values=1e-5, reg_tokens=4, patch_size=14),
-    "vit_base_patch14_reg4_dinov2": dict(embed_dim=768, depth=12, num_heads=12, init_values=1e-5, reg_tokens=4, patch_size=14),
-    "vit_large_patch14_reg4_dinov2": dict(embed_dim=1024, depth=24, num_heads=16, init_values=1e-5, reg_tokens=4, patch_size=14),
-    "vit_tiny_test": dict(embed_dim=32, depth=4, num_heads=2, init_values=1e-5, reg_tokens=4, patch_size=14),
+    # the JAX package's table (reference oneref_feature_extraction.py:67-152)
+    "vit_base": dict(embed_dim=768, depth=12, num_heads=12, init_values=None, reg_tokens=0, no_embed_class=False,
+                     patch_size=16),
+    "vit_large": dict(embed_dim=1024, depth=24, num_heads=16, init_values=None, reg_tokens=0, no_embed_class=False,
+                      patch_size=16),
+    "vit_small_patch14_dinov2": dict(embed_dim=384, depth=12, num_heads=6, init_values=1e-5, reg_tokens=0,
+                                     no_embed_class=False, patch_size=14),
+    "vit_base_patch14_dinov2": dict(embed_dim=768, depth=12, num_heads=12, init_values=1e-5, reg_tokens=0,
+                                    no_embed_class=False, patch_size=14),
+    "vit_large_patch14_dinov2": dict(embed_dim=1024, depth=24, num_heads=16, init_values=1e-5, reg_tokens=0,
+                                     no_embed_class=False, patch_size=14),
+    "vit_small_patch14_reg4_dinov2": dict(embed_dim=384, depth=12, num_heads=6, init_values=1e-5, reg_tokens=4,
+                                          no_embed_class=True, patch_size=14),
+    "vit_base_patch14_reg4_dinov2": dict(embed_dim=768, depth=12, num_heads=12, init_values=1e-5, reg_tokens=4,
+                                         no_embed_class=True, patch_size=14),
+    "vit_large_patch14_reg4_dinov2": dict(embed_dim=1024, depth=24, num_heads=16, init_values=1e-5, reg_tokens=4,
+                                          no_embed_class=True, patch_size=14),
+    # tiny variant for the CPU tests (the reg4 code path)
+    "vit_tiny_test": dict(embed_dim=32, depth=4, num_heads=2, init_values=1e-5, reg_tokens=4, no_embed_class=True,
+                          patch_size=14),
 }
 
 
 def make_vit(vit_type: str, img_size: int = 224, dtype: torch.dtype = torch.float32, fused_attn: bool = False,
-             int8_gemm: bool = False) -> ViTPyramid:
+             int8_gemm: bool = False, **overrides) -> ViTPyramid:
+    """The variant ``vit_type`` of ``VIT_VARIANTS``, with ``overrides`` of its
+    hyperparameters (the tests narrow a variant so)."""
     if vit_type not in VIT_VARIANTS:
-        raise ValueError(f"unknown or unported vit_type {vit_type}; known: {sorted(VIT_VARIANTS)}")
+        raise ValueError(f"unknown vit_type {vit_type}; known: {sorted(VIT_VARIANTS)}")
     return ViTPyramid(img_size=img_size, dtype=dtype, fused_attn=fused_attn, int8_gemm=int8_gemm,
-                      **VIT_VARIANTS[vit_type])
+                      **{**VIT_VARIANTS[vit_type], **overrides})

@@ -12,7 +12,11 @@ weights, gammas and betas only.
 - ``pe_mlp_bn_pool_train_plain`` is the formulation on torch autograd, the
   JAX package's default train path (einsum, ``BatchNorm(train)``, ReLU, max)
   with the kernel's rounding points: chans, W, the post-ReLU activations and
-  (in the backward) dz rounded to ``mm_dtype`` before each float32 product.
+  (in the backward) dz rounded to ``mm_dtype`` before each float32 product;
+  with ``mm_dtype`` float32, it is the JAX package's XLA formulation, which
+  also takes the PE's other train configurations: activations stored in
+  its compute dtype (``store_dtype``), 3 input channels (no LRF or no xyz),
+  and the subset mode's mask on the max.
 - ``pe_mlp_bn_pool_train`` is the same function as a ``torch.autograd.Function``
   in the TPU kernel's pass structure: three statistics passes (depth 1, 2,
   3), the forward, three backward-sum passes (layer 3, 2, 1) and the weight
@@ -118,26 +122,39 @@ class _RoundCotangent(torch.autograd.Function):
         return _round(g, ctx.mm_dtype), None
 
 
-def _check(chans, Ws, gammas=None, betas=None):
-    if chans.dim() != 4 or chans.shape[1] != DIMS[0]:
-        raise ValueError(f"chans must be (B, 6, P, S), got {tuple(chans.shape)}")
-    if len(Ws) != 3 or any(tuple(W.shape) != (DIMS[i], DIMS[i + 1]) for i, W in enumerate(Ws)):
-        raise ValueError(f"Ws must be (6, 32), (32, 64), (64, 128), got {[tuple(W.shape) for W in Ws]}")
+def _check(chans, Ws, gammas=None, betas=None, channels=(DIMS[0],)):
+    if chans.dim() != 4 or chans.shape[1] not in channels:
+        raise ValueError(f"chans must be (B, C, P, S) with C in {channels}, got {tuple(chans.shape)}")
+    dims = (chans.shape[1],) + DIMS[1:]
+    if len(Ws) != 3 or any(tuple(W.shape) != (dims[i], dims[i + 1]) for i, W in enumerate(Ws)):
+        raise ValueError(f"Ws must be ({dims[0]}, 32), (32, 64), (64, 128), got {[tuple(W.shape) for W in Ws]}")
     for vecs in (gammas, betas):
         if vecs is not None and [tuple(v.shape) for v in vecs] != [(d,) for d in DIMS[1:]]:
             raise ValueError(f"gammas and betas must be (32,), (64,), (128,), got {[tuple(v.shape) for v in vecs]}")
 
 
-def pe_mlp_bn_pool_train_plain(chans, Ws, gammas, betas, eps: float = 1e-5, mm_dtype=MM_DTYPE):
-    """chans (B, 6, P, S) float32 (no gradient), Ws (6, 32), (32, 64), (64,
-    128), gammas and betas (32,), (64,), (128,). Returns pooled (B, P, 128)
-    float32 and the per-layer batch (means, variances), on autograd. On
-    several ranks the statistics are the global batch's."""
-    _check(chans, Ws, gammas, betas)
+def pe_mlp_bn_pool_train_plain(chans, Ws, gammas, betas, eps: float = 1e-5, mm_dtype=MM_DTYPE,
+                               store_dtype: torch.dtype = torch.float32, mask=None):
+    """chans (B, C, P, S) float32 (no gradient; C 6, or 3 for a PE without
+    its xyz or LRF channels), Ws (C, 32), (32, 64), (64, 128), gammas and
+    betas (32,), (64,), (128,). Returns pooled (B, P, 128) float32 and the
+    per-layer batch (means, variances), on autograd. On several ranks the
+    statistics are the global batch's.
+
+    ``mm_dtype`` rounds the products' operands and the cotangents as the
+    kernels do (bf16: the twin of K11-K14). ``store_dtype`` is the JAX
+    package's compute dtype of its XLA formulation: the channels and every
+    layer's post-ReLU output are stored in it, and the cast is on autograd,
+    so the cotangents are rounded at the same points, as JAX's ``astype``
+    rounds them. ``mask`` (B, P, S) bool restricts the max to the valid
+    slots; the BatchNorm statistics span every slot, masked ones included,
+    as in the JAX package's subset mode."""
+    _check(chans, Ws, gammas, betas, channels=(3, DIMS[0]))
     B, C, P, S = chans.shape
     n = B * P * S
     ranks = mesh.world_size()
-    h = _round(chans.detach().float().permute(0, 2, 3, 1).reshape(n, C), mm_dtype)
+    store = (lambda x: x) if store_dtype == torch.float32 else (lambda x: x.to(store_dtype).float())
+    h = store(_round(chans.detach().float().permute(0, 2, 3, 1).reshape(n, C), mm_dtype))
     mus, vars_ = [], []
     with no_tf32():
         for l, (W, gam, bet) in enumerate(zip(Ws, gammas, betas)):
@@ -148,11 +165,14 @@ def pe_mlp_bn_pool_train_plain(chans, Ws, gammas, betas, eps: float = 1e-5, mm_d
             mu = s1 / (n * ranks)
             var = torch.clamp_min(s2 / (n * ranks) - mu * mu, 0.0)
             inv = 1.0 / sqrt_rn(var + eps)
-            y = torch.clamp_min(gam * inv * z + (bet - gam * mu * inv), 0.0)
+            y = store(torch.clamp_min(gam * inv * z + (bet - gam * mu * inv), 0.0))
             h = _RoundOperand.apply(y, mm_dtype) if l < 2 else y
             mus.append(mu.detach())
             vars_.append(var.detach())
-    return h.view(B, P, S, DIMS[-1]).amax(dim=2), (mus, vars_)
+    h = h.view(B, P, S, DIMS[-1])
+    if mask is not None:
+        h = h.masked_fill(~mask[..., None], float("-inf"))
+    return h.amax(dim=2), (mus, vars_)
 
 
 # ------------------------------------------------------------------ the passes, plain

@@ -5,7 +5,8 @@
 last ``max_to_keep`` of them, one directory a step named by the step, as
 orbax lays them out. A saved state is what the JAX package's ``TrainState``
 holds: every parameter (the frozen ViT too) and buffer of the model (the
-BatchNorm running statistics), the Adam state and the update count. A step
+BatchNorm running statistics), the Adam state, the update count and, where
+the trainer keeps one, the model EMA. A step
 is written under a temporary name and renamed into place, so that a run
 killed while saving leaves no half-written step.
 
@@ -56,6 +57,8 @@ class Checkpointer:
         """Write ``trainer``'s state as ``step``, then drop the oldest steps past ``max_to_keep``."""
         state = dict(model=trainer.model.state_dict(), optimizer=trainer.optimizer.state_dict(),
                      iteration=trainer.iteration)
+        if getattr(trainer, "ema", None) is not None:
+            state["ema"] = trainer.ema
         os.makedirs(self.directory, exist_ok=True)
         tmp = tempfile.mkdtemp(prefix=f".{step}.", dir=self.directory)
         try:
@@ -76,8 +79,9 @@ class Checkpointer:
 
     def load(self, step: Optional[int] = None) -> Optional[dict]:
         """The saved state of ``step`` (the latest by default) on the CPU, or
-        None where there is none: ``model`` (a state dict), ``optimizer``
-        and ``iteration``. Eval reads the model's part alone."""
+        None where there is none: ``model`` (a state dict), ``optimizer``,
+        ``iteration`` and, where it was saved, ``ema``. Eval reads the
+        model's part alone."""
         step = self.latest_step() if step is None else step
         if step is None or step not in self.steps():
             return None
@@ -85,13 +89,21 @@ class Checkpointer:
 
     def restore(self, trainer, step: Optional[int] = None):
         """Load ``step`` (the latest by default) into ``trainer``: the model's
-        parameters and buffers, the Adam state and the update count."""
+        parameters and buffers, the Adam state, the update count and the
+        EMA, which a trainer that keeps one must find in the step."""
         state = self.load(step)
         if state is None:
             raise FileNotFoundError(f"no checkpoint under {self.directory}")
+        ema = getattr(trainer, "ema", None)
+        if ema is not None and set(state.get("ema", {})) != set(ema):
+            raise KeyError(f"the step under {self.directory} holds no EMA of the model's parameters")
         trainer.model.load_state_dict(state["model"], strict=True)
         trainer.optimizer.load_state_dict(state["optimizer"])
         trainer.iteration = state["iteration"]
+        if ema is not None:
+            with torch.no_grad():
+                for k, v in state["ema"].items():
+                    trainer.ema[k].copy_(v)
         return trainer
 
 
@@ -100,12 +112,15 @@ class Checkpointer:
 VIT_PREFIX = "encoder.rgb_net.vit."  # the ViT's place in the model's state dict
 
 
-def convert_timm_vit_to_flax(state_dict: dict, depth: int = 12, reg_tokens: int = 4) -> dict:
-    """A timm ``VisionTransformer`` state dict (numpy arrays; a reg4 variant,
-    no class embedding in ``pos_embed``) in the JAX package's ViT layout:
+def convert_timm_vit_to_flax(state_dict: dict, depth: int = 12, reg_tokens: int = 4,
+                             no_embed_class: bool = True) -> dict:
+    """A timm ``VisionTransformer`` state dict (numpy arrays) in the JAX
+    package's ViT layout:
 
         patch_embed.proj.{weight,bias} -> patch_embed (conv -> GEMM kernel)
-        cls_token / reg_token / pos_embed -> same names
+        cls_token / reg_token / pos_embed -> same names; without
+            ``no_embed_class`` timm's pos_embed starts with the 1 + reg_tokens
+            prefix rows, which go to pos_embed_prefix
         blocks.i.norm{1,2}.{weight,bias} -> blocks<s>.norm{1,2}.{scale,bias}[j]
         blocks.i.attn.qkv.* -> blocks<s>.qkv[j]; blocks.i.attn.proj.* -> blocks<s>.attn_proj[j]
         blocks.i.ls{1,2}.gamma -> blocks<s>.ls{1,2}[j]
@@ -125,6 +140,9 @@ def convert_timm_vit_to_flax(state_dict: dict, depth: int = 12, reg_tokens: int 
     }
     if reg_tokens and "reg_token" in sd:
         params["reg_token"] = sd["reg_token"]
+    if not no_embed_class:
+        npfx = 1 + reg_tokens
+        params["pos_embed_prefix"], params["pos_embed"] = sd["pos_embed"][:, :npfx], sd["pos_embed"][:, npfx:]
     n = depth // 4
     start = 0
     for si, seg_len in enumerate([depth - 3 * n] + [n] * 3):
@@ -184,8 +202,9 @@ def graft_vit_params(model: torch.nn.Module, vit_params: dict) -> torch.nn.Modul
 
 def maybe_load_pretrained_vit(model: torch.nn.Module, fe_cfg) -> bool:
     """Graft the timm DINOv2 checkpoint ``fe_cfg.vit_ckpt`` into ``model``'s
-    ViT where ``fe_cfg.pretrained`` is set, its position embeddings resampled
-    to the model's grid; returns whether it did. A set ``pretrained`` with no
+    ViT where ``fe_cfg.pretrained`` is set, its patch position embeddings
+    resampled to the model's grid (the prefix tokens' rows, where the
+    variant's pos embed covers them, kept as they are); returns whether it did. A set ``pretrained`` with no
     such file raises ``FileNotFoundError``; a frozen ViT left at random
     weights is warned about (test configurations only)."""
     from unopose_tpu_torch.models.vit import VIT_VARIANTS
@@ -205,8 +224,10 @@ def maybe_load_pretrained_vit(model: torch.nn.Module, fe_cfg) -> bool:
     variant = VIT_VARIANTS[vit_type]
     sd = load_timm_checkpoint(ckpt)
     grid = fe_cfg.get("img_size", 224) // variant["patch_size"]
-    sd["pos_embed"] = interpolate_pos_embed_np(sd["pos_embed"], grid)
-    graft_vit_params(model, convert_timm_vit_to_flax(sd, depth=variant["depth"], reg_tokens=variant["reg_tokens"]))
+    pe, npfx = sd["pos_embed"], 0 if variant["no_embed_class"] else 1 + variant["reg_tokens"]
+    sd["pos_embed"] = np.concatenate([pe[:, :npfx], interpolate_pos_embed_np(pe[:, npfx:], grid)], axis=1)
+    graft_vit_params(model, convert_timm_vit_to_flax(sd, depth=variant["depth"], reg_tokens=variant["reg_tokens"],
+                                                     no_embed_class=variant["no_embed_class"]))
     logger.info("loaded pretrained ViT weights from %s (%s, grid %d)", ckpt, vit_type, grid)
     return True
 
