@@ -78,10 +78,10 @@ Phases, each fatal on failure:
    and the dW within 1e-2 of each tensor's max with the median under 1e-3,
    the tie counts equal, each backward-sums pass run twice bitwise equal;
    then the whole autograd function against the plain twin on autograd
-   (2e-2, median 2e-3), K12 and K14 also timed alone, and, in the log,
-   ptxas's registers and spills and the warps an SM of K12's and K14's
-   warpgroup kernels and of the K13 and K18 instantiations of
-   ``pe_train_kernel`` (``pe_train_occupancy``); the subset grouping (32 x 2048, S
+   (2e-2, median 2e-3), K11 (each depth), K12 and K14 also timed alone,
+   and, in the log, ptxas's registers and spills and the warps an SM of
+   K11's, K12's and K14's warpgroup kernels and of the K13 and K18
+   instantiations of ``pe_train_kernel`` (``pe_train_occupancy``); the subset grouping (32 x 2048, S
    64 and 256) bitwise equal to its plain version on every output, miss
    slots included; the masked PE (S 64 + 256) on those groupings of the
    uniform cubes and on the unpacked first_k grouping with all-ones masks
@@ -103,8 +103,8 @@ Phases, each fatal on failure:
    512-slot tier; the cubes' gates), all four at S2 768 on cubes shrunk by
    ``DENSE_768_SCALE`` with r1 ``R1_768`` (past one 512-slot window: K19's
    full blocks, K21's and K22's 768-slot tier, K20's 192-slot chunks; the
-   cubes' gates), K19 also at S2 512 on the main cubes
-   and at N 1984, K21 bitwise equal to K5 followed by K6, and K3 at N 1984
+   cubes' gates), K19 timed alone on each of those four and also run at S2
+   512 on the main cubes and at N 1984, K21 bitwise equal to K5 followed by K6, and K3 at N 1984
    and 2000 equal to its plain version on every output; and the TPU
    profiling kernels of ``benchmarks/`` (K23-K27) on their scripts' inputs
    at the scripts' shapes, as ``check_profile_kernels`` says: the three
@@ -1042,8 +1042,8 @@ def check_train_kernels(log, dev, seed: int) -> dict:
     Bt, P = 8, 2048
     Ws, gammas, betas = pe_train_weights(dev, seed)
     results, worst = {}, {}
-    occupancy = pe_train_occupancy(log, [("K12", "K12", 3), *((f"K13 layer {L}", "K13", L) for L in (3, 2, 1)),
-                                         ("K14", "K14", 0)])
+    occupancy = pe_train_occupancy(log, [*((f"K11 depth {d}", "K11", d) for d in (1, 2, 3)), ("K12", "K12", 3),
+                                         *((f"K13 layer {L}", "K13", L) for L in (3, 2, 1)), ("K14", "K14", 0)])
 
     def rel(got, want):
         d = (got - want).abs()
@@ -1099,9 +1099,11 @@ def check_train_kernels(log, dev, seed: int) -> dict:
             dw=(cuda_ms(lambda: pt.bwd_dw_cuda(chans, Ws, bn, k_pooled, k_cnt, dpool)),
                 cuda_ms(lambda: pt.bwd_dw_plain(chans, Ws, bn, pooled, cnt, dpool), reps=2)),
         )
-        # K12 and K14 alone: their C entry points back to back on prepared arguments
+        # K11 (each depth), K12 and K14 alone: their C entry points back to back on prepared arguments
         ws, cap = [W.float().contiguous() for W in Ws], pt._cap(dev)
         alone = dict(
+            stats=[alone_ms("unopose_pe_train_stats", chans, *ws, gb, bn.clone(), torch.empty(cap * 256, device=dev),
+                            cap, Bt, P, S, d, 1e-5) for d in (1, 2, 3)],
             fwd=alone_ms("unopose_pe_train_fwd", chans, *ws, bn, torch.empty_like(k_pooled), torch.empty_like(k_cnt),
                          Bt, P, S),
             dw=alone_ms("unopose_pe_train_bwd_dw", chans, *ws, bn, k_pooled, k_cnt, dpool,
@@ -1110,7 +1112,8 @@ def check_train_kernels(log, dev, seed: int) -> dict:
             f"pooled (max, median of max) {fwd_err}, tie counts equal {100 * cnt_equal:.4f}%; "
             f"sums (g, g zhat) by layer {sums}, two runs equal by layer {same}; dW {dw_err}")
         log(f"pe_train S={S} times (kernel, plain ms): stats {times['stats']}, fwd {times['fwd']}, "
-            f"sums {times['sums']}, dw {times['dw']}; alone: fwd {alone['fwd']:.4f}, dw {alone['dw']:.4f}")
+            f"sums {times['sums']}, dw {times['dw']}; alone: stats by depth {[round(a, 4) for a in alone['stats']]}, "
+            f"fwd {alone['fwd']:.4f}, dw {alone['dw']:.4f}")
         errs = [e for v in stats.values() for e in v]
         if max(errs) > 1e-4:
             raise AssertionError(f"pe_train_stats S={S}: batch mean or variance beyond 1e-4 relative: {stats}")
@@ -1171,6 +1174,11 @@ def check_train_kernels(log, dev, seed: int) -> dict:
     # every depth / layer of the passes that run three times
     results["pe_train_stats"]["by_depth_ms"] = [m[0] for m in main["times"]["stats"]]
     results["pe_train_stats"]["by_depth_bound_ms"] = [b["bound_ms"] for b in main["bounds"]["stats"]]
+    results["pe_train_stats"].update(alone_ms=main["alone"]["stats"][2], s64_alone_ms=small["alone"]["stats"][2],
+                                     by_depth_alone_ms=main["alone"]["stats"],
+                                     s64_by_depth_alone_ms=small["alone"]["stats"],
+                                     s64_by_depth_ms=[m[0] for m in small["times"]["stats"]],
+                                     by_depth_occupancy=[occupancy[f"K11 depth {d}"] for d in (1, 2, 3)])
     results["pe_train_bwd_sums"]["by_layer_ms"] = [m[0] for m in main["times"]["sums"]]
     results["pe_train_bwd_sums"]["by_layer_occupancy"] = [occupancy[f"K13 layer {L}"] for L in (3, 2, 1)]
     results["pe_train_bwd_sums"]["by_layer_bound_ms"] = [b["bound_ms"] for b in main["bounds"]["sums"]]
@@ -1398,6 +1406,10 @@ def packed_pe_cases(d: dict, mlp1, mlp2, packed) -> dict:
 
     out["pe_packed"] = twin_case(lambda: pf.pe_fused_packed_cuda(g2, w1, w2, t2, c, r1, 0.2, packed),
                                  k19, lambda: k19(d["g2_up"], d["center_up"]))
+    out["pe_packed"]["alone_ms"] = alone_ms(
+        "unopose_pe_packed", *(x.float().contiguous() for x in g2), *(w.to(torch.bfloat16).contiguous() for w in (w1, w2)),
+        t2.to(torch.int32).contiguous(), *(x.float().contiguous() for x in c), *packed,
+        torch.empty((B2, N, 256), device=w1.device), B2, N, S2, float(r1), 0.2, float(1.0 / r1), 1.0 / 0.2)
     half = S2 // 2
     fast = (pf.block_max(t2, 64) <= half).view(B2, N // 64, 64)[..., 0].flatten()
     keep1, keep2 = (w1 > 0).view(-1, 64, S2).float(), (w2 > 0).view(-1, 64, S2).float()
@@ -1526,7 +1538,7 @@ def check_packed_kernels(log, dev, seed: int) -> dict:
     def line(name, where, r):
         note = ""
         if name == "pe_packed":
-            note = f", fast blocks {100 * r['fast']:.1f}%"
+            note = f", fast blocks {100 * r['fast']:.1f}%, alone {r['alone_ms']:.3f} ms"
         elif name == "pe_mlp_pool_packed":
             note = f", points on 1/2/3/4 chunks {r['tiers']}"
         elif name == "pe_gather_fused" and "bitwise_v5" in r:
@@ -1589,6 +1601,9 @@ def check_packed_kernels(log, dev, seed: int) -> dict:
                              s768_unequal=s768[name]["unequal"], s768_spread=s768[name]["spread"])
     results["pe_gather_fused"].update(bitwise_v5=True, v5_ms=cases["pe_gather_fused"]["uniform cube"]["v5_ms"],
                                       surface_v5_ms=cases["pe_gather_fused"]["sphere surfaces"]["v5_ms"])
+    results["pe_packed"].update(alone_ms=cases["pe_packed"]["uniform cube"]["alone_ms"],
+                                surface_alone_ms=cases["pe_packed"]["sphere surfaces"]["alone_ms"],
+                                s512_alone_ms=s512["pe_packed"]["alone_ms"], s768_alone_ms=s768["pe_packed"]["alone_ms"])
     results["pe_packed"].update(s512_fast=s512_full["fast"], s768_fast=s768_full["fast"], s512_cube_ms=extra["S2 512"]["ms"],
                                 s512_cube_plain_ms=extra["S2 512"]["plain_ms"], n1984_ms=extra["N 1984"]["ms"],
                                 n1984_plain_ms=extra["N 1984"]["plain_ms"])

@@ -407,15 +407,18 @@ K13_K18_BUILDS = {
 K12_K14_BUILDS = {
     *(f"pe_train_fwd{v}" for v in ("", "_mma_sync", "_one_group", "_two_groups", "_five_groups")),
     *(f"pe_train_bwd_dw{v}" for v in ("", "_mma_sync", "_ring4", "_one_chain", "_one_chain_ring3", "_three_chains"))}
-TRAIN_BUILDS = K13_K18_BUILDS | K12_K14_BUILDS | {"pe_train_stats", "pe_train_stats_one_block", "pe_train_stats_pairs"}
+TRAIN_BUILDS = K13_K18_BUILDS | K12_K14_BUILDS | {"pe_train_stats", "pe_train_stats_groups2", "pe_train_stats_ring2",
+                                                  "pe_train_stats_ring8"}
+# K19's builds: the shipped source, a smaller stage, and one or two points a warp
+K19_BUILDS = {"pe_packed", "pe_packed_stage256", "pe_packed_pw1", "pe_packed_pw2"}
 
 
 def test_kernel_variants_tool_follows_the_shipped_sources(tmp_path):
     """``tools/kernel_variants.py`` makes each variant by replacing text of
     the shipped ``fps.cu``, ``vit_attn.cu``, ``fine_assign.cu`` (K8, K9 and
     K10), ``geo_rpe.cu``, ``pe_mlp_pool.cu``, ``first_k_select.cu`` (K3),
-    ``pe_channels.cu`` (K5) and ``compact_micro.cu`` (K26): every
-    replacement still
+    ``pe_channels.cu`` (K5), ``compact_micro.cu`` (K26), ``pe_train.cu``
+    (K11-K14, K18) and ``pe_packed.cu`` (K19): every replacement still
     finds its text (it raises otherwise), each variant differs from the
     shipped source, ``--parent``'s builds inline the headers of the other
     checkout, and the tool fails without a card."""
@@ -430,12 +433,13 @@ def test_kernel_variants_tool_follows_the_shipped_sources(tmp_path):
                          "fine_assign_accum", "fine_assign_accum_ieee_division", "fine_assign_accum_no_ring",
                          "pe_mlp_pool", "pe_mlp_pool_b64", "pe_mlp_pool_registers", "pe_mlp_pool_no_packing",
                          "pe_mlp_pool_epilogue_first", "pe_mlp_pool_atomic", "pe_mlp_pool_stride", "pe_mlp_pool_wgmma",
-                         *K3_K8_BUILDS, *K5_K26_BUILDS, *TRAIN_BUILDS}
+                         *K3_K8_BUILDS, *K5_K26_BUILDS, *TRAIN_BUILDS, *K19_BUILDS}
     shipped = kernel_variants.SHIPPED
     assert shipped == {"K1": "fps", "K7": "vit_attn", "K9": "fine_assign", "K4": "geo_rpe", "K6": "pe_mlp_pool",
                        "K10": "fine_assign_accum", "K3": "first_k_select", "K8": "fine_assign_colstats",
                        "K5": "pe_channels", "K26": "compact_gather", "K11": "pe_train_stats", "K12": "pe_train_fwd",
-                       "K13": "pe_train_bwd_sums", "K14": "pe_train_bwd_dw", "K18": "pe_train_frozen_bwd"}
+                       "K13": "pe_train_bwd_sums", "K14": "pe_train_bwd_dw", "K18": "pe_train_frozen_bwd",
+                       "K19": "pe_packed"}
     for name, (kernel, text) in srcs.items():
         assert (text == srcs[shipped[kernel]][1]) == (name in shipped.values()), name
     assert set(kernel_variants.sources(None, ("K6", "K10"))) == {
@@ -445,6 +449,9 @@ def test_kernel_variants_tool_follows_the_shipped_sources(tmp_path):
     assert set(kernel_variants.sources(None, ("K3", "K8"))) == K3_K8_BUILDS
     assert set(kernel_variants.sources(None, ("K5", "K26"))) == K5_K26_BUILDS
     assert set(kernel_variants.sources(None, ("K13", "K18"))) == K13_K18_BUILDS
+    assert set(kernel_variants.sources(None, ("K19",))) == K19_BUILDS
+    assert set(kernel_variants.sources(None, ("K11",))) == {"pe_train_stats", "pe_train_stats_groups2",
+                                                           "pe_train_stats_ring2", "pe_train_stats_ring8"}
     # another checkout's sources, their headers inlined from its own csrc/
     csrc = tmp_path / "unopose_tpu_torch" / "kernels" / "csrc"
     shutil.copytree(PORT / "kernels" / "csrc", csrc)
@@ -458,11 +465,17 @@ def test_kernel_variants_tool_follows_the_shipped_sources(tmp_path):
     assert set(parents) == K5_K26_BUILDS | {"pe_channels_parent", "compact_gather_parent"}
     assert "// the other checkout's header" in parents["pe_channels_parent"][1]
     assert parents["compact_gather_parent"][1] == (csrc / "compact_micro.cu").read_text()
+    k19 = kernel_variants.sources(tmp_path, ("K19",))
+    assert set(k19) == K19_BUILDS | {"pe_packed_parent"}
+    assert "// the other checkout's header" in k19["pe_packed_parent"][1] and ".cuh\"" not in k19["pe_packed_parent"][1]
     # the train kernels' parents, and the parent's tie-count check (a source with its own occupancy entry is kept)
     train = kernel_variants.sources(tmp_path, ("K13", "K18"))
     assert set(train) == K13_K18_BUILDS | {"pe_train_bwd_sums_parent", "pe_train_frozen_bwd_parent",
                                            "pe_train_bwd_sums_ties_parent", "pe_train_frozen_bwd_ties_parent"}
-    assert train["pe_train_bwd_sums_parent"][1] == (csrc / "pe_train.cu").read_text()
+    (csrc / "wgmma.cuh").write_text("// the other checkout's wgmma header\n")
+    train = kernel_variants.sources(tmp_path, ("K13", "K18"))
+    assert train["pe_train_bwd_sums_parent"][1] == (csrc / "pe_train.cu").read_text().replace(
+        '#include "wgmma.cuh"', "// the other checkout's wgmma header\n")
     assert "atomicAdd(g_ties" in train["pe_train_frozen_bwd_ties_parent"][1]
     # -Xptxas -v's lines of the named kernel, and the warps an SM holds at that footprint
     log = ("ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_122compact_rounds_kernelEPKiPiii' for 'sm_90a'\n"
@@ -478,6 +491,11 @@ def test_kernel_variants_tool_follows_the_shipped_sources(tmp_path):
     assert "smem_bytes(n)" in kernel_variants.with_occupancy(srcs["pe_channels"][1]).split("unopose_k5_resident")[1]
     probe = kernel_variants.with_occupancy(parents["pe_channels_parent"][1].replace("smem_bytes", "planes"))
     assert "(size_t)3 * n * sizeof(float)" in probe.split("unopose_k5_resident")[1]
+    # and to each K19 build: the shipped launcher's stage, or the first design's warp buffers and template kernel
+    assert "smem = kSmemBytes" in kernel_variants.with_k19_occupancy(srcs["pe_packed"][1]).split(
+        "unopose_k19_resident")[1]
+    first = kernel_variants.with_k19_occupancy(k19["pe_packed_parent"][1].replace("constexpr size_t kSmemBytes", "x"))
+    assert "pe_packed_kernel<kPerLaneMax>" in first.split("unopose_k19_resident")[1]
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     r = subprocess.run([sys.executable, "-m", "unopose_tpu_torch.tools.kernel_variants"], cwd=ROOT, env=env,
                        capture_output=True, text=True, timeout=120)
@@ -490,7 +508,10 @@ def test_kernel_variants_train_builds():
     (and raises on a source with neither), a source without the occupancy
     entry gets the first design's probe, and each shape's ptxas record names
     its ``pe_train_kernel<mode, depth>`` instantiation, or, for K12 and K14,
-    their warpgroup kernels (the mma_sync and parent builds the template's).
+    their warpgroup kernels (the mma_sync and parent builds the template's)
+    and for K11 its ``moments_kernel`` (depth 1) or ``stats_wg_kernel<depth>``
+    (the parent's the template's);
+    K11's variants change its warpgroups a block or its ring.
     ``--only K12,K14`` builds their variants beside K11's, K13's and K18's
     shipped builds and tie-count checks; the mma_sync variant sends both
     entry points and their occupancy to the template's passes."""
@@ -511,7 +532,13 @@ def test_kernel_variants_train_builds():
     for (kernel, key), inst in keys.items():
         template = "pe_train_kernel" + inst
         assert kv.ptxas_fn(kernel, key, kv.SHIPPED[kernel] + "_parent") == template
-        assert kv.ptxas_fn(kernel, key) == kv.WG_KERNELS.get(kernel, template)
+        assert kv.ptxas_fn(kernel, key) == {**kv.WG_KERNELS, "K11": "stats_wg_kernelILi2E"}.get(kernel, template)
+    assert kv.ptxas_fn("K11", "8x2048x64 depth 3", "pe_train_stats_ring2") == "stats_wg_kernelILi3E"
+    assert kv.ptxas_fn("K11", "3x37x16 depth 1") == "moments_kernel"
+    stats = kv.sources(None, ("K11",))
+    assert "kStatGroups = 2, kStatRing = 4;" in stats["pe_train_stats_groups2"][1]
+    assert "kStatGroups = 4, kStatRing = 2;" in stats["pe_train_stats_ring2"][1]
+    assert "kStatGroups = 4, kStatRing = 8;" in stats["pe_train_stats_ring8"][1]
     assert kv.ptxas_fn("K14", "8x2048x64", "pe_train_bwd_dw_mma_sync") == "pe_train_kernelILi3ELi0E"
     assert kv.ptxas_fn("K12", "8x2048x64", "pe_train_fwd_two_groups") == "fwd_wg_kernel"
     builds = kv.sources(None, ("K12", "K14"))
@@ -1495,7 +1522,8 @@ def test_first_k_select_at_any_n_divisible_by_4(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("cloud", ["cubes", "surfaces", "dense_s2_512", "dense_s2_768"])
+@pytest.mark.parametrize("cloud", ["cubes", "surfaces", "dense_s2_512", "dense_s2_768", "total2_half", "one_hit",
+                                   "n576", "n1984"])
 def test_packed_pe_kernels_match_plain(cuda, cloud):
     """K19-K22 against their plain twins at B 4, N 2048: at S2 256 on the
     uniform cubes at most twice as many unequal outputs as the twin shows
@@ -1508,18 +1536,32 @@ def test_packed_pe_kernels_match_plain(cuda, cloud):
     full path, and K21 and K22 their 512-slot tier. At S2 768 (past one
     512-slot window) on the cubes shrunk by 0.48 with r1 0.08 (at r1 0.1
     that density overflows the grouping's 64 scale-1 slots), the same: K19's
-    full blocks, K21's and K22's 768-slot tier, K20's 192-slot chunks."""
+    full blocks, K21's and K22's 768-slot tier, K20's 192-slot chunks.
+    K19 alone, at the cubes' gate, where its 64-point blocks and its rows
+    packed across a warp's points meet their edges: a block whose largest
+    total2 is exactly S2 / 2 (fast) beside one at S2 / 2 + 1 (full), a point
+    with one hit (its only row repeated to a whole slice), and N 576 and 1984
+    (the production fine PE's clouds that take row 10)."""
     k2 = {"dense_s2_512": 512, "dense_s2_768": 768}.get(cloud, 256)
+    n = {"n576": 576, "n1984": 1984}.get(cloud, 2048)
     r1 = 0.08 if k2 == 768 else 0.1
     if cloud == "surfaces":
         perm, _ = ball_query.permutation(2048, "cpu")
         pts = torch.from_numpy(surface_clouds(np.random.default_rng(8), 4, perm.numpy())).to(cuda)
     else:
-        pts = _lrf_cloud(np.random.default_rng(8), 4, 2048, cuda) * {512: 0.55, 768: 0.48}.get(k2, 1.0)
+        pts = _lrf_cloud(np.random.default_rng(8), 4, n, cuda) * {512: 0.55, 768: 0.48}.get(k2, 1.0)
+    if cloud == "one_hit":  # point 5 of each cloud far from every other: itself its only hit at both radii
+        pts[:, 5] += 10.0
     up = lambda xs: tuple(torch.nextafter(x, torch.full_like(x, float("inf"))) for x in xs)
     g2, w1, w2, t2, overflow = ball_query.two_scale_group_first_k_packed(r1, 64, 0.2, k2, pts)
     planes, idx, _, _, _, _ = ball_query.two_scale_group_first_k_packed_idx(r1, 64, 0.2, k2, pts)
     assert not bool(overflow)
+    if cloud == "total2_half":  # block 0's largest total2 exactly S2 / 2 (fast), block 1's one more (full)
+        t2 = t2.clone()
+        t2[:, 7], t2[:, 64 + 7] = k2 // 2, k2 // 2 + 1
+        assert (pe_fused.block_max(t2, 64)[:, 0] == k2 // 2).all() and (pe_fused.block_max(t2, 64)[:, 64] > k2 // 2).all()
+    if cloud == "one_hit":
+        assert (t2[:, 5] == 1).all() and ((w1[:, 5] > 0).sum(-1) == 1).all()
     if k2 > 256:
         assert (pe_fused.block_max(t2, 64) > k2 // 2).any() and (pe_fused.slot_tiers(t2, k2) == k2).any()
     c = tuple(pts.unbind(-1))
@@ -1528,19 +1570,21 @@ def test_packed_pe_kernels_match_plain(cuda, cloud):
              torch.randn(64, 128, device=cuda, generator=gen) * 0.3],
             [torch.randn(d, device=cuda, generator=gen) * 0.1 for d in (32, 64, 128)]) for _ in range(2)]
     packed = pe_fused.pack_mlp(*mlp)
-    sm = lambda x: x.transpose(1, 2).contiguous()
-    ch, _ = pe_fused.pe_channels_packed(g2, w1, w2, c, r1, 0.2)
-    cases = {
-        "K19": (lambda g, cc: pe_fused.pe_fused_packed_plain(g, w1, w2, t2, cc, *mlp, r1, 0.2),
-                pe_fused.pe_fused_packed_cuda(g2, w1, w2, t2, c, r1, 0.2, packed), (g2, c)),
-        "K21": (lambda p, cc: pe_fused.pe_fused_gather_t_plain(p, idx, w1, w2, t2, cc, *mlp, r1, 0.2),
-                pe_fused.pe_fused_gather_t_cuda(planes, idx, w1, w2, t2, c, r1, 0.2, packed), (planes, c)),
-        "K22": (lambda g, cc: pe_fused.pe_fused_packed_t_plain(tuple(map(sm, g)), sm(w1), sm(w2), t2, cc, *mlp, r1,
-                                                               0.2),
-                pe_fused.pe_fused_packed_t_cuda(tuple(map(sm, g2)), sm(w1), sm(w2), t2, c, r1, 0.2, packed), (g2, c)),
-        "K20": (lambda chunks, _: pe_fused.pe_mlp_pool_packed_plain(chunks, t2, *mlp),
-                pe_fused.pe_mlp_pool_packed_cuda(ch, t2, packed), (ch, None)),
-    }
+    cases = {"K19": (lambda g, cc: pe_fused.pe_fused_packed_plain(g, w1, w2, t2, cc, *mlp, r1, 0.2),
+                     pe_fused.pe_fused_packed_cuda(g2, w1, w2, t2, c, r1, 0.2, packed), (g2, c))}
+    if cloud not in ("total2_half", "one_hit", "n576", "n1984"):
+        sm = lambda x: x.transpose(1, 2).contiguous()
+        ch, _ = pe_fused.pe_channels_packed(g2, w1, w2, c, r1, 0.2)
+        cases.update({
+            "K21": (lambda p, cc: pe_fused.pe_fused_gather_t_plain(p, idx, w1, w2, t2, cc, *mlp, r1, 0.2),
+                    pe_fused.pe_fused_gather_t_cuda(planes, idx, w1, w2, t2, c, r1, 0.2, packed), (planes, c)),
+            "K22": (lambda g, cc: pe_fused.pe_fused_packed_t_plain(tuple(map(sm, g)), sm(w1), sm(w2), t2, cc, *mlp,
+                                                                   r1, 0.2),
+                    pe_fused.pe_fused_packed_t_cuda(tuple(map(sm, g2)), sm(w1), sm(w2), t2, c, r1, 0.2, packed),
+                    (g2, c)),
+            "K20": (lambda chunks, _: pe_fused.pe_mlp_pool_packed_plain(chunks, t2, *mlp),
+                    pe_fused.pe_mlp_pool_packed_cuda(ch, t2, packed), (ch, None)),
+        })
     for name, (plain, got, (a, b)) in cases.items():
         want = plain(a, b)
         assert torch.isfinite(got).all(), name
@@ -1554,7 +1598,7 @@ def test_packed_pe_kernels_match_plain(cuda, cloud):
             assert (got - want).abs().max().item() <= 1e-2 * want.abs().max().item()
         else:
             assert (got != want).sum() <= 2 * (plain(up(a), up(b)) != want).sum(), name
-    if k2 == 256:
+    if k2 == 256 and "K21" in cases:
         v5 = pe_fused.pe_mlp_pool_cuda(pe_fused.pe_channels_cuda(planes, idx, w1, w2, t2, c, r1, 0.2), w1, w2, t2,
                                        packed)
         assert torch.equal(cases["K21"][1].view(torch.int32), v5.view(torch.int32))

@@ -8,10 +8,11 @@
 // folded-BatchNorm MLP 6 -> 32 -> 64 -> 128 on mma.sync m16n8k16 bf16 tiles
 // of 16 slots with its running max, and three per-point routines built from
 // them: K21's channels (point_channels), K6's pool (point_pool) and K16's
-// staged scale (staged_pool). A lane holds slots lane, lane + 32, ...: the
-// per-lane slot count is a template parameter, kPerLane (256 slots) for
-// K16 and for K19, K21 and K22 up to 256 slots, up to kPerLaneMax (a window
-// of 512 slots) for those three. They take up to kMaxSlotsPacked slots:
+// staged scale (staged_pool); K19 (pe_packed.cu) takes the frame's steps
+// and runs its MLP on warpgroup products. A lane holds slots lane, lane +
+// 32, ...: the per-lane slot count is a template parameter, kPerLane (256
+// slots) for K16 and for K21 and K22 up to 256 slots, up to kPerLaneMax (a
+// window of 512 slots) for those two. They take up to kMaxSlotsPacked slots:
 // past one window a point's slots are walked window by window
 // (windowed_frame, the windowed branches of the kernels), each lane's LRF
 // sums carried across windows in
@@ -30,7 +31,7 @@ namespace {
 constexpr int kMaxSlots = 256;  // K5, K6, K16
 constexpr int kPerLane = kMaxSlots / 32;
 constexpr int kMaxSlotsPacked = 4096;  // K19-K22: the JAX gates admit nsample2 % 256 == 0 up to N <= 4096
-constexpr int kWindow = 512;           // slots a warp holds in registers (and stages) at once in K19, K21, K22
+constexpr int kWindow = 512;           // slots a warp holds in registers (and stages) at once in K21, K22
 constexpr int kPerLaneMax = kWindow / 32;
 constexpr int kLd0 = 16 + 8;  // row strides of the transposed weights, in bf16
 constexpr int kLd1 = 32 + 8;
@@ -595,7 +596,7 @@ __device__ __forceinline__ void staged_pool(const float (&rx)[PL], const float (
   store_max(mx, out);
 }
 
-// One scale of one point past one window (K19, K22): the frame over the
+// One scale of one point past one window (K22): the frame over the
 // lane's nu_lrf slots (windowed_frame), then window by window over its first
 // nu_pool slots the LRF coordinates and staged_pool_acc on the slots where
 // keep(m) holds, the max stored to out[0..127]. load as windowed_frame's.

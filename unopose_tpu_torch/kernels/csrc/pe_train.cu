@@ -3,8 +3,10 @@
 // E[z^2] - E[z]^2 clipped at 0, eps 1e-5) and ReLU after each layer, then
 // the max over each point's S slots, forward and backward. Five kernels:
 //
-//   K11 pe_train_stats (depth d = 1, 2, 3): recompute the chain to layer d
-//       with the affines of the layers above, sum z and z^2 per channel;
+//   K11 pe_train_stats (depth d = 1, 2, 3): recompute the chain below layer
+//       d with the affines of the layers above, and the sums of z and z^2
+//       per channel of layer d from the Gram sums of its input
+//       (stats_wg_kernel, warpgroup products);
 //   K12 pe_train_fwd: the whole chain, the max over the slots and its tie
 //       count per (point, channel) (fwd_wg_kernel, warpgroup products);
 //   K13 pe_train_bwd_sums (layer L = 3, 2, 1): recompute the chain, the
@@ -58,7 +60,31 @@
 // tools/kernel_variants.py builds other warpgroup counts, rings and chain
 // counts beside them.
 //
-// K11, K13 and K18 run one template body (pe_train_kernel), whose kFwd and
+// K11 (moments_kernel at depth 1, stats_wg_kernel at 2 and 3) takes layer d's sums from its input's Gram sums:
+// with Y the bf16 input of layer d (chans, y1 or y2) and w_c column c of W_d
+// rounded to bf16, z_c = w_c . y, so the sum of z_c is w_c . (the sum of Y)
+// and the sum of z_c^2 is w_c^T (Y^T Y) w_c. A warpgroup runs the chain
+// below layer d on a 64-slot tile as forward_tile does, stages Y with a ones
+// feature in dw_wg_kernel's layout and adds the product Y^T [Y | 1] (wgmma,
+// A and B from the stage; M 64, N 40 or 72) to float32 totals in its
+// registers, one product a tile, so that no accumulation runs long in the
+// tensor cores; the tiles' chans come by 16-byte cp.async, a ring of four a
+// warp. A block adds its warpgroups' totals in order and takes each
+// channel's two sums from them in double; the last block to finish (a
+// counter in device memory that it resets) adds the blocks' rows in block
+// order into the statistics, so one launch does the pass and the finish. A
+// tile at depth 3 is 2 x (16 x 32 + 32 x 64 + 64 x 72) = 14,336 FLOP a slot
+// against the chain's 20,864 and no per-element epilogue of layer d; at
+// depths 1 and 2 the pass reads the 100 MB of chans once; at depth 1 the 6 x 6 Gram sums of the chans take
+// the CUDA cores only (a warpgroup tile's barrier and product round trips cost more than that read). Against the
+// direct sums the Gram form's float32 totals of nonnegative products (y is
+// past a ReLU) moved the variance by at most 1.7e-5 of itself on the card
+// (the gate is 1e-4; PERF.md). What still holds it back: a tile's chain of
+// wgmma round trips, its barrier and its fence, which cost more than the
+// first design's independent warps at depth 2, and at depth 3 the CUDA-core
+// epilogues of layers 1 and 2.
+//
+// K13 and K18 run one template body (pe_train_kernel), whose kFwd and
 // kBwdDw modes are K12's and K14's first designs (the mma_sync builds of
 // tools/kernel_variants.py). A persistent grid of blocks loops over the
 // points; each warp owns one point at a time and runs its S slots 16 at a
@@ -115,8 +141,8 @@
 // Several ranks (parallel/mesh.py). Under data parallelism the statistics
 // and the backward's centering terms span the global batch, as GSPMD's
 // BatchNorm does in the JAX package. K11 then runs as two entry points: the
-// block pass with the blocks' rows added per channel in double into the
-// host's sums (unopose_pe_train_stats_partial), which the host all-reduces
+// pass with the blocks' rows added per channel in double (by its last block)
+// into the host's sums (unopose_pe_train_stats_partial), which the host all-reduces
 // across the ranks, and the finish from the reduced sums
 // (unopose_pe_train_stats_finish, over the global count R B P S): the same
 // sums and the same float32 arithmetic as unopose_pe_train_stats, which
@@ -128,7 +154,8 @@
 // K14's centering terms take the global count, their signatures unchanged.
 //
 // Bound: operations. A chain is 10,432 MACs a slot: at B = 8, P = 2048,
-// S = 256 (4.19 M slots) 87.5 GFLOP, 0.088 ms at 989 TFLOP/s; K11 at depth
+// S = 256 (4.19 M slots) 87.5 GFLOP, 0.088 ms at 989 TFLOP/s (K11 at depth
+// 3 counted so, though its Gram form does 0.69 of it); K11 at depth
 // 1 and 2 is bound by reading the 100 MB of float32 chans (0.030 ms), K14
 // and K18 do 62,208 FLOP a slot (0.26 ms). mma.sync from registers reaches
 // about half the tensor cores' wgmma rate; the bf16 rounding, affine and
@@ -141,9 +168,12 @@
 
 #include <type_traits>
 
+#include "wgmma.cuh"
+
 namespace {
 
-enum Mode { kStats = 0, kFwd = 1, kBwdSums = 2, kBwdDw = 3, kBwdFrozen = 4 };
+// the template's passes (their numbers name the instantiations whose ptxas lines tools/kernel_variants.py reads)
+enum Mode { kFwd = 1, kBwdSums = 2, kBwdDw = 3, kBwdFrozen = 4 };
 // rows of the per-layer statistics buffer bn (3, kBnRows, 128), ops/pe_train.py
 // (kInvN: 1/n of the count the sums of g and g zhat are divided by, layer 0 column 0; 0 for the local B P S)
 enum BnRow { kMu = 0, kVar = 1, kInv = 2, kA = 3, kB = 4, kSg = 5, kSgz = 6, kInvN = 7, kBnRows = 8 };
@@ -204,8 +234,6 @@ __host__ __device__ constexpr size_t smem_bytes(int mode, int depth) {
   return (size_t)kWElems * 2 + (size_t)kQuads * 16 + (size_t)warps_of(mode) * 64 * 16 +
          (size_t)st_rows(mode, depth) * st_ld(mode) * 2;
 }
-
-__device__ __forceinline__ uint32_t saddr(const void* p) { return static_cast<uint32_t>(__cvta_generic_to_shared(p)); }
 
 // fragments of the weights (written once, before the first barrier)
 __device__ __forceinline__ void ldsm4(uint32_t (&r)[4], const __nv_bfloat16* p) {
@@ -420,8 +448,8 @@ pe_train_kernel(const float* __restrict__ chans, const float* __restrict__ w0, c
                 const float* __restrict__ cnt_in, const float* __restrict__ dpool, float* __restrict__ pooled_out,
                 float* __restrict__ cnt_out, float* __restrict__ partial, int B, int P, int S) {
   constexpr int kWarps = warps_of(kMode), kThreads = kWarps * 32;
-  // the layer whose per-channel sums K11 / K13 accumulate, and its n-tiles of 8 channels
-  constexpr int kSumTiles = (kMode == kStats || kMode == kBwdSums) ? width_of(kDepth) / 8 : 1;
+  // the layer whose per-channel sums K13 accumulates, and its n-tiles of 8 channels
+  constexpr int kSumTiles = kMode == kBwdSums ? width_of(kDepth) / 8 : 1;
   constexpr bool kBackward = kMode == kBwdSums || has_dw(kMode);
   constexpr bool kDw = has_dw(kMode);  // the weight gradients, over staged tiles
   constexpr bool kFrozen = kMode == kBwdFrozen;
@@ -468,9 +496,6 @@ pe_train_kernel(const float* __restrict__ chans, const float* __restrict__ w0, c
   // ldmatrix: add (first feature row) * kLdS
   __nv_bfloat16* st_lane = s_st + ((mi >> 1) * 8 + mr) * kLdS + warp * 16 + (mi & 1) * 8;
 
-  float sum1[kSumTiles][2], sum2[kSumTiles][2];  // K11: z, z^2 per lane
-#pragma unroll
-  for (int nt = 0; nt < kSumTiles; ++nt) sum1[nt][0] = sum1[nt][1] = sum2[nt][0] = sum2[nt][1] = 0.0f;
   float fs[kPairRegs];  // K13, K18: the sums of g and g (z - mu), one a lane an n-tile pair (pair_sums)
 #pragma unroll
   for (int i = 0; i < kPairRegs; ++i) fs[i] = 0.0f;
@@ -542,19 +567,10 @@ pe_train_kernel(const float* __restrict__ chans, const float* __restrict__ w0, c
           for (int m = 0; m < kM; ++m) {
             float z[4] = {0.0f, 0.0f, 0.0f, 0.0f};
             mma(z, a1[m], bw1[nt], 0u);
-            if (kMode == kStats && kDepth == 1) {
-#pragma unroll
-              for (int j = 0; j < 2; ++j) {
-                sum1[nt % kSumTiles][j] += z[j] + z[j + 2];
-                sum2[nt % kSumTiles][j] += z[j] * z[j] + z[j + 2] * z[j + 2];
-              }
-              continue;
-            }
             a2[m][nt >> 1][(nt & 1) * 2] = relu_pack(q.x * z[0] + q.z, q.y * z[1] + q.w);
             a2[m][nt >> 1][(nt & 1) * 2 + 1] = relu_pack(q.x * z[2] + q.z, q.y * z[3] + q.w);
           }
         }
-        if (kMode == kStats && kDepth == 1) continue;
         if (kDw) {
           stst2t(st_lane + kSChans * kLdS, a1[0][0], a1[0][1]);
           stst4t(st_lane + kSY1 * kLdS, a2[0][0]);
@@ -571,19 +587,10 @@ pe_train_kernel(const float* __restrict__ chans, const float* __restrict__ w0, c
           for (int m = 0; m < kM; ++m) {
             float z[4];
             z_layer2(z, a2[m], b);
-            if (kMode == kStats && kDepth == 2) {
-#pragma unroll
-              for (int j = 0; j < 2; ++j) {
-                sum1[nt % kSumTiles][j] += z[j] + z[j + 2];
-                sum2[nt % kSumTiles][j] += z[j] * z[j] + z[j + 2] * z[j + 2];
-              }
-              continue;
-            }
             a3[m][nt >> 1][(nt & 1) * 2] = relu_pack(q.x * z[0] + q.z, q.y * z[1] + q.w);
             a3[m][nt >> 1][(nt & 1) * 2 + 1] = relu_pack(q.x * z[2] + q.z, q.y * z[3] + q.w);
           }
         }
-        if (kMode == kStats && kDepth == 2) continue;
         if (kReadBack && !kDw && kLowest < 3) __syncwarp();  // this warp's reads of the last m-tile's staging are done
         if (kDw || (kReadBack && kLowest < 3)) {
 #pragma unroll
@@ -599,17 +606,6 @@ pe_train_kernel(const float* __restrict__ chans, const float* __restrict__ w0, c
           float z[kM][4];
 #pragma unroll
           for (int m = 0; m < kM; ++m) z_layer3(z[m], a3[m], b);
-          if (kMode == kStats) {
-#pragma unroll
-            for (int m = 0; m < kM; ++m) {
-#pragma unroll
-              for (int j = 0; j < 2; ++j) {
-                sum1[nt % kSumTiles][j] += live[m] ? z[m][j] + z[m][j + 2] : 0.0f;
-                sum2[nt % kSumTiles][j] += live[m] ? z[m][j] * z[m][j] + z[m][j + 2] * z[m][j + 2] : 0.0f;
-              }
-            }
-            continue;
-          }
           const float4 ab = Q3[nt * 4 + t];
           if (kMode == kFwd) {
 #pragma unroll
@@ -833,30 +829,13 @@ pe_train_kernel(const float* __restrict__ chans, const float* __restrict__ w0, c
     cb = nb;
   }
 
-  if (kMode == kStats || kMode == kBwdSums) {
+  if (kMode == kBwdSums) {
     // per block: the row groups by shuffles, the warps in order through shared memory (each warp's pool row)
     float* s_red = reinterpret_cast<float*>(s_pool);
     float* red = s_red + warp * 256;
-    if (kMode == kBwdSums) {  // pair_sums' lanes hold the warp's sums: g, then g (z - mu)
+    // pair_sums' lanes hold the warp's sums: g, then g (z - mu)
 #pragma unroll
-      for (int p = 0; p < kSumTiles / 2; ++p) red[(lane & 8 ? 128 : 0) + pair_col(p, lane)] = fs[p];
-    }
-#pragma unroll
-    for (int nt = 0; nt < (kMode == kStats ? kSumTiles : 0); ++nt) {
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        float v1 = sum1[nt][j], v2 = sum2[nt][j];
-#pragma unroll
-        for (int off = 4; off < 32; off <<= 1) {
-          v1 += __shfl_xor_sync(0xffffffffu, v1, off);
-          v2 += __shfl_xor_sync(0xffffffffu, v2, off);
-        }
-        if (g == 0) {
-          red[nt * 8 + 2 * t + j] = v1;
-          red[128 + nt * 8 + 2 * t + j] = v2;
-        }
-      }
-    }
+    for (int p = 0; p < kSumTiles / 2; ++p) red[(lane & 8 ? 128 : 0) + pair_col(p, lane)] = fs[p];
     __syncthreads();
     for (int c = threadIdx.x; c < 256; c += kThreads) {
       float v = 0.0f;
@@ -914,7 +893,7 @@ pe_train_kernel(const float* __restrict__ chans, const float* __restrict__ w0, c
   }
 }
 
-// The blocks' rows of K11's and K13's scratch added per channel (in double) by kFinRows threads a channel, each
+// The blocks' rows of K13's scratch added per channel (in double) by kFinRows threads a channel, each
 // taking every kFinRows-th row, their sums then added in thread order: a run is deterministic and the rows'
 // loads are in flight together. Thread k * 128 + c holds channel c's sums (s1, s2) where k == 0.
 constexpr int kFinRows = 8;
@@ -953,15 +932,6 @@ __device__ __forceinline__ void stats_from_sums(double s1, double s2, const floa
   bn[kB * 128 + c] = bet - gam * mu * inv;
 }
 
-// second pass of K11: add the blocks' rows, then flax's batch statistics and the affine
-__global__ void stats_finish(const float* __restrict__ partial, int blocks, const float* __restrict__ gb,
-                             float* __restrict__ bn, int width, float n, float eps) {
-  double s1, s2;
-  const int c = threadIdx.x;
-  if (!finish_rows(partial, blocks, s1, s2) || c >= width) return;
-  stats_from_sums(s1, s2, gb, bn, c, n, eps);
-}
-
 // second pass of K13: sum g (dbeta) and sum g zhat (dgamma) of the layer, the second as 1/sigma sum g (z - mu)
 __global__ void sums_finish(const float* __restrict__ partial, int blocks, float* __restrict__ bn, int width) {
   double s1, s2;
@@ -969,16 +939,6 @@ __global__ void sums_finish(const float* __restrict__ partial, int blocks, float
   if (!finish_rows(partial, blocks, s1, s2) || c >= width) return;
   bn[kSg * 128 + c] = (float)s1;
   bn[kSgz * 128 + c] = (float)s2 * bn[kInv * 128 + c];
-}
-
-// second pass of K11 on several ranks: the blocks' rows added as above, into sums (2 x 128 doubles: the sums of z,
-// then of z^2) for the host's reduction across the ranks
-__global__ void rows_to_sums(const float* __restrict__ partial, int blocks, double* __restrict__ sums, int width) {
-  double s1, s2;
-  const int c = threadIdx.x;
-  if (!finish_rows(partial, blocks, s1, s2) || c >= width) return;
-  sums[c] = s1;
-  sums[128 + c] = s2;
 }
 
 // K11's finish from the ranks' reduced sums
@@ -1043,10 +1003,6 @@ __device__ void load_gw(__nv_bfloat16* s_w, const float* w0, const float* w1, co
   }
 }
 
-// a shared-memory matrix descriptor, no swizzle: start address, leading and stride byte offsets
-__device__ __forceinline__ uint64_t gdesc(const void* p, uint32_t lbo, uint32_t sbo) {
-  return (uint64_t)((saddr(p) & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) | ((uint64_t)(sbo >> 4) << 32);
-}
 // the forward's B of layer 1 (K 16), of layer 2's k-step ks, of layer 3's k-step ks for output half h
 __device__ __forceinline__ uint64_t b_l1(const __nv_bfloat16* s_w) { return gdesc(s_w, 128, 256); }
 __device__ __forceinline__ uint64_t b_l2(const __nv_bfloat16* s_w, int ks) {
@@ -1063,34 +1019,7 @@ __device__ __forceinline__ uint64_t b_w2t(const __nv_bfloat16* s_w, int kb) {
   return gdesc(s_w + kGw1 + kb * 512, 512, 128);
 }
 
-// d (+)= A B, m64nNk16, bf16 in, float32 accumulators (N / 2 a thread); scale_d 0 overwrites d. wgmma_rs: A
-// from the warpgroup's registers as mma.sync's A fragments (warp w rows 16 w ..), B K-major, or MN-major with
-// kTransB; wgmma_tt: A and B both MN-major in shared memory
-template <int kTransB>
-__device__ __forceinline__ void wgmma_rs32(float (&d)[16], const uint32_t (&a)[4], uint64_t b, int scale_d) {
-  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-               "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
-               "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
-               "}, {%16, %17, %18, %19}, %20, p, 1, 1, %22;\n}\n"
-               : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-                 "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d), "n"(kTransB));
-}
-
-template <int kTransB>
-__device__ __forceinline__ void wgmma_rs64(float (&d)[32], const uint32_t (&a)[4], uint64_t b, int scale_d) {
-  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-               "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-               "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-               "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-               "}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
-               : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-                 "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-                 "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-                 "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d), "n"(kTransB));
-}
-
+// d (+)= A B, m64nNk16 with A and B both MN-major in shared memory (wgmma.cuh's wgmma_rs: A from registers)
 __device__ __forceinline__ void wgmma_tt8(float (&d)[4], uint64_t a, uint64_t b, int scale_d) {
   asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
                "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 {"
@@ -1107,6 +1036,33 @@ __device__ __forceinline__ void wgmma_tt32(float (&d)[16], uint64_t a, uint64_t 
                "}, %16, %17, p, 1, 1, 1, 1;\n}\n"
                : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
                  "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+               : "l"(a), "l"(b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_tt40(float (&d)[20], uint64_t a, uint64_t b, int scale_d) {
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %22, 0;\n"
+               "wgmma.mma_async.sync.aligned.m64n40k16.f32.bf16.bf16 {"
+               "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+               "%16, %17, %18, %19"
+               "}, %20, %21, p, 1, 1, 1, 1;\n}\n"
+               : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+                 "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+                 "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19])
+               : "l"(a), "l"(b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_tt72(float (&d)[36], uint64_t a, uint64_t b, int scale_d) {
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %38, 0;\n"
+               "wgmma.mma_async.sync.aligned.m64n72k16.f32.bf16.bf16 {"
+               "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+               "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+               "%32, %33, %34, %35"
+               "}, %36, %37, p, 1, 1, 1, 1;\n}\n"
+               : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+                 "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+                 "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+                 "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+                 "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35])
                : "l"(a), "l"(b), "r"(scale_d));
 }
 
@@ -1127,19 +1083,6 @@ __device__ __forceinline__ void wgmma_tt128(float (&d)[64], uint64_t a, uint64_t
                  "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
                  "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
                : "l"(a), "l"(b), "r"(scale_d));
-}
-
-__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wg_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
-template <int kPending>
-__device__ __forceinline__ void wg_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(kPending) : "memory");
-}
-// the accumulators are read after the wait: an empty asm the compiler keeps behind it
-template <int N>
-__device__ __forceinline__ void hold(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 __device__ __forceinline__ void bar_sync(int id, int n) {
@@ -1664,6 +1607,374 @@ dw_wg_kernel(const float* __restrict__ chans, const float* __restrict__ w0, cons
   }
 }
 
+// ---------------------------------------------------------------- K11: the statistics from Gram sums (wgmma)
+
+// K11's launch: warpgroups a block (one block an SM) and the chans tiles a warp keeps in flight (its ring)
+constexpr int kStatGroups = 4, kStatRing = 4;
+// Layer d's input (chans, y1 or y2) and the N of its Gram product: the input's features, then a group of 8 whose
+// first feature is 1 on every live slot (its column of the product holds the sums of the input's features)
+__host__ __device__ constexpr int gram_in(int depth) { return depth == 1 ? 6 : depth == 2 ? 32 : 64; }
+__host__ __device__ constexpr int gram_n(int depth) { return depth == 1 ? 8 : gram_in(depth) + 8; }
+// a stage's feature groups: N / 8, and at least the 8 that the product's A (M 64) reads
+__host__ __device__ constexpr int gram_groups(int depth) { return gram_n(depth) > 64 ? gram_n(depth) / 8 : 8; }
+constexpr int kStatSlice = 6 * 16;  // floats of a warp's 16 slots of chans, plane by plane
+// a warpgroup's shared memory: its warps' rings, then two stages (dw_wg_kernel's layout: st_row, st_desc)
+__host__ __device__ constexpr size_t stat_group_bytes(int depth) {
+  return (size_t)4 * kStatRing * kStatSlice * 4 + (size_t)2 * gram_groups(depth) * 512 * 2;
+}
+// the block's end (stats_end): G (F x N floats), W_d (F x W floats), each channel's partial sums (q threads a channel)
+__host__ __device__ constexpr size_t stat_end_bytes(int depth, int q) {
+  return (size_t)gram_in(depth) * (gram_n(depth) + width_of(depth)) * 4 + (size_t)q * 2 * 128 * 8;
+}
+__host__ __device__ constexpr size_t stats_smem(int depth) {
+  return (size_t)kGwElems * 2 + (size_t)kQuads * 16 +
+         (kStatGroups * stat_group_bytes(depth) > stat_end_bytes(depth, kStatGroups)
+              ? kStatGroups * stat_group_bytes(depth)
+              : stat_end_bytes(depth, kStatGroups));
+}
+
+// a warp's 16 slots of chans at slot s0 into buf (6 planes of 16 floats) by 16-byte cp.async: lane l < 24 copies
+// plane l / 4's quarter l % 4
+__device__ __forceinline__ void copy_slice(float* buf, const float* cb, int s0, long long plane, int lane) {
+  if (lane < 24) {
+    const int c = lane >> 2, q = lane & 3;
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(saddr(buf + c * 16 + q * 4)),
+                 "l"(cb + c * plane + s0 + q * 4)
+                 : "memory");
+  }
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
+// the Gram product of one staged 16-slot k-step (d: m64nN accumulators)
+template <int kN>
+__device__ __forceinline__ void wgmma_gram(float (&d)[kN / 2], uint64_t a, uint64_t b, int scale_d) {
+  if constexpr (kN == 40) {
+    wgmma_tt40(d, a, b, scale_d);
+  } else {
+    wgmma_tt72(d, a, b, scale_d);
+  }
+}
+
+// The end of K11's pass in every block: s_g holds the block's G (F x N floats: the Gram sums of layer d's input
+// and, in column F, its sums); channel c's sums of z = w_c . (column F) and of z^2 = w_c^T G w_c (w_c: column c of
+// W_d rounded to bf16, as the products round it) in double, into the block's row of partial; then the last block to
+// finish (g_stats_done, which it resets) adds the rows in block order in double, as finish_rows does, into flax's
+// statistics and affine of layer d in bn, or, with sums, into the ranks' sums (unopose_pe_train_stats_partial).
+// The space after s_g holds W_d and the channels' partial sums (stat_end_bytes).
+__device__ unsigned g_stats_done;
+
+template <int kDepth, int kThreads>
+__device__ void stats_end(float* s_g, const float* __restrict__ wd, const float* __restrict__ gb,
+                          float* __restrict__ bn, float* __restrict__ partial, double* __restrict__ sums, int B,
+                          int P, int S, float eps) {
+  constexpr int F = gram_in(kDepth), N = gram_n(kDepth), W = width_of(kDepth), kQ = kThreads / 128;
+  float* s_wq = s_g + F * N;                               // W_d rounded to bf16, (F, W)
+  double* s_p = reinterpret_cast<double*>(s_wq + F * W);  // [kQ][2][128]
+  for (int i = threadIdx.x; i < F * W; i += kThreads) s_wq[i] = __bfloat162float(__float2bfloat16_rn(wd[i]));
+  __syncthreads();
+  // channel c's sums, thread (c, qq) over the input rows f = qq, qq + kQ, ..
+  const int c = threadIdx.x & 127, qq = threadIdx.x >> 7;
+  double p1 = 0.0, p2 = 0.0;
+  if (c < W) {
+#pragma unroll 1
+    for (int f = qq; f < F; f += kQ) {
+      const float* row = s_g + f * N;
+      double h0 = 0.0, h1 = 0.0;
+#pragma unroll 4
+      for (int e = 0; e < F; e += 2) {
+        h0 += (double)row[e] * (double)s_wq[e * W + c];
+        if (e + 1 < F) h1 += (double)row[e + 1] * (double)s_wq[(e + 1) * W + c];
+      }
+      const double wf = (double)s_wq[f * W + c];
+      p1 += wf * (double)row[F];
+      p2 += wf * (h0 + h1);
+    }
+  }
+  s_p[(qq * 2) * 128 + c] = p1;
+  s_p[(qq * 2 + 1) * 128 + c] = p2;
+  __syncthreads();
+  if (qq == 0) {
+    double a = 0.0, b = 0.0;
+    for (int k = 0; k < kQ; ++k) {
+      a += s_p[(k * 2) * 128 + c];
+      b += s_p[(k * 2 + 1) * 128 + c];
+    }
+    partial[(long long)blockIdx.x * 256 + c] = c < W ? (float)a : 0.0f;
+    partial[(long long)blockIdx.x * 256 + 128 + c] = c < W ? (float)b : 0.0f;
+  }
+
+  // the last block adds the rows: 8 of a thread's rows loaded at once, then added in row order
+  __shared__ bool s_last;
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) s_last = atomicAdd(&g_stats_done, 1u) == gridDim.x - 1;
+  __syncthreads();
+  if (!s_last) return;
+  if (threadIdx.x == 0) g_stats_done = 0u;  // every block has counted: the next launch counts from 0
+  __threadfence();
+  const int blocks = (int)gridDim.x;
+  double a = 0.0, b = 0.0;
+  for (int i0 = qq; i0 < blocks; i0 += 8 * kQ) {
+    float va[8], vb[8];
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      const int i = i0 + u * kQ;
+      va[u] = i < blocks ? __ldcg(partial + (long long)i * 256 + c) : 0.0f;
+      vb[u] = i < blocks ? __ldcg(partial + (long long)i * 256 + 128 + c) : 0.0f;
+    }
+#pragma unroll
+    for (int u = 0; u < 8; ++u) a += (double)va[u], b += (double)vb[u];
+  }
+  __syncthreads();  // every thread is done with s_p's block sums
+  s_p[(qq * 2) * 128 + c] = a;
+  s_p[(qq * 2 + 1) * 128 + c] = b;
+  __syncthreads();
+  if (qq != 0 || c >= W) return;
+  double s1 = 0.0, s2 = 0.0;
+  for (int k = 0; k < kQ; ++k) {
+    s1 += s_p[(k * 2) * 128 + c];
+    s2 += s_p[(k * 2 + 1) * 128 + c];
+  }
+  if (sums) {
+    sums[c] = s1;
+    sums[128 + c] = s2;
+  } else {
+    stats_from_sums(s1, s2, gb + (kDepth - 1) * 256, bn + (kDepth - 1) * kBnRows * 128, c,
+                    (float)((double)B * P * S), eps);
+  }
+}
+
+
+// K11 at depth d = 2, 3. Each warpgroup walks its points (a static stride over the grid's warpgroups) in tiles of
+// 64 slots, its warps' next tiles of chans in flight by cp.async (a ring of kStatRing a warp); a tile runs the chain
+// below layer d on wgmma (forward_tile's layers, A from registers), stages layer d's input Y (y1 or y2, the rows of
+// dead slots zero) with a ones feature, and adds the Gram product Y^T [Y | 1] (A and B MN-major from the stage) to
+// the thread's float32 totals, one product a tile. The block adds its warpgroups' totals in order into G and ends
+// in stats_end.
+template <int kDepth>
+__global__ void __launch_bounds__(kStatGroups * 128, 1)
+stats_wg_kernel(const float* __restrict__ chans, const float* __restrict__ w0, const float* __restrict__ w1,
+                const float* __restrict__ w2, const float* __restrict__ gb, float* __restrict__ bn,
+                float* __restrict__ partial, double* __restrict__ sums, int B, int P, int S, float eps) {
+  static_assert(kDepth >= 2, "depth 1 runs moments_kernel");
+  constexpr int F = gram_in(kDepth), N = gram_n(kDepth), kGroupsSt = gram_groups(kDepth);
+  constexpr int kThreads = kStatGroups * 128;
+  extern __shared__ uint4 smem[];
+  __nv_bfloat16* s_w = reinterpret_cast<__nv_bfloat16*>(smem);
+  float4* s_q = reinterpret_cast<float4*>(s_w + kGwElems);  // [layer][kind][pair]
+  unsigned char* s_groups = reinterpret_cast<unsigned char*>(s_q + kQuads);
+  load_gw(s_w, w0, w1, w2);
+  load_quads(s_q, bn, B, P, S);
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // the weights, stored by threads, read by wgmma
+  __syncthreads();
+
+  const int wg = threadIdx.x >> 7, warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  unsigned char* mine = s_groups + wg * stat_group_bytes(kDepth);
+  float* ring = reinterpret_cast<float*>(mine) + warp * kStatRing * kStatSlice;
+  __nv_bfloat16* stages = reinterpret_cast<__nv_bfloat16*>(mine + 4 * kStatRing * kStatSlice * 4);
+  const long long points = (long long)B * P, plane = (long long)P * S;
+  const int tiles = (S + 63) >> 6;
+  const long long stride = (long long)gridDim.x * kStatGroups;
+  const float4 *Q1 = s_q, *Q2 = s_q + 3 * 64;
+
+  // the tiles' copies, kStatRing - 1 ahead of the products: one commit group a tile (empty past the last)
+  long long ipt = (long long)blockIdx.x * kStatGroups + wg;
+  int ik = 0, fetched = 0;
+  auto prefetch = [&]() {
+    if (ipt < points) {
+      const int s0 = ik * 64 + 16 * warp;
+      if (s0 < S) copy_slice(ring + (fetched & (kStatRing - 1)) * kStatSlice, point_chans(chans, ipt, P, S), s0, plane,
+                             lane);
+      if (++ik == tiles) {
+        ik = 0;
+        ipt += stride;
+      }
+    }
+    cp_async_commit();
+    ++fetched;
+  };
+#pragma unroll 1
+  for (int j = 0; j < kStatRing - 1; ++j) prefetch();
+
+  float tot[N / 2];
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) tot[i] = 0.0f;
+  int q = 0;  // this warpgroup's tiles so far
+  for (long long pt = (long long)blockIdx.x * kStatGroups + wg; pt < points; pt += stride) {
+#pragma unroll 1
+    for (int k = 0; k < tiles; ++k, ++q) {
+      prefetch();
+      cp_async_wait<kStatRing - 1>();
+      __syncwarp();
+      const bool live = k * 64 + 16 * warp < S;
+      const float* x = ring + (q & (kStatRing - 1)) * kStatSlice;
+      uint32_t a1[4] = {0u, 0u, 0u, 0u};  // chans (bf16), K 6 padded to 16
+      if (live && t < 3) {
+        a1[0] = pack(x[2 * t * 16 + g], x[(2 * t + 1) * 16 + g]);
+        a1[1] = pack(x[2 * t * 16 + g + 8], x[(2 * t + 1) * 16 + g + 8]);
+      }
+      __syncwarp();  // the slot is refilled by the next tile's copy
+      const uint32_t one = live ? pack(1.0f, 0.0f) : 0u;
+      __nv_bfloat16* st = stages + (q & 1) * kGroupsSt * 512;
+      {
+        uint32_t a2[2][4];  // y1
+        {
+          float d1[16];
+          wg_fence();
+          wgmma_rs32<0>(d1, a1, b_l1(s_w), 0);
+          wg_commit();
+          wg_wait<0>();
+          hold(d1);
+          relu_frags<32>(a2, d1, Q1, t);
+        }
+        if (kDepth == 2) {
+#pragma unroll
+          for (int kt = 0; kt < 2; ++kt) {
+#pragma unroll
+            for (int i = 0; i < 4; ++i) a2[kt][i] = live ? a2[kt][i] : 0u;
+            stst4(st_row(st, warp, lane, 16 * kt), a2[kt]);
+          }
+        } else {
+          uint32_t a3[4][4];  // y2
+          float d2[32];
+          wg_fence();
+          wgmma_rs64<0>(d2, a2[0], b_l2(s_w, 0), 0);
+          wgmma_rs64<0>(d2, a2[1], b_l2(s_w, 1), 1);
+          wg_commit();
+          wg_wait<0>();
+          hold(d2);
+          relu_frags<64>(a3, d2, Q2, t);
+#pragma unroll
+          for (int kt = 0; kt < 4; ++kt) {
+#pragma unroll
+            for (int i = 0; i < 4; ++i) a3[kt][i] = live ? a3[kt][i] : 0u;
+            stst4(st_row(st, warp, lane, 16 * kt), a3[kt]);
+          }
+        }
+        stst2(st_row(st, warp, lane, F), t == 0 ? one : 0u, t == 0 ? one : 0u);  // the ones in feature F
+      }
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // the stage, read by the Gram product
+      bar_sync(1 + wg, 128);  // every warp's rows are staged (the other stage is free: its product was waited for)
+      float d[N / 2];
+      wg_fence();
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks) wgmma_gram<N>(d, st_desc(st, ks), st_desc(st, ks), ks);
+      wg_commit();
+      wg_wait<0>();
+      hold(d);
+#pragma unroll
+      for (int i = 0; i < N / 2; ++i) tot[i] += d[i];
+    }
+  }
+  cp_async_wait<0>();
+
+  // the block's G (F x N floats: rows of the input's features, columns theirs and the sums), the warpgroups'
+  // totals added in warpgroup order, over the rings and stages
+  __syncthreads();
+  float* s_g = reinterpret_cast<float*>(s_groups);
+#pragma unroll 1
+  for (int k = 0; k < kStatGroups; ++k) {
+    if (wg == k) {
+#pragma unroll
+      for (int j = 0; j < N / 8; ++j) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = 16 * warp + g + 8 * h;
+          if (r < F) {
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              float* at = s_g + r * N + 8 * j + 2 * t + e;
+              *at = k == 0 ? tot[4 * j + 2 * h + e] : *at + tot[4 * j + 2 * h + e];
+            }
+          }
+        }
+      }
+    }
+    __syncthreads();
+  }
+  stats_end<kDepth, kThreads>(s_g, kDepth == 2 ? w1 : w2, gb, bn, partial, sums, B, P, S, eps);
+}
+
+// K11 at depth 1 on the CUDA cores: the pass only reads the chans, so a thread takes 4 slots of every plane at a
+// time (16-byte loads, two steps' loads in flight) and adds, in float32, the 6 sums and 21 products of their bf16
+// values (exact in float32); the block adds its threads' by a fixed xor tree a warp, then the warps in order,
+// into G (F 6 x N 8: the products, the sums in column 6) and ends as stats_wg_kernel does.
+constexpr int kMomThreads = 256;
+__global__ void __launch_bounds__(kMomThreads)
+moments_kernel(const float* __restrict__ chans, const float* __restrict__ w0, const float* __restrict__ gb,
+               float* __restrict__ bn, float* __restrict__ partial, double* __restrict__ sums, int B, int P, int S,
+               float eps) {
+  constexpr int kWarps = kMomThreads / 32, kAcc = 6 + 21;
+  __shared__ float s_warp[kWarps][kAcc];
+  __shared__ __align__(16) unsigned char s_end[stat_end_bytes(1, kMomThreads / 128)];
+  const long long quads = (long long)P * S / 4, total = (long long)B * quads;
+  const long long stride = (long long)gridDim.x * kMomThreads;
+  float acc[kAcc];
+#pragma unroll
+  for (int k = 0; k < kAcc; ++k) acc[k] = 0.0f;
+  auto add = [&](const float4 (&v)[6]) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float x[6];
+#pragma unroll
+      for (int c = 0; c < 6; ++c) {
+        const float r = e == 0 ? v[c].x : e == 1 ? v[c].y : e == 2 ? v[c].z : v[c].w;
+        x[c] = __bfloat162float(__float2bfloat16_rn(r));
+        acc[c] += x[c];
+      }
+      int k = 6;
+#pragma unroll
+      for (int a = 0; a < 6; ++a) {
+#pragma unroll
+        for (int b = a; b < 6; ++b) acc[k++] += x[a] * x[b];
+      }
+    }
+  };
+  for (long long q = (long long)blockIdx.x * kMomThreads + threadIdx.x; q < total; q += 2 * stride) {
+    float4 v[2][6];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const long long qh = q + h * stride;
+      const long long b = qh / quads;
+      const float4* src = reinterpret_cast<const float4*>(chans) + b * 6 * quads + (qh - b * quads);
+#pragma unroll
+      for (int c = 0; c < 6; ++c) v[h][c] = qh < total ? __ldcs(src + c * quads) : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    }
+    add(v[0]);
+    add(v[1]);  // past the end: zeros, which add nothing
+  }
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int k = 0; k < kAcc; ++k) {
+    float v = acc[k];
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+    if (lane == 0) s_warp[warp][k] = v;
+  }
+  __syncthreads();
+  float* s_g = reinterpret_cast<float*>(s_end);
+  if (threadIdx.x < kAcc) {
+    float v = 0.0f;
+    for (int w = 0; w < kWarps; ++w) v += s_warp[w][threadIdx.x];
+    const int k = threadIdx.x;
+    if (k < 6) {
+      s_g[k * 8 + 6] = v;
+    } else {
+      int a = 0, r = k - 6;  // the upper triangle's entry r, row by row
+      while (r >= 6 - a) r -= 6 - a++;
+      s_g[a * 8 + a + r] = v;
+      s_g[(a + r) * 8 + a] = v;
+    }
+  }
+  __syncthreads();
+  stats_end<1, kMomThreads>(s_g, w0, gb, bn, partial, sums, B, P, S, eps);
+}
+
 // the launch of K12 (warpgroups) or K14 (chain warpgroups, stages) on at most cap blocks (0: no cap)
 template <typename Kernel>
 cudaError_t wg_blocks(Kernel kernel, int threads, size_t smem, long long want, int cap, int* blocks, int* per_sm) {
@@ -1761,6 +2072,61 @@ int resident(int* warps) {
   return (int)err;
 }
 
+// K11's launch at depth d: the blocks an SM holds (one), at most one a warpgroup's point and at most cap
+template <int kDepth>
+cudaError_t launch_stats_at(const float* chans, const float* w0, const float* w1, const float* w2, const float* gb,
+                            float* bn, float* partial, double* sums, int cap, int B, int P, int S, float eps,
+                            cudaStream_t stream) {
+  auto kernel = stats_wg_kernel<kDepth>;
+  int blocks = 0, per_sm = 0;
+  const long long points = (long long)B * P;
+  cudaError_t err = wg_blocks(kernel, kStatGroups * 128, stats_smem(kDepth), (points + kStatGroups - 1) / kStatGroups,
+                              cap, &blocks, &per_sm);
+  if (err != cudaSuccess) return err;
+  kernel<<<blocks, kStatGroups * 128, stats_smem(kDepth), stream>>>(chans, w0, w1, w2, gb, bn, partial, sums, B, P, S,
+                                                                     eps);
+  return cudaGetLastError();
+}
+
+// depth 1: moments_kernel, two blocks an SM at most, at most one a thread's two steps of 4 slots and at most cap
+cudaError_t launch_moments(const float* chans, const float* w0, const float* gb, float* bn, float* partial,
+                           double* sums, int cap, int B, int P, int S, float eps, cudaStream_t stream) {
+  int dev = 0, sms = 0;
+  cudaError_t err;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess) return err;
+  const long long quads = (long long)B * P * S / 4;
+  long long blocks = (quads + 2 * kMomThreads - 1) / (2 * kMomThreads);
+  if (blocks > 2LL * sms) blocks = 2LL * sms;
+  if (blocks > cap) blocks = cap;
+  moments_kernel<<<(unsigned)blocks, kMomThreads, 0, stream>>>(chans, w0, gb, bn, partial, sums, B, P, S, eps);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_stats(const float* chans, const float* w0, const float* w1, const float* w2, const float* gb,
+                         float* bn, float* partial, double* sums, int cap, int B, int P, int S, int depth, float eps,
+                         cudaStream_t stream) {
+  if (depth == 1) return launch_moments(chans, w0, gb, bn, partial, sums, cap, B, P, S, eps, stream);
+  if (depth == 2) return launch_stats_at<2>(chans, w0, w1, w2, gb, bn, partial, sums, cap, B, P, S, eps, stream);
+  return launch_stats_at<3>(chans, w0, w1, w2, gb, bn, partial, sums, cap, B, P, S, eps, stream);
+}
+
+template <int kDepth>
+int resident_stats(int* warps) {
+  int blocks = 0, per_sm = 0;
+  const cudaError_t err = wg_blocks(stats_wg_kernel<kDepth>, kStatGroups * 128, stats_smem(kDepth), 1, 0, &blocks,
+                                    &per_sm);
+  *warps = per_sm * kStatGroups * 4;
+  return (int)err;
+}
+
+int resident_moments(int* warps) {
+  int per_sm = 0;
+  const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, moments_kernel, kMomThreads, 0);
+  *warps = per_sm * kMomThreads / 32;
+  return (int)err;
+}
+
 bool bad_shape(int B, int P, int S) { return B <= 0 || P <= 0 || S <= 0 || S % 16 != 0; }
 
 }  // namespace
@@ -1772,24 +2138,7 @@ extern "C" int unopose_pe_train_stats(const float* chans, const float* w0, const
                                       const float* gb, float* bn, float* partial, int cap, int B, int P, int S,
                                       int depth, float eps, cudaStream_t stream) {
   if (bad_shape(B, P, S) || depth < 1 || depth > 3 || cap <= 0) return (int)cudaErrorInvalidValue;
-  int blocks = 0;
-  cudaError_t err;
-  if (depth == 1) {
-    err = launch<kStats, 1>(chans, w0, w1, w2, bn, nullptr, nullptr, nullptr, nullptr, nullptr, partial, cap, B, P, S,
-                            &blocks, stream);
-  } else if (depth == 2) {
-    err = launch<kStats, 2>(chans, w0, w1, w2, bn, nullptr, nullptr, nullptr, nullptr, nullptr, partial, cap, B, P, S,
-                            &blocks, stream);
-  } else {
-    err = launch<kStats, 3>(chans, w0, w1, w2, bn, nullptr, nullptr, nullptr, nullptr, nullptr, partial, cap, B, P, S,
-                            &blocks, stream);
-  }
-  if (err != cudaSuccess) return (int)err;
-  const int width = depth == 1 ? 32 : depth == 2 ? 64 : 128;
-  stats_finish<<<1, 128 * kFinRows, 0, stream>>>(partial, blocks, gb + (depth - 1) * 256,
-                                                 bn + (depth - 1) * kBnRows * 128, width, (float)((double)B * P * S),
-                                                 eps);
-  return (int)cudaGetLastError();
+  return (int)launch_stats(chans, w0, w1, w2, gb, bn, partial, nullptr, cap, B, P, S, depth, eps, stream);
 }
 
 // K11 on several ranks, its block pass: layer depth's sums of z and z^2 over this rank's B P S slots, added over
@@ -1799,21 +2148,8 @@ extern "C" int unopose_pe_train_stats_partial(const float* chans, const float* w
                                               const float* bn, float* partial, int cap, int B, int P, int S,
                                               int depth, double* sums, cudaStream_t stream) {
   if (bad_shape(B, P, S) || depth < 1 || depth > 3 || cap <= 0) return (int)cudaErrorInvalidValue;
-  int blocks = 0;
-  cudaError_t err;
-  if (depth == 1) {
-    err = launch<kStats, 1>(chans, w0, w1, w2, bn, nullptr, nullptr, nullptr, nullptr, nullptr, partial, cap, B, P, S,
-                            &blocks, stream);
-  } else if (depth == 2) {
-    err = launch<kStats, 2>(chans, w0, w1, w2, bn, nullptr, nullptr, nullptr, nullptr, nullptr, partial, cap, B, P, S,
-                            &blocks, stream);
-  } else {
-    err = launch<kStats, 3>(chans, w0, w1, w2, bn, nullptr, nullptr, nullptr, nullptr, nullptr, partial, cap, B, P, S,
-                            &blocks, stream);
-  }
-  if (err != cudaSuccess) return (int)err;
-  rows_to_sums<<<1, 128 * kFinRows, 0, stream>>>(partial, blocks, sums, depth == 1 ? 32 : depth == 2 ? 64 : 128);
-  return (int)cudaGetLastError();
+  return (int)launch_stats(chans, w0, w1, w2, nullptr, const_cast<float*>(bn), partial, sums, cap, B, P, S, depth,
+                           0.0f, stream);
 }
 
 // K11 on several ranks, its finish: layer depth's mu, var, inv, a, b of bn from the ranks' reduced sums over n
@@ -1893,9 +2229,9 @@ extern "C" int unopose_pe_train_frozen_bwd(const float* chans, const float* w0, 
 // kernel 11 (depth 1-3), 12, 13 (layer 1-3), 14 or 18.
 extern "C" int unopose_pe_train_resident_warps(int kernel, int depth, int* warps) {
   switch (kernel * 4 + depth) {
-    case 11 * 4 + 1: return resident<kStats, 1>(warps);
-    case 11 * 4 + 2: return resident<kStats, 2>(warps);
-    case 11 * 4 + 3: return resident<kStats, 3>(warps);
+    case 11 * 4 + 1: return resident_moments(warps);
+    case 11 * 4 + 2: return resident_stats<2>(warps);
+    case 11 * 4 + 3: return resident_stats<3>(warps);
     case 12 * 4 + 3: return resident_fwd(warps);
     case 13 * 4 + 1: return resident<kBwdSums, 1>(warps);
     case 13 * 4 + 2: return resident<kBwdSums, 2>(warps);

@@ -400,7 +400,7 @@ def pe_fused_packed_plain(grouped2, w1, w2, total2, center, mlp1, mlp2, r1: floa
 
 
 def pe_fused_packed_cuda(grouped2, w1, w2, total2, center, r1: float, r2: float, packed) -> torch.Tensor:
-    """Row 10 on the card (``csrc/pe_packed.cu``): one warp per point."""
+    """Row 10 on the card (``csrc/pe_packed.cu``): a warpgroup per 64-point block, the MLP on wgmma."""
     _check_grouped(grouped2, w1, w2, total2, center, 64)
     tensors = (*grouped2, w1, w2, total2, *center)
     wpack, bpack = _packed_weights(packed, "pe_fused_packed_cuda", tensors)

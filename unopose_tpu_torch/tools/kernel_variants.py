@@ -1,12 +1,14 @@
 """What each part of the K1 (FPS), K7 (ViT attention), K9 and K10 (the fused assignment's labels and
 accumulation), K4 (int8 geometric embedding), K6 (the fine PE's MLP and pool), K3 (the first_k select), K8
 (the fused assignment's column statistics), K5 (the fine PE's channels), K26 (the compaction script's banked
-gather) and K11-K14 and K18 (the train PE's passes) designs buys, on one CUDA card.
+gather), K11-K14 and K18 (the train PE's passes) and K19 (the point-major packed fine PE) designs buys, on one
+CUDA card.
 
     python -m unopose_tpu_torch.tools.kernel_variants [--parent DIR] [--only K12,K14] [--reps 20] [--out FILE]
 
 Builds the shipped sources ``kernels/csrc/fps.cu``, ``vit_attn.cu``, ``fine_assign.cu``, ``geo_rpe.cu``,
-``pe_mlp_pool.cu``, ``first_k_select.cu``, ``pe_channels.cu`` and ``compact_micro.cu`` and variants of each, every variant the shipped text with one design
+``pe_mlp_pool.cu``, ``first_k_select.cu``, ``pe_channels.cu``, ``compact_micro.cu``, ``pe_train.cu`` and ``pe_packed.cu`` and
+variants of each, every variant the shipped text with one design
 choice replaced, each into a library of its own (``nvcc`` with the package's flags, all builds started together,
 one build per distinct text), and times every build on the same inputs at the main path's shapes with CUDA
 events: K1 at 16 x 5000 -> 2048 and 16 x 2048 -> 196, K7 at 32 x 261 x 768 bf16 with 12 heads read in place from
@@ -126,15 +128,24 @@ at its start; ``group2`` and ``group8``, two or eight n-tiles of dy accumulated 
 four for K13); ``fmax_relu``, the ReLU by fmaxf before the bf16 conversion;
 ``dz_registers``, dz3 and dz2 held in registers and y2's gates too; ``single_tiles`` (K13), one m-tile a step at
 layer 3; ``three_blocks`` (K13), dz in registers, one m-tile a step and three blocks an SM;
-``one_block`` (K11), its kernels not held to two blocks an SM; ``pairs`` (K11), two m-tiles a step
-at depth 3. The tie-count checks
+and of K11 (shipped: ``moments_kernel`` at depth 1, the chans' Gram sums on the CUDA cores; ``stats_wg_kernel<depth>``
+at 2 and 3, four warpgroups a block, a ring of four chans tiles a warp, the Gram sums on wgmma; the finish in the last
+block): ``groups2``, two warpgroups a block; ``ring2`` and ``ring8``, a ring of two or eight tiles (depths 2 and 3). The tie-count checks
 ``pe_train_bwd_sums_ties`` and ``pe_train_frozen_bwd_ties`` (and ``*_ties_parent``) count, per (point, channel),
 the slots whose recomputed y3 equals the forward's max (``TIE_ANCHORS``), against the shipped K12's tie count: not
 timed.
+K19 on ``chip_smoke.py``'s phase-3 groupings (``packed_inputs``; the fine PE's folded weights at seed 0): 32 x 2048 at
+S2 256 on the uniform cubes and on the sphere surfaces, at S2 512 on the cubes shrunk by 0.55 and at S2 768 on the
+cubes shrunk by 0.48 with r1 0.08 (full 64-point blocks), at S2 512 on the cubes, and 32 x 1984 and 32 x 576 at S2
+256. Variants of K19 (shipped: a warpgroup a block on whole 64-point blocks, a stage of 512 slots a warp, S2 768's
+full rows walked stage by stage, up to 8 points a warp at once): ``stage256``, a stage of 256 slots; ``pw1`` and
+``pw2``, one or two points a warp at once. Each record carries the output against the plain twin at the phase-3
+gates (``packed_check``), the share of fast blocks and the bound as chip_smoke.py counts it.
 
 Every build's output is checked: K1's indices equal to the plain loop's, K7's outputs, K9's rm, rs, label1 and
 column keys, K10's wsum and num, K4's int8 codes, K6's pooled features, K3's eight outputs (each also equal to
-the plain twin's), K8's cm and cs, K5's channels (every slot, the unwritten ones zero) and K26's outputs (also
+the plain twin's), K8's cm and cs, K5's channels (every slot, the unwritten ones zero), K19's features and K26's
+outputs (also
 equal to the plain twin's) bitwise equal to the shipped kernel's (for K7's ``parent``, the first version, the share
 of equal outputs is reported too); the train passes' outputs against the plain passes at phase 3's gates, two runs
 bitwise equal, and their largest difference from the shipped build's (the sums' rounding follows the block count,
@@ -953,6 +964,7 @@ TRAIN_BLOCKS = "return has_dw(mode) ? 1 : 2; }"
 TRAIN_READ_BACK = "return mode == kBwdSums || has_dw(mode); }"
 TRAIN_GROUP = "return has_dw(mode) ? 8 : 4; }"
 TRAIN_PAIRS = "return mode == kBwdSums && depth == 3 ? 2 : 1; }"
+TRAIN_STAT_LAUNCH = "constexpr int kStatGroups = 4, kStatRing = 4;\n"
 # K12's and K14's warpgroup kernels: their launch constants, and their entry points' calls and occupancy cases,
 # which the mma_sync variant sends to the template's kFwd and kBwdDw passes (the first designs)
 TRAIN_FWD_LAUNCH = "constexpr int kFwdGroups = 4, kFwdBlocks = 1;\n"
@@ -993,7 +1005,7 @@ def fwd_launch(groups: int, blocks: int) -> str:
 
 def train_variants(text: str) -> dict:
     """{variant: (kernels timed, text)}: the shipped pe_train source with one design choice of K12's, K14's,
-    K13's and K18's (or K11's) replaced."""
+    K13's and K18's, or K11's, replaced."""
     registers = _sub(text, TRAIN_READ_BACK, "return has_dw(mode); }")
     no_prefetch = _sub(_sub(text, TRAIN_PREFETCH, ""), TRAIN_STEP, TRAIN_NO_PREFETCH + TRAIN_STEP)
     mma_sync = text
@@ -1019,9 +1031,9 @@ def train_variants(text: str) -> dict:
         "single_tiles": (("K13",), _sub(text, TRAIN_PAIRS, "return 1; }")),
         "three_blocks": (("K13",), _sub(_sub(registers, TRAIN_PAIRS, "return 1; }"), TRAIN_BLOCKS,
                                         "return has_dw(mode) ? 1 : mode == kBwdSums ? 3 : 2; }")),
-        "one_block": (("K11",), _sub(text, TRAIN_BLOCKS, "return has_dw(mode) || mode <= kFwd ? 1 : 2; }")),
-        "pairs": (("K11",), _sub(text, TRAIN_PAIRS,
-                                 "return (mode == kBwdSums || mode <= kFwd) && depth == 3 ? 2 : 1; }")),
+        "groups2": (("K11",), _sub(text, TRAIN_STAT_LAUNCH, "constexpr int kStatGroups = 2, kStatRing = 4;\n")),
+        "ring2": (("K11",), _sub(text, TRAIN_STAT_LAUNCH, "constexpr int kStatGroups = 4, kStatRing = 2;\n")),
+        "ring8": (("K11",), _sub(text, TRAIN_STAT_LAUNCH, "constexpr int kStatGroups = 4, kStatRing = 8;\n")),
     }
 
 
@@ -1033,14 +1045,14 @@ KERNELS = {"K1": ("fps.cu", "unopose_fps"), "K7": ("vit_attn.cu", "unopose_mha_f
            "K5": ("pe_channels.cu", "unopose_pe_channels"), "K26": ("compact_micro.cu", "unopose_compact_gather"),
            "K11": ("pe_train.cu", "unopose_pe_train_stats"), "K12": ("pe_train.cu", "unopose_pe_train_fwd"),
            "K13": ("pe_train.cu", "unopose_pe_train_bwd_sums"), "K14": ("pe_train.cu", "unopose_pe_train_bwd_dw"),
-           "K18": ("pe_train.cu", "unopose_pe_train_frozen_bwd")}
+           "K18": ("pe_train.cu", "unopose_pe_train_frozen_bwd"), "K19": ("pe_packed.cu", "unopose_pe_packed")}
 SHIPPED = {"K1": "fps", "K7": "vit_attn", "K9": "fine_assign", "K4": "geo_rpe", "K6": "pe_mlp_pool",
            "K10": "fine_assign_accum", "K3": "first_k_select", "K8": "fine_assign_colstats", "K5": "pe_channels",
            "K26": "compact_gather", "K11": "pe_train_stats", "K12": "pe_train_fwd", "K13": "pe_train_bwd_sums",
-           "K14": "pe_train_bwd_dw", "K18": "pe_train_frozen_bwd"}
+           "K14": "pe_train_bwd_dw", "K18": "pe_train_frozen_bwd", "K19": "pe_packed"}
 # the kernel function whose -Xptxas -v lines a build's record carries (a train kernel's: its instantiation of
 # pe_train_kernel<mode, depth>, the depth from the shape, ptxas_fn)
-PTXAS_OF = {"K5": "pe_channels_kernel", "K26": "compact_gather_kernel",
+PTXAS_OF = {"K5": "pe_channels_kernel", "K26": "compact_gather_kernel", "K19": "pe_packed_kernel",
             **{k: f"pe_train_kernelILi{TRAIN_MODE[k]}ELi" for k in TRAIN}}
 
 
@@ -1053,6 +1065,9 @@ def ptxas_fn(kernel: str, key: str, build: str = "") -> str:
     """The kernel function of build ``build`` (default: the shipped one) that runs ``kernel`` at shape ``key``."""
     if kernel in WG_KERNELS and not build.endswith(("_parent", "_mma_sync")):
         return WG_KERNELS[kernel]
+    if kernel == "K11" and not build.endswith("_parent"):
+        depth = train_depth(kernel, key)
+        return "moments_kernel" if depth == 1 else f"stats_wg_kernelILi{depth}E"
     return PTXAS_OF[kernel] + (f"{train_depth(kernel, key)}E" if kernel in TRAIN else "")
 
 
@@ -1067,10 +1082,11 @@ def sources(parent: Path | None, only=tuple(KERNELS)) -> dict:
     ch = (build.CSRC / "pe_channels.cu").read_text()
     cm = (build.CSRC / "compact_micro.cu").read_text()
     pt = (build.CSRC / "pe_train.cu").read_text()
+    pk = (build.CSRC / "pe_packed.cu").read_text()
     out = {"fps": ("K1", fps), "vit_attn": ("K7", attn), "fine_assign": ("K9", fa), "geo_rpe": ("K4", geo),
            "pe_mlp_pool": ("K6", pe), "fine_assign_accum": ("K10", fa), "first_k_select": ("K3", fk),
            "fine_assign_colstats": ("K8", fa), "pe_channels": ("K5", ch), "compact_gather": ("K26", cm),
-           **{SHIPPED[k]: (k, pt) for k in TRAIN}}
+           **{SHIPPED[k]: (k, pt) for k in TRAIN}, "pe_packed": ("K19", pk)}
     for threads, per in ((1024, 6), (512, 12)):
         text = _sub(fps, "constexpr int kSmallT = 256;", f"constexpr int kSmallT = {threads};")
         text = _sub(text, "constexpr int kSmallPer = 24;", f"constexpr int kSmallPer = {per};")
@@ -1197,6 +1213,9 @@ def sources(parent: Path | None, only=tuple(KERNELS)) -> dict:
                     "compact_wherechain_kernel", K26_STREAMED)
     out["compact_gather_streamed"] = ("K26", _between(text, "// x (rows, 2048), li and bi (rows, 256)",
                                                       "// li (rows, 256) int32", K26_STREAMED_LAUNCH))
+    out["pe_packed_stage256"] = ("K19", _sub(pk, "constexpr int kStage = 512;", "constexpr int kStage = 256;"))
+    for pw in (1, 2):
+        out[f"pe_packed_pw{pw}"] = ("K19", _sub(pk, "constexpr int kMaxPw = 8;", f"constexpr int kMaxPw = {pw};"))
     for variant, (kernels, text) in train_variants(pt).items():
         out.update({f"{SHIPPED[k]}_{variant}": (k, text) for k in kernels})
     ties = tie_check(pt)
@@ -1286,6 +1305,90 @@ def with_occupancy(text: str) -> str:
     """A K5 source with ``unopose_k5_resident_warps`` appended."""
     smem = "smem_bytes(n)" if "size_t smem_bytes(int n)" in text else "(size_t)3 * n * sizeof(float)"
     return text + K5_OCCUPANCY.replace("SMEM", smem)
+
+
+# appended to each K19 build: the warps an SM holds of its kernel at slot budget s2 (the runtime's occupancy query at
+# the launcher's shared memory; the first design's kernel is a template on the slots a lane holds)
+K19_OCCUPANCY = """
+extern "C" int unopose_k19_resident_warps(int s2, int* warps) {
+  int blocks = 0;
+  SMEM_AND_KERNEL
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, kThreads, smem);
+  *warps = blocks * kThreads / 32;
+  return (int)err;
+}
+"""
+K19_SHIPPED_PROBE = "const size_t smem = kSmemBytes;\n  auto kernel = pe_packed_kernel;"
+K19_FIRST_PROBE = ("const size_t smem = (size_t)2 * kWScale * 2 + (size_t)2 * kBScale * 4 + (size_t)kWarps * "
+                   "min(s2, kWindow) * kRow * 2;\n"
+                   "  auto kernel = s2 <= kMaxSlots ? pe_packed_kernel<kPerLane> : pe_packed_kernel<kPerLaneMax>;")
+
+
+def with_k19_occupancy(text: str) -> str:
+    """A K19 source with ``unopose_k19_resident_warps`` appended (the first design's footprint for a source
+    without ``kSmemBytes``)."""
+    probe = K19_SHIPPED_PROBE if "constexpr size_t kSmemBytes" in text else K19_FIRST_PROBE
+    return text + K19_OCCUPANCY.replace("SMEM_AND_KERNEL", probe)
+
+
+def packed_inputs(dev, rng, mlp, cloud: str, B2: int = 32, N: int = 2048, S2: int = 256, scale: float = 1.0,
+                  r1: float = 0.1) -> dict:
+    """K19's arguments as ``pe_fused.pe_fused_packed_cuda`` passes them, on chip_smoke.py's phase-3 clouds: B2
+    uniform cubes of N points in their global LRF, scaled by ``scale`` (denser: full 64-point blocks at S2 512
+    and 768), or the sphere surfaces (N 2048), grouped at r1 / 64 and 0.2 / S2 by the packed grouping; with the
+    plain twin's output, the twin's on the inputs one ulp up (its own spread), the share of fast blocks and the
+    bound as chip_smoke.py counts it. ``mlp``: (mlp1, mlp2, packed) of the fine PE at seed 0."""
+    from unopose_tpu_torch.configs import surface_clouds
+    from unopose_tpu_torch.ops.ball_query import permutation, two_scale_group_first_k_packed
+
+    mlp1, mlp2, (wpack, bpack) = mlp
+    if cloud == "surfaces":
+        perm, _ = permutation(N, "cpu")
+        pts = torch.from_numpy(surface_clouds(rng, B2, perm.numpy())).to(dev)
+    else:
+        pts = rng.uniform(-0.1, 0.1, size=(B2, N, 3)).astype(np.float32) + np.array([0, 0, 0.6], np.float32)
+        pts = global_lrf(torch.from_numpy(pts).to(dev)) * scale
+    with torch.no_grad():
+        g2, w1, w2, total2, overflow = two_scale_group_first_k_packed(r1, 64, 0.2, S2, pts)
+        if bool(overflow):
+            raise RuntimeError(f"the packed grouping overflowed at S2 {S2} on {cloud} x{scale}")
+        c = tuple(pts.unbind(-1))
+        up = lambda xs: tuple(torch.nextafter(x, torch.full_like(x, float("inf"))) for x in xs)
+        plain = pe_fused.pe_fused_packed_plain(g2, w1, w2, total2, c, mlp1, mlp2, r1, 0.2)
+        spread = pe_fused.pe_fused_packed_plain(up(g2), w1, w2, total2, up(c), mlp1, mlp2, r1, 0.2)
+    half = S2 // 2
+    fast = (pe_fused.block_max(total2, 64) <= half).view(B2, N // 64, 64)[..., 0].flatten()
+    keep1, keep2 = (w1 > 0).view(-1, 64, S2).float(), (w2 > 0).view(-1, 64, S2).float()
+    rows = torch.where(fast, keep1[..., :half].sum((1, 2)) + keep2[..., :half].sum((1, 2)),
+                       keep1.sum((1, 2)) + 64 * S2).sum().item()
+    slots = 64 * torch.where(fast, half, S2).sum().item()
+    nbytes = slots * (3 * 4 + 2 * 2) + B2 * N * (4 + 12 + 1024)
+    flops = 2.0 * (6 * 32 + 32 * 64 + 64 * 128) * rows  # rows: kept slot-scales
+    args = (*(x.float().contiguous() for x in g2), *(w.to(torch.bfloat16).contiguous() for w in (w1, w2)),
+            total2.to(torch.int32).contiguous(), *(x.float().contiguous() for x in c), wpack, bpack)
+    return dict(args=args, B=B2, P=N, S2=S2, r1=r1, plain=plain, spread=int((spread != plain).sum()),
+                surfaces=cloud == "surfaces", fast=fast.float().mean().item(),
+                bound_ms=max(nbytes / 3.35e12, flops / 989e12) * 1e3)
+
+
+def packed_check(out, d: dict) -> dict:
+    """K19's output against its twin at chip_smoke.py's phase-3 gates: on the surfaces 99.9% within one bf16
+    ulp and none past two ulps of the largest output, elsewhere at most twice the twin's own one-ulp spread of
+    unequal outputs."""
+    plain = d["plain"]
+    diff = (out - plain).abs()
+    ulp = lambda x: torch.ldexp(torch.ones_like(x), torch.frexp(x)[1] - 8)  # one bf16 ulp of |x|
+    within = (diff <= ulp(torch.maximum(out.abs(), plain.abs()))).float().mean().item()
+    ref = plain.abs().max()
+    r = dict(unequal=int((out != plain).sum()), spread=d["spread"], within_ulp=within, max_abs_err=diff.max().item(),
+             finite=bool(torch.isfinite(out).all()), fast=d["fast"], bound_ms=d["bound_ms"])
+    if d["surfaces"]:
+        ok = within >= 0.999 and r["max_abs_err"] <= 2 * ulp(ref).item()
+    else:
+        ok = r["unequal"] <= 2 * r["spread"]
+    r["within_gates"] = bool(ok and r["finite"])
+    return r
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -1477,16 +1580,18 @@ def rel_err(got, want) -> tuple:
 
 
 def train_check(kernel: str, key: str, outs, d: dict) -> dict:
-    """A train kernel's outputs against the plain passes at chip_smoke.py's phase-3 gates: K11's mean and variance
-    within 1e-4 of their max, the others' within 1e-2 of each tensor's max with the median under 1e-3 (K12 also
-    its tie counts equal to the plain forward's)."""
+    """A train kernel's outputs against the plain passes at chip_smoke.py's phase-3 gates: K11's mean within 1e-4
+    of its largest and each channel's variance within 1e-4 of itself, the others' within 1e-2 of each tensor's max
+    with the median under 1e-3 (K12 also its tie counts equal to the plain forward's)."""
     from unopose_tpu_torch.ops import pe_train as pt
 
     plain, depth = d["plain"], train_depth(kernel, key)
-    if kernel == "K11":
+    if kernel == "K11":  # the mean within 1e-4 of its largest, each channel's variance within 1e-4 of itself
         w = pt.DIMS[depth]
         errs = [rel_err(outs[0][row, :w], d["bn"][depth - 1, row, :w]) for row in (pt.MU, pt.VAR)]
-        return dict(rel_plain=errs, within_gates=all(mx <= 1e-4 for mx, _ in errs))
+        var = d["bn"][depth - 1, pt.VAR, :w]
+        var_rel = ((outs[0][pt.VAR, :w] - var).abs() / var).max().item()
+        return dict(rel_plain=errs, var_rel=var_rel, within_gates=errs[0][0] <= 1e-4 and var_rel <= 1e-4)
     if kernel == "K12":
         errs = [rel_err(outs[0], plain["pooled"])]
         extra = dict(tie_counts_equal_plain=(outs[1] == plain["cnt"]).float().mean().item())
@@ -1553,7 +1658,8 @@ def main() -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()[0]
     srcs = sources(args.parent, tuple(args.only.split(",")))
-    srcs = {name: (kernel, with_occupancy(text) if kernel == "K5" else text) for name, (kernel, text) in srcs.items()}
+    probes = {"K5": with_occupancy, "K19": with_k19_occupancy}
+    srcs = {name: (kernel, probes[kernel](text) if kernel in probes else text) for name, (kernel, text) in srcs.items()}
     libs, logs = compile_all(srcs, build.BUILD_DIR / "variants")
     srcs = {name: v for name, v in srcs.items() if name in libs}
     stream = lambda: _P(torch.cuda.current_stream().cuda_stream)
@@ -1618,6 +1724,19 @@ def main() -> int:
                         "32x2000 S2 128 cubes": channel_inputs(dev, rng, "cubes", 32, 2000, 128)}
     if "K26" in only:
         shapes["K26"] = gather_inputs(dev)
+    if "K19" in only:
+        from unopose_tpu_torch.models.matching import FinePositionalEncoding
+
+        torch.manual_seed(0)
+        mlp = FinePositionalEncoding(256, fused=True).to(dev).folded_weights()
+        shapes["K19"] = {
+            "32x2048 S2 256 cubes": packed_inputs(dev, rng, mlp, "cubes"),
+            "32x2048 S2 256 surfaces": packed_inputs(dev, rng, mlp, "surfaces"),
+            "32x2048 S2 512 cubes x0.55": packed_inputs(dev, rng, mlp, "cubes", S2=512, scale=0.55),
+            "32x2048 S2 768 cubes x0.48 r1 0.08": packed_inputs(dev, rng, mlp, "cubes", S2=768, scale=0.48, r1=0.08),
+            "32x2048 S2 512 cubes": packed_inputs(dev, rng, mlp, "cubes", S2=512),
+            "32x1984 S2 256 cubes": packed_inputs(dev, rng, mlp, "cubes", N=1984),
+            "32x576 S2 256 cubes": packed_inputs(dev, rng, mlp, "cubes", N=576)}
     if any(k in only for k in TRAIN):
         from unopose_tpu_torch.ops import pe_train as pt
 
@@ -1713,6 +1832,13 @@ def main() -> int:
             call = lambda: lib.unopose_pe_channels(*ptrs, d["B"], d["N"], d["P"], d["S2"], 0.1, 0.2, 1.0 / 0.1,
                                                    1.0 / 0.2, stream())
             outs = (out,)
+        elif kernel == "K19":
+            d = shapes["K19"][key]
+            out = torch.empty((d["B"], d["P"], 256), device=dev)
+            ptrs = [_P(x.data_ptr()) for x in (*d["args"], out)]
+            call = lambda: lib.unopose_pe_packed(*ptrs, d["B"], d["P"], d["S2"], d["r1"], 0.2, 1.0 / d["r1"],
+                                                 1.0 / 0.2, stream())
+            outs = (out,)
         elif kernel == "K26":
             x, li, bi, _ = shapes["K26"][key]
             out = torch.zeros_like(li)
@@ -1787,6 +1913,7 @@ def main() -> int:
         if "K26" in only:
             gather.append(cuda_ms(lambda: torch.gather(x26, 1, flat26), args.reps))
         for name, key in order:
+            print(f"timing {name} at {key}", file=sys.stderr, flush=True)  # the case a device fault stopped
             call, _ = run_case(name, key)
             times[(name, key)].append(cuda_ms(call, args.reps))
     reference = {(srcs[name][0], key): [o.clone() for o in run_case(name, key)[1]]
@@ -1813,6 +1940,8 @@ def main() -> int:
                 check["equal_plain"] = bool(torch.equal(outs[0], shapes["K26"][key][3]))
             if kernel == "K5":
                 check["tiers"] = shapes["K5"][key]["hist"]
+            if kernel == "K19":
+                check.update(packed_check(outs[0], shapes["K19"][key]))
             if kernel in TRAIN:
                 again = [o.clone() for o in outs]
                 _, outs = run_case(name, key)
@@ -1837,9 +1966,11 @@ def main() -> int:
                                                                          ctypes.byref(warps)):
                     raise RuntimeError(f"{name}: occupancy query failed: cudaError_t {lib_err}")
                 check["resident_warps_per_sm"] = warps.value
-            if kernel == "K5":
+            if kernel in ("K5", "K19"):
                 warps = ctypes.c_int(0)
-                if lib_err := libs[name].unopose_k5_resident_warps(2048, ctypes.byref(warps)):
+                probe = (libs[name].unopose_k5_resident_warps if kernel == "K5" else
+                         libs[name].unopose_k19_resident_warps)
+                if lib_err := probe(2048 if kernel == "K5" else shapes["K19"][key]["S2"], ctypes.byref(warps)):
                     raise RuntimeError(f"{name}: occupancy query failed: cudaError_t {lib_err}")
                 check["resident_warps_per_sm"] = warps.value
         results.append(dict(build=name, kernel=kernel, shape=key, ms=float(np.median(times[(name, key)])),
